@@ -1,0 +1,18 @@
+"""PyTorch/CUDA port of ``bpldenoising_tpu`` for NVIDIA Hopper (H100).
+
+The JAX package ``bpldenoising_tpu`` is the reference; this package keeps
+its module names where that helps a reader find the counterpart.  Plain
+tensor code is PyTorch; the TPU's Pallas kernels on the ported path are
+hand-written CUDA C++ under ``csrc/`` (built with ``nvcc`` at first use and
+bound with ``ctypes``, see :mod:`._build`).
+
+Entry points take ``device=`` and default to ``"cuda"``; pass
+``device="cpu"`` to run the plain PyTorch versions of the kernels.
+
+Ported so far (the scalar-TV flagship path):
+:func:`experiments.api.scalar_bilevel_tv_learn` with ``method="tr_fused"``.
+"""
+
+from .experiments.api import scalar_bilevel_tv_learn
+
+__all__ = ["scalar_bilevel_tv_learn"]

@@ -1,0 +1,115 @@
+"""Build and load the port's CUDA kernels.
+
+All sources under ``csrc/`` are compiled by ONE ``nvcc`` call into one
+shared library with a plain C interface (no PyTorch headers, no ninja) and
+loaded with :mod:`ctypes`.  The build runs at first use, keyed by a hash of
+the sources and flags, into ``_build/`` beside this file; nothing is
+compiled when a module is imported.
+
+``nvcc`` is found through ``$CUDA_HOME`` or PyTorch's ``CUDA_HOME``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import time
+from pathlib import Path
+from typing import NamedTuple
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+SOURCES = ("pdps.cu", "hypergrad.cu")
+HEADERS = ("common.cuh",)
+# -fmad=false: no fused multiply-adds, so each operation rounds like the
+# plain PyTorch version's separate elementwise operations
+NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
+              "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+              "-Xptxas", "-v")
+
+
+class BuildInfo(NamedTuple):
+    path: Path
+    seconds: float      # 0.0 when the library was already built
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME")
+    if not home:
+        from torch.utils.cpp_extension import CUDA_HOME
+        home = CUDA_HOME
+    if not home:
+        raise RuntimeError("no CUDA toolkit found: set CUDA_HOME")
+    return os.path.join(home, "bin", "nvcc")
+
+
+def _key() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> BuildInfo:
+    """Compile the kernels unless the library for these sources exists."""
+    out = BUILD_DIR / f"libbpl_kernels_{_key()}.so"
+    if out.exists():
+        return BuildInfo(out, 0.0)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(CSRC / s) for s in SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    # the -Xptxas -v report: registers, shared memory and spills per kernel
+    out.with_suffix(".log").write_text(log)
+    os.replace(tmp, out)
+    return BuildInfo(out, seconds)
+
+
+_LIB = None
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+
+
+def _declare(lib):
+    for suffix, real in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
+        fn = getattr(lib, f"bpl_pdps_solve_{suffix}")
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _LL, _I, _I, real, real, real,
+                       ctypes.c_double, _I, _I, _I, real, _I,
+                       ctypes.POINTER(_I), _P]
+        fn.restype = _I
+        fn = getattr(lib, f"bpl_hypergrad_{suffix}")
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _LL, _I, _I, real, real, real,
+                       real, real, _I, _I, _I,
+                       ctypes.POINTER(ctypes.c_double), _P]
+        fn.restype = _I
+    lib.bpl_error_string.argtypes = [_I]
+    lib.bpl_error_string.restype = ctypes.c_char_p
+    lib.bpl_hypergrad_planes.restype = _I
+    lib.bpl_hypergrad_slots.restype = _I
+
+
+def library():
+    """The loaded kernel library (built on first call)."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build().path))
+        _declare(lib)
+        _LIB = lib
+    return _LIB
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if err != 0:
+        msg = library().bpl_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -1,0 +1,115 @@
+"""Grayscale PNG reading with the standard library's ``zlib`` and numpy
+(counterpart of the read side of ``bpldenoising_tpu.data.png_io``).
+
+Reads grayscale, non-interlaced PNGs of bit depth 1, 2, 4, 8 or 16 (the
+bundled datasets) with all five scanline filter types.  A sample v of
+depth d scales to float64 in [0, 1] as ``v * (1.0 / (2**d - 1))``, as the
+JAX package's native codec does.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+
+import numpy as np
+
+__all__ = ["read_png_gray"]
+
+_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+
+def _chunks(data: bytes):
+    pos = len(_SIGNATURE)
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        crc, = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
+        if zlib.crc32(kind + body) & 0xFFFFFFFF != crc:
+            raise ValueError(f"PNG chunk {kind!r}: CRC mismatch")
+        yield kind, body
+        pos += 12 + length
+        if kind == b"IEND":
+            return
+
+
+def _paeth(a: int, b: int, c: int) -> int:
+    """The Paeth predictor of left ``a``, above ``b`` and upper-left ``c``."""
+    p = a + b - c
+    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+    if pa <= pb and pa <= pc:
+        return a
+    return b if pb <= pc else c
+
+
+def _unfilter(raw: bytes, height: int, row_bytes: int,
+              bpp: int) -> np.ndarray:
+    """Undo the per-scanline filters; ``bpp`` is the filter's byte step
+    (bytes per pixel, at least 1).  Sub, Average and Paeth depend on the
+    byte just decoded to the left, so they run as loops over Python ints
+    on bytearrays (numpy element access is slower)."""
+    stride = row_bytes + 1
+    out = bytearray(height * row_bytes)
+    prev = bytearray(row_bytes)
+    for r in range(height):
+        ftype = raw[r * stride]
+        line = raw[r * stride + 1:(r + 1) * stride]
+        if ftype == 0:
+            cur = bytearray(line)
+        elif ftype == 2:
+            cur = bytearray((x + up) & 0xFF for x, up in zip(line, prev))
+        elif ftype in (1, 3, 4):
+            cur = bytearray(row_bytes)
+            for c in range(row_bytes):
+                left = cur[c - bpp] if c >= bpp else 0
+                if ftype == 1:
+                    pred = left
+                elif ftype == 3:
+                    pred = (left + prev[c]) >> 1
+                else:
+                    pred = _paeth(left, prev[c],
+                                  prev[c - bpp] if c >= bpp else 0)
+                cur[c] = (line[c] + pred) & 0xFF
+        else:
+            raise ValueError(f"PNG filter type {ftype} is invalid")
+        out[r * row_bytes:(r + 1) * row_bytes] = cur
+        prev = cur
+    return np.frombuffer(bytes(out), np.uint8).reshape(height, row_bytes)
+
+
+def read_png_gray(path: str) -> np.ndarray:
+    """Read a grayscale PNG as a float64 array in [0, 1]."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    if not data.startswith(_SIGNATURE):
+        raise ValueError(f"{path}: not a PNG file")
+    header = None
+    idat = []
+    for kind, body in _chunks(data):
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+    if header is None:
+        raise ValueError(f"{path}: no IHDR chunk")
+    width, height, depth, color, _, _, interlace = header
+    if depth not in (1, 2, 4, 8, 16) or color != 0 or interlace != 0:
+        raise NotImplementedError(
+            f"{path}: only grayscale non-interlaced PNGs are read "
+            f"(bit depth {depth}, color type {color}, interlace {interlace})")
+    row_bytes = (width * depth + 7) // 8
+    raw = zlib.decompress(b"".join(idat))
+    if len(raw) != height * (row_bytes + 1):
+        raise ValueError(f"{path}: image data has the wrong length")
+    data = _unfilter(raw, height, row_bytes, max(1, depth // 8)).astype(
+        np.int64)
+    if depth == 16:
+        samples = data[:, 0::2] * 256 + data[:, 1::2]
+    elif depth == 8:
+        samples = data
+    else:
+        per_byte = 8 // depth
+        shifts = 8 - depth * (1 + np.arange(per_byte))
+        bits = (data[:, :, None] >> shifts) & ((1 << depth) - 1)
+        samples = bits.reshape(height, -1)[:, :width]
+    return samples.astype(np.float64) * (1.0 / ((1 << depth) - 1))

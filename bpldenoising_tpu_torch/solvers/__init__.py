@@ -1,0 +1,7 @@
+from .hypergrad import HypergradConfig, exact_hypergrad, reg_hypergrad
+from .krylov import KrylovInfo, cg, cg_batched
+from .pdps import PDPS_DEFAULTS, denoise_pdps, tv_denoise
+
+__all__ = ["denoise_pdps", "tv_denoise", "PDPS_DEFAULTS", "HypergradConfig",
+           "exact_hypergrad", "reg_hypergrad", "KrylovInfo", "cg",
+           "cg_batched"]

@@ -1,0 +1,105 @@
+"""Kernel B: the augmented-Lagrangian hypergradient with Jacobi-PCG as a
+CUDA kernel (``csrc/hypergrad.cu``), in its exact and γ-regularized forms,
+replacing the TPU kernel
+``bpldenoising_tpu/solvers/hypergrad_pallas.py::_hg_kernel``.
+
+:func:`exact_hypergrad_cuda` and :func:`reg_hypergrad_cuda` take the
+arguments of the plain :func:`.hypergrad.exact_hypergrad` and
+:func:`.hypergrad.reg_hypergrad`.  For tensors on the CPU they run those;
+for CUDA tensors they launch the kernel (or raise for what it does not
+take: K > 1, α maps, gradient maps).  The CG inner products run over the
+whole batch (one joint system), as in the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from ..models import DenoiseModel
+from .hypergrad import (HypergradConfig, _defaults, exact_hypergrad,
+                        reg_hypergrad)
+from .krylov import KrylovInfo
+from .pdps_cuda import (check_cuda_input, check_plane, check_tv_model,
+                        scalar_alpha)
+
+__all__ = ["exact_hypergrad_cuda", "reg_hypergrad_cuda", "launches"]
+
+#: calls that launched the CUDA kernel (exact and regularized forms)
+launches = 0
+#: CG iterations of all solves of the last kernel call (work accounting)
+last_total_cg_iters = 0
+_GRAD_SLOT = 5   # slot GRAD of the device scalars in csrc/hypergrad.cu
+
+
+def _run(u, utrue, alphas, model, cfg, want_maps, p0, reg: bool):
+    check_cuda_input(u)
+    check_plane(utrue, u.shape, u, "utrue")
+    check_tv_model(model)
+    if want_maps:
+        raise NotImplementedError(
+            "the CUDA hypergradient returns scalar gradients, not maps")
+    alpha = scalar_alpha(alphas)
+    dtype = u.dtype
+    act_tol, mu, cg_tol = _defaults(dtype, cfg)
+    u = u.contiguous()
+    utrue = utrue.contiguous()
+    if p0 is None:
+        p = torch.zeros_like(u)
+    else:
+        check_plane(p0, u.shape, u, "p0")
+        p = p0.contiguous().clone()
+    M, N = int(u.shape[-2]), int(u.shape[-1])
+    O = u.numel() // (M * N)
+    lib = _build.library()
+    n = u.numel()
+    nblocks = (n + 255) // 256
+    work = torch.empty((lib.bpl_hypergrad_planes(), n), dtype=dtype,
+                       device=u.device)
+    partials = torch.empty((3 * nblocks,), dtype=dtype, device=u.device)
+    scal = torch.zeros((lib.bpl_hypergrad_slots(),), dtype=dtype,
+                       device=u.device)
+    stats = (ctypes.c_double * 4)()
+    fn = lib.bpl_hypergrad_f32 if dtype == torch.float32 \
+        else lib.bpl_hypergrad_f64
+    global launches
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        launches += 1
+        err = fn(u.data_ptr(), utrue.data_ptr(), p.data_ptr(),
+                 work.data_ptr(), partials.data_ptr(), scal.data_ptr(), O, M,
+                 N, alpha, float(act_tol), float(cfg.gamma), float(mu),
+                 float(cg_tol), int(cfg.al_iters), int(cfg.cg_maxiter),
+                 int(reg), stats, stream)
+    _build.check(err, "hypergradient kernel")
+    grad = scal[_GRAD_SLOT].clone()
+    rr = torch.tensor(stats[0], dtype=dtype)
+    bb = torch.tensor(stats[1], dtype=dtype)
+    resnorm = torch.sqrt(rr)
+    bnorm = torch.clamp(torch.sqrt(bb), min=torch.finfo(dtype).tiny)
+    info = KrylovInfo(int(stats[2]), resnorm, resnorm <= cg_tol * bnorm)
+    global last_total_cg_iters
+    last_total_cg_iters = int(stats[3])
+    return (grad,), p, info
+
+
+def exact_hypergrad_cuda(u, utrue, alphas, model: DenoiseModel,
+                         cfg: HypergradConfig = HypergradConfig(),
+                         want_maps: bool = False, p0=None):
+    """Kernel B, exact form (CUDA tensors), or the plain
+    :func:`.hypergrad.exact_hypergrad` (CPU tensors)."""
+    if u.device.type == "cpu":
+        return exact_hypergrad(u, utrue, alphas, model, cfg, want_maps, p0)
+    return _run(u, utrue, alphas, model, cfg, want_maps, p0, reg=False)
+
+
+def reg_hypergrad_cuda(u, utrue, alphas, model: DenoiseModel,
+                       cfg: HypergradConfig = HypergradConfig(),
+                       want_maps: bool = False, p0=None):
+    """Kernel B, γ-regularized form (CUDA tensors), or the plain
+    :func:`.hypergrad.reg_hypergrad` (CPU tensors)."""
+    if u.device.type == "cpu":
+        return reg_hypergrad(u, utrue, alphas, model, cfg, want_maps, p0)
+    return _run(u, utrue, alphas, model, cfg, want_maps, p0, reg=True)

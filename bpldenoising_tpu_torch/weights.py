@@ -1,0 +1,30 @@
+"""Hand state from the JAX package to the port.
+
+:func:`from_jax_state` turns arrays as the JAX package returns them (α,
+a warm PDPS state ``(u, ys)``, adjoint states ``p``; any nesting of tuples
+and lists) into the port's tensors, so that both packages can be fed the
+same state.  It reads each leaf through ``numpy.asarray`` and never imports
+JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["from_jax_state"]
+
+
+def from_jax_state(tree, device="cuda", dtype=None):
+    """Map every array leaf of ``tree`` to a tensor on ``device``
+    (``dtype`` defaults to the leaf's own); ``None`` stays ``None``."""
+    if tree is None:
+        return None
+    if isinstance(tree, (tuple, list)):
+        out = [from_jax_state(t, device, dtype) for t in tree]
+        return tuple(out) if isinstance(tree, tuple) else out
+    arr = np.array(tree, copy=True)
+    t = torch.from_numpy(arr)
+    if dtype is not None:
+        t = t.to(dtype)
+    return t.to(device)

@@ -1,0 +1,196 @@
+"""The port's trust-region learn (bilevel/fused.py on bilevel/tr_core.py)
+against the JAX package's ``bilevel_learn_fused(backend="jnp")``, on the
+same small float64 datasets: the per-iteration (cost, ‖g‖, Δ, step, CG)
+log and the learned parameter.
+
+Tolerance: 1e-8 relative on every logged number but the CG iteration
+count, which may differ by one or two where a stop test lands within
+rounding of its threshold.  The two run the same float64 arithmetic.
+The configurations keep the adjoint systems well conditioned (a converging
+CG, or an active-set threshold of 1e-4): an ill-conditioned system, such
+as the exact form at the f64 default act_tol on a partly converged inner
+solve, makes the JAX package itself move its gradient by percent under a
+1e-13 perturbation of the data, and no port can be held closer than that.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bpldenoising_tpu.bilevel.fused import \
+    bilevel_learn_fused as j_learn_fused
+from bpldenoising_tpu.models import sumregs_model as j_sumregs
+from bpldenoising_tpu.solvers import lbfgs as jlb
+from bpldenoising_tpu.solvers.hypergrad import HypergradConfig as JCfg
+from bpldenoising_tpu.utils.config import Params as JParams
+from bpldenoising_tpu_torch.bilevel.fused import bilevel_learn_fused
+from bpldenoising_tpu_torch.experiments.api import scalar_bilevel_tv_learn
+from bpldenoising_tpu_torch.models import sumregs_model
+from bpldenoising_tpu_torch.solvers import lbfgs as tlb
+from bpldenoising_tpu_torch.solvers.hypergrad import HypergradConfig
+from bpldenoising_tpu_torch.utils.config import Params, merge
+
+RTOL = 1e-8
+TR = dict(eta1=0.25, eta2=0.75, beta1=0.25, beta2=1.9, delta0=0.1, tol=1e-5)
+
+
+def _dataset(n_img, size, seed):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.arange(size), np.arange(size), indexing="ij")
+    clean = []
+    for k in range(n_img):
+        c = size / 2 + k
+        clean.append(((xx - c) ** 2 + (yy - size / 2) ** 2
+                      < (size / 3) ** 2).astype(np.float64))
+        clean[-1][2:6, 2:6] = 0.5
+    clean = np.stack(clean)
+    noisy = clean + 0.1 * rng.standard_normal(clean.shape)
+    return clean, noisy
+
+
+def _compare(jres, tres):
+    k = int(jres.iterations)
+    assert tres.iterations == k
+    jlog = np.asarray(jres.log)[:k]
+    tlog = tres.log[:k].numpy()
+    cols = [0, 1, 2, 3, 5]
+    np.testing.assert_allclose(tlog[:, cols], jlog[:, cols], rtol=RTOL,
+                               atol=1e-12)
+    # CG iteration counts: a stop test that lands within rounding of its
+    # threshold may take one more or one fewer iteration
+    assert np.all(np.abs(tlog[:, 4] - jlog[:, 4]) <= 2 + 0.01 * jlog[:, 4])
+    np.testing.assert_allclose(tres.x.numpy(), np.asarray(jres.x),
+                               rtol=RTOL)
+    np.testing.assert_allclose(float(tres.cost), float(jres.cost), rtol=RTOL)
+    np.testing.assert_allclose(tres.u.numpy(), np.asarray(jres.u),
+                               atol=1e-10)
+
+
+CASES = {
+    # name: (images, size, outer its, inner_tol, check_every, cfg, extra)
+    "warm_2x24": (2, 24, 4, 1e-6, 50,
+                  HypergradConfig(al_iters=2, cg_maxiter=1000, act_tol=1e-4), {}),
+    "warm_3x32": (3, 32, 3, 5e-6, 50,
+                  HypergradConfig(al_iters=2, cg_maxiter=1000, act_tol=1e-4), {}),
+    "parity_2x24": (2, 24, 3, None, 50, HypergradConfig(act_tol=1e-4), {}),
+    "lbfgs_2x24": (2, 24, 4, 1e-6, 50,
+                   HypergradConfig(al_iters=2, cg_maxiter=1000, act_tol=1e-4),
+                   {"lbfgs_threshold": 0}),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_trajectory_matches_jax(case):
+    n_img, size, outer, inner_tol, check_every, cfg, extra = CASES[case]
+    ds = _dataset(n_img, size, seed=n_img * size)
+    kw = dict(inner_maxiter=400, inner_tol=inner_tol,
+              check_every=check_every)
+    jres = j_learn_fused((jnp.asarray(ds[0]), jnp.asarray(ds[1])),
+                         xinit=0.1, params=JParams(TR, maxiter=outer, **extra),
+                         backend="jnp", cfg=JCfg(**cfg._asdict()), **kw)
+    tres = bilevel_learn_fused(ds, xinit=0.1,
+                               params=Params(TR, maxiter=outer, **extra),
+                               cfg=cfg, device="cpu", **kw)
+    _compare(jres, tres)
+
+
+def test_regularized_branch_matches_jax():
+    """Δt above Δ₀: every evaluation takes the γ-regularized gradient."""
+    ds = _dataset(2, 24, seed=7)
+    kw = dict(inner_maxiter=400, inner_tol=1e-6, check_every=50,
+              delta_t=1.0)
+    cfg = HypergradConfig(al_iters=2, cg_maxiter=100, gamma=1e2)
+    jres = j_learn_fused((jnp.asarray(ds[0]), jnp.asarray(ds[1])),
+                         xinit=0.1, params=JParams(TR, maxiter=3),
+                         backend="jnp", cfg=JCfg(**cfg._asdict()), **kw)
+    tres = bilevel_learn_fused(ds, xinit=0.1, params=Params(TR, maxiter=3),
+                               cfg=cfg, device="cpu", **kw)
+    _compare(jres, tres)
+
+
+def test_vector_alpha_sumregs_matches_jax():
+    ds = _dataset(2, 24, seed=5)
+    kw = dict(inner_maxiter=300, inner_tol=1e-6, check_every=50,
+              delta_t=1e-3)
+    cfg = HypergradConfig(al_iters=2, cg_maxiter=1000, act_tol=1e-4)
+    x0 = np.array([0.03, 0.02, 0.01])
+    params = dict(TR, delta0=0.01, maxiter=3)
+    jres = j_learn_fused((jnp.asarray(ds[0]), jnp.asarray(ds[1])),
+                         xinit=jnp.asarray(x0), params=JParams(params),
+                         model=j_sumregs(), backend="jnp",
+                         cfg=JCfg(**cfg._asdict()), **kw)
+    tres = bilevel_learn_fused(ds, xinit=torch.from_numpy(x0),
+                               params=Params(params), model=sumregs_model(),
+                               cfg=cfg, device="cpu", **kw)
+    _compare(jres, tres)
+
+
+def test_patch_and_nonpositive_parameters_raise():
+    ds = _dataset(1, 16, seed=1)
+    with pytest.raises(NotImplementedError):
+        bilevel_learn_fused(ds, xinit=0.1 * np.ones((2, 2)),
+                            params=Params(TR, maxiter=1), device="cpu")
+    with pytest.raises(ValueError):
+        bilevel_learn_fused(ds, xinit=0.0, params=Params(TR, maxiter=1),
+                            device="cpu")
+
+
+def test_lbfgs_functions_match_jax(rng):
+    n, m = 5, 3
+    jst = jlb.lbfgs_init(n, m, jnp.float64, init_scale=0.1)
+    tst = tlb.lbfgs_init(n, m, torch.float64, init_scale=0.1)
+    for _ in range(4):
+        s = rng.standard_normal(n)
+        y = s + 0.3 * rng.standard_normal(n)
+        jst = jlb.lbfgs_update(jst, jnp.asarray(y), jnp.asarray(s))
+        tst = tlb.lbfgs_update(tst, torch.from_numpy(y), torch.from_numpy(s))
+        v = rng.standard_normal(n)
+        np.testing.assert_allclose(
+            tlb.lbfgs_apply(tst, torch.from_numpy(v)).numpy(),
+            np.asarray(jlb.lbfgs_apply(jst, jnp.asarray(v))), rtol=1e-10)
+        np.testing.assert_allclose(
+            tlb.lbfgs_solve(tst, torch.from_numpy(v)).numpy(),
+            np.asarray(jlb.lbfgs_solve(jst, jnp.asarray(v))), rtol=1e-10)
+    assert tst.count == int(jst.count)
+    # a pair that fails the curvature test is skipped by both
+    s = rng.standard_normal(n)
+    jst2 = jlb.lbfgs_update(jst, jnp.asarray(-s), jnp.asarray(s))
+    tst2 = tlb.lbfgs_update(tst, torch.from_numpy(-s), torch.from_numpy(s))
+    assert tst2.count == int(jst2.count) == tst.count
+
+
+def test_scalar_learn_entry_point_on_cpu():
+    """The user entry point on a bundled dataset (one image, small
+    budgets), and its refusal of what is not ported."""
+    kw = dict(dataset_name="circle", num_samples=1, method="tr_fused",
+              maxiter=2, inner_maxiter=150, inner_tol=1e-4, check_every=50,
+              hypergrad_cfg=HypergradConfig(al_iters=2, cg_maxiter=30))
+    res = scalar_bilevel_tv_learn(device="cpu", **kw)
+    assert res.u.shape == (1, 128, 128) and res.u.dtype == torch.float64
+    assert np.isfinite(res.cost) and res.x.shape == ()
+    assert res.iterations == 2 and res.log.shape == (2, 6)
+    with pytest.raises(NotImplementedError):
+        scalar_bilevel_tv_learn(device="cpu", **dict(kw, method="tr"))
+    with pytest.raises(NotImplementedError):
+        scalar_bilevel_tv_learn(device="cpu", **dict(kw, save_results=True))
+
+
+def test_entry_point_defaults_to_the_card():
+    """Without device="cpu" the entry point asks for the card; on a machine
+    without one it raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises((RuntimeError, AssertionError)):
+        scalar_bilevel_tv_learn(dataset_name="circle", num_samples=1,
+                                method="tr_fused", maxiter=1,
+                                inner_maxiter=10)
+
+
+def test_params_merge_is_right_biased():
+    p = merge(Params(a=1, b=2), dict(b=3), c=4)
+    assert (p.a, p.b, p.c) == (1, 3, 4)
+    with pytest.raises(AttributeError):
+        p.a = 5
+    assert (Params(a=1) | None).a == 1
+

@@ -1,0 +1,64 @@
+"""The port stands alone: no module of ``bpldenoising_tpu_torch`` (nor
+its GPU scripts) imports JAX or the JAX package, and importing it builds
+and launches nothing."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "bpldenoising_tpu_torch"
+SOURCES = (sorted(PORT.rglob("*.py"))
+           + [ROOT / "chip_smoke.py",
+              ROOT / "scripts" / "torch_profile_flagship.py"])
+FORBIDDEN = ("jax", "jaxlib", "bpldenoising_tpu")
+
+
+def _imported(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_source_imports_no_jax(path):
+    bad = [m for m in _imported(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_import_loads_no_jax_and_builds_nothing():
+    modules = sorted(
+        "bpldenoising_tpu_torch." + ".".join(
+            p.relative_to(PORT).with_suffix("").parts).replace(
+                ".__init__", "")
+        for p in PORT.rglob("*.py") if p.name != "__init__.py")
+    code = "\n".join(
+        ["import importlib, sys"]
+        + [f"importlib.import_module({m!r})" for m in modules]
+        + ["bad = [m for m in sys.modules if m.split('.')[0] in "
+           f"{FORBIDDEN!r}]",
+           "assert not bad, bad",
+           "from bpldenoising_tpu_torch import _build",
+           "assert _build._LIB is None",
+           "print('ok')"])
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_build_key_tracks_sources():
+    from bpldenoising_tpu_torch import _build
+    assert all((_build.CSRC / s).exists()
+               for s in _build.SOURCES + _build.HEADERS)
+    key = _build._key()
+    assert len(key) == 16 and key == _build._key()
