@@ -9,10 +9,17 @@ bound with ``ctypes``, see :mod:`._build`).
 Entry points take ``device=`` and default to ``"cuda"``; pass
 ``device="cpu"`` to run the plain PyTorch versions of the kernels.
 
-Ported so far (the scalar-TV flagship path):
-:func:`experiments.api.scalar_bilevel_tv_learn` with ``method="tr_fused"``.
+Ported so far: the scalar-TV flagship path,
+:func:`experiments.api.scalar_bilevel_tv_learn` with ``method="tr_fused"``,
+and the TGV² trust-region learn,
+:func:`experiments.tgv.scalar_bilevel_tgv_learn` and
+:func:`experiments.tgv.patch_bilevel_tgv_learn` with ``method="tr_fused"``,
+with :func:`experiments.tgv.TGVDenoise`.
 """
 
 from .experiments.api import scalar_bilevel_tv_learn
+from .experiments.tgv import (TGVDenoise, patch_bilevel_tgv_learn,
+                              scalar_bilevel_tgv_learn)
 
-__all__ = ["scalar_bilevel_tv_learn"]
+__all__ = ["scalar_bilevel_tv_learn", "scalar_bilevel_tgv_learn",
+           "patch_bilevel_tgv_learn", "TGVDenoise"]

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-All sources under ``csrc/`` are compiled by ONE ``nvcc`` call into one
-shared library with a plain C interface (no PyTorch headers, no ninja) and
+Each source under ``csrc/`` is compiled by its own ``nvcc`` process, all
+started together, and one more ``nvcc`` call links the objects into one
+shared library with a plain C interface (no PyTorch headers, no ninja),
 loaded with :mod:`ctypes`.  The build runs at first use, keyed by a hash of
 the sources and flags, into ``_build/`` beside this file; nothing is
 compiled when a module is imported.
@@ -21,13 +22,13 @@ from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("pdps.cu", "hypergrad.cu")
+SOURCES = ("pdps.cu", "hypergrad.cu", "tgv.cu")
 HEADERS = ("common.cuh",)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # -fmad=false: no fused multiply-adds, so each operation rounds like the
 # plain PyTorch version's separate elementwise operations
-NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
-              "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-Xptxas", "-v")
+NVCC_FLAGS = ("-O3", "-std=c++17", *ARCH, "-Xcompiler", "-fPIC",
+              "-fmad=false", "-Xptxas", "-v")
 
 
 class BuildInfo(NamedTuple):
@@ -59,15 +60,35 @@ def build() -> BuildInfo:
     if out.exists():
         return BuildInfo(out, 0.0)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    objs, procs = [], []
+    for src in SOURCES:
+        obj = BUILD_DIR / f"{tag}.{Path(src).stem}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = [], []
+    for src, proc in zip(SOURCES, procs):
+        text, _ = proc.communicate(timeout=900)
+        logs.append(f"== {src}\n{text}")
+        if proc.returncode != 0:
+            failed.append(src)
+    log = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+    tmp = out.with_name(f"{tag}.tmp.so")
+    link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                           *map(str, objs)],
+                          capture_output=True, text=True, timeout=900)
+    for obj in objs:
+        obj.unlink()
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                           f"{link.stdout}{link.stderr}")
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
     # the -Xptxas -v report: registers, shared memory and spills per kernel
     out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
@@ -91,6 +112,10 @@ def _declare(lib):
         fn.argtypes = [_P, _P, _P, _P, _P, _P, _LL, _I, _I, real, real, real,
                        real, real, _I, _I, _I,
                        ctypes.POINTER(ctypes.c_double), _P]
+        fn.restype = _I
+        fn = getattr(lib, f"bpl_tgv_solve_{suffix}")
+        fn.argtypes = [_P] * 12 + [real, real, _LL, _I, _I, real, real, _I,
+                                   _I, real, _I, ctypes.POINTER(_I), _P]
         fn.restype = _I
     lib.bpl_error_string.argtypes = [_I]
     lib.bpl_error_string.restype = ctypes.c_char_p

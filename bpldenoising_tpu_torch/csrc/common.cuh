@@ -1,4 +1,4 @@
-// Shared helpers of the port's CUDA kernels (pdps.cu, hypergrad.cu).
+// Shared helpers of the port's CUDA kernels (pdps.cu, hypergrad.cu, tgv.cu).
 //
 // Every kernel here runs one thread per pixel of a (batch, rows, cols)
 // stack in global memory; the stencils are the forward differences of

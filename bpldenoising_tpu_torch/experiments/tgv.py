@@ -1,0 +1,106 @@
+"""TGV² experiment front-ends (counterpart of
+``bpldenoising_tpu.experiments.tgv``).
+
+The parameter is the 2-vector (α₁, α₀) weighting the first- and
+second-order terms, or an (m, n, 2) stack of patch grids.  Ported so far:
+:func:`scalar_bilevel_tgv_learn` and :func:`patch_bilevel_tgv_learn` with
+``method="tr_fused"``, and :func:`TGVDenoise`.  As in the TV entry point,
+``check_every``, ``inner_tol`` and ``tgv_gamma`` are parameters; the
+other methods, saving results, validation (it needs SSIM), cost sweeps,
+checkpointing and data parallelism raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..bilevel.fused_tgv import bilevel_learn_tgv_fused
+from ..data import full_datasetname
+from ..ops import PatchOp
+from ..solvers.tgv import tgv_denoise_pdps
+from ..utils.config import Params, merge
+from .api import _UNPORTED_FLAGS, LearnResult, _load, default_params
+
+__all__ = ["tgv_bilevel_params", "patch_tgv_bilevel_params",
+           "scalar_bilevel_tgv_learn", "patch_bilevel_tgv_learn",
+           "TGVDenoise"]
+
+# the JAX package's TR schedule for the 2-vector weight; sl_lr is the
+# single-loop learning rate that keeps that method from diverging on TGV.
+# check_every=500 is the inner early-stop cadence the JAX entry point runs
+# (it does not pass one, so bilevel_learn_tgv_fused's default applies).
+tgv_bilevel_params = Params(
+    eta1=0.25, eta2=0.75, beta1=0.25, beta2=1.9, delta0=0.02,
+    alpha0=np.array([0.05, 0.05]), sl_lr=0.02, check_every=500)
+
+# patch analogue: an (m, n, 2) stack of (α₁, α₀) grids upsampled
+# piecewise-constant
+patch_tgv_bilevel_params = Params(
+    eta1=0.25, eta2=0.75, beta1=0.25, beta2=1.5, delta0=0.02,
+    alpha0=0.05 * np.ones((2, 2, 2)), sl_lr=0.02, check_every=500)
+
+
+def TGVDenoise(data, parameter, maxiter: int = 10000, device="cuda"):
+    """Batched TGV² denoising at a fixed (α₁, α₀) pair or an (m, n, 2)
+    patch-grid stack of spatially-varying weights, on ``device``."""
+    data = torch.as_tensor(data).to(device)
+    p = np.asarray(parameter, np.float64)
+    if p.ndim == 3 and p.shape[-1] == 2:   # patch grids → (M, N) maps
+        pop = PatchOp.for_image(p[..., 0],
+                                data[0] if data.ndim == 3 else data)
+        a1 = pop.apply(torch.as_tensor(p[..., 0], dtype=data.dtype))
+        a0 = pop.apply(torch.as_tensor(p[..., 1], dtype=data.dtype))
+    elif p.reshape(-1).size == 2:
+        a1, a0 = float(p.reshape(-1)[0]), float(p.reshape(-1)[1])
+    else:
+        raise ValueError(f"TGV parameter must be (alpha1, alpha0) or an "
+                         f"(m, n, 2) patch stack, got {np.shape(parameter)}")
+    u, _ = tgv_denoise_pdps(data, a1, a0, maxiter=maxiter)
+    return u
+
+
+def _run_tgv_fused(params, device):
+    for flag in _UNPORTED_FLAGS + ("log_every",):
+        if params.get(flag):
+            raise NotImplementedError(f"{flag} is not ported yet")
+    ds = _load(params, device)
+    res = bilevel_learn_tgv_fused(
+        ds, xinit=np.asarray(params.alpha0), params=params,
+        inner_maxiter=int(params.inner_maxiter),
+        inner_tol=params.get("inner_tol"),
+        check_every=int(params.check_every),
+        gamma=(1e-4 if params.get("tgv_gamma") is None
+               else float(params.tgv_gamma)),
+        device=device)
+    k = int(res.iterations)
+    return LearnResult(x=res.x.numpy(), u=res.u, cost=float(res.cost),
+                       g_norm=float(res.g_norm), iterations=k,
+                       log=res.log[:k].numpy())
+
+
+def _learn(family_params, visualise, device, kwargs):
+    if visualise:
+        raise NotImplementedError("visualise is not ported yet")
+    params = merge(default_params, family_params, kwargs)
+    params = params | dict(dataset_name=full_datasetname(params.dataset_name))
+    if params.get("method") != "tr_fused":
+        raise NotImplementedError(
+            f"method={params.get('method')!r} is not ported yet; use "
+            "method='tr_fused'")
+    return _run_tgv_fused(params, device)
+
+
+def scalar_bilevel_tgv_learn(visualise: bool = False, device="cuda",
+                             **kwargs) -> LearnResult:
+    """Learn (α₁, α₀) by the trust region.  Only ``method="tr_fused"`` is
+    ported.  ``device="cuda"`` runs the CUDA kernel; ``device="cpu"`` runs
+    its plain version."""
+    return _learn(tgv_bilevel_params, visualise, device, kwargs)
+
+
+def patch_bilevel_tgv_learn(visualise: bool = False, device="cuda",
+                            **kwargs) -> LearnResult:
+    """Learn spatially-varying (α₁, α₀) patch grids (an (m, n, 2) stack)
+    by the trust region.  Only ``method="tr_fused"`` is ported."""
+    return _learn(patch_tgv_bilevel_params, visualise, device, kwargs)

@@ -2,9 +2,12 @@ from .linop import LinOp, AdjointOp
 from .grad import (FwdGradientOp, BwdGradientOp, CenteredGradientOp,
                    GradientOp)
 from .field import xi, scalarprod, norm21, proj_norm21_ball
+from .patch import PatchOp
+from .tgv import SymGradientOp, sym_grad, sym_div, TGV_OPNORM_SQ
 
 __all__ = [
     "LinOp", "AdjointOp",
     "FwdGradientOp", "BwdGradientOp", "CenteredGradientOp", "GradientOp",
-    "xi", "scalarprod", "norm21", "proj_norm21_ball",
+    "xi", "scalarprod", "norm21", "proj_norm21_ball", "PatchOp",
+    "SymGradientOp", "sym_grad", "sym_div", "TGV_OPNORM_SQ",
 ]

@@ -1,7 +1,10 @@
 from .hypergrad import HypergradConfig, exact_hypergrad, reg_hypergrad
 from .krylov import KrylovInfo, cg, cg_batched
 from .pdps import PDPS_DEFAULTS, denoise_pdps, tv_denoise
+from .tgv import (TGV_PDPS_DEFAULTS, tgv_denoise_pdps, tgv_energy,
+                  tgv_implicit_cotangents)
 
 __all__ = ["denoise_pdps", "tv_denoise", "PDPS_DEFAULTS", "HypergradConfig",
            "exact_hypergrad", "reg_hypergrad", "KrylovInfo", "cg",
-           "cg_batched"]
+           "cg_batched", "tgv_denoise_pdps", "tgv_energy",
+           "tgv_implicit_cotangents", "TGV_PDPS_DEFAULTS"]

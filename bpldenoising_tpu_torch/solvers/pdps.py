@@ -13,7 +13,8 @@ with the strongly-convex-accelerated iteration (γ = 1):
     yₖ⁺  = Π_{|·|₂ ≤ αₖ}(yₖ + σ Gₖ ū)
 
 This module is the plain version of the CUDA kernel in
-:mod:`.pdps_cuda`, which dispatches here for tensors on the CPU.  The
+:mod:`.pdps_cuda`, which dispatches here for tensors on the CPU;
+:func:`denoise_pdps` and :func:`tv_denoise` go through that dispatch.  The
 optional early stop runs chunks of ``check_every`` iterations and stops once
 the MAX over images of the per-image relative change ‖Δu‖/‖u‖ is ≤ ``tol``:
 one host read per chunk.
@@ -115,11 +116,13 @@ def denoise_pdps(f, alphas, model: DenoiseModel, *, tau0=5.0,
                  sigma0=0.99 / 5.0, gamma=1.0, maxiter=5000, accel=True,
                  tol=None, check_every=500, state0=None, return_dual=False):
     """Solve the K-block denoising problem for an image or batch ``f``
-    with the plain PyTorch iteration (any device)."""
+    where it lives: the plain PyTorch iteration for CPU tensors, kernel A
+    for CUDA tensors (which raises for what the kernel does not take)."""
+    from .pdps_cuda import denoise_pdps_cuda
     f = torch.as_tensor(f)
     alphas = tuple(torch.as_tensor(a, dtype=f.dtype)
                    for a in model.canonical_alphas(alphas))
-    return _denoise_pdps_impl(
+    return denoise_pdps_cuda(
         f, alphas, state0, model=model, tau0=tau0, sigma0=sigma0, gamma=gamma,
         maxiter=int(maxiter), accel=bool(accel), tol=tol,
         check_every=int(check_every), return_dual=bool(return_dual))

@@ -1,8 +1,10 @@
 """Hand state from the JAX package to the port.
 
 :func:`from_jax_state` turns arrays as the JAX package returns them (α,
-a warm PDPS state ``(u, ys)``, adjoint states ``p``; any nesting of tuples
-and lists) into the port's tensors, so that both packages can be fed the
+a warm PDPS state ``(u, ys)``, adjoint states ``p``, a warm TGV² solver
+state ``(u, w, p, q)`` with w, p shaped (O, 2, M, N) and q (O, 3, M, N) in
+the plane order (rr, cc, rc), the TGV adjoint multiplier λ of shape
+(O, 3, M, N); any nesting of tuples and lists) into the port's tensors, so that both packages can be fed the
 same state.  It reads each leaf through ``numpy.asarray`` and never imports
 JAX.
 """

@@ -21,6 +21,23 @@ Phases (one short line each):
    settings, once to warm up and once timed with CUDA events, launch
    counters reset just before the timed run.  It must land within the
    parity gates below.
+6. the TGV² kernel (``csrc/tgv.cu``) against its plain PyTorch version on
+   the flagship data (10 × 128² float32): a cold 5000-iteration call, a
+   cold call with early stop that returns its state, a warm call from that
+   state at nudged weights; each with scalar weights and with (M, N) map
+   weights; a constant map must reproduce the scalar run bit for bit.
+   Then in float64 at 2 × 32².
+7. large images: the TGV² kernel at 1 × 1024² (1000 iterations, the shape
+   the TPU sends to its row-tiled TGV kernel) and kernel A at 1 × 2048²
+   (1000 iterations, the shape the TPU sends to its row-tiled TV kernel),
+   each against its plain version, timed.
+8. the TGV learn: ``scalar_bilevel_tgv_learn(dataset_name="faces_train",
+   num_samples=10, method="tr_fused", device="cuda")`` with the benchmark's
+   TGV settings, once to warm up and once timed, all launch counters reset
+   just before the timed run and read just after.  Gates below.
+9. the patch TGV learn: ``patch_bilevel_tgv_learn`` on the same data with
+   a (2, 2, 2) stack and the entry point's own β₂ = 1.5, counters reset
+   just before and read just after.  Gates below.
 
 It prints one JSON line of per-kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``.  Any failure raises (no phase is
@@ -65,6 +82,36 @@ TOL_B_F32_REL = 1e-3
 # float64: the same arithmetic at double precision, small shape
 TOL_F64_REL = 1e-9
 
+# TGV learn reference (the JAX package on the CPU, float32, jnp, the same
+# settings): α = (α₁, α₀), mean PSNR, cost.  The faces TGV cost is a flat
+# valley: another sound trust-region point 9% away in α₁ has a cost only
+# 2e-4 (relative) lower, so α is gated at 10% relative and the cost and
+# PSNR carry the parity; the 1e-3 band (float32 and float64 JAX runs agree
+# to 3e-5) is reported separately.
+TGV_ALPHA = (0.085226, 0.044170)
+TGV_ALPHA_GATE_REL = 0.10
+TGV_ALPHA_BAND_REL = 1e-3
+TGV_PSNR = 28.1009
+TGV_PSNR_GATE = 0.01       # dB
+TGV_COST = 130.1344
+TGV_COST_GATE_REL = 1e-3
+# patch TGV learn reference ((2, 2, 2) stack, β₂ = 1.5), same source
+TGV_PATCH_PSNR = 28.1077
+TGV_PATCH_COST = 129.8615
+TGV_PATCH_A1 = ((0.09146, 0.09851), (0.07646, 0.08766))
+TGV_PATCH_A0 = ((0.04659, 0.04462), (0.04396, 0.04232))
+
+# float32, TGV kernel: the kernel divides by √2 where the plain version's
+# CUDA division by a host scalar multiplies by its reciprocal, and sums the
+# early-stop norms in another order, so the iterations differ by rounding
+# each step.  u contracts (strongly convex data term) and is held like
+# kernel A's u; w, p and q follow a non-expansive iteration whose solution
+# is not unique on flat regions, so rounding differences persist: held to
+# 1e-3 absolute (p, q are bounded by α₁ ≈ 0.09, α₀ ≈ 0.04).  A fault in a
+# stencil or a projection moves them by 1e-2 or more.
+TOL_TGV_U_F32 = 1e-4
+TOL_TGV_DUAL_F32 = 1e-3
+
 # peak rates of an H100 SXM (NVIDIA data sheet) for the bounds
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -73,6 +120,7 @@ A_OPS_PER_PIXEL_ITER = 24
 B_OPS_PER_PIXEL_CG_ITER = 40
 B_OPS_PER_PIXEL_SOLVE = 36      # CG start: W·Gp, Mp, r, z, d, three sums
 B_OPS_PER_PIXEL_FIXED = 47      # set-up, diagonal, right-hand side, gradient
+TGV_OPS_PER_PIXEL_ITER = 70     # 29 primal + 41 dual (csrc/tgv.cu)
 
 
 def say(msg):
@@ -138,12 +186,6 @@ def phase_kernel_a(f, timed, *, maxiter=5000, tol=5e-6, check_every=50,
             f, alphas, state0, **kw, **extra))
         return k_out, k_ms, p_out, p_ms
 
-    # 1: cold, fixed budget; a warm-up call first so the timing excludes
-    # the library load
-    pdps_cuda.denoise_pdps_cuda(f, a, None, **kw, maxiter=10, tol=None,
-                                check_every=check_every, return_dual=False)
-    ku, k_ms, pu, p_ms = both(a, None, maxiter=maxiter, tol=None,
-                              check_every=check_every, return_dual=False)
     def check(label, ku, pu, kys=None, pys=None, kit=None, pit=None):
         nonlocal worst
         err_u = max_abs(ku, pu)
@@ -281,6 +323,274 @@ def phase_f64(torch, device):
             f"float64 kernel B: CG iterations {its}")
 
 
+def tgv_errors(k_out, p_out):
+    """Max abs error of each of u, w, p, q (kernel vs plain)."""
+    (_, _, kst, _), (_, _, pst, _) = k_out, p_out
+    return [max_abs(k, p) for k, p in zip(kst, pst)]
+
+
+def phase_tgv(f, timed, *, maxiter=5000, tol=3e-6, check_every=100):
+    """The TGV² kernel against plain TGV², scalar and map weights: cold
+    fixed budget, cold with early stop and state, warm from that state at
+    nudged weights.  Everything is compared and printed before the phase
+    fails.  Returns the stats of the scalar cold call."""
+    import torch
+    from bpldenoising_tpu_torch.ops import PatchOp
+    from bpldenoising_tpu_torch.solvers import tgv_cuda
+    from bpldenoising_tpu_torch.solvers.tgv import _tgv_impl
+
+    dt = f.dtype
+    pop = PatchOp((2, 2), tuple(f.shape[-2:]))
+    grid1 = torch.tensor(TGV_PATCH_A1, dtype=dt)
+    grid0 = torch.tensor(TGV_PATCH_A0, dtype=dt)
+    weights = {
+        "scalar": ((TGV_ALPHA[0], TGV_ALPHA[1]),
+                   (1.05 * TGV_ALPHA[0], 0.95 * TGV_ALPHA[1])),
+        "map": ((pop.apply(grid1).to(f.device), pop.apply(grid0).to(f.device)),
+                (pop.apply(1.05 * grid1).to(f.device),
+                 pop.apply(0.95 * grid0).to(f.device))),
+    }
+    worst = 0.0
+    faults = []
+    out = {}
+
+    def both(a, state0, **kw):
+        k_out, k_ms = timed(lambda: tgv_cuda.tgv_denoise_pdps_cuda(
+            f, *a, state0=state0, return_state=True, **kw))
+        p_out, p_ms = timed(lambda: _tgv_impl(
+            f, *a, state0, tau0=0.99, sigma0=0.99, return_state=True, **kw))
+        return k_out, k_ms, p_out, p_ms
+
+    def check(label, k_out, p_out, iters=False):
+        nonlocal worst
+        errs = tgv_errors(k_out, p_out)
+        worst = max(worst, *errs)
+        if errs[0] > TOL_TGV_U_F32 or max(errs[1:]) > TOL_TGV_DUAL_F32:
+            faults.append(f"{label}: max|d(u,w,p,q)| {errs}")
+        if iters and k_out[3] != p_out[3]:
+            faults.append(f"{label}: iterations {k_out[3]} vs {p_out[3]}")
+        return ("max|du| {:.2e}, |dw| {:.2e}, |dp| {:.2e}, |dq| {:.2e}"
+                .format(*errs))
+
+    tgv_cuda.tgv_denoise_pdps_cuda(f, *weights["scalar"][0], maxiter=10)
+    for kind, (a, a_warm) in weights.items():
+        k_out, k_ms, p_out, p_ms = both(a, None, maxiter=maxiter, tol=None,
+                                        check_every=check_every)
+        say(f"  TGV {kind} cold {maxiter} it: {check(kind, k_out, p_out)}; "
+            f"kernel {k_ms:.2f} ms, plain {p_ms:.2f} ms")
+        out[kind] = dict(ms=k_ms, plain_ms=p_ms, iters=maxiter,
+                         u=k_out[0])
+        k_out, k_ms, p_out, p_ms = both(a, None, maxiter=maxiter, tol=tol,
+                                        check_every=check_every)
+        msg = check(f"{kind} early stop", k_out, p_out, iters=True)
+        say(f"  TGV {kind} cold tol {tol:g}: iters {k_out[3]}/{p_out[3]}, "
+            f"{msg}; kernel {k_ms:.2f} ms, plain {p_ms:.2f} ms")
+        state = p_out[2]
+        k_out, k_ms, p_out, p_ms = both(a_warm, state, maxiter=maxiter,
+                                        tol=tol, check_every=check_every)
+        msg = check(f"{kind} warm", k_out, p_out, iters=True)
+        say(f"  TGV {kind} warm tol {tol:g}: iters {k_out[3]}/{p_out[3]}, "
+            f"{msg}; kernel {k_ms:.2f} ms, plain {p_ms:.2f} ms")
+    # a constant map is the scalar weight, bit for bit
+    const = tuple(torch.full(tuple(f.shape[-2:]), v, dtype=dt,
+                             device=f.device) for v in TGV_ALPHA)
+    cu, _ = tgv_cuda.tgv_denoise_pdps_cuda(f, *const, maxiter=maxiter)
+    same = bool(torch.equal(cu, out["scalar"]["u"]))
+    say(f"  TGV constant map == scalar weights: {same}; tolerances u "
+        f"{TOL_TGV_U_F32:g}, w/p/q {TOL_TGV_DUAL_F32:g} (absolute)")
+    if not same:
+        faults.append("a constant map differs from the scalar weights")
+    require(not faults, "TGV kernel disagrees with plain: "
+            + "; ".join(faults))
+    return dict(out["scalar"], max_abs_err=worst)
+
+
+def phase_tgv_f64(torch, device):
+    """The TGV² kernel in float64 at 2 × 32²: cold with early stop (scalar
+    weights), cold fixed budget (map weights), warm from the first state."""
+    from bpldenoising_tpu_torch.solvers import tgv_cuda
+    from bpldenoising_tpu_torch.solvers.tgv import _tgv_impl
+
+    f64 = torch.float64
+    gen = torch.Generator().manual_seed(1)
+    yy, xx = torch.meshgrid(torch.arange(32, dtype=f64),
+                            torch.arange(32, dtype=f64), indexing="ij")
+    clean = torch.stack([0.02 * xx + (yy > 16).to(f64),
+                         0.03 * yy + (((xx - 16) ** 2 + (yy - 12) ** 2)
+                                      < 60).to(f64)])
+    f = (clean + 0.1 * torch.randn(clean.shape, generator=gen,
+                                   dtype=f64)).to(device)
+    amap = (0.05 + 0.1 * torch.rand((32, 32), generator=gen,
+                                    dtype=f64)).to(device)
+    runs = (("scalar tol", (0.1, 0.05), None,
+             dict(maxiter=3000, tol=1e-5, check_every=50)),
+            ("map fixed", (amap, 0.05), None,
+             dict(maxiter=1000, tol=None, check_every=50)),
+            ("scalar warm", (0.11, 0.045), "first",
+             dict(maxiter=3000, tol=1e-5, check_every=50)))
+    errs, its = [], []
+    first = None
+    for label, a, warm, kw in runs:
+        state0 = first if warm else None
+        k = tgv_cuda.tgv_denoise_pdps_cuda(f, *a, state0=state0,
+                                           return_state=True, **kw)
+        p = _tgv_impl(f, *a, state0, tau0=0.99, sigma0=0.99,
+                      return_state=True, **kw)
+        first = first or p[2]
+        errs.append(max(rel_err(ks, ps) for ks, ps in zip(k[2], p[2])))
+        its.append((k[3], p[3]))
+    say(f"  TGV float64 2x32x32: rel err {['%.2e' % e for e in errs]}, "
+        f"iters {its} (tol {TOL_F64_REL:g})")
+    require(all(kit == pit for kit, pit in its),
+            f"float64 TGV: iterations {its}")
+    require(max(errs) <= TOL_F64_REL, f"float64 TGV rel err {errs}")
+
+
+def phase_large(f, timed):
+    """The shapes the TPU sends to its row-tiled kernels: TGV² at 1 × 1024²
+    and kernel A at 1 × 2048², 1000 iterations each (bench.py's tiling of
+    the first faces image)."""
+    import torch
+    from bpldenoising_tpu_torch.models import tv_model
+    from bpldenoising_tpu_torch.solvers import pdps_cuda, tgv_cuda
+    from bpldenoising_tpu_torch.solvers.pdps import _denoise_pdps_impl
+    from bpldenoising_tpu_torch.solvers.tgv import _tgv_impl
+
+    out = {}
+    img = f[:1].repeat(1, 8, 8).contiguous()
+    kw = dict(maxiter=1000, tol=None, check_every=100)
+    tgv_cuda.tgv_denoise_pdps_cuda(img, 0.1, 0.2, maxiter=5)
+    k_out, k_ms = timed(lambda: tgv_cuda.tgv_denoise_pdps_cuda(
+        img, 0.1, 0.2, return_state=True, **kw))
+    p_out, p_ms = timed(lambda: _tgv_impl(img, 0.1, 0.2, None, tau0=0.99,
+                                          sigma0=0.99, return_state=True,
+                                          **kw))
+    errs = tgv_errors(k_out, p_out)
+    say("  TGV 1x1024x1024, 1000 it: max|du| {:.2e}, |dw| {:.2e}, |dp| "
+        "{:.2e}, |dq| {:.2e}; ".format(*errs)
+        + f"kernel {k_ms:.2f} ms, plain {p_ms:.2f} ms")
+    require(errs[0] <= TOL_TGV_U_F32 and max(errs[1:]) <= TOL_TGV_DUAL_F32,
+            f"TGV 1024^2 kernel disagrees with plain: {errs}")
+    nbytes = 9 * img.numel() * img.element_size()   # f in; 8 planes out
+    bound, by = bound_ms(nbytes, TGV_OPS_PER_PIXEL_ITER * img.numel() * 1000)
+    out["tgv_1024"] = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=max(errs),
+                           bound_ms=bound, bound_by=by)
+
+    img = f[:1].repeat(1, 16, 16).contiguous()
+    kw = dict(model=tv_model(), tau0=5.0, sigma0=0.99 / 5.0, gamma=1.0,
+              accel=True, maxiter=1000, tol=None, check_every=50,
+              return_dual=True)
+    a = (torch.tensor(0.1, dtype=img.dtype),)
+    pdps_cuda.denoise_pdps_cuda(img, a, None, **dict(kw, maxiter=5))
+    (ku, kys, _), k_ms = timed(lambda: pdps_cuda.denoise_pdps_cuda(
+        img, a, None, **kw))
+    (pu, pys, _), p_ms = timed(lambda: _denoise_pdps_impl(img, a, None,
+                                                         **kw))
+    err_u, err_y = max_abs(ku, pu), max_abs(kys[0], pys[0])
+    say(f"  A 1x2048x2048, 1000 it: max|du| {err_u:.2e}, max|dy| "
+        f"{err_y:.2e}; kernel {k_ms:.2f} ms, plain {p_ms:.2f} ms")
+    require(err_u <= TOL_A_U_F32 and err_y <= TOL_A_Y_F32,
+            f"kernel A at 2048^2 disagrees with plain: {err_u}, {err_y}")
+    nbytes = 4 * img.numel() * img.element_size()   # f in; u, y out
+    bound, by = bound_ms(nbytes, A_OPS_PER_PIXEL_ITER * img.numel() * 1000)
+    out["pdps_2048"] = dict(ms=k_ms, plain_ms=p_ms,
+                            max_abs_err=max(err_u, err_y), bound_ms=bound,
+                            bound_by=by)
+    return out
+
+
+def reset_launches():
+    from bpldenoising_tpu_torch.solvers import (hypergrad_cuda, pdps_cuda,
+                                                tgv_cuda)
+    for mod in (pdps_cuda, hypergrad_cuda, tgv_cuda):
+        mod.launches = 0
+
+
+def read_launches():
+    from bpldenoising_tpu_torch.solvers import (hypergrad_cuda, pdps_cuda,
+                                                tgv_cuda)
+    return dict(pdps=pdps_cuda.launches, hypergrad=hypergrad_cuda.launches,
+                tgv=tgv_cuda.launches)
+
+
+def tgv_learn_kwargs():
+    return dict(dataset_name="faces_train", num_samples=10,
+                method="tr_fused", dtype="float32", maxiter=20, tol=1e-5,
+                inner_maxiter=5000, inner_tol=3e-6, check_every=100)
+
+
+def phase_tgv_learn(utrue, timed):
+    import torch
+    from bpldenoising_tpu_torch.experiments.tgv import \
+        scalar_bilevel_tgv_learn
+    from bpldenoising_tpu_torch.metrics import psnr
+
+    kw = tgv_learn_kwargs()
+    scalar_bilevel_tgv_learn(device="cuda", **kw)          # warm-up
+    reset_launches()
+    res, wall_ms = timed(lambda: scalar_bilevel_tgv_learn(device="cuda",
+                                                          **kw))
+    launches = read_launches()
+    alpha = [float(v) for v in res.x]
+    rel = [abs(a - r) / r for a, r in zip(alpha, TGV_ALPHA)]
+    mean_psnr = float(torch.mean(psnr(utrue, res.u)))
+    cost = float(res.cost)
+    cg = res.log[:, 4]
+    say(f"  alpha {alpha[0]:.6f}, {alpha[1]:.6f} |d| "
+        f"{abs(alpha[0] - TGV_ALPHA[0]):.2e}, "
+        f"{abs(alpha[1] - TGV_ALPHA[1]):.2e} rel {rel[0]:.2e}, {rel[1]:.2e} "
+        f"(gate {TGV_ALPHA_GATE_REL:g}, band {TGV_ALPHA_BAND_REL:g}: "
+        f"{'in' if max(rel) <= TGV_ALPHA_BAND_REL else 'out'}); PSNR "
+        f"{mean_psnr:.4f} dB; cost {cost:.4f}; {res.iterations} outer its; "
+        f"adjoint CG {int(cg.sum())} its over the logged evaluations, "
+        f"unconverged (capped) in {int((res.log[:, 5] < 0.5).sum())} of "
+        f"{res.iterations}")
+    say(f"  wall {wall_ms:.1f} ms (CUDA events, after one warm-up run); "
+        f"launches {launches}")
+    require(launches["tgv"] > 0, f"TGV learn launched {launches}")
+    require(max(rel) <= TGV_ALPHA_GATE_REL, f"TGV alpha {alpha}")
+    require(abs(mean_psnr - TGV_PSNR) <= TGV_PSNR_GATE,
+            f"TGV mean PSNR {mean_psnr}")
+    require(abs(cost - TGV_COST) <= TGV_COST_GATE_REL * TGV_COST,
+            f"TGV final cost {cost}")
+    return dict(alpha=alpha, alpha_rel_err=rel, mean_psnr_db=mean_psnr,
+                final_cost=cost, outer_iterations=res.iterations,
+                adjoint_cg_iters=int(cg.sum()), wall_ms=wall_ms,
+                launches=launches)
+
+
+def phase_tgv_patch_learn(utrue, timed):
+    import numpy as np
+    import torch
+    from bpldenoising_tpu_torch.experiments.tgv import \
+        patch_bilevel_tgv_learn
+    from bpldenoising_tpu_torch.metrics import psnr
+
+    kw = tgv_learn_kwargs()
+    reset_launches()
+    res, wall_ms = timed(lambda: patch_bilevel_tgv_learn(device="cuda",
+                                                         **kw))
+    launches = read_launches()
+    mean_psnr = float(torch.mean(psnr(utrue, res.u)))
+    cost = float(res.cost)
+    np.set_printoptions(precision=5)
+    say(f"  alpha1 grid {res.x[..., 0].tolist()} (reference "
+        f"{[list(r) for r in TGV_PATCH_A1]})")
+    say(f"  alpha0 grid {res.x[..., 1].tolist()} (reference "
+        f"{[list(r) for r in TGV_PATCH_A0]})")
+    say(f"  PSNR {mean_psnr:.4f} dB; cost {cost:.4f}; {res.iterations} "
+        f"outer its; adjoint CG {int(res.log[:, 4].sum())} its; wall "
+        f"{wall_ms:.1f} ms; launches {launches}")
+    require(launches["tgv"] > 0, f"patch TGV learn launched {launches}")
+    require(abs(mean_psnr - TGV_PATCH_PSNR) <= TGV_PSNR_GATE,
+            f"patch TGV mean PSNR {mean_psnr}")
+    require(abs(cost - TGV_PATCH_COST) <= TGV_COST_GATE_REL * TGV_PATCH_COST,
+            f"patch TGV final cost {cost}")
+    return dict(alpha=res.x.tolist(), mean_psnr_db=mean_psnr,
+                final_cost=cost, outer_iterations=res.iterations,
+                wall_ms=wall_ms, launches=launches)
+
+
 def flagship_kwargs():
     from bpldenoising_tpu_torch.solvers.hypergrad import HypergradConfig
     return dict(dataset_name="faces_train", num_samples=10,
@@ -302,7 +612,6 @@ def main():
     from bpldenoising_tpu_torch.data import testdataset
     from bpldenoising_tpu_torch.experiments.api import scalar_bilevel_tv_learn
     from bpldenoising_tpu_torch.metrics import psnr
-    from bpldenoising_tpu_torch.solvers import hypergrad_cuda, pdps_cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -339,12 +648,11 @@ def main():
     t0 = time.perf_counter()
     testdataset("faces_train_128_10")
     load_ms = (time.perf_counter() - t0) * 1e3
-    pdps_cuda.launches = 0
-    hypergrad_cuda.launches = 0
+    reset_launches()
     res, wall_ms = timed(lambda: scalar_bilevel_tv_learn(device="cuda",
                                                          **kw))
-    launches_a = pdps_cuda.launches
-    launches_b = hypergrad_cuda.launches
+    counts = read_launches()
+    launches_a, launches_b = counts["pdps"], counts["hypergrad"]
     alpha = float(res.x)
     d_alpha = abs(alpha - FLAGSHIP_ALPHA)
     mean_psnr = float(torch.mean(psnr(utrue, res.u)))
@@ -356,7 +664,7 @@ def main():
         f"{res.iterations} outer its; CG capped: {cg_cap}")
     say(f"  wall {wall_ms:.1f} ms (CUDA events, after one warm-up run; "
         f"the PNG load in it takes ~{load_ms:.1f} ms on the host); "
-        f"launches A {launches_a}, B {launches_b}")
+        f"launches {counts}")
     require(launches_a > 0 and launches_b > 0,
             f"main path launched A {launches_a}, B {launches_b} times")
     require(d_alpha <= ALPHA_GATE, f"alpha {alpha} off by {d_alpha}")
@@ -364,6 +672,19 @@ def main():
             f"mean PSNR {mean_psnr}")
     require(abs(cost - FLAGSHIP_COST) <= COST_GATE_REL * FLAGSHIP_COST,
             f"final cost {cost}")
+
+    say("phase 6 TGV kernel vs plain, 10x128x128 float32")
+    tgv_stats = phase_tgv(f, timed)
+    phase_tgv_f64(torch, dev)
+
+    say("phase 7 large images vs plain, float32")
+    large = phase_large(f, timed)
+
+    say("phase 8 TGV learn scalar_bilevel_tgv_learn(method='tr_fused')")
+    tgv_learn = phase_tgv_learn(utrue, timed)
+
+    say("phase 9 patch TGV learn patch_bilevel_tgv_learn(method='tr_fused')")
+    tgv_patch = phase_tgv_patch_learn(utrue, timed)
 
     itemsize = 4
     a_bytes = 4 * n * itemsize                  # f in; u, y out
@@ -374,6 +695,10 @@ def main():
     b_ops = n * (B_OPS_PER_PIXEL_CG_ITER * ex["total_cg"]
                  + B_OPS_PER_PIXEL_SOLVE * 2 + B_OPS_PER_PIXEL_FIXED)
     b_bound, b_by = bound_ms(b_bytes, b_ops)
+    # TGV cold call: f in; the state (u, w, p, q: 8 planes) out
+    t_bytes = 9 * n * itemsize
+    t_ops = TGV_OPS_PER_PIXEL_ITER * n * tgv_stats["iters"]
+    t_bound, t_by = bound_ms(t_bytes, t_ops)
     kernels = [
         dict(name="pdps_cp_tv", route="cuda",
              source="bpldenoising_tpu_torch/csrc/pdps.cu",
@@ -387,12 +712,20 @@ def main():
              launches=launches_b, max_abs_err=b_stats["max_abs_err"],
              ms=ex["ms"], plain_ms=ex["plain_ms"], bound_ms=b_bound,
              bound_by=b_by, library_ms=None),
+        dict(name="tgv_cp", route="cuda",
+             source="bpldenoising_tpu_torch/csrc/tgv.cu",
+             replaces="bpldenoising_tpu/solvers/tgv_pallas.py:103 and :217",
+             launches=tgv_learn["launches"]["tgv"],
+             max_abs_err=tgv_stats["max_abs_err"], ms=tgv_stats["ms"],
+             plain_ms=tgv_stats["plain_ms"], bound_ms=t_bound, bound_by=t_by,
+             library_ms=None),
     ]
     say(f"  total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels, "flagship": dict(
         alpha=alpha, alpha_abs_err=d_alpha, mean_psnr_db=mean_psnr,
         final_cost=cost, outer_iterations=res.iterations,
-        wall_ms=wall_ms, load_ms=load_ms, device=smi)}))
+        wall_ms=wall_ms, load_ms=load_ms), "tgv_learn": tgv_learn,
+        "tgv_patch_learn": tgv_patch, "large_images": large, "device": smi}))
     faulthandler.cancel_dump_traceback_later()
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -13,7 +13,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "bpldenoising_tpu_torch"
 SOURCES = (sorted(PORT.rglob("*.py"))
            + [ROOT / "chip_smoke.py",
-              ROOT / "scripts" / "torch_profile_flagship.py"])
+              ROOT / "scripts" / "torch_profile_flagship.py",
+              ROOT / "scripts" / "torch_profile_tgv.py"])
 FORBIDDEN = ("jax", "jaxlib", "bpldenoising_tpu")
 
 
@@ -62,3 +63,15 @@ def test_build_key_tracks_sources():
                for s in _build.SOURCES + _build.HEADERS)
     key = _build._key()
     assert len(key) == 16 and key == _build._key()
+
+
+SLICE_MODULES = ("ops/tgv.py", "ops/patch.py", "solvers/tgv.py",
+                 "solvers/tgv_cuda.py", "bilevel/fused_tgv.py",
+                 "experiments/tgv.py")
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_tgv_slice_modules_are_checked(module):
+    """The TGV slice's modules exist and are among the sources checked
+    above (so they import no JAX)."""
+    assert PORT / module in SOURCES

@@ -153,3 +153,18 @@ def test_kernel_input_checks():
     pdps_cuda.check_tv_model(tv_model())
     with pytest.raises(ValueError):
         pdps_cuda.check_cuda_input(torch.zeros(2, 4, 4))
+
+
+def test_public_solver_runs_where_f_lives():
+    """denoise_pdps and tv_denoise dispatch on f's device: CPU tensors run
+    the plain version, CUDA tensors launch kernel A, and any other device
+    raises instead of running the plain iteration there."""
+    f = torch.zeros((2, 8, 8), dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError):
+        denoise_pdps(f, 0.1, tv_model(), maxiter=5)
+    with pytest.raises(ValueError):
+        tv_denoise(f, 0.1, maxiter=5)
+    before = pdps_cuda.launches
+    u = tv_denoise(torch.zeros((2, 8, 8), dtype=torch.float64), 0.1,
+                   maxiter=5)
+    assert u.device.type == "cpu" and pdps_cuda.launches == before
