@@ -14,12 +14,20 @@ Ported so far: the scalar-TV flagship path,
 and the TGV² trust-region learn,
 :func:`experiments.tgv.scalar_bilevel_tgv_learn` and
 :func:`experiments.tgv.patch_bilevel_tgv_learn` with ``method="tr_fused"``,
-with :func:`experiments.tgv.TGVDenoise`.
+with :func:`experiments.tgv.TGVDenoise`, and the TV-L1 trust-region learn on
+the Huber-smoothed surrogate, :func:`experiments.tvl1.scalar_bilevel_tvl1_learn`
+and :func:`experiments.tvl1.patch_bilevel_tvl1_learn` with
+``method="tr_fused"``, with :func:`experiments.tvl1.TVL1Denoise`.
 """
 
 from .experiments.api import scalar_bilevel_tv_learn
 from .experiments.tgv import (TGVDenoise, patch_bilevel_tgv_learn,
                               scalar_bilevel_tgv_learn)
+from .experiments.tvl1 import (TVL1Denoise, patch_bilevel_tvl1_learn,
+                               scalar_bilevel_tvl1_learn)
+from .solvers import tvl1_denoise, tvl1_energy, tvl1_huber_denoise
 
 __all__ = ["scalar_bilevel_tv_learn", "scalar_bilevel_tgv_learn",
-           "patch_bilevel_tgv_learn", "TGVDenoise"]
+           "patch_bilevel_tgv_learn", "TGVDenoise", "scalar_bilevel_tvl1_learn",
+           "patch_bilevel_tvl1_learn", "TVL1Denoise", "tvl1_denoise",
+           "tvl1_energy", "tvl1_huber_denoise"]

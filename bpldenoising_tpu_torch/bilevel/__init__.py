@@ -1,5 +1,7 @@
 from .fused import FusedResult, bilevel_learn_fused
 from .fused_tgv import bilevel_learn_tgv_fused, tgv_param_layout
+from .fused_tvl1 import bilevel_learn_tvl1_fused, tvl1_param_layout
 
 __all__ = ["bilevel_learn_fused", "bilevel_learn_tgv_fused",
-           "tgv_param_layout", "FusedResult"]
+           "tgv_param_layout", "bilevel_learn_tvl1_fused",
+           "tvl1_param_layout", "FusedResult"]

@@ -1,4 +1,5 @@
-// Shared helpers of the port's CUDA kernels (pdps.cu, hypergrad.cu, tgv.cu).
+// Shared helpers of the port's CUDA kernels (pdps.cu, hypergrad.cu, tgv.cu,
+// tvl1.cu).
 //
 // Every kernel here runs one thread per pixel of a (batch, rows, cols)
 // stack in global memory; the stencils are the forward differences of
@@ -68,6 +69,16 @@ __device__ __forceinline__ T div_fwd_T(const T* qx, const T* qy, long long idx,
   T ay = (p.j >= 1) ? qy[idx - 1] : T(0);
   T by = (p.j < N - 1) ? qy[idx] : T(0);
   return (ax - bx) + (ay - by);
+}
+
+// Π onto the Euclidean ball of radius a, given the squared norm n2 of a
+// pixel's vector: the scale factor, in the plain version's form
+// (ops/field.py::proj_norm21_ball: n = √Σ, 1 if n ≤ a, else a/max(n, tiny)).
+template <typename T>
+__device__ __forceinline__ T ball_scale(T n2, T a) {
+  T nrm = sqrt(n2);
+  if (nrm <= a) return T(1);
+  return a / (nrm > tiny<T>() ? nrm : tiny<T>());
 }
 
 // Sum of v over the block (BPL_THREADS threads); the result is valid in

@@ -81,15 +81,6 @@ __device__ __forceinline__ T dminus_T_cols(const T* z, long long k, int j,
   return a - b;
 }
 
-// Π onto the ball of radius a: the scale factor, in the plain version's
-// form (proj_norm21_ball).
-template <typename T>
-__device__ __forceinline__ T ball_scale(T n2, T a) {
-  T nrm = sqrt(n2);
-  if (nrm <= a) return T(1);
-  return a / (nrm > tiny<T>() ? nrm : tiny<T>());
-}
-
 template <typename T>
 __global__ void tgv_primal(TGV<T> s) {
   long long idx = (long long)blockIdx.x * BPL_THREADS + threadIdx.x;

@@ -5,7 +5,8 @@ Ported so far: :func:`scalar_bilevel_tv_learn` with ``method="tr_fused"``
 (the shape of the JAX package's ``_run_fused``).  The host-driven ``tr``
 method, the single-loop method, the other families, saving PNGs, quality
 tables and plots, checkpointing and data parallelism are not ported yet and
-raise ``NotImplementedError``.
+raise ``NotImplementedError``, as does any ``backend`` but ``"auto"``
+(:func:`check_backend`: ``device=`` chooses what runs).
 
 Beyond the JAX surface, ``check_every`` (the inner solve's early-stop
 cadence) and ``hypergrad_cfg`` (a :class:`HypergradConfig`) are parameters,
@@ -26,7 +27,7 @@ from ..solvers.hypergrad import HypergradConfig
 from ..utils.config import Params, merge
 
 __all__ = ["scalar_bilevel_tv_learn", "LearnResult", "default_params",
-           "bilevel_params"]
+           "bilevel_params", "check_backend"]
 
 default_params = Params(
     verbose_iter=1,
@@ -50,7 +51,27 @@ bilevel_params = Params(
     eta1=0.25, eta2=0.75, beta1=0.25, beta2=1.9, delta0=0.1, alpha0=0.1)
 
 _UNPORTED_FLAGS = ("save_results", "save_iterations", "checkpoint", "resume",
-                   "data_parallel")
+                   "data_parallel", "log_every")
+
+
+def check_backend(backend) -> None:
+    """The port's rule for the JAX package's ``backend=`` knob, in every
+    family's entry points: ``"auto"`` (the JAX default) is accepted; any
+    other value raises, since ``device=`` chooses what runs (``"cuda"``:
+    the CUDA kernels, ``"cpu"``: their plain versions)."""
+    if backend != "auto":
+        raise NotImplementedError(
+            f"backend={backend!r} is not ported: the port has no backends; "
+            "device='cuda' runs the CUDA kernels and device='cpu' their "
+            "plain versions")
+
+
+def reject_unported(params) -> None:
+    """Raise for every set knob the port does not implement yet."""
+    for flag in _UNPORTED_FLAGS:
+        if params.get(flag):
+            raise NotImplementedError(f"{flag} is not ported yet")
+    check_backend(params.get("backend", "auto"))
 
 
 class LearnResult(NamedTuple):
@@ -73,9 +94,7 @@ def _load(params, device):
 
 
 def _run_fused(params, device):
-    for flag in _UNPORTED_FLAGS:
-        if params.get(flag):
-            raise NotImplementedError(f"{flag} is not ported yet")
+    reject_unported(params)
     ds = _load(params, device)
     res = bilevel_learn_fused(
         ds, xinit=params.alpha0, params=params, model=tv_model(),

@@ -7,7 +7,8 @@ second-order terms, or an (m, n, 2) stack of patch grids.  Ported so far:
 ``method="tr_fused"``, and :func:`TGVDenoise`.  As in the TV entry point,
 ``check_every``, ``inner_tol`` and ``tgv_gamma`` are parameters; the
 other methods, saving results, validation (it needs SSIM), cost sweeps,
-checkpointing and data parallelism raise ``NotImplementedError``.
+checkpointing, segmented dispatch (``log_every``) and data parallelism
+raise ``NotImplementedError``, as does any ``backend`` but ``"auto"``.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ from ..data import full_datasetname
 from ..ops import PatchOp
 from ..solvers.tgv import tgv_denoise_pdps
 from ..utils.config import Params, merge
-from .api import _UNPORTED_FLAGS, LearnResult, _load, default_params
+from .api import (LearnResult, _load, check_backend, default_params,
+                  reject_unported)
 
 __all__ = ["tgv_bilevel_params", "patch_tgv_bilevel_params",
            "scalar_bilevel_tgv_learn", "patch_bilevel_tgv_learn",
@@ -41,9 +43,12 @@ patch_tgv_bilevel_params = Params(
     alpha0=0.05 * np.ones((2, 2, 2)), sl_lr=0.02, check_every=500)
 
 
-def TGVDenoise(data, parameter, maxiter: int = 10000, device="cuda"):
+def TGVDenoise(data, parameter, maxiter: int = 10000, backend="auto",
+               device="cuda"):
     """Batched TGV² denoising at a fixed (α₁, α₀) pair or an (m, n, 2)
-    patch-grid stack of spatially-varying weights, on ``device``."""
+    patch-grid stack of spatially-varying weights, on ``device``
+    (``backend`` follows :func:`.api.check_backend`)."""
+    check_backend(backend)
     data = torch.as_tensor(data).to(device)
     p = np.asarray(parameter, np.float64)
     if p.ndim == 3 and p.shape[-1] == 2:   # patch grids → (M, N) maps
@@ -61,9 +66,7 @@ def TGVDenoise(data, parameter, maxiter: int = 10000, device="cuda"):
 
 
 def _run_tgv_fused(params, device):
-    for flag in _UNPORTED_FLAGS + ("log_every",):
-        if params.get(flag):
-            raise NotImplementedError(f"{flag} is not ported yet")
+    reject_unported(params)
     ds = _load(params, device)
     res = bilevel_learn_tgv_fused(
         ds, xinit=np.asarray(params.alpha0), params=params,

@@ -4,8 +4,11 @@
 a warm PDPS state ``(u, ys)``, adjoint states ``p``, a warm TGV² solver
 state ``(u, w, p, q)`` with w, p shaped (O, 2, M, N) and q (O, 3, M, N) in
 the plane order (rr, cc, rc), the TGV adjoint multiplier λ of shape
-(O, 3, M, N); any nesting of tuples and lists) into the port's tensors, so that both packages can be fed the
-same state.  It reads each leaf through ``numpy.asarray`` and never imports
+(O, 3, M, N), a warm TV-L1 solver state ``(u, y)`` with y (O, 2, M, N) or
+the Pallas kernels' ``(u, px, py)`` (the port's TV-L1 solvers take both and
+return ``(u, y)``), the TV-L1 adjoint p of shape (O, M, N); any nesting of
+tuples and lists) into the port's tensors, so that both packages can be fed
+the same state.  It reads each leaf through ``numpy.asarray`` and never imports
 JAX.
 """
 

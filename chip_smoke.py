@@ -38,6 +38,23 @@ Phases (one short line each):
 9. the patch TGV learn: ``patch_bilevel_tgv_learn`` on the same data with
    a (2, 2, 2) stack and the entry point's own β₂ = 1.5, counters reset
    just before and read just after.  Gates below.
+10. the TV-L1 kernel (``csrc/tvl1.cu``) in both forms against their plain
+    PyTorch versions on ``circle_sp_128_20`` (1 × 128² float32): the Huber
+    form at α 1.9, γ_d = 100, γ_r = 1000, a cold 2000-iteration call, a
+    cold call with early stop that returns its state and a warm call from
+    that state at a nudged weight, each with a scalar α and with the (M, N)
+    map of a 2×2 grid (a constant map must reproduce the scalar run bit for
+    bit); the plain form at α 0.9 for 10,000 iterations (``TVL1Denoise``'s
+    default) and at 64 × 128² for 2000 iterations; both forms in float64
+    at 2 × 32².
+11. the TV-L1 learn: ``scalar_bilevel_tvl1_learn(dataset_name="circle_sp",
+    method="tr_fused", device="cuda")`` with bench.py's TV-L1 settings,
+    once to warm up and once timed, counters reset just before and read
+    just after; then ``TVL1Denoise`` at α 0.9 with its default budget,
+    counters reset just before and read just after.  Gates below.
+12. the patch TV-L1 learn: ``patch_bilevel_tvl1_learn`` on the same data
+    from x₀ = 0.4·ones((2, 2)), counters reset just before and read just
+    after.  Gates below.
 
 It prints one JSON line of per-kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``.  Any failure raises (no phase is
@@ -101,6 +118,43 @@ TGV_PATCH_COST = 129.8615
 TGV_PATCH_A1 = ((0.09146, 0.09851), (0.07646, 0.08766))
 TGV_PATCH_A0 = ((0.04659, 0.04462), (0.04396, 0.04232))
 
+# TV-L1 references (scripts/jax_reference_tvl1.py: the JAX package on the
+# CPU, float32, jnp, the same settings).  The scalar learn: α, cost, mean
+# PSNR; it stops at maxiter 15, as does the patch learn, whose grid is
+# therefore reported against the reference and not gated.
+TVL1_ALPHA = 1.9234402
+TVL1_ALPHA_GATE_REL = 1e-3
+TVL1_ALPHA_BAND_REL = 1e-4  # reported separately
+TVL1_COST = 9.999229
+TVL1_COST_GATE_REL = 1e-3
+TVL1_PSNR = 29.13424
+TVL1_PSNR_GATE = 0.01       # dB
+TVL1_X0 = 0.4
+TVL1_X0_PATCH = ((0.4, 0.4), (0.4, 0.4))
+TVL1_PATCH_GRID = ((1.3173035, 1.0057976), (1.1466179, 0.7365557))
+TVL1_PATCH_COST = 12.546009
+TVL1_PATCH_COST_GATE_REL = 1e-2
+TVL1_PATCH_PSNR = 28.14884
+TVL1_PATCH_PSNR_GATE = 0.05  # dB
+# TVL1Denoise at bench.py's weight 0.9 and its default 10,000 iterations
+TVL1_DENOISE_ALPHA = 0.9
+TVL1_DENOISE_PSNR = 27.532341
+TVL1_DENOISE_PSNR_GATE = 0.05  # dB
+
+# float32, TV-L1 kernel (both forms): the kernel runs the plain version's
+# operations in its order and rounding (-fmad=false, the same projection
+# and prox constants), but neither problem has a strongly convex primal:
+# the L1 data term is not, and the Huber data term is so only on
+# |u − f| ≤ 1/γ_d.  So a rounding difference in u (the early-stop sums are
+# taken in another order, and a stop may land one check apart) need not
+# contract as in kernel A; the iteration is non-expansive, so it does not
+# grow either.  u (values in [0, 1]) is held to 1e-4 absolute and the dual y
+# (|y| ≤ α ≈ 1–2) to 1e-3 absolute; a fault in a stencil, the prox or the
+# projection moves them by 1e-2 or more.  Measured on an H100: 0.0, the
+# kernel and the plain version agree bit for bit.
+TOL_TVL1_U_F32 = 1e-4
+TOL_TVL1_Y_F32 = 1e-3
+
 # float32, TGV kernel: the kernel divides by √2 where the plain version's
 # CUDA division by a host scalar multiplies by its reciprocal, and sums the
 # early-stop norms in another order, so the iterations differ by rounding
@@ -121,6 +175,8 @@ B_OPS_PER_PIXEL_CG_ITER = 40
 B_OPS_PER_PIXEL_SOLVE = 36      # CG start: W·Gp, Mp, r, z, d, three sums
 B_OPS_PER_PIXEL_FIXED = 47      # set-up, diagonal, right-hand side, gradient
 TGV_OPS_PER_PIXEL_ITER = 70     # 29 primal + 41 dual (csrc/tgv.cu)
+TVL1_OPS_PER_PIXEL_ITER = 29    # plain form: 14 primal + 15 dual (csrc/tvl1.cu)
+TVL1_HUBER_OPS_PER_PIXEL_ITER = 36   # Huber form: 14 primal + 22 dual
 
 
 def say(msg):
@@ -501,16 +557,16 @@ def phase_large(f, timed):
 
 def reset_launches():
     from bpldenoising_tpu_torch.solvers import (hypergrad_cuda, pdps_cuda,
-                                                tgv_cuda)
-    for mod in (pdps_cuda, hypergrad_cuda, tgv_cuda):
+                                                tgv_cuda, tvl1_cuda)
+    for mod in (pdps_cuda, hypergrad_cuda, tgv_cuda, tvl1_cuda):
         mod.launches = 0
 
 
 def read_launches():
     from bpldenoising_tpu_torch.solvers import (hypergrad_cuda, pdps_cuda,
-                                                tgv_cuda)
+                                                tgv_cuda, tvl1_cuda)
     return dict(pdps=pdps_cuda.launches, hypergrad=hypergrad_cuda.launches,
-                tgv=tgv_cuda.launches)
+                tgv=tgv_cuda.launches, tvl1=tvl1_cuda.launches)
 
 
 def tgv_learn_kwargs():
@@ -589,6 +645,251 @@ def phase_tgv_patch_learn(utrue, timed):
     return dict(alpha=res.x.tolist(), mean_psnr_db=mean_psnr,
                 final_cost=cost, outer_iterations=res.iterations,
                 wall_ms=wall_ms, launches=launches)
+
+
+def tvl1_solve_pair(huber, f, a, state0, timed, **kw):
+    """The TV-L1 kernel and its plain version on the same inputs: each
+    ((u, y, iters), ms)."""
+    import torch
+    from bpldenoising_tpu_torch.solvers import tvl1_cuda
+    from bpldenoising_tpu_torch.solvers.tvl1 import _tvl1_loop, step_sizes
+    from bpldenoising_tpu_torch.solvers.tvl1_huber import _tvl1_huber_loop
+
+    tau, sigma = step_sizes(0.99, 0.99, f.dtype)
+    hub = dict(gamma_d=100.0, gamma_r=1000.0) if huber else {}
+
+    def kernel():
+        if huber:
+            u, (_, y) = tvl1_cuda.tvl1_huber_denoise_cuda(
+                f, a, state0=state0, return_dual=True, **hub, **kw)
+            return u, y, tvl1_cuda.last_iters
+        u, (_, y), it = tvl1_cuda.tvl1_denoise_cuda(
+            f, a, state0=state0, return_dual=True, **kw)
+        return u, y, it
+
+    loop = _tvl1_huber_loop if huber else _tvl1_loop
+    k_out, k_ms = timed(kernel)
+    p_out, p_ms = timed(lambda: loop(
+        f, torch.as_tensor(a, dtype=f.dtype), state0, tau=tau, sigma=sigma,
+        **hub, **kw))
+    return k_out, k_ms, p_out, p_ms
+
+
+def phase_tvl1(f, timed, *, maxiter=2000, tol=1e-6, check_every=100):
+    """The TV-L1 kernel against its plain versions (float32): the Huber
+    form at 1 × 128² (scalar and map α: cold fixed budget, cold with early
+    stop and state, warm from that state at a nudged weight; a constant map
+    against the scalar run), the plain form at 1 × 128² (10,000 its) and
+    64 × 128² (2000 its).  Everything is compared and printed before the
+    phase fails.  Returns the stats of both forms."""
+    import torch
+    from bpldenoising_tpu_torch.ops import PatchOp
+    from bpldenoising_tpu_torch.solvers import tvl1_cuda
+
+    dt, dev = f.dtype, f.device
+    pop = PatchOp((2, 2), tuple(f.shape[-2:]))
+    grid = torch.tensor(TVL1_PATCH_GRID, dtype=dt)
+    weights = {"scalar": (1.9, 1.05 * 1.9),
+               "map": (pop.apply(grid).to(dev),
+                       pop.apply(1.05 * grid).to(dev))}
+    faults = []
+    worst = {"huber": 0.0, "plain": 0.0}
+
+    def check(form, label, k_out, p_out, ce):
+        errs = (max_abs(k_out[0], p_out[0]), max_abs(k_out[1], p_out[1]))
+        worst[form] = max(worst[form], *errs)
+        if errs[0] > TOL_TVL1_U_F32 or errs[1] > TOL_TVL1_Y_F32:
+            faults.append(f"{label}: max|du| {errs[0]}, max|dy| {errs[1]}")
+        if abs(k_out[2] - p_out[2]) > ce:
+            faults.append(f"{label}: iterations {k_out[2]} vs {p_out[2]}")
+        return (f"iters {k_out[2]}/{p_out[2]}, max|du| {errs[0]:.2e}, "
+                f"max|dy| {errs[1]:.2e}")
+
+    tvl1_cuda.tvl1_huber_denoise_cuda(f, 1.9, maxiter=10)   # warm-up
+    out = {}
+    for kind, (a, a_warm) in weights.items():
+        k, k_ms, p, p_ms = tvl1_solve_pair(True, f, a, None, timed,
+                                           maxiter=maxiter, tol=None,
+                                           check_every=check_every)
+        msg = check("huber", f"huber {kind} cold", k, p, 0)
+        say(f"  Huber {kind} cold {maxiter} it: {msg}; kernel {k_ms:.2f} "
+            f"ms, plain {p_ms:.2f} ms")
+        out[kind] = dict(ms=k_ms, plain_ms=p_ms, iters=maxiter, u=k[0])
+        k, k_ms, p, p_ms = tvl1_solve_pair(True, f, a, None, timed,
+                                           maxiter=maxiter, tol=tol,
+                                           check_every=check_every)
+        msg = check("huber", f"huber {kind} early stop", k, p, check_every)
+        say(f"  Huber {kind} cold tol {tol:g}: {msg}; kernel {k_ms:.2f} ms, "
+            f"plain {p_ms:.2f} ms")
+        k, k_ms, p, p_ms = tvl1_solve_pair(True, f, a_warm, p[:2], timed,
+                                           maxiter=maxiter, tol=tol,
+                                           check_every=check_every)
+        msg = check("huber", f"huber {kind} warm", k, p, check_every)
+        say(f"  Huber {kind} warm tol {tol:g} at 1.05 alpha: {msg}; kernel "
+            f"{k_ms:.2f} ms, plain {p_ms:.2f} ms")
+    const = torch.full(tuple(f.shape[-2:]), 1.9, dtype=dt, device=dev)
+    cu = tvl1_cuda.tvl1_huber_denoise_cuda(f, const, maxiter=maxiter)
+    same = bool(torch.equal(cu, out["scalar"]["u"]))
+    say(f"  Huber constant map == scalar alpha: {same}")
+    if not same:
+        faults.append("a constant map differs from the scalar weight")
+    huber = dict(ms=out["scalar"]["ms"], plain_ms=out["scalar"]["plain_ms"],
+                 iters=maxiter)
+
+    plain = {}
+    for key, img, iters in (("single", f, 10000),
+                            ("batch64", f.repeat(64, 1, 1).contiguous(),
+                             2000)):
+        label = "x".join(str(d) for d in img.shape)
+        tvl1_cuda.tvl1_denoise_cuda(img, TVL1_DENOISE_ALPHA, maxiter=5)
+        k, k_ms, p, p_ms = tvl1_solve_pair(False, img, TVL1_DENOISE_ALPHA,
+                                           None, timed, maxiter=iters,
+                                           tol=None, check_every=500)
+        msg = check("plain", f"plain {label}", k, p, 0)
+        say(f"  plain TV-L1 {label}, alpha {TVL1_DENOISE_ALPHA}, {iters} it: "
+            f"{msg}; kernel {k_ms:.2f} ms, plain {p_ms:.2f} ms")
+        plain[key] = dict(ms=k_ms, plain_ms=p_ms, iters=iters,
+                          pixels=img.numel())
+    say(f"  TV-L1 tolerances: u {TOL_TVL1_U_F32:g}, y {TOL_TVL1_Y_F32:g} "
+        f"(absolute)")
+    require(not faults, "TV-L1 kernel disagrees with plain: "
+            + "; ".join(faults))
+    return (dict(huber, max_abs_err=worst["huber"]),
+            dict(plain, max_abs_err=worst["plain"]))
+
+
+def phase_tvl1_f64(torch, device):
+    """Both forms of the TV-L1 kernel in float64 at 2 × 32²: cold with early
+    stop (scalar α), cold fixed budget (map α), warm from the first
+    state."""
+    f64 = torch.float64
+    gen = torch.Generator().manual_seed(2)
+    yy, xx = torch.meshgrid(torch.arange(32, dtype=f64),
+                            torch.arange(32, dtype=f64), indexing="ij")
+    clean = torch.stack([0.2 + 0.6 * (((xx - 16) ** 2 + (yy - 16) ** 2)
+                                      < 110).to(f64),
+                         0.3 + 0.4 * (xx > 10).to(f64)])
+    hit = torch.rand(clean.shape, generator=gen, dtype=f64) < 0.2
+    salt = (torch.rand(clean.shape, generator=gen, dtype=f64) < 0.5).to(f64)
+    f = torch.where(hit, salt, clean).to(device)
+    amap = (0.5 + torch.rand((32, 32), generator=gen, dtype=f64)).to(device)
+    errs, its = [], []
+    for huber in (True, False):
+        first = None
+        for a, warm, kw in ((0.8, False, dict(maxiter=3000, tol=1e-5,
+                                               check_every=50)),
+                            (amap, False, dict(maxiter=1000, tol=None,
+                                               check_every=50)),
+                            (0.85, True, dict(maxiter=3000, tol=1e-5,
+                                              check_every=50))):
+            k, _, p, _ = tvl1_solve_pair(huber, f, a, first if warm else None,
+                                         lambda fn: (fn(), 0.0), **kw)
+            first = first or p[:2]
+            errs.append(max(rel_err(k[0], p[0]), rel_err(k[1], p[1])))
+            its.append((k[2], p[2]))
+    say(f"  TV-L1 float64 2x32x32 (Huber, then plain): rel err "
+        f"{['%.2e' % e for e in errs]}, iters {its} (tol {TOL_F64_REL:g})")
+    require(all(kit == pit for kit, pit in its),
+            f"float64 TV-L1: iterations {its}")
+    require(max(errs) <= TOL_F64_REL, f"float64 TV-L1 rel err {errs}")
+
+
+def tvl1_learn_kwargs():
+    return dict(dataset_name="circle_sp", method="tr_fused",
+                dtype="float32", maxiter=15, tol=1e-5, delta0=0.1,
+                inner_maxiter=2000, inner_tol=1e-6, check_every=100)
+
+
+def phase_tvl1_learn(utrue, noisy, timed):
+    """The scalar TV-L1 learn through its entry point, then TVL1Denoise,
+    each with the launch counters reset just before and read just after."""
+    import torch
+    from bpldenoising_tpu_torch.experiments.tvl1 import (
+        TVL1Denoise, scalar_bilevel_tvl1_learn)
+    from bpldenoising_tpu_torch.metrics import psnr
+
+    kw = dict(tvl1_learn_kwargs(), alpha0=TVL1_X0)
+    scalar_bilevel_tvl1_learn(device="cuda", **kw)          # warm-up
+    reset_launches()
+    res, wall_ms = timed(lambda: scalar_bilevel_tvl1_learn(device="cuda",
+                                                           **kw))
+    launches = read_launches()
+    alpha = float(res.x)
+    rel = abs(alpha - TVL1_ALPHA) / TVL1_ALPHA
+    mean_psnr = float(torch.mean(psnr(utrue, res.u)))
+    cost = float(res.cost)
+    cg = res.log[:, 4]
+    say(f"  alpha {alpha:.7f} rel {rel:.2e} (gate {TVL1_ALPHA_GATE_REL:g}, "
+        f"band {TVL1_ALPHA_BAND_REL:g}: "
+        f"{'in' if rel <= TVL1_ALPHA_BAND_REL else 'out'}); PSNR "
+        f"{mean_psnr:.5f} dB; cost {cost:.6f}; {res.iterations} outer its; "
+        f"adjoint CG {int(cg.sum())} its over the logged evaluations, "
+        f"unconverged (capped) in {int((res.log[:, 5] < 0.5).sum())} of "
+        f"{res.iterations}")
+    say(f"  wall {wall_ms:.1f} ms (CUDA events, after one warm-up run); "
+        f"launches {launches}")
+
+    TVL1Denoise(noisy, TVL1_DENOISE_ALPHA, maxiter=5, device="cuda")
+    reset_launches()
+    u, denoise_ms = timed(lambda: TVL1Denoise(noisy, TVL1_DENOISE_ALPHA,
+                                              device="cuda"))
+    denoise_launches = read_launches()
+    denoise_psnr = float(torch.mean(psnr(utrue, u)))
+    say(f"  TVL1Denoise(alpha {TVL1_DENOISE_ALPHA}, 10000 it): PSNR "
+        f"{denoise_psnr:.5f} dB (reference {TVL1_DENOISE_PSNR}); "
+        f"{denoise_ms:.1f} ms; launches {denoise_launches}")
+    require(launches["tvl1"] > 0, f"TV-L1 learn launched {launches}")
+    require(denoise_launches["tvl1"] > 0,
+            f"TVL1Denoise launched {denoise_launches}")
+    require(rel <= TVL1_ALPHA_GATE_REL, f"TV-L1 alpha {alpha}")
+    require(abs(cost - TVL1_COST) <= TVL1_COST_GATE_REL * TVL1_COST,
+            f"TV-L1 final cost {cost}")
+    require(abs(mean_psnr - TVL1_PSNR) <= TVL1_PSNR_GATE,
+            f"TV-L1 mean PSNR {mean_psnr}")
+    require(tuple(u.shape) == tuple(noisy.shape)
+            and bool(torch.isfinite(u).all()), "TVL1Denoise output")
+    require(abs(denoise_psnr - TVL1_DENOISE_PSNR) <= TVL1_DENOISE_PSNR_GATE,
+            f"TVL1Denoise PSNR {denoise_psnr}")
+    return dict(alpha=alpha, alpha_rel_err=rel, mean_psnr_db=mean_psnr,
+                final_cost=cost, outer_iterations=res.iterations,
+                adjoint_cg_iters=int(cg.sum()), wall_ms=wall_ms,
+                launches=launches, denoise=dict(
+                    alpha=TVL1_DENOISE_ALPHA, psnr_db=denoise_psnr,
+                    ms=denoise_ms, launches=denoise_launches))
+
+
+def phase_tvl1_patch_learn(utrue, timed):
+    import torch
+    from bpldenoising_tpu_torch.experiments.tvl1 import \
+        patch_bilevel_tvl1_learn
+    from bpldenoising_tpu_torch.metrics import psnr
+
+    kw = tvl1_learn_kwargs()
+    reset_launches()
+    res, wall_ms = timed(lambda: patch_bilevel_tvl1_learn(device="cuda",
+                                                          **kw))
+    launches = read_launches()
+    mean_psnr = float(torch.mean(psnr(utrue, res.u)))
+    cost = float(res.cost)
+    grid_rel = max(abs(float(v) - r) / r for v, r in zip(
+        res.x.reshape(-1), (x for row in TVL1_PATCH_GRID for x in row)))
+    say(f"  alpha grid {res.x.tolist()} (reference "
+        f"{[list(r) for r in TVL1_PATCH_GRID]}, max rel {grid_rel:.2e}, "
+        f"not gated)")
+    say(f"  PSNR {mean_psnr:.5f} dB; cost {cost:.6f}; {res.iterations} "
+        f"outer its; adjoint CG {int(res.log[:, 4].sum())} its; wall "
+        f"{wall_ms:.1f} ms; launches {launches}")
+    require(launches["tvl1"] > 0, f"patch TV-L1 learn launched {launches}")
+    require(abs(cost - TVL1_PATCH_COST)
+            <= TVL1_PATCH_COST_GATE_REL * TVL1_PATCH_COST,
+            f"patch TV-L1 final cost {cost}")
+    require(abs(mean_psnr - TVL1_PATCH_PSNR) <= TVL1_PATCH_PSNR_GATE,
+            f"patch TV-L1 mean PSNR {mean_psnr}")
+    return dict(alpha=res.x.tolist(), alpha_max_rel_err=grid_rel,
+                mean_psnr_db=mean_psnr, final_cost=cost,
+                outer_iterations=res.iterations,
+                adjoint_cg_iters=int(res.log[:, 4].sum()), wall_ms=wall_ms,
+                launches=launches)
 
 
 def flagship_kwargs():
@@ -686,6 +987,21 @@ def main():
     say("phase 9 patch TGV learn patch_bilevel_tgv_learn(method='tr_fused')")
     tgv_patch = phase_tgv_patch_learn(utrue, timed)
 
+    sp_true, sp_noisy = testdataset("circle_sp_128_20")
+    sp_utrue = torch.as_tensor(sp_true, dtype=torch.float32).to(dev)
+    sp_f = torch.as_tensor(sp_noisy, dtype=torch.float32).to(dev)
+    say("phase 10 TV-L1 kernel vs plain, circle_sp 1x128x128 float32")
+    tvl1h_stats, tvl1_stats = phase_tvl1(sp_f, timed)
+    phase_tvl1_f64(torch, dev)
+
+    say("phase 11 TV-L1 learn scalar_bilevel_tvl1_learn(method='tr_fused'), "
+        "then TVL1Denoise")
+    tvl1_learn = phase_tvl1_learn(sp_utrue, sp_f, timed)
+
+    say("phase 12 patch TV-L1 learn patch_bilevel_tvl1_learn("
+        "method='tr_fused')")
+    tvl1_patch = phase_tvl1_patch_learn(sp_utrue, timed)
+
     itemsize = 4
     a_bytes = 4 * n * itemsize                  # f in; u, y out
     a_ops = A_OPS_PER_PIXEL_ITER * n * a_stats["iters"]
@@ -699,6 +1015,21 @@ def main():
     t_bytes = 9 * n * itemsize
     t_ops = TGV_OPS_PER_PIXEL_ITER * n * tgv_stats["iters"]
     t_bound, t_by = bound_ms(t_bytes, t_ops)
+    # TV-L1 cold calls: f in; the state (u, y: 3 planes) out
+    sp_n = sp_f.numel()
+    h_bound, h_by = bound_ms(
+        4 * sp_n * itemsize,
+        TVL1_HUBER_OPS_PER_PIXEL_ITER * sp_n * tvl1h_stats["iters"])
+    one = tvl1_stats["single"]
+    l_bound, l_by = bound_ms(4 * one["pixels"] * itemsize,
+                             TVL1_OPS_PER_PIXEL_ITER * one["pixels"]
+                             * one["iters"])
+    big = tvl1_stats["batch64"]
+    big_bound, big_by = bound_ms(4 * big["pixels"] * itemsize,
+                                 TVL1_OPS_PER_PIXEL_ITER * big["pixels"]
+                                 * big["iters"])
+    large["tvl1_64x128"] = dict(ms=big["ms"], plain_ms=big["plain_ms"],
+                                bound_ms=big_bound, bound_by=big_by)
     kernels = [
         dict(name="pdps_cp_tv", route="cuda",
              source="bpldenoising_tpu_torch/csrc/pdps.cu",
@@ -719,13 +1050,29 @@ def main():
              max_abs_err=tgv_stats["max_abs_err"], ms=tgv_stats["ms"],
              plain_ms=tgv_stats["plain_ms"], bound_ms=t_bound, bound_by=t_by,
              library_ms=None),
+        dict(name="tvl1_huber_cp", route="cuda",
+             source="bpldenoising_tpu_torch/csrc/tvl1.cu",
+             replaces="bpldenoising_tpu/solvers/tvl1_huber_pallas.py:72",
+             launches=tvl1_learn["launches"]["tvl1"],
+             max_abs_err=tvl1h_stats["max_abs_err"], ms=tvl1h_stats["ms"],
+             plain_ms=tvl1h_stats["plain_ms"], bound_ms=h_bound,
+             bound_by=h_by, library_ms=None),
+        dict(name="tvl1_cp", route="cuda",
+             source="bpldenoising_tpu_torch/csrc/tvl1.cu",
+             replaces="bpldenoising_tpu/solvers/tvl1_pallas.py:62",
+             launches=tvl1_learn["denoise"]["launches"]["tvl1"],
+             max_abs_err=tvl1_stats["max_abs_err"], ms=one["ms"],
+             plain_ms=one["plain_ms"], bound_ms=l_bound, bound_by=l_by,
+             library_ms=None),
     ]
     say(f"  total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels, "flagship": dict(
         alpha=alpha, alpha_abs_err=d_alpha, mean_psnr_db=mean_psnr,
         final_cost=cost, outer_iterations=res.iterations,
         wall_ms=wall_ms, load_ms=load_ms), "tgv_learn": tgv_learn,
-        "tgv_patch_learn": tgv_patch, "large_images": large, "device": smi}))
+        "tgv_patch_learn": tgv_patch, "tvl1_learn": tvl1_learn,
+        "tvl1_patch_learn": tvl1_patch, "large_images": large,
+        "device": smi}))
     faulthandler.cancel_dump_traceback_later()
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

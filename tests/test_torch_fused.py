@@ -187,6 +187,35 @@ def test_entry_point_defaults_to_the_card():
                                 inner_maxiter=10)
 
 
+@pytest.mark.parametrize("knob", [dict(log_every=1), dict(backend="pallas"),
+                                  dict(backend="jnp")],
+                         ids=["log_every", "backend=pallas", "backend=jnp"])
+def test_entry_points_refuse_log_every_and_other_backends(knob):
+    """Segmented dispatch (log_every) is not ported, and the port has no
+    backends: every family's entry point raises for them instead of
+    running without a word (the JAX package runs segmented dispatch and
+    the Pallas kernels for the same call).  backend="auto", the JAX
+    default, is accepted; device= chooses what runs."""
+    from bpldenoising_tpu_torch import experiments as tx
+    kw = dict(dataset_name="circle", num_samples=1, method="tr_fused",
+              maxiter=2, inner_maxiter=20, device="cpu", **knob)
+    for learn in (scalar_bilevel_tv_learn, tx.scalar_bilevel_tgv_learn,
+                  tx.patch_bilevel_tgv_learn, tx.scalar_bilevel_tvl1_learn,
+                  tx.patch_bilevel_tvl1_learn):
+        with pytest.raises(NotImplementedError,
+                           match="device=" if "backend" in knob else
+                           "log_every"):
+            learn(**kw)
+    if "backend" in knob:
+        for denoise, a in ((tx.TGVDenoise, (0.1, 0.2)),
+                           (tx.TVL1Denoise, 0.9)):
+            with pytest.raises(NotImplementedError, match="device="):
+                denoise(np.zeros((8, 8)), a, maxiter=5, device="cpu", **knob)
+    res = scalar_bilevel_tv_learn(**dict(kw, log_every=None,
+                                         backend="auto"))
+    assert res.iterations == 2
+
+
 def test_params_merge_is_right_biased():
     p = merge(Params(a=1, b=2), dict(b=3), c=4)
     assert (p.a, p.b, p.c) == (1, 3, 4)

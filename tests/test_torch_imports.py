@@ -14,7 +14,8 @@ PORT = ROOT / "bpldenoising_tpu_torch"
 SOURCES = (sorted(PORT.rglob("*.py"))
            + [ROOT / "chip_smoke.py",
               ROOT / "scripts" / "torch_profile_flagship.py",
-              ROOT / "scripts" / "torch_profile_tgv.py"])
+              ROOT / "scripts" / "torch_profile_tgv.py",
+              ROOT / "scripts" / "torch_profile_tvl1.py"])
 FORBIDDEN = ("jax", "jaxlib", "bpldenoising_tpu")
 
 
@@ -67,11 +68,13 @@ def test_build_key_tracks_sources():
 
 SLICE_MODULES = ("ops/tgv.py", "ops/patch.py", "solvers/tgv.py",
                  "solvers/tgv_cuda.py", "bilevel/fused_tgv.py",
-                 "experiments/tgv.py")
+                 "experiments/tgv.py", "solvers/tvl1.py",
+                 "solvers/tvl1_huber.py", "solvers/tvl1_cuda.py",
+                 "bilevel/fused_tvl1.py", "experiments/tvl1.py")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)
 def test_tgv_slice_modules_are_checked(module):
-    """The TGV slice's modules exist and are among the sources checked
-    above (so they import no JAX)."""
+    """The TGV and TV-L1 slices' modules exist and are among the sources
+    checked above (so they import no JAX)."""
     assert PORT / module in SOURCES
