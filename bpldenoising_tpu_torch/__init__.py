@@ -17,7 +17,11 @@ and the TGV² trust-region learn,
 with :func:`experiments.tgv.TGVDenoise`, and the TV-L1 trust-region learn on
 the Huber-smoothed surrogate, :func:`experiments.tvl1.scalar_bilevel_tvl1_learn`
 and :func:`experiments.tvl1.patch_bilevel_tvl1_learn` with
-``method="tr_fused"``, with :func:`experiments.tvl1.TVL1Denoise`.
+``method="tr_fused"``, with :func:`experiments.tvl1.TVL1Denoise`, and the
+color VTV trust-region learn, :func:`experiments.vtv.scalar_bilevel_vtv_learn`
+and :func:`experiments.vtv.patch_bilevel_vtv_learn` with
+``method="tr_fused"``, with :func:`experiments.vtv.VTVDenoise`.  The learns
+return the JAX package's :class:`bilevel.harness.BilevelResult`.
 """
 
 from .experiments.api import scalar_bilevel_tv_learn
@@ -25,9 +29,15 @@ from .experiments.tgv import (TGVDenoise, patch_bilevel_tgv_learn,
                               scalar_bilevel_tgv_learn)
 from .experiments.tvl1 import (TVL1Denoise, patch_bilevel_tvl1_learn,
                                scalar_bilevel_tvl1_learn)
-from .solvers import tvl1_denoise, tvl1_energy, tvl1_huber_denoise
+from .experiments.vtv import (VTVDenoise, patch_bilevel_vtv_learn,
+                              scalar_bilevel_vtv_learn)
+from .models import tv_model, vtv_model
+from .solvers import (denoise_pdps, tv_denoise, tvl1_denoise, tvl1_energy,
+                      tvl1_huber_denoise, vtv_denoise)
 
 __all__ = ["scalar_bilevel_tv_learn", "scalar_bilevel_tgv_learn",
            "patch_bilevel_tgv_learn", "TGVDenoise", "scalar_bilevel_tvl1_learn",
            "patch_bilevel_tvl1_learn", "TVL1Denoise", "tvl1_denoise",
-           "tvl1_energy", "tvl1_huber_denoise"]
+           "tvl1_energy", "tvl1_huber_denoise", "scalar_bilevel_vtv_learn",
+           "patch_bilevel_vtv_learn", "VTVDenoise", "vtv_denoise",
+           "tv_denoise", "denoise_pdps", "tv_model", "vtv_model"]

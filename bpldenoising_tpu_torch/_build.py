@@ -22,7 +22,7 @@ from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("pdps.cu", "hypergrad.cu", "tgv.cu", "tvl1.cu")
+SOURCES = ("pdps.cu", "hypergrad.cu", "tgv.cu", "tvl1.cu", "vtv.cu")
 HEADERS = ("common.cuh",)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # -fmad=false: no fused multiply-adds, so each operation rounds like the
@@ -120,6 +120,11 @@ def _declare(lib):
         fn = getattr(lib, f"bpl_tvl1_solve_{suffix}")
         fn.argtypes = [_P] * 8 + [real, _LL, _I, _I, real, real, _I, real,
                                   real, real, _I, _I, real, _I,
+                                  ctypes.POINTER(_I), _P]
+        fn.restype = _I
+        fn = getattr(lib, f"bpl_vtv_solve_{suffix}")
+        fn.argtypes = [_P] * 7 + [real, _LL, _I, _I, _I, real, real,
+                                  ctypes.c_double, _I, _I, _I, real, _I,
                                   ctypes.POINTER(_I), _P]
         fn.restype = _I
     lib.bpl_error_string.argtypes = [_I]

@@ -1,5 +1,5 @@
 // Shared helpers of the port's CUDA kernels (pdps.cu, hypergrad.cu, tgv.cu,
-// tvl1.cu).
+// tvl1.cu, vtv.cu).
 //
 // Every kernel here runs one thread per pixel of a (batch, rows, cols)
 // stack in global memory; the stencils are the forward differences of
@@ -15,6 +15,7 @@
 
 #include <cfloat>
 #include <cmath>
+#include <vector>
 
 #define BPL_THREADS 256
 #define BPL_LAUNCH(kernel, grid, block, stream) \
@@ -114,8 +115,113 @@ __global__ void sum_partials(const T* __restrict__ partials, int nblocks,
   }
 }
 
+// The primal step of the accelerated CP iteration (kernels A and VTV), one
+// thread per pixel of a (batch, M, N) stack whose dual y is (batch, 2, M, N):
+//   u⁺ = (u − τ(Gᵀy − f))/(1+τ);  ū = (1+ω)u⁺ − ωu.
+template <typename T>
+__global__ void pd_primal(const T* __restrict__ f, T* __restrict__ u,
+                          T* __restrict__ ubar, const T* __restrict__ y,
+                          long long n, int M, int N, T tau, T omega) {
+  long long idx = (long long)blockIdx.x * BPL_THREADS + threadIdx.x;
+  if (idx >= n) return;
+  Pix p = pix_of(idx, M, N);
+  const long long MN = (long long)M * N;
+  const long long in_img = idx - p.b * MN;
+  const T* qx = y + p.b * 2 * MN;
+  const T* qy = qx + MN;
+  T div = div_fwd_T(qx, qy, in_img, p, M, N);
+  T uo = u[idx];
+  T un = (uo - tau * (div - f[idx])) / (T(1) + tau);
+  u[idx] = un;
+  ubar[idx] = (T(1) + omega) * un - omega * uo;
+}
+
+// ratio[b] = ‖u_b − uprev_b‖ / max(‖u_b‖, 1e-12); one block per image.
+template <typename T>
+__global__ void pd_change(const T* __restrict__ u, const T* __restrict__ uprev,
+                          T* __restrict__ ratio, long long MN) {
+  __shared__ T sh[BPL_THREADS];
+  const long long base = (long long)blockIdx.x * MN;
+  T num = T(0), den = T(0);
+  for (long long k = threadIdx.x; k < MN; k += BPL_THREADS) {
+    T a = u[base + k];
+    T d = a - uprev[base + k];
+    num += d * d;
+    den += a * a;
+  }
+  T snum = block_sum(num, sh);
+  T sden = block_sum(den, sh);
+  if (threadIdx.x == 0) {
+    T nd = sqrt(sden);
+    ratio[blockIdx.x] = sqrt(snum) / (nd < T(1e-12) ? T(1e-12) : nd);
+  }
+}
+
 inline int blocks_for(long long n) {
   return (int)((n + BPL_THREADS - 1) / BPL_THREADS);
+}
+
+// The host loop of the accelerated CP iteration (kernels A and VTV) on a
+// stack of `planes` (M, N) planes whose dual y is (planes, 2, M, N).  Per
+// iteration: ω = 1/√(1+2γτ), the primal launch, τ ← τω, σ ← σ/ω, then
+// dual(σ) launches the model's dual step.  τ, σ, ω are formed here in the
+// working dtype, in the order of the plain version.  With use_tol, every
+// `check_every` iterations the max over the planes of
+// ‖u − uprev‖/max(‖u‖, 1e-12) (one host read of the per-plane ratios) is
+// compared with tol; a NaN ratio propagates and stops.  Returns a
+// cudaError_t; *iters_out is the number of iterations run.
+template <typename T, typename Dual>
+int pd_iterate(const T* f, T* u, T* y, T* ubar, T* uprev, T* ratio,
+               long long planes, int M, int N, T tau, T sigma, double gamma,
+               int accel, int maxiter, int use_tol, T tol, int check_every,
+               int* iters_out, cudaStream_t s, Dual dual) {
+  const long long n = planes * M * N;
+  const int grid = blocks_for(n);
+  const T two_gamma = T(2.0 * gamma);
+  cudaError_t err;
+
+  auto step = [&]() -> cudaError_t {
+    T omega = T(1);
+    if (accel) omega = T(1) / std::sqrt(T(1) + two_gamma * tau);
+    BPL_LAUNCH(pd_primal<T>, grid, BPL_THREADS, s)(f, u, ubar, y, n, M, N,
+                                                   tau, omega);
+    if (accel) {
+      tau = tau * omega;
+      sigma = sigma / omega;
+    }
+    dual(sigma);
+    return cudaGetLastError();
+  };
+
+  int it = 0;
+  if (!use_tol) {
+    for (; it < maxiter; ++it)
+      if ((err = step()) != cudaSuccess) return (int)err;
+  } else {
+    std::vector<T> h((size_t)planes);
+    T delta = (T)INFINITY;
+    const size_t bytes = (size_t)n * sizeof(T);
+    while (it < maxiter && delta > tol) {
+      err = cudaMemcpyAsync(uprev, u, bytes, cudaMemcpyDeviceToDevice, s);
+      if (err != cudaSuccess) return (int)err;
+      const int chunk = check_every < maxiter - it ? check_every : maxiter - it;
+      for (int k = 0; k < chunk; ++k)
+        if ((err = step()) != cudaSuccess) return (int)err;
+      BPL_LAUNCH(pd_change<T>, (int)planes, BPL_THREADS, s)(u, uprev, ratio,
+                                                            (long long)M * N);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+      err = cudaMemcpyAsync(h.data(), ratio, (size_t)planes * sizeof(T),
+                            cudaMemcpyDeviceToHost, s);
+      if (err != cudaSuccess) return (int)err;
+      if ((err = cudaStreamSynchronize(s)) != cudaSuccess) return (int)err;
+      delta = h[0];   // max over planes; NaN propagates (and stops)
+      for (long long b = 1; b < planes; ++b)
+        if (std::isnan(h[b]) || h[b] > delta) delta = h[b];
+      it += chunk;
+    }
+  }
+  *iters_out = it;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace bpl

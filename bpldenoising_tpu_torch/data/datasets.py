@@ -5,7 +5,7 @@
 prefix and Jaro–Winkler fuzzy name resolution.  ``datasets/`` resolves in
 the repository checkout that holds this package (or ``$BPL_DATASETS``, or
 the working directory).  Arrays are batch-first ``(O, M, N)`` float64 in
-[0, 1].  Only grayscale loading is ported.
+[0, 1], or planar ``(O, 3, M, N)`` with ``color=True``.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import warnings
 
 import numpy as np
 
-from .png_io import read_png_gray
+from .png_io import read_png_color, read_png_gray
 
 __all__ = ["testdataset", "load_dataset", "full_datasetname",
            "remotedatasets", "dataset_dir"]
@@ -112,16 +112,16 @@ def full_datasetname(name: str) -> str:
 
 def load_dataset(path: str, color: bool = False):
     """Load (true, noisy) float64 stacks (O, M, N) from a dataset directory
-    with a filelist.txt."""
-    if color:
-        raise NotImplementedError("color datasets are not ported yet")
+    with a filelist.txt, or planar (O, 3, M, N) with ``color=True``
+    (grayscale sources replicate their channel)."""
+    read = read_png_color if color else read_png_gray
     filelist = os.path.join(path, "filelist.txt")
     with open(filelist) as fh:
         pairs = [line.strip().split(",") for line in fh if line.strip()]
     true_images, data_images = [], []
     for true_name, data_name in pairs:
-        true_images.append(read_png_gray(os.path.join(path, true_name)))
-        data_images.append(read_png_gray(os.path.join(path, data_name)))
+        true_images.append(read(os.path.join(path, true_name)))
+        data_images.append(read(os.path.join(path, data_name)))
     return np.stack(true_images), np.stack(data_images)
 
 

@@ -1,10 +1,11 @@
-"""Grayscale PNG reading with the standard library's ``zlib`` and numpy
+"""PNG reading with the standard library's ``zlib`` and numpy
 (counterpart of the read side of ``bpldenoising_tpu.data.png_io``).
 
-Reads grayscale, non-interlaced PNGs of bit depth 1, 2, 4, 8 or 16 (the
-bundled datasets) with all five scanline filter types.  A sample v of
-depth d scales to float64 in [0, 1] as ``v * (1.0 / (2**d - 1))``, as the
-JAX package's native codec does.
+Reads non-interlaced PNGs with all five scanline filter types: grayscale
+of bit depth 1, 2, 4, 8 or 16 and RGB of depth 8 or 16 (the bundled
+datasets are 8-bit grayscale and 8-bit RGB).  A sample v
+of depth d scales to float64 in [0, 1] as ``v * (1.0 / (2**d - 1))``, as
+the JAX package's native codec does.
 """
 
 from __future__ import annotations
@@ -14,9 +15,11 @@ import zlib
 
 import numpy as np
 
-__all__ = ["read_png_gray"]
+__all__ = ["read_png_gray", "read_png_color"]
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# channels per pixel of each color type read: gray, RGB
+_CHANNELS = {0: 1, 2: 3}
 
 
 def _chunks(data: bytes):
@@ -77,8 +80,9 @@ def _unfilter(raw: bytes, height: int, row_bytes: int,
     return np.frombuffer(bytes(out), np.uint8).reshape(height, row_bytes)
 
 
-def read_png_gray(path: str) -> np.ndarray:
-    """Read a grayscale PNG as a float64 array in [0, 1]."""
+def _decode(path: str, gray_only: bool):
+    """→ (samples, color type, depth), the samples as int64 (rows, cols,
+    channels); ``gray_only`` refuses every color type but 0."""
     with open(path, "rb") as fh:
         data = fh.read()
     if not data.startswith(_SIGNATURE):
@@ -93,16 +97,23 @@ def read_png_gray(path: str) -> np.ndarray:
     if header is None:
         raise ValueError(f"{path}: no IHDR chunk")
     width, height, depth, color, _, _, interlace = header
-    if depth not in (1, 2, 4, 8, 16) or color != 0 or interlace != 0:
+    if gray_only and color != 0:
         raise NotImplementedError(
-            f"{path}: only grayscale non-interlaced PNGs are read "
-            f"(bit depth {depth}, color type {color}, interlace {interlace})")
-    row_bytes = (width * depth + 7) // 8
+            f"{path}: read_png_gray reads grayscale PNGs only (color type "
+            f"{color}); read_png_color reads color")
+    depths = (1, 2, 4, 8, 16) if color == 0 else (8, 16)
+    if color not in _CHANNELS or depth not in depths or interlace != 0:
+        raise NotImplementedError(
+            f"{path}: only non-interlaced grayscale and RGB PNGs are read "
+            f"(bit depth {depth}, color type {color}, interlace "
+            f"{interlace})")
+    channels = _CHANNELS[color]
+    row_bytes = (width * channels * depth + 7) // 8
     raw = zlib.decompress(b"".join(idat))
     if len(raw) != height * (row_bytes + 1):
         raise ValueError(f"{path}: image data has the wrong length")
-    data = _unfilter(raw, height, row_bytes, max(1, depth // 8)).astype(
-        np.int64)
+    data = _unfilter(raw, height, row_bytes,
+                     max(1, channels * depth // 8)).astype(np.int64)
     if depth == 16:
         samples = data[:, 0::2] * 256 + data[:, 1::2]
     elif depth == 8:
@@ -112,4 +123,20 @@ def read_png_gray(path: str) -> np.ndarray:
         shifts = 8 - depth * (1 + np.arange(per_byte))
         bits = (data[:, :, None] >> shifts) & ((1 << depth) - 1)
         samples = bits.reshape(height, -1)[:, :width]
-    return samples.astype(np.float64) * (1.0 / ((1 << depth) - 1))
+    return samples.reshape(height, width, channels), color, depth
+
+
+def read_png_gray(path: str) -> np.ndarray:
+    """Read a grayscale PNG as a float64 array in [0, 1]."""
+    samples, _, depth = _decode(path, gray_only=True)
+    return samples[:, :, 0].astype(np.float64) * (1.0 / ((1 << depth) - 1))
+
+
+def read_png_color(path: str) -> np.ndarray:
+    """Read an RGB PNG as a planar (3, rows, cols) float64 array in
+    [0, 1]; a grayscale source replicates its channel."""
+    samples, _, depth = _decode(path, gray_only=False)
+    planes = np.moveaxis(samples.astype(np.float64)
+                         * (1.0 / ((1 << depth) - 1)), -1, 0)
+    return np.ascontiguousarray(np.broadcast_to(planes,
+                                                (3,) + planes.shape[1:]))

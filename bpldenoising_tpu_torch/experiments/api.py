@@ -15,19 +15,18 @@ so a caller can run the flagship's settings through this entry point.
 
 from __future__ import annotations
 
-from typing import NamedTuple
-
-import numpy as np
 import torch
 
 from ..bilevel.fused import bilevel_learn_fused
+from ..bilevel.harness import BilevelResult, BilevelState
 from ..data import full_datasetname, testdataset
 from ..models import tv_model
 from ..solvers.hypergrad import HypergradConfig
 from ..utils.config import Params, merge
+from ..viz.log import BilevelLogEntry
 
-__all__ = ["scalar_bilevel_tv_learn", "LearnResult", "default_params",
-           "bilevel_params", "check_backend"]
+__all__ = ["scalar_bilevel_tv_learn", "default_params", "bilevel_params",
+           "check_backend"]
 
 default_params = Params(
     verbose_iter=1,
@@ -74,23 +73,31 @@ def reject_unported(params) -> None:
     check_backend(params.get("backend", "auto"))
 
 
-class LearnResult(NamedTuple):
-    x: np.ndarray           # learned parameter
-    u: torch.Tensor         # reconstruction stack at x (on the device)
-    cost: float
-    g_norm: float
-    iterations: int
-    log: np.ndarray         # (iterations, 6): cost, ‖g‖, Δ, ‖step‖,
-                            #                  adjoint-CG iters, converged
-
-
 def _load(params, device):
-    """Dataset → (O, M, N) tensors on ``device`` in the params dtype."""
-    true_, data = testdataset(params.dataset_name)
+    """Dataset → (O, M, N) tensors on ``device`` in the params dtype;
+    ``color=True`` in params loads planar (O, 3, M, N) stacks."""
+    true_, data = testdataset(params.dataset_name,
+                              color=bool(params.get("color")))
     n = int(params.num_samples)
     dt = getattr(torch, str(params.get("dtype", "float64")))
     return (torch.as_tensor(true_[:n], dtype=dt).to(device),
             torch.as_tensor(data[:n], dtype=dt).to(device))
+
+
+def _fused_to_result(res) -> BilevelResult:
+    """FusedResult (log matrix) → host BilevelResult whose
+    ``state.log`` holds one BilevelLogEntry per outer iteration, as the JAX
+    package's ``_fused_to_result`` builds it.  Every ``time`` is 0.0:
+    segmented dispatch, which times the iterations, is not ported."""
+    st = BilevelState()
+    k = int(res.iterations)
+    for i, row in enumerate(res.log[:k].tolist()):
+        st.log.append(BilevelLogEntry(
+            i + 1, 0.0, *row[:4], adjoint_cg_iters=row[4],
+            adjoint_cg_converged=row[5]))
+    return BilevelResult(x=res.x.numpy(), u=res.u.cpu().numpy(),
+                         state=st, cost=float(res.cost),
+                         g_norm=float(res.g_norm), iterations=k)
 
 
 def _run_fused(params, device):
@@ -102,14 +109,11 @@ def _run_fused(params, device):
         inner_tol=params.get("inner_tol"),
         check_every=int(params.check_every), delta_t=1e-6,
         cfg=params.hypergrad_cfg, device=device)
-    k = int(res.iterations)
-    return LearnResult(x=res.x.numpy(), u=res.u, cost=float(res.cost),
-                       g_norm=float(res.g_norm), iterations=k,
-                       log=res.log[:k].numpy())
+    return _fused_to_result(res)
 
 
 def scalar_bilevel_tv_learn(visualise: bool = False, device="cuda",
-                            **kwargs) -> LearnResult:
+                            **kwargs) -> BilevelResult:
     """Learn one scalar TV weight on a dataset with the trust region.
 
     Only ``method="tr_fused"`` is ported.  ``device="cuda"`` runs the CUDA

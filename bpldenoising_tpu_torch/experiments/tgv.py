@@ -21,7 +21,8 @@ from ..data import full_datasetname
 from ..ops import PatchOp
 from ..solvers.tgv import tgv_denoise_pdps
 from ..utils.config import Params, merge
-from .api import (LearnResult, _load, check_backend, default_params,
+from ..bilevel.harness import BilevelResult
+from .api import (_fused_to_result, _load, check_backend, default_params,
                   reject_unported)
 
 __all__ = ["tgv_bilevel_params", "patch_tgv_bilevel_params",
@@ -76,10 +77,7 @@ def _run_tgv_fused(params, device):
         gamma=(1e-4 if params.get("tgv_gamma") is None
                else float(params.tgv_gamma)),
         device=device)
-    k = int(res.iterations)
-    return LearnResult(x=res.x.numpy(), u=res.u, cost=float(res.cost),
-                       g_norm=float(res.g_norm), iterations=k,
-                       log=res.log[:k].numpy())
+    return _fused_to_result(res)
 
 
 def _learn(family_params, visualise, device, kwargs):
@@ -95,7 +93,7 @@ def _learn(family_params, visualise, device, kwargs):
 
 
 def scalar_bilevel_tgv_learn(visualise: bool = False, device="cuda",
-                             **kwargs) -> LearnResult:
+                             **kwargs) -> BilevelResult:
     """Learn (α₁, α₀) by the trust region.  Only ``method="tr_fused"`` is
     ported.  ``device="cuda"`` runs the CUDA kernel; ``device="cpu"`` runs
     its plain version."""
@@ -103,7 +101,7 @@ def scalar_bilevel_tgv_learn(visualise: bool = False, device="cuda",
 
 
 def patch_bilevel_tgv_learn(visualise: bool = False, device="cuda",
-                            **kwargs) -> LearnResult:
+                            **kwargs) -> BilevelResult:
     """Learn spatially-varying (α₁, α₀) patch grids (an (m, n, 2) stack)
     by the trust region.  Only ``method="tr_fused"`` is ported."""
     return _learn(patch_tgv_bilevel_params, visualise, device, kwargs)

@@ -24,7 +24,8 @@ from ..data import full_datasetname
 from ..ops import PatchOp
 from ..solvers.tvl1 import tvl1_denoise
 from ..utils.config import Params, merge
-from .api import (LearnResult, _load, check_backend, default_params,
+from ..bilevel.harness import BilevelResult
+from .api import (_fused_to_result, _load, check_backend, default_params,
                   reject_unported)
 
 __all__ = ["TVL1Denoise", "tvl1_params", "scalar_bilevel_tvl1_learn",
@@ -101,10 +102,7 @@ def _run_tvl1_fused(params, device):
         check_every=int(params.check_every),
         gamma_d=float(params.tvl1_gamma_d), gamma=float(params.tvl1_gamma),
         device=device, **_cg_kwargs(params))
-    k = int(res.iterations)
-    return LearnResult(x=res.x.numpy(), u=res.u, cost=float(res.cost),
-                       g_norm=float(res.g_norm), iterations=k,
-                       log=res.log[:k].numpy())
+    return _fused_to_result(res)
 
 
 def _learn(family_params, visualise, device, kwargs):
@@ -117,7 +115,7 @@ def _learn(family_params, visualise, device, kwargs):
 
 
 def scalar_bilevel_tvl1_learn(visualise: bool = False, device="cuda",
-                              **kwargs) -> LearnResult:
+                              **kwargs) -> BilevelResult:
     """Learn the scalar TV-L1 weight by the trust region on the
     Huber-smoothed surrogate.  Only ``method="tr_fused"`` is ported.
     ``device="cuda"`` runs the CUDA kernel; ``device="cpu"`` runs its
@@ -126,7 +124,7 @@ def scalar_bilevel_tvl1_learn(visualise: bool = False, device="cuda",
 
 
 def patch_bilevel_tvl1_learn(visualise: bool = False, device="cuda",
-                             **kwargs) -> LearnResult:
+                             **kwargs) -> BilevelResult:
     """Learn a spatially-varying (m, n) TV-L1 weight grid by the trust
     region.  Only ``method="tr_fused"`` is ported."""
     return _learn(patch_tvl1_bilevel_params, visualise, device, kwargs)

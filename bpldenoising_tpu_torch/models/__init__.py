@@ -14,4 +14,11 @@ def sumregs_model() -> DenoiseModel:
         name="sumregs")
 
 
-__all__ = ["DenoiseModel", "tv_model", "sumregs_model"]
+def vtv_model() -> DenoiseModel:
+    """Vectorial (color) TV: the per-pixel Frobenius norm over the stacked
+    channel gradients ‖(∇u)_pix‖_F, so channels couple through the dual
+    projection; the same forward-difference gradient as ``tv_model``."""
+    return DenoiseModel(ops=(FwdGradientOp(),), channels=True, name="vtv")
+
+
+__all__ = ["DenoiseModel", "tv_model", "sumregs_model", "vtv_model"]

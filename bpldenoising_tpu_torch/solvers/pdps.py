@@ -12,9 +12,11 @@ with the strongly-convex-accelerated iteration (γ = 1):
     ū    = (1 + ω) u⁺ − ω u
     yₖ⁺  = Π_{|·|₂ ≤ αₖ}(yₖ + σ Gₖ ū)
 
-This module is the plain version of the CUDA kernel in
-:mod:`.pdps_cuda`, which dispatches here for tensors on the CPU;
-:func:`denoise_pdps` and :func:`tv_denoise` go through that dispatch.  The
+This module is the plain version of the CUDA kernels in :mod:`.pdps_cuda`
+(TV) and :mod:`.vtv_cuda` (vectorial TV on ``vtv_model()``, whose dual
+ball couples the channels of a pixel), which dispatch here for tensors on
+the CPU; :func:`denoise_pdps`, :func:`tv_denoise` and :func:`vtv_denoise`
+go through that dispatch.  The
 optional early stop runs chunks of ``check_every`` iterations and stops once
 the MAX over images of the per-image relative change ‖Δu‖/‖u‖ is ≤ ``tol``:
 one host read per chunk.
@@ -26,10 +28,10 @@ import math
 
 import torch
 
-from ..models import DenoiseModel, tv_model
-from ..ops import proj_norm21_ball
+from ..models import DenoiseModel, tv_model, vtv_model
+from ..ops import FwdGradientOp, proj_norm21_ball
 
-__all__ = ["denoise_pdps", "tv_denoise", "PDPS_DEFAULTS"]
+__all__ = ["denoise_pdps", "tv_denoise", "vtv_denoise", "PDPS_DEFAULTS"]
 
 PDPS_DEFAULTS = dict(tau0=5.0, sigma0=0.99 / 5.0, accel=True, gamma=1.0,
                      maxiter=5000)
@@ -116,12 +118,20 @@ def denoise_pdps(f, alphas, model: DenoiseModel, *, tau0=5.0,
                  sigma0=0.99 / 5.0, gamma=1.0, maxiter=5000, accel=True,
                  tol=None, check_every=500, state0=None, return_dual=False):
     """Solve the K-block denoising problem for an image or batch ``f``
-    where it lives: the plain PyTorch iteration for CPU tensors, kernel A
-    for CUDA tensors (which raises for what the kernel does not take)."""
+    where it lives: the plain PyTorch iteration for CPU tensors; for CUDA
+    tensors the VTV kernel on the vectorial-TV model and kernel A on any
+    other (each raises for what it does not take)."""
     from .pdps_cuda import denoise_pdps_cuda
+    from .vtv_cuda import vtv_denoise_pdps_cuda
     f = torch.as_tensor(f)
     alphas = tuple(torch.as_tensor(a, dtype=f.dtype)
                    for a in model.canonical_alphas(alphas))
+    if model.channels and model.K == 1 \
+            and type(model.ops[0]) is FwdGradientOp:
+        return vtv_denoise_pdps_cuda(
+            f, alphas, state0, tau0=tau0, sigma0=sigma0, gamma=gamma,
+            maxiter=int(maxiter), accel=bool(accel), tol=tol,
+            check_every=int(check_every), return_dual=bool(return_dual))
     return denoise_pdps_cuda(
         f, alphas, state0, model=model, tau0=tau0, sigma0=sigma0, gamma=gamma,
         maxiter=int(maxiter), accel=bool(accel), tol=tol,
@@ -134,3 +144,13 @@ _TV = tv_model()
 def tv_denoise(f, alpha, **kwargs):
     """TV denoising; ``alpha`` is a scalar or a full-image ``(M, N)`` map."""
     return denoise_pdps(f, alpha, _TV, **kwargs)
+
+
+_VTV = vtv_model()
+
+
+def vtv_denoise(f, alpha, **kwargs):
+    """Vectorial (color) TV denoising of an ``(..., C, M, N)`` stack, the
+    channels coupled through the per-pixel Frobenius dual ball; ``alpha``
+    is a scalar or an (M, N) map."""
+    return denoise_pdps(f, alpha, _VTV, **kwargs)

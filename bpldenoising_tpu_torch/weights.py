@@ -6,8 +6,12 @@ state ``(u, w, p, q)`` with w, p shaped (O, 2, M, N) and q (O, 3, M, N) in
 the plane order (rr, cc, rc), the TGV adjoint multiplier λ of shape
 (O, 3, M, N), a warm TV-L1 solver state ``(u, y)`` with y (O, 2, M, N) or
 the Pallas kernels' ``(u, px, py)`` (the port's TV-L1 solvers take both and
-return ``(u, y)``), the TV-L1 adjoint p of shape (O, M, N); any nesting of
-tuples and lists) into the port's tensors, so that both packages can be fed
+return ``(u, y)``), the TV-L1 adjoint p of shape (O, M, N), a warm VTV
+solver state, the jnp path's ``(u, (y,))`` with u (O, C, M, N) and y
+(O, C, 2, M, N) or the Pallas kernel's ``(u, px, py)`` with px, py
+(O, C, M, N) (the port's VTV solver takes both and returns ``(u, (y,))``),
+the VTV adjoint multiplier λ of shape (O, C, M, N); any nesting of tuples
+and lists) into the port's tensors, so that both packages can be fed
 the same state.  It reads each leaf through ``numpy.asarray`` and never imports
 JAX.
 """

@@ -55,6 +55,22 @@ Phases (one short line each):
 12. the patch TV-L1 learn: ``patch_bilevel_tvl1_learn`` on the same data
     from x₀ = 0.4·ones((2, 2)), counters reset just before and read just
     after.  Gates below.
+13. the VTV kernel (``csrc/vtv.cu``) against its plain PyTorch version on
+    ``color_disks_128_10`` (6 × 3 × 128² float32): a cold 5000-iteration
+    call, a cold call with early stop (tol 1e-5, every 100 iterations) that
+    returns its state and a warm call from that state at a nudged weight,
+    each with the scalar α 0.165 and with an (M, N) map (a 2×2 grid, then
+    nudged); a constant map must reproduce the scalar run bit for bit.
+14. the VTV kernel in float64 at 2 × 3 × 32²: cold with early stop (scalar
+    α), cold fixed budget (map α), warm from the first state.
+15. the VTV learn: ``scalar_bilevel_vtv_learn(dataset_name="color_disks",
+    num_samples=6, method="tr_fused", device="cuda")`` with bench.py's VTV
+    settings, once to warm up and once timed, counters reset just before
+    and read just after.  Gates below.
+16. the patch VTV learn: ``patch_bilevel_vtv_learn`` on the same data
+    (2×2 grid, the entry point's β₂ = 1.5), then ``VTVDenoise`` at
+    α 0.165434 with its default 10,000 iterations, each with the counters
+    reset just before and read just after.  Gates below.
 
 It prints one JSON line of per-kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``.  Any failure raises (no phase is
@@ -141,6 +157,42 @@ TVL1_DENOISE_ALPHA = 0.9
 TVL1_DENOISE_PSNR = 27.532341
 TVL1_DENOISE_PSNR_GATE = 0.05  # dB
 
+# VTV references (scripts/jax_reference_vtv.py: the JAX package on the CPU,
+# float32, jnp, bench.py's VTV settings on color_disks_128_10).  Both
+# learns stop at maxiter 20, so the patch grid is reported against the
+# reference and not gated.
+VTV_ALPHA = 0.16529731
+VTV_ALPHA_GATE_REL = 1e-3
+VTV_ALPHA_BAND_REL = 1e-4   # reported separately
+VTV_COST = 34.076878
+VTV_COST_GATE_REL = 1e-3
+VTV_PSNR = 36.603813
+VTV_PSNR_GATE = 0.01        # dB
+VTV_CG_ITERS = 7432         # adjoint-CG iterations over the logged evaluations
+VTV_PATCH_GRID = ((0.16049956, 0.16783488), (0.17485711, 0.16132285))
+VTV_PATCH_COST = 34.004280
+VTV_PATCH_COST_GATE_REL = 5e-3
+VTV_PATCH_PSNR = 36.613407
+VTV_PATCH_PSNR_GATE = 0.02  # dB
+VTV_PATCH_CG_ITERS = 10964
+# VTVDenoise at the host trust region's weight (FIDELITY.md:12), 10,000 its
+VTV_DENOISE_ALPHA = 0.165434
+VTV_DENOISE_PSNR = 36.602905
+VTV_DENOISE_PSNR_GATE = 0.05  # dB
+
+# float32, VTV kernel: the kernel runs the plain version's operations in
+# its order and rounding (-fmad=false, the same projection form, n² summed
+# in the order of PyTorch's reduction on the card: four accumulators,
+# element k into k mod 4), but the early-stop norms are summed in another
+# order, so a stop may land one check apart, and the dual of a flat region
+# is not unique, so a rounding difference there need not decay.  The
+# primal contracts (strongly convex data term): u (values in [0, 1]) is
+# held to 1e-4 absolute, the dual y (|y| ≤ α ≈ 0.17) to 1e-3 absolute; a
+# fault in a stencil or the coupled projection moves them by 1e-2 or more.
+# Measured on an H100: 0.0, bit for bit, with equal iteration counts.
+TOL_VTV_U_F32 = 1e-4
+TOL_VTV_Y_F32 = 1e-3
+
 # float32, TV-L1 kernel (both forms): the kernel runs the plain version's
 # operations in its order and rounding (-fmad=false, the same projection
 # and prox constants), but neither problem has a strongly convex primal:
@@ -170,13 +222,20 @@ TOL_TGV_DUAL_F32 = 1e-3
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # operations per pixel, counted from the kernels' arithmetic
-A_OPS_PER_PIXEL_ITER = 24
+# kernel A: 10 primal (3 divergence, 4 update, 3 extrapolation; 1+τ and 1+ω
+# are scalars of the iteration) + 15 dual (2 differences, 2 σ-products,
+# 2 sums, 2 squares, 1 add, compare, √, max, divide, 2 scalings)
+A_OPS_PER_PIXEL_ITER = 25
 B_OPS_PER_PIXEL_CG_ITER = 40
 B_OPS_PER_PIXEL_SOLVE = 36      # CG start: W·Gp, Mp, r, z, d, three sums
 B_OPS_PER_PIXEL_FIXED = 47      # set-up, diagonal, right-hand side, gradient
 TGV_OPS_PER_PIXEL_ITER = 70     # 29 primal + 41 dual (csrc/tgv.cu)
 TVL1_OPS_PER_PIXEL_ITER = 29    # plain form: 14 primal + 15 dual (csrc/tvl1.cu)
 TVL1_HUBER_OPS_PER_PIXEL_ITER = 36   # Huber form: 14 primal + 22 dual
+# VTV, per plane-pixel: kernel A's 10 primal + 13 dual (per plane 2
+# differences, 2 σ-products, 2 sums, 2 squares, 2 scalings; per pixel 5 adds
+# of the 2C = 6 squares, √, compare, max, divide, shared by C = 3 planes)
+VTV_OPS_PER_PLANE_PIXEL_ITER = 23
 
 
 def say(msg):
@@ -557,16 +616,33 @@ def phase_large(f, timed):
 
 def reset_launches():
     from bpldenoising_tpu_torch.solvers import (hypergrad_cuda, pdps_cuda,
-                                                tgv_cuda, tvl1_cuda)
-    for mod in (pdps_cuda, hypergrad_cuda, tgv_cuda, tvl1_cuda):
+                                                tgv_cuda, tvl1_cuda,
+                                                vtv_cuda)
+    for mod in (pdps_cuda, hypergrad_cuda, tgv_cuda, tvl1_cuda, vtv_cuda):
         mod.launches = 0
 
 
 def read_launches():
     from bpldenoising_tpu_torch.solvers import (hypergrad_cuda, pdps_cuda,
-                                                tgv_cuda, tvl1_cuda)
+                                                tgv_cuda, tvl1_cuda,
+                                                vtv_cuda)
     return dict(pdps=pdps_cuda.launches, hypergrad=hypergrad_cuda.launches,
-                tgv=tgv_cuda.launches, tvl1=tvl1_cuda.launches)
+                tgv=tgv_cuda.launches, tvl1=tvl1_cuda.launches,
+                vtv=vtv_cuda.launches)
+
+
+def on_device(res, like):
+    """A learn's reconstruction (a host array) as a tensor beside ``like``."""
+    import torch
+    return torch.as_tensor(res.u).to(like.device)
+
+
+def cg_log(res):
+    """(adjoint-CG iterations summed over the logged evaluations, the
+    evaluations whose CG stopped at its cap) from ``res.state.log``."""
+    log = res.state.log
+    return (int(sum(e.adjoint_cg_iters for e in log)),
+            sum(1 for e in log if e.adjoint_cg_converged < 0.5))
 
 
 def tgv_learn_kwargs():
@@ -589,18 +665,17 @@ def phase_tgv_learn(utrue, timed):
     launches = read_launches()
     alpha = [float(v) for v in res.x]
     rel = [abs(a - r) / r for a, r in zip(alpha, TGV_ALPHA)]
-    mean_psnr = float(torch.mean(psnr(utrue, res.u)))
+    mean_psnr = float(torch.mean(psnr(utrue, on_device(res, utrue))))
     cost = float(res.cost)
-    cg = res.log[:, 4]
+    cg, capped = cg_log(res)
     say(f"  alpha {alpha[0]:.6f}, {alpha[1]:.6f} |d| "
         f"{abs(alpha[0] - TGV_ALPHA[0]):.2e}, "
         f"{abs(alpha[1] - TGV_ALPHA[1]):.2e} rel {rel[0]:.2e}, {rel[1]:.2e} "
         f"(gate {TGV_ALPHA_GATE_REL:g}, band {TGV_ALPHA_BAND_REL:g}: "
         f"{'in' if max(rel) <= TGV_ALPHA_BAND_REL else 'out'}); PSNR "
         f"{mean_psnr:.4f} dB; cost {cost:.4f}; {res.iterations} outer its; "
-        f"adjoint CG {int(cg.sum())} its over the logged evaluations, "
-        f"unconverged (capped) in {int((res.log[:, 5] < 0.5).sum())} of "
-        f"{res.iterations}")
+        f"adjoint CG {cg} its over the logged evaluations, unconverged "
+        f"(capped) in {capped} of {res.iterations}")
     say(f"  wall {wall_ms:.1f} ms (CUDA events, after one warm-up run); "
         f"launches {launches}")
     require(launches["tgv"] > 0, f"TGV learn launched {launches}")
@@ -611,8 +686,7 @@ def phase_tgv_learn(utrue, timed):
             f"TGV final cost {cost}")
     return dict(alpha=alpha, alpha_rel_err=rel, mean_psnr_db=mean_psnr,
                 final_cost=cost, outer_iterations=res.iterations,
-                adjoint_cg_iters=int(cg.sum()), wall_ms=wall_ms,
-                launches=launches)
+                adjoint_cg_iters=cg, wall_ms=wall_ms, launches=launches)
 
 
 def phase_tgv_patch_learn(utrue, timed):
@@ -627,7 +701,7 @@ def phase_tgv_patch_learn(utrue, timed):
     res, wall_ms = timed(lambda: patch_bilevel_tgv_learn(device="cuda",
                                                          **kw))
     launches = read_launches()
-    mean_psnr = float(torch.mean(psnr(utrue, res.u)))
+    mean_psnr = float(torch.mean(psnr(utrue, on_device(res, utrue))))
     cost = float(res.cost)
     np.set_printoptions(precision=5)
     say(f"  alpha1 grid {res.x[..., 0].tolist()} (reference "
@@ -635,7 +709,7 @@ def phase_tgv_patch_learn(utrue, timed):
     say(f"  alpha0 grid {res.x[..., 1].tolist()} (reference "
         f"{[list(r) for r in TGV_PATCH_A0]})")
     say(f"  PSNR {mean_psnr:.4f} dB; cost {cost:.4f}; {res.iterations} "
-        f"outer its; adjoint CG {int(res.log[:, 4].sum())} its; wall "
+        f"outer its; adjoint CG {cg_log(res)[0]} its; wall "
         f"{wall_ms:.1f} ms; launches {launches}")
     require(launches["tgv"] > 0, f"patch TGV learn launched {launches}")
     require(abs(mean_psnr - TGV_PATCH_PSNR) <= TGV_PSNR_GATE,
@@ -816,16 +890,15 @@ def phase_tvl1_learn(utrue, noisy, timed):
     launches = read_launches()
     alpha = float(res.x)
     rel = abs(alpha - TVL1_ALPHA) / TVL1_ALPHA
-    mean_psnr = float(torch.mean(psnr(utrue, res.u)))
+    mean_psnr = float(torch.mean(psnr(utrue, on_device(res, utrue))))
     cost = float(res.cost)
-    cg = res.log[:, 4]
+    cg, capped = cg_log(res)
     say(f"  alpha {alpha:.7f} rel {rel:.2e} (gate {TVL1_ALPHA_GATE_REL:g}, "
         f"band {TVL1_ALPHA_BAND_REL:g}: "
         f"{'in' if rel <= TVL1_ALPHA_BAND_REL else 'out'}); PSNR "
         f"{mean_psnr:.5f} dB; cost {cost:.6f}; {res.iterations} outer its; "
-        f"adjoint CG {int(cg.sum())} its over the logged evaluations, "
-        f"unconverged (capped) in {int((res.log[:, 5] < 0.5).sum())} of "
-        f"{res.iterations}")
+        f"adjoint CG {cg} its over the logged evaluations, unconverged "
+        f"(capped) in {capped} of {res.iterations}")
     say(f"  wall {wall_ms:.1f} ms (CUDA events, after one warm-up run); "
         f"launches {launches}")
 
@@ -852,7 +925,7 @@ def phase_tvl1_learn(utrue, noisy, timed):
             f"TVL1Denoise PSNR {denoise_psnr}")
     return dict(alpha=alpha, alpha_rel_err=rel, mean_psnr_db=mean_psnr,
                 final_cost=cost, outer_iterations=res.iterations,
-                adjoint_cg_iters=int(cg.sum()), wall_ms=wall_ms,
+                adjoint_cg_iters=cg, wall_ms=wall_ms,
                 launches=launches, denoise=dict(
                     alpha=TVL1_DENOISE_ALPHA, psnr_db=denoise_psnr,
                     ms=denoise_ms, launches=denoise_launches))
@@ -869,15 +942,16 @@ def phase_tvl1_patch_learn(utrue, timed):
     res, wall_ms = timed(lambda: patch_bilevel_tvl1_learn(device="cuda",
                                                           **kw))
     launches = read_launches()
-    mean_psnr = float(torch.mean(psnr(utrue, res.u)))
+    mean_psnr = float(torch.mean(psnr(utrue, on_device(res, utrue))))
     cost = float(res.cost)
+    cg = cg_log(res)[0]
     grid_rel = max(abs(float(v) - r) / r for v, r in zip(
         res.x.reshape(-1), (x for row in TVL1_PATCH_GRID for x in row)))
     say(f"  alpha grid {res.x.tolist()} (reference "
         f"{[list(r) for r in TVL1_PATCH_GRID]}, max rel {grid_rel:.2e}, "
         f"not gated)")
     say(f"  PSNR {mean_psnr:.5f} dB; cost {cost:.6f}; {res.iterations} "
-        f"outer its; adjoint CG {int(res.log[:, 4].sum())} its; wall "
+        f"outer its; adjoint CG {cg} its; wall "
         f"{wall_ms:.1f} ms; launches {launches}")
     require(launches["tvl1"] > 0, f"patch TV-L1 learn launched {launches}")
     require(abs(cost - TVL1_PATCH_COST)
@@ -887,9 +961,236 @@ def phase_tvl1_patch_learn(utrue, timed):
             f"patch TV-L1 mean PSNR {mean_psnr}")
     return dict(alpha=res.x.tolist(), alpha_max_rel_err=grid_rel,
                 mean_psnr_db=mean_psnr, final_cost=cost,
-                outer_iterations=res.iterations,
-                adjoint_cg_iters=int(res.log[:, 4].sum()), wall_ms=wall_ms,
-                launches=launches)
+                outer_iterations=res.iterations, adjoint_cg_iters=cg,
+                wall_ms=wall_ms, launches=launches)
+
+
+def vtv_solve_pair(f, a, state0, timed, **kw):
+    """The VTV kernel and its plain version on the same inputs: each
+    ((u, y, iters), ms)."""
+    import torch
+    from bpldenoising_tpu_torch.models import vtv_model
+    from bpldenoising_tpu_torch.solvers import vtv_cuda
+    from bpldenoising_tpu_torch.solvers.pdps import _denoise_pdps_impl
+
+    def kernel():
+        u, (y,), it = vtv_cuda.vtv_denoise_pdps_cuda(
+            f, (a,), state0, return_dual=True, **kw)
+        return u, y, it
+
+    def plain():
+        u, (y,), it = _denoise_pdps_impl(
+            f, (torch.as_tensor(a, dtype=f.dtype),), state0,
+            model=vtv_model(), tau0=5.0, sigma0=0.99 / 5.0, gamma=1.0,
+            accel=True, return_dual=True, **kw)
+        return u, y, it
+
+    k_out, k_ms = timed(kernel)
+    p_out, p_ms = timed(plain)
+    return k_out, k_ms, p_out, p_ms
+
+
+def phase_vtv(f, timed, *, maxiter=5000, tol=1e-5, check_every=100):
+    """The VTV kernel against its plain version (float32), scalar and map
+    α: cold fixed budget, cold with early stop and state, warm from that
+    state at a nudged weight; a constant map against the scalar run.
+    Everything is compared and printed before the phase fails.  Returns
+    the stats of the scalar cold call."""
+    import torch
+    from bpldenoising_tpu_torch.ops import PatchOp
+    from bpldenoising_tpu_torch.solvers import vtv_cuda
+
+    dt, dev = f.dtype, f.device
+    pop = PatchOp((2, 2), tuple(f.shape[-2:]))
+    grid = torch.tensor(VTV_PATCH_GRID, dtype=dt)
+    weights = {"scalar": (0.165, 1.05 * 0.165),
+               "map": (pop.apply(grid).to(dev),
+                       pop.apply(1.05 * grid).to(dev))}
+    faults = []
+    worst = 0.0
+    out = {}
+
+    def check(label, k_out, p_out, ce):
+        nonlocal worst
+        errs = (max_abs(k_out[0], p_out[0]), max_abs(k_out[1], p_out[1]))
+        worst = max(worst, *errs)
+        if errs[0] > TOL_VTV_U_F32 or errs[1] > TOL_VTV_Y_F32:
+            faults.append(f"{label}: max|du| {errs[0]}, max|dy| {errs[1]}")
+        if abs(k_out[2] - p_out[2]) > ce:
+            faults.append(f"{label}: iterations {k_out[2]} vs {p_out[2]}")
+        return (f"iters {k_out[2]}/{p_out[2]}, max|du| {errs[0]:.2e}, "
+                f"max|dy| {errs[1]:.2e}")
+
+    vtv_cuda.vtv_denoise_pdps_cuda(f, (0.165,), maxiter=10)   # warm-up
+    for kind, (a, a_warm) in weights.items():
+        k, k_ms, p, p_ms = vtv_solve_pair(f, a, None, timed, maxiter=maxiter,
+                                          tol=None, check_every=check_every)
+        say(f"  VTV {kind} cold {maxiter} it: "
+            f"{check(f'{kind} cold', k, p, 0)}; kernel {k_ms:.2f} ms, "
+            f"plain {p_ms:.2f} ms")
+        out[kind] = dict(ms=k_ms, plain_ms=p_ms, iters=maxiter, u=k[0])
+        k, k_ms, p, p_ms = vtv_solve_pair(f, a, None, timed, maxiter=maxiter,
+                                          tol=tol, check_every=check_every)
+        msg = check(f"{kind} early stop", k, p, check_every)
+        say(f"  VTV {kind} cold tol {tol:g}: {msg}; kernel {k_ms:.2f} ms, "
+            f"plain {p_ms:.2f} ms")
+        state = (p[0], (p[1],))
+        k, k_ms, p, p_ms = vtv_solve_pair(f, a_warm, state, timed,
+                                          maxiter=maxiter, tol=tol,
+                                          check_every=check_every)
+        msg = check(f"{kind} warm", k, p, check_every)
+        say(f"  VTV {kind} warm tol {tol:g} at 1.05 alpha: {msg}; kernel "
+            f"{k_ms:.2f} ms, plain {p_ms:.2f} ms")
+    const = torch.full(tuple(f.shape[-2:]), 0.165, dtype=dt, device=dev)
+    cu = vtv_cuda.vtv_denoise_pdps_cuda(f, (const,), maxiter=maxiter)
+    same = bool(torch.equal(cu, out["scalar"]["u"]))
+    say(f"  VTV constant map == scalar alpha: {same}; tolerances u "
+        f"{TOL_VTV_U_F32:g}, y {TOL_VTV_Y_F32:g} (absolute); early-stop "
+        f"counts equal or one check apart")
+    if not same:
+        faults.append("a constant map differs from the scalar weight")
+    require(not faults, "VTV kernel disagrees with plain: "
+            + "; ".join(faults))
+    sc = out["scalar"]
+    return dict(ms=sc["ms"], plain_ms=sc["plain_ms"], iters=maxiter,
+                max_abs_err=worst)
+
+
+def phase_vtv_f64(torch, device):
+    """The VTV kernel in float64 at 2 × 3 × 32²: cold with early stop
+    (scalar α), cold fixed budget (map α), warm from the first state."""
+    f64 = torch.float64
+    gen = torch.Generator().manual_seed(3)
+    yy, xx = torch.meshgrid(torch.arange(32, dtype=f64),
+                            torch.arange(32, dtype=f64), indexing="ij")
+    disc = (((xx - 14) ** 2 + (yy - 17) ** 2) < 90).to(f64)
+    clean = torch.stack([torch.stack([0.2 + 0.6 * disc, 0.7 - 0.4 * disc,
+                                      0.3 + 0.3 * (xx > 20).to(f64)]),
+                         torch.stack([0.5 * (yy > 10).to(f64), 0.4 + 0.0 * xx,
+                                      0.9 - 0.5 * disc])])
+    f = (clean + 0.1 * torch.randn(clean.shape, generator=gen,
+                                   dtype=f64)).to(device)
+    amap = (0.08 + 0.1 * torch.rand((32, 32), generator=gen,
+                                    dtype=f64)).to(device)
+    errs, its = [], []
+    first = None
+    for a, warm, kw in ((0.12, False, dict(maxiter=3000, tol=1e-6,
+                                            check_every=50)),
+                        (amap, False, dict(maxiter=1000, tol=None,
+                                           check_every=50)),
+                        (0.126, True, dict(maxiter=3000, tol=1e-6,
+                                           check_every=50))):
+        state0 = (first[0], (first[1],)) if warm else None
+        k, _, p, _ = vtv_solve_pair(f, a, state0, lambda fn: (fn(), 0.0),
+                                    **kw)
+        first = first or p[:2]
+        errs.append(max(rel_err(k[0], p[0]), rel_err(k[1], p[1])))
+        its.append((k[2], p[2]))
+    say(f"  VTV float64 2x3x32x32: rel err {['%.2e' % e for e in errs]}, "
+        f"iters {its} (tol {TOL_F64_REL:g})")
+    require(all(kit == pit for kit, pit in its),
+            f"float64 VTV: iterations {its}")
+    require(max(errs) <= TOL_F64_REL, f"float64 VTV rel err {errs}")
+
+
+def vtv_learn_kwargs():
+    return dict(dataset_name="color_disks", num_samples=6,
+                method="tr_fused", dtype="float32", inner_maxiter=5000,
+                inner_tol=1e-5, check_every=100)
+
+
+def phase_vtv_learn(utrue, timed):
+    """The scalar VTV learn through its entry point, once to warm up and
+    once timed, with the launch counters reset just before and read just
+    after the timed run."""
+    import torch
+    from bpldenoising_tpu_torch.experiments.vtv import \
+        scalar_bilevel_vtv_learn
+    from bpldenoising_tpu_torch.metrics import psnr
+
+    kw = vtv_learn_kwargs()
+    scalar_bilevel_vtv_learn(device="cuda", **kw)          # warm-up
+    reset_launches()
+    res, wall_ms = timed(lambda: scalar_bilevel_vtv_learn(device="cuda",
+                                                          **kw))
+    launches = read_launches()
+    alpha = float(res.x)
+    rel = abs(alpha - VTV_ALPHA) / VTV_ALPHA
+    mean_psnr = float(torch.mean(psnr(utrue, on_device(res, utrue))))
+    cost = float(res.cost)
+    cg, capped = cg_log(res)
+    say(f"  alpha {alpha:.8f} rel {rel:.2e} (gate {VTV_ALPHA_GATE_REL:g}, "
+        f"band {VTV_ALPHA_BAND_REL:g}: "
+        f"{'in' if rel <= VTV_ALPHA_BAND_REL else 'out'}); PSNR "
+        f"{mean_psnr:.6f} dB; cost {cost:.6f}; {res.iterations} outer its; "
+        f"adjoint CG {cg} its over the logged evaluations (reference "
+        f"{VTV_CG_ITERS}), unconverged (capped) in {capped} of "
+        f"{res.iterations}")
+    say(f"  wall {wall_ms:.1f} ms (CUDA events, after one warm-up run); "
+        f"launches {launches}")
+    require(launches["vtv"] > 0, f"VTV learn launched {launches}")
+    require(rel <= VTV_ALPHA_GATE_REL, f"VTV alpha {alpha}")
+    require(abs(cost - VTV_COST) <= VTV_COST_GATE_REL * VTV_COST,
+            f"VTV final cost {cost}")
+    require(abs(mean_psnr - VTV_PSNR) <= VTV_PSNR_GATE,
+            f"VTV mean PSNR {mean_psnr}")
+    return dict(alpha=alpha, alpha_rel_err=rel, mean_psnr_db=mean_psnr,
+                final_cost=cost, outer_iterations=res.iterations,
+                adjoint_cg_iters=cg, wall_ms=wall_ms, launches=launches)
+
+
+def phase_vtv_patch_learn(utrue, noisy, timed):
+    """The patch VTV learn, then VTVDenoise, each with the launch counters
+    reset just before and read just after."""
+    import torch
+    from bpldenoising_tpu_torch.experiments.vtv import (
+        VTVDenoise, patch_bilevel_vtv_learn)
+    from bpldenoising_tpu_torch.metrics import psnr
+
+    kw = vtv_learn_kwargs()
+    reset_launches()
+    res, wall_ms = timed(lambda: patch_bilevel_vtv_learn(device="cuda",
+                                                         **kw))
+    launches = read_launches()
+    mean_psnr = float(torch.mean(psnr(utrue, on_device(res, utrue))))
+    cost = float(res.cost)
+    cg = cg_log(res)[0]
+    grid_rel = max(abs(float(v) - r) / r for v, r in zip(
+        res.x.reshape(-1), (x for row in VTV_PATCH_GRID for x in row)))
+    say(f"  alpha grid {res.x.tolist()} (reference "
+        f"{[list(r) for r in VTV_PATCH_GRID]}, max rel {grid_rel:.2e}, "
+        f"not gated)")
+    say(f"  PSNR {mean_psnr:.6f} dB; cost {cost:.6f}; {res.iterations} "
+        f"outer its; adjoint CG {cg} its (reference {VTV_PATCH_CG_ITERS}); "
+        f"wall {wall_ms:.1f} ms; launches {launches}")
+
+    VTVDenoise(noisy, VTV_DENOISE_ALPHA, maxiter=5, device="cuda")
+    reset_launches()
+    u, denoise_ms = timed(lambda: VTVDenoise(noisy, VTV_DENOISE_ALPHA,
+                                             device="cuda"))
+    denoise_launches = read_launches()
+    denoise_psnr = float(torch.mean(psnr(utrue, u)))
+    say(f"  VTVDenoise(alpha {VTV_DENOISE_ALPHA}, 10000 it): PSNR "
+        f"{denoise_psnr:.6f} dB (reference {VTV_DENOISE_PSNR}); "
+        f"{denoise_ms:.1f} ms; launches {denoise_launches}")
+    require(launches["vtv"] > 0, f"patch VTV learn launched {launches}")
+    require(abs(cost - VTV_PATCH_COST)
+            <= VTV_PATCH_COST_GATE_REL * VTV_PATCH_COST,
+            f"patch VTV final cost {cost}")
+    require(abs(mean_psnr - VTV_PATCH_PSNR) <= VTV_PATCH_PSNR_GATE,
+            f"patch VTV mean PSNR {mean_psnr}")
+    require(denoise_launches["vtv"] > 0,
+            f"VTVDenoise launched {denoise_launches}")
+    require(tuple(u.shape) == tuple(noisy.shape)
+            and bool(torch.isfinite(u).all()), "VTVDenoise output")
+    require(abs(denoise_psnr - VTV_DENOISE_PSNR) <= VTV_DENOISE_PSNR_GATE,
+            f"VTVDenoise PSNR {denoise_psnr}")
+    return dict(alpha=res.x.tolist(), alpha_max_rel_err=grid_rel,
+                mean_psnr_db=mean_psnr, final_cost=cost,
+                outer_iterations=res.iterations, adjoint_cg_iters=cg,
+                wall_ms=wall_ms, launches=launches, denoise=dict(
+                    alpha=VTV_DENOISE_ALPHA, psnr_db=denoise_psnr,
+                    ms=denoise_ms, launches=denoise_launches))
 
 
 def flagship_kwargs():
@@ -956,9 +1257,9 @@ def main():
     launches_a, launches_b = counts["pdps"], counts["hypergrad"]
     alpha = float(res.x)
     d_alpha = abs(alpha - FLAGSHIP_ALPHA)
-    mean_psnr = float(torch.mean(psnr(utrue, res.u)))
+    mean_psnr = float(torch.mean(psnr(utrue, on_device(res, utrue))))
     cost = float(res.cost)
-    cg_cap = bool(res.log[:, 5].min() < 0.5) if res.iterations else False
+    cg_cap = cg_log(res)[1] > 0
     say(f"  alpha {alpha:.6f} |d| {d_alpha:.2e} (gate {ALPHA_GATE:g}, "
         f"band {ALPHA_BAND:g}: {'in' if d_alpha <= ALPHA_BAND else 'out'}); "
         f"PSNR {mean_psnr:.4f} dB; cost {cost:.4f}; "
@@ -1002,6 +1303,21 @@ def main():
         "method='tr_fused')")
     tvl1_patch = phase_tvl1_patch_learn(sp_utrue, timed)
 
+    vt_true, vt_noisy = testdataset("color_disks_128_10", color=True)
+    vt_utrue = torch.as_tensor(vt_true, dtype=torch.float32).to(dev)
+    vt_f = torch.as_tensor(vt_noisy, dtype=torch.float32).to(dev)
+    say("phase 13 VTV kernel vs plain, color_disks 6x3x128x128 float32")
+    vtv_stats = phase_vtv(vt_f, timed)
+    say("phase 14 VTV kernel vs plain, float64")
+    phase_vtv_f64(torch, dev)
+
+    say("phase 15 VTV learn scalar_bilevel_vtv_learn(method='tr_fused')")
+    vtv_learn = phase_vtv_learn(vt_utrue, timed)
+
+    say("phase 16 patch VTV learn patch_bilevel_vtv_learn("
+        "method='tr_fused'), then VTVDenoise")
+    vtv_patch = phase_vtv_patch_learn(vt_utrue, vt_f, timed)
+
     itemsize = 4
     a_bytes = 4 * n * itemsize                  # f in; u, y out
     a_ops = A_OPS_PER_PIXEL_ITER * n * a_stats["iters"]
@@ -1030,6 +1346,11 @@ def main():
                                  * big["iters"])
     large["tvl1_64x128"] = dict(ms=big["ms"], plain_ms=big["plain_ms"],
                                 bound_ms=big_bound, bound_by=big_by)
+    # VTV cold call: f in; the state (u, y: 3 planes per channel) out
+    vt_n = vt_f.numel()
+    v_bound, v_by = bound_ms(4 * vt_n * itemsize,
+                             VTV_OPS_PER_PLANE_PIXEL_ITER * vt_n
+                             * vtv_stats["iters"])
     kernels = [
         dict(name="pdps_cp_tv", route="cuda",
              source="bpldenoising_tpu_torch/csrc/pdps.cu",
@@ -1064,6 +1385,13 @@ def main():
              max_abs_err=tvl1_stats["max_abs_err"], ms=one["ms"],
              plain_ms=one["plain_ms"], bound_ms=l_bound, bound_by=l_by,
              library_ms=None),
+        dict(name="vtv_cp", route="cuda",
+             source="bpldenoising_tpu_torch/csrc/vtv.cu",
+             replaces="bpldenoising_tpu/solvers/vtv_pallas.py:70",
+             launches=vtv_learn["launches"]["vtv"],
+             max_abs_err=vtv_stats["max_abs_err"], ms=vtv_stats["ms"],
+             plain_ms=vtv_stats["plain_ms"], bound_ms=v_bound, bound_by=v_by,
+             library_ms=None),
     ]
     say(f"  total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels, "flagship": dict(
@@ -1071,7 +1399,8 @@ def main():
         final_cost=cost, outer_iterations=res.iterations,
         wall_ms=wall_ms, load_ms=load_ms), "tgv_learn": tgv_learn,
         "tgv_patch_learn": tgv_patch, "tvl1_learn": tvl1_learn,
-        "tvl1_patch_learn": tvl1_patch, "large_images": large,
+        "tvl1_patch_learn": tvl1_patch, "vtv_learn": vtv_learn,
+        "vtv_patch_learn": vtv_patch, "large_images": large,
         "device": smi}))
     faulthandler.cancel_dump_traceback_later()
     say(json.dumps({"ok": True, "device": {

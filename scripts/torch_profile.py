@@ -1,0 +1,253 @@
+#!/usr/bin/env python3
+"""Where the time of one of the port's trust-region learns goes, on one
+NVIDIA GPU.
+
+    python3 scripts/torch_profile.py {tv,tgv,tvl1,vtv}
+
+Runs the family's fused learn on its preloaded float32 dataset with the
+settings of ``chip_smoke.py``: TV (the flagship) and TGV² on
+``faces_train_128_10`` (10 × 128²), TV-L1 on ``circle_sp_128_20``
+(1 × 128²), VTV on ``color_disks_128_10`` (6 × 3 × 128²); TV-L1 and VTV
+for the scalar weight and the 2×2 patch grid, TV and TGV for the scalar:
+
+1. the learn's wall time over two runs after a warm-up (CUDA events);
+2. the split of one run between the inner solve (the family's kernel
+   wrapper), the adjoint (kernel B's hypergradient for TV, the plain
+   PyTorch adjoint CG for the others) and the rest (trust-region host
+   code, cost, the one read per evaluation), each call timed on the host
+   between synchronisations, with the inner and CG iteration counts;
+3. the scalar learn, cut to the family's profiled outer iterations (the
+   whole learn for TV and TV-L1, 2 for TGV and 3 for VTV, whose adjoint
+   CGs launch more small kernels than the profiler handles in one call),
+   under ``torch.profiler``: device busy time (kernels and copies only),
+   idle share (1 − busy/wall) and device time by kernel name.
+
+Prints one line per item and a JSON line last.  Exits non-zero without a
+CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+# family: (fused module under bpldenoising_tpu_torch.bilevel, the names in
+# it timed as the inner solve, those timed as the adjoint, outer
+# iterations profiled)
+FAMILIES = {
+    "tv": ("fused", ("denoise_pdps_cuda",),
+           ("exact_hypergrad_cuda", "reg_hypergrad_cuda"), 20),
+    "tgv": ("fused_tgv", ("tgv_denoise_pdps_cuda",),
+            ("tgv_implicit_cotangents",), 2),
+    "tvl1": ("fused_tvl1", ("tvl1_huber_denoise_cuda",),
+             ("tvl1_huber_hypergrad",), 15),
+    "vtv": ("fused_vtv", ("vtv_denoise_pdps_cuda",),
+            ("vtv_implicit_cotangents",), 3),
+}
+
+
+def setup(family, torch):
+    """The family's data on the card, its learn ``learn(x0, params)``, its
+    runs ``{label: (x0, params)}`` and the counters read after a timed
+    call: ``inner_iters(result)`` and ``cg_iters(result)``."""
+    import chip_smoke as cs
+    from bpldenoising_tpu_torch.bilevel import (fused, fused_tgv, fused_tvl1,
+                                                fused_vtv)
+    from bpldenoising_tpu_torch.data import testdataset
+    from bpldenoising_tpu_torch.solvers import hypergrad_cuda, tvl1_cuda
+    from bpldenoising_tpu_torch.utils.config import Params
+
+    def last(out):
+        return out[-1]
+
+    def info_iters(out):
+        return out[-1].iters
+
+    extra = {}
+    if family == "tv":
+        kw = cs.flagship_kwargs()
+        name, color, fn = ("faces_train_128_10", False,
+                           fused.bilevel_learn_fused)
+        base = Params(eta1=0.25, eta2=0.75, beta1=0.25, beta2=1.9,
+                      delta0=0.1, maxiter=kw["maxiter"], tol=kw["tol"])
+        runs = {"scalar": (kw["alpha0"], base)}
+        extra = dict(cfg=kw["hypergrad_cfg"])
+        inner, cg = last, lambda out: hypergrad_cuda.last_total_cg_iters
+    elif family == "tgv":
+        from bpldenoising_tpu_torch.experiments.tgv import tgv_bilevel_params
+        kw = cs.tgv_learn_kwargs()
+        name, color, fn = ("faces_train_128_10", False,
+                           fused_tgv.bilevel_learn_tgv_fused)
+        base = tgv_bilevel_params | dict(maxiter=kw["maxiter"],
+                                         tol=kw["tol"])
+        runs = {"scalar": (base.alpha0, base)}
+        inner, cg = last, info_iters
+    elif family == "tvl1":
+        from bpldenoising_tpu_torch.experiments.tvl1 import \
+            tvl1_bilevel_params
+        kw = cs.tvl1_learn_kwargs()
+        name, color, fn = ("circle_sp_128_20", False,
+                           fused_tvl1.bilevel_learn_tvl1_fused)
+        base = tvl1_bilevel_params | dict(
+            maxiter=kw["maxiter"], tol=kw["tol"], delta0=kw["delta0"])
+        runs = {"scalar": (cs.TVL1_X0, base),
+                "patch": (cs.TVL1_X0_PATCH, base)}
+        inner, cg = lambda out: tvl1_cuda.last_iters, info_iters
+    else:
+        import numpy as np
+
+        from bpldenoising_tpu_torch.experiments.vtv import (
+            patch_vtv_bilevel_params, vtv_bilevel_params)
+        kw = cs.vtv_learn_kwargs()
+        name, color, fn = ("color_disks_128_10", True,
+                           fused_vtv.bilevel_learn_vtv_fused)
+        # the entry points' maxiter 20 and tol 1e-5 (the shared defaults),
+        # with the family's Δ₀, x₀ and β₂
+        runs = {label: (np.asarray(p.alpha0), p | dict(maxiter=20, tol=1e-5))
+                for label, p in (("scalar", vtv_bilevel_params),
+                                 ("patch", patch_vtv_bilevel_params))}
+        inner, cg = last, info_iters
+    true_np, noisy_np = testdataset(name, color=color)
+    ds = (torch.as_tensor(true_np, dtype=torch.float32).cuda(),
+          torch.as_tensor(noisy_np, dtype=torch.float32).cuda())
+
+    def learn(x0, p):
+        return fn(ds, xinit=x0, params=p, inner_maxiter=kw["inner_maxiter"],
+                  inner_tol=kw["inner_tol"], check_every=kw["check_every"],
+                  device="cuda", **extra)
+
+    return learn, runs, inner, cg
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("family", choices=sorted(FAMILIES))
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    import importlib
+
+    from bpldenoising_tpu_torch import _build
+
+    mod_name, solve_names, adjoint_names, prof_its = FAMILIES[args.family]
+    module = importlib.import_module(
+        "bpldenoising_tpu_torch.bilevel." + mod_name)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    _build.library()
+    learn, runs, inner_iters, cg_iters = setup(args.family, torch)
+
+    out = dict(device=smi, family=args.family)
+    for label, (x0, params) in runs.items():
+        learn(x0, params)   # warm-up
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = learn(x0, params)
+            end.record()
+            end.synchronize()
+            walls.append(start.elapsed_time(end))
+        print(f"{label} learn wall (ms, 2 runs): {walls}; x "
+              f"{res.x.tolist()}, {res.iterations} outer its", flush=True)
+
+        spent = {"solve": 0.0, "adjoint": 0.0}
+        calls = {"solve": 0, "adjoint": 0}
+        counts = {"inner_iters": 0, "cg_iters": 0}
+
+        def timed(key, fn):
+            def wrapper(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = fn(*a, **k)
+                torch.cuda.synchronize()
+                spent[key] += (time.perf_counter() - t0) * 1e3
+                calls[key] += 1
+                if key == "solve":
+                    counts["inner_iters"] += inner_iters(r)
+                else:
+                    counts["cg_iters"] += cg_iters(r)
+                return r
+            return wrapper
+
+        keyed = [("solve", n) for n in solve_names] + [
+            ("adjoint", n) for n in adjoint_names]
+        saved = {n: getattr(module, n) for _, n in keyed}
+        for key, n in keyed:
+            setattr(module, n, timed(key, saved[n]))
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            learn(x0, params)
+            torch.cuda.synchronize()
+            split_wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            for n, fn in saved.items():
+                setattr(module, n, fn)
+        rest = split_wall - spent["solve"] - spent["adjoint"]
+        print(f"{label} split (host clock, ms): total {split_wall:.1f}, "
+              f"inner solve {spent['solve']:.1f} in {calls['solve']} calls "
+              f"({counts['inner_iters']} iterations), adjoint "
+              f"{spent['adjoint']:.1f} in {calls['adjoint']} calls "
+              f"({counts['cg_iters']} CG iterations), rest {rest:.1f}",
+              flush=True)
+        out[label] = dict(learn_wall_ms=walls, split_ms=dict(
+            total=split_wall, inner_solve=spent["solve"],
+            adjoint=spent["adjoint"], rest=rest, calls=calls, **counts))
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x0, params = runs["scalar"]
+    short = params | dict(maxiter=prof_its)
+    learn(x0, short)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        learn(x0, short)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    # device activity (kernels, copies) only: a CPU operator's self device
+    # time repeats the time of the kernels it launched
+    by_name, all_ops_ms = {}, 0.0
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+        all_ops_ms += dev_us / 1e3
+        if dev_us > 0 and ev.device_type != DeviceType.CPU:
+            by_name[ev.key] = (dev_us / 1e3, ev.count)
+    busy = sum(ms for ms, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    for name, (ms, count) in top:
+        print(f"  device {ms:8.2f} ms  {count:7d}x  {name[:70]}", flush=True)
+    idle = 1.0 - busy / prof_wall if busy > 0 else None
+    print(f"profiled scalar learn ({prof_its} outer its max): wall "
+          f"{prof_wall:.1f} ms (host clock, profiler on), device busy "
+          f"{busy:.2f} ms, idle share "
+          f"{'not measured' if idle is None else f'{idle:.3f}'} (self "
+          f"device time summed over every event, operators included: "
+          f"{all_ops_ms:.2f} ms)", flush=True)
+    print(json.dumps(dict(
+        out, profiled_maxiter=prof_its, profiled_wall_ms=prof_wall,
+        device_busy_ms=busy, idle_share=idle,
+        self_device_ms_all_events=all_ops_ms,
+        top_kernels=[[n, ms, c] for n, (ms, c) in top])))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -31,6 +31,21 @@ from bpldenoising_tpu_torch.solvers import lbfgs as tlb
 from bpldenoising_tpu_torch.solvers.hypergrad import HypergradConfig
 from bpldenoising_tpu_torch.utils.config import Params, merge
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One PyTorch intra-op thread while this module runs.  The entry-point
+    tests learn on 128² images, whose operators PyTorch splits over every
+    core; under pytest-xdist's workers those threads oversubscribe the CPU
+    and wait on one another at every operator (on an 8-core host a 2 s
+    entry-point learn took 258 s under six workers).  The other test_torch_fused*.py files import
+    this fixture."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 RTOL = 1e-8
 TR = dict(eta1=0.25, eta2=0.75, beta1=0.25, beta2=1.9, delta0=0.1, tol=1e-5)
 
@@ -167,9 +182,9 @@ def test_scalar_learn_entry_point_on_cpu():
               maxiter=2, inner_maxiter=150, inner_tol=1e-4, check_every=50,
               hypergrad_cfg=HypergradConfig(al_iters=2, cg_maxiter=30))
     res = scalar_bilevel_tv_learn(device="cpu", **kw)
-    assert res.u.shape == (1, 128, 128) and res.u.dtype == torch.float64
+    assert res.u.shape == (1, 128, 128) and res.u.dtype == np.float64
     assert np.isfinite(res.cost) and res.x.shape == ()
-    assert res.iterations == 2 and res.log.shape == (2, 6)
+    assert res.iterations == 2 and len(res.state.log) == 2
     with pytest.raises(NotImplementedError):
         scalar_bilevel_tv_learn(device="cpu", **dict(kw, method="tr"))
     with pytest.raises(NotImplementedError):

@@ -31,6 +31,7 @@ from bpldenoising_tpu_torch.bilevel.fused_tvl1 import (
 from bpldenoising_tpu_torch.solvers import tvl1_cuda
 from bpldenoising_tpu_torch.utils.config import Params
 from test_torch_tvl1 import impulse_phantoms
+from test_torch_fused import one_torch_thread  # noqa: F401 (autouse)
 
 RTOL = 1e-8
 TR = dict(eta1=0.25, eta2=0.75, beta1=0.25, beta2=1.9, delta0=0.1,
@@ -119,12 +120,38 @@ def test_entry_points_match_jax(in_tmp, family, inner_tol):
         tres = tx.patch_bilevel_tvl1_learn(device="cpu", **kw)
         assert tres.x.shape == (2, 2)
     assert tres.iterations == jres.iterations == 2
-    assert tres.u.shape == (1, 128, 128) and tres.u.dtype == torch.float64
-    assert tres.log.shape == (2, 6)
+    assert tres.u.shape == (1, 128, 128) and tres.u.dtype == np.float64
+    assert len(tres.state.log) == 2
     np.testing.assert_allclose(tres.x, np.asarray(jres.x), rtol=RTOL)
     np.testing.assert_allclose(tres.cost, jres.cost, rtol=RTOL)
-    np.testing.assert_allclose(tres.u.numpy(), np.asarray(jres.u),
+    np.testing.assert_allclose(tres.u, np.asarray(jres.u),
                                atol=1e-10)
+
+
+def test_entry_point_state_log_matches_jax(in_tmp):
+    """The learns return the JAX package's result type: a BilevelResult
+    with u on the host and state.log, one BilevelLogEntry per outer
+    iteration, entry for entry the JAX entry point's (iteration, cost,
+    ‖g‖, Δ, step, adjoint-CG iterations and flag; times are 0.0, since
+    segmented dispatch is not ported)."""
+    from bpldenoising_tpu_torch.bilevel import BilevelResult
+    from bpldenoising_tpu_torch.viz import BilevelLogEntry
+    kw = dict(ENTRY, maxiter=3, inner_tol=1e-5)
+    jres = jx.scalar_bilevel_tvl1_learn(save_results=False, backend="jnp",
+                                        **kw)
+    tres = tx.scalar_bilevel_tvl1_learn(device="cpu", **kw)
+    assert isinstance(tres, BilevelResult) and isinstance(tres.u, np.ndarray)
+    assert tres.g_norm == pytest.approx(jres.g_norm, rel=RTOL)
+    assert len(tres.state.log) == len(jres.state.log) == 3
+    for t, j in zip(tres.state.log, jres.state.log):
+        assert isinstance(t, BilevelLogEntry)
+        assert t.iter == j.iter and t.time == 0.0
+        np.testing.assert_allclose(
+            [t.function_value, t.g_norm, t.delta, t.step_norm,
+             t.adjoint_cg_converged],
+            [j.function_value, j.g_norm, j.delta, j.step_norm,
+             j.adjoint_cg_converged], rtol=RTOL, atol=1e-12)
+        assert abs(t.adjoint_cg_iters - j.adjoint_cg_iters) <= 2
 
 
 @pytest.mark.parametrize("parameter", [

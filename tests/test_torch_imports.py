@@ -3,6 +3,8 @@ its GPU scripts) imports JAX or the JAX package, and importing it builds
 and launches nothing."""
 
 import ast
+import importlib
+import importlib.util
 import pathlib
 import subprocess
 import sys
@@ -12,10 +14,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "bpldenoising_tpu_torch"
 SOURCES = (sorted(PORT.rglob("*.py"))
-           + [ROOT / "chip_smoke.py",
-              ROOT / "scripts" / "torch_profile_flagship.py",
-              ROOT / "scripts" / "torch_profile_tgv.py",
-              ROOT / "scripts" / "torch_profile_tvl1.py"])
+           + [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_profile.py"])
 FORBIDDEN = ("jax", "jaxlib", "bpldenoising_tpu")
 
 
@@ -70,11 +69,35 @@ SLICE_MODULES = ("ops/tgv.py", "ops/patch.py", "solvers/tgv.py",
                  "solvers/tgv_cuda.py", "bilevel/fused_tgv.py",
                  "experiments/tgv.py", "solvers/tvl1.py",
                  "solvers/tvl1_huber.py", "solvers/tvl1_cuda.py",
-                 "bilevel/fused_tvl1.py", "experiments/tvl1.py")
+                 "bilevel/fused_tvl1.py", "experiments/tvl1.py",
+                 "viz/log.py", "bilevel/harness.py", "solvers/vtv.py",
+                 "solvers/vtv_cuda.py", "bilevel/fused_vtv.py",
+                 "experiments/vtv.py")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)
 def test_tgv_slice_modules_are_checked(module):
-    """The TGV and TV-L1 slices' modules exist and are among the sources
-    checked above (so they import no JAX)."""
+    """The TGV, TV-L1 and VTV slices' modules (and the result types) exist
+    and are among the sources checked above (so they import no JAX)."""
     assert PORT / module in SOURCES
+
+
+def _profile_script():
+    spec = importlib.util.spec_from_file_location(
+        "torch_profile", ROOT / "scripts" / "torch_profile.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("family", ["tv", "tgv", "tvl1", "vtv"])
+def test_profile_script_times_names_the_learn_calls(family):
+    """scripts/torch_profile.py times a learn by replacing names in its
+    fused module: each name must be one the module has (a renamed wrapper
+    would otherwise go untimed)."""
+    mod_name, solve, adjoint, its = _profile_script().FAMILIES[family]
+    module = importlib.import_module(
+        "bpldenoising_tpu_torch.bilevel." + mod_name)
+    for name in solve + adjoint:
+        assert callable(getattr(module, name)), name
+    assert its >= 1
