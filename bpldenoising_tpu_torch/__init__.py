@@ -20,24 +20,41 @@ and :func:`experiments.tvl1.patch_bilevel_tvl1_learn` with
 ``method="tr_fused"``, with :func:`experiments.tvl1.TVL1Denoise`, and the
 color VTV trust-region learn, :func:`experiments.vtv.scalar_bilevel_vtv_learn`
 and :func:`experiments.vtv.patch_bilevel_vtv_learn` with
-``method="tr_fused"``, with :func:`experiments.vtv.VTVDenoise`.  The learns
-return the JAX package's :class:`bilevel.harness.BilevelResult`.
+``method="tr_fused"``, with :func:`experiments.vtv.VTVDenoise`, and the
+single-loop first-order learner (``method="single_loop"``) of
+:func:`experiments.api.scalar_bilevel_tv_learn`,
+:func:`experiments.api.patch_bilevel_tv_learn`,
+:func:`experiments.api.scalar_bilevel_sumregs_learn` and
+:func:`experiments.api.patch_bilevel_sumregs_learn`, with its library
+functions :func:`bilevel.first_order.single_loop_learn` and
+:func:`bilevel.first_order_cuda.single_loop_cuda` (and ``_tiled``).  The
+learns return the JAX package's :class:`bilevel.harness.BilevelResult`.
 """
 
-from .experiments.api import scalar_bilevel_tv_learn
+from .bilevel.first_order import (single_loop_learn,
+                                  single_loop_sumregs_learn,
+                                  single_loop_tv_learn)
+from .experiments.api import (patch_bilevel_sumregs_learn,
+                              patch_bilevel_tv_learn,
+                              scalar_bilevel_sumregs_learn,
+                              scalar_bilevel_tv_learn)
 from .experiments.tgv import (TGVDenoise, patch_bilevel_tgv_learn,
                               scalar_bilevel_tgv_learn)
 from .experiments.tvl1 import (TVL1Denoise, patch_bilevel_tvl1_learn,
                                scalar_bilevel_tvl1_learn)
 from .experiments.vtv import (VTVDenoise, patch_bilevel_vtv_learn,
                               scalar_bilevel_vtv_learn)
-from .models import tv_model, vtv_model
+from .models import sumregs_model, tv_model, vtv_model
 from .solvers import (denoise_pdps, tv_denoise, tvl1_denoise, tvl1_energy,
                       tvl1_huber_denoise, vtv_denoise)
 
-__all__ = ["scalar_bilevel_tv_learn", "scalar_bilevel_tgv_learn",
+__all__ = ["scalar_bilevel_tv_learn", "patch_bilevel_tv_learn",
+           "scalar_bilevel_sumregs_learn", "patch_bilevel_sumregs_learn",
+           "single_loop_learn", "single_loop_tv_learn",
+           "single_loop_sumregs_learn", "scalar_bilevel_tgv_learn",
            "patch_bilevel_tgv_learn", "TGVDenoise", "scalar_bilevel_tvl1_learn",
            "patch_bilevel_tvl1_learn", "TVL1Denoise", "tvl1_denoise",
            "tvl1_energy", "tvl1_huber_denoise", "scalar_bilevel_vtv_learn",
            "patch_bilevel_vtv_learn", "VTVDenoise", "vtv_denoise",
-           "tv_denoise", "denoise_pdps", "tv_model", "vtv_model"]
+           "tv_denoise", "denoise_pdps", "tv_model", "sumregs_model",
+           "vtv_model"]

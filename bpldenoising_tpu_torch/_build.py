@@ -22,7 +22,8 @@ from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("pdps.cu", "hypergrad.cu", "tgv.cu", "tvl1.cu", "vtv.cu")
+SOURCES = ("pdps.cu", "hypergrad.cu", "tgv.cu", "tvl1.cu", "vtv.cu",
+           "single_loop.cu")
 HEADERS = ("common.cuh",)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # -fmad=false: no fused multiply-adds, so each operation rounds like the
@@ -127,6 +128,14 @@ def _declare(lib):
                                   ctypes.c_double, _I, _I, _I, real, _I,
                                   ctypes.POINTER(_I), _P]
         fn.restype = _I
+        fn = getattr(lib, f"bpl_single_loop_{suffix}")
+        fn.argtypes = [_P] * 11 + [_LL] + [_I] * 11 + [real] * 9 + [_P]
+        fn.restype = _I
+        fn = getattr(lib, f"bpl_sl_stencil_{suffix}")
+        fn.argtypes = [_I, _I, _P, _P, _LL, _I, _I, _P]
+        fn.restype = _I
+    lib.bpl_sl_scratch.argtypes = [_LL, _I, _I, _I, _I, _I]
+    lib.bpl_sl_scratch.restype = _LL
     lib.bpl_error_string.argtypes = [_I]
     lib.bpl_error_string.restype = ctypes.c_char_p
     lib.bpl_hypergrad_planes.restype = _I

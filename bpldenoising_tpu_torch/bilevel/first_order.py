@@ -1,0 +1,351 @@
+"""Single-loop first-order bilevel learning (counterpart of
+``bpldenoising_tpu.bilevel.first_order``).
+
+Instead of solving the lower-level problem to convergence for every outer
+evaluation, the inner primal–dual state, the adjoint state and the
+parameter advance together.  Per outer step:
+
+1. ``n_inner`` fixed-step (unaccelerated) Chambolle–Pock iterations at the
+   current α, warm-started;
+2. ``n_adj`` preconditioned-CG iterations on the γ-smoothed adjoint system
+   at the current iterate, warm-started (:mod:`.pcg`);
+3. an Adam step on log α (positive by construction) with the approximate
+   hypergradient.
+
+Every parameterization of the experiment suite: scalar α and (m, n) patch
+α for the TV model, a (3,) vector and an (m, n, 3) patch stack for the
+sum-of-regularizers model (any K with forward, backward or centred
+gradients).
+
+:func:`single_loop_learn` runs where ``f`` lives: the plain PyTorch loop
+below (:func:`_single_loop_plain`) for tensors on the CPU, the CUDA
+learner of :mod:`.first_order_cuda` (``csrc/single_loop.cu``) for CUDA
+tensors, which raises for what it does not take.  Neither reads anything
+back to the host until the segment ends.  Not ported: ``mesh=`` data
+parallelism and ``optimizer=`` (an optax transformation has no PyTorch
+counterpart to take); both raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..models import DenoiseModel, sumregs_model, tv_model
+from ..ops import PatchOp, scalarprod, xi
+from ..solvers.hypergrad import build_reg_system
+from .pcg import CG_VARIANTS, _default_vdot
+
+__all__ = ["single_loop_learn", "single_loop_tv_learn",
+           "single_loop_sumregs_learn", "drive_single_loop",
+           "SingleLoopResult"]
+
+
+class SingleLoopResult(NamedTuple):
+    alpha: torch.Tensor             # learned parameter (original shape)
+    u: torch.Tensor                 # final reconstruction stack (O, M, N)
+    cost: torch.Tensor              # final ½Σ‖u−ū‖²
+    alpha_trajectory: torch.Tensor  # (outer, *param_shape)
+    cost_trajectory: torch.Tensor   # (outer,)
+    # (outer,) ‖dJ/dα‖₂ per outer step
+    gnorm_trajectory: Optional[torch.Tensor] = None
+    # host-side cumulative wall seconds per iteration, filled only by the
+    # segment runner (log_every); segment-end granularity
+    times: Optional[np.ndarray] = None
+
+
+def _check_positive_x0(x0):
+    """The parameter lives in log space (x = exp(z)): zero freezes it and
+    negatives produce NaN, so reject them up front."""
+    if bool(torch.any(torch.as_tensor(x0) <= 0)):
+        raise ValueError(
+            "x0 must be strictly positive: the parameter is optimized in "
+            "log space, so 0 freezes it and negatives produce NaN")
+
+
+def _param_layout(model: DenoiseModel, x0, image_shape):
+    """→ (pop, param_shape): the PatchOp of a patch parameter (or None)
+    and the parameter's shape."""
+    x0 = torch.as_tensor(x0)
+    K = model.K
+    shape = tuple(x0.shape)
+    if K == 1:
+        if x0.ndim == 0:
+            return None, shape
+        if x0.ndim == 2:
+            return PatchOp(shape, tuple(image_shape)), shape
+    else:
+        if x0.ndim == 1 and shape[0] == K:
+            return None, shape
+        if x0.ndim == 3 and shape[-1] == K:
+            return PatchOp(shape[:2], tuple(image_shape)), shape
+    raise ValueError(f"unsupported parameter shape {shape} for K={K}")
+
+
+def _init_carry(f, x0, *, K: int, param_shape: tuple):
+    """Initial carry ``(u, ys, p, z, (m, v), t)``: u = f, K zero dual
+    fields, zero adjoint, z = log x₀, zero Adam moments, step 0."""
+    dtype = f.dtype
+    ys0 = tuple(torch.zeros(f.shape[:-2] + (2,) + f.shape[-2:], dtype=dtype,
+                            device=f.device) for _ in range(K))
+    z0 = torch.log(torch.as_tensor(x0, dtype=dtype).to(f.device))
+    zeros = torch.zeros(param_shape, dtype=dtype, device=f.device)
+    return (f, ys0, torch.zeros_like(f), z0, (zeros, zeros.clone()),
+            torch.zeros((), dtype=dtype, device=f.device))
+
+
+def _tile_vdot(tile_b: int):
+    """Inner products per group of ``tile_b`` images, broadcast back to
+    each image as a (B, 1, 1) tensor (the per-tile dots of TPU kernel 10,
+    ``first_order_pallas.py::_tiled_kernel``)."""
+    def vdot(a, b):
+        prod = (a * b).reshape(a.shape[0], -1)
+        B = prod.shape[0]
+        n_tiles = -(-B // tile_b)
+        pad = n_tiles * tile_b - B
+        if pad:
+            prod = torch.cat([prod, prod.new_zeros((pad, prod.shape[1]))])
+        sums = prod.reshape(n_tiles, -1).sum(dim=1)
+        return sums.repeat_interleave(tile_b)[:B].reshape(B, 1, 1)
+    return vdot
+
+
+def _single_loop_plain(utrue, f, x0, *, model: DenoiseModel, outer: int,
+                       n_inner: int, n_adj: int, pop: Optional[PatchOp],
+                       param_shape: tuple, lr, gamma, tau0, sigma0, beta1,
+                       beta2, eps, carry0=None, return_carry: bool = False,
+                       cg_variant: str = "classic",
+                       tile_b: Optional[int] = None):
+    """The single-loop learner as a Python loop over ``outer`` steps, in
+    the order of the JAX package's scan (``first_order.py:175-211``): PD
+    steps, the adjoint system, CG, the gradient maps, the pullback, Adam
+    with ``beta1 ** t``, the cost.  ``utrue``/``f`` are (O, M, N).
+    ``tile_b`` takes the CG's inner products per group of ``tile_b``
+    images (TPU kernel 10); ``None`` takes them over the whole batch."""
+    dtype = f.dtype
+    dev = f.device
+    K = model.K
+    L = torch.sqrt(torch.tensor(model.opnorm_sq(), dtype=dtype, device=dev))
+    tau = torch.tensor(tau0, dtype=dtype, device=dev) / L
+    sigma = torch.tensor(sigma0, dtype=dtype, device=dev) / L
+    tiny = torch.finfo(dtype).tiny
+    vdot = _default_vdot if tile_b is None else _tile_vdot(int(tile_b))
+    cg_steps = CG_VARIANTS[cg_variant]
+
+    def alphas_of(x):
+        """Parameter → K-tuple of per-image α (scalar or (M, N) map)."""
+        if K == 1:
+            return (pop.apply(x) if pop is not None else x,)
+        if pop is None:
+            return tuple(x[k] for k in range(K))
+        return tuple(pop.apply(x[..., k]) for k in range(K))
+
+    def pullback(gmaps):
+        """K per-pixel gradient maps (summed over batch) → parameter."""
+        if K == 1:
+            g = gmaps[0]
+            return pop.apply_adjoint(g) if pop is not None else torch.sum(g)
+        if pop is None:
+            return torch.stack([torch.sum(g) for g in gmaps])
+        return torch.stack([pop.apply_adjoint(g) for g in gmaps], dim=-1)
+
+    def pd_step(alphas, u, ys):
+        div = None
+        for op, y in zip(model.ops, ys):
+            d = op.apply_adjoint(y)
+            div = d if div is None else div + d
+        u_new = (u - tau * (div - f)) / (1.0 + tau)
+        ubar = 2.0 * u_new - u            # fixed-step (unaccelerated) CP
+        ys_new = []
+        for op, y, a in zip(model.ops, ys, alphas):
+            q = y + sigma * op.apply(ubar)
+            n = xi(q)
+            r = a[None] if a.ndim >= 2 else a   # an α map over the batch
+            scale = torch.where(n <= r, 1.0, r / torch.clamp(n, min=tiny))
+            ys_new.append(q * scale[..., None, :, :])
+        return u_new, tuple(ys_new)
+
+    if carry0 is None:
+        carry0 = _init_carry(f, x0, K=K, param_shape=param_shape)
+    u, ys, p, z, (m, v), t = carry0
+    xs, costs, gnorms = [], [], []
+    for _ in range(int(outer)):
+        x = torch.exp(z)
+        alphas = alphas_of(x)
+        for _ in range(int(n_inner)):
+            u, ys = pd_step(alphas, u, ys)
+        M_apply, inv_diag, fields = build_reg_system(u, alphas, model, gamma)
+        p = cg_steps(M_apply, inv_diag, utrue - u, p, n_adj, vdot=vdot)
+        gmaps = tuple(torch.sum(scalarprod(op.apply(p), field), dim=0)
+                      for op, field in zip(model.ops, fields))
+        g_x = pullback(gmaps)
+        g_z = g_x * x                    # chain rule through x = exp(z)
+        t = t + 1
+        m = beta1 * m + (1 - beta1) * g_z
+        v = beta2 * v + (1 - beta2) * g_z ** 2
+        mhat = m / (1 - beta1 ** t)
+        vhat = v / (1 - beta2 ** t)
+        z = z - lr * mhat / (torch.sqrt(vhat) + eps)
+        # each cost is paired with the α that PRODUCED it; gnorm is taken
+        # on g_x, before the chain rule
+        xs.append(x)
+        costs.append(0.5 * torch.sum((u - utrue) ** 2))
+        gnorms.append(torch.sqrt(torch.sum(g_x ** 2)))
+    carry = (u, ys, p, z, (m, v), t)
+    res = SingleLoopResult(
+        alpha=torch.exp(z), u=u, cost=0.5 * torch.sum((u - utrue) ** 2),
+        alpha_trajectory=_stack(xs, param_shape, dtype, dev),
+        cost_trajectory=_stack(costs, (), dtype, dev),
+        gnorm_trajectory=_stack(gnorms, (), dtype, dev))
+    return (res, carry) if return_carry else res
+
+
+def _stack(items, shape, dtype, device):
+    if items:
+        return torch.stack(items)
+    return torch.empty((0,) + tuple(shape), dtype=dtype, device=device)
+
+
+def _prepare(utrue, f, x0, model: DenoiseModel):
+    """Inputs of a learn → (utrue, f, x0, pop, param_shape, squeeze): the
+    images as an (O, M, N) stack on f's device in utrue's dtype (the
+    gradient maps are reduced over axis 0, the batch), x0 checked and
+    beside them, and the parameter layout."""
+    utrue = torch.as_tensor(utrue)
+    f = torch.as_tensor(f).to(utrue.dtype)
+    utrue = utrue.to(f.device)
+    squeeze = f.ndim == 2
+    if squeeze:
+        utrue, f = utrue[None], f[None]
+    x0 = torch.as_tensor(x0, dtype=utrue.dtype)
+    _check_positive_x0(x0)
+    x0 = x0.to(f.device)
+    pop, param_shape = _param_layout(model, x0, f.shape[-2:])
+    return utrue, f, x0, pop, param_shape, squeeze
+
+
+def _single_loop_impl(utrue, f, x0, *, model: DenoiseModel, outer: int,
+                      param_shape: tuple, carry0=None,
+                      return_carry: bool = False, **kw):
+    """One segment of the learner where ``f`` lives: the plain loop for
+    CPU tensors, the CUDA learner for any other (which raises unless the
+    tensors are on the card, and for what it does not take).  ``utrue``
+    and ``f`` are (O, M, N).  → :class:`SingleLoopResult` (and the
+    carry)."""
+    if f.device.type == "cpu":
+        return _single_loop_plain(utrue, f, x0, model=model, outer=outer,
+                                  param_shape=param_shape, carry0=carry0,
+                                  return_carry=return_carry, **kw)
+    from .first_order_cuda import _launch
+    if carry0 is None:
+        carry0 = _init_carry(f, x0, K=model.K, param_shape=param_shape)
+    carry, (xs, costs, gnorms) = _launch(utrue, f, carry0, model=model,
+                                         outer=int(outer),
+                                         param_shape=param_shape, **kw)
+    u, z = carry[0], carry[3]
+    cost = costs[-1] if outer > 0 else 0.5 * torch.sum((u - utrue) ** 2)
+    res = SingleLoopResult(alpha=torch.exp(z), u=u, cost=cost,
+                           alpha_trajectory=xs, cost_trajectory=costs,
+                           gnorm_trajectory=gnorms)
+    return (res, carry) if return_carry else res
+
+
+def single_loop_learn(utrue, f, x0, model: DenoiseModel, *,
+                      outer: int = 300, n_inner: int = 40, n_adj: int = 10,
+                      lr: float = 0.05, gamma: float = 1e4,
+                      tau0: float = 5.0, sigma0: float = 0.99 / 5.0,
+                      beta1: float = 0.9, beta2: float = 0.999,
+                      eps: float = 1e-8, mesh=None, optimizer=None,
+                      log_every: Optional[int] = None,
+                      segment_callback=None,
+                      cg_variant: str = "classic") -> SingleLoopResult:
+    """Single-loop bilevel learning for any model and parameterization,
+    on the device ``f`` lives on.  ``x0`` must be strictly positive (the
+    parameter lives in log space).  ``log_every=j`` runs ``j``-step
+    segments with a host hop between them and fills ``times``."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= data parallelism is not ported yet (ROADMAP.md §1 "
+            "item 10)")
+    if optimizer is not None:
+        raise NotImplementedError(
+            "optimizer= takes an optax transformation, which has no "
+            "PyTorch counterpart here; the built-in Adam runs")
+    if cg_variant not in CG_VARIANTS:
+        raise ValueError(f"cg_variant must be one of {sorted(CG_VARIANTS)}, "
+                         f"got {cg_variant!r}")
+    utrue, f, x0, pop, param_shape, squeeze = _prepare(utrue, f, x0, model)
+    kw = dict(model=model, outer=int(outer), n_inner=int(n_inner),
+              n_adj=int(n_adj), pop=pop, param_shape=param_shape, lr=lr,
+              gamma=gamma, tau0=tau0, sigma0=sigma0, beta1=beta1,
+              beta2=beta2, eps=eps, cg_variant=str(cg_variant))
+    res = drive_single_loop(
+        _single_loop_impl, utrue, f, x0, kw,
+        make_carry0=lambda ff: _init_carry(ff, x0, K=model.K,
+                                           param_shape=param_shape),
+        log_every=log_every, segment_callback=segment_callback)
+    if squeeze:
+        res = res._replace(u=res.u[0])
+    return res
+
+
+def drive_single_loop(impl, utrue, f, x0, kw, *, make_carry0,
+                      log_every=None,
+                      segment_callback=None) -> SingleLoopResult:
+    """Host loop over the segments of a single-loop learner.
+
+    ``impl(utrue, f, x0, *, carry0, return_carry, **kw)`` runs ``kw
+    ["outer"]`` steps and returns a :class:`SingleLoopResult` (and the
+    carry).  ``log_every=None`` runs the whole loop as one call;
+    ``log_every=j`` runs ``j``-step segments that hand the carry on (u,
+    the duals, p, log α, Adam's moments and step counter), waits for each
+    to finish and records ``times[i]``, the cumulative wall seconds at the
+    end of the segment that ran step ``i``; ``segment_callback(done,
+    elapsed)`` runs after each segment.  The CUDA library is built before
+    the clock starts."""
+    if log_every is None:
+        return impl(utrue, f, x0, **kw)
+    if f.device.type == "cuda":
+        from .. import _build
+        _build.library()
+    log_every = int(log_every)
+    outer = kw["outer"]
+    carry = make_carry0(f)
+    times = np.zeros((outer,), np.float64)
+    pieces = []
+    done = 0
+    t0 = time.perf_counter()
+    while done < outer:
+        seg = min(log_every, outer - done)
+        res_seg, carry = impl(utrue, f, x0, carry0=carry, return_carry=True,
+                              **dict(kw, outer=seg))
+        if f.device.type == "cuda":
+            torch.cuda.synchronize(f.device)
+        elapsed = time.perf_counter() - t0
+        times[done:done + seg] = elapsed
+        pieces.append(res_seg)
+        done += seg
+        if segment_callback is not None:
+            segment_callback(done, elapsed)
+    return pieces[-1]._replace(
+        alpha_trajectory=torch.cat([p.alpha_trajectory for p in pieces]),
+        cost_trajectory=torch.cat([p.cost_trajectory for p in pieces]),
+        gnorm_trajectory=torch.cat([p.gnorm_trajectory for p in pieces]),
+        times=times)
+
+
+_TV = tv_model()
+
+
+def single_loop_tv_learn(utrue, f, alpha0=0.1, **kwargs) -> SingleLoopResult:
+    """Scalar/patch TV convenience wrapper."""
+    return single_loop_learn(utrue, f, alpha0, _TV, **kwargs)
+
+
+def single_loop_sumregs_learn(utrue, f, alpha0,
+                              **kwargs) -> SingleLoopResult:
+    """Sum-of-regularizers convenience wrapper ((3,) or (m, n, 3) α)."""
+    return single_loop_learn(utrue, f, alpha0, sumregs_model(), **kwargs)

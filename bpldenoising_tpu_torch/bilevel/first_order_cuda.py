@@ -1,0 +1,239 @@
+"""The single-loop learner as a CUDA kernel (``csrc/single_loop.cu``),
+replacing the TPU kernels ``bpldenoising_tpu/bilevel/first_order_pallas.py::
+_kernel`` (the resident one-launch learner) and ``::_tiled_kernel`` (the
+same learner over batch tiles, with per-tile CG inner products).
+
+:func:`single_loop_cuda`, :func:`single_loop_cuda_tiled` and
+:func:`single_loop_tv_cuda` take the arguments of the JAX package's
+``single_loop_pallas``, ``single_loop_pallas_tiled`` and
+``single_loop_tv_pallas`` and return the same ``(x, u, traj)``: ``traj``
+is the α trajectory for scalar TV and the cost trajectory otherwise.  They
+go through :func:`.first_order._single_loop_impl`, which decides the
+device: the plain version for tensors on the CPU, the kernel (launched by
+:func:`_launch` here) for CUDA tensors, or an error for what it does not
+take.
+
+The card has no VMEM budget, so nothing is rerouted:
+:func:`single_loop_cuda` always takes its inner products over the whole
+batch (the jnp scan's semantics), and :func:`single_loop_cuda_tiled` does
+too unless ``tile_b`` is given, in which case the CG's inner products (so
+its α and β) are taken per group of ``tile_b`` images as TPU kernel 10
+takes them; the gradient and the cost are summed over the whole batch
+either way.  ``persist`` and ``interpret`` are accepted for signature
+parity and change nothing here (the JAX package documents ``persist`` as
+bit-identical either way).
+
+:func:`_launch` runs one segment on the card: it takes and returns the
+carry ``(u, ys, p, z, (m, v), t)`` and always returns all three
+trajectories.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+from ..models import DenoiseModel, tv_model
+from ..ops import BwdGradientOp, CenteredGradientOp, FwdGradientOp
+from ..solvers.pdps_cuda import check_cuda_input, check_plane
+from .first_order import _prepare, _single_loop_impl
+from .pcg import CG_VARIANTS
+
+__all__ = ["single_loop_cuda", "single_loop_cuda_tiled",
+           "single_loop_tv_cuda", "stencil_cuda", "launches"]
+
+#: calls that launched the CUDA learner (one per segment)
+launches = 0
+
+# stencil kinds of csrc/single_loop.cu, in the order of ops/grad.py
+_KINDS = {FwdGradientOp: 0, BwdGradientOp: 1, CenteredGradientOp: 2}
+_MAX_K = 8   # SL_MAXK in csrc/single_loop.cu
+
+_TV = tv_model()
+
+
+def _kinds_code(model: DenoiseModel) -> int:
+    """The model's stencils packed two bits per regularizer."""
+    if model.channels or not 1 <= model.K <= _MAX_K:
+        raise NotImplementedError(
+            f"the CUDA single-loop learner takes 1 to {_MAX_K} gradient "
+            "regularizers without channels")
+    code = 0
+    for k, op in enumerate(model.ops):
+        kind = _KINDS.get(type(op))
+        if kind is None:
+            raise NotImplementedError(
+                f"the CUDA single-loop learner has no stencil for {op!r}")
+        code |= kind << (2 * k)
+    return code
+
+
+def _to_kp(x, K: int, P: int):
+    """Parameter layout → the kernel's (K, P): an (m, n, K) stack puts K
+    first; every other shape is already K-major."""
+    if x.ndim == 3:
+        x = x.permute(2, 0, 1)
+    return x.reshape(K, P)
+
+
+def _from_kp(x, param_shape: tuple):
+    """The kernel's (..., K, P) → (..., *param_shape)."""
+    lead = tuple(x.shape[:-2])
+    if len(param_shape) == 3:
+        m, n, K = param_shape
+        x = x.reshape(lead + (K, m, n))
+        return x.permute(*range(len(lead)), len(lead) + 1, len(lead) + 2,
+                         len(lead))
+    return x.reshape(lead + tuple(param_shape))
+
+
+def _launch(utrue, f, carry, *, model, outer, n_inner, n_adj, pop,
+            param_shape, lr, gamma, tau0, sigma0, beta1, beta2, eps,
+            cg_variant="classic", tile_b=None):
+    """Run ``outer`` steps from ``carry`` on the card; → (carry,
+    (α trajectory, cost trajectory, gnorm trajectory))."""
+    check_cuda_input(f)
+    if f.ndim != 3:
+        raise ValueError(f"expected an (O, M, N) stack, got {tuple(f.shape)}")
+    check_plane(utrue, f.shape, f, "utrue")
+    code = _kinds_code(model)
+    if cg_variant not in CG_VARIANTS:
+        raise ValueError(f"unknown cg_variant {cg_variant!r}")
+    dtype, dev = f.dtype, f.device
+    B, M, N = (int(s) for s in f.shape)
+    K = model.K
+    pm, pn = (1, 1) if pop is None else pop.size_in
+    P = pm * pn
+    tile_b = B if tile_b is None else int(tile_b)
+    if tile_b < 1:
+        raise ValueError(f"tile_b must be positive, got {tile_b}")
+    tile_b = min(tile_b, B)
+    u, ys, p, z, (m, v), t = carry
+    y_shape = (B, 2, M, N)
+    check_plane(u, f.shape, f, "carry u")
+    check_plane(p, f.shape, f, "carry p")
+    if len(ys) != K:
+        raise ValueError(f"carry needs {K} dual fields, got {len(ys)}")
+    for y in ys:
+        check_plane(y, y_shape, f, "carry y")
+    for name, a in (("z", z), ("m", m), ("v", v)):
+        check_plane(a, param_shape, f, f"carry {name}")
+    check_plane(t, (), f, "carry t")
+
+    f = f.contiguous()
+    utrue = utrue.contiguous()
+    u = u.contiguous().clone()
+    ysk = torch.stack(tuple(ys)).contiguous()          # (K, B, 2, M, N)
+    p = p.contiguous().clone()
+    zmv = torch.stack([_to_kp(a, K, P) for a in (z, m, v)]).contiguous()
+    t = t.reshape(1).clone()
+    traj_x = torch.empty((outer, K, P), dtype=dtype, device=dev)
+    traj_cost = torch.empty((outer,), dtype=dtype, device=dev)
+    traj_gnorm = torch.empty((outer,), dtype=dtype, device=dev)
+    lib = _build.library()
+    scratch = torch.empty((lib.bpl_sl_scratch(B, M, N, K, P, tile_b),),
+                          dtype=dtype, device=dev)
+    # τ, σ and γ in the working dtype, as the plain version forms them
+    L = torch.sqrt(torch.tensor(model.opnorm_sq(), dtype=dtype))
+    tau = float(torch.tensor(tau0, dtype=dtype) / L)
+    sigma = float(torch.tensor(sigma0, dtype=dtype) / L)
+    fn = lib.bpl_single_loop_f32 if dtype == torch.float32 \
+        else lib.bpl_single_loop_f64
+    global launches
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        launches += 1
+        err = fn(f.data_ptr(), utrue.data_ptr(), u.data_ptr(),
+                 ysk.data_ptr(), p.data_ptr(), zmv.data_ptr(), t.data_ptr(),
+                 traj_x.data_ptr(), traj_cost.data_ptr(),
+                 traj_gnorm.data_ptr(), scratch.data_ptr(), B, M, N, K, code,
+                 pm, pn, tile_b, int(outer), int(n_inner), int(n_adj),
+                 int(cg_variant == "pipelined"), tau, sigma, float(gamma),
+                 float(lr), float(beta1), float(beta2), 1.0 - float(beta1),
+                 1.0 - float(beta2), float(eps), stream)
+    _build.check(err, "single-loop kernel")
+    carry = (u, tuple(ysk[k] for k in range(K)), p,
+             _from_kp(zmv[0], param_shape), (_from_kp(zmv[1], param_shape),
+                                             _from_kp(zmv[2], param_shape)),
+             t.reshape(()))
+    return carry, (_from_kp(traj_x, param_shape), traj_cost, traj_gnorm)
+
+
+def _run(utrue, f, x0, model, kw, tile_b=None):
+    """The library entry points' common path → (x, u, traj)."""
+    model = model if model is not None else _TV
+    utrue, f, x0, pop, param_shape, squeeze = _prepare(utrue, f, x0, model)
+    res = _single_loop_impl(utrue, f, x0, model=model, pop=pop,
+                            param_shape=param_shape, tile_b=tile_b, **kw)
+    traj = (res.alpha_trajectory if model.K == 1 and x0.ndim == 0
+            else res.cost_trajectory)
+    return res.alpha, (res.u[0] if squeeze else res.u), traj
+
+
+def single_loop_cuda(utrue, f, x0, model: DenoiseModel = None, *,
+                     outer: int = 300, n_inner: int = 40, n_adj: int = 10,
+                     lr: float = 0.05, gamma: float = 1e4,
+                     tau0: float = 5.0, sigma0: float = 0.99 / 5.0,
+                     beta1: float = 0.9, beta2: float = 0.999,
+                     eps: float = 1e-8, interpret: bool = False,
+                     persist: bool | None = None,
+                     cg_variant: str = "classic"):
+    """Single-loop learning for any parameterization (scalar / (m, n)
+    patch / (K,) vector / (m, n, K) patch stack ``x0``), inner products
+    over the whole batch.  ``interpret`` and ``persist`` change nothing.
+    → ``(x, u, traj)``."""
+    return _run(utrue, f, x0, model, dict(
+        outer=outer, n_inner=n_inner, n_adj=n_adj, lr=lr, gamma=gamma,
+        tau0=tau0, sigma0=sigma0, beta1=beta1, beta2=beta2, eps=eps,
+        cg_variant=cg_variant))
+
+
+def single_loop_cuda_tiled(utrue, f, x0, model: DenoiseModel = None, *,
+                           outer: int = 300, n_inner: int = 40,
+                           n_adj: int = 10, lr: float = 0.05,
+                           gamma: float = 1e4, tau0: float = 5.0,
+                           sigma0: float = 0.99 / 5.0, beta1: float = 0.9,
+                           beta2: float = 0.999, eps: float = 1e-8,
+                           tile_b: int | None = None,
+                           interpret: bool = False):
+    """The same learner with the classic CG's inner products taken per
+    group of ``tile_b`` images (TPU kernel 10); ``tile_b=None`` is one
+    tile, the scan's semantics.  → ``(x, u, traj)``."""
+    return _run(utrue, f, x0, model, dict(
+        outer=outer, n_inner=n_inner, n_adj=n_adj, lr=lr, gamma=gamma,
+        tau0=tau0, sigma0=sigma0, beta1=beta1, beta2=beta2, eps=eps,
+        cg_variant="classic"), tile_b=tile_b)
+
+
+def single_loop_tv_cuda(utrue, f, alpha0=0.1, **kwargs):
+    """Scalar/patch-TV convenience wrapper (returns ``(alpha, u, traj)``)."""
+    return single_loop_cuda(utrue, f, alpha0, _TV, **kwargs)
+
+
+def stencil_cuda(kind: int, what: str, x):
+    """One stencil of ``csrc/single_loop.cu`` on the card, for checking it
+    against ``ops/grad.py``: ``kind`` 0/1/2 (forward, backward, centred),
+    ``what`` ``"grad"`` ((B, M, N) → (B, 2, M, N)), ``"adjoint"`` or
+    ``"gram"`` ((B, 2, M, N) → (B, M, N)).  Counts no launch."""
+    check_cuda_input(x)
+    whats = ("grad", "adjoint", "gram")
+    if kind not in (0, 1, 2) or what not in whats:
+        raise ValueError(f"kind {kind!r}, what {what!r}")
+    x = x.contiguous()
+    if what == "grad":
+        B, M, N = x.shape
+        out = torch.empty((B, 2, M, N), dtype=x.dtype, device=x.device)
+    else:
+        B, two, M, N = x.shape
+        if two != 2:
+            raise ValueError(f"expected (B, 2, M, N), got {tuple(x.shape)}")
+        out = torch.empty((B, M, N), dtype=x.dtype, device=x.device)
+    lib = _build.library()
+    fn = lib.bpl_sl_stencil_f32 if x.dtype == torch.float32 \
+        else lib.bpl_sl_stencil_f64
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(int(kind), whats.index(what), x.data_ptr(), out.data_ptr(),
+                 int(B), int(M), int(N), stream)
+    _build.check(err, "single-loop stencil")
+    return out

@@ -1,9 +1,10 @@
 // Shared helpers of the port's CUDA kernels (pdps.cu, hypergrad.cu, tgv.cu,
-// tvl1.cu, vtv.cu).
+// tvl1.cu, vtv.cu, single_loop.cu).
 //
 // Every kernel here runs one thread per pixel of a (batch, rows, cols)
-// stack in global memory; the stencils are the forward differences of
-// bpldenoising_tpu/ops/grad.py, masked at the image boundary.  Reductions
+// stack in global memory; the stencils are the forward, backward and
+// centred differences of bpldenoising_tpu/ops/grad.py (and of the port's
+// ops/grad.py), masked at the image boundary.  Reductions
 // over the batch are deterministic: each block writes one partial sum
 // (a fixed tree inside the block), and a second one-block pass sums the
 // partials in a fixed order.  There are no atomics, so repeated runs agree
@@ -50,26 +51,84 @@ __device__ __forceinline__ Pix pix_of(long long idx, int M, int N) {
   return p;
 }
 
-// Forward differences (D⁺) of plane v at flat index idx: zero at the last
-// row / column.
+// The three difference stencils of ops/grad.py: forward D⁺ (zero at the
+// last index; every TV-type kernel), backward D⁻ (zero at the first) and
+// centred D⁰ ((v[i+1] − v[i−1])/2, zero at both ends), which the
+// sum-of-regularizers learner also uses (csrc/single_loop.cu).  With a
+// literal kind the switch folds away at compile time.  Each 1-D helper
+// works along one axis at position i of n with stride s (N for rows, 1 for
+// columns), in the order of the plain version's slices and concatenations.
+enum Stencil { STENCIL_FWD = 0, STENCIL_BWD = 1, STENCIL_CEN = 2 };
+
 template <typename T>
-__device__ __forceinline__ void grad_fwd(const T* v, long long idx, Pix p,
-                                         int M, int N, T& gx, T& gy) {
-  T c = v[idx];
-  gx = (p.i < M - 1) ? v[idx + N] - c : T(0);
-  gy = (p.j < N - 1) ? v[idx + 1] - c : T(0);
+__device__ __forceinline__ T diff1(const T* v, long long idx, int i, int n,
+                                   long long s, int kind) {
+  if (kind == STENCIL_FWD) return i < n - 1 ? v[idx + s] - v[idx] : T(0);
+  if (kind == STENCIL_BWD) return i >= 1 ? v[idx] - v[idx - s] : T(0);
+  return (i >= 1 && i < n - 1) ? (v[idx + s] - v[idx - s]) * T(0.5) : T(0);
 }
 
-// Adjoint of D⁺ (−div) of the field (qx, qy) at flat index idx, in the
-// order of ops/grad.py: (a_x − b_x) + (a_y − b_y).
+// The adjoint of diff1 (−div along the axis): dplus_T, dminus_T, dcent_T.
 template <typename T>
-__device__ __forceinline__ T div_fwd_T(const T* qx, const T* qy, long long idx,
-                                       Pix p, int M, int N) {
-  T ax = (p.i >= 1) ? qx[idx - N] : T(0);
-  T bx = (p.i < M - 1) ? qx[idx] : T(0);
-  T ay = (p.j >= 1) ? qy[idx - 1] : T(0);
-  T by = (p.j < N - 1) ? qy[idx] : T(0);
-  return (ax - bx) + (ay - by);
+__device__ __forceinline__ T adj1(const T* q, long long idx, int i, int n,
+                                  long long s, int kind) {
+  if (kind == STENCIL_FWD) {
+    T a = i >= 1 ? q[idx - s] : T(0);
+    T b = i < n - 1 ? q[idx] : T(0);
+    return a - b;
+  }
+  if (kind == STENCIL_BWD) {
+    T a = i >= 1 ? q[idx] : T(0);
+    T b = i < n - 1 ? q[idx + s] : T(0);
+    return a - b;
+  }
+  // q is read on its interior 1..n−2 only
+  T down = i >= 2 ? q[idx - s] : T(0);
+  T up = i <= n - 3 ? q[idx + s] : T(0);
+  return (down - up) * T(0.5);
+}
+
+// diag(Dᵀ diag(w) D) along the axis: dplus_gram, dminus_gram, dcent_gram.
+template <typename T>
+__device__ __forceinline__ T gram1(const T* w, long long idx, int i, int n,
+                                   long long s, int kind) {
+  if (kind == STENCIL_FWD) {
+    T a = i >= 1 ? w[idx - s] : T(0);
+    T b = i < n - 1 ? w[idx] : T(0);
+    return a + b;
+  }
+  if (kind == STENCIL_BWD) {
+    T a = i >= 1 ? w[idx] : T(0);
+    T b = i < n - 1 ? w[idx + s] : T(0);
+    return a + b;
+  }
+  T down = i >= 2 ? w[idx - s] : T(0);
+  T up = i <= n - 3 ? w[idx + s] : T(0);
+  return (down + up) * T(0.25);
+}
+
+// The 2-D gradient (rows, columns) of plane v at flat index idx.
+template <typename T>
+__device__ __forceinline__ void grad_k(const T* v, long long idx, Pix p,
+                                       int M, int N, int kind, T& gx, T& gy) {
+  gx = diff1(v, idx, p.i, M, (long long)N, kind);
+  gy = diff1(v, idx, p.j, N, 1LL, kind);
+}
+
+// Gᵀ of the field (qx, qy): adjoint along rows + adjoint along columns.
+template <typename T>
+__device__ __forceinline__ T div_k(const T* qx, const T* qy, long long idx,
+                                   Pix p, int M, int N, int kind) {
+  return adj1(qx, idx, p.i, M, (long long)N, kind)
+         + adj1(qy, idx, p.j, N, 1LL, kind);
+}
+
+// diag(Gᵀ diag(w) G) for the weights (wx, wy): gram_diag of ops/grad.py.
+template <typename T>
+__device__ __forceinline__ T gram_k(const T* wx, const T* wy, long long idx,
+                                    Pix p, int M, int N, int kind) {
+  return gram1(wx, idx, p.i, M, (long long)N, kind)
+         + gram1(wy, idx, p.j, N, 1LL, kind);
 }
 
 // Π onto the Euclidean ball of radius a, given the squared norm n2 of a
@@ -80,6 +139,12 @@ __device__ __forceinline__ T ball_scale(T n2, T a) {
   T nrm = sqrt(n2);
   if (nrm <= a) return T(1);
   return a / (nrm > tiny<T>() ? nrm : tiny<T>());
+}
+
+// x, or 1 where x is 0: the guard of every CG division.
+template <typename T>
+__device__ __forceinline__ T nz(T x) {
+  return x == T(0) ? T(1) : x;
 }
 
 // Sum of v over the block (BPL_THREADS threads); the result is valid in
@@ -129,7 +194,7 @@ __global__ void pd_primal(const T* __restrict__ f, T* __restrict__ u,
   const long long in_img = idx - p.b * MN;
   const T* qx = y + p.b * 2 * MN;
   const T* qy = qx + MN;
-  T div = div_fwd_T(qx, qy, in_img, p, M, N);
+  T div = div_k(qx, qy, in_img, p, M, N, STENCIL_FWD);
   T uo = u[idx];
   T un = (uo - tau * (div - f[idx])) / (T(1) + tau);
   u[idx] = un;

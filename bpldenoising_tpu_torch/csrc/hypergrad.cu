@@ -61,7 +61,7 @@ __global__ void hg_setup(HG<T> h) {
   if (idx >= h.n) return;
   Pix p = pix_of(idx, h.M, h.N);
   T gx, gy;
-  grad_fwd(h.u, idx, p, h.M, h.N, gx, gy);
+  grad_k(h.u, idx, p, h.M, h.N, STENCIL_FWD, gx, gy);
   T nG = sqrt(gx * gx + gy * gy);
   T act, den;
   if (h.reg) {
@@ -119,7 +119,7 @@ __global__ void hg_weights(HG<T> h, const T* __restrict__ v) {
   if (idx >= h.n) return;
   Pix p = pix_of(idx, h.M, h.N);
   T gx, gy;
-  grad_fwd(v, idx, p, h.M, h.N, gx, gy);
+  grad_k(v, idx, p, h.M, h.N, STENCIL_FWD, gx, gy);
   T ux = h.plane(GUX)[idx], uy = h.plane(GUY)[idx];
   T act = h.plane(ACT)[idx];
   T inact = T(1) - act;
@@ -149,7 +149,8 @@ __global__ void hg_apply(HG<T> h, const T* __restrict__ v, T* __restrict__ out,
   T vo = T(0);
   if (live) {
     Pix p = pix_of(idx, h.M, h.N);
-    T mv = v[idx] + div_fwd_T(h.plane(WX), h.plane(WY), idx, p, h.M, h.N);
+    T mv = v[idx] + div_k(h.plane(WX), h.plane(WY), idx, p, h.M, h.N,
+                          STENCIL_FWD);
     out[idx] = mv;
     vo = v[idx] * mv;
   }
@@ -186,11 +187,6 @@ __global__ void hg_cg_init(HG<T> h) {
     h.partials[h.nblocks + blockIdx.x] = s1;
     h.partials[2 * h.nblocks + blockIdx.x] = s2;
   }
-}
-
-template <typename T>
-__device__ __forceinline__ T nz(T x) {
-  return x == T(0) ? T(1) : x;
 }
 
 // a = rz/(d·Md); p += a d; r −= a Md; z = r/diag; partials of r·z, r·r.
@@ -255,7 +251,7 @@ __global__ void hg_lambda(HG<T> h) {
   if (idx >= h.n) return;
   Pix p = pix_of(idx, h.M, h.N);
   T gx, gy;
-  grad_fwd((const T*)h.p, idx, p, h.M, h.N, gx, gy);
+  grad_k((const T*)h.p, idx, p, h.M, h.N, STENCIL_FWD, gx, gy);
   T m = h.mu * h.plane(ACT)[idx];
   h.plane(LAMX)[idx] = h.plane(LAMX)[idx] + m * gx;
   h.plane(LAMY)[idx] = h.plane(LAMY)[idx] + m * gy;
@@ -272,7 +268,7 @@ __global__ void hg_grad(HG<T> h) {
   if (live) {
     Pix p = pix_of(idx, h.M, h.N);
     T gx, gy;
-    grad_fwd((const T*)h.p, idx, p, h.M, h.N, gx, gy);
+    grad_k((const T*)h.p, idx, p, h.M, h.N, STENCIL_FWD, gx, gy);
     T ux = h.plane(GUX)[idx], uy = h.plane(GUY)[idx];
     T act = h.plane(ACT)[idx];
     T inact = T(1) - act;

@@ -38,7 +38,7 @@ __global__ void pd_dual(const T* __restrict__ ubar, T* __restrict__ y,
   Pix p = pix_of(idx, M, N);
   const long long MN = (long long)M * N;
   T gx, gy;
-  grad_fwd(ubar, idx, p, M, N, gx, gy);
+  grad_k(ubar, idx, p, M, N, STENCIL_FWD, gx, gy);
   T* qx = y + p.b * 2 * MN + (idx - p.b * MN);
   T* qy = qx + MN;
   T px = *qx + sigma * gx;

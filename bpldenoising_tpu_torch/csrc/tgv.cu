@@ -99,7 +99,7 @@ __global__ void tgv_primal(TGV<T> s) {
   T* wbc = wbr + MN;
   const T tau = s.tau;
 
-  T divp = div_fwd_T(pr, pc, k, px, s.M, s.N);
+  T divp = div_k(pr, pc, k, px, s.M, s.N, STENCIL_FWD);
   T uo = s.u[idx];
   T un = (uo - tau * divp + tau * s.f[idx]) / (T(1) + tau);
   T er = dminus_T_rows(qrr, k, px.i, s.M, s.N)
@@ -138,7 +138,7 @@ __global__ void tgv_dual(TGV<T> s) {
 
   // p: dual of ∇u − w
   T gx, gy;
-  grad_fwd(s.ubar, idx, px, M, N, gx, gy);
+  grad_k(s.ubar, idx, px, M, N, STENCIL_FWD, gx, gy);
   T br = wbr[k], bc = wbc[k];
   T ptr = pr[k] + sigma * (gx - br);
   T ptc = pc[k] + sigma * (gy - bc);

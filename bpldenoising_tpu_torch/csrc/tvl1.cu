@@ -81,7 +81,7 @@ __global__ void tvl1_primal(TVL1<T> s) {
   const T* yy = yx + MN;
   const T tau = s.tau;
 
-  T d = div_fwd_T(yx, yy, k, px, s.M, s.N);
+  T d = div_k(yx, yy, k, px, s.M, s.N, STENCIL_FWD);
   T uo = s.u[idx];
   T fv = s.f[idx];
   T z = (uo - tau * d) - fv;
@@ -111,7 +111,7 @@ __global__ void tvl1_dual(TVL1<T> s) {
   const T a = s.amap ? s.amap[k] : s.a;
 
   T gx, gy;
-  grad_fwd(s.ubar, idx, px, s.M, s.N, gx, gy);
+  grad_k(s.ubar, idx, px, s.M, s.N, STENCIL_FWD, gx, gy);
   T tx = yx[k] + sigma * gx;
   T ty = yy[k] + sigma * gy;
   if (HUBER) {

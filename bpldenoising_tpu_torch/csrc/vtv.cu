@@ -73,7 +73,7 @@ __device__ __forceinline__ void vtv_q(const VTV<T>& s, long long plane,
                                       T& qy) {
   const long long MN = (long long)s.M * s.N;
   T gx, gy;
-  grad_fwd(s.ubar + plane * MN, k, p, s.M, s.N, gx, gy);
+  grad_k(s.ubar + plane * MN, k, p, s.M, s.N, STENCIL_FWD, gx, gy);
   const T* yx = s.y + plane * 2 * MN;
   qx = yx[k] + sigma * gx;
   qy = yx[MN + k] + sigma * gy;

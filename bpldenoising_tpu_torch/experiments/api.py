@@ -2,10 +2,15 @@
 ``bpldenoising_tpu.experiments.api``).
 
 Ported so far: :func:`scalar_bilevel_tv_learn` with ``method="tr_fused"``
-(the shape of the JAX package's ``_run_fused``).  The host-driven ``tr``
-method, the single-loop method, the other families, saving PNGs, quality
-tables and plots, checkpointing and data parallelism are not ported yet and
-raise ``NotImplementedError``, as does any ``backend`` but ``"auto"``
+(the shape of the JAX package's ``_run_fused``) and, for it and for
+:func:`patch_bilevel_tv_learn`, :func:`scalar_bilevel_sumregs_learn` and
+:func:`patch_bilevel_sumregs_learn`, ``method="single_loop"`` (the shape
+of ``_run_single_loop``: the first-order learner in ``log_every =
+outer // 20`` segments, whose log carries real segment-end times).  The
+host-driven ``tr`` method, ``tr_fused`` for the patch and
+sum-of-regularizers learns, saving PNGs, quality tables and plots,
+checkpointing and data parallelism are not ported yet and raise
+``NotImplementedError``, as does any ``backend`` but ``"auto"``
 (:func:`check_backend`: ``device=`` chooses what runs).
 
 Beyond the JAX surface, ``check_every`` (the inner solve's early-stop
@@ -15,18 +20,23 @@ so a caller can run the flagship's settings through this entry point.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..bilevel.first_order import single_loop_learn
 from ..bilevel.fused import bilevel_learn_fused
 from ..bilevel.harness import BilevelResult, BilevelState
 from ..data import full_datasetname, testdataset
-from ..models import tv_model
+from ..models import sumregs_model, tv_model
 from ..solvers.hypergrad import HypergradConfig
 from ..utils.config import Params, merge
 from ..viz.log import BilevelLogEntry
 
-__all__ = ["scalar_bilevel_tv_learn", "default_params", "bilevel_params",
-           "check_backend"]
+__all__ = ["scalar_bilevel_tv_learn", "patch_bilevel_tv_learn",
+           "scalar_bilevel_sumregs_learn", "patch_bilevel_sumregs_learn",
+           "default_params", "bilevel_params", "patch_bilevel_params",
+           "sumregs_bilevel_params", "patch_sumregs_bilevel_params",
+           "check_backend", "single_loop_log_every", "single_loop_state"]
 
 default_params = Params(
     verbose_iter=1,
@@ -44,10 +54,25 @@ default_params = Params(
     hypergrad_cfg=HypergradConfig(),
     data_parallel=False,
     method="tr",
+    sl_outer=300, sl_inner=40, sl_adj=10, sl_lr=0.05,   # single-loop knobs
 )
 
 bilevel_params = Params(
     eta1=0.25, eta2=0.75, beta1=0.25, beta2=1.9, delta0=0.1, alpha0=0.1)
+
+# the JAX package's parameter sets of the patch and sum-of-regularizers
+# learns (its experiments/api.py:120-132)
+patch_bilevel_params = Params(
+    eta1=0.25, eta2=0.75, beta1=0.25, beta2=1.9, delta0=1e-4,
+    alpha0=1e-4 * np.ones((2, 2)))
+
+sumregs_bilevel_params = Params(
+    eta1=0.25, eta2=0.75, beta1=0.25, beta2=1.9, delta0=0.01,
+    alpha0=np.array([1e-3, 1e-3, 1e-3]))
+
+patch_sumregs_bilevel_params = Params(
+    eta1=0.25, eta2=0.75, beta1=0.25, beta2=1.5, delta0=0.1,
+    alpha0=1e-3 * np.ones((2, 2, 3)))
 
 _UNPORTED_FLAGS = ("save_results", "save_iterations", "checkpoint", "resume",
                    "data_parallel", "log_every")
@@ -65,10 +90,11 @@ def check_backend(backend) -> None:
             "plain versions")
 
 
-def reject_unported(params) -> None:
-    """Raise for every set knob the port does not implement yet."""
+def reject_unported(params, allow=()) -> None:
+    """Raise for every set knob the port does not implement yet (but those
+    in ``allow``)."""
     for flag in _UNPORTED_FLAGS:
-        if params.get(flag):
+        if flag not in allow and params.get(flag):
             raise NotImplementedError(f"{flag} is not ported yet")
     check_backend(params.get("backend", "auto"))
 
@@ -112,19 +138,129 @@ def _run_fused(params, device):
     return _fused_to_result(res)
 
 
-def scalar_bilevel_tv_learn(visualise: bool = False, device="cuda",
-                            **kwargs) -> BilevelResult:
-    """Learn one scalar TV weight on a dataset with the trust region.
+def _reject_flags(params, method, flags):
+    """The JAX package's refusal of what a one-computation method cannot
+    honour (its experiments/api.py:395-400)."""
+    for flag in flags:
+        if params.get(flag):
+            raise ValueError(
+                f"{flag} is not supported with method='{method}' "
+                "(the loop runs as one on-device computation)")
 
-    Only ``method="tr_fused"`` is ported.  ``device="cuda"`` runs the CUDA
-    kernels; ``device="cpu"`` runs their plain versions.
-    """
+
+def single_loop_log_every(outer: int) -> int:
+    """Segment length of single-loop experiment runs (~20 log entries)."""
+    return max(1, int(outer) // 20)
+
+
+def single_loop_state(res, alpha0):
+    """SingleLoopResult → (BilevelState, final ‖g‖), as the JAX package
+    builds it: an entry every ``single_loop_log_every`` steps (and at the
+    last) with the segment-end cumulative wall time, the cost and
+    hypergradient-norm trajectories and the last parameter step; the
+    trust-region radius has no first-order counterpart and is NaN."""
+    st = BilevelState()
+    costs = res.cost_trajectory.cpu().numpy()
+    gnorms = res.gnorm_trajectory.cpu().numpy()
+    alphas = res.alpha_trajectory.cpu().numpy()
+    x0 = np.asarray(alpha0, dtype=float)
+    log_every = single_loop_log_every(len(costs))
+    for i, c in enumerate(costs):
+        if (i + 1) % log_every == 0 or i + 1 == len(costs):
+            prev = alphas[i - 1] if i > 0 else x0
+            step_norm = float(np.linalg.norm(np.ravel(alphas[i] - prev)))
+            st.log.append(BilevelLogEntry(
+                i + 1, float(res.times[i]), float(c), float(gnorms[i]),
+                float("nan"), step_norm))
+    g_norm = float(gnorms[-1]) if len(gnorms) else float("nan")
+    return st, g_norm
+
+
+def _run_single_loop(params, model_kind, device):
+    """The single-loop first-order learner behind the experiment surface,
+    in ``single_loop_log_every(outer)`` segments (``log_every`` in params
+    is not read, as in the JAX package)."""
+    _reject_flags(params, "single_loop",
+                  ("checkpoint", "resume", "save_iterations", "inner_tol"))
+    reject_unported(params, allow=("log_every",))
+    ds = _load(params, device)
+    model = tv_model() if model_kind == "tv" else sumregs_model()
+    outer = int(params.sl_outer)
+    res = single_loop_learn(
+        ds[0], ds[1], params.alpha0, model, outer=outer,
+        n_inner=int(params.sl_inner), n_adj=int(params.sl_adj),
+        lr=float(params.sl_lr), log_every=single_loop_log_every(outer))
+    st, g_norm = single_loop_state(res, params.alpha0)
+    return BilevelResult(x=res.alpha.cpu().numpy(), u=res.u.cpu().numpy(),
+                         state=st, cost=float(res.cost), g_norm=g_norm,
+                         iterations=outer)
+
+
+def _params(family_params, visualise, kwargs):
     if visualise:
         raise NotImplementedError("visualise is not ported yet")
-    params = merge(default_params, bilevel_params, kwargs)
-    params = params | dict(dataset_name=full_datasetname(params.dataset_name))
+    params = merge(default_params, family_params, kwargs)
+    return params | dict(dataset_name=full_datasetname(params.dataset_name))
+
+
+def _single_loop_only(params, name):
+    """The patch and sum-of-regularizers learns run the single-loop method
+    only, for now."""
+    method = params.get("method")
+    if method != "single_loop":
+        raise NotImplementedError(
+            f"{name}: method={method!r} is not ported yet (ROADMAP.md §1 "
+            "item 5, the patch and sum-of-regularizers trust region); use "
+            "method='single_loop'")
+
+
+def scalar_bilevel_tv_learn(visualise: bool = False, device="cuda",
+                            **kwargs) -> BilevelResult:
+    """Learn one scalar TV weight on a dataset with the fused trust region
+    (``method="tr_fused"``) or the single-loop learner
+    (``method="single_loop"``).  ``device="cuda"`` runs the CUDA kernels;
+    ``device="cpu"`` runs their plain versions.
+    """
+    params = _params(bilevel_params, visualise, kwargs)
+    if params.get("method") == "single_loop":
+        return _run_single_loop(params, "tv", device)
     if params.get("method") != "tr_fused":
         raise NotImplementedError(
             f"method={params.get('method')!r} is not ported yet; use "
-            "method='tr_fused'")
+            "method='tr_fused' or 'single_loop'")
     return _run_fused(params, device)
+
+
+def patch_bilevel_tv_learn(visualise: bool = False, device="cuda",
+                           **kwargs) -> BilevelResult:
+    """Learn an (m, n) patch grid of TV weights (default 2×2 from 1e-4)
+    with the single-loop learner."""
+    params = _params(patch_bilevel_params, visualise, kwargs)
+    _single_loop_only(params, "patch_bilevel_tv_learn")
+    return _run_single_loop(params, "tv", device)
+
+
+def scalar_bilevel_sumregs_learn(visualise: bool = False, device="cuda",
+                                 **kwargs) -> BilevelResult:
+    """Learn the (3,) weights of the forward, backward and centred TV terms
+    (default 1e-3 each) with the single-loop learner."""
+    params = _params(sumregs_bilevel_params, visualise, kwargs)
+    _single_loop_only(params, "scalar_bilevel_sumregs_learn")
+    return _run_single_loop(params, "sumregs", device)
+
+
+def patch_bilevel_sumregs_learn(image_pair=None, dataset_name=None,
+                                visualise: bool = False, device="cuda",
+                                **kwargs) -> BilevelResult:
+    """Learn an (m, n, 3) patch stack of sum-of-regularizers weights
+    (default 2×2×3 from 1e-3) with the single-loop learner, on
+    ``dataset_name``.  The explicit ``image_pair`` form runs the host trust
+    region in the JAX package and is not ported yet."""
+    if image_pair is not None:
+        raise NotImplementedError(
+            "the image_pair form is not ported yet (ROADMAP.md §1 item 5)")
+    if dataset_name is not None:
+        kwargs = dict(kwargs, dataset_name=dataset_name)
+    params = _params(patch_sumregs_bilevel_params, visualise, kwargs)
+    _single_loop_only(params, "patch_bilevel_sumregs_learn")
+    return _run_single_loop(params, "sumregs", device)

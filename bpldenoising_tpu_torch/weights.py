@@ -10,8 +10,13 @@ return ``(u, y)``), the TV-L1 adjoint p of shape (O, M, N), a warm VTV
 solver state, the jnp path's ``(u, (y,))`` with u (O, C, M, N) and y
 (O, C, 2, M, N) or the Pallas kernel's ``(u, px, py)`` with px, py
 (O, C, M, N) (the port's VTV solver takes both and returns ``(u, (y,))``),
-the VTV adjoint multiplier λ of shape (O, C, M, N); any nesting of tuples
-and lists) into the port's tensors, so that both packages can be fed
+the VTV adjoint multiplier λ of shape (O, C, M, N), the single-loop
+learner's carry ``(u, ys, p, z, (m, v), t)`` with u, p (O, M, N), ys a
+K-tuple of (O, 2, M, N) duals, z = log α and Adam's moments m, v in the
+parameter's shape and the 0-d step counter t (the port's
+``bilevel.first_order._single_loop_impl`` resumes from it as
+``carry0``); any nesting of tuples and lists) into the port's tensors, so
+that both packages can be fed
 the same state.  It reads each leaf through ``numpy.asarray`` and never imports
 JAX.
 """

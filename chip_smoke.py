@@ -72,6 +72,25 @@ Phases (one short line each):
     α 0.165434 with its default 10,000 iterations, each with the counters
     reset just before and read just after.  Gates below.
 
+17. the single-loop stencils (``csrc/common.cuh``: forward, backward and
+    centred gradients, their adjoints and Gram diagonals) against
+    ``ops/grad.py`` in float64, before any learner runs.
+18. the single-loop learner (``csrc/single_loop.cu``) against its plain
+    PyTorch version on the flagship data (10 × 128² float32): scalar TV,
+    300 outer steps of 40 PD and 10 CG steps, classic CG, both timed; 30
+    outer steps with the classic and the pipelined CG; then in float64 at
+    3 × 16² for the four parameterizations, both CG forms and two images
+    per tile.
+19. the single-loop learn: ``scalar_bilevel_tv_learn(dataset_name=
+    "faces_train", num_samples=10, dtype="float32", method="single_loop",
+    device="cuda")``, once to warm up and once timed, counters reset just
+    before and read just after; the plain loop must not run.  Gates below.
+20. the same for ``scalar_bilevel_sumregs_learn`` (α₀ = 1e-3 each).
+21. batch 64 with K = 3 (the faces stack tiled and cut to 64): one tile
+    and ``tile_b=8`` against the plain version at 30 outer steps, then
+    ``single_loop_cuda_tiled`` timed at 300 outer steps with one tile and
+    with ``tile_b=8`` (counters reset just before and read just after).
+
 It prints one JSON line of per-kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``.  Any failure raises (no phase is
 caught) and the script exits non-zero; a deadline turns a hang into a
@@ -218,6 +237,45 @@ TOL_TVL1_Y_F32 = 1e-3
 TOL_TGV_U_F32 = 1e-4
 TOL_TGV_DUAL_F32 = 1e-3
 
+# Single-loop references (scripts/jax_reference_single_loop.py: the JAX
+# package's jnp scan on the CPU, float32, through its entry points with
+# method="single_loop" and their defaults, 300 outer steps of 40 PD and 10
+# CG steps, Adam at lr 0.05, on faces_train_128_10): α, cost, mean PSNR.
+SL_TV_ALPHA = 0.0697830393910408
+SL_TV_COST = 152.33694458007812
+SL_TV_PSNR = 27.38584327697754
+SL_SUMREGS_ALPHA = (0.03239758685231209, 0.03223814442753792,
+                    0.006236528977751732)
+SL_SUMREGS_COST = 151.33538818359375
+SL_SUMREGS_PSNR = 27.415176391601562
+SL_ALPHA_GATE_REL = 1e-3
+SL_ALPHA_BAND_REL = 1e-4    # reported separately
+SL_COST_GATE_REL = 1e-3
+SL_PSNR_GATE = 0.01         # dB
+
+# float64, the single-loop stencils (csrc/common.cuh: diff1, adj1, gram1)
+# against ops/grad.py: the same differences, halvings and quarterings in
+# the same order, so they agree to the last bit (measured 0.0); 1e-15 on
+# unit-scale inputs leaves room for nothing but a reordered sum.
+TOL_SL_STENCIL_F64 = 1e-15
+# float32, the single-loop learner against its plain version (300 outer
+# steps at 10×128²; 30 at 64×128², K = 3): the kernel takes its inner
+# products and gradient sums in another order than PyTorch's multi-block
+# reductions, so p and the hypergradient differ by rounding.  The PD steps
+# have no sums (u follows α exactly), and Adam's step m̂/(√v̂ + ε) is nearly
+# scale-free, which damps a relative rounding difference in g.  Gates: α
+# and the α and cost trajectories 1e-5 relative, u 1e-4 absolute (values
+# of order 1), ‖g‖ 1e-3 relative to its largest value (it falls by orders
+# of magnitude and is a difference of large sums).  A fault in a stencil,
+# the projection, the CG or Adam moves them by 1e-2 or more.  Measured on
+# an H100 (phases 18 and 21): 300 classic steps α, u and the α trajectory
+# 0.0, cost 1.8e-7, ‖g‖ 3.8e-7; 30 pipelined steps α 2.0e-7, u 5.4e-7, α
+# trajectory 5.5e-6, ‖g‖ 1.1e-4; batch 64, one tile, α 1.4e-6; tile_b 8
+# α and u 0.0.
+TOL_SL_REL_F32 = 1e-5
+TOL_SL_U_F32 = 1e-4
+TOL_SL_GNORM_F32 = 1e-3
+
 # peak rates of an H100 SXM (NVIDIA data sheet) for the bounds
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -236,6 +294,40 @@ TVL1_HUBER_OPS_PER_PIXEL_ITER = 36   # Huber form: 14 primal + 22 dual
 # differences, 2 σ-products, 2 sums, 2 squares, 2 scalings; per pixel 5 adds
 # of the 2C = 6 squares, √, compare, max, divide, shared by C = 3 planes)
 VTV_OPS_PER_PLANE_PIXEL_ITER = 23
+
+
+# The single-loop learner (csrc/single_loop.cu), operations per pixel by
+# the same rule (scalars of an iteration not counted per pixel).  Per
+# stencil kind (forward, backward, centred): a gradient 2 / 2 / 4 (the
+# centred one halves), an adjoint 3 / 3 / 5, a Gram diagonal 3 / 3 / 5.
+SL_GRAD_OPS = (2, 2, 4)
+SL_ADJ_OPS = (3, 3, 5)
+SL_GRAM_OPS = (3, 3, 5)
+
+
+def sl_ops_per_pixel(kinds, n_inner, n_adj, pipelined=False):
+    """Operations per pixel of one outer step of the single-loop learner.
+    PD step: primal Σ adjoints + (K−1) adds + 6 (div − f, τ·, u −, /(1+τ),
+    2u⁺, − u); dual per k the gradient + 13 (2 σ-products, 2 sums, 2
+    squares, add, √, compare, max, divide, 2 scalings).  M·v per k: the
+    gradient + 20 (Gu·Gv, ·(1/den)³, two curvature components of 3, γ·inact,
+    two weighted sums of 4) + the adjoint + 1 add.  Classic CG step: M·d, the
+    dot (2), the update (p, r, z, r·z and its add: 7), the direction (2);
+    pipelined: M·u, two dots (4), the update (9).  Per outer step: the
+    system set-up (gradient + 25 per k: |Gu|, act, γ·inact, 1/den, 1/den³,
+    two Jacobi weights of 6, (1/den)³), the diagonal (Σ Gram + K adds + 1
+    divide), M·p and the CG start (5), the gradient maps (gradient + 12
+    per k, + 1 per k for the patch sums) and the cost (3)."""
+    K = len(kinds)
+    grad = sum(SL_GRAD_OPS[k] for k in kinds)
+    adj = sum(SL_ADJ_OPS[k] for k in kinds)
+    gram = sum(SL_GRAM_OPS[k] for k in kinds)
+    pd = (adj + (K - 1) + 6) + (grad + 13 * K)
+    mv = grad + 20 * K + adj + K
+    cg = mv + (4 + 9 if pipelined else 2 + 7 + 2)
+    fixed = ((grad + 25 * K) + (gram + K + 1) + mv + 5 + (grad + 13 * K)
+             + 3)
+    return n_inner * pd + n_adj * cg + fixed
 
 
 def say(msg):
@@ -615,20 +707,23 @@ def phase_large(f, timed):
 
 
 def reset_launches():
+    from bpldenoising_tpu_torch.bilevel import first_order_cuda
     from bpldenoising_tpu_torch.solvers import (hypergrad_cuda, pdps_cuda,
                                                 tgv_cuda, tvl1_cuda,
                                                 vtv_cuda)
-    for mod in (pdps_cuda, hypergrad_cuda, tgv_cuda, tvl1_cuda, vtv_cuda):
+    for mod in (pdps_cuda, hypergrad_cuda, tgv_cuda, tvl1_cuda, vtv_cuda,
+                first_order_cuda):
         mod.launches = 0
 
 
 def read_launches():
+    from bpldenoising_tpu_torch.bilevel import first_order_cuda
     from bpldenoising_tpu_torch.solvers import (hypergrad_cuda, pdps_cuda,
                                                 tgv_cuda, tvl1_cuda,
                                                 vtv_cuda)
     return dict(pdps=pdps_cuda.launches, hypergrad=hypergrad_cuda.launches,
                 tgv=tgv_cuda.launches, tvl1=tvl1_cuda.launches,
-                vtv=vtv_cuda.launches)
+                vtv=vtv_cuda.launches, single_loop=first_order_cuda.launches)
 
 
 def on_device(res, like):
@@ -1193,6 +1288,269 @@ def phase_vtv_patch_learn(utrue, noisy, timed):
                     ms=denoise_ms, launches=denoise_launches))
 
 
+def sl_setup(model, x0, like, **extra):
+    """The arguments of the single-loop segment entry for ``model`` and
+    the parameter ``x0`` at the images ``like``: (x0 tensor, kwargs) with
+    bench.py's settings (40 PD and 10 CG steps per outer step, lr 0.05)."""
+    import torch
+    from bpldenoising_tpu_torch.bilevel.first_order import _param_layout
+    x0 = torch.as_tensor(x0, dtype=like.dtype).to(like.device)
+    pop, shape = _param_layout(model, x0, like.shape[-2:])
+    kw = dict(model=model, n_inner=40, n_adj=10, pop=pop, param_shape=shape,
+              lr=0.05, gamma=1e4, tau0=5.0, sigma0=0.99 / 5.0, beta1=0.9,
+              beta2=0.999, eps=1e-8)
+    kw.update(extra)
+    return x0, kw
+
+
+def sl_errors(k, p):
+    """Kernel result k against plain result p (SingleLoopResults): α
+    relative, u absolute, the α and cost trajectories relative, ‖g‖
+    relative to its largest value, and the largest absolute error of the
+    outputs (α, u, α trajectory)."""
+    errs = dict(alpha=rel_err(k.alpha, p.alpha), u=max_abs(k.u, p.u),
+                alpha_traj=rel_err(k.alpha_trajectory, p.alpha_trajectory),
+                cost_traj=rel_err(k.cost_trajectory, p.cost_trajectory),
+                gnorm_traj=rel_err(k.gnorm_trajectory, p.gnorm_trajectory))
+    worst = max(max_abs(k.alpha, p.alpha), errs["u"],
+                max_abs(k.alpha_trajectory, p.alpha_trajectory))
+    return errs, worst
+
+
+def sl_faults(label, errs):
+    bad = (max(errs["alpha"], errs["alpha_traj"], errs["cost_traj"])
+           > TOL_SL_REL_F32 or errs["u"] > TOL_SL_U_F32
+           or errs["gnorm_traj"] > TOL_SL_GNORM_F32)
+    return [f"{label}: {errs}"] if bad else []
+
+
+def sl_fmt(errs):
+    return ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+
+
+def phase_sl_stencils(torch, device):
+    """The backward and centred stencils (and the forward one) of
+    csrc/common.cuh against ops/grad.py in float64, before any learner
+    runs: gradient, adjoint and Gram diagonal, on shapes with edges of 2
+    and 3 pixels and at 3 × 128²."""
+    from bpldenoising_tpu_torch.bilevel import first_order_cuda as fc
+    from bpldenoising_tpu_torch.ops import (BwdGradientOp, CenteredGradientOp,
+                                            FwdGradientOp)
+    gen = torch.Generator().manual_seed(0)
+    worst = {}
+    for shape in ((2, 17, 23), (1, 3, 2), (1, 2, 5), (3, 128, 128)):
+        x = torch.randn(shape, generator=gen, dtype=torch.float64).to(device)
+        q = torch.randn((shape[0], 2) + shape[1:], generator=gen,
+                        dtype=torch.float64).to(device)
+        for kind, op in enumerate((FwdGradientOp(), BwdGradientOp(),
+                                   CenteredGradientOp())):
+            for what, got, want in (
+                    ("grad", fc.stencil_cuda(kind, "grad", x), op.apply(x)),
+                    ("adjoint", fc.stencil_cuda(kind, "adjoint", q),
+                     op.apply_adjoint(q)),
+                    ("gram", fc.stencil_cuda(kind, "gram", q),
+                     op.gram_diag(q))):
+                key = f"{type(op).__name__[:-10]} {what}"
+                worst[key] = max(worst.get(key, 0.0), max_abs(got, want))
+    say("  float64 stencils vs ops/grad.py, max abs: " + ", ".join(
+        f"{k} {v:.1e}" for k, v in worst.items())
+        + f" (tol {TOL_SL_STENCIL_F64:g})")
+    require(max(worst.values()) <= TOL_SL_STENCIL_F64,
+            f"single-loop stencils disagree with ops/grad.py: {worst}")
+
+
+def phase_sl_kernel(utrue, f, timed):
+    """The learner against its plain version at the flagship width:
+    scalar TV, 300 outer steps, classic CG, both timed; then 30 outer
+    steps with the classic and the pipelined CG."""
+    from bpldenoising_tpu_torch.bilevel import first_order as fo
+    from bpldenoising_tpu_torch.bilevel.first_order import _single_loop_plain
+    from bpldenoising_tpu_torch.models import tv_model
+
+    x0, kw = sl_setup(tv_model(), 0.1, f)
+    fo._single_loop_impl(utrue, f, x0, outer=2, **kw)     # warm-up
+    k, k_ms = timed(lambda: fo._single_loop_impl(utrue, f, x0,
+                                                 outer=300, **kw))
+    p, p_ms = timed(lambda: _single_loop_plain(utrue, f, x0, outer=300,
+                                               **kw))
+    errs, worst = sl_errors(k, p)
+    faults = sl_faults("classic 300", errs)
+    say(f"  scalar TV 300/40/10 classic: alpha {float(k.alpha):.8f} / "
+        f"{float(p.alpha):.8f}; {sl_fmt(errs)}; kernel {k_ms:.2f} ms, "
+        f"plain {p_ms:.2f} ms")
+    kc, kc_ms = timed(lambda: fo._single_loop_impl(utrue, f, x0,
+                                                   outer=30, **kw))
+    kw_p = dict(kw, cg_variant="pipelined")
+    kp, kp_ms = timed(lambda: fo._single_loop_impl(utrue, f, x0,
+                                                   outer=30, **kw_p))
+    pp, pp_ms = timed(lambda: _single_loop_plain(utrue, f, x0, outer=30,
+                                                 **kw_p))
+    errs_p, worst_p = sl_errors(kp, pp)
+    faults += sl_faults("pipelined 30", errs_p)
+    say(f"  scalar TV 30 outer: classic kernel {kc_ms:.2f} ms, pipelined "
+        f"kernel {kp_ms:.2f} ms (plain {pp_ms:.2f} ms); pipelined vs "
+        f"plain: {sl_fmt(errs_p)}")
+    say(f"  float32 tolerances: alpha and trajectories {TOL_SL_REL_F32:g} "
+        f"relative, u {TOL_SL_U_F32:g} absolute, gnorm {TOL_SL_GNORM_F32:g}")
+    require(not faults, "single-loop kernel disagrees with plain: "
+            + "; ".join(faults))
+    return dict(ms=k_ms, plain_ms=p_ms, max_abs_err=max(worst, worst_p),
+                pixels=f.numel(), outer=300, errors=errs,
+                classic_30_ms=kc_ms, pipelined_30_ms=kp_ms,
+                pipelined_30_plain_ms=pp_ms, pipelined_errors=errs_p)
+
+
+def phase_sl_f64(torch, device):
+    """The learner against its plain version in float64 on a 3 × 16² disc
+    stack: the four parameterizations, both CG forms, and two images per
+    tile, at 1e-9 relative."""
+    import numpy as np
+    from bpldenoising_tpu_torch.bilevel import first_order as fo
+    from bpldenoising_tpu_torch.bilevel.first_order import _single_loop_plain
+    from bpldenoising_tpu_torch.models import sumregs_model, tv_model
+
+    rng = np.random.default_rng(0)
+    xx, yy = np.meshgrid(np.arange(16), np.arange(16))
+    clean = ((xx - 8) ** 2 + (yy - 8) ** 2 < (16 / 3) ** 2).astype(float)
+    ut = torch.as_tensor(np.stack([clean] * 3)).to(device)
+    f = ut + torch.as_tensor(0.1 * rng.standard_normal((3, 16, 16))).to(
+        device)
+    errs = {}
+    for name, model, x0 in (
+            ("tv scalar", tv_model(), 0.02),
+            ("tv patch", tv_model(), np.full((2, 2), 0.02)),
+            ("sumregs vector", sumregs_model(), [0.02, 0.015, 0.01]),
+            ("sumregs patch", sumregs_model(), np.full((2, 2, 3), 0.02))):
+        for variant, tile_b in (("classic", None), ("pipelined", None),
+                                ("classic", 2)):
+            x0t, kw = sl_setup(model, x0, f, n_inner=8, n_adj=4,
+                               cg_variant=variant, tile_b=tile_b)
+            k = fo._single_loop_impl(ut, f, x0t, outer=20, **kw)
+            p = _single_loop_plain(ut, f, x0t, outer=20, **kw)
+            e, _ = sl_errors(k, p)
+            e["u"] = rel_err(k.u, p.u)
+            label = f"{name} {variant}" + (" tile 2" if tile_b else "")
+            errs[label] = max(e.values())
+    say("  float64 3x16x16, 20 outer: max rel err " + ", ".join(
+        f"{k} {v:.1e}" for k, v in errs.items())
+        + f" (tol {TOL_F64_REL:g})")
+    require(max(errs.values()) <= TOL_F64_REL,
+            f"float64 single-loop rel err {errs}")
+
+
+def phase_sl_learn(utrue, timed, sumregs):
+    """The single-loop learn through its entry point, once to warm up and
+    once timed, counters reset just before and read just after; the
+    plain loop must not run."""
+    import numpy as np
+    import torch
+    from bpldenoising_tpu_torch.bilevel import first_order as fo
+    from bpldenoising_tpu_torch.experiments import api
+    from bpldenoising_tpu_torch.metrics import psnr
+
+    if sumregs:
+        learn, ref_alpha = api.scalar_bilevel_sumregs_learn, SL_SUMREGS_ALPHA
+        ref_cost, ref_psnr = SL_SUMREGS_COST, SL_SUMREGS_PSNR
+    else:
+        learn, ref_alpha = api.scalar_bilevel_tv_learn, (SL_TV_ALPHA,)
+        ref_cost, ref_psnr = SL_TV_COST, SL_TV_PSNR
+    kw = dict(dataset_name="faces_train", num_samples=10, dtype="float32",
+              method="single_loop")
+    learn(device="cuda", **kw)                             # warm-up
+    plain_calls = []
+    saved = fo._single_loop_plain
+
+    def watched(*a, **k):
+        plain_calls.append(1)
+        return saved(*a, **k)
+
+    fo._single_loop_plain = watched
+    try:
+        reset_launches()
+        res, wall_ms = timed(lambda: learn(device="cuda", **kw))
+        launches = read_launches()
+    finally:
+        fo._single_loop_plain = saved
+    alpha = np.atleast_1d(np.asarray(res.x, dtype=np.float64))
+    rel = max(abs(a - r) / r for a, r in zip(alpha, ref_alpha))
+    mean_psnr = float(torch.mean(psnr(utrue, on_device(res, utrue))))
+    cost = float(res.cost)
+    times = [e.time for e in res.state.log]
+    say(f"  alpha {alpha.tolist()} (reference {list(ref_alpha)}) max rel "
+        f"{rel:.2e} (gate {SL_ALPHA_GATE_REL:g}, band {SL_ALPHA_BAND_REL:g}"
+        f": {'in' if rel <= SL_ALPHA_BAND_REL else 'out'}); PSNR "
+        f"{mean_psnr:.6f} dB (reference {ref_psnr:.6f}); cost {cost:.6f} "
+        f"(reference {ref_cost:.6f}); g_norm {res.g_norm:.6g}; "
+        f"{res.iterations} outer steps, {len(times)} log entries, last "
+        f"segment end {times[-1]:.4f} s")
+    say(f"  wall {wall_ms:.1f} ms through the entry point (CUDA events, "
+        f"after one warm-up run; PNG load included); launches {launches}; "
+        f"plain-loop calls {len(plain_calls)}")
+    require(launches["single_loop"] > 0 and not plain_calls,
+            f"single-loop learn: launches {launches}, plain calls "
+            f"{len(plain_calls)}")
+    require(len(times) == 20 and all(t > 0 for t in times)
+            and times == sorted(times), f"state.log times {times}")
+    require(rel <= SL_ALPHA_GATE_REL, f"single-loop alpha {alpha.tolist()}")
+    require(abs(mean_psnr - ref_psnr) <= SL_PSNR_GATE,
+            f"single-loop mean PSNR {mean_psnr}")
+    require(abs(cost - ref_cost) <= SL_COST_GATE_REL * ref_cost,
+            f"single-loop final cost {cost}")
+    return dict(alpha=alpha.tolist(), alpha_rel_err=rel,
+                mean_psnr_db=mean_psnr, final_cost=cost,
+                g_norm=res.g_norm, outer_iterations=res.iterations,
+                wall_ms=wall_ms, launches=launches)
+
+
+def phase_sl_tiled(utrue, f, timed):
+    """Batch 64 with K = 3 (the faces stack tiled and cut to 64, as
+    bench.py:407-418): one tile and tile_b = 8 against the plain version
+    at 30 outer steps, then single_loop_cuda_tiled timed at 300 outer
+    steps with one tile and with tile_b = 8, counters reset just before
+    and read just after the tile_b = 8 run."""
+    from bpldenoising_tpu_torch.bilevel import first_order as fo
+    from bpldenoising_tpu_torch.bilevel import first_order_cuda as fc
+    from bpldenoising_tpu_torch.bilevel.first_order import _single_loop_plain
+    from bpldenoising_tpu_torch.models import sumregs_model
+
+    model = sumregs_model()
+    big_u = utrue.repeat(7, 1, 1)[:64].contiguous()
+    big_f = f.repeat(7, 1, 1)[:64].contiguous()
+    out = dict(pixels=big_f.numel())
+    faults = []
+    worst = 0.0
+    for label, tile_b in (("one tile", None), ("tile_b 8", 8)):
+        x0, kw = sl_setup(model, [1e-3, 1e-3, 1e-3], big_f, tile_b=tile_b)
+        k, k_ms = timed(lambda: fo._single_loop_impl(
+            big_u, big_f, x0, outer=30, **kw))
+        p, p_ms = timed(lambda: _single_loop_plain(big_u, big_f, x0,
+                                                   outer=30, **kw))
+        errs, w = sl_errors(k, p)
+        faults += sl_faults(label, errs)
+        say(f"  {'x'.join(map(str, big_f.shape))} K=3 {label}, 30 outer: "
+            f"{sl_fmt(errs)}; kernel "
+            f"{k_ms:.2f} ms, plain {p_ms:.2f} ms")
+        if tile_b:
+            worst = w
+            out.update(ms=k_ms, plain_ms=p_ms, outer=30, errors=errs)
+    require(not faults, "single-loop kernel disagrees with plain at batch "
+            "64: " + "; ".join(faults))
+    args = (big_u, big_f, [1e-3, 1e-3, 1e-3], model)
+    _, one_ms = timed(lambda: fc.single_loop_cuda_tiled(*args, outer=300))
+    reset_launches()
+    (x, _, traj), t8_ms = timed(lambda: fc.single_loop_cuda_tiled(
+        *args, outer=300, tile_b=8))
+    launches = read_launches()
+    say(f"  single_loop_cuda_tiled 300 outer: one tile {one_ms:.1f} ms, "
+        f"tile_b 8 {t8_ms:.1f} ms (alpha {x.tolist()}, final cost "
+        f"{float(traj[-1]):.4f}); launches {launches}")
+    require(launches["single_loop"] > 0, f"tiled learner launched "
+            f"{launches}")
+    out.update(max_abs_err=worst, launches=launches["single_loop"],
+               one_tile_300_ms=one_ms, tile8_300_ms=t8_ms)
+    return out
+
+
 def flagship_kwargs():
     from bpldenoising_tpu_torch.solvers.hypergrad import HypergradConfig
     return dict(dataset_name="faces_train", num_samples=10,
@@ -1318,6 +1676,22 @@ def main():
         "method='tr_fused'), then VTVDenoise")
     vtv_patch = phase_vtv_patch_learn(vt_utrue, vt_f, timed)
 
+    say("phase 17 single-loop stencils vs ops/grad.py, float64")
+    phase_sl_stencils(torch, dev)
+    say("phase 18 single-loop kernel vs plain, 10x128x128 float32, then "
+        "float64")
+    sl_stats = phase_sl_kernel(utrue, f, timed)
+    phase_sl_f64(torch, dev)
+    say("phase 19 single-loop learn scalar_bilevel_tv_learn("
+        "method='single_loop')")
+    sl_learn = phase_sl_learn(utrue, timed, sumregs=False)
+    say("phase 20 single-loop learn scalar_bilevel_sumregs_learn("
+        "method='single_loop')")
+    sl_sumregs = phase_sl_learn(utrue, timed, sumregs=True)
+    say("phase 21 single-loop learner at batch 64, K=3, one tile and "
+        "tile_b 8")
+    sl_tiled = phase_sl_tiled(utrue, f, timed)
+
     itemsize = 4
     a_bytes = 4 * n * itemsize                  # f in; u, y out
     a_ops = A_OPS_PER_PIXEL_ITER * n * a_stats["iters"]
@@ -1351,6 +1725,15 @@ def main():
     v_bound, v_by = bound_ms(4 * vt_n * itemsize,
                              VTV_OPS_PER_PLANE_PIXEL_ITER * vt_n
                              * vtv_stats["iters"])
+    # single-loop learner: f and ū in; u, p and the 2K duals out
+    sl_n = sl_stats["pixels"]
+    s_bound, s_by = bound_ms(6 * sl_n * itemsize,
+                             sl_ops_per_pixel((0,), 40, 10) * sl_n
+                             * sl_stats["outer"])
+    sl_big = sl_tiled["pixels"]
+    st_bound, st_by = bound_ms(10 * sl_big * itemsize,
+                               sl_ops_per_pixel((0, 1, 2), 40, 10) * sl_big
+                               * sl_tiled["outer"])
     kernels = [
         dict(name="pdps_cp_tv", route="cuda",
              source="bpldenoising_tpu_torch/csrc/pdps.cu",
@@ -1392,6 +1775,20 @@ def main():
              max_abs_err=vtv_stats["max_abs_err"], ms=vtv_stats["ms"],
              plain_ms=vtv_stats["plain_ms"], bound_ms=v_bound, bound_by=v_by,
              library_ms=None),
+        dict(name="single_loop", route="cuda",
+             source="bpldenoising_tpu_torch/csrc/single_loop.cu",
+             replaces="bpldenoising_tpu/bilevel/first_order_pallas.py:185",
+             launches=sl_learn["launches"]["single_loop"],
+             max_abs_err=sl_stats["max_abs_err"], ms=sl_stats["ms"],
+             plain_ms=sl_stats["plain_ms"], bound_ms=s_bound, bound_by=s_by,
+             library_ms=None),
+        dict(name="single_loop_tiled", route="cuda",
+             source="bpldenoising_tpu_torch/csrc/single_loop.cu",
+             replaces="bpldenoising_tpu/bilevel/first_order_pallas.py:420",
+             launches=sl_tiled["launches"],
+             max_abs_err=sl_tiled["max_abs_err"], ms=sl_tiled["ms"],
+             plain_ms=sl_tiled["plain_ms"], bound_ms=st_bound,
+             bound_by=st_by, library_ms=None),
     ]
     say(f"  total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels, "flagship": dict(
@@ -1401,6 +1798,9 @@ def main():
         "tgv_patch_learn": tgv_patch, "tvl1_learn": tvl1_learn,
         "tvl1_patch_learn": tvl1_patch, "vtv_learn": vtv_learn,
         "vtv_patch_learn": vtv_patch, "large_images": large,
+        "single_loop_kernel": sl_stats, "single_loop_learn": sl_learn,
+        "single_loop_sumregs_learn": sl_sumregs,
+        "single_loop_batch64": sl_tiled,
         "device": smi}))
     faulthandler.cancel_dump_traceback_later()
     say(json.dumps({"ok": True, "device": {

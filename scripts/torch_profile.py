@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
-"""Where the time of one of the port's trust-region learns goes, on one
-NVIDIA GPU.
+"""Where the time of one of the port's learns goes, on one NVIDIA GPU.
 
-    python3 scripts/torch_profile.py {tv,tgv,tvl1,vtv}
+    python3 scripts/torch_profile.py {tv,tgv,tvl1,vtv,single_loop}
 
 Runs the family's fused learn on its preloaded float32 dataset with the
 settings of ``chip_smoke.py``: TV (the flagship) and TGV² on
@@ -21,6 +20,13 @@ for the scalar weight and the 2×2 patch grid, TV and TGV for the scalar:
    CGs launch more small kernels than the profiler handles in one call),
    under ``torch.profiler``: device busy time (kernels and copies only),
    idle share (1 − busy/wall) and device time by kernel name.
+
+``single_loop`` runs the single-loop learner (``single_loop_learn``,
+300 outer steps of 40 PD and 10 CG steps, Adam at lr 0.05) on
+``faces_train_128_10`` for the scalar TV weight from 0.1 and the
+sum-of-regularizers weights from 1e-3: the split is the CUDA learner's
+launch call (the whole learn runs in it) against the rest, and the
+profiled run is cut to 30 outer steps.
 
 Prints one line per item and a JSON line last.  Exits non-zero without a
 CUDA device.
@@ -50,7 +56,37 @@ FAMILIES = {
              ("tvl1_huber_hypergrad",), 15),
     "vtv": ("fused_vtv", ("vtv_denoise_pdps_cuda",),
             ("vtv_implicit_cotangents",), 3),
+    "single_loop": ("first_order_cuda", ("_launch",), (), 30),
 }
+
+
+def setup_single_loop(torch):
+    """The single-loop learner on the flagship data: ``learn(x0, params)``
+    runs ``params.maxiter`` outer steps of ``params.model``."""
+    import types
+
+    import numpy as np
+
+    from bpldenoising_tpu_torch.bilevel.first_order import single_loop_learn
+    from bpldenoising_tpu_torch.data import testdataset
+    from bpldenoising_tpu_torch.models import sumregs_model, tv_model
+    from bpldenoising_tpu_torch.utils.config import Params
+
+    true_np, noisy_np = testdataset("faces_train_128_10")
+    ut = torch.as_tensor(true_np, dtype=torch.float32).cuda()
+    f = torch.as_tensor(noisy_np, dtype=torch.float32).cuda()
+    models = {"tv": tv_model(), "sumregs": sumregs_model()}
+
+    def learn(x0, p):
+        res = single_loop_learn(ut, f, x0, models[p.model],
+                                outer=int(p.maxiter))
+        return types.SimpleNamespace(x=res.alpha, iterations=int(p.maxiter))
+
+    runs = {"scalar": (0.1, Params(model="tv", maxiter=300)),
+            "sumregs": (np.full((3,), 1e-3), Params(model="sumregs",
+                                                    maxiter=300))}
+    # the launch call returns (carry, trajectories): count outer steps
+    return learn, runs, (lambda out: int(out[1][1].shape[0])), None
 
 
 def setup(family, torch):
@@ -147,7 +183,10 @@ def main():
         timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     _build.library()
-    learn, runs, inner_iters, cg_iters = setup(args.family, torch)
+    if args.family == "single_loop":
+        learn, runs, inner_iters, cg_iters = setup_single_loop(torch)
+    else:
+        learn, runs, inner_iters, cg_iters = setup(args.family, torch)
 
     out = dict(device=smi, family=args.family)
     for label, (x0, params) in runs.items():

@@ -72,13 +72,15 @@ SLICE_MODULES = ("ops/tgv.py", "ops/patch.py", "solvers/tgv.py",
                  "bilevel/fused_tvl1.py", "experiments/tvl1.py",
                  "viz/log.py", "bilevel/harness.py", "solvers/vtv.py",
                  "solvers/vtv_cuda.py", "bilevel/fused_vtv.py",
-                 "experiments/vtv.py")
+                 "experiments/vtv.py", "bilevel/pcg.py",
+                 "bilevel/first_order.py", "bilevel/first_order_cuda.py")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)
 def test_tgv_slice_modules_are_checked(module):
-    """The TGV, TV-L1 and VTV slices' modules (and the result types) exist
-    and are among the sources checked above (so they import no JAX)."""
+    """The TGV, TV-L1, VTV and single-loop slices' modules (and the result
+    types) exist and are among the sources checked above (so they import
+    no JAX)."""
     assert PORT / module in SOURCES
 
 
@@ -90,7 +92,8 @@ def _profile_script():
     return mod
 
 
-@pytest.mark.parametrize("family", ["tv", "tgv", "tvl1", "vtv"])
+@pytest.mark.parametrize("family", ["tv", "tgv", "tvl1", "vtv",
+                                    "single_loop"])
 def test_profile_script_times_names_the_learn_calls(family):
     """scripts/torch_profile.py times a learn by replacing names in its
     fused module: each name must be one the module has (a renamed wrapper
