@@ -27,13 +27,22 @@ single-loop first-order learner (``method="single_loop"``) of
 :func:`experiments.api.scalar_bilevel_sumregs_learn` and
 :func:`experiments.api.patch_bilevel_sumregs_learn`, with its library
 functions :func:`bilevel.first_order.single_loop_learn` and
-:func:`bilevel.first_order_cuda.single_loop_cuda` (and ``_tiled``).  The
-learns return the JAX package's :class:`bilevel.harness.BilevelResult`.
+:func:`bilevel.first_order_cuda.single_loop_cuda` (and ``_tiled``), and
+the single-loop learners of the other three families
+(``method="single_loop"`` in the TGV, TV-L1 and VTV learns), with
+:func:`bilevel.first_order_tgv.single_loop_tgv_learn`,
+:func:`bilevel.first_order_tvl1.single_loop_tvl1_learn`,
+:func:`bilevel.first_order_vtv.single_loop_vtv_learn` and their CUDA
+counterparts ``single_loop_{tgv,tvl1,vtv}_cuda``.  The learns return the
+JAX package's :class:`bilevel.harness.BilevelResult`.
 """
 
 from .bilevel.first_order import (single_loop_learn,
                                   single_loop_sumregs_learn,
                                   single_loop_tv_learn)
+from .bilevel.first_order_tgv import single_loop_tgv_learn
+from .bilevel.first_order_tvl1 import single_loop_tvl1_learn
+from .bilevel.first_order_vtv import single_loop_vtv_learn
 from .experiments.api import (patch_bilevel_sumregs_learn,
                               patch_bilevel_tv_learn,
                               scalar_bilevel_sumregs_learn,
@@ -51,7 +60,9 @@ from .solvers import (denoise_pdps, tv_denoise, tvl1_denoise, tvl1_energy,
 __all__ = ["scalar_bilevel_tv_learn", "patch_bilevel_tv_learn",
            "scalar_bilevel_sumregs_learn", "patch_bilevel_sumregs_learn",
            "single_loop_learn", "single_loop_tv_learn",
-           "single_loop_sumregs_learn", "scalar_bilevel_tgv_learn",
+           "single_loop_sumregs_learn", "single_loop_tgv_learn",
+           "single_loop_tvl1_learn", "single_loop_vtv_learn",
+           "scalar_bilevel_tgv_learn",
            "patch_bilevel_tgv_learn", "TGVDenoise", "scalar_bilevel_tvl1_learn",
            "patch_bilevel_tvl1_learn", "TVL1Denoise", "tvl1_denoise",
            "tvl1_energy", "tvl1_huber_denoise", "scalar_bilevel_vtv_learn",

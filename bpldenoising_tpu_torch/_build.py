@@ -23,8 +23,10 @@ from typing import NamedTuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("pdps.cu", "hypergrad.cu", "tgv.cu", "tvl1.cu", "vtv.cu",
-           "single_loop.cu")
-HEADERS = ("common.cuh",)
+           "single_loop.cu", "single_loop_tgv.cu", "single_loop_tvl1.cu",
+           "single_loop_vtv.cu")
+HEADERS = ("common.cuh", "single_loop.cuh", "tgv.cuh", "tvl1.cuh",
+           "vtv.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # -fmad=false: no fused multiply-adds, so each operation rounds like the
 # plain PyTorch version's separate elementwise operations
@@ -131,11 +133,24 @@ def _declare(lib):
         fn = getattr(lib, f"bpl_single_loop_{suffix}")
         fn.argtypes = [_P] * 11 + [_LL] + [_I] * 11 + [real] * 9 + [_P]
         fn.restype = _I
+        fn = getattr(lib, f"bpl_sl_tgv_{suffix}")
+        fn.argtypes = [_P] * 13 + [_LL] + [_I] * 7 + [real] * 9 + [_P]
+        fn.restype = _I
+        fn = getattr(lib, f"bpl_sl_tvl1_{suffix}")
+        fn.argtypes = [_P] * 11 + [_LL] + [_I] * 7 + [real] * 14 + [_P]
+        fn.restype = _I
+        fn = getattr(lib, f"bpl_sl_vtv_{suffix}")
+        fn.argtypes = [_P] * 11 + [_LL] + [_I] * 8 + [real] * 9 + [_P]
+        fn.restype = _I
         fn = getattr(lib, f"bpl_sl_stencil_{suffix}")
         fn.argtypes = [_I, _I, _P, _P, _LL, _I, _I, _P]
         fn.restype = _I
     lib.bpl_sl_scratch.argtypes = [_LL, _I, _I, _I, _I, _I]
     lib.bpl_sl_scratch.restype = _LL
+    for name, n_int in (("tgv", 3), ("tvl1", 3), ("vtv", 4)):
+        fn = getattr(lib, f"bpl_sl_{name}_scratch")
+        fn.argtypes = [_LL] + [_I] * n_int
+        fn.restype = _LL
     lib.bpl_error_string.argtypes = [_I]
     lib.bpl_error_string.restype = ctypes.c_char_p
     lib.bpl_hypergrad_planes.restype = _I

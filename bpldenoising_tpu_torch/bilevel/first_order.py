@@ -85,16 +85,49 @@ def _param_layout(model: DenoiseModel, x0, image_shape):
     raise ValueError(f"unsupported parameter shape {shape} for K={K}")
 
 
+def opt_init(f, x0, param_shape: tuple):
+    """The parameter part of every learner's initial carry: z = log x₀,
+    zero Adam moments, step 0, in f's dtype on its device."""
+    dtype, dev = f.dtype, f.device
+    zeros = torch.zeros(param_shape, dtype=dtype, device=dev)
+    return (torch.log(torch.as_tensor(x0, dtype=dtype).to(dev)),
+            (zeros, zeros.clone()), torch.zeros((), dtype=dtype, device=dev))
+
+
+def dual_zeros(f, planes: int = 2):
+    """A zero field of ``planes`` components per image of ``f``:
+    (..., planes, M, N)."""
+    return torch.zeros(f.shape[:-2] + (planes,) + f.shape[-2:],
+                       dtype=f.dtype, device=f.device)
+
+
+def step_sizes(opnorm_sq, tau0, sigma0, dtype, device=None):
+    """(τ, σ) = (τ₀, σ₀)/√opnorm_sq in the working dtype."""
+    L = torch.sqrt(torch.tensor(opnorm_sq, dtype=dtype, device=device))
+    return (torch.tensor(tau0, dtype=dtype, device=device) / L,
+            torch.tensor(sigma0, dtype=dtype, device=device) / L)
+
+
+def expand(pop, x):
+    """A scalar or patch parameter → the per-pixel weight (a scalar or an
+    (M, N) map)."""
+    return pop.apply(x) if pop is not None else x
+
+
+def pullback(pop, g_map):
+    """A per-pixel gradient map (O, M, N) → the parameter's shape: summed
+    over everything for a scalar, over the batch and each patch for a
+    grid."""
+    if pop is None:
+        return torch.sum(g_map)
+    return pop.apply_adjoint(torch.sum(g_map, dim=0))
+
+
 def _init_carry(f, x0, *, K: int, param_shape: tuple):
     """Initial carry ``(u, ys, p, z, (m, v), t)``: u = f, K zero dual
     fields, zero adjoint, z = log x₀, zero Adam moments, step 0."""
-    dtype = f.dtype
-    ys0 = tuple(torch.zeros(f.shape[:-2] + (2,) + f.shape[-2:], dtype=dtype,
-                            device=f.device) for _ in range(K))
-    z0 = torch.log(torch.as_tensor(x0, dtype=dtype).to(f.device))
-    zeros = torch.zeros(param_shape, dtype=dtype, device=f.device)
-    return (f, ys0, torch.zeros_like(f), z0, (zeros, zeros.clone()),
-            torch.zeros((), dtype=dtype, device=f.device))
+    ys0 = tuple(dual_zeros(f) for _ in range(K))
+    return (f, ys0, torch.zeros_like(f)) + opt_init(f, x0, param_shape)
 
 
 def _tile_vdot(tile_b: int):
@@ -126,11 +159,8 @@ def _single_loop_plain(utrue, f, x0, *, model: DenoiseModel, outer: int,
     ``tile_b`` takes the CG's inner products per group of ``tile_b``
     images (TPU kernel 10); ``None`` takes them over the whole batch."""
     dtype = f.dtype
-    dev = f.device
     K = model.K
-    L = torch.sqrt(torch.tensor(model.opnorm_sq(), dtype=dtype, device=dev))
-    tau = torch.tensor(tau0, dtype=dtype, device=dev) / L
-    sigma = torch.tensor(sigma0, dtype=dtype, device=dev) / L
+    tau, sigma = step_sizes(model.opnorm_sq(), tau0, sigma0, dtype, f.device)
     tiny = torch.finfo(dtype).tiny
     vdot = _default_vdot if tile_b is None else _tile_vdot(int(tile_b))
     cg_steps = CG_VARIANTS[cg_variant]
@@ -138,12 +168,12 @@ def _single_loop_plain(utrue, f, x0, *, model: DenoiseModel, outer: int,
     def alphas_of(x):
         """Parameter → K-tuple of per-image α (scalar or (M, N) map)."""
         if K == 1:
-            return (pop.apply(x) if pop is not None else x,)
+            return (expand(pop, x),)
         if pop is None:
             return tuple(x[k] for k in range(K))
         return tuple(pop.apply(x[..., k]) for k in range(K))
 
-    def pullback(gmaps):
+    def pull(gmaps):
         """K per-pixel gradient maps (summed over batch) → parameter."""
         if K == 1:
             g = gmaps[0]
@@ -181,26 +211,53 @@ def _single_loop_plain(utrue, f, x0, *, model: DenoiseModel, outer: int,
         p = cg_steps(M_apply, inv_diag, utrue - u, p, n_adj, vdot=vdot)
         gmaps = tuple(torch.sum(scalarprod(op.apply(p), field), dim=0)
                       for op, field in zip(model.ops, fields))
-        g_x = pullback(gmaps)
+        g_x = pull(gmaps)
         g_z = g_x * x                    # chain rule through x = exp(z)
-        t = t + 1
-        m = beta1 * m + (1 - beta1) * g_z
-        v = beta2 * v + (1 - beta2) * g_z ** 2
-        mhat = m / (1 - beta1 ** t)
-        vhat = v / (1 - beta2 ** t)
-        z = z - lr * mhat / (torch.sqrt(vhat) + eps)
+        z, (m, v), t = adam_step(z, (m, v), t, g_z, lr=lr, beta1=beta1,
+                                 beta2=beta2, eps=eps)
         # each cost is paired with the α that PRODUCED it; gnorm is taken
         # on g_x, before the chain rule
         xs.append(x)
         costs.append(0.5 * torch.sum((u - utrue) ** 2))
         gnorms.append(torch.sqrt(torch.sum(g_x ** 2)))
     carry = (u, ys, p, z, (m, v), t)
-    res = SingleLoopResult(
+    res = plain_result(utrue, u, z, xs, costs, gnorms, param_shape)
+    return (res, carry) if return_carry else res
+
+
+def adam_step(z, opt_state, t, g_z, *, lr, beta1, beta2, eps):
+    """One Adam step on z with gradient ``g_z``, in the order of the JAX
+    package's scans (``beta1 ** t`` after ``t ← t + 1``).  → (z, (m, v),
+    t)."""
+    m, v = opt_state
+    t = t + 1
+    m = beta1 * m + (1 - beta1) * g_z
+    v = beta2 * v + (1 - beta2) * g_z ** 2
+    mhat = m / (1 - beta1 ** t)
+    vhat = v / (1 - beta2 ** t)
+    return z - lr * mhat / (torch.sqrt(vhat) + eps), (m, v), t
+
+
+def plain_result(utrue, u, z, xs, costs, gnorms, param_shape):
+    """A plain loop's outputs → :class:`SingleLoopResult`: the final α and
+    cost and the stacked trajectories."""
+    dtype, dev = u.dtype, u.device
+    return SingleLoopResult(
         alpha=torch.exp(z), u=u, cost=0.5 * torch.sum((u - utrue) ** 2),
         alpha_trajectory=_stack(xs, param_shape, dtype, dev),
         cost_trajectory=_stack(costs, (), dtype, dev),
         gnorm_trajectory=_stack(gnorms, (), dtype, dev))
-    return (res, carry) if return_carry else res
+
+
+def kernel_result(utrue, u, z, outer, trajs):
+    """A CUDA learner's segment → :class:`SingleLoopResult`: ``trajs`` is
+    (α trajectory, cost trajectory, ‖g‖ trajectory) on the card; the final
+    cost is the last step's (the state does not move after it)."""
+    xs, costs, gnorms = trajs
+    cost = costs[-1] if outer > 0 else 0.5 * torch.sum((u - utrue) ** 2)
+    return SingleLoopResult(alpha=torch.exp(z), u=u, cost=cost,
+                            alpha_trajectory=xs, cost_trajectory=costs,
+                            gnorm_trajectory=gnorms)
 
 
 def _stack(items, shape, dtype, device):
@@ -209,17 +266,47 @@ def _stack(items, shape, dtype, device):
     return torch.empty((0,) + tuple(shape), dtype=dtype, device=device)
 
 
-def _prepare(utrue, f, x0, model: DenoiseModel):
-    """Inputs of a learn → (utrue, f, x0, pop, param_shape, squeeze): the
-    images as an (O, M, N) stack on f's device in utrue's dtype (the
-    gradient maps are reduced over axis 0, the batch), x0 checked and
-    beside them, and the parameter layout."""
+def prepare_learn(utrue, f, x0, image_ndim: int, layout):
+    """The inputs of one family's learn → (utrue, f, x0, pop, param_shape,
+    squeeze): the images as in :func:`prepare_images`, x0 checked and
+    beside them, and ``layout(x0, image_shape)``, its PatchOp or None."""
+    utrue, f, squeeze = prepare_images(utrue, f, image_ndim)
+    x0 = torch.as_tensor(x0, dtype=utrue.dtype)
+    _check_positive_x0(x0)
+    pop = layout(x0, tuple(f.shape[-2:]))
+    return utrue, f, x0.to(f.device), pop, tuple(x0.shape), squeeze
+
+
+def prepare_images(utrue, f, image_ndim: int):
+    """The images of a learn as a stack on f's device in utrue's dtype: a
+    single image (``image_ndim`` dimensions) gains a batch axis (the
+    gradient maps are reduced over axis 0).  → (utrue, f, squeeze)."""
     utrue = torch.as_tensor(utrue)
     f = torch.as_tensor(f).to(utrue.dtype)
     utrue = utrue.to(f.device)
-    squeeze = f.ndim == 2
+    squeeze = f.ndim == image_ndim
     if squeeze:
         utrue, f = utrue[None], f[None]
+    return utrue, f, squeeze
+
+
+def check_unported(mesh, optimizer) -> None:
+    """``mesh=`` and ``optimizer=`` of the JAX learners raise here."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= data parallelism is not ported yet (ROADMAP.md §1 "
+            "item 10)")
+    if optimizer is not None:
+        raise NotImplementedError(
+            "optimizer= takes an optax transformation, which has no "
+            "PyTorch counterpart here; the built-in Adam runs")
+
+
+def _prepare(utrue, f, x0, model: DenoiseModel):
+    """Inputs of a learn → (utrue, f, x0, pop, param_shape, squeeze): the
+    images as an (O, M, N) stack, x0 checked and beside them, and the
+    parameter layout."""
+    utrue, f, squeeze = prepare_images(utrue, f, 2)
     x0 = torch.as_tensor(x0, dtype=utrue.dtype)
     _check_positive_x0(x0)
     x0 = x0.to(f.device)
@@ -227,30 +314,42 @@ def _prepare(utrue, f, x0, model: DenoiseModel):
     return utrue, f, x0, pop, param_shape, squeeze
 
 
+def run_segment(plain, launch, init_carry, u_and_z, utrue, f, x0, *,
+                outer: int, param_shape: tuple, carry0=None,
+                return_carry: bool = False, **kw):
+    """One segment of a learner where ``f`` lives: ``plain`` for CPU
+    tensors; for any other, ``launch()`` (the CUDA learner, imported at
+    call time), which raises unless the tensors are on the card and for
+    what it does not take.  ``init_carry(f)`` is the cold carry and
+    ``u_and_z(carry)`` its (u, z).  → :class:`SingleLoopResult` (and the
+    carry)."""
+    if f.device.type == "cpu":
+        return plain(utrue, f, x0, outer=outer, param_shape=param_shape,
+                     carry0=carry0, return_carry=return_carry, **kw)
+    if carry0 is None:
+        carry0 = init_carry(f)
+    carry, trajs = launch()(utrue, f, carry0, outer=int(outer),
+                            param_shape=param_shape, **kw)
+    res = kernel_result(utrue, *u_and_z(carry), outer, trajs)
+    return (res, carry) if return_carry else res
+
+
+def _cuda_launch():
+    from .first_order_cuda import _launch
+    return _launch
+
+
 def _single_loop_impl(utrue, f, x0, *, model: DenoiseModel, outer: int,
                       param_shape: tuple, carry0=None,
                       return_carry: bool = False, **kw):
-    """One segment of the learner where ``f`` lives: the plain loop for
-    CPU tensors, the CUDA learner for any other (which raises unless the
-    tensors are on the card, and for what it does not take).  ``utrue``
-    and ``f`` are (O, M, N).  → :class:`SingleLoopResult` (and the
-    carry)."""
-    if f.device.type == "cpu":
-        return _single_loop_plain(utrue, f, x0, model=model, outer=outer,
-                                  param_shape=param_shape, carry0=carry0,
-                                  return_carry=return_carry, **kw)
-    from .first_order_cuda import _launch
-    if carry0 is None:
-        carry0 = _init_carry(f, x0, K=model.K, param_shape=param_shape)
-    carry, (xs, costs, gnorms) = _launch(utrue, f, carry0, model=model,
-                                         outer=int(outer),
-                                         param_shape=param_shape, **kw)
-    u, z = carry[0], carry[3]
-    cost = costs[-1] if outer > 0 else 0.5 * torch.sum((u - utrue) ** 2)
-    res = SingleLoopResult(alpha=torch.exp(z), u=u, cost=cost,
-                           alpha_trajectory=xs, cost_trajectory=costs,
-                           gnorm_trajectory=gnorms)
-    return (res, carry) if return_carry else res
+    """One segment of the learner where ``f`` lives (:func:`run_segment`).
+    ``utrue`` and ``f`` are (O, M, N)."""
+    return run_segment(
+        _single_loop_plain, _cuda_launch,
+        lambda ff: _init_carry(ff, x0, K=model.K, param_shape=param_shape),
+        lambda c: (c[0], c[3]), utrue, f, x0, model=model, outer=outer,
+        param_shape=param_shape, carry0=carry0, return_carry=return_carry,
+        **kw)
 
 
 def single_loop_learn(utrue, f, x0, model: DenoiseModel, *,
@@ -266,14 +365,7 @@ def single_loop_learn(utrue, f, x0, model: DenoiseModel, *,
     on the device ``f`` lives on.  ``x0`` must be strictly positive (the
     parameter lives in log space).  ``log_every=j`` runs ``j``-step
     segments with a host hop between them and fills ``times``."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= data parallelism is not ported yet (ROADMAP.md §1 "
-            "item 10)")
-    if optimizer is not None:
-        raise NotImplementedError(
-            "optimizer= takes an optax transformation, which has no "
-            "PyTorch counterpart here; the built-in Adam runs")
+    check_unported(mesh, optimizer)
     if cg_variant not in CG_VARIANTS:
         raise ValueError(f"cg_variant must be one of {sorted(CG_VARIANTS)}, "
                          f"got {cg_variant!r}")

@@ -36,7 +36,7 @@ from .. import _build
 from ..models import DenoiseModel, tv_model
 from ..ops import BwdGradientOp, CenteredGradientOp, FwdGradientOp
 from ..solvers.pdps_cuda import check_cuda_input, check_plane
-from .first_order import _prepare, _single_loop_impl
+from .first_order import _prepare, _single_loop_impl, step_sizes
 from .pcg import CG_VARIANTS
 
 __all__ = ["single_loop_cuda", "single_loop_cuda_tiled",
@@ -87,6 +87,39 @@ def _from_kp(x, param_shape: tuple):
     return x.reshape(lead + tuple(param_shape))
 
 
+def pack_opt(z, m, v, t, param_shape: tuple, K: int, P: int, outer: int,
+             like):
+    """The parameter part of a carry → the kernels' device buffers: zmv
+    (3, K, P) (z = log α and Adam's moments, K-major), the step counter
+    (1,) and the (outer, K, P), (outer,), (outer,) trajectories, all
+    checked against ``param_shape`` and copied (the kernels write them)."""
+    for name, a in (("z", z), ("m", m), ("v", v)):
+        check_plane(a, param_shape, like, f"carry {name}")
+    check_plane(t, (), like, "carry t")
+    dtype, dev = like.dtype, like.device
+    zmv = torch.stack([_to_kp(a, K, P) for a in (z, m, v)]).contiguous()
+    return (zmv, t.reshape(1).clone(),
+            torch.empty((outer, K, P), dtype=dtype, device=dev),
+            torch.empty((outer,), dtype=dtype, device=dev),
+            torch.empty((outer,), dtype=dtype, device=dev))
+
+
+def unpack_opt(zmv, t, traj_x, traj_cost, traj_gnorm, param_shape: tuple):
+    """The buffers of :func:`pack_opt` after a launch → (z, (m, v), t) and
+    the (α, cost, ‖g‖) trajectories in the parameter's layout."""
+    return ((_from_kp(zmv[0], param_shape),
+             (_from_kp(zmv[1], param_shape), _from_kp(zmv[2], param_shape)),
+             t.reshape(())),
+            (_from_kp(traj_x, param_shape), traj_cost, traj_gnorm))
+
+
+def adam_args(lr, beta1, beta2, eps):
+    """Adam's constants as the kernels take them: 1 − β formed in double,
+    as PyTorch casts a Python scalar."""
+    return (float(lr), float(beta1), float(beta2), 1.0 - float(beta1),
+            1.0 - float(beta2), float(eps))
+
+
 def _launch(utrue, f, carry, *, model, outer, n_inner, n_adj, pop,
             param_shape, lr, gamma, tau0, sigma0, beta1, beta2, eps,
             cg_variant="classic", tile_b=None):
@@ -116,27 +149,19 @@ def _launch(utrue, f, carry, *, model, outer, n_inner, n_adj, pop,
         raise ValueError(f"carry needs {K} dual fields, got {len(ys)}")
     for y in ys:
         check_plane(y, y_shape, f, "carry y")
-    for name, a in (("z", z), ("m", m), ("v", v)):
-        check_plane(a, param_shape, f, f"carry {name}")
-    check_plane(t, (), f, "carry t")
+    opt = pack_opt(z, m, v, t, param_shape, K, P, outer, f)
 
     f = f.contiguous()
     utrue = utrue.contiguous()
     u = u.contiguous().clone()
     ysk = torch.stack(tuple(ys)).contiguous()          # (K, B, 2, M, N)
     p = p.contiguous().clone()
-    zmv = torch.stack([_to_kp(a, K, P) for a in (z, m, v)]).contiguous()
-    t = t.reshape(1).clone()
-    traj_x = torch.empty((outer, K, P), dtype=dtype, device=dev)
-    traj_cost = torch.empty((outer,), dtype=dtype, device=dev)
-    traj_gnorm = torch.empty((outer,), dtype=dtype, device=dev)
     lib = _build.library()
     scratch = torch.empty((lib.bpl_sl_scratch(B, M, N, K, P, tile_b),),
                           dtype=dtype, device=dev)
-    # τ, σ and γ in the working dtype, as the plain version forms them
-    L = torch.sqrt(torch.tensor(model.opnorm_sq(), dtype=dtype))
-    tau = float(torch.tensor(tau0, dtype=dtype) / L)
-    sigma = float(torch.tensor(sigma0, dtype=dtype) / L)
+    # τ and σ in the working dtype, as the plain version forms them
+    tau, sigma = (float(s) for s in step_sizes(model.opnorm_sq(), tau0,
+                                               sigma0, dtype))
     fn = lib.bpl_single_loop_f32 if dtype == torch.float32 \
         else lib.bpl_single_loop_f64
     global launches
@@ -144,19 +169,15 @@ def _launch(utrue, f, carry, *, model, outer, n_inner, n_adj, pop,
         stream = torch.cuda.current_stream(dev).cuda_stream
         launches += 1
         err = fn(f.data_ptr(), utrue.data_ptr(), u.data_ptr(),
-                 ysk.data_ptr(), p.data_ptr(), zmv.data_ptr(), t.data_ptr(),
-                 traj_x.data_ptr(), traj_cost.data_ptr(),
-                 traj_gnorm.data_ptr(), scratch.data_ptr(), B, M, N, K, code,
-                 pm, pn, tile_b, int(outer), int(n_inner), int(n_adj),
-                 int(cg_variant == "pipelined"), tau, sigma, float(gamma),
-                 float(lr), float(beta1), float(beta2), 1.0 - float(beta1),
-                 1.0 - float(beta2), float(eps), stream)
+                 ysk.data_ptr(), p.data_ptr(),
+                 *(a.data_ptr() for a in opt), scratch.data_ptr(), B, M, N,
+                 K, code, pm, pn, tile_b, int(outer), int(n_inner),
+                 int(n_adj), int(cg_variant == "pipelined"), tau, sigma,
+                 float(gamma), *adam_args(lr, beta1, beta2, eps), stream)
     _build.check(err, "single-loop kernel")
-    carry = (u, tuple(ysk[k] for k in range(K)), p,
-             _from_kp(zmv[0], param_shape), (_from_kp(zmv[1], param_shape),
-                                             _from_kp(zmv[2], param_shape)),
-             t.reshape(()))
-    return carry, (_from_kp(traj_x, param_shape), traj_cost, traj_gnorm)
+    (z, mv, t), trajs = unpack_opt(*opt, param_shape)
+    carry = (u, tuple(ysk[k] for k in range(K)), p, z, mv, t)
+    return carry, trajs
 
 
 def _run(utrue, f, x0, model, kw, tile_b=None):

@@ -48,82 +48,9 @@
 // state out once (1 + 3 + 3 planes).  At 1×128² and 2000 iterations that
 // is ~0.02 ms of f32 operations: the kernel is bound by its 4000
 // launches, not by the card.
-#include "common.cuh"
+#include "tvl1.cuh"
 
 namespace bpl {
-
-template <typename T>
-struct TVL1 {
-  const T* f;
-  T* u;          // (O, M, N)
-  T* y;          // (O, 2, M, N)
-  T* ubar;       // (O, M, N) scratch
-  const T* amap; // (M, N) or null: then a is used
-  T a, tau, sigma;
-  T lo, den, gr; // Huber form: 1/γ_d + τ, 1 + τγ_d, γ_r
-  long long n;
-  int M, N;
-};
-
-template <typename T>
-__device__ __forceinline__ T sign_(T z) {
-  return z > T(0) ? T(1) : (z < T(0) ? T(-1) : T(0));
-}
-
-template <typename T, bool HUBER>
-__global__ void tvl1_primal(TVL1<T> s) {
-  long long idx = (long long)blockIdx.x * BPL_THREADS + threadIdx.x;
-  if (idx >= s.n) return;
-  Pix px = pix_of(idx, s.M, s.N);
-  const long long MN = (long long)s.M * s.N;
-  const long long k = idx - px.b * MN;
-  const T* yx = s.y + px.b * 2 * MN;
-  const T* yy = yx + MN;
-  const T tau = s.tau;
-
-  T d = div_k(yx, yy, k, px, s.M, s.N, STENCIL_FWD);
-  T uo = s.u[idx];
-  T fv = s.f[idx];
-  T z = (uo - tau * d) - fv;
-  T az = fabs(z);
-  T p;
-  if (HUBER) {
-    p = (az <= s.lo) ? z / s.den : z - tau * sign_(z);
-  } else {
-    T m = az - tau;
-    p = sign_(z) * (m < T(0) ? T(0) : m);
-  }
-  T un = fv + p;
-  s.u[idx] = un;
-  s.ubar[idx] = T(2) * un - uo;
-}
-
-template <typename T, bool HUBER>
-__global__ void tvl1_dual(TVL1<T> s) {
-  long long idx = (long long)blockIdx.x * BPL_THREADS + threadIdx.x;
-  if (idx >= s.n) return;
-  Pix px = pix_of(idx, s.M, s.N);
-  const long long MN = (long long)s.M * s.N;
-  const long long k = idx - px.b * MN;
-  T* yx = s.y + px.b * 2 * MN;
-  T* yy = yx + MN;
-  const T sigma = s.sigma;
-  const T a = s.amap ? s.amap[k] : s.a;
-
-  T gx, gy;
-  grad_k(s.ubar, idx, px, s.M, s.N, STENCIL_FWD, gx, gy);
-  T tx = yx[k] + sigma * gx;
-  T ty = yy[k] + sigma * gy;
-  if (HUBER) {
-    T a_safe = a > T(1e-12) ? a : T(1e-12);
-    T sc = T(1) / (T(1) + sigma / (a_safe * s.gr));
-    tx = sc * tx;
-    ty = sc * ty;
-  }
-  T b = ball_scale(tx * tx + ty * ty, a);
-  yx[k] = tx * b;
-  yy[k] = ty * b;
-}
 
 // Per-block partial sums of (u − u_prev)² and u² (u the new iterate).
 template <typename T>

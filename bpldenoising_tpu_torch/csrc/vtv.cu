@@ -53,58 +53,9 @@
 // 2 scalings; per pixel 5 adds of the 2C = 6 squares, √, compare, max and
 // divide, shared by C = 3 planes): 23.  The kernel's extra work (the
 // second pass over the channels, four accumulators) is not counted.
-#include "common.cuh"
+#include "vtv.cuh"
 
 namespace bpl {
-
-template <typename T>
-struct VTV {
-  const T* ubar;  // (O, C, M, N)
-  T* y;           // (O, C, 2, M, N)
-  const T* amap;  // (M, N) or null: then a is used
-  T a;
-  long long n;    // O·M·N pixels
-  int C, M, N;
-};
-
-template <typename T>
-__device__ __forceinline__ void vtv_q(const VTV<T>& s, long long plane,
-                                      long long k, Pix p, T sigma, T& qx,
-                                      T& qy) {
-  const long long MN = (long long)s.M * s.N;
-  T gx, gy;
-  grad_k(s.ubar + plane * MN, k, p, s.M, s.N, STENCIL_FWD, gx, gy);
-  const T* yx = s.y + plane * 2 * MN;
-  qx = yx[k] + sigma * gx;
-  qy = yx[MN + k] + sigma * gy;
-}
-
-template <typename T>
-__global__ void vtv_dual(VTV<T> s, T sigma) {
-  long long idx = (long long)blockIdx.x * BPL_THREADS + threadIdx.x;
-  if (idx >= s.n) return;
-  Pix p = pix_of(idx, s.M, s.N);
-  const long long MN = (long long)s.M * s.N;
-  const long long k = idx - p.b * MN;
-  const long long plane0 = p.b * s.C;
-  const T alpha = s.amap ? s.amap[k] : s.a;
-
-  T acc[4] = {T(0), T(0), T(0), T(0)};
-  for (int c = 0; c < s.C; ++c) {
-    T qx, qy;
-    vtv_q(s, plane0 + c, k, p, sigma, qx, qy);
-    acc[(2 * c) & 3] += qx * qx;
-    acc[(2 * c + 1) & 3] += qy * qy;
-  }
-  const T scale = ball_scale(((acc[0] + acc[1]) + acc[2]) + acc[3], alpha);
-  for (int c = 0; c < s.C; ++c) {
-    T qx, qy;
-    vtv_q(s, plane0 + c, k, p, sigma, qx, qy);
-    T* yx = s.y + (plane0 + c) * 2 * MN;
-    yx[k] = qx * scale;
-    yx[MN + k] = qy * scale;
-  }
-}
 
 template <typename T>
 int vtv_solve(const T* f, T* u, T* y, T* ubar, T* uprev, T* ratio,

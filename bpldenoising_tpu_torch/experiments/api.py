@@ -36,7 +36,8 @@ __all__ = ["scalar_bilevel_tv_learn", "patch_bilevel_tv_learn",
            "scalar_bilevel_sumregs_learn", "patch_bilevel_sumregs_learn",
            "default_params", "bilevel_params", "patch_bilevel_params",
            "sumregs_bilevel_params", "patch_sumregs_bilevel_params",
-           "check_backend", "single_loop_log_every", "single_loop_state"]
+           "check_backend", "single_loop_log_every", "single_loop_state",
+           "run_single_loop"]
 
 default_params = Params(
     verbose_iter=1,
@@ -176,24 +177,33 @@ def single_loop_state(res, alpha0):
     return st, g_norm
 
 
-def _run_single_loop(params, model_kind, device):
-    """The single-loop first-order learner behind the experiment surface,
-    in ``single_loop_log_every(outer)`` segments (``log_every`` in params
-    is not read, as in the JAX package)."""
+def run_single_loop(params, device, learn, **extra) -> BilevelResult:
+    """A single-loop first-order learner behind the experiment surface
+    (the JAX package's ``_run_single_loop`` and its families'
+    ``_run_*_single_loop``): ``learn(utrue, f, x0, **kw)`` is one of the
+    ``single_loop_*_learn`` functions, run in ``single_loop_log_every(
+    outer)`` segments (``log_every`` in params is not read, as in the JAX
+    package) with the ``sl_*`` knobs and ``extra``."""
     _reject_flags(params, "single_loop",
                   ("checkpoint", "resume", "save_iterations", "inner_tol"))
     reject_unported(params, allow=("log_every",))
     ds = _load(params, device)
-    model = tv_model() if model_kind == "tv" else sumregs_model()
     outer = int(params.sl_outer)
-    res = single_loop_learn(
-        ds[0], ds[1], params.alpha0, model, outer=outer,
-        n_inner=int(params.sl_inner), n_adj=int(params.sl_adj),
-        lr=float(params.sl_lr), log_every=single_loop_log_every(outer))
+    res = learn(ds[0], ds[1], np.asarray(params.alpha0), outer=outer,
+                n_inner=int(params.sl_inner), n_adj=int(params.sl_adj),
+                lr=float(params.sl_lr),
+                log_every=single_loop_log_every(outer), **extra)
     st, g_norm = single_loop_state(res, params.alpha0)
     return BilevelResult(x=res.alpha.cpu().numpy(), u=res.u.cpu().numpy(),
                          state=st, cost=float(res.cost), g_norm=g_norm,
                          iterations=outer)
+
+
+def _run_single_loop(params, model_kind, device):
+    model = tv_model() if model_kind == "tv" else sumregs_model()
+    return run_single_loop(
+        params, device,
+        lambda ut, f, x0, **kw: single_loop_learn(ut, f, x0, model, **kw))
 
 
 def _params(family_params, visualise, kwargs):

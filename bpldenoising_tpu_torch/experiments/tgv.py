@@ -4,11 +4,14 @@
 The parameter is the 2-vector (α₁, α₀) weighting the first- and
 second-order terms, or an (m, n, 2) stack of patch grids.  Ported so far:
 :func:`scalar_bilevel_tgv_learn` and :func:`patch_bilevel_tgv_learn` with
-``method="tr_fused"``, and :func:`TGVDenoise`.  As in the TV entry point,
-``check_every``, ``inner_tol`` and ``tgv_gamma`` are parameters; the
-other methods, saving results, validation (it needs SSIM), cost sweeps,
-checkpointing, segmented dispatch (``log_every``) and data parallelism
-raise ``NotImplementedError``, as does any ``backend`` but ``"auto"``.
+``method="tr_fused"`` and ``method="single_loop"`` (the first-order
+learner of :mod:`..bilevel.first_order_tgv` at ``sl_lr`` 0.02, its log
+every ``sl_outer // 20`` steps), and :func:`TGVDenoise`.  As in the TV
+entry point, ``check_every``, ``inner_tol`` and ``tgv_gamma`` are
+parameters; the ``tr`` method, saving results, validation (it needs
+SSIM), cost sweeps, checkpointing, segmented dispatch of the trust region
+(``log_every``) and data parallelism raise ``NotImplementedError``, as
+does any ``backend`` but ``"auto"``.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..bilevel.first_order_tgv import single_loop_tgv_learn
 from ..bilevel.fused_tgv import bilevel_learn_tgv_fused
 from ..data import full_datasetname
 from ..ops import PatchOp
@@ -23,7 +27,7 @@ from ..solvers.tgv import tgv_denoise_pdps
 from ..utils.config import Params, merge
 from ..bilevel.harness import BilevelResult
 from .api import (_fused_to_result, _load, check_backend, default_params,
-                  reject_unported)
+                  reject_unported, run_single_loop)
 
 __all__ = ["tgv_bilevel_params", "patch_tgv_bilevel_params",
            "scalar_bilevel_tgv_learn", "patch_bilevel_tgv_learn",
@@ -74,10 +78,13 @@ def _run_tgv_fused(params, device):
         inner_maxiter=int(params.inner_maxiter),
         inner_tol=params.get("inner_tol"),
         check_every=int(params.check_every),
-        gamma=(1e-4 if params.get("tgv_gamma") is None
-               else float(params.tgv_gamma)),
-        device=device)
+        gamma=_tgv_gamma(params), device=device)
     return _fused_to_result(res)
+
+
+def _tgv_gamma(params) -> float:
+    return (1e-4 if params.get("tgv_gamma") is None
+            else float(params.tgv_gamma))
 
 
 def _learn(family_params, visualise, device, kwargs):
@@ -85,23 +92,27 @@ def _learn(family_params, visualise, device, kwargs):
         raise NotImplementedError("visualise is not ported yet")
     params = merge(default_params, family_params, kwargs)
     params = params | dict(dataset_name=full_datasetname(params.dataset_name))
+    if params.get("method") == "single_loop":
+        return run_single_loop(params, device, single_loop_tgv_learn,
+                               gamma=_tgv_gamma(params))
     if params.get("method") != "tr_fused":
         raise NotImplementedError(
             f"method={params.get('method')!r} is not ported yet; use "
-            "method='tr_fused'")
+            "method='tr_fused' or 'single_loop'")
     return _run_tgv_fused(params, device)
 
 
 def scalar_bilevel_tgv_learn(visualise: bool = False, device="cuda",
                              **kwargs) -> BilevelResult:
-    """Learn (α₁, α₀) by the trust region.  Only ``method="tr_fused"`` is
-    ported.  ``device="cuda"`` runs the CUDA kernel; ``device="cpu"`` runs
-    its plain version."""
+    """Learn (α₁, α₀) by the trust region (``method="tr_fused"``) or the
+    single-loop learner (``method="single_loop"``).  ``device="cuda"`` runs
+    the CUDA kernels; ``device="cpu"`` runs their plain versions."""
     return _learn(tgv_bilevel_params, visualise, device, kwargs)
 
 
 def patch_bilevel_tgv_learn(visualise: bool = False, device="cuda",
                             **kwargs) -> BilevelResult:
     """Learn spatially-varying (α₁, α₀) patch grids (an (m, n, 2) stack)
-    by the trust region.  Only ``method="tr_fused"`` is ported."""
+    by the trust region (``method="tr_fused"``) or the single-loop learner
+    (``method="single_loop"``)."""
     return _learn(patch_tgv_bilevel_params, visualise, device, kwargs)

@@ -4,14 +4,15 @@
 The robust L1 data term for impulse (salt-and-pepper) noise.  Ported so
 far: :func:`TVL1Denoise` (plain TV-L1 at a fixed scalar α, (M, N) map or
 (m, n) patch grid) and the bilevel learns :func:`scalar_bilevel_tvl1_learn`
-and :func:`patch_bilevel_tvl1_learn` with ``method="tr_fused"``, which run
-the trust region on the Huber-smoothed surrogate.  As in the TV and TGV
-entry points, ``check_every`` (the inner early-stop cadence) is a
-parameter; the ``tr`` and ``single_loop`` methods, saving results,
-visualisation, checkpointing, segmented dispatch (``log_every``) and data
-parallelism raise ``NotImplementedError``, as does any ``backend`` but
-``"auto"``.  Validation and the cost sweep need SSIM and the results code,
-which are not ported yet.
+and :func:`patch_bilevel_tvl1_learn` on the Huber-smoothed surrogate, with
+``method="tr_fused"`` (the trust region) or ``method="single_loop"`` (the
+first-order learner of :mod:`..bilevel.first_order_tvl1`).  As in the TV
+and TGV entry points, ``check_every`` (the inner early-stop cadence) is a
+parameter; the ``tr`` method, saving results, visualisation,
+checkpointing, segmented dispatch of the trust region (``log_every``) and
+data parallelism raise ``NotImplementedError``, as does any ``backend``
+but ``"auto"``.  Validation and the cost sweep need SSIM and the results
+code, which are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..bilevel.first_order_tvl1 import single_loop_tvl1_learn
 from ..bilevel.fused_tvl1 import bilevel_learn_tvl1_fused
 from ..data import full_datasetname
 from ..ops import PatchOp
@@ -26,7 +28,7 @@ from ..solvers.tvl1 import tvl1_denoise
 from ..utils.config import Params, merge
 from ..bilevel.harness import BilevelResult
 from .api import (_fused_to_result, _load, check_backend, default_params,
-                  reject_unported)
+                  reject_unported, run_single_loop)
 
 __all__ = ["TVL1Denoise", "tvl1_params", "scalar_bilevel_tvl1_learn",
            "patch_bilevel_tvl1_learn", "tvl1_bilevel_params",
@@ -76,9 +78,10 @@ def _check_method(params):
                          f"trust region), 'tr_fused' (one-dispatch "
                          f"on-device loop) or 'single_loop' (first-order), "
                          f"got {m!r}")
-    if m != "tr_fused":
+    if m not in ("tr_fused", "single_loop"):
         raise NotImplementedError(
-            f"method={m!r} is not ported yet; use method='tr_fused'")
+            f"method={m!r} is not ported yet; use method='tr_fused' or "
+            "'single_loop'")
 
 
 def _cg_kwargs(params):
@@ -111,20 +114,25 @@ def _learn(family_params, visualise, device, kwargs):
     params = merge(default_params, family_params, kwargs)
     params = params | dict(dataset_name=full_datasetname(params.dataset_name))
     _check_method(params)
+    if params.method == "single_loop":
+        return run_single_loop(params, device, single_loop_tvl1_learn,
+                               gamma_d=float(params.tvl1_gamma_d),
+                               gamma=float(params.tvl1_gamma))
     return _run_tvl1_fused(params, device)
 
 
 def scalar_bilevel_tvl1_learn(visualise: bool = False, device="cuda",
                               **kwargs) -> BilevelResult:
-    """Learn the scalar TV-L1 weight by the trust region on the
-    Huber-smoothed surrogate.  Only ``method="tr_fused"`` is ported.
-    ``device="cuda"`` runs the CUDA kernel; ``device="cpu"`` runs its
-    plain version."""
+    """Learn the scalar TV-L1 weight on the Huber-smoothed surrogate by the
+    trust region (``method="tr_fused"``) or the single-loop learner
+    (``method="single_loop"``).  ``device="cuda"`` runs the CUDA kernels;
+    ``device="cpu"`` runs their plain versions."""
     return _learn(tvl1_bilevel_params, visualise, device, kwargs)
 
 
 def patch_bilevel_tvl1_learn(visualise: bool = False, device="cuda",
                              **kwargs) -> BilevelResult:
     """Learn a spatially-varying (m, n) TV-L1 weight grid by the trust
-    region.  Only ``method="tr_fused"`` is ported."""
+    region (``method="tr_fused"``) or the single-loop learner
+    (``method="single_loop"``)."""
     return _learn(patch_tvl1_bilevel_params, visualise, device, kwargs)

@@ -6,12 +6,14 @@ Datasets load as planar (O, 3, M, N) color stacks
 coupling weight α or an (m, n) patch grid.  Ported so far:
 :func:`VTVDenoise` (a scalar α, (M, N) map or (m, n) patch grid) and the
 bilevel learns :func:`scalar_bilevel_vtv_learn` and
-:func:`patch_bilevel_vtv_learn` with ``method="tr_fused"``.  As in the
-other families' entry points, ``check_every``, ``inner_tol`` and
-``vtv_gamma`` are parameters; the ``tr`` and ``single_loop`` methods,
-saving results, visualisation, checkpointing, segmented dispatch
-(``log_every``) and data parallelism raise ``NotImplementedError``, as does
-any ``backend`` but ``"auto"``.  Validation and the cost sweeps need SSIM
+:func:`patch_bilevel_vtv_learn` with ``method="tr_fused"`` (the trust
+region) or ``method="single_loop"`` (the first-order learner of
+:mod:`..bilevel.first_order_vtv`).  As in the other families' entry
+points, ``check_every``, ``inner_tol`` and ``vtv_gamma`` are parameters;
+the ``tr`` method, saving results, visualisation, checkpointing,
+segmented dispatch of the trust region (``log_every``) and data
+parallelism raise ``NotImplementedError``, as does any ``backend`` but
+``"auto"``.  Validation and the cost sweeps need SSIM
 and the results code, which are not ported yet.
 """
 
@@ -20,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..bilevel.first_order_vtv import single_loop_vtv_learn
 from ..bilevel.fused_vtv import bilevel_learn_vtv_fused
 from ..bilevel.harness import BilevelResult
 from ..data import full_datasetname
@@ -27,7 +30,7 @@ from ..ops import PatchOp
 from ..solvers.pdps import vtv_denoise
 from ..utils.config import Params, merge
 from .api import (_fused_to_result, _load, check_backend, default_params,
-                  reject_unported)
+                  reject_unported, run_single_loop)
 
 __all__ = ["vtv_bilevel_params", "patch_vtv_bilevel_params",
            "scalar_bilevel_vtv_learn", "patch_bilevel_vtv_learn",
@@ -72,9 +75,10 @@ def _check_method(params):
         raise ValueError(f"VTV experiments support method='tr' (host trust "
                          f"region), 'tr_fused' (one-dispatch on-device "
                          f"loop) or 'single_loop' (first-order), got {m!r}")
-    if m != "tr_fused":
+    if m not in ("tr_fused", "single_loop"):
         raise NotImplementedError(
-            f"method={m!r} is not ported yet; use method='tr_fused'")
+            f"method={m!r} is not ported yet; use method='tr_fused' or "
+            "'single_loop'")
 
 
 def _run_vtv_fused(params, device):
@@ -85,10 +89,13 @@ def _run_vtv_fused(params, device):
         inner_maxiter=int(params.inner_maxiter),
         inner_tol=params.get("inner_tol"),
         check_every=int(params.check_every),
-        gamma=(1e-4 if params.get("vtv_gamma") is None
-               else float(params.vtv_gamma)),
-        device=device)
+        gamma=_vtv_gamma(params), device=device)
     return _fused_to_result(res)
+
+
+def _vtv_gamma(params) -> float:
+    return (1e-4 if params.get("vtv_gamma") is None
+            else float(params.vtv_gamma))
 
 
 def _learn(family_params, visualise, device, kwargs):
@@ -97,19 +104,24 @@ def _learn(family_params, visualise, device, kwargs):
     params = merge(default_params, family_params, kwargs)
     params = params | dict(dataset_name=full_datasetname(params.dataset_name))
     _check_method(params)
+    if params.method == "single_loop":
+        return run_single_loop(params, device, single_loop_vtv_learn,
+                               gamma=_vtv_gamma(params))
     return _run_vtv_fused(params, device)
 
 
 def scalar_bilevel_vtv_learn(visualise: bool = False, device="cuda",
                              **kwargs) -> BilevelResult:
-    """Learn the scalar coupling weight α by the trust region on color
-    data.  Only ``method="tr_fused"`` is ported.  ``device="cuda"`` runs
-    the CUDA kernel; ``device="cpu"`` runs its plain version."""
+    """Learn the scalar coupling weight α on color data by the trust
+    region (``method="tr_fused"``) or the single-loop learner
+    (``method="single_loop"``).  ``device="cuda"`` runs the CUDA kernels;
+    ``device="cpu"`` runs their plain versions."""
     return _learn(vtv_bilevel_params, visualise, device, kwargs)
 
 
 def patch_bilevel_vtv_learn(visualise: bool = False, device="cuda",
                             **kwargs) -> BilevelResult:
-    """Learn a spatially-varying (m, n) coupling-weight grid by the trust
-    region on color data.  Only ``method="tr_fused"`` is ported."""
+    """Learn a spatially-varying (m, n) coupling-weight grid on color data
+    by the trust region (``method="tr_fused"``) or the single-loop learner
+    (``method="single_loop"``)."""
     return _learn(patch_vtv_bilevel_params, visualise, device, kwargs)

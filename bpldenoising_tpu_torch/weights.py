@@ -15,10 +15,13 @@ learner's carry ``(u, ys, p, z, (m, v), t)`` with u, p (O, M, N), ys a
 K-tuple of (O, 2, M, N) duals, z = log α and Adam's moments m, v in the
 parameter's shape and the 0-d step counter t (the port's
 ``bilevel.first_order._single_loop_impl`` resumes from it as
-``carry0``); any nesting of tuples and lists) into the port's tensors, so
-that both packages can be fed
-the same state.  It reads each leaf through ``numpy.asarray`` and never imports
-JAX.
+``carry0``), the other families' single-loop carries, which the port's
+``_single_loop_{tgv,tvl1,vtv}_impl`` resume from likewise: TGV²
+``((u, w, p, q), λ, z, (m, v), t)`` with λ (O, 3, M, N), TV-L1
+``(u, y, p, z, (m, v), t)`` and VTV ``(u, y, λ, z, (m, v), t)`` with u, λ
+(O, C, M, N) and y (O, C, 2, M, N); any nesting of tuples and lists) into
+the port's tensors, so that both packages can be fed the same state.  It
+reads each leaf through ``numpy.asarray`` and never imports JAX.
 """
 
 from __future__ import annotations

@@ -91,7 +91,25 @@ Phases (one short line each):
     ``single_loop_cuda_tiled`` timed at 300 outer steps with one tile and
     with ``tile_b=8`` (counters reset just before and read just after).
 
-It prints one JSON line of per-kernel numbers, then, as its last line,
+22–33. the single-loop TGV², TV-L1 and VTV learners
+    (``csrc/single_loop_{tgv,tvl1,vtv}.cu``), four phases each:
+    (a) against the plain version in float64 (one and two 24² images,
+    the scalar or (2,) weight and a 2×2 patch grid, 20 outer steps);
+    (b) against the plain version in float32 at the bench shape (one
+    image), 30 outer steps, both timed, and again on the entry point's
+    own stack where it holds more (TGV² 10 images, VTV 6); (c) the library call
+    ``single_loop_{tgv,tvl1,vtv}_cuda`` at bench.py's settings (300 outer
+    steps of 40 CP and 10 CG steps), CUDA events after one warm-up,
+    counters reset just before and read just after; (d) the scalar learn
+    through its entry point with ``method="single_loop"`` on the dataset
+    and sample count of the family's trust-region phase, once to warm up
+    and once timed, counters reset just before and read just after, the
+    plain loop watched; gated against the JAX float32 reference.  After
+    (d), TGV² runs (e): the same entry point in float64, gated tightly
+    against the JAX float64 reference, the witness for (d)'s wide gate.
+
+It prints one JSON line of per-kernel numbers (eleven kernels), then, as
+its last line,
 ``{"ok": true, "device": {...}}``.  Any failure raises (no phase is
 caught) and the script exits non-zero; a deadline turns a hang into a
 traceback and a non-zero exit.
@@ -276,6 +294,74 @@ TOL_SL_REL_F32 = 1e-5
 TOL_SL_U_F32 = 1e-4
 TOL_SL_GNORM_F32 = 1e-3
 
+# The single-loop TGV², TV-L1 and VTV learners (csrc/single_loop_{tgv,tvl1,
+# vtv}.cu).  References (scripts/jax_reference_single_loop.py, the JAX
+# package's jnp scan on the CPU, float32): the entry points with
+# method="single_loop" and their defaults (300 outer steps of 40 CP and
+# 10 CG steps; TGV on the 10 faces images from (0.05, 0.05) at lr 0.02,
+# TV-L1 on one circle_sp image from 0.4, VTV on the six color_disks images
+# from 0.05) and the library calls at bench.py's settings on one image
+# (bench.py:665-683, :878-893, :1011-1020): α, cost, mean PSNR.
+SLX_REF = {
+    "tgv": dict(alpha=(0.08425260335206985, 0.030044613406062126),
+                cost=148.15432739257812, psnr=27.47287368774414),
+    "tvl1": dict(alpha=(1.9599701166152954,), cost=9.997591018676758,
+                 psnr=29.134944915771484),
+    "vtv": dict(alpha=(0.16543056070804596,), cost=34.09968566894531,
+                psnr=36.600860595703125),
+}
+SLX_CALL_REF = {
+    "tgv": dict(alpha=(0.0822146013379097, 0.030765213072299957),
+                cost=17.452348709106445),
+    "tvl1": dict(alpha=(1.9599701166152954,), cost=9.997591018676758),
+    "vtv": dict(alpha=(0.15798762440681458,), cost=6.589247703552246),
+}
+# Gates of the entry points against the references: α within 1e-3
+# relative, PSNR ±0.01 dB, cost ±0.1% (the TV row's).  TGV² is gated at
+# twice the reference's own float32 band instead: the JAX package's
+# float32 and float64 runs of the same learn differ by 1.0e-2 in α₀
+# (relative), 5.6e-3 in the cost and 0.025 dB in PSNR
+# (scripts/jax_reference_single_loop.py tgv and --float64 tgv): at γ = 1e-4
+# its joint system is ill-conditioned and a float32 run with sums in
+# another order is another point of that band.  (TV-L1: 1.2e-5 in α; VTV:
+# 8e-7.)  The library calls (c) are reported against their references,
+# not gated; (a) and (b) hold the kernel to its plain version.
+# TGV²'s wide float32 gate rests on a float64 witness: the same entry
+# point in float64 on the card against the JAX package's float64 run
+# (scripts/jax_reference_single_loop.py --float64 tgv), gated at 1e-6
+# relative on α and the cost and 1e-5 dB on PSNR.  The learner turns
+# float32 rounding (6e-8) into 1e-2 in α₀, a gain of ~2e5, so float64
+# rounding (1.1e-16) should move it by ~1e-11; a fault in the batch path
+# (the per-image CG scalars, the batch-ordered gradient sums) moves it by
+# 1e-3 or more.
+SLX_REF_F64 = {
+    "tgv": dict(alpha=(0.08427089069494462, 0.029748970332763858),
+                cost=148.98541562203252, psnr=27.4474969870284),
+}
+SLX_GATES_F64 = dict(alpha=1e-6, psnr=1e-5, cost=1e-6)
+SLX_GATES = {"tgv": dict(alpha=2e-2, psnr=0.05, cost=1.1e-2),
+             "tvl1": dict(alpha=1e-3, psnr=0.01, cost=1e-3),
+             "vtv": dict(alpha=1e-3, psnr=0.01, cost=1e-3)}
+# float32, kernel against plain at the bench shape (30 outer steps): as
+# the TV learner's (TOL_SL_*), but TGV² holds α and the α and cost
+# trajectories to 1e-4 relative: its adjoint system at γ = 1e-4 is
+# ill-conditioned (the JAX package moves its own TGV gradient by ~2e-8
+# relative under a 1e-13 perturbation of the data in float64), so the
+# kernel's sums, taken in another order, move α by more than rounding
+# (measured on an H100: 2.2e-6 for α, 7.1e-6 for its trajectory).
+TOL_SLX_REL_F32 = {"tgv": 1e-4, "tvl1": TOL_SL_REL_F32,
+                   "vtv": TOL_SL_REL_F32}
+# float64, kernel against plain (phases (a)): 1e-9 relative (TOL_F64_REL),
+# but TV-L1's two-image patch case 1e-5: the TV-L1 learner switches
+# discretely at |u − f| = 1/γ_d (the data Hessian D) and |∇u| = 1/γ_r (the
+# active set), so a rounding difference in the CG's inner products can move
+# a pixel across and the trajectory by far more than rounding.  On that
+# case the plain version itself, with its CG inner products summed in
+# another order, moves by 1.8e-6 (3e-10 on the other three); measured on an
+# H100 the kernel: 2.5e-6 on it and 1.2e-10 on the others.  A fault in a
+# stencil, D, the clip or Adam moves the learner by 1e-2 or more.
+TOL_SLX_F64_CASE = {("tvl1", "B2 patch"): 1e-5}
+
 # peak rates of an H100 SXM (NVIDIA data sheet) for the bounds
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -303,6 +389,41 @@ VTV_OPS_PER_PLANE_PIXEL_ITER = 23
 SL_GRAD_OPS = (2, 2, 4)
 SL_ADJ_OPS = (3, 3, 5)
 SL_GRAM_OPS = (3, 3, 5)
+
+
+# The other families' learners, per pixel (TGV², TV-L1) or per plane-pixel
+# (VTV, C = 3) and outer step, by the same rule, from their kernels'
+# arithmetic.  TGV²: the CP step 70; the system set-up 28 (∇u − w 4, Ew 6,
+# two Huber norms 10 and scales 6, α·s 2) and diagonal 12; H·v 62 (the
+# weights 46, the three output planes 16); a CG step H·d + 11 per plane (dot
+# 2, update 7, direction 2); the start H·λ + 5 per plane; the gradient maps
+# 25 and the cost 3.  TV-L1: the Huber CP step 36; the TV system of
+# sl_ops_per_pixel with D (+2 in H·v, +7 in the diagonal).  VTV: the CP step
+# 23; per plane-pixel H·v 21, the set-up 7, the diagonal 2, the gradient
+# map 8 and the cost 3.
+# the planes a learn writes out per pixel (per plane-pixel for VTV): the
+# CP state and the adjoint (TGV² 1 + 2 + 2 + 3 + 3, TV-L1 1 + 2 + 1, VTV
+# 1 + 2 + 1); f and ū are read in
+SLX_OUT_PLANES = {"tgv": 11, "tvl1": 4, "vtv": 4}
+
+
+def slx_bound(name, pixels, outer, itemsize=4):
+    """(ms, "bytes" or "operations"): the least time of ``outer`` steps of
+    40 CP and 10 CG steps of the family's learner on ``pixels``."""
+    return bound_ms((2 + SLX_OUT_PLANES[name]) * pixels * itemsize,
+                    slx_ops_per_pixel(name, 40, 10) * pixels * outer)
+
+
+def slx_ops_per_pixel(family, n_inner, n_adj):
+    if family == "tgv":
+        return (n_inner * TGV_OPS_PER_PIXEL_ITER + 28 + 12 + (62 + 15)
+                + n_adj * (62 + 33) + 25 + 3)
+    if family == "tvl1":
+        mv = 2 + 20 + 3 + 1 + 2
+        return (n_inner * TVL1_HUBER_OPS_PER_PIXEL_ITER + n_adj * (mv + 11)
+                + (2 + 25) + (3 + 1 + 1 + 7) + mv + 5 + (2 + 13) + 3)
+    return (n_inner * VTV_OPS_PER_PLANE_PIXEL_ITER + n_adj * (21 + 11)
+            + 7 + 2 + (21 + 5) + 8 + 3)
 
 
 def sl_ops_per_pixel(kinds, n_inner, n_adj, pipelined=False):
@@ -706,24 +827,29 @@ def phase_large(f, timed):
     return out
 
 
-def reset_launches():
-    from bpldenoising_tpu_torch.bilevel import first_order_cuda
+def launch_counters():
+    """Every kernel wrapper module by the name of its count."""
+    from bpldenoising_tpu_torch.bilevel import (first_order_cuda,
+                                                first_order_tgv_cuda,
+                                                first_order_tvl1_cuda,
+                                                first_order_vtv_cuda)
     from bpldenoising_tpu_torch.solvers import (hypergrad_cuda, pdps_cuda,
                                                 tgv_cuda, tvl1_cuda,
                                                 vtv_cuda)
-    for mod in (pdps_cuda, hypergrad_cuda, tgv_cuda, tvl1_cuda, vtv_cuda,
-                first_order_cuda):
+    return dict(pdps=pdps_cuda, hypergrad=hypergrad_cuda, tgv=tgv_cuda,
+                tvl1=tvl1_cuda, vtv=vtv_cuda, single_loop=first_order_cuda,
+                single_loop_tgv=first_order_tgv_cuda,
+                single_loop_tvl1=first_order_tvl1_cuda,
+                single_loop_vtv=first_order_vtv_cuda)
+
+
+def reset_launches():
+    for mod in launch_counters().values():
         mod.launches = 0
 
 
 def read_launches():
-    from bpldenoising_tpu_torch.bilevel import first_order_cuda
-    from bpldenoising_tpu_torch.solvers import (hypergrad_cuda, pdps_cuda,
-                                                tgv_cuda, tvl1_cuda,
-                                                vtv_cuda)
-    return dict(pdps=pdps_cuda.launches, hypergrad=hypergrad_cuda.launches,
-                tgv=tgv_cuda.launches, tvl1=tvl1_cuda.launches,
-                vtv=vtv_cuda.launches, single_loop=first_order_cuda.launches)
+    return {name: mod.launches for name, mod in launch_counters().items()}
 
 
 def on_device(res, like):
@@ -1551,6 +1677,319 @@ def phase_sl_tiled(utrue, f, timed):
     return out
 
 
+def slx_family(name):
+    """The family's modules and settings: the learn module, its plain
+    loop's name, the CUDA module, the library call, the entry point, the
+    bench shape's dataset and parameter, the library call's arguments and
+    the entry point's settings."""
+    import numpy as np
+    from bpldenoising_tpu_torch.bilevel import (
+        first_order_tgv, first_order_tgv_cuda, first_order_tvl1,
+        first_order_tvl1_cuda, first_order_vtv, first_order_vtv_cuda)
+    from bpldenoising_tpu_torch.experiments import tgv, tvl1, vtv
+    if name == "tgv":
+        return dict(mod=first_order_tgv, cuda=first_order_tgv_cuda,
+                    call=first_order_tgv_cuda.single_loop_tgv_cuda,
+                    entry=tgv.scalar_bilevel_tgv_learn,
+                    data=("faces_train_128_10", False),
+                    x0=np.array([0.05, 0.05]),
+                    patch=np.stack([np.full((2, 2), 0.05),
+                                    np.full((2, 2), 0.08)], axis=-1),
+                    small=np.array([0.05, 0.08]),
+                    kw=dict(lr=0.02, gamma=1e-4, tau0=0.99, sigma0=0.99),
+                    call_kw=dict(lr=0.02),
+                    entry_kw=dict(dataset_name="faces_train",
+                                  num_samples=10))
+    if name == "tvl1":
+        return dict(mod=first_order_tvl1, cuda=first_order_tvl1_cuda,
+                    call=first_order_tvl1_cuda.single_loop_tvl1_cuda,
+                    entry=tvl1.scalar_bilevel_tvl1_learn,
+                    data=("circle_sp_128_20", False), x0=np.array(0.4),
+                    patch=np.full((2, 2), 0.4), small=np.array(0.4),
+                    kw=dict(lr=0.05, gamma_d=100.0, gamma_r=1000.0,
+                            tau0=0.99, sigma0=0.99, clip=1.0),
+                    call_kw={}, entry_kw=dict(dataset_name="circle_sp"))
+    return dict(mod=first_order_vtv, cuda=first_order_vtv_cuda,
+                call=first_order_vtv_cuda.single_loop_vtv_cuda,
+                entry=vtv.scalar_bilevel_vtv_learn,
+                data=("color_disks_128_10", True), x0=np.array(0.05),
+                patch=np.full((2, 2), 0.05), small=np.array(0.05),
+                kw=dict(lr=0.05, gamma=1e-4, tau0=5.0, sigma0=0.99 / 5.0),
+                call_kw={}, entry_kw=dict(dataset_name="color_disks",
+                                          num_samples=6))
+
+
+def slx_args(fam, name, utrue, f, x0, **extra):
+    """(utrue, f, x0, kwargs) of the family's segment entry and plain loop
+    at 40 CP and 10 CG steps per outer step and the family's defaults."""
+    mod = fam["mod"]
+    utrue, f, x0, pop, shape, _ = mod._prepare(utrue, f, x0)
+    kw = dict(n_inner=40, n_adj=10, pop=pop, param_shape=shape, beta1=0.9,
+              beta2=0.999, eps=1e-8, **fam["kw"])
+    kw.update(extra)
+    return utrue, f, x0, kw
+
+
+def slx_small_data(name, B, n=24, seed=0):
+    """B float64 test pairs of n² (C = 3 for VTV), made with numpy from a
+    seed: a ramp with a step and a disc, under Gaussian noise (TGV², VTV)
+    or 20% salt and pepper (TV-L1)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    ramp = 0.04 * xx + (yy > n // 2)
+    disc = ((xx - n / 2) ** 2 + (yy - n / 2) ** 2 < (n / 3) ** 2) + 0.02 * yy
+    clean = np.stack([ramp, disc]).astype(np.float64)[:B]
+    if name == "vtv":
+        clean = np.stack([clean, clean[:, ::-1], 0.5 * clean], axis=1)
+    if name != "tvl1":
+        return clean, clean + 0.1 * rng.standard_normal(clean.shape)
+    noisy = clean.copy()
+    hits = rng.uniform(size=clean.shape)
+    noisy[hits < 0.1] = 1.0
+    noisy[hits > 0.9] = 0.0
+    return clean, noisy
+
+
+def phase_slx_f64(torch, device, name):
+    """(a) The learner against its plain version in float64: one and two
+    images of 24², the scalar (or (2,)) weight and a 2×2 patch grid, 20
+    outer steps of 10 CP and 4 CG steps, at TOL_F64_REL relative (or the
+    case's TOL_SLX_F64_CASE)."""
+    fam = slx_family(name)
+    mod = fam["mod"]
+    plain = getattr(mod, f"_single_loop_{name}_plain")
+    errs = {}
+    for B in (1, 2):
+        ut_np, f_np = slx_small_data(name, B)
+        ut = torch.as_tensor(ut_np).to(device)
+        f = torch.as_tensor(f_np).to(device)
+        for label, x0 in (("scalar", fam["small"]), ("patch", fam["patch"])):
+            u0, f0, x0t, kw = slx_args(fam, name, ut, f, x0, n_inner=10,
+                                       n_adj=4)
+            impl = getattr(mod, f"_single_loop_{name}_impl")
+            k = impl(u0, f0, x0t, outer=20, **kw)
+            p = plain(u0, f0, x0t, outer=20, **kw)
+            e, _ = sl_errors(k, p)
+            e["u"] = rel_err(k.u, p.u)
+            errs[f"B{B} {label}"] = max(e.values())
+    tols = {case: TOL_SLX_F64_CASE.get((name, case), TOL_F64_REL)
+            for case in errs}
+    say(f"  (a) float64 24x24, 20 outer of 10/4: max rel err " + ", ".join(
+        f"{k} {v:.1e} (tol {tols[k]:g})" for k, v in errs.items()))
+    require(all(v <= tols[k] for k, v in errs.items()),
+            f"float64 single-loop {name} rel err {errs}")
+
+
+def slx_images(torch, device, name, count=1):
+    """The first ``count`` images of the family's bench dataset, float32."""
+    from bpldenoising_tpu_torch.data import testdataset
+    ds, color = slx_family(name)["data"]
+    true_np, noisy_np = testdataset(ds, color=color)
+    return (torch.as_tensor(true_np[:count], dtype=torch.float32).to(device),
+            torch.as_tensor(noisy_np[:count], dtype=torch.float32).to(device))
+
+
+def slx_f32_pair(utrue, f, timed, name, label):
+    """The learner against its plain version in float32 on (utrue, f), 30
+    outer steps of 40 CP and 10 CG steps, at TOL_SLX_REL_F32 / TOL_SL_*."""
+    fam = slx_family(name)
+    mod = fam["mod"]
+    plain = getattr(mod, f"_single_loop_{name}_plain")
+    impl = getattr(mod, f"_single_loop_{name}_impl")
+    u0, f0, x0, kw = slx_args(fam, name, utrue, f, fam["x0"])
+    impl(u0, f0, x0, outer=2, **kw)                        # warm-up
+    k, k_ms = timed(lambda: impl(u0, f0, x0, outer=30, **kw))
+    p, p_ms = timed(lambda: plain(u0, f0, x0, outer=30, **kw))
+    errs, worst = sl_errors(k, p)
+    tol = TOL_SLX_REL_F32[name]
+    bad = (max(errs["alpha"], errs["alpha_traj"], errs["cost_traj"]) > tol
+           or errs["u"] > TOL_SL_U_F32 or errs["gnorm_traj"]
+           > TOL_SL_GNORM_F32)
+    say(f"  {label} float32 {'x'.join(map(str, f.shape))}, 30 outer: "
+        f"{sl_fmt(errs)} (tol: alpha and trajectories {tol:g} relative, "
+        f"u {TOL_SL_U_F32:g}, gnorm {TOL_SL_GNORM_F32:g}); kernel "
+        f"{k_ms:.2f} ms, plain {p_ms:.2f} ms")
+    require(not bad, f"single-loop {name} kernel disagrees with plain at "
+            f"{tuple(f.shape)}: {errs}")
+    return dict(max_abs_err=worst, errors=errs, ms_30=k_ms, plain_ms=p_ms,
+                pixels=f.numel())
+
+
+def phase_slx_f32(torch, device, timed, name):
+    """(b) The learner against its plain version in float32 at the bench
+    shape (one image), then on the entry point's own stack where it holds
+    more (TGV² 10 images, VTV 6): the per-image CG scalars and the
+    batch-ordered gradient sums at that batch.  The bench shape's numbers
+    are the ``plain_ms`` of its ``kernels`` entry; ``max_abs_err`` is the
+    worst of both."""
+    utrue, f = slx_images(torch, device, name)
+    out = slx_f32_pair(utrue, f, timed, name, "(b)")
+    n = int(slx_family(name)["entry_kw"].get("num_samples", 1))
+    if n > 1:
+        ut_n, f_n = slx_images(torch, device, name, n)
+        out["entry_stack"] = slx_f32_pair(ut_n, f_n, timed, name,
+                                          "(b) entry point's stack,")
+        out["max_abs_err"] = max(out["max_abs_err"],
+                                 out["entry_stack"]["max_abs_err"])
+    return utrue, f, out
+
+
+def slx_check(label, alpha, cost, ref, psnr_db=None):
+    """Relative errors of α and the cost against a reference (and the
+    PSNR's difference); → (dict, line)."""
+    rel = max(abs(a - r) / r for a, r in zip(alpha, ref["alpha"]))
+    dc = abs(cost - ref["cost"]) / ref["cost"]
+    out = dict(alpha=alpha, alpha_rel_err=rel, final_cost=cost,
+               cost_rel_err=dc)
+    line = (f"{label}: alpha {alpha} (reference {list(ref['alpha'])}) max "
+            f"rel {rel:.2e}; cost {cost:.6f} (reference {ref['cost']:.6f}) "
+            f"rel {dc:.2e}")
+    if psnr_db is not None:
+        out.update(mean_psnr_db=psnr_db, psnr_diff_db=psnr_db - ref["psnr"])
+        line += (f"; PSNR {psnr_db:.6f} dB (reference {ref['psnr']:.6f})")
+    return out, line
+
+
+def phase_slx_call(utrue, f, timed, name):
+    """(c) The library call at bench.py's settings on one image, 300 outer
+    steps of 40 CP and 10 CG steps, once to warm up and once timed with
+    CUDA events, counters reset just before and read just after."""
+    import numpy as np
+    fam = slx_family(name)
+    kw = dict(outer=300, n_inner=40, n_adj=10, **fam["call_kw"])
+    fam["call"](utrue, f, fam["x0"], **kw)                  # warm-up
+    reset_launches()
+    (x, u, traj), ms = timed(lambda: fam["call"](utrue, f, fam["x0"], **kw))
+    launches = read_launches()
+    alpha = np.atleast_1d(x.double().cpu().numpy()).tolist()
+    out, line = slx_check("  (c) library call", alpha, float(traj[-1]),
+                          SLX_CALL_REF[name])
+    key = f"single_loop_{name}"
+    bound, by = slx_bound(name, f.numel(), 300)
+    say(f"{line}; {ms:.2f} ms (CUDA events, after one warm-up); launches "
+        f"{launches[key]}; bound {bound:.4f} ms ({by})")
+    require(launches[key] == 1, f"library call launched {launches}")
+    out.update(ms=ms, launches=launches[key], outer=300, bound_ms=bound,
+               bound_by=by)
+    return out
+
+
+def phase_slx_entry(timed, name):
+    """(d) The scalar learn through its entry point with
+    method="single_loop" on the family's trust-region dataset, once to warm
+    up and once timed, counters reset just before and read just after; the
+    plain loop must not run.  Gated against the JAX float32 reference."""
+    import numpy as np
+    import torch
+    from bpldenoising_tpu_torch.data import testdataset
+    from bpldenoising_tpu_torch.metrics import psnr
+
+    fam = slx_family(name)
+    mod = fam["mod"]
+    kw = dict(fam["entry_kw"], dtype="float32", method="single_loop")
+    fam["entry"](device="cuda", **kw)                      # warm-up
+    plain_name = f"_single_loop_{name}_plain"
+    saved = getattr(mod, plain_name)
+    plain_calls = []
+
+    def watched(*a, **k):
+        plain_calls.append(1)
+        return saved(*a, **k)
+
+    setattr(mod, plain_name, watched)
+    try:
+        reset_launches()
+        res, wall_ms = timed(lambda: fam["entry"](device="cuda", **kw))
+        launches = read_launches()
+    finally:
+        setattr(mod, plain_name, saved)
+    ds, color = fam["data"]
+    true_np, _ = testdataset(ds, color=color)
+    n = int(kw.get("num_samples", 1))
+    utrue = torch.as_tensor(true_np[:n], dtype=torch.float32)
+    mean_psnr = float(torch.mean(psnr(utrue, torch.as_tensor(res.u))))
+    alpha = np.atleast_1d(np.asarray(res.x, dtype=np.float64)).tolist()
+    out, line = slx_check("  (d) entry point", alpha, float(res.cost),
+                          SLX_REF[name], mean_psnr)
+    times = [e.time for e in res.state.log]
+    key = f"single_loop_{name}"
+    say(f"{line}; g_norm {res.g_norm:.6g}; {res.iterations} outer steps, "
+        f"{len(times)} log entries (gates: alpha {SLX_GATES[name]['alpha']:g}"
+        f" relative, PSNR {SLX_GATES[name]['psnr']:g} dB, cost "
+        f"{SLX_GATES[name]['cost']:g} relative)")
+    say(f"  wall {wall_ms:.1f} ms (CUDA events, after one warm-up run; PNG "
+        f"load included); launches {launches}; plain-loop calls "
+        f"{len(plain_calls)}")
+    gates = SLX_GATES[name]
+    require(launches[key] > 0 and not plain_calls,
+            f"single-loop {name} learn: launches {launches}, plain calls "
+            f"{len(plain_calls)}")
+    require(len(times) == 20 and all(t > 0 for t in times)
+            and times == sorted(times), f"state.log times {times}")
+    require(out["alpha_rel_err"] <= gates["alpha"],
+            f"single-loop {name} alpha {alpha}")
+    require(abs(out["psnr_diff_db"]) <= gates["psnr"],
+            f"single-loop {name} mean PSNR {mean_psnr}")
+    require(out["cost_rel_err"] <= gates["cost"],
+            f"single-loop {name} final cost {res.cost}")
+    out.update(g_norm=res.g_norm, outer_iterations=res.iterations,
+               wall_ms=wall_ms, launches=launches)
+    return out
+
+
+def phase_slx_entry_f64(name):
+    """(e) The scalar learn through its entry point in float64 on the card,
+    gated against the JAX package's float64 run at SLX_GATES_F64."""
+    import numpy as np
+    import torch
+    from bpldenoising_tpu_torch.data import testdataset
+    from bpldenoising_tpu_torch.metrics import psnr
+
+    fam = slx_family(name)
+    kw = dict(fam["entry_kw"], dtype="float64", method="single_loop")
+    reset_launches()
+    res = fam["entry"](device="cuda", **kw)
+    launches = read_launches()[f"single_loop_{name}"]
+    ds, color = fam["data"]
+    true_np, _ = testdataset(ds, color=color)
+    n = int(kw.get("num_samples", 1))
+    utrue = torch.as_tensor(true_np[:n], dtype=torch.float64)
+    mean_psnr = float(torch.mean(psnr(utrue, torch.as_tensor(res.u))))
+    alpha = np.atleast_1d(np.asarray(res.x, dtype=np.float64)).tolist()
+    out, line = slx_check("  (e) entry point, float64", alpha,
+                          float(res.cost), SLX_REF_F64[name], mean_psnr)
+    say(f"{line}; launches {launches} (gates: alpha "
+        f"{SLX_GATES_F64['alpha']:g} relative, PSNR "
+        f"{SLX_GATES_F64['psnr']:g} dB, cost {SLX_GATES_F64['cost']:g} "
+        f"relative)")
+    require(launches > 0 and np.asarray(res.u).dtype == np.float64,
+            f"float64 single-loop {name} learn: launches {launches}")
+    require(out["alpha_rel_err"] <= SLX_GATES_F64["alpha"]
+            and abs(out["psnr_diff_db"]) <= SLX_GATES_F64["psnr"]
+            and out["cost_rel_err"] <= SLX_GATES_F64["cost"],
+            f"float64 single-loop {name} learn off its reference: {out}")
+    return out
+
+
+def phases_slx(torch, device, timed, name, first):
+    """Phases (a)–(d) of one family, numbered from ``first``."""
+    label = {"tgv": "TGV", "tvl1": "TV-L1", "vtv": "VTV"}[name]
+    say(f"phase {first} single-loop {label} kernel vs plain, float64")
+    phase_slx_f64(torch, device, name)
+    say(f"phase {first + 1} single-loop {label} kernel vs plain at the "
+        f"bench shape and the entry point's, float32")
+    utrue, f, stats = phase_slx_f32(torch, device, timed, name)
+    say(f"phase {first + 2} single-loop {label} library call, 300/40/10")
+    stats["call"] = phase_slx_call(utrue, f, timed, name)
+    say(f"phase {first + 3} single-loop {label} learn through its entry "
+        f"point (method='single_loop')")
+    stats["learn"] = phase_slx_entry(timed, name)
+    if name in SLX_REF_F64:
+        stats["learn_f64"] = phase_slx_entry_f64(name)
+    return stats
+
+
 def flagship_kwargs():
     from bpldenoising_tpu_torch.solvers.hypergrad import HypergradConfig
     return dict(dataset_name="faces_train", num_samples=10,
@@ -1691,6 +2130,8 @@ def main():
     say("phase 21 single-loop learner at batch 64, K=3, one tile and "
         "tile_b 8")
     sl_tiled = phase_sl_tiled(utrue, f, timed)
+    slx = {name: phases_slx(torch, dev, timed, name, 22 + 4 * i)
+           for i, name in enumerate(("tgv", "tvl1", "vtv"))}
 
     itemsize = 4
     a_bytes = 4 * n * itemsize                  # f in; u, y out
@@ -1790,6 +2231,20 @@ def main():
              plain_ms=sl_tiled["plain_ms"], bound_ms=st_bound,
              bound_by=st_by, library_ms=None),
     ]
+    # the other families' learners: the library call's 300 outer steps at
+    # the bench shape (phase (c))
+    for name, line in (("tgv", 55), ("tvl1", 63), ("vtv", 54)):
+        st = slx[name]
+        bound, by = st["call"]["bound_ms"], st["call"]["bound_by"]
+        kernels.append(dict(
+            name=f"single_loop_{name}", route="cuda",
+            source=f"bpldenoising_tpu_torch/csrc/single_loop_{name}.cu",
+            replaces=(f"bpldenoising_tpu/bilevel/first_order_{name}"
+                      f"_pallas.py:{line}"),
+            launches=st["learn"]["launches"][f"single_loop_{name}"],
+            max_abs_err=st["max_abs_err"], ms=st["call"]["ms"],
+            plain_ms=st["plain_ms"], bound_ms=bound, bound_by=by,
+            library_ms=None))
     say(f"  total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels, "flagship": dict(
         alpha=alpha, alpha_abs_err=d_alpha, mean_psnr_db=mean_psnr,
@@ -1801,7 +2256,8 @@ def main():
         "single_loop_kernel": sl_stats, "single_loop_learn": sl_learn,
         "single_loop_sumregs_learn": sl_sumregs,
         "single_loop_batch64": sl_tiled,
-        "device": smi}))
+        "single_loop_tgv": slx["tgv"], "single_loop_tvl1": slx["tvl1"],
+        "single_loop_vtv": slx["vtv"], "device": smi}))
     faulthandler.cancel_dump_traceback_later()
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Where the time of one of the port's learns goes, on one NVIDIA GPU.
 
-    python3 scripts/torch_profile.py {tv,tgv,tvl1,vtv,single_loop}
+    python3 scripts/torch_profile.py {tv,tgv,tvl1,vtv,single_loop,
+                                      single_loop_tgv,single_loop_tvl1,
+                                      single_loop_vtv}
 
 Runs the family's fused learn on its preloaded float32 dataset with the
 settings of ``chip_smoke.py``: TV (the flagship) and TGV² on
@@ -26,7 +28,12 @@ for the scalar weight and the 2×2 patch grid, TV and TGV for the scalar:
 ``faces_train_128_10`` for the scalar TV weight from 0.1 and the
 sum-of-regularizers weights from 1e-3: the split is the CUDA learner's
 launch call (the whole learn runs in it) against the rest, and the
-profiled run is cut to 30 outer steps.
+profiled run is cut to 30 outer steps.  ``single_loop_tgv``,
+``single_loop_tvl1`` and ``single_loop_vtv`` do the same for the other
+families' single-loop learners with the settings of their entry points
+(300 outer steps of 40 CP and 10 CG steps): TGV² on the faces images from
+(0.05, 0.05) at lr 0.02, TV-L1 on one ``circle_sp_128_20`` image from
+0.4, VTV on the six ``color_disks_128_10`` images from 0.05.
 
 Prints one line per item and a JSON line last.  Exits non-zero without a
 CUDA device.
@@ -57,34 +64,60 @@ FAMILIES = {
     "vtv": ("fused_vtv", ("vtv_denoise_pdps_cuda",),
             ("vtv_implicit_cotangents",), 3),
     "single_loop": ("first_order_cuda", ("_launch",), (), 30),
+    "single_loop_tgv": ("first_order_tgv_cuda", ("_launch",), (), 30),
+    "single_loop_tvl1": ("first_order_tvl1_cuda", ("_launch",), (), 30),
+    "single_loop_vtv": ("first_order_vtv_cuda", ("_launch",), (), 30),
 }
 
 
-def setup_single_loop(torch):
-    """The single-loop learner on the flagship data: ``learn(x0, params)``
-    runs ``params.maxiter`` outer steps of ``params.model``."""
+def setup_single_loop(torch, family):
+    """A single-loop learner on its data: ``learn(x0, params)`` runs
+    ``params.maxiter`` outer steps of ``params.model``."""
     import types
 
     import numpy as np
 
+    from bpldenoising_tpu_torch.bilevel import (first_order_tgv,
+                                                first_order_tvl1,
+                                                first_order_vtv)
     from bpldenoising_tpu_torch.bilevel.first_order import single_loop_learn
     from bpldenoising_tpu_torch.data import testdataset
     from bpldenoising_tpu_torch.models import sumregs_model, tv_model
     from bpldenoising_tpu_torch.utils.config import Params
 
-    true_np, noisy_np = testdataset("faces_train_128_10")
-    ut = torch.as_tensor(true_np, dtype=torch.float32).cuda()
-    f = torch.as_tensor(noisy_np, dtype=torch.float32).cuda()
-    models = {"tv": tv_model(), "sumregs": sumregs_model()}
+    name, count, color = {
+        "single_loop": ("faces_train_128_10", 10, False),
+        "single_loop_tgv": ("faces_train_128_10", 10, False),
+        "single_loop_tvl1": ("circle_sp_128_20", 1, False),
+        "single_loop_vtv": ("color_disks_128_10", 6, True)}[family]
+    true_np, noisy_np = testdataset(name, color=color)
+    ut = torch.as_tensor(true_np[:count], dtype=torch.float32).cuda()
+    f = torch.as_tensor(noisy_np[:count], dtype=torch.float32).cuda()
+    learns = {
+        "tv": lambda x0, n: single_loop_learn(ut, f, x0, tv_model(),
+                                              outer=n),
+        "sumregs": lambda x0, n: single_loop_learn(ut, f, x0,
+                                                   sumregs_model(), outer=n),
+        "tgv": lambda x0, n: first_order_tgv.single_loop_tgv_learn(
+            ut, f, x0, outer=n),
+        "tvl1": lambda x0, n: first_order_tvl1.single_loop_tvl1_learn(
+            ut, f, x0, outer=n),
+        "vtv": lambda x0, n: first_order_vtv.single_loop_vtv_learn(
+            ut, f, x0, outer=n)}
 
     def learn(x0, p):
-        res = single_loop_learn(ut, f, x0, models[p.model],
-                                outer=int(p.maxiter))
+        res = learns[p.model](x0, int(p.maxiter))
         return types.SimpleNamespace(x=res.alpha, iterations=int(p.maxiter))
 
-    runs = {"scalar": (0.1, Params(model="tv", maxiter=300)),
-            "sumregs": (np.full((3,), 1e-3), Params(model="sumregs",
-                                                    maxiter=300))}
+    if family == "single_loop":
+        runs = {"scalar": (0.1, Params(model="tv", maxiter=300)),
+                "sumregs": (np.full((3,), 1e-3), Params(model="sumregs",
+                                                        maxiter=300))}
+    else:
+        model = family.split("_")[-1]
+        x0 = {"tgv": np.array([0.05, 0.05]), "tvl1": 0.4,
+              "vtv": 0.05}[model]
+        runs = {"scalar": (x0, Params(model=model, maxiter=300))}
     # the launch call returns (carry, trajectories): count outer steps
     return learn, runs, (lambda out: int(out[1][1].shape[0])), None
 
@@ -183,8 +216,9 @@ def main():
         timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     _build.library()
-    if args.family == "single_loop":
-        learn, runs, inner_iters, cg_iters = setup_single_loop(torch)
+    if args.family.startswith("single_loop"):
+        learn, runs, inner_iters, cg_iters = setup_single_loop(torch,
+                                                              args.family)
     else:
         learn, runs, inner_iters, cg_iters = setup(args.family, torch)
 

@@ -64,17 +64,22 @@ def _dataset(n_img, size, seed):
     return clean, noisy
 
 
-def _compare(jres, tres):
+def _compare(jres, tres, gnorm_rtol=RTOL, cg_slack=0.0):
+    """``cg_slack``: a CG-count slack per logged iteration (or one for
+    all), used where it is wider than ±(2 + 1%)."""
     k = int(jres.iterations)
     assert tres.iterations == k
     jlog = np.asarray(jres.log)[:k]
     tlog = tres.log[:k].numpy()
-    cols = [0, 1, 2, 3, 5]
+    cols = [0, 2, 3, 5]
     np.testing.assert_allclose(tlog[:, cols], jlog[:, cols], rtol=RTOL,
+                               atol=1e-12)
+    np.testing.assert_allclose(tlog[:, 1], jlog[:, 1], rtol=gnorm_rtol,
                                atol=1e-12)
     # CG iteration counts: a stop test that lands within rounding of its
     # threshold may take one more or one fewer iteration
-    assert np.all(np.abs(tlog[:, 4] - jlog[:, 4]) <= 2 + 0.01 * jlog[:, 4])
+    assert np.all(np.abs(tlog[:, 4] - jlog[:, 4])
+                  <= np.maximum(2 + 0.01 * jlog[:, 4], cg_slack))
     np.testing.assert_allclose(tres.x.numpy(), np.asarray(jres.x),
                                rtol=RTOL)
     np.testing.assert_allclose(float(tres.cost), float(jres.cost), rtol=RTOL)
@@ -138,7 +143,29 @@ def test_vector_alpha_sumregs_matches_jax():
     tres = bilevel_learn_fused(ds, xinit=torch.from_numpy(x0),
                                params=Params(params), model=sumregs_model(),
                                cfg=cfg, device="cpu", **kw)
-    _compare(jres, tres)
+    # ‖g‖ (log column 1) and the CG count (column 4) of this configuration
+    # move in the JAX package itself when the noisy images move by 1e-13
+    # (‖g‖ by ~4e-8 relative, the first iteration's CG count by ~14): the
+    # port is held to twice the spread that the reference shows, the CG
+    # count row by row, so rows where the reference does not move keep
+    # their ±(2 + 1%)
+    k = int(jres.iterations)
+    jlog = np.asarray(jres.log)[:k]
+    noise = 1e-13 * np.random.default_rng(1).standard_normal(ds[1].shape)
+    g_spread, cg_spread = 0.0, np.zeros(k)
+    for sign in (1.0, -1.0):
+        pres = j_learn_fused((jnp.asarray(ds[0]),
+                              jnp.asarray(ds[1] + sign * noise)),
+                             xinit=jnp.asarray(x0), params=JParams(params),
+                             model=j_sumregs(), backend="jnp",
+                             cfg=JCfg(**cfg._asdict()), **kw)
+        assert int(pres.iterations) == k
+        plog = np.asarray(pres.log)[:k]
+        g_spread = max(g_spread, float(np.max(
+            np.abs(plog[:, 1] - jlog[:, 1]) / np.abs(jlog[:, 1]))))
+        cg_spread = np.maximum(cg_spread, np.abs(plog[:, 4] - jlog[:, 4]))
+    _compare(jres, tres, gnorm_rtol=max(RTOL, 2.0 * g_spread),
+             cg_slack=2.0 * cg_spread)
 
 
 def test_patch_and_nonpositive_parameters_raise():

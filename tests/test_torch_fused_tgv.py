@@ -156,7 +156,8 @@ def test_entry_points_refuse_what_is_not_ported():
         tx.scalar_bilevel_tgv_learn(device="cpu", **dict(ENTRY, method="tr"))
     with pytest.raises(NotImplementedError):
         tx.patch_bilevel_tgv_learn(device="cpu",
-                                   **dict(ENTRY, method="single_loop"))
+                                   **dict(ENTRY, method="single_loop",
+                                          data_parallel=True))
     with pytest.raises(NotImplementedError):
         tx.scalar_bilevel_tgv_learn(device="cpu",
                                     **dict(ENTRY, save_results=True))

@@ -171,7 +171,8 @@ def test_tvl1_denoise_matches_jax(parameter):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(method="tr"), dict(method="single_loop"), dict(save_results=True),
+    dict(method="tr"), dict(method="single_loop", data_parallel=True),
+    dict(save_results=True),
     dict(checkpoint=True), dict(data_parallel=True), dict(log_every=1),
     dict(backend="pallas"), dict(visualise=True)],
     ids=lambda k: next(iter(k)) + "=" + str(next(iter(k.values()))))

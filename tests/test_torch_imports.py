@@ -73,14 +73,20 @@ SLICE_MODULES = ("ops/tgv.py", "ops/patch.py", "solvers/tgv.py",
                  "viz/log.py", "bilevel/harness.py", "solvers/vtv.py",
                  "solvers/vtv_cuda.py", "bilevel/fused_vtv.py",
                  "experiments/vtv.py", "bilevel/pcg.py",
-                 "bilevel/first_order.py", "bilevel/first_order_cuda.py")
+                 "bilevel/first_order.py", "bilevel/first_order_cuda.py",
+                 "bilevel/first_order_tgv.py",
+                 "bilevel/first_order_tgv_cuda.py",
+                 "bilevel/first_order_tvl1.py",
+                 "bilevel/first_order_tvl1_cuda.py",
+                 "bilevel/first_order_vtv.py",
+                 "bilevel/first_order_vtv_cuda.py")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)
 def test_tgv_slice_modules_are_checked(module):
-    """The TGV, TV-L1, VTV and single-loop slices' modules (and the result
-    types) exist and are among the sources checked above (so they import
-    no JAX)."""
+    """The TGV, TV-L1, VTV and single-loop slices' modules (the four
+    families' single-loop learners, and the result types) exist and are
+    among the sources checked above (so they import no JAX)."""
     assert PORT / module in SOURCES
 
 
@@ -93,7 +99,8 @@ def _profile_script():
 
 
 @pytest.mark.parametrize("family", ["tv", "tgv", "tvl1", "vtv",
-                                    "single_loop"])
+                                    "single_loop", "single_loop_tgv",
+                                    "single_loop_tvl1", "single_loop_vtv"])
 def test_profile_script_times_names_the_learn_calls(family):
     """scripts/torch_profile.py times a learn by replacing names in its
     fused module: each name must be one the module has (a renamed wrapper
