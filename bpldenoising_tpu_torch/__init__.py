@@ -9,9 +9,14 @@ bound with ``ctypes``, see :mod:`._build`).
 Entry points take ``device=`` and default to ``"cuda"``; pass
 ``device="cpu"`` to run the plain PyTorch versions of the kernels.
 
-Ported so far: the scalar-TV flagship path,
-:func:`experiments.api.scalar_bilevel_tv_learn` with ``method="tr_fused"``,
-and the TGV² trust-region learn,
+Ported so far: the TV-family trust-region learns with
+``method="tr_fused"``: the scalar-TV flagship
+:func:`experiments.api.scalar_bilevel_tv_learn`, the patch TV
+:func:`experiments.api.patch_bilevel_tv_learn` and the sum of regularizers
+:func:`experiments.api.scalar_bilevel_sumregs_learn` and
+:func:`experiments.api.patch_bilevel_sumregs_learn` (dataset form), with
+:func:`solvers.pdps.tv_denoise` and :func:`solvers.pdps.sumregs_denoise`
+(scalar or map weights), and the TGV² trust-region learn,
 :func:`experiments.tgv.scalar_bilevel_tgv_learn` and
 :func:`experiments.tgv.patch_bilevel_tgv_learn` with ``method="tr_fused"``,
 with :func:`experiments.tgv.TGVDenoise`, and the TV-L1 trust-region learn on
@@ -54,8 +59,9 @@ from .experiments.tvl1 import (TVL1Denoise, patch_bilevel_tvl1_learn,
 from .experiments.vtv import (VTVDenoise, patch_bilevel_vtv_learn,
                               scalar_bilevel_vtv_learn)
 from .models import sumregs_model, tv_model, vtv_model
-from .solvers import (denoise_pdps, tv_denoise, tvl1_denoise, tvl1_energy,
-                      tvl1_huber_denoise, vtv_denoise)
+from .solvers import (denoise_pdps, sumregs_denoise, tv_denoise,
+                      tvl1_denoise, tvl1_energy, tvl1_huber_denoise,
+                      vtv_denoise)
 
 __all__ = ["scalar_bilevel_tv_learn", "patch_bilevel_tv_learn",
            "scalar_bilevel_sumregs_learn", "patch_bilevel_sumregs_learn",
@@ -67,5 +73,6 @@ __all__ = ["scalar_bilevel_tv_learn", "patch_bilevel_tv_learn",
            "patch_bilevel_tvl1_learn", "TVL1Denoise", "tvl1_denoise",
            "tvl1_energy", "tvl1_huber_denoise", "scalar_bilevel_vtv_learn",
            "patch_bilevel_vtv_learn", "VTVDenoise", "vtv_denoise",
-           "tv_denoise", "denoise_pdps", "tv_model", "sumregs_model",
+           "tv_denoise", "sumregs_denoise", "denoise_pdps", "tv_model",
+           "sumregs_model",
            "vtv_model"]

@@ -106,14 +106,17 @@ _LL = ctypes.c_longlong
 
 def _declare(lib):
     for suffix, real in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
+        # the K blocks: kinds, scalar weights, map addresses (host arrays)
+        blocks = [_I, ctypes.POINTER(_I), ctypes.POINTER(real),
+                  ctypes.POINTER(_LL)]
         fn = getattr(lib, f"bpl_pdps_solve_{suffix}")
-        fn.argtypes = [_P, _P, _P, _P, _P, _P, _LL, _I, _I, real, real, real,
-                       ctypes.c_double, _I, _I, _I, real, _I,
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _LL, _I, _I, *blocks, real,
+                       real, ctypes.c_double, _I, _I, _I, real, _I,
                        ctypes.POINTER(_I), _P]
         fn.restype = _I
         fn = getattr(lib, f"bpl_hypergrad_{suffix}")
-        fn.argtypes = [_P, _P, _P, _P, _P, _P, _LL, _I, _I, real, real, real,
-                       real, real, _I, _I, _I,
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, *blocks, real,
+                       real, real, real, _I, _I, _I,
                        ctypes.POINTER(ctypes.c_double), _P]
         fn.restype = _I
         fn = getattr(lib, f"bpl_tgv_solve_{suffix}")
@@ -153,8 +156,10 @@ def _declare(lib):
         fn.restype = _LL
     lib.bpl_error_string.argtypes = [_I]
     lib.bpl_error_string.restype = ctypes.c_char_p
+    lib.bpl_hypergrad_planes.argtypes = [_I]
     lib.bpl_hypergrad_planes.restype = _I
     lib.bpl_hypergrad_slots.restype = _I
+    lib.bpl_hypergrad_grad_slot.restype = _I
 
 
 def library():

@@ -9,11 +9,15 @@ replaces the exact one; each branch warm-starts from ITS OWN previous
 adjoint, ``(p_exact, p_reg)``, because the two systems have right-hand
 sides of opposite sign.
 
-The solver and hypergradient calls go through the wrappers in
-:mod:`..solvers.pdps_cuda` and :mod:`..solvers.hypergrad_cuda`: on the card
-they launch the CUDA kernels, on the CPU they run the plain versions.
-Patch parameters (α maps through a patch operator) and data parallelism
-are not ported yet.
+The parameter is a scalar α (TV), a (K,) vector (the sum of regularizers)
+or a patch grid, (m, n) or (m, n, K), which a :class:`..ops.PatchOp`
+upsamples to (M, N) weight maps; for patch parameters the hypergradient
+returns per-image gradient maps, which are summed over the batch and pulled
+back through the patch operator's adjoint.  The solver and hypergradient
+calls go through the wrappers in :mod:`..solvers.pdps_cuda` and
+:mod:`..solvers.hypergrad_cuda`: on the card they launch the CUDA kernels,
+on the CPU they run the plain versions.  Data parallelism is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -24,10 +28,12 @@ import numpy as np
 import torch
 
 from ..models import DenoiseModel, tv_model
+from ..ops import PatchOp
 from ..solvers.hypergrad import HypergradConfig
 from ..solvers.hypergrad_cuda import (exact_hypergrad_cuda,
                                       reg_hypergrad_cuda)
 from ..solvers.pdps_cuda import denoise_pdps_cuda
+from .first_order import _check_positive_x0, _param_layout
 from .tr_core import make_tr_machinery
 
 __all__ = ["bilevel_learn_fused", "FusedResult"]
@@ -44,41 +50,9 @@ class FusedResult(NamedTuple):
     times: Optional[np.ndarray] = None
 
 
-def _check_positive_x0(x0):
-    """Zero or negative parameters degenerate (log-space parameter); reject
-    them up front."""
-    if bool(torch.any(torch.as_tensor(x0) <= 0)):
-        raise ValueError(
-            "x0 must be strictly positive: the parameter is optimized in "
-            "log space, so 0 freezes it and negatives produce NaN")
-
-
-def _param_layout(model: DenoiseModel, x0, image_shape):
-    """→ (pop, param_shape).  Scalar α (K == 1) and (K,) vector α have no
-    patch operator; patch α needs ``ops/patch.py``, not ported yet."""
-    x0 = torch.as_tensor(x0)
-    K = model.K
-    if K == 1:
-        if x0.ndim == 0:
-            return None, tuple(x0.shape)
-        if x0.ndim == 2:
-            raise NotImplementedError(
-                "patch parameters need the patch operator, which the port "
-                "does not have yet")
-    else:
-        if x0.ndim == 1 and x0.shape[0] == K:
-            return None, tuple(x0.shape)
-        if x0.ndim == 3 and x0.shape[-1] == K:
-            raise NotImplementedError(
-                "patch parameters need the patch operator, which the port "
-                "does not have yet")
-    raise ValueError(
-        f"unsupported parameter shape {tuple(x0.shape)} for K={K}")
-
-
-def _machinery(utrue, f, *, model: DenoiseModel, param_shape: tuple,
-               maxiter: int, tol, eta1, eta2, beta1, beta2,
-               inner_maxiter: int, inner_tol, check_every: int,
+def _machinery(utrue, f, *, model: DenoiseModel, pop: Optional[PatchOp],
+               param_shape: tuple, maxiter: int, tol, eta1, eta2, beta1,
+               beta2, inner_maxiter: int, inner_tol, check_every: int,
                delta_t: float, cfg: HypergradConfig, lbfgs_threshold: int,
                lbfgs_memory: int):
     """The trust-region loop pieces ``(init_carry, cond, body)``."""
@@ -88,9 +62,26 @@ def _machinery(utrue, f, *, model: DenoiseModel, param_shape: tuple,
 
     def alphas_of(xflat):
         x = xflat.reshape(param_shape)
+        if pop is None:
+            return (x,) if K == 1 else tuple(x[k] for k in range(K))
+        x = x.to(f.device)
         if K == 1:
-            return (x,)
-        return tuple(x[k] for k in range(K))
+            return (pop.apply(x),)
+        return tuple(pop.apply(x[..., k]) for k in range(K))
+
+    def pullback(grads):
+        """K gradients (scalars, or per-image maps) → the flat parameter
+        gradient: maps are summed over the batch, then pulled back through
+        the patch operator, as in the JAX package."""
+        if pop is None:
+            return torch.stack([torch.as_tensor(gk, dtype=dtype,
+                                                device=f.device).reshape(())
+                                for gk in grads])
+        maps = [pop.apply_adjoint(torch.sum(gk, dim=0)) for gk in grads]
+        g = maps[0] if K == 1 else torch.stack(maps, dim=-1)
+        return g.reshape(-1)
+
+    want_maps = pop is not None
 
     def solve(alphas, state0):
         u, ys, _ = denoise_pdps_cuda(
@@ -112,21 +103,21 @@ def _machinery(utrue, f, *, model: DenoiseModel, param_shape: tuple,
         is_exact = bool(delta > delta_t)
         p_exact, p_reg = padjs
         if is_exact:
-            grads, p, info = exact_hypergrad_cuda(u, utrue, alphas, model,
-                                                  cfg, p0=p_exact)
+            grads, p, info = exact_hypergrad_cuda(
+                u, utrue, alphas, model, cfg, want_maps, p0=p_exact)
             padjs = (p, p_reg)
         else:
-            grads, p, info = reg_hypergrad_cuda(u, utrue, alphas, model, cfg,
-                                                p0=p_reg)
+            grads, p, info = reg_hypergrad_cuda(
+                u, utrue, alphas, model, cfg, want_maps, p0=p_reg)
             padjs = (p_exact, p)
-        g = torch.stack([torch.as_tensor(gk, dtype=dtype, device=f.device)
-                         .reshape(()) for gk in grads])
+        g = pullback(grads)
         cg_ok = torch.all(torch.as_tensor(info.converged, device=f.device))
-        # one device → host read per evaluation: cost, gradient, CG flag
+        # one device → host read per evaluation: cost, the n-vector
+        # gradient, CG flag
         host = torch.cat([cost.reshape(1), g, cg_ok.to(dtype).reshape(1)]
                          ).cpu()
         cg_it = torch.tensor(float(np.max(info.iters)), dtype=dtype)
-        return u, host[0], host[1:1 + K], (state, padjs), (cg_it, host[-1])
+        return u, host[0], host[1:1 + n], (state, padjs), (cg_it, host[-1])
 
     return make_tr_machinery(
         eval_lf, n=n, dtype=dtype, maxiter=maxiter, tol=tol, eta1=eta1,
@@ -145,7 +136,8 @@ def bilevel_learn_fused(ds, *, xinit, params, model: DenoiseModel = None,
     Args:
       ds: ``(true_images, noisy_images)`` stacks, (O, M, N) or (M, N),
         as arrays or tensors (their dtype is the working dtype).
-      xinit: scalar (K == 1) or (K,) parameter initialization.
+      xinit: parameter initialization: a scalar or (m, n) patch grid
+        (K == 1), a (K,) vector or an (m, n, K) patch stack.
       params: eta1/eta2/beta1/beta2, delta0, maxiter, tol, and optionally
         lbfgs_threshold/lbfgs_memory.
       inner_tol: PDPS early-stop tolerance; ``None`` runs the fixed budget
@@ -161,9 +153,9 @@ def bilevel_learn_fused(ds, *, xinit, params, model: DenoiseModel = None,
     model = model if model is not None else tv_model()
     x0 = torch.as_tensor(xinit, dtype=f.dtype).cpu()
     _check_positive_x0(x0)
-    _, param_shape = _param_layout(model, x0, tuple(f.shape[-2:]))
+    pop, param_shape = _param_layout(model, x0, tuple(f.shape[-2:]))
     init_carry, cond, body = _machinery(
-        utrue, f, model=model, param_shape=param_shape,
+        utrue, f, model=model, pop=pop, param_shape=param_shape,
         maxiter=int(params.maxiter), tol=float(params.get("tol", 0.0)),
         eta1=float(params.eta1), eta2=float(params.eta2),
         beta1=float(params.beta1), beta2=float(params.beta2),

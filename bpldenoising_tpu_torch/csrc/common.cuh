@@ -227,29 +227,27 @@ inline int blocks_for(long long n) {
 }
 
 // The host loop of the accelerated CP iteration (kernels A and VTV) on a
-// stack of `planes` (M, N) planes whose dual y is (planes, 2, M, N).  Per
-// iteration: ω = 1/√(1+2γτ), the primal launch, τ ← τω, σ ← σ/ω, then
-// dual(σ) launches the model's dual step.  τ, σ, ω are formed here in the
-// working dtype, in the order of the plain version.  With use_tol, every
+// stack of `planes` (M, N) planes.  Per iteration: ω = 1/√(1+2γτ),
+// primal(τ, ω) launches the primal step, τ ← τω, σ ← σ/ω, then dual(σ)
+// launches the model's dual step.  τ, σ, ω are formed here in the working
+// dtype, in the order of the plain version.  With use_tol, every
 // `check_every` iterations the max over the planes of
 // ‖u − uprev‖/max(‖u‖, 1e-12) (one host read of the per-plane ratios) is
 // compared with tol; a NaN ratio propagates and stops.  Returns a
 // cudaError_t; *iters_out is the number of iterations run.
-template <typename T, typename Dual>
-int pd_iterate(const T* f, T* u, T* y, T* ubar, T* uprev, T* ratio,
-               long long planes, int M, int N, T tau, T sigma, double gamma,
-               int accel, int maxiter, int use_tol, T tol, int check_every,
-               int* iters_out, cudaStream_t s, Dual dual) {
+template <typename T, typename Primal, typename Dual>
+int pd_iterate_with(T* u, T* uprev, T* ratio, long long planes, int M, int N,
+                    T tau, T sigma, double gamma, int accel, int maxiter,
+                    int use_tol, T tol, int check_every, int* iters_out,
+                    cudaStream_t s, Primal primal, Dual dual) {
   const long long n = planes * M * N;
-  const int grid = blocks_for(n);
   const T two_gamma = T(2.0 * gamma);
   cudaError_t err;
 
   auto step = [&]() -> cudaError_t {
     T omega = T(1);
     if (accel) omega = T(1) / std::sqrt(T(1) + two_gamma * tau);
-    BPL_LAUNCH(pd_primal<T>, grid, BPL_THREADS, s)(f, u, ubar, y, n, M, N,
-                                                   tau, omega);
+    primal(tau, omega);
     if (accel) {
       tau = tau * omega;
       sigma = sigma / omega;
@@ -287,6 +285,25 @@ int pd_iterate(const T* f, T* u, T* y, T* ubar, T* uprev, T* ratio,
   }
   *iters_out = it;
   return (int)cudaGetLastError();
+}
+
+// pd_iterate_with with the one-dual forward-difference primal step
+// pd_primal, whose dual y is (planes, 2, M, N): kernel A's scalar TV form
+// and the VTV kernel.
+template <typename T, typename Dual>
+int pd_iterate(const T* f, T* u, T* y, T* ubar, T* uprev, T* ratio,
+               long long planes, int M, int N, T tau, T sigma, double gamma,
+               int accel, int maxiter, int use_tol, T tol, int check_every,
+               int* iters_out, cudaStream_t s, Dual dual) {
+  const long long n = planes * M * N;
+  const int grid = blocks_for(n);
+  auto primal = [&](T tau_, T omega) {
+    BPL_LAUNCH(pd_primal<T>, grid, BPL_THREADS, s)(f, u, ubar, y, n, M, N,
+                                                   tau_, omega);
+  };
+  return pd_iterate_with<T>(u, uprev, ratio, planes, M, N, tau, sigma, gamma,
+                            accel, maxiter, use_tol, tol, check_every,
+                            iters_out, s, primal, dual);
 }
 
 }  // namespace bpl

@@ -1,15 +1,18 @@
 // Kernel B: augmented-Lagrangian exact hypergradient with Jacobi-PCG, and
-// its γ-regularized form; scalar α, K=1 (forward differences).
+// its γ-regularized form, for K ≤ 3 regularizer blocks, each with its own
+// stencil (forward, backward, centred) and a scalar or (M, N) map weight.
 //
 // Replaces the TPU kernel bpldenoising_tpu/solvers/hypergrad_pallas.py::_hg_kernel
 // (dispatched by _run), which keeps the whole AL iteration resident in VMEM.
 // It solves, as ONE joint system over the image batch,
-//   M p = b,  M = I + Gᵀ[μ·act + inact·α·H]G            (exact form)
-//             M = I + α·Gᵀ[γ·inact + act·H]G           (regularized form)
-// with H v = v/den − Gu (Gu·v)/den³, the Jacobi preconditioner from the
-// stencil Gram diagonal, CG stopped at ‖r‖ ≤ cg_tol·‖b‖ or cg_maxiter,
-// `al_iters` multiplier updates λ ← λ + μ·act·Gp (exact form only) and the
-// warm start p0; then dJ/dα = ∓Σ Gp·Gu·field.
+//   M p = b,  M = I + Σₖ Gₖᵀ[μ·actₖ + inactₖ·αₖ·Hₖ]Gₖ      (exact form)
+//             M = I + Σₖ αₖ·Gₖᵀ[γ·inactₖ + actₖ·Hₖ]Gₖ     (regularized form)
+// with Hₖ v = v/denₖ − Guₖ (Guₖ·v)/denₖ³, the Jacobi preconditioner from the
+// stencils' Gram diagonals, CG stopped at ‖r‖ ≤ cg_tol·‖b‖ or cg_maxiter,
+// `al_iters` multiplier updates λₖ ← λₖ + μ·actₖ·Gₖp (exact form only) and
+// the warm start p0; then dJ/dαₖ = ∓Σ Gₖp·Guₖ·fieldₖ, as K scalars or, for
+// map weights, as K per-pixel maps (O, M, N) that the caller pulls back.
+// The sums over k are taken k = 0, 1, 2 in order, as in the plain version.
 //
 // What bounds it on an H100: each CG iteration applies the stencil operator
 // and needs two batch-wide dot products, i.e. two global synchronisations.
@@ -23,123 +26,159 @@
 // for the stop test.  Partial sums are written per block and added in a
 // fixed order (no float atomics), so repeated runs agree bit for bit and
 // the trust region's accept/reject decisions cannot flip between runs.
-// The ~16 working planes (10×128² f32: 10.5 MB) stay in the 50 MB L2; at
-// the flagship size each launch is short, so the solve is bound by launch
+// The 6 + 10K working planes (K = 1 at 10×128² f32: 10.5 MB; K = 3: 23.6
+// MB) stay in the 50 MB L2; at the flagship size each launch is short, so the solve is bound by launch
 // and host-read latency, not by bytes or operations.
 #include "common.cuh"
 
 namespace bpl {
 
-// work planes (each n = O·M·N elements)
-enum Plane {
-  GUX, GUY, ACT, DEN, INV_DEN, INV_DEN3, INV_DIAG, WX, WY, LAMX, LAMY,
-  RHS, RES, ZZ, DIR, MDIR, N_PLANES
+// Work planes (each n = O·M·N elements): six shared by the blocks, then
+// ten per block k (PER_K of them, from plane SHARED + PER_K·k).
+enum Plane { INV_DIAG, RHS, RES, ZZ, DIR, MDIR, SHARED };
+enum KPlane {
+  GUX, GUY, ACT, DEN, INV_DEN, INV_DEN3, WX, WY, LAMX, LAMY, PER_K
 };
-// device scalar slots
-enum Slot { RZ0, RZ1, DEN_DM, RR, BB, GRAD, JUNK, N_SLOTS };
+// device scalar slots; GRAD0 + k holds block k's gradient
+enum Slot { RZ0, RZ1, DEN_DM, RR, BB, JUNK, GRAD0, N_SLOTS = GRAD0 + 3 };
 
 template <typename T>
 struct HG {
   const T* u;
   const T* ut;
   T* p;
-  T* w;          // N_PLANES planes
+  T* w;          // SHARED + PER_K·K planes
   T* partials;   // 3 × nblocks
   T* scal;       // N_SLOTS
+  T* gmaps;      // K gradient maps of n elements, or nullptr: K scalars
   long long n;
-  int M, N, nblocks;
-  T alpha, act_tol, gamma, mu;
+  int M, N, nblocks, K;
+  int kind[3];
+  T alpha[3];
+  const T* amap[3];   // (M, N) weight maps, nullptr: the scalar alpha[k]
+  T act_tol, gamma, mu;
   int reg;
-  __host__ __device__ T* plane(int k) const { return w + (long long)k * n; }
+  __host__ __device__ T* plane(int s) const { return w + (long long)s * n; }
+  __host__ __device__ T* kplane(int k, int s) const {
+    return w + (long long)(SHARED + PER_K * k + s) * n;
+  }
+  // block k's weight at flat index idx (a map is broadcast over the batch)
+  __device__ T alpha_at(int k, long long idx) const {
+    return amap[k] != nullptr ? amap[k][idx % ((long long)M * N)] : alpha[k];
+  }
 };
 
-// Gu, the active set, den, 1/den, 1/den³ and the diagonal weights (into
-// WX, WY), in the arithmetic order of solvers/hypergrad.py.
+// Gᵀ(act·λ) along one axis: common.cuh's adj1 on the product, whose
+// factors are read at the same neighbours.
+template <typename T>
+__device__ __forceinline__ T adj1_prod(const T* a, const T* q, long long idx,
+                                       int i, int n, long long s, int kind) {
+  if (kind == STENCIL_FWD) {
+    T lo = i >= 1 ? a[idx - s] * q[idx - s] : T(0);
+    T hi = i < n - 1 ? a[idx] * q[idx] : T(0);
+    return lo - hi;
+  }
+  if (kind == STENCIL_BWD) {
+    T lo = i >= 1 ? a[idx] * q[idx] : T(0);
+    T hi = i < n - 1 ? a[idx + s] * q[idx + s] : T(0);
+    return lo - hi;
+  }
+  T down = i >= 2 ? a[idx - s] * q[idx - s] : T(0);
+  T up = i <= n - 3 ? a[idx + s] * q[idx + s] : T(0);
+  return (down - up) * T(0.5);
+}
+
+// Per block: Gu, the active set, den, 1/den, 1/den³ and the diagonal
+// weights (into WX, WY), in the arithmetic order of solvers/hypergrad.py.
 template <typename T>
 __global__ void hg_setup(HG<T> h) {
   long long idx = (long long)blockIdx.x * BPL_THREADS + threadIdx.x;
   if (idx >= h.n) return;
   Pix p = pix_of(idx, h.M, h.N);
-  T gx, gy;
-  grad_k(h.u, idx, p, h.M, h.N, STENCIL_FWD, gx, gy);
-  T nG = sqrt(gx * gx + gy * gy);
-  T act, den;
-  if (h.reg) {
-    act = (nG > T(1) / h.gamma) ? T(1) : T(0);
-    den = act > T(0) ? nG : T(1);
-  } else {
-    act = (nG < h.act_tol) ? T(1) : T(0);
-    den = act > T(0) ? T(1) : nG;
+  for (int k = 0; k < h.K; ++k) {
+    T gx, gy;
+    grad_k(h.u, idx, p, h.M, h.N, h.kind[k], gx, gy);
+    T nG = sqrt(gx * gx + gy * gy);
+    T act, den;
+    if (h.reg) {
+      act = (nG > T(1) / h.gamma) ? T(1) : T(0);
+      den = act > T(0) ? nG : T(1);
+    } else {
+      act = (nG < h.act_tol) ? T(1) : T(0);
+      den = act > T(0) ? T(1) : nG;
+    }
+    const T alpha = h.alpha_at(k, idx);
+    T inact = T(1) - act;
+    T inv_den = T(1) / den;
+    T inv_den3 = inv_den * inv_den * inv_den;
+    T rden = T(1) / den;
+    T rden3 = T(1) / (den * den * den);
+    T hx = rden - (gx * gx) * rden3;
+    T hy = rden - (gy * gy) * rden3;
+    T wdx, wdy;
+    if (h.reg) {
+      wdx = alpha * (h.gamma * inact + act * hx);
+      wdy = alpha * (h.gamma * inact + act * hy);
+    } else {
+      wdx = h.mu * act + (inact * alpha) * hx;
+      wdy = h.mu * act + (inact * alpha) * hy;
+    }
+    h.kplane(k, GUX)[idx] = gx;
+    h.kplane(k, GUY)[idx] = gy;
+    h.kplane(k, ACT)[idx] = act;
+    h.kplane(k, DEN)[idx] = den;
+    h.kplane(k, INV_DEN)[idx] = inv_den;
+    h.kplane(k, INV_DEN3)[idx] = inv_den3;
+    h.kplane(k, WX)[idx] = wdx;
+    h.kplane(k, WY)[idx] = wdy;
   }
-  T inact = T(1) - act;
-  T inv_den = T(1) / den;
-  T inv_den3 = inv_den * inv_den * inv_den;
-  T rden = T(1) / den;
-  T rden3 = T(1) / (den * den * den);
-  T hx = rden - (gx * gx) * rden3;
-  T hy = rden - (gy * gy) * rden3;
-  T wdx, wdy;
-  if (h.reg) {
-    wdx = h.alpha * (h.gamma * inact + act * hx);
-    wdy = h.alpha * (h.gamma * inact + act * hy);
-  } else {
-    wdx = h.mu * act + (inact * h.alpha) * hx;
-    wdy = h.mu * act + (inact * h.alpha) * hy;
-  }
-  h.plane(GUX)[idx] = gx;
-  h.plane(GUY)[idx] = gy;
-  h.plane(ACT)[idx] = act;
-  h.plane(DEN)[idx] = den;
-  h.plane(INV_DEN)[idx] = inv_den;
-  h.plane(INV_DEN3)[idx] = inv_den3;
-  h.plane(WX)[idx] = wdx;
-  h.plane(WY)[idx] = wdy;
 }
 
-// 1/diag with diag = 1 + (gram_x + gram_y), gram(j) = w[j−1] + w[j] masked.
+// 1/diag with diag = 1 + Σₖ gramₖ(WXₖ, WYₖ), k in order.
 template <typename T>
 __global__ void hg_diag(HG<T> h) {
   long long idx = (long long)blockIdx.x * BPL_THREADS + threadIdx.x;
   if (idx >= h.n) return;
   Pix p = pix_of(idx, h.M, h.N);
-  const T* wx = h.plane(WX);
-  const T* wy = h.plane(WY);
-  T gxa = (p.i >= 1) ? wx[idx - h.N] : T(0);
-  T gxb = (p.i < h.M - 1) ? wx[idx] : T(0);
-  T gya = (p.j >= 1) ? wy[idx - 1] : T(0);
-  T gyb = (p.j < h.N - 1) ? wy[idx] : T(0);
-  T diag = T(1) + ((gxa + gxb) + (gya + gyb));
+  T diag = T(1);
+  for (int k = 0; k < h.K; ++k)
+    diag = diag + gram_k(h.kplane(k, WX), h.kplane(k, WY), idx, p, h.M, h.N,
+                         h.kind[k]);
   h.plane(INV_DIAG)[idx] = T(1) / diag;
 }
 
-// (WX, WY) = W·G v: the per-pixel dual-space block applied to Gv.
+// (WXₖ, WYₖ) = Wₖ·Gₖv: the per-pixel dual-space blocks applied to Gₖv.
 template <typename T>
 __global__ void hg_weights(HG<T> h, const T* __restrict__ v) {
   long long idx = (long long)blockIdx.x * BPL_THREADS + threadIdx.x;
   if (idx >= h.n) return;
   Pix p = pix_of(idx, h.M, h.N);
-  T gx, gy;
-  grad_k(v, idx, p, h.M, h.N, STENCIL_FWD, gx, gy);
-  T ux = h.plane(GUX)[idx], uy = h.plane(GUY)[idx];
-  T act = h.plane(ACT)[idx];
-  T inact = T(1) - act;
-  T inv_den = h.plane(INV_DEN)[idx];
-  T dot3 = (ux * gx + uy * gy) * h.plane(INV_DEN3)[idx];
-  T cx = gx * inv_den - ux * dot3;
-  T cy = gy * inv_den - uy * dot3;
-  T wx, wy;
-  if (h.reg) {
-    wx = h.alpha * ((h.gamma * inact) * gx + act * cx);
-    wy = h.alpha * ((h.gamma * inact) * gy + act * cy);
-  } else {
-    wx = (h.mu * act) * gx + (inact * h.alpha) * cx;
-    wy = (h.mu * act) * gy + (inact * h.alpha) * cy;
+  for (int k = 0; k < h.K; ++k) {
+    T gx, gy;
+    grad_k(v, idx, p, h.M, h.N, h.kind[k], gx, gy);
+    const T alpha = h.alpha_at(k, idx);
+    T ux = h.kplane(k, GUX)[idx], uy = h.kplane(k, GUY)[idx];
+    T act = h.kplane(k, ACT)[idx];
+    T inact = T(1) - act;
+    T inv_den = h.kplane(k, INV_DEN)[idx];
+    T dot3 = (ux * gx + uy * gy) * h.kplane(k, INV_DEN3)[idx];
+    T cx = gx * inv_den - ux * dot3;
+    T cy = gy * inv_den - uy * dot3;
+    T wx, wy;
+    if (h.reg) {
+      wx = alpha * ((h.gamma * inact) * gx + act * cx);
+      wy = alpha * ((h.gamma * inact) * gy + act * cy);
+    } else {
+      wx = (h.mu * act) * gx + (inact * alpha) * cx;
+      wy = (h.mu * act) * gy + (inact * alpha) * cy;
+    }
+    h.kplane(k, WX)[idx] = wx;
+    h.kplane(k, WY)[idx] = wy;
   }
-  h.plane(WX)[idx] = wx;
-  h.plane(WY)[idx] = wy;
 }
 
-// out = v + Gᵀ(WX, WY); partial sums of v·out (slot 0) when `dot`.
+// out = v + Σₖ Gₖᵀ(WXₖ, WYₖ), k in order; partials of v·out (slot 0) when
+// `dot`.
 template <typename T>
 __global__ void hg_apply(HG<T> h, const T* __restrict__ v, T* __restrict__ out,
                          int dot) {
@@ -149,8 +188,10 @@ __global__ void hg_apply(HG<T> h, const T* __restrict__ v, T* __restrict__ out,
   T vo = T(0);
   if (live) {
     Pix p = pix_of(idx, h.M, h.N);
-    T mv = v[idx] + div_k(h.plane(WX), h.plane(WY), idx, p, h.M, h.N,
-                          STENCIL_FWD);
+    T mv = v[idx];
+    for (int k = 0; k < h.K; ++k)
+      mv = mv + div_k(h.kplane(k, WX), h.kplane(k, WY), idx, p, h.M, h.N,
+                      h.kind[k]);
     out[idx] = mv;
     vo = v[idx] * mv;
   }
@@ -224,7 +265,8 @@ __global__ void hg_cg_dir(HG<T> h, int cur) {
   h.plane(DIR)[idx] = h.plane(ZZ)[idx] + beta * h.plane(DIR)[idx];
 }
 
-// Right-hand side: exact b = (u − ū) − Gᵀ(act·λ); regularized b = ū − u.
+// Right-hand side: exact b = (u − ū) − Σₖ Gₖᵀ(actₖ·λₖ), k in order;
+// regularized b = ū − u.
 template <typename T>
 __global__ void hg_rhs(HG<T> h) {
   long long idx = (long long)blockIdx.x * BPL_THREADS + threadIdx.x;
@@ -234,65 +276,77 @@ __global__ void hg_rhs(HG<T> h) {
     return;
   }
   Pix p = pix_of(idx, h.M, h.N);
-  const T* act = h.plane(ACT);
-  const T* lx = h.plane(LAMX);
-  const T* ly = h.plane(LAMY);
-  T ax = (p.i >= 1) ? act[idx - h.N] * lx[idx - h.N] : T(0);
-  T bx = (p.i < h.M - 1) ? act[idx] * lx[idx] : T(0);
-  T ay = (p.j >= 1) ? act[idx - 1] * ly[idx - 1] : T(0);
-  T by = (p.j < h.N - 1) ? act[idx] * ly[idx] : T(0);
-  h.plane(RHS)[idx] = (h.u[idx] - h.ut[idx]) - ((ax - bx) + (ay - by));
+  T b = h.u[idx] - h.ut[idx];
+  for (int k = 0; k < h.K; ++k) {
+    const T* act = h.kplane(k, ACT);
+    T dx = adj1_prod(act, (const T*)h.kplane(k, LAMX), idx, p.i, h.M,
+                     (long long)h.N, h.kind[k]);
+    T dy = adj1_prod(act, (const T*)h.kplane(k, LAMY), idx, p.j, h.N, 1LL,
+                     h.kind[k]);
+    b = b - (dx + dy);
+  }
+  h.plane(RHS)[idx] = b;
 }
 
-// λ ← λ + (μ·act)·Gp.
+// λₖ ← λₖ + (μ·actₖ)·Gₖp.
 template <typename T>
 __global__ void hg_lambda(HG<T> h) {
   long long idx = (long long)blockIdx.x * BPL_THREADS + threadIdx.x;
   if (idx >= h.n) return;
   Pix p = pix_of(idx, h.M, h.N);
-  T gx, gy;
-  grad_k((const T*)h.p, idx, p, h.M, h.N, STENCIL_FWD, gx, gy);
-  T m = h.mu * h.plane(ACT)[idx];
-  h.plane(LAMX)[idx] = h.plane(LAMX)[idx] + m * gx;
-  h.plane(LAMY)[idx] = h.plane(LAMY)[idx] + m * gy;
+  for (int k = 0; k < h.K; ++k) {
+    T gx, gy;
+    grad_k((const T*)h.p, idx, p, h.M, h.N, h.kind[k], gx, gy);
+    T m = h.mu * h.kplane(k, ACT)[idx];
+    h.kplane(k, LAMX)[idx] = h.kplane(k, LAMX)[idx] + m * gx;
+    h.kplane(k, LAMY)[idx] = h.kplane(k, LAMY)[idx] + m * gy;
+  }
 }
 
-// Partials of Σ Gp·field with field = (inact/den)·Gu (exact, then negated)
-// or (act/den)·Gu + (γ·inact)·Gu (regularized).
+// Per block k: Gₖp·fieldₖ with field = (inact/den)·Gu (exact, negated) or
+// (act/den)·Gu + (γ·inact)·Gu (regularized).  With gradient maps it is
+// written per pixel (negated for the exact form); otherwise partial sums go
+// to partials[k·nblocks + block] (the sign is applied to the sum).
 template <typename T>
 __global__ void hg_grad(HG<T> h) {
   __shared__ T sh[BPL_THREADS];
   long long idx = (long long)blockIdx.x * BPL_THREADS + threadIdx.x;
   const bool live = idx < h.n;
-  T g = T(0);
-  if (live) {
-    Pix p = pix_of(idx, h.M, h.N);
-    T gx, gy;
-    grad_k((const T*)h.p, idx, p, h.M, h.N, STENCIL_FWD, gx, gy);
-    T ux = h.plane(GUX)[idx], uy = h.plane(GUY)[idx];
-    T act = h.plane(ACT)[idx];
-    T inact = T(1) - act;
-    T den = h.plane(DEN)[idx];
-    T fx, fy;
-    if (h.reg) {
-      T s = act / den;
-      T gi = h.gamma * inact;
-      fx = s * ux + gi * ux;
-      fy = s * uy + gi * uy;
-    } else {
-      T s = inact / den;
-      fx = s * ux;
-      fy = s * uy;
+  Pix p = pix_of(live ? idx : 0, h.M, h.N);
+  for (int k = 0; k < h.K; ++k) {
+    T g = T(0);
+    if (live) {
+      T gx, gy;
+      grad_k((const T*)h.p, idx, p, h.M, h.N, h.kind[k], gx, gy);
+      T ux = h.kplane(k, GUX)[idx], uy = h.kplane(k, GUY)[idx];
+      T act = h.kplane(k, ACT)[idx];
+      T inact = T(1) - act;
+      T den = h.kplane(k, DEN)[idx];
+      T fx, fy;
+      if (h.reg) {
+        T s = act / den;
+        T gi = h.gamma * inact;
+        fx = s * ux + gi * ux;
+        fy = s * uy + gi * uy;
+      } else {
+        T s = inact / den;
+        fx = s * ux;
+        fy = s * uy;
+      }
+      g = gx * fx + gy * fy;
     }
-    g = gx * fx + gy * fy;
+    if (h.gmaps != nullptr) {
+      if (live) h.gmaps[(long long)k * h.n + idx] = h.reg ? g : -g;
+    } else {
+      T s = block_sum(g, sh);
+      if (threadIdx.x == 0) h.partials[k * h.nblocks + blockIdx.x] = s;
+    }
   }
-  T s = block_sum(g, sh);
-  if (threadIdx.x == 0) h.partials[blockIdx.x] = s;
 }
 
 template <typename T>
-__global__ void hg_negate_grad(T* scal) {
-  scal[GRAD] = -scal[GRAD];
+__global__ void hg_negate_grad(T* scal, int K) {
+  for (int k = 0; k < K; ++k) scal[GRAD0 + k] = -scal[GRAD0 + k];
 }
 
 template <typename T>
@@ -358,9 +412,11 @@ static cudaError_t cg_solve(HG<T>& h, int grid, T tol, int maxiter,
 
 template <typename T>
 int hypergrad(const T* u, const T* ut, T* p, T* work, T* partials, T* scal,
-              long long O, int M, int N, T alpha, T act_tol, T gamma, T mu,
-              T cg_tol, int al_iters, int cg_maxiter, int reg, double* stats,
-              cudaStream_t s) {
+              T* gmaps, long long O, int M, int N, int K, const int* kinds,
+              const T* alphas, const long long* amaps, T act_tol, T gamma,
+              T mu, T cg_tol, int al_iters, int cg_maxiter, int reg,
+              double* stats, cudaStream_t s) {
+  if (K < 1 || K > 3) return (int)cudaErrorInvalidValue;
   HG<T> h;
   h.u = u;
   h.ut = ut;
@@ -368,11 +424,18 @@ int hypergrad(const T* u, const T* ut, T* p, T* work, T* partials, T* scal,
   h.w = work;
   h.partials = partials;
   h.scal = scal;
+  h.gmaps = gmaps;
   h.n = O * M * N;
   h.M = M;
   h.N = N;
   h.nblocks = blocks_for(h.n);
-  h.alpha = alpha;
+  h.K = K;
+  for (int k = 0; k < 3; ++k) {
+    const bool live = k < K;
+    h.kind[k] = live ? kinds[k] : STENCIL_FWD;
+    h.alpha[k] = live ? alphas[k] : T(0);
+    h.amap[k] = live ? (const T*)amaps[k] : nullptr;
+  }
   h.act_tol = act_tol;
   h.gamma = gamma;
   h.mu = mu;
@@ -389,7 +452,9 @@ int hypergrad(const T* u, const T* ut, T* p, T* work, T* partials, T* scal,
     BPL_CHECK(cg_solve(h, grid, cg_tol, cg_maxiter, s, &rr, &bb, &it));
     total = it;
   } else {
-    BPL_CHECK(cudaMemsetAsync(h.plane(LAMX), 0, 2 * h.n * sizeof(T), s));
+    for (int k = 0; k < K; ++k)
+      BPL_CHECK(cudaMemsetAsync(h.kplane(k, LAMX), 0, 2 * h.n * sizeof(T),
+                                s));
     const int n_al = al_iters > 1 ? al_iters : 1;
     for (int i = 0; i < n_al; ++i) {
       BPL_LAUNCH(hg_rhs<T>, grid, BPL_THREADS, s)(h);
@@ -399,9 +464,12 @@ int hypergrad(const T* u, const T* ut, T* p, T* work, T* partials, T* scal,
     }
   }
   BPL_LAUNCH(hg_grad<T>, grid, BPL_THREADS, s)(h);
-  BPL_LAUNCH(sum_partials<T>, 1, BPL_THREADS, s)(partials, h.nblocks, scal,
-                                                 GRAD, JUNK, JUNK);
-  if (!reg) BPL_LAUNCH(hg_negate_grad<T>, 1, 1, s)(scal);
+  if (gmaps == nullptr) {
+    BPL_LAUNCH(sum_partials<T>, K, BPL_THREADS, s)(partials, h.nblocks, scal,
+                                                   GRAD0, GRAD0 + 1,
+                                                   GRAD0 + 2);
+    if (!reg) BPL_LAUNCH(hg_negate_grad<T>, 1, 1, s)(scal, K);
+  }
   BPL_CHECK(cudaGetLastError());
   stats[0] = (double)rr;
   stats[1] = (double)bb;
@@ -414,27 +482,39 @@ int hypergrad(const T* u, const T* ut, T* p, T* work, T* partials, T* scal,
 
 extern "C" {
 
+// kinds: K stencil kinds (0 forward, 1 backward, 2 centred); alphas: K
+// scalar weights; amaps: K device addresses of (M, N) weight maps, 0 where
+// the block's weight is the scalar.  gmaps: K per-pixel gradient maps
+// (K, O, M, N), or null for K scalar gradients in scal[GRAD0 + k].
 int bpl_hypergrad_f32(const float* u, const float* ut, float* p, float* work,
-                      float* partials, float* scal, long long O, int M, int N,
-                      float alpha, float act_tol, float gamma, float mu,
-                      float cg_tol, int al_iters, int cg_maxiter, int reg,
-                      double* stats, void* stream) {
-  return bpl::hypergrad<float>(u, ut, p, work, partials, scal, O, M, N, alpha,
-                               act_tol, gamma, mu, cg_tol, al_iters,
-                               cg_maxiter, reg, stats, (cudaStream_t)stream);
+                      float* partials, float* scal, float* gmaps, long long O,
+                      int M, int N, int K, const int* kinds,
+                      const float* alphas, const long long* amaps,
+                      float act_tol, float gamma, float mu, float cg_tol,
+                      int al_iters, int cg_maxiter, int reg, double* stats,
+                      void* stream) {
+  return bpl::hypergrad<float>(u, ut, p, work, partials, scal, gmaps, O, M, N,
+                               K, kinds, alphas, amaps, act_tol, gamma, mu,
+                               cg_tol, al_iters, cg_maxiter, reg, stats,
+                               (cudaStream_t)stream);
 }
 
 int bpl_hypergrad_f64(const double* u, const double* ut, double* p,
                       double* work, double* partials, double* scal,
-                      long long O, int M, int N, double alpha, double act_tol,
-                      double gamma, double mu, double cg_tol, int al_iters,
-                      int cg_maxiter, int reg, double* stats, void* stream) {
-  return bpl::hypergrad<double>(u, ut, p, work, partials, scal, O, M, N,
-                                alpha, act_tol, gamma, mu, cg_tol, al_iters,
-                                cg_maxiter, reg, stats, (cudaStream_t)stream);
+                      double* gmaps, long long O, int M, int N, int K,
+                      const int* kinds, const double* alphas,
+                      const long long* amaps, double act_tol, double gamma,
+                      double mu, double cg_tol, int al_iters, int cg_maxiter,
+                      int reg, double* stats, void* stream) {
+  return bpl::hypergrad<double>(u, ut, p, work, partials, scal, gmaps, O, M,
+                                N, K, kinds, alphas, amaps, act_tol, gamma,
+                                mu, cg_tol, al_iters, cg_maxiter, reg, stats,
+                                (cudaStream_t)stream);
 }
 
-int bpl_hypergrad_planes() { return bpl::N_PLANES; }
+// work planes for K blocks; scalar slots; the slot of block 0's gradient
+int bpl_hypergrad_planes(int K) { return bpl::SHARED + bpl::PER_K * K; }
 int bpl_hypergrad_slots() { return bpl::N_SLOTS; }
+int bpl_hypergrad_grad_slot() { return bpl::GRAD0; }
 
 }  // extern "C"

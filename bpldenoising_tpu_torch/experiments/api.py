@@ -1,17 +1,18 @@
 """User-facing experiment API (counterpart of
 ``bpldenoising_tpu.experiments.api``).
 
-Ported so far: :func:`scalar_bilevel_tv_learn` with ``method="tr_fused"``
-(the shape of the JAX package's ``_run_fused``) and, for it and for
+Ported so far: :func:`scalar_bilevel_tv_learn`,
 :func:`patch_bilevel_tv_learn`, :func:`scalar_bilevel_sumregs_learn` and
-:func:`patch_bilevel_sumregs_learn`, ``method="single_loop"`` (the shape
-of ``_run_single_loop``: the first-order learner in ``log_every =
-outer // 20`` segments, whose log carries real segment-end times).  The
-host-driven ``tr`` method, ``tr_fused`` for the patch and
-sum-of-regularizers learns, saving PNGs, quality tables and plots,
-checkpointing and data parallelism are not ported yet and raise
-``NotImplementedError``, as does any ``backend`` but ``"auto"``
-(:func:`check_backend`: ``device=`` chooses what runs).
+:func:`patch_bilevel_sumregs_learn` (its dataset form) with
+``method="tr_fused"`` (the shape of the JAX package's ``_run_fused``) and
+``method="single_loop"`` (the shape of ``_run_single_loop``: the
+first-order learner in ``log_every = outer // 20`` segments, whose log
+carries real segment-end times).  The host-driven ``tr`` method, the
+``image_pair=`` form of :func:`patch_bilevel_sumregs_learn` (which runs
+it), saving PNGs, quality tables and plots, checkpointing and data
+parallelism are not ported yet and raise ``NotImplementedError``, as does
+any ``backend`` but ``"auto"`` (:func:`check_backend`: ``device=`` chooses
+what runs).
 
 Beyond the JAX surface, ``check_every`` (the inner solve's early-stop
 cadence) and ``hypergrad_cfg`` (a :class:`HypergradConfig`) are parameters,
@@ -127,14 +128,19 @@ def _fused_to_result(res) -> BilevelResult:
                          g_norm=float(res.g_norm), iterations=k)
 
 
-def _run_fused(params, device):
+def _run_fused(params, model_kind, device):
+    """The fused trust region on ``tv_model()`` or ``sumregs_model()``, with
+    the family's switch radius to the regularized gradient (TV Δt = 1e-6,
+    sum of regularizers 1e-3, as in the JAX package)."""
     reject_unported(params)
     ds = _load(params, device)
+    model = tv_model() if model_kind == "tv" else sumregs_model()
+    delta_t = 1e-6 if model_kind == "tv" else 1e-3
     res = bilevel_learn_fused(
-        ds, xinit=params.alpha0, params=params, model=tv_model(),
+        ds, xinit=params.alpha0, params=params, model=model,
         inner_maxiter=int(params.inner_maxiter),
         inner_tol=params.get("inner_tol"),
-        check_every=int(params.check_every), delta_t=1e-6,
+        check_every=int(params.check_every), delta_t=delta_t,
         cfg=params.hypergrad_cfg, device=device)
     return _fused_to_result(res)
 
@@ -213,15 +219,18 @@ def _params(family_params, visualise, kwargs):
     return params | dict(dataset_name=full_datasetname(params.dataset_name))
 
 
-def _single_loop_only(params, name):
-    """The patch and sum-of-regularizers learns run the single-loop method
-    only, for now."""
+def _run_method(params, model_kind, device):
+    """``method="tr_fused"`` or ``"single_loop"``; the host-driven trust
+    region (``"tr"``, the JAX default) is not ported yet."""
     method = params.get("method")
-    if method != "single_loop":
-        raise NotImplementedError(
-            f"{name}: method={method!r} is not ported yet (ROADMAP.md §1 "
-            "item 5, the patch and sum-of-regularizers trust region); use "
-            "method='single_loop'")
+    if method == "single_loop":
+        return _run_single_loop(params, model_kind, device)
+    if method == "tr_fused":
+        return _run_fused(params, model_kind, device)
+    raise NotImplementedError(
+        f"method={method!r} is not ported yet (ROADMAP.md §1 item 6, the "
+        "host-driven trust region); use method='tr_fused' or "
+        "'single_loop'")
 
 
 def scalar_bilevel_tv_learn(visualise: bool = False, device="cuda",
@@ -232,45 +241,39 @@ def scalar_bilevel_tv_learn(visualise: bool = False, device="cuda",
     ``device="cpu"`` runs their plain versions.
     """
     params = _params(bilevel_params, visualise, kwargs)
-    if params.get("method") == "single_loop":
-        return _run_single_loop(params, "tv", device)
-    if params.get("method") != "tr_fused":
-        raise NotImplementedError(
-            f"method={params.get('method')!r} is not ported yet; use "
-            "method='tr_fused' or 'single_loop'")
-    return _run_fused(params, device)
+    return _run_method(params, "tv", device)
 
 
 def patch_bilevel_tv_learn(visualise: bool = False, device="cuda",
                            **kwargs) -> BilevelResult:
     """Learn an (m, n) patch grid of TV weights (default 2×2 from 1e-4)
-    with the single-loop learner."""
+    with the fused trust region or the single-loop learner."""
     params = _params(patch_bilevel_params, visualise, kwargs)
-    _single_loop_only(params, "patch_bilevel_tv_learn")
-    return _run_single_loop(params, "tv", device)
+    return _run_method(params, "tv", device)
 
 
 def scalar_bilevel_sumregs_learn(visualise: bool = False, device="cuda",
                                  **kwargs) -> BilevelResult:
     """Learn the (3,) weights of the forward, backward and centred TV terms
-    (default 1e-3 each) with the single-loop learner."""
+    (default 1e-3 each) with the fused trust region or the single-loop
+    learner."""
     params = _params(sumregs_bilevel_params, visualise, kwargs)
-    _single_loop_only(params, "scalar_bilevel_sumregs_learn")
-    return _run_single_loop(params, "sumregs", device)
+    return _run_method(params, "sumregs", device)
 
 
 def patch_bilevel_sumregs_learn(image_pair=None, dataset_name=None,
                                 visualise: bool = False, device="cuda",
                                 **kwargs) -> BilevelResult:
     """Learn an (m, n, 3) patch stack of sum-of-regularizers weights
-    (default 2×2×3 from 1e-3) with the single-loop learner, on
-    ``dataset_name``.  The explicit ``image_pair`` form runs the host trust
-    region in the JAX package and is not ported yet."""
+    (default 2×2×3 from 1e-3, β₂ = 1.5) with the fused trust region or the
+    single-loop learner, on ``dataset_name``.  The explicit ``image_pair``
+    form runs the host trust region in the JAX package and is not ported
+    yet."""
     if image_pair is not None:
         raise NotImplementedError(
-            "the image_pair form is not ported yet (ROADMAP.md §1 item 5)")
+            "the image_pair form runs the host-driven trust region, which "
+            "is not ported yet (ROADMAP.md §1 item 6)")
     if dataset_name is not None:
         kwargs = dict(kwargs, dataset_name=dataset_name)
     params = _params(patch_sumregs_bilevel_params, visualise, kwargs)
-    _single_loop_only(params, "patch_bilevel_sumregs_learn")
-    return _run_single_loop(params, "sumregs", device)
+    return _run_method(params, "sumregs", device)

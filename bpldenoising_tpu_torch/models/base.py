@@ -12,9 +12,15 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..ops import LinOp, norm21, xi
+
+
+def _as_tensor(a):
+    return a if isinstance(a, torch.Tensor) else torch.as_tensor(
+        np.asarray(a))
 
 
 @dataclass(frozen=True)
@@ -51,12 +57,14 @@ class DenoiseModel:
     def canonical_alphas(self, alphas):
         """Normalize user-facing α into a K-tuple of tensors (scalars or
         (M, N) maps): a scalar or map for K == 1, a length-K sequence, a
-        (K,) vector or an (..., K) stack."""
+        (K,) vector or an (..., K) stack.  Python numbers and lists keep
+        their double precision (numpy's float64, not torch's float32
+        default), as in the JAX package with x64 enabled."""
         if isinstance(alphas, (tuple, list)):
             if len(alphas) != self.K:
                 raise ValueError(f"expected {self.K} alphas, got {len(alphas)}")
-            return tuple(torch.as_tensor(a) for a in alphas)
-        a = torch.as_tensor(alphas)
+            return tuple(_as_tensor(a) for a in alphas)
+        a = _as_tensor(alphas)
         if self.K == 1:
             return (a,)
         if a.ndim == 1 and a.shape[0] == self.K:

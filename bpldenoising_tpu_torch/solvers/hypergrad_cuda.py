@@ -6,9 +6,12 @@ replacing the TPU kernel
 :func:`exact_hypergrad_cuda` and :func:`reg_hypergrad_cuda` take the
 arguments of the plain :func:`.hypergrad.exact_hypergrad` and
 :func:`.hypergrad.reg_hypergrad`.  For tensors on the CPU they run those;
-for CUDA tensors they launch the kernel (or raise for what it does not
-take: K > 1, α maps, gradient maps).  The CG inner products run over the
-whole batch (one joint system), as in the plain version.
+for CUDA tensors they launch the kernel, for the models and weights that
+kernel A takes (:func:`.pdps_cuda.kernel_blocks`: K ≤ 3 forward, backward
+or centred difference gradients, each weight a scalar or an (M, N) map),
+and return K scalar gradients or, with ``want_maps``, K per-pixel gradient
+maps shaped like ``u``.  The CG inner products run over the whole batch
+(one joint system), as in the plain version.
 """
 
 from __future__ import annotations
@@ -22,8 +25,7 @@ from ..models import DenoiseModel
 from .hypergrad import (HypergradConfig, _defaults, exact_hypergrad,
                         reg_hypergrad)
 from .krylov import KrylovInfo
-from .pdps_cuda import (check_cuda_input, check_plane, check_tv_model,
-                        scalar_alpha)
+from .pdps_cuda import check_cuda_input, check_plane, kernel_blocks
 
 __all__ = ["exact_hypergrad_cuda", "reg_hypergrad_cuda", "launches"]
 
@@ -31,17 +33,12 @@ __all__ = ["exact_hypergrad_cuda", "reg_hypergrad_cuda", "launches"]
 launches = 0
 #: CG iterations of all solves of the last kernel call (work accounting)
 last_total_cg_iters = 0
-_GRAD_SLOT = 5   # slot GRAD of the device scalars in csrc/hypergrad.cu
 
 
 def _run(u, utrue, alphas, model, cfg, want_maps, p0, reg: bool):
     check_cuda_input(u)
     check_plane(utrue, u.shape, u, "utrue")
-    check_tv_model(model)
-    if want_maps:
-        raise NotImplementedError(
-            "the CUDA hypergradient returns scalar gradients, not maps")
-    alpha = scalar_alpha(alphas)
+    K, kinds, scalars, addrs, _maps = kernel_blocks(model, alphas, u)
     dtype = u.dtype
     act_tol, mu, cg_tol = _defaults(dtype, cfg)
     u = u.contiguous()
@@ -56,11 +53,13 @@ def _run(u, utrue, alphas, model, cfg, want_maps, p0, reg: bool):
     lib = _build.library()
     n = u.numel()
     nblocks = (n + 255) // 256
-    work = torch.empty((lib.bpl_hypergrad_planes(), n), dtype=dtype,
+    work = torch.empty((lib.bpl_hypergrad_planes(K), n), dtype=dtype,
                        device=u.device)
     partials = torch.empty((3 * nblocks,), dtype=dtype, device=u.device)
     scal = torch.zeros((lib.bpl_hypergrad_slots(),), dtype=dtype,
                        device=u.device)
+    gmaps = torch.empty((K,) + tuple(u.shape), dtype=dtype,
+                        device=u.device) if want_maps else None
     stats = (ctypes.c_double * 4)()
     fn = lib.bpl_hypergrad_f32 if dtype == torch.float32 \
         else lib.bpl_hypergrad_f64
@@ -69,12 +68,17 @@ def _run(u, utrue, alphas, model, cfg, want_maps, p0, reg: bool):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         launches += 1
         err = fn(u.data_ptr(), utrue.data_ptr(), p.data_ptr(),
-                 work.data_ptr(), partials.data_ptr(), scal.data_ptr(), O, M,
-                 N, alpha, float(act_tol), float(cfg.gamma), float(mu),
-                 float(cg_tol), int(cfg.al_iters), int(cfg.cg_maxiter),
-                 int(reg), stats, stream)
+                 work.data_ptr(), partials.data_ptr(), scal.data_ptr(),
+                 None if gmaps is None else gmaps.data_ptr(), O, M, N, K,
+                 kinds, scalars, addrs, float(act_tol), float(cfg.gamma),
+                 float(mu), float(cg_tol), int(cfg.al_iters),
+                 int(cfg.cg_maxiter), int(reg), stats, stream)
     _build.check(err, "hypergradient kernel")
-    grad = scal[_GRAD_SLOT].clone()
+    if want_maps:
+        grads = tuple(gmaps.unbind(0))
+    else:
+        g0 = lib.bpl_hypergrad_grad_slot()
+        grads = tuple(scal[g0:g0 + K].clone().unbind(0))
     rr = torch.tensor(stats[0], dtype=dtype)
     bb = torch.tensor(stats[1], dtype=dtype)
     resnorm = torch.sqrt(rr)
@@ -82,7 +86,7 @@ def _run(u, utrue, alphas, model, cfg, want_maps, p0, reg: bool):
     info = KrylovInfo(int(stats[2]), resnorm, resnorm <= cg_tol * bnorm)
     global last_total_cg_iters
     last_total_cg_iters = int(stats[3])
-    return (grad,), p, info
+    return grads, p, info
 
 
 def exact_hypergrad_cuda(u, utrue, alphas, model: DenoiseModel,

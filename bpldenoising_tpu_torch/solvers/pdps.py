@@ -13,10 +13,11 @@ with the strongly-convex-accelerated iteration (γ = 1):
     yₖ⁺  = Π_{|·|₂ ≤ αₖ}(yₖ + σ Gₖ ū)
 
 This module is the plain version of the CUDA kernels in :mod:`.pdps_cuda`
-(TV) and :mod:`.vtv_cuda` (vectorial TV on ``vtv_model()``, whose dual
-ball couples the channels of a pixel), which dispatch here for tensors on
-the CPU; :func:`denoise_pdps`, :func:`tv_denoise` and :func:`vtv_denoise`
-go through that dispatch.  The
+(TV and the sum of regularizers: K ≤ 3 stencils, scalar or map weights)
+and :mod:`.vtv_cuda` (vectorial TV on ``vtv_model()``, whose dual ball
+couples the channels of a pixel), which dispatch here for tensors on the
+CPU; :func:`denoise_pdps`, :func:`tv_denoise`, :func:`sumregs_denoise` and
+:func:`vtv_denoise` go through that dispatch.  The
 optional early stop runs chunks of ``check_every`` iterations and stops once
 the MAX over images of the per-image relative change ‖Δu‖/‖u‖ is ≤ ``tol``:
 one host read per chunk.
@@ -28,10 +29,11 @@ import math
 
 import torch
 
-from ..models import DenoiseModel, tv_model, vtv_model
+from ..models import DenoiseModel, sumregs_model, tv_model, vtv_model
 from ..ops import FwdGradientOp, proj_norm21_ball
 
-__all__ = ["denoise_pdps", "tv_denoise", "vtv_denoise", "PDPS_DEFAULTS"]
+__all__ = ["denoise_pdps", "tv_denoise", "sumregs_denoise", "vtv_denoise",
+           "PDPS_DEFAULTS"]
 
 PDPS_DEFAULTS = dict(tau0=5.0, sigma0=0.99 / 5.0, accel=True, gamma=1.0,
                      maxiter=5000)
@@ -120,7 +122,9 @@ def denoise_pdps(f, alphas, model: DenoiseModel, *, tau0=5.0,
     """Solve the K-block denoising problem for an image or batch ``f``
     where it lives: the plain PyTorch iteration for CPU tensors; for CUDA
     tensors the VTV kernel on the vectorial-TV model and kernel A on any
-    other (each raises for what it does not take)."""
+    other (each raises for what it does not take).  ``alphas`` as
+    :meth:`DenoiseModel.canonical_alphas` reads them: per block a scalar
+    or an (M, N) map."""
     from .pdps_cuda import denoise_pdps_cuda
     from .vtv_cuda import vtv_denoise_pdps_cuda
     f = torch.as_tensor(f)
@@ -144,6 +148,16 @@ _TV = tv_model()
 def tv_denoise(f, alpha, **kwargs):
     """TV denoising; ``alpha`` is a scalar or a full-image ``(M, N)`` map."""
     return denoise_pdps(f, alpha, _TV, **kwargs)
+
+
+_SUMREGS = sumregs_model()
+
+
+def sumregs_denoise(f, alphas, **kwargs):
+    """Denoising with the sum of the forward, backward and centred TV terms;
+    ``alphas`` is a (3,) vector, three scalars or maps, or an (M, N, 3)
+    stack."""
+    return denoise_pdps(f, alphas, _SUMREGS, **kwargs)
 
 
 _VTV = vtv_model()

@@ -1,14 +1,17 @@
 """Kernel A: the accelerated Chambolle–Pock inner solve as a CUDA kernel
-(``csrc/pdps.cu``), replacing the TPU kernel
-``bpldenoising_tpu/solvers/pdps_pallas.py::_make_kernel``.
+(``csrc/pdps.cu``), replacing the TPU kernels
+``bpldenoising_tpu/solvers/pdps_pallas.py::_make_kernel`` and
+``::_make_tiled_kernel``.
 
 :func:`denoise_pdps_cuda` takes the arguments of the plain
 :func:`.pdps._denoise_pdps_impl`.  For tensors on the CPU it runs that plain
-version; for CUDA tensors it launches the kernel (or raises for inputs the
-kernel does not take: K > 1, α maps, other dtypes).  τ and σ restart from
-τ₀/L and σ₀/L on every call; a warm start reads ``state0 = (u, ys)``.
-The early stop is the plain version's: every ``check_every`` iterations,
-stop once the max over images of ‖Δu‖/‖u‖ is ≤ ``tol``.
+version; for CUDA tensors it launches the kernel, for any model of K ≤ 3
+forward, backward or centred difference gradients without channels, each
+weight a scalar or an (M, N) map (:func:`kernel_blocks`; it raises for
+anything else).  τ and σ restart from τ₀/L and σ₀/L on every call; a warm
+start reads ``state0 = (u, ys)`` with K duals.  The early stop is the plain
+version's: every ``check_every`` iterations, stop once the max over images
+of ‖Δu‖/‖u‖ is ≤ ``tol``.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import torch
 
 from .. import _build
 from ..models import DenoiseModel
-from ..ops import FwdGradientOp
+from ..ops import BwdGradientOp, CenteredGradientOp, FwdGradientOp
 from .pdps import _denoise_pdps_impl, step_sizes
 
 __all__ = ["denoise_pdps_cuda", "launches"]
@@ -27,26 +30,48 @@ __all__ = ["denoise_pdps_cuda", "launches"]
 #: calls that launched the CUDA kernel (one per solve)
 launches = 0
 
-
-def scalar_alpha(alphas, K_expected: int = 1) -> float:
-    """The one scalar α the CUDA kernels take."""
-    if len(alphas) != K_expected:
-        raise NotImplementedError(
-            f"the CUDA kernels take K={K_expected} regularizer, got "
-            f"{len(alphas)}")
-    a = torch.as_tensor(alphas[0])
-    if a.ndim != 0:
-        raise NotImplementedError(
-            "the CUDA kernels take a scalar α, not an α map")
-    return float(a)
+#: the stencil kind (csrc/common.cuh: Stencil) of each gradient operator
+STENCIL = {FwdGradientOp: 0, BwdGradientOp: 1, CenteredGradientOp: 2}
+MAX_BLOCKS = 3
 
 
-def check_tv_model(model: DenoiseModel) -> None:
-    if model.K != 1 or type(model.ops[0]) is not FwdGradientOp \
-            or model.channels:
+def kernel_blocks(model: DenoiseModel, alphas, like):
+    """The blocks that kernels A and B take: ``(K, kinds, scalars,
+    addresses, maps)``, the middle three as ctypes arrays of K; each map
+    weight as a contiguous (M, N) tensor on ``like``'s device in its dtype
+    (in ``maps``, which the caller keeps alive over the launch) with its
+    address, each scalar weight as its value with the address 0.  Raises
+    for a channel model, K > 3, other operators and weights that are
+    neither scalars nor (M, N) maps."""
+    kinds = [STENCIL.get(type(op)) for op in model.ops]
+    if model.channels or not 1 <= model.K <= MAX_BLOCKS or None in kinds:
         raise NotImplementedError(
-            "the CUDA kernels implement the scalar TV model (one "
-            "forward-difference gradient, no channels)")
+            "the CUDA kernels take K ≤ 3 forward, backward or centred "
+            "difference gradients without channels, got "
+            f"{model.name}: {[type(op).__name__ for op in model.ops]}"
+            f"{' with channels' if model.channels else ''}")
+    if len(alphas) != model.K:
+        raise ValueError(f"expected {model.K} weights, got {len(alphas)}")
+    shape = tuple(like.shape[-2:])
+    scalars, addrs, maps = [], [], []
+    for a in alphas:
+        a = torch.as_tensor(a)
+        if a.ndim == 0:
+            scalars.append(float(a))
+            addrs.append(0)
+        elif tuple(a.shape) == shape:
+            m = a.to(device=like.device, dtype=like.dtype).contiguous()
+            maps.append(m)
+            scalars.append(0.0)
+            addrs.append(m.data_ptr())
+        else:
+            raise NotImplementedError(
+                f"the CUDA kernels take a scalar or an {shape} weight map, "
+                f"got {tuple(a.shape)}")
+    real = ctypes.c_float if like.dtype == torch.float32 else ctypes.c_double
+    K = model.K
+    return (K, (ctypes.c_int * K)(*kinds), (real * K)(*scalars),
+            (ctypes.c_longlong * K)(*addrs), maps)
 
 
 def check_plane(t, shape, like, name):
@@ -78,22 +103,24 @@ def denoise_pdps_cuda(f, alphas, state0=None, *, model: DenoiseModel, tau0,
     if f.device.type == "cpu":
         return _denoise_pdps_impl(f, alphas, state0, **kw)
     check_cuda_input(f)
-    check_tv_model(model)
-    alpha = scalar_alpha(alphas)
+    K, kinds, scalars, addrs, _maps = kernel_blocks(model, alphas, f)
     dtype = f.dtype
     y_shape = f.shape[:-2] + (2,) + f.shape[-2:]
     f = f.contiguous()
+    # the K duals packed as (K, ..., 2, M, N); ys are views of its planes
+    y = torch.zeros((K,) + y_shape, dtype=dtype, device=f.device)
     if state0 is None:
         u = f.clone()
-        y = torch.zeros(y_shape, dtype=dtype, device=f.device)
     else:
         u0, ys0 = state0
-        if len(ys0) != 1:
-            raise ValueError("warm state needs one dual field")
+        if len(ys0) != K:
+            raise ValueError(f"warm state needs {K} dual fields, got "
+                             f"{len(ys0)}")
         check_plane(u0, f.shape, f, "state0 u")
-        check_plane(ys0[0], y_shape, f, "state0 y")
+        for k, yk in enumerate(ys0):
+            check_plane(yk, y_shape, f, f"state0 y[{k}]")
+            y[k].copy_(yk)
         u = u0.contiguous().clone()
-        y = ys0[0].contiguous().clone()
     M, N = int(f.shape[-2]), int(f.shape[-1])
     O = f.numel() // (M * N)
     ubar = torch.empty_like(f)
@@ -109,12 +136,12 @@ def denoise_pdps_cuda(f, alphas, state0=None, *, model: DenoiseModel, tau0,
         stream = torch.cuda.current_stream(f.device).cuda_stream
         launches += 1
         err = fn(f.data_ptr(), u.data_ptr(), y.data_ptr(), ubar.data_ptr(),
-                 uprev.data_ptr(), ratio.data_ptr(), O, M, N, alpha,
-                 float(tau), float(sigma), float(gamma), int(bool(accel)),
-                 int(maxiter), int(tol is not None),
+                 uprev.data_ptr(), ratio.data_ptr(), O, M, N, K, kinds,
+                 scalars, addrs, float(tau), float(sigma), float(gamma),
+                 int(bool(accel)), int(maxiter), int(tol is not None),
                  0.0 if tol is None else float(tol), int(check_every),
                  ctypes.byref(iters), stream)
     _build.check(err, "pdps kernel")
     if return_dual:
-        return u, (y,), int(iters.value)
+        return u, tuple(y.unbind(0)), int(iters.value)
     return u

@@ -1,7 +1,9 @@
 """Hand state from the JAX package to the port.
 
 :func:`from_jax_state` turns arrays as the JAX package returns them (α,
-a warm PDPS state ``(u, ys)``, adjoint states ``p``, a warm TGV² solver
+a warm PDPS state ``(u, ys)`` with ys a K-tuple of (O, 2, M, N)
+duals (K = 3 for the sum of regularizers, in the order of the model's
+operators), adjoint states ``p``, a warm TGV² solver
 state ``(u, w, p, q)`` with w, p shaped (O, 2, M, N) and q (O, 3, M, N) in
 the plane order (rr, cc, rc), the TGV adjoint multiplier λ of shape
 (O, 3, M, N), a warm TV-L1 solver state ``(u, y)`` with y (O, 2, M, N) or

@@ -108,8 +108,31 @@ Phases (one short line each):
     (d), TGV² runs (e): the same entry point in float64, gated tightly
     against the JAX float64 reference, the witness for (d)'s wide gate.
 
-It prints one JSON line of per-kernel numbers (eleven kernels), then, as
-its last line,
+34. kernel A's K = 3 and map forms (``csrc/pdps.cu``) against its plain
+    version on the flagship data (10 × 128² float32): the sum of
+    regularizers (forward, backward, centred; weights (0.035, 0.032,
+    0.005)) and TV with a random (128, 128) α map, each a cold
+    5000-iteration call, a cold call with early stop and a warm call;
+    then K = 3 at 1 × 2048², 1000 iterations (row 3's shape).
+35. kernel B's K = 3 form (scalar gradients) and map form (per-pixel
+    gradient maps) against its plain version, exact and regularized, u
+    from phase 34; then kernels A and B in these forms in float64 at
+    2 × 32².
+36–39. the learns with ``method="tr_fused"`` through their entry points
+    at bench.py's settings on the 10 faces images, float32:
+    ``patch_bilevel_tv_learn`` (2×2 from 1e-4),
+    ``scalar_bilevel_sumregs_learn`` (from 1e-3 each, Δt 1e-3),
+    ``patch_bilevel_sumregs_learn`` (2×2×3, its entry defaults) and the
+    16×16 grid through ``patch_bilevel_tv_learn`` (L-BFGS), each once to
+    warm up (but the grid) and once timed, counters reset just before
+    and read just after, the plain versions watched (no call); gated
+    against ``scripts/jax_reference_tv_family.py`` (below).
+40. the float64 witnesses: ``scalar_bilevel_sumregs_learn`` and
+    ``patch_bilevel_tv_learn`` in float64 on the card against the JAX
+    package's float64 runs, at 1e-6.
+
+It prints one JSON line of per-kernel numbers (sixteen entries: the
+eleven kernels, rows 1–3's K = 3 and map forms), then, as its last line,
 ``{"ok": true, "device": {...}}``.  Any failure raises (no phase is
 caught) and the script exits non-zero; a deadline turns a hang into a
 traceback and a non-zero exit.
@@ -362,6 +385,96 @@ TOL_SLX_REL_F32 = {"tgv": 1e-4, "tvl1": TOL_SL_REL_F32,
 # stencil, D, the clip or Adam moves the learner by 1e-2 or more.
 TOL_SLX_F64_CASE = {("tvl1", "B2 patch"): 1e-5}
 
+# The patch TV and sum-of-regularizers trust regions (phases 36-40).
+# References: scripts/jax_reference_tv_family.py, the JAX package's
+# bilevel_learn_fused(backend="jnp") on the CPU in float32 at bench.py's
+# settings on faces_train_128_10 (inner 5000, inner_tol 1e-6, check_every
+# 100, HypergradConfig(al_iters=2, cg_maxiter=100), 20 outer iterations;
+# the 16×16 grid: inner 2000, the default HypergradConfig, 16 outer
+# iterations): the learned weights, the cost, the mean PSNR, the outer
+# iterations.  Nominal gates: each weight within 1e-3 × the largest weight
+# (absolute: the sum of regularizers drives its centred weight to the
+# box's floor, 1.2e-7, where a relative gate means nothing), PSNR ±
+# 0.01 dB, cost ± 0.1%.  But these learns branch on float32 rounding: the
+# trust region's steps follow a gradient from an adjoint CG stopped at its
+# cap (100 iterations), and the reference itself, run on noisy images
+# moved by one rounding (--perturb=1, 2, 3: × (1 + ε·ξ)), lands up to
+# TVF_BAND away ("band": the largest distance of three such runs from the
+# reference; the sum of regularizers' α by 15% of its largest weight,
+# its cost by 0.86%).  So each learn is gated at the larger of the
+# nominal gate and twice its band, and the nominal gate is reported
+# beside it ("in"/"out").  The float64 witnesses (phase 40) hold the same
+# code to 1e-6 where rounding does not branch.
+TVF_REF = {
+    "patch_tv": dict(
+        x=((0.07137605547904968, 0.06979940086603165),
+           (0.06946340203285217, 0.06794488430023193)),
+        cost=152.27993774414062, psnr=27.38690185546875, iterations=20),
+    "sumregs": dict(
+        x=(0.03432219848036766, 0.0410776361823082, 1.1920928955078125e-07),
+        cost=151.658203125, psnr=27.415273666381836, iterations=13),
+    "patch_sumregs": dict(
+        x=(((0.10467645525932312, 0.10325437039136887, 0.02128157764673233),
+            (0.10939531773328781, 0.11008890718221664,
+             0.028342705219984055)),
+           ((0.07794177532196045, 0.0781114399433136,
+             1.1920928955078125e-07),
+            (0.08366977423429489, 0.0843314453959465,
+             0.002453843131661415))),
+        cost=296.0284423828125, psnr=24.52670669555664, iterations=10),
+    "grid16": dict(x=(
+    (0.081760481, 0.071846604, 0.071787573, 0.073542207, 0.078414582, 0.073566839, 0.079595551, 0.073252901, 0.076778315, 0.077697329, 0.072745465, 0.097090654, 0.097095937, 0.08175528, 0.093458772, 0.11063103),
+    (0.075655341, 0.078668572, 0.067495972, 0.070484005, 0.063546784, 0.070603915, 0.07117708, 0.075209312, 0.074708164, 0.067171291, 0.064921506, 0.066216454, 0.06871599, 0.069412924, 0.073574007, 0.080821887),
+    (0.075345308, 0.064296834, 0.077420868, 0.073062718, 0.07698597, 0.069576621, 0.074802876, 0.069764055, 0.063399717, 0.069498755, 0.06396877, 0.067118943, 0.062898636, 0.06783881, 0.078801654, 0.071234621),
+    (0.077253386, 0.071712613, 0.0657655, 0.082375951, 0.069459163, 0.076605074, 0.07152731, 0.077745736, 0.082420871, 0.067713641, 0.072037287, 0.06862814, 0.062667042, 0.066225119, 0.083926484, 0.097286329),
+    (0.088308156, 0.075980611, 0.069531456, 0.081411734, 0.069495, 0.074984461, 0.060570154, 0.069327228, 0.081855312, 0.097469404, 0.076811053, 0.073330589, 0.07048548, 0.070703365, 0.065133095, 0.071242332),
+    (0.081137493, 0.072955459, 0.078415334, 0.06599389, 0.093385525, 0.079148971, 0.066518143, 0.076918706, 0.066884525, 0.079695508, 0.084003963, 0.070752539, 0.076588333, 0.062104166, 0.066939756, 0.070538439),
+    (0.08891663, 0.070427127, 0.071125202, 0.077124923, 0.058726132, 0.057233255, 0.075674623, 0.082012214, 0.073639013, 0.061283607, 0.058658004, 0.062730476, 0.080764748, 0.062416241, 0.070455976, 0.080496028),
+    (0.089454643, 0.068882823, 0.072273992, 0.082283325, 0.067619525, 0.048983522, 0.050792091, 0.067798898, 0.0695711, 0.053144261, 0.049396388, 0.075840339, 0.077572785, 0.068022899, 0.059273977, 0.075969607),
+    (0.070051529, 0.067770787, 0.083923399, 0.066627681, 0.084858403, 0.073566005, 0.078086548, 0.076088957, 0.078036316, 0.067751743, 0.071352325, 0.081705704, 0.069176055, 0.059546463, 0.063290142, 0.07156454),
+    (0.08384373, 0.07895425, 0.06516362, 0.066210501, 0.067558989, 0.075572051, 0.064393118, 0.071919039, 0.064119771, 0.077934548, 0.08589077, 0.080646135, 0.078689106, 0.06059086, 0.067384861, 0.077811748),
+    (0.072864823, 0.060902465, 0.06421151, 0.06503287, 0.075446144, 0.074039996, 0.069877766, 0.0538668, 0.056069396, 0.06806203, 0.069510385, 0.067209162, 0.064427383, 0.063341692, 0.071978845, 0.064158663),
+    (0.076380335, 0.058995973, 0.06163083, 0.063661315, 0.062630981, 0.072031111, 0.060909774, 0.060332686, 0.055874545, 0.056263987, 0.079268463, 0.075256638, 0.059172191, 0.065767549, 0.087312609, 0.075560175),
+    (0.063768566, 0.077493325, 0.069128878, 0.063273653, 0.055762328, 0.082881421, 0.072749563, 0.06091563, 0.061615322, 0.074936584, 0.073249184, 0.070744805, 0.051101416, 0.069833584, 0.071905531, 0.083716758),
+    (0.064442851, 0.066588238, 0.074485995, 0.065652244, 0.066610023, 0.069181755, 0.077081814, 0.071661443, 0.072457962, 0.067300647, 0.063980579, 0.057566106, 0.062422868, 0.069794655, 0.067486197, 0.067052521),
+    (0.080345206, 0.071989104, 0.071965009, 0.075101472, 0.05595779, 0.078033909, 0.078205615, 0.077455752, 0.07666263, 0.066526629, 0.065174274, 0.069749199, 0.061563928, 0.058983326, 0.072237484, 0.06764105),
+    (0.067808829, 0.080176853, 0.082508564, 0.079045914, 0.068837568, 0.074533768, 0.066472203, 0.070931546, 0.070862375, 0.08069092, 0.073726855, 0.078965202, 0.06581638, 0.066025935, 0.075133875, 0.068145558),
+    ), cost=149.90011596679688, psnr=27.456958770751953, iterations=16),
+}
+TVF_BAND = {
+    "patch_tv": dict(alpha=0.0012720823287963867, psnr=0.000392913818359375,
+                     cost=3.627320658553092e-05),
+    "sumregs": dict(alpha=0.006126571446657181, psnr=0.025308609008789062,
+                    cost=0.00858208895156409),
+    "patch_sumregs": dict(alpha=0.00033867359161376953,
+                          psnr=0.00099945068359375,
+                          cost=0.0002488593089257401),
+    "grid16": dict(alpha=0.00046162307262420654, psnr=1.1444091796875e-05,
+                   cost=8.143443499872861e-07),
+}
+TVF_ALPHA_GATE = 1e-3       # × max|α|, absolute
+TVF_PSNR_GATE = 0.01        # dB
+TVF_COST_GATE_REL = 1e-3
+# The float64 witnesses (phase 40): scalar_bilevel_sumregs_learn (4 outer
+# iterations) and patch_bilevel_tv_learn (8) in float64 on the card with
+# HypergradConfig(al_iters=2, cg_maxiter=1000, act_tol=1e-4), whose
+# adjoint systems are well conditioned (at the float64 default act_tol
+# 1e-9 the exact system moves the JAX package's own gradient by percent
+# under a 1e-13 perturbation of the data), against the JAX package's
+# float64 runs (jax_reference_tv_family.py --float64 sumregs_witness
+# patch_tv_witness), gated at 1e-6 relative on the weights (× the
+# largest) and the cost.  The plain versions on the CPU agree with them
+# to 3e-12.
+TVF_WITNESS = {
+    "sumregs": dict(maxiter=4, cost=159.12329031649494,
+                    x=(0.023767526640829872, 0.024200251414195153,
+                       0.03610000000000022)),
+    "patch_tv": dict(maxiter=8, cost=399.2939413698404,
+                     x=((0.018859514489999993, 0.018589706702252302),
+                        (0.01844376012853778, 0.018603169260599125))),
+}
+TVF_WITNESS_GATE_REL = 1e-6
+
 # peak rates of an H100 SXM (NVIDIA data sheet) for the bounds
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -451,6 +564,27 @@ def sl_ops_per_pixel(kinds, n_inner, n_adj, pipelined=False):
     return n_inner * pd + n_adj * cg + fixed
 
 
+def a_ops_per_pixel_iter(kinds, maps=0):
+    """Kernel A's operations per pixel and iteration, by
+    A_OPS_PER_PIXEL_ITER's rule, for blocks of the given stencil kinds:
+    the primal step Σ adjoints + (K − 1) adds + 7, the dual step per block
+    its gradient + 13, and 1 per map weight (its square)."""
+    return (sum(SL_ADJ_OPS[k] for k in kinds) + len(kinds) - 1 + 7
+            + sum(SL_GRAD_OPS[k] + 13 for k in kinds) + maps)
+
+
+def b_ops_per_pixel(kinds, cg_iters, solves):
+    """Kernel B's operations per pixel, by the B_OPS_PER_PIXEL_* rule: M·v
+    per block its gradient + 20 + its adjoint + 1; a CG step M·v + 14, a
+    CG start M·v + 10; the fixed work per block two gradients, a Gram
+    diagonal, an adjoint and 26, and 11 shared (47 for one forward
+    block)."""
+    mv = sum(SL_GRAD_OPS[k] + 20 + SL_ADJ_OPS[k] + 1 for k in kinds)
+    fixed = sum(2 * SL_GRAD_OPS[k] + SL_GRAM_OPS[k] + SL_ADJ_OPS[k] + 26
+                for k in kinds) + 11
+    return cg_iters * (mv + 14) + solves * (mv + 10) + fixed
+
+
 def say(msg):
     print(msg, flush=True)
 
@@ -488,22 +622,32 @@ def bound_ms(nbytes, ops, ops_per_s=F32_OPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_kernel_a(f, timed, *, maxiter=5000, tol=5e-6, check_every=50,
-                   alpha=0.1, alpha_warm=0.0698, tol_u=TOL_A_U_F32,
-                   tol_y=TOL_A_Y_F32):
-    """Kernel A against plain A: cold fixed budget, cold with early stop
-    and state, warm from that state.  All three are compared and printed
-    before the phase fails on any of them.  Returns (state u, stats)."""
+def weights(alphas, like):
+    """Kernel weights in ``like``'s dtype: a number becomes a 0-d CPU
+    tensor, an (M, N) map a tensor on ``like``'s device."""
     import torch
+    return tuple(torch.tensor(a, dtype=like.dtype) if isinstance(a, float)
+                 else a.to(device=like.device, dtype=like.dtype)
+                 for a in alphas)
+
+
+def phase_kernel_a(f, timed, *, maxiter=5000, tol=5e-6, check_every=50,
+                   alphas=(0.1,), alphas_warm=(0.0698,), tol_u=TOL_A_U_F32,
+                   tol_y=TOL_A_Y_F32, model=None, label="A"):
+    """Kernel A against plain A: cold fixed budget, cold with early stop
+    and state, warm from that state; by default the scalar TV form, else
+    ``model`` (K blocks) with ``alphas`` (numbers or maps).  All three are
+    compared (u and every dual) and printed before the phase fails on any
+    of them.  Returns (state u, stats)."""
     from bpldenoising_tpu_torch.models import tv_model
     from bpldenoising_tpu_torch.solvers import pdps_cuda
     from bpldenoising_tpu_torch.solvers.pdps import _denoise_pdps_impl
 
-    model = tv_model()
+    model = model or tv_model()
     kw = dict(model=model, tau0=5.0, sigma0=0.99 / 5.0, gamma=1.0,
               accel=True)
-    a = (torch.tensor(alpha, dtype=f.dtype),)
-    a_warm = (torch.tensor(alpha_warm, dtype=f.dtype),)
+    a = weights(alphas, f)
+    a_warm = weights(alphas_warm, f)
     worst = 0.0
     faults = []
 
@@ -517,7 +661,8 @@ def phase_kernel_a(f, timed, *, maxiter=5000, tol=5e-6, check_every=50,
     def check(label, ku, pu, kys=None, pys=None, kit=None, pit=None):
         nonlocal worst
         err_u = max_abs(ku, pu)
-        err_y = max_abs(kys[0], pys[0]) if kys is not None else 0.0
+        err_y = max(max_abs(ky, py) for ky, py in zip(kys, pys)) \
+            if kys is not None else 0.0
         worst = max(worst, err_u, err_y)
         if err_u > tol_u or err_y > tol_y:
             faults.append(f"{label}: max|du| {err_u}, max|dy| {err_y}")
@@ -532,7 +677,7 @@ def phase_kernel_a(f, timed, *, maxiter=5000, tol=5e-6, check_every=50,
     (ku, kys, _), k_ms, (pu, pys, _), p_ms = both(
         a, None, maxiter=maxiter, tol=None, check_every=check_every,
         return_dual=True)
-    say(f"  A cold {maxiter} it: {check('cold', ku, pu, kys, pys)}; "
+    say(f"  {label} cold {maxiter} it: {check('cold', ku, pu, kys, pys)}; "
         f"kernel {k_ms:.2f} ms, plain {p_ms:.2f} ms")
     cold = dict(ms=k_ms, plain_ms=p_ms, iters=maxiter)
 
@@ -541,7 +686,7 @@ def phase_kernel_a(f, timed, *, maxiter=5000, tol=5e-6, check_every=50,
         a, None, maxiter=maxiter, tol=tol, check_every=check_every,
         return_dual=True)
     msg = check("cold early stop", ku, pu, kys, pys, kit, pit)
-    say(f"  A cold tol {tol:g}: iters {kit}/{pit}, {msg}; "
+    say(f"  {label} cold tol {tol:g}: iters {kit}/{pit}, {msg}; "
         f"kernel {k_ms:.2f} ms, plain {p_ms:.2f} ms")
 
     # 3: warm from the plain version's state, early stop
@@ -550,48 +695,60 @@ def phase_kernel_a(f, timed, *, maxiter=5000, tol=5e-6, check_every=50,
         a_warm, state, maxiter=maxiter, tol=tol, check_every=check_every,
         return_dual=True)
     msg = check("warm early stop", wu, qu, wys, qys, wit, qit)
-    say(f"  A warm tol {tol:g}: iters {wit}/{qit}, {msg}; "
+    say(f"  {label} warm tol {tol:g}: iters {wit}/{qit}, {msg}; "
         f"kernel {k_ms:.2f} ms, plain {p_ms:.2f} ms")
-    say(f"  A tolerances: u {tol_u:g}, y {tol_y:g} (absolute)")
-    require(not faults, "kernel A disagrees with plain: " + "; ".join(faults))
+    say(f"  {label} tolerances: u {tol_u:g}, y {tol_y:g} (absolute)")
+    require(not faults, f"kernel {label} disagrees with plain: "
+            + "; ".join(faults))
     return pu, dict(cold, max_abs_err=worst)
 
 
-def phase_kernel_b(u, utrue, timed, *, alpha=0.1, rtol=TOL_B_F32_REL):
-    """Kernel B (exact and regularized) against plain B."""
-    import torch
+def phase_kernel_b(u, utrue, timed, *, alphas=(0.1,), rtol=TOL_B_F32_REL,
+                   model=None, want_maps=False, label="B"):
+    """Kernel B (exact and regularized) against plain B: by default the
+    scalar TV form, else ``model`` with ``alphas`` (numbers or maps) and,
+    with ``want_maps``, per-pixel gradient maps (held to ``rtol`` of their
+    largest entry)."""
     from bpldenoising_tpu_torch.models import tv_model
     from bpldenoising_tpu_torch.solvers import hypergrad_cuda
     from bpldenoising_tpu_torch.solvers.hypergrad import (
         HypergradConfig, exact_hypergrad, reg_hypergrad)
 
-    model = tv_model()
+    model = model or tv_model()
     cfg = HypergradConfig(al_iters=2, cg_maxiter=100)
-    a = (torch.tensor(alpha, dtype=u.dtype),)
+    a = weights(alphas, u)
     out = {}
     worst = 0.0
     faults = []
     for name, kern, plain in (
             ("exact", hypergrad_cuda.exact_hypergrad_cuda, exact_hypergrad),
             ("reg", hypergrad_cuda.reg_hypergrad_cuda, reg_hypergrad)):
-        kern(u, utrue, a, model, cfg)   # warm-up
-        (kg, kp, ki), k_ms = timed(lambda: kern(u, utrue, a, model, cfg))
+        kern(u, utrue, a, model, cfg, want_maps)   # warm-up
+        (kg, kp, ki), k_ms = timed(lambda: kern(u, utrue, a, model, cfg,
+                                                want_maps))
         total = hypergrad_cuda.last_total_cg_iters
-        (pg, pp, pi), p_ms = timed(lambda: plain(u, utrue, a, model, cfg))
-        g_err = abs(float(kg[0]) - float(pg[0])) / max(abs(float(pg[0])),
-                                                        1e-30)
+        (pg, pp, pi), p_ms = timed(lambda: plain(u, utrue, a, model, cfg,
+                                                 want_maps))
+        if want_maps:
+            g_err = max(rel_err(k, p) for k, p in zip(kg, pg))
+            grads = f"{len(kg)} grad maps"
+        else:
+            g_err = max(abs(float(k) - float(p)) / max(abs(float(p)), 1e-30)
+                        for k, p in zip(kg, pg))
+            grads = "grad " + ", ".join(f"{float(k):.6e}/{float(p):.6e}"
+                                        for k, p in zip(kg, pg))
         p_err = rel_err(kp, pp)
         worst = max(worst, max_abs(kp, pp))
-        say(f"  B {name}: grad {float(kg[0]):.6e}/{float(pg[0]):.6e} "
-            f"rel {g_err:.2e}, p rel {p_err:.2e} (tol {rtol:g}), CG "
-            f"{ki.iters}/{pi.iters}; kernel {k_ms:.2f} ms, plain "
-            f"{p_ms:.2f} ms")
+        say(f"  {label} {name}: {grads} rel {g_err:.2e}, p rel {p_err:.2e} "
+            f"(tol {rtol:g}), CG {ki.iters}/{pi.iters}; kernel {k_ms:.2f} "
+            f"ms, plain {p_ms:.2f} ms")
         if g_err > rtol or p_err > rtol:
             faults.append(f"{name}: grad rel {g_err}, p rel {p_err}")
         if abs(ki.iters - pi.iters) > 1:
             faults.append(f"{name}: CG iterations {ki.iters} vs {pi.iters}")
         out[name] = dict(ms=k_ms, plain_ms=p_ms, total_cg=total)
-    require(not faults, "kernel B disagrees with plain: " + "; ".join(faults))
+    require(not faults, f"kernel {label} disagrees with plain: "
+            + "; ".join(faults))
     out["max_abs_err"] = worst
     return out
 
@@ -780,8 +937,7 @@ def phase_large(f, timed):
     the first faces image)."""
     import torch
     from bpldenoising_tpu_torch.models import tv_model
-    from bpldenoising_tpu_torch.solvers import pdps_cuda, tgv_cuda
-    from bpldenoising_tpu_torch.solvers.pdps import _denoise_pdps_impl
+    from bpldenoising_tpu_torch.solvers import tgv_cuda
     from bpldenoising_tpu_torch.solvers.tgv import _tgv_impl
 
     out = {}
@@ -805,26 +961,44 @@ def phase_large(f, timed):
                            bound_ms=bound, bound_by=by)
 
     img = f[:1].repeat(1, 16, 16).contiguous()
-    kw = dict(model=tv_model(), tau0=5.0, sigma0=0.99 / 5.0, gamma=1.0,
-              accel=True, maxiter=1000, tol=None, check_every=50,
+    out["pdps_2048"] = large_a(img, timed, tv_model(),
+                               (torch.tensor(0.1, dtype=img.dtype),),
+                               "A 1x2048x2048")
+    return out
+
+
+def large_a(img, timed, model, a, label, iters=1000):
+    """Kernel A against its plain version on one large image, timed, with
+    its bound (f in; u and the K duals out)."""
+    from bpldenoising_tpu_torch.solvers import pdps_cuda
+    from bpldenoising_tpu_torch.solvers.pdps import _denoise_pdps_impl
+
+    kw = dict(model=model, tau0=5.0, sigma0=0.99 / 5.0, gamma=1.0,
+              accel=True, maxiter=iters, tol=None, check_every=50,
               return_dual=True)
-    a = (torch.tensor(0.1, dtype=img.dtype),)
     pdps_cuda.denoise_pdps_cuda(img, a, None, **dict(kw, maxiter=5))
     (ku, kys, _), k_ms = timed(lambda: pdps_cuda.denoise_pdps_cuda(
         img, a, None, **kw))
     (pu, pys, _), p_ms = timed(lambda: _denoise_pdps_impl(img, a, None,
                                                          **kw))
-    err_u, err_y = max_abs(ku, pu), max_abs(kys[0], pys[0])
-    say(f"  A 1x2048x2048, 1000 it: max|du| {err_u:.2e}, max|dy| "
+    err_u = max_abs(ku, pu)
+    err_y = max(max_abs(k, p) for k, p in zip(kys, pys))
+    say(f"  {label}, {iters} it: max|du| {err_u:.2e}, max|dy| "
         f"{err_y:.2e}; kernel {k_ms:.2f} ms, plain {p_ms:.2f} ms")
     require(err_u <= TOL_A_U_F32 and err_y <= TOL_A_Y_F32,
-            f"kernel A at 2048^2 disagrees with plain: {err_u}, {err_y}")
-    nbytes = 4 * img.numel() * img.element_size()   # f in; u, y out
-    bound, by = bound_ms(nbytes, A_OPS_PER_PIXEL_ITER * img.numel() * 1000)
-    out["pdps_2048"] = dict(ms=k_ms, plain_ms=p_ms,
-                            max_abs_err=max(err_u, err_y), bound_ms=bound,
-                            bound_by=by)
-    return out
+            f"kernel {label} disagrees with plain: {err_u}, {err_y}")
+    kinds = [pdps_kind(op) for op in model.ops]
+    nbytes = (2 + 2 * len(kinds)) * img.numel() * img.element_size()
+    bound, by = bound_ms(nbytes, a_ops_per_pixel_iter(kinds) * img.numel()
+                         * iters)
+    return dict(ms=k_ms, plain_ms=p_ms, max_abs_err=max(err_u, err_y),
+                bound_ms=bound, bound_by=by)
+
+
+def pdps_kind(op):
+    """The stencil kind (0 forward, 1 backward, 2 centred) of an op."""
+    from bpldenoising_tpu_torch.solvers.pdps_cuda import STENCIL
+    return STENCIL[type(op)]
 
 
 def launch_counters():
@@ -1990,6 +2164,269 @@ def phases_slx(torch, device, timed, name, first):
     return stats
 
 
+def sumregs_weights():
+    """Weights of the sum of regularizers near its learned point."""
+    return (0.035, 0.032, 0.005), (0.034, 0.041, 0.002)
+
+
+def random_map(like, seed, lo, hi):
+    """A (M, N) weight map, uniform in [lo, hi), made from ``seed``."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    m = lo + (hi - lo) * torch.rand(tuple(like.shape[-2:]), generator=gen,
+                                    dtype=torch.float64)
+    return m.to(device=like.device, dtype=like.dtype)
+
+
+def phase_forms_a(f, timed):
+    """Kernel A's K = 3 and map forms against plain A at 10 × 128²
+    float32: the sum of regularizers and TV with a random (M, N) map, each
+    cold 5000 iterations, cold with early stop, warm; then K = 3 at
+    1 × 2048², 1000 iterations (row 3's shape)."""
+    from bpldenoising_tpu_torch.models import sumregs_model
+
+    a3, a3_warm = sumregs_weights()
+    u3, k3 = phase_kernel_a(f, timed, alphas=a3, alphas_warm=a3_warm,
+                            model=sumregs_model(), label="A K=3")
+    amap = random_map(f, 0, 0.05, 0.1)
+    umap, kmap = phase_kernel_a(f, timed, alphas=(amap,),
+                                alphas_warm=(0.9 * amap,), label="A map")
+    img = f[:1].repeat(1, 16, 16).contiguous()
+    big = large_a(img, timed, sumregs_model(), weights(a3, img),
+                  "A K=3 1x2048x2048")
+    return u3, umap, amap, dict(k3=k3, map=kmap, k3_2048=big)
+
+
+def phase_forms_b(u3, umap, amap, utrue, timed):
+    """Kernel B's K = 3 (scalar weights) and map forms (gradient maps)
+    against plain B at 10 × 128² float32, u from phase 34."""
+    from bpldenoising_tpu_torch.models import sumregs_model
+
+    k3 = phase_kernel_b(u3, utrue, timed, alphas=sumregs_weights()[0],
+                        model=sumregs_model(), label="B K=3")
+    maps = phase_kernel_b(umap, utrue, timed, alphas=(amap,),
+                          want_maps=True, label="B map")
+    return dict(k3=k3, map=maps)
+
+
+def phase_forms_f64(torch, device):
+    """Kernels A and B in their K = 3 and map forms in float64 at 2 × 32²
+    against their plain versions, at TOL_F64_REL (phase_f64's images: B
+    gets a piecewise-constant image with a ramp, whose systems are well
+    conditioned)."""
+    from bpldenoising_tpu_torch.models import sumregs_model, tv_model
+    from bpldenoising_tpu_torch.solvers import hypergrad_cuda, pdps_cuda
+    from bpldenoising_tpu_torch.solvers.hypergrad import (
+        HypergradConfig, exact_hypergrad, reg_hypergrad)
+    from bpldenoising_tpu_torch.solvers.pdps import _denoise_pdps_impl
+
+    f64 = torch.float64
+    gen = torch.Generator().manual_seed(0)
+    clean = torch.zeros((2, 32, 32), dtype=f64)
+    clean[:, 8:24, 8:24] = 1.0
+    f = (clean + 0.1 * torch.randn(clean.shape, generator=gen,
+                                   dtype=f64)).to(device)
+    amap = random_map(f, 1, 0.04, 0.1)
+    forms = (("K=3", sumregs_model(), weights(sumregs_weights()[0], f)),
+             ("K=3 maps", sumregs_model(),
+              (amap, torch.tensor(0.03, dtype=f64), 0.2 * amap)),
+             ("map", tv_model(), (amap,)))
+    kw = dict(tau0=5.0, sigma0=0.99 / 5.0, gamma=1.0, accel=True,
+              maxiter=2000, tol=1e-7, check_every=50, return_dual=True)
+    errs, its = {}, {}
+    for label, model, a in forms:
+        ku, kys, kit = pdps_cuda.denoise_pdps_cuda(f, a, None, model=model,
+                                                   **kw)
+        pu, pys, pit = _denoise_pdps_impl(f, a, None, model=model, **kw)
+        errs[f"A {label}"] = max([rel_err(ku, pu)]
+                                 + [rel_err(k, p) for k, p in zip(kys, pys)])
+        its[f"A {label}"] = (kit, pit)
+
+    levels = torch.rand((2, 8, 8), generator=gen, dtype=f64)
+    u = torch.kron(levels, torch.ones((4, 4), dtype=f64))
+    u[:, 24:, :] += 0.3 * torch.linspace(0.0, 1.0, 32, dtype=f64)
+    utrue = u + 0.05 * torch.randn(u.shape, generator=gen, dtype=f64)
+    u, utrue = u.to(device), utrue.to(device)
+    for label, model, a in forms:
+        want_maps = "map" in label
+        for name, kern, plain, cfg in (
+                ("exact", hypergrad_cuda.exact_hypergrad_cuda,
+                 exact_hypergrad,
+                 HypergradConfig(al_iters=2, cg_maxiter=300)),
+                ("reg", hypergrad_cuda.reg_hypergrad_cuda, reg_hypergrad,
+                 HypergradConfig(cg_maxiter=300, gamma=1e4))):
+            kg, kp, ki = kern(u, utrue, a, model, cfg, want_maps)
+            pg, pp, pi = plain(u, utrue, a, model, cfg, want_maps)
+            errs[f"B {label} {name}"] = max(
+                [rel_err(kp, pp)] + [rel_err(torch.as_tensor(k),
+                                             torch.as_tensor(p))
+                                     for k, p in zip(kg, pg)])
+            its[f"B {label} {name}"] = (ki.iters, pi.iters)
+    say("  float64 2x32x32: " + "; ".join(
+        f"{k} rel {v:.2e} its {its[k][0]}/{its[k][1]}"
+        for k, v in errs.items()) + f" (tol {TOL_F64_REL:g})")
+    require(all(its[k][0] == its[k][1] for k in its if k.startswith("A")),
+            f"float64 kernel A forms: iterations {its}")
+    require(all(abs(its[k][0] - its[k][1]) <= 1 for k in its
+                if k.startswith("B")), f"float64 kernel B forms: CG {its}")
+    require(max(errs.values()) <= TOL_F64_REL, f"float64 forms: {errs}")
+    return max(errs.values())
+
+
+def watch_plain():
+    """Count calls of the plain versions of kernels A and B that their
+    wrappers would make: → (calls, restore)."""
+    from bpldenoising_tpu_torch.solvers import hypergrad_cuda, pdps_cuda
+    calls = []
+    saved = [(pdps_cuda, "_denoise_pdps_impl"),
+             (hypergrad_cuda, "exact_hypergrad"),
+             (hypergrad_cuda, "reg_hypergrad")]
+    originals = [getattr(m, n) for m, n in saved]
+
+    def wrap(fn):
+        def watched(*a, **k):
+            calls.append(fn.__name__)
+            return fn(*a, **k)
+        return watched
+
+    for (m, n), fn in zip(saved, originals):
+        setattr(m, n, wrap(fn))
+
+    def restore():
+        for (m, n), fn in zip(saved, originals):
+            setattr(m, n, fn)
+    return calls, restore
+
+
+def tvf_learn_kwargs(name):
+    """The entry point and its keywords for a learn of phases 36-39."""
+    import numpy as np
+    from bpldenoising_tpu_torch.experiments import api
+    from bpldenoising_tpu_torch.solvers.hypergrad import HypergradConfig
+    kw = dict(dataset_name="faces_train", num_samples=10, dtype="float32",
+              method="tr_fused", maxiter=20, tol=1e-5, inner_maxiter=5000,
+              inner_tol=1e-6, check_every=100,
+              hypergrad_cfg=HypergradConfig(al_iters=2, cg_maxiter=100))
+    if name == "patch_tv":
+        return api.patch_bilevel_tv_learn, kw
+    if name == "sumregs":
+        return api.scalar_bilevel_sumregs_learn, kw
+    if name == "patch_sumregs":
+        return api.patch_bilevel_sumregs_learn, kw
+    return api.patch_bilevel_tv_learn, dict(
+        kw, alpha0=FLAGSHIP_ALPHA * np.ones((16, 16)),
+        delta0=FLAGSHIP_ALPHA / 4, maxiter=16, inner_maxiter=2000,
+        hypergrad_cfg=HypergradConfig())
+
+
+def log_lines(res):
+    """The whole state.log, one entry per outer iteration."""
+    return [f"    {e.iter:2d}: cost {e.function_value:.6f} |g| "
+            f"{e.g_norm:.6g} delta {e.delta:.4g} step {e.step_norm:.4g} "
+            f"CG {int(e.adjoint_cg_iters)} conv {int(e.adjoint_cg_converged)}"
+            for e in res.state.log]
+
+
+def phase_tvf_learn(utrue, timed, name, warm_up=True):
+    """A patch TV / sum-of-regularizers learn through its entry point with
+    method="tr_fused" at bench.py's settings (warm-up run, then timed,
+    counters reset just before and read just after, the plain versions
+    watched), against TVF_REF[name]: the gates that fail are returned
+    under "faults", so that every learn reports before the script
+    fails."""
+    import numpy as np
+    import torch
+    from bpldenoising_tpu_torch.metrics import psnr
+
+    learn, kw = tvf_learn_kwargs(name)
+    if warm_up:
+        learn(device="cuda", **kw)
+    calls, restore = watch_plain()
+    try:
+        reset_launches()
+        res, wall_ms = timed(lambda: learn(device="cuda", **kw))
+        launches = read_launches()
+    finally:
+        restore()
+    ref = TVF_REF[name]
+    x = np.asarray(res.x, dtype=np.float64)
+    x_ref = np.asarray(ref["x"], dtype=np.float64)
+    scale = float(np.abs(x_ref).max())
+    d_alpha = float(np.abs(x - x_ref).max())
+    mean_psnr = float(torch.mean(psnr(utrue, on_device(res, utrue))))
+    cost = float(res.cost)
+    cost_rel = abs(cost - ref["cost"]) / ref["cost"]
+    cg = cg_log(res)
+    if x.size <= 12:
+        say(f"  alpha {np.round(x, 8).tolist()}")
+        say(f"  reference {np.round(x_ref, 8).tolist()}")
+    band = TVF_BAND[name]
+    d_psnr = abs(mean_psnr - ref["psnr"])
+    # (value, nominal gate, the gate: the larger of it and twice the band)
+    checks = dict(alpha=(d_alpha, TVF_ALPHA_GATE * scale),
+                  psnr=(d_psnr, TVF_PSNR_GATE),
+                  cost=(cost_rel, TVF_COST_GATE_REL))
+    gates = {k: max(nominal, 2.0 * band[k])
+             for k, (_, nominal) in checks.items()}
+    nominal_in = {k: "in" if v <= nominal else "out"
+                  for k, (v, nominal) in checks.items()}
+    say(f"  max|d alpha| {d_alpha:.3e} = {d_alpha / scale:.2e} x max|alpha| "
+        f"(gate {gates['alpha']:.3e}; nominal {TVF_ALPHA_GATE:g} x max: "
+        f"{nominal_in['alpha']}); PSNR {mean_psnr:.6f} dB (reference "
+        f"{ref['psnr']:.6f}, |d| {d_psnr:.2e}, gate {gates['psnr']:.3g}; "
+        f"nominal {TVF_PSNR_GATE:g}: {nominal_in['psnr']}); cost "
+        f"{cost:.6f} (reference {ref['cost']:.6f}, rel {cost_rel:.2e}, "
+        f"gate {gates['cost']:.3g}; nominal {TVF_COST_GATE_REL:g}: "
+        f"{nominal_in['cost']}); {res.iterations} outer its (reference "
+        f"{ref['iterations']}); adjoint CG {cg[0]} its, capped in {cg[1]}")
+    for line in log_lines(res):
+        say(line)
+    after = ", after one warm-up run" if warm_up else ""
+    say(f"  wall {wall_ms:.1f} ms (CUDA events{after}; PNG load included); "
+        f"launches {launches}; plain-version calls {len(calls)}")
+    faults = [msg for ok, msg in (
+        (launches["pdps"] > 0 and launches["hypergrad"] > 0 and not calls,
+         f"{name} learn: launches {launches}, plain calls {calls[:3]}"),
+        (d_alpha <= gates["alpha"], f"{name} alpha off by {d_alpha}"),
+        (d_psnr <= gates["psnr"], f"{name} mean PSNR {mean_psnr}"),
+        (cost_rel <= gates["cost"], f"{name} final cost {cost}"))
+        if not ok]
+    return dict(alpha_abs_err=d_alpha, alpha_scale=scale,
+                mean_psnr_db=mean_psnr, final_cost=cost,
+                outer_iterations=res.iterations, adjoint_cg=cg[0],
+                nominal_gates=nominal_in, wall_ms=wall_ms,
+                launches=launches, faults=faults)
+
+
+def phase_tvf_witness(name):
+    """A float64 witness: the learn through its entry point in float64 on
+    the card against the JAX package's float64 run (TVF_WITNESS[name])."""
+    import numpy as np
+    from bpldenoising_tpu_torch.solvers.hypergrad import HypergradConfig
+
+    ref = TVF_WITNESS[name]
+    learn, kw = tvf_learn_kwargs(name)
+    res = learn(device="cuda", **dict(
+        kw, dtype="float64", maxiter=ref["maxiter"],
+        hypergrad_cfg=HypergradConfig(al_iters=2, cg_maxiter=1000,
+                                      act_tol=1e-4)))
+    x = np.asarray(res.x, dtype=np.float64)
+    x_ref = np.asarray(ref["x"])
+    d_rel = float(np.abs(x - x_ref).max() / np.abs(x_ref).max())
+    cost_rel = abs(float(res.cost) - ref["cost"]) / ref["cost"]
+    say(f"  {name}: alpha {x.ravel().tolist()} (reference "
+        f"{x_ref.ravel().tolist()}): max|d| {d_rel:.2e} x max|alpha|; cost "
+        f"{float(res.cost)!r} (reference {ref['cost']!r}) rel "
+        f"{cost_rel:.2e} (gate {TVF_WITNESS_GATE_REL:g}); "
+        f"{res.iterations} outer its")
+    for line in log_lines(res):
+        say(line)
+    ok = d_rel <= TVF_WITNESS_GATE_REL and cost_rel <= TVF_WITNESS_GATE_REL
+    return dict(alpha_rel_err=d_rel, cost_rel_err=cost_rel, faults=[] if ok
+                else [f"float64 {name} witness: alpha {d_rel}, cost "
+                      f"{cost_rel}"])
+
+
 def flagship_kwargs():
     from bpldenoising_tpu_torch.solvers.hypergrad import HypergradConfig
     return dict(dataset_name="faces_train", num_samples=10,
@@ -2133,6 +2570,29 @@ def main():
     slx = {name: phases_slx(torch, dev, timed, name, 22 + 4 * i)
            for i, name in enumerate(("tgv", "tvl1", "vtv"))}
 
+    say("phase 34 kernel A K=3 and map forms vs plain, 10x128x128 and "
+        "1x2048x2048 float32")
+    u3, umap, amap, forms_a = phase_forms_a(f, timed)
+    say("phase 35 kernel B K=3 and map forms vs plain, 10x128x128 float32, "
+        "then A and B forms in float64")
+    forms_b = phase_forms_b(u3, umap, amap, utrue, timed)
+    forms_f64 = phase_forms_f64(torch, dev)
+    tvf = {}
+    for i, (name, title) in enumerate((
+            ("patch_tv", "patch_bilevel_tv_learn 2x2"),
+            ("sumregs", "scalar_bilevel_sumregs_learn"),
+            ("patch_sumregs", "patch_bilevel_sumregs_learn 2x2x3"),
+            ("grid16", "patch_bilevel_tv_learn 16x16 (L-BFGS)"))):
+        say(f"phase {36 + i} {title}(method='tr_fused')")
+        tvf[name] = phase_tvf_learn(utrue, timed, name,
+                                    warm_up=name != "grid16")
+    say("phase 40 float64 witnesses: scalar_bilevel_sumregs_learn and "
+        "patch_bilevel_tv_learn(method='tr_fused')")
+    for name in ("sumregs", "patch_tv"):
+        tvf[f"{name}_witness_f64"] = phase_tvf_witness(name)
+    faults = [m for st in tvf.values() for m in st.pop("faults")]
+    require(not faults, "; ".join(faults))
+
     itemsize = 4
     a_bytes = 4 * n * itemsize                  # f in; u, y out
     a_ops = A_OPS_PER_PIXEL_ITER * n * a_stats["iters"]
@@ -2231,6 +2691,49 @@ def main():
              plain_ms=sl_tiled["plain_ms"], bound_ms=st_bound,
              bound_by=st_by, library_ms=None),
     ]
+    # rows 1-3 in their K = 3 and map forms (phases 34, 35): A's cold
+    # 5000-iteration calls (f and a map weight in; u and the K duals out),
+    # B's exact form (u, ū, p0 and a map weight in; p and its gradient map
+    # out)
+    sr_kinds, n_it = (0, 1, 2), forms_a["k3"]["iters"]
+    plane = f.shape[-2] * f.shape[-1]
+    for name, kinds, maps, st, learn in (
+            ("pdps_cp_sumregs", sr_kinds, 0, forms_a["k3"], "sumregs"),
+            ("pdps_cp_tv_map", (0,), 1, forms_a["map"], "patch_tv")):
+        bound, by = bound_ms(((2 + 2 * len(kinds)) * n + maps * plane)
+                             * itemsize,
+                             a_ops_per_pixel_iter(kinds, maps) * n * n_it)
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="bpldenoising_tpu_torch/csrc/pdps.cu",
+            replaces="bpldenoising_tpu/solvers/pdps_pallas.py:234",
+            launches=tvf[learn]["launches"]["pdps"],
+            max_abs_err=st["max_abs_err"], ms=st["ms"],
+            plain_ms=st["plain_ms"], bound_ms=bound, bound_by=by,
+            library_ms=None))
+    big = forms_a["k3_2048"]
+    kernels.append(dict(
+        name="pdps_cp_sumregs_2048", route="cuda",
+        source="bpldenoising_tpu_torch/csrc/pdps.cu",
+        replaces="bpldenoising_tpu/solvers/pdps_pallas.py:339", launches=0,
+        max_abs_err=big["max_abs_err"], ms=big["ms"],
+        plain_ms=big["plain_ms"], bound_ms=big["bound_ms"],
+        bound_by=big["bound_by"], library_ms=None))
+    for name, kinds, maps, st, learn in (
+            ("hypergrad_al_pcg_sumregs", sr_kinds, 0, forms_b["k3"],
+             "sumregs"),
+            ("hypergrad_al_pcg_maps", (0,), 1, forms_b["map"], "patch_tv")):
+        ex = st["exact"]
+        bound, by = bound_ms((4 * n + maps * (plane + n)) * itemsize,
+                             n * b_ops_per_pixel(kinds, ex["total_cg"], 2))
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="bpldenoising_tpu_torch/csrc/hypergrad.cu",
+            replaces="bpldenoising_tpu/solvers/hypergrad_pallas.py:47",
+            launches=tvf[learn]["launches"]["hypergrad"],
+            max_abs_err=st["max_abs_err"], ms=ex["ms"],
+            plain_ms=ex["plain_ms"], bound_ms=bound, bound_by=by,
+            library_ms=None))
     # the other families' learners: the library call's 300 outer steps at
     # the bench shape (phase (c))
     for name, line in (("tgv", 55), ("tvl1", 63), ("vtv", 54)):
@@ -2257,7 +2760,9 @@ def main():
         "single_loop_sumregs_learn": sl_sumregs,
         "single_loop_batch64": sl_tiled,
         "single_loop_tgv": slx["tgv"], "single_loop_tvl1": slx["tvl1"],
-        "single_loop_vtv": slx["vtv"], "device": smi}))
+        "single_loop_vtv": slx["vtv"], "forms_a": forms_a,
+        "forms_b": forms_b, "forms_f64_max_rel_err": forms_f64,
+        "tv_family_learns": tvf, "device": smi}))
     faulthandler.cancel_dump_traceback_later()
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

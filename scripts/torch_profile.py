@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Where the time of one of the port's learns goes, on one NVIDIA GPU.
 
-    python3 scripts/torch_profile.py {tv,tgv,tvl1,vtv,single_loop,
-                                      single_loop_tgv,single_loop_tvl1,
-                                      single_loop_vtv}
+    python3 scripts/torch_profile.py {tv,patch_tv,sumregs,grid16,tgv,tvl1,
+                                      vtv,single_loop,single_loop_tgv,
+                                      single_loop_tvl1,single_loop_vtv}
 
 Runs the family's fused learn on its preloaded float32 dataset with the
 settings of ``chip_smoke.py``: TV (the flagship) and TGV² on
@@ -11,15 +11,22 @@ settings of ``chip_smoke.py``: TV (the flagship) and TGV² on
 (1 × 128²), VTV on ``color_disks_128_10`` (6 × 3 × 128²); TV-L1 and VTV
 for the scalar weight and the 2×2 patch grid, TV and TGV for the scalar:
 
+``patch_tv``, ``sumregs`` and ``grid16`` run the fused TV-family learns
+of ``chip_smoke.py`` phases 36-39 on the faces images: the 2×2 patch TV
+grid; the sum of regularizers' (3,) weights and its (2, 2, 3) patch
+stack; the 16×16 TV grid (L-BFGS), each with its entry point's
+parameters.  For each:
+
 1. the learn's wall time over two runs after a warm-up (CUDA events);
 2. the split of one run between the inner solve (the family's kernel
    wrapper), the adjoint (kernel B's hypergradient for TV, the plain
    PyTorch adjoint CG for the others) and the rest (trust-region host
    code, cost, the one read per evaluation), each call timed on the host
    between synchronisations, with the inner and CG iteration counts;
-3. the scalar learn, cut to the family's profiled outer iterations (the
-   whole learn for TV and TV-L1, 2 for TGV and 3 for VTV, whose adjoint
-   CGs launch more small kernels than the profiler handles in one call),
+3. the first learn, cut to the family's profiled outer iterations (the
+   whole learn for TV, TV-L1, the patch TV and the sum of regularizers,
+   2 for TGV and the 16×16 grid and 3 for VTV, whose adjoint CGs launch
+   more small kernels than the profiler handles in one call),
    under ``torch.profiler``: device busy time (kernels and copies only),
    idle share (1 − busy/wall) and device time by kernel name.
 
@@ -57,6 +64,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 FAMILIES = {
     "tv": ("fused", ("denoise_pdps_cuda",),
            ("exact_hypergrad_cuda", "reg_hypergrad_cuda"), 20),
+    "patch_tv": ("fused", ("denoise_pdps_cuda",),
+                 ("exact_hypergrad_cuda", "reg_hypergrad_cuda"), 20),
+    "sumregs": ("fused", ("denoise_pdps_cuda",),
+                ("exact_hypergrad_cuda", "reg_hypergrad_cuda"), 20),
+    "grid16": ("fused", ("denoise_pdps_cuda",),
+               ("exact_hypergrad_cuda", "reg_hypergrad_cuda"), 2),
     "tgv": ("fused_tgv", ("tgv_denoise_pdps_cuda",),
             ("tgv_implicit_cotangents",), 2),
     "tvl1": ("fused_tvl1", ("tvl1_huber_denoise_cuda",),
@@ -122,6 +135,47 @@ def setup_single_loop(torch, family):
     return learn, runs, (lambda out: int(out[1][1].shape[0])), None
 
 
+def setup_tv_family(family, torch):
+    """``setup`` for the patch TV, sum-of-regularizers and 16×16 learns:
+    each run carries its own keywords (chip_smoke.tvf_learn_kwargs)."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from bpldenoising_tpu_torch.bilevel import fused
+    from bpldenoising_tpu_torch.data import testdataset
+    from bpldenoising_tpu_torch.experiments import api
+    from bpldenoising_tpu_torch.models import sumregs_model, tv_model
+    from bpldenoising_tpu_torch.solvers import hypergrad_cuda
+
+    runs = {}
+    for label in {"patch_tv": ("patch_tv",),
+                  "sumregs": ("sumregs", "patch_sumregs"),
+                  "grid16": ("grid16",)}[family]:
+        _, kw = cs.tvf_learn_kwargs(label)
+        base = {"patch_tv": api.patch_bilevel_params,
+                "grid16": api.patch_bilevel_params,
+                "sumregs": api.sumregs_bilevel_params,
+                "patch_sumregs": api.patch_sumregs_bilevel_params}[label]
+        kw = dict(kw, delta0=kw.get("delta0", base.delta0),
+                  alpha0=kw.get("alpha0", base.alpha0))
+        runs[label] = (np.asarray(kw["alpha0"]), base | kw)
+    true_np, noisy_np = testdataset("faces_train_128_10")
+    ds = (torch.as_tensor(true_np, dtype=torch.float32).cuda(),
+          torch.as_tensor(noisy_np, dtype=torch.float32).cuda())
+
+    def learn(x0, p):
+        sumregs = family == "sumregs"
+        return fused.bilevel_learn_fused(
+            ds, xinit=x0, params=p,
+            model=sumregs_model() if sumregs else tv_model(),
+            inner_maxiter=p.inner_maxiter, inner_tol=p.inner_tol,
+            check_every=p.check_every, delta_t=1e-3 if sumregs else 1e-6,
+            cfg=p.hypergrad_cfg, device="cuda")
+
+    return (learn, runs, lambda out: out[-1],
+            lambda out: hypergrad_cuda.last_total_cg_iters)
+
+
 def setup(family, torch):
     """The family's data on the card, its learn ``learn(x0, params)``, its
     runs ``{label: (x0, params)}`` and the counters read after a timed
@@ -140,6 +194,8 @@ def setup(family, torch):
         return out[-1].iters
 
     extra = {}
+    if family in ("patch_tv", "sumregs", "grid16"):
+        return setup_tv_family(family, torch)
     if family == "tv":
         kw = cs.flagship_kwargs()
         name, color, fn = ("faces_train_128_10", False,
@@ -284,7 +340,7 @@ def main():
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    x0, params = runs["scalar"]
+    x0, params = next(iter(runs.values()))
     short = params | dict(maxiter=prof_its)
     learn(x0, short)
     with profile(activities=[ProfilerActivity.CPU,
@@ -308,7 +364,8 @@ def main():
     for name, (ms, count) in top:
         print(f"  device {ms:8.2f} ms  {count:7d}x  {name[:70]}", flush=True)
     idle = 1.0 - busy / prof_wall if busy > 0 else None
-    print(f"profiled scalar learn ({prof_its} outer its max): wall "
+    print(f"profiled {next(iter(runs))} learn ({prof_its} outer its max): "
+          f"wall "
           f"{prof_wall:.1f} ms (host clock, profiler on), device busy "
           f"{busy:.2f} ms, idle share "
           f"{'not measured' if idle is None else f'{idle:.3f}'} (self "

@@ -169,10 +169,15 @@ def test_vector_alpha_sumregs_matches_jax():
 
 
 def test_patch_and_nonpositive_parameters_raise():
+    """A patch grid runs (the patch operator's pullback; its trajectory
+    against the JAX package is in test_torch_fused_sumregs.py); x₀ ≤ 0
+    raises."""
     ds = _dataset(1, 16, seed=1)
-    with pytest.raises(NotImplementedError):
-        bilevel_learn_fused(ds, xinit=0.1 * np.ones((2, 2)),
-                            params=Params(TR, maxiter=1), device="cpu")
+    res = bilevel_learn_fused(ds, xinit=0.1 * np.ones((2, 2)),
+                              params=Params(TR, maxiter=1), device="cpu",
+                              inner_maxiter=50)
+    assert tuple(res.x.shape) == (2, 2) and res.iterations == 1
+    assert bool(torch.all(torch.isfinite(res.log[0])))
     with pytest.raises(ValueError):
         bilevel_learn_fused(ds, xinit=0.0, params=Params(TR, maxiter=1),
                             device="cpu")

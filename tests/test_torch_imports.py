@@ -98,7 +98,8 @@ def _profile_script():
     return mod
 
 
-@pytest.mark.parametrize("family", ["tv", "tgv", "tvl1", "vtv",
+@pytest.mark.parametrize("family", ["tv", "patch_tv", "sumregs", "grid16",
+                                    "tgv", "tvl1", "vtv",
                                     "single_loop", "single_loop_tgv",
                                     "single_loop_tvl1", "single_loop_vtv"])
 def test_profile_script_times_names_the_learn_calls(family):

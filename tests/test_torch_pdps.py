@@ -142,15 +142,34 @@ def test_cuda_wrapper_runs_plain_version_on_cpu(data):
 
 
 def test_kernel_input_checks():
-    """What the CUDA kernels refuse, checked before any launch."""
-    assert pdps_cuda.scalar_alpha((torch.tensor(0.25),)) == 0.25
-    with pytest.raises(NotImplementedError):
-        pdps_cuda.scalar_alpha((torch.ones(4, 4),))
-    with pytest.raises(NotImplementedError):
-        pdps_cuda.scalar_alpha((0.1, 0.2))
-    with pytest.raises(NotImplementedError):
-        pdps_cuda.check_tv_model(sumregs_model())
-    pdps_cuda.check_tv_model(tv_model())
+    """What the CUDA kernels refuse, checked before any launch: the channel
+    model, more than three blocks or another operator, weights that are
+    neither scalars nor (M, N) maps, and tensors off the card (other
+    dtypes: the cuda-marked tests).  The three stencils, scalar and map
+    weights pass."""
+    from bpldenoising_tpu_torch.models import DenoiseModel, vtv_model
+    from bpldenoising_tpu_torch.ops import (BwdGradientOp,
+                                            CenteredGradientOp, PatchOp)
+    f = torch.zeros((2, 4, 6), dtype=torch.float64)
+    K, kinds, scalars, addrs, maps = pdps_cuda.kernel_blocks(
+        sumregs_model(), (0.25, torch.full((4, 6), 0.5), 0.125), f)
+    assert (K, list(kinds), list(scalars)) == (3, [0, 1, 2],
+                                               [0.25, 0.0, 0.125])
+    assert addrs[0] == addrs[2] == 0 and addrs[1] == maps[0].data_ptr()
+    assert maps[0].dtype == f.dtype and maps[0].is_contiguous()
+    K, kinds, _, _, _ = pdps_cuda.kernel_blocks(
+        DenoiseModel(ops=(CenteredGradientOp(), BwdGradientOp())), (1, 2), f)
+    assert (K, list(kinds)) == (2, [2, 1])
+    for model in (vtv_model(),
+                  DenoiseModel(ops=(CenteredGradientOp(),) * 4),
+                  DenoiseModel(ops=(PatchOp((2, 2), (4, 6)),))):
+        with pytest.raises(NotImplementedError):
+            pdps_cuda.kernel_blocks(model, (0.1,) * model.K, f)
+    for bad in (torch.ones(2, 4, 6), torch.ones(4, 4), torch.ones(3)):
+        with pytest.raises(NotImplementedError):
+            pdps_cuda.kernel_blocks(tv_model(), (bad,), f)
+    with pytest.raises(ValueError):
+        pdps_cuda.kernel_blocks(sumregs_model(), (0.1, 0.2), f)
     with pytest.raises(ValueError):
         pdps_cuda.check_cuda_input(torch.zeros(2, 4, 4))
 
