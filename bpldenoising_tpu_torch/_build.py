@@ -81,7 +81,12 @@ def build() -> BuildInfo:
             failed.append(src)
     log = "\n".join(logs)
     if failed:
-        raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        # the failed sources' logs, their error lines last (a long
+        # -Xptxas -v log must not push them out of a truncated output)
+        bad = "\n".join(t for src, t in zip(SOURCES, logs) if src in failed)
+        errors = [line for line in bad.splitlines() if "error" in line]
+        raise RuntimeError(f"nvcc failed on {failed}:\n{bad[-8000:]}\n"
+                           "errors:\n" + "\n".join(errors[-40:]))
     tmp = out.with_name(f"{tag}.tmp.so")
     link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
                            *map(str, objs)],
@@ -134,7 +139,8 @@ def _declare(lib):
                                   ctypes.POINTER(_I), _P]
         fn.restype = _I
         fn = getattr(lib, f"bpl_single_loop_{suffix}")
-        fn.argtypes = [_P] * 11 + [_LL] + [_I] * 11 + [real] * 9 + [_P]
+        fn.argtypes = ([_P] * 11 + [_LL] + [_I] * 14 + [real] * 9
+                       + [ctypes.POINTER(_I), _P])
         fn.restype = _I
         fn = getattr(lib, f"bpl_sl_tgv_{suffix}")
         fn.argtypes = [_P] * 13 + [_LL] + [_I] * 7 + [real] * 9 + [_P]
@@ -148,7 +154,7 @@ def _declare(lib):
         fn = getattr(lib, f"bpl_sl_stencil_{suffix}")
         fn.argtypes = [_I, _I, _P, _P, _LL, _I, _I, _P]
         fn.restype = _I
-    lib.bpl_sl_scratch.argtypes = [_LL, _I, _I, _I, _I, _I]
+    lib.bpl_sl_scratch.argtypes = [_LL] + [_I] * 9
     lib.bpl_sl_scratch.restype = _LL
     for name, n_int in (("tgv", 3), ("tvl1", 3), ("vtv", 4)):
         fn = getattr(lib, f"bpl_sl_{name}_scratch")

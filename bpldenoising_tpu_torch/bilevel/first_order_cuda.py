@@ -25,10 +25,15 @@ bit-identical either way).
 
 :func:`_launch` runs one segment on the card: it takes and returns the
 carry ``(u, ys, p, z, (m, v), t)`` and always returns all three
-trajectories.
+trajectories.  :func:`pd_plan` chooses the PD phase's thread-block
+cluster: one cluster per image, each CTA a band of rows held in shared
+memory for the whole phase.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -40,16 +45,73 @@ from .first_order import _prepare, _single_loop_impl, step_sizes
 from .pcg import CG_VARIANTS
 
 __all__ = ["single_loop_cuda", "single_loop_cuda_tiled",
-           "single_loop_tv_cuda", "stencil_cuda", "launches"]
+           "single_loop_tv_cuda", "stencil_cuda", "pd_plan", "PdPlan",
+           "launches", "kernel_launches"]
 
 #: calls that launched the CUDA learner (one per segment)
 launches = 0
+#: kernel launches those calls issued on the card (as the C loop counts
+#: them: 4 + 2·n_adj per outer step with the classic CG, 5 + n_adj with
+#: the pipelined one, and one per segment)
+kernel_launches = 0
+
+#: the largest portable thread-block cluster (csrc/single_loop.cu's
+#: PD_MAX_CLUSTER)
+MAX_CLUSTER = 8
+#: the dynamic shared memory a block may opt in to on an H100 (227 KB)
+SMEM_PER_BLOCK = 232448
 
 # stencil kinds of csrc/single_loop.cu, in the order of ops/grad.py
 _KINDS = {FwdGradientOp: 0, BwdGradientOp: 1, CenteredGradientOp: 2}
 _MAX_K = 8   # SL_MAXK in csrc/single_loop.cu
 
 _TV = tv_model()
+
+
+class PdPlan(NamedTuple):
+    """The PD phase's launch for one image: ``cluster`` CTAs, each owning
+    ``rows`` image rows (the last CTAs may own fewer, or none), with
+    ``planes`` band planes (u, ū and the K duals' two components) of
+    rows + 4 rows (two halo rows above and below) and 16·K halo-slot rows
+    (two parities, two sides, two rows, 2K planes), each of N elements;
+    ``smem`` bytes of dynamic shared memory per CTA, ``resident`` when the
+    bands live there (else in a global scratch laid out alike, ``smem``
+    0)."""
+    cluster: int
+    rows: int
+    planes: int
+    smem: int
+    resident: bool
+
+
+def pd_plan(M: int, N: int, K: int, itemsize: int) -> PdPlan:
+    """The rule for the PD phase's cluster: the largest power of two up to
+    ``MAX_CLUSTER`` that leaves every CTA but the last at least two rows
+    (the halo rows each side then come from the adjacent CTAs; more CTAs
+    per image fill more of the card at small batches, and each adds four
+    halo rows of work), ⌈M / cluster⌉ rows each, and the bands in shared
+    memory when ((2 + 2K)(rows + 4) + 16K)·N·itemsize bytes fit in
+    ``SMEM_PER_BLOCK``.  ``csrc/single_loop.cu`` checks the plan against the
+    card (its opt-in shared memory and ``cudaOccupancyMaxActiveClusters``)
+    and the wrapper raises when it cannot run."""
+    if min(M, N, K, itemsize) < 1:
+        raise ValueError(f"bad shape M={M}, N={N}, K={K}, itemsize="
+                         f"{itemsize}")
+    cluster = 1
+    while cluster * 2 <= min(M // 2, MAX_CLUSTER):
+        cluster *= 2
+    rows = -(-M // cluster)
+    planes = 2 + 2 * K
+    smem = (planes * (rows + 4) + 16 * K) * N * itemsize
+    resident = smem <= SMEM_PER_BLOCK
+    return PdPlan(cluster, rows, planes, smem if resident else 0, resident)
+
+
+def launches_per_step(n_adj: int, cg_variant: str = "classic") -> int:
+    """The kernel launches of one outer step with ``n_inner`` > 0."""
+    if cg_variant == "classic":
+        return 4 + 2 * n_adj
+    return 4 + n_adj + (1 if n_adj > 0 else 0)
 
 
 def _kinds_code(model: DenoiseModel) -> int:
@@ -156,25 +218,31 @@ def _launch(utrue, f, carry, *, model, outer, n_inner, n_adj, pop,
     u = u.contiguous().clone()
     ysk = torch.stack(tuple(ys)).contiguous()          # (K, B, 2, M, N)
     p = p.contiguous().clone()
+    plan = pd_plan(M, N, K, f.element_size())
     lib = _build.library()
-    scratch = torch.empty((lib.bpl_sl_scratch(B, M, N, K, P, tile_b),),
-                          dtype=dtype, device=dev)
+    scratch = torch.empty((lib.bpl_sl_scratch(
+        B, M, N, K, pm, pn, tile_b, plan.cluster, plan.rows,
+        int(plan.resident)),), dtype=dtype, device=dev)
     # τ and σ in the working dtype, as the plain version forms them
     tau, sigma = (float(s) for s in step_sizes(model.opnorm_sq(), tau0,
                                                sigma0, dtype))
     fn = lib.bpl_single_loop_f32 if dtype == torch.float32 \
         else lib.bpl_single_loop_f64
-    global launches
+    issued = ctypes.c_int(0)
+    global launches, kernel_launches
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         launches += 1
         err = fn(f.data_ptr(), utrue.data_ptr(), u.data_ptr(),
                  ysk.data_ptr(), p.data_ptr(),
                  *(a.data_ptr() for a in opt), scratch.data_ptr(), B, M, N,
-                 K, code, pm, pn, tile_b, int(outer), int(n_inner),
-                 int(n_adj), int(cg_variant == "pipelined"), tau, sigma,
-                 float(gamma), *adam_args(lr, beta1, beta2, eps), stream)
-    _build.check(err, "single-loop kernel")
+                 K, code, pm, pn, tile_b, plan.cluster, plan.rows,
+                 int(plan.resident), int(outer), int(n_inner), int(n_adj),
+                 int(cg_variant == "pipelined"), tau, sigma, float(gamma),
+                 *adam_args(lr, beta1, beta2, eps), ctypes.byref(issued),
+                 stream)
+    kernel_launches += issued.value
+    _build.check(err, f"single-loop kernel (PD cluster {plan})")
     (z, mv, t), trajs = unpack_opt(*opt, param_shape)
     carry = (u, tuple(ysk[k] for k in range(K)), p, z, mv, t)
     return carry, trajs

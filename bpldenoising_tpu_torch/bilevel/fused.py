@@ -130,8 +130,17 @@ def bilevel_learn_fused(ds, *, xinit, params, model: DenoiseModel = None,
                         inner_tol: float | None = 1e-6,
                         check_every: int = 250, delta_t: float = 1e-6,
                         cfg: HypergradConfig = HypergradConfig(),
+                        mesh=None, log_every: int | None = None,
+                        segment_callback=None, init_B=None,
                         device="cuda") -> FusedResult:
     """Run the trust-region bilevel learning on ``device``.
+
+    ``mesh``, ``log_every``, ``segment_callback`` and ``init_B`` are the
+    JAX function's keywords: ``None`` runs, any other value raises
+    ``NotImplementedError`` (not ported yet), as in the other families'
+    learners.  The JAX function's ``backend=`` and ``interpret=`` are not
+    taken, as in those learners: by the entry points' ``check_backend``
+    rule the port has no backends, and ``device=`` chooses what runs.
 
     Args:
       ds: ``(true_images, noisy_images)`` stacks, (O, M, N) or (M, N),
@@ -145,6 +154,11 @@ def bilevel_learn_fused(ds, *, xinit, params, model: DenoiseModel = None,
       device: where the images and solver state live; ``"cuda"`` launches
         the CUDA kernels, ``"cpu"`` runs their plain versions.
     """
+    for name, value in (("mesh", mesh), ("log_every", log_every),
+                        ("segment_callback", segment_callback),
+                        ("init_B", init_B)):
+        if value is not None:
+            raise NotImplementedError(f"{name} is not ported yet")
     utrue = torch.as_tensor(ds[0]).to(device)
     f = torch.as_tensor(ds[1]).to(device=device, dtype=utrue.dtype)
     if f.ndim == 2:

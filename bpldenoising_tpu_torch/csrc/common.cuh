@@ -57,21 +57,23 @@ __device__ __forceinline__ Pix pix_of(long long idx, int M, int N) {
 // sum-of-regularizers learner also uses (csrc/single_loop.cu).  With a
 // literal kind the switch folds away at compile time.  Each 1-D helper
 // works along one axis at position i of n with stride s (N for rows, 1 for
-// columns), in the order of the plain version's slices and concatenations.
+// columns), in the order of the plain version's slices and concatenations;
+// idx and s are of one index type I (long long on global stacks, int in
+// shared memory).
 enum Stencil { STENCIL_FWD = 0, STENCIL_BWD = 1, STENCIL_CEN = 2 };
 
-template <typename T>
-__device__ __forceinline__ T diff1(const T* v, long long idx, int i, int n,
-                                   long long s, int kind) {
+template <typename T, typename I>
+__device__ __forceinline__ T diff1(const T* v, I idx, int i, int n, I s,
+                                   int kind) {
   if (kind == STENCIL_FWD) return i < n - 1 ? v[idx + s] - v[idx] : T(0);
   if (kind == STENCIL_BWD) return i >= 1 ? v[idx] - v[idx - s] : T(0);
   return (i >= 1 && i < n - 1) ? (v[idx + s] - v[idx - s]) * T(0.5) : T(0);
 }
 
 // The adjoint of diff1 (−div along the axis): dplus_T, dminus_T, dcent_T.
-template <typename T>
-__device__ __forceinline__ T adj1(const T* q, long long idx, int i, int n,
-                                  long long s, int kind) {
+template <typename T, typename I>
+__device__ __forceinline__ T adj1(const T* q, I idx, int i, int n, I s,
+                                  int kind) {
   if (kind == STENCIL_FWD) {
     T a = i >= 1 ? q[idx - s] : T(0);
     T b = i < n - 1 ? q[idx] : T(0);
@@ -89,9 +91,9 @@ __device__ __forceinline__ T adj1(const T* q, long long idx, int i, int n,
 }
 
 // diag(Dᵀ diag(w) D) along the axis: dplus_gram, dminus_gram, dcent_gram.
-template <typename T>
-__device__ __forceinline__ T gram1(const T* w, long long idx, int i, int n,
-                                   long long s, int kind) {
+template <typename T, typename I>
+__device__ __forceinline__ T gram1(const T* w, I idx, int i, int n, I s,
+                                   int kind) {
   if (kind == STENCIL_FWD) {
     T a = i >= 1 ? w[idx - s] : T(0);
     T b = i < n - 1 ? w[idx] : T(0);

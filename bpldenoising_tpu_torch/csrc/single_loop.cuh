@@ -1,10 +1,12 @@
-// The single-loop learners' shared state and kernels: TPU kernels 9 and 10
-// (single_loop.cu, TV and the sum of gradient regularizers), 11 (TGV²,
+// The single-loop learners' shared state and kernels: TPU kernels 11 (TGV²,
 // single_loop_tgv.cu), 12 (TV-L1, single_loop_tvl1.cu) and 13 (VTV,
-// single_loop_vtv.cu) include this header.  Each learner keeps its state in
-// global memory, runs one thread per pixel or element and uses launch
-// boundaries as its barriers; a C loop issues the launches and nothing is
-// read back to the host between the first and the last.  Shared here:
+// single_loop_vtv.cu) build on this header; TPU kernels 9 and 10
+// (single_loop.cu, TV and the sum of gradient regularizers) have their own
+// design and take only SL_MAXK and sl_bad_args from here.  Each learner
+// here keeps its state in global memory, runs one thread per pixel or
+// element and uses launch boundaries as its barriers; a C loop issues the
+// launches and nothing is read back to the host between the first and the
+// last.  Shared here:
 //   SL<T>, the learner's device view (the CG planes, the parameter z =
 //     log α, Adam's moments, the trajectories, the partials);
 //   sl_exp (x = exp(z) and its trajectory), sl_amap (α as (M, N) maps for
@@ -13,8 +15,8 @@
 //   the γ-smoothed gradient-regularizer system (sl_setup, sl_diag,
 //     sl_weights, sl_apply: solvers/hypergrad.py::build_reg_system, with
 //     the TV-L1 data Hessian D in place of I where dfac is set);
-//   the CG (sl_cg_init, sl_finish, sl_cg_update, sl_cg_dir, and the
-//     pipelined form of bilevel/pcg.py): per-tile inner products from
+//   the classic CG (sl_cg_init, sl_finish, sl_cg_update, sl_cg_dir):
+//     per-tile inner products from
 //     fixed-order block partials and a one-block finishing kernel per
 //     tile, whose scalars stay on the device.  A tile of one image gives
 //     the per-image inner products of solvers/krylov.py::cg_batched;
@@ -31,16 +33,16 @@ namespace bpl {
 
 #define SL_MAXK 8
 
-// B·M·N work planes.  Classic CG: R = r, Z = z, D = d, MD = Md.
-// Pipelined CG: R = r, Z = u = P⁻¹r, MD = w = Au, D = the direction,
-// S = s.  Then, per regularizer k, K_PLANES planes from SL_BASE.
-enum SlPlane { UBAR, R, Z, D, MD, S, INV_DIAG, SL_BASE };
+// B·M·N work planes of the classic CG: R = r, Z = z, D = d, MD = Md
+// (UBAR is TV-L1's ū).  Then, per regularizer k, K_PLANES planes from
+// SL_BASE.
+enum SlPlane { UBAR, R, Z, D, MD, INV_DIAG, SL_BASE };
 enum SlKPlane { GUX, GUY, ACT, INV_DEN, INV_DEN3, WX, WY, K_PLANES };
 // per-tile device scalars
-enum SlSlot { S_RZ, S_A, S_BETA, S_GPREV, S_APREV, N_SL_SLOTS };
+enum SlSlot { S_RZ, S_A, S_BETA, N_SL_SLOTS };
 // what sl_apply sums; what sl_finish forms from the sums
-enum SlApply { APPLY_PLAIN, APPLY_DMD, APPLY_PIPE };
-enum SlFinish { FIN_RZ0, FIN_ALPHA, FIN_BETA, FIN_PIPE };
+enum SlApply { APPLY_PLAIN, APPLY_DMD };
+enum SlFinish { FIN_RZ0, FIN_ALPHA, FIN_BETA };
 
 // Element counts of the scratch buffer's parts: `planes` work elements,
 // then the gradient maps, exp(z), the pulled-back gradient, the CG
@@ -63,15 +65,15 @@ static SlSizes sl_layout(long long n, long long tile_n, int M, int N, int K,
   z.planes = planes;
   z.gmap = (long long)K * mn;
   z.kp = (long long)K * P;
-  z.partials = 2LL * z.n_tiles * z.bpt;
+  z.partials = (long long)z.n_tiles * z.bpt;
   z.cost_part = z.nb_mn;
   z.scal = (long long)N_SL_SLOTS * z.n_tiles;
   z.total = z.planes + z.gmap + 2 * z.kp + z.partials + z.cost_part + z.scal;
   return z;
 }
 
-// The learner over K gradient regularizers (single_loop.cu, TV-L1 too):
-// the work planes of SlPlane and K × SlKPlane, tiles of tile_b images.
+// The TV-L1 learner over K gradient regularizers: the work planes of
+// SlPlane and K × SlKPlane, tiles of tile_b images.
 static SlSizes sl_sizes(long long B, int M, int N, int K, int P,
                         int tile_b) {
   const long long n = B * (long long)M * N;
@@ -95,7 +97,7 @@ struct SL {
   T* gmap;      // K × M·N
   T* xk;        // exp(z): K × P
   T* gx;        // the pulled-back gradient: K × P
-  T* partials;  // 2 × n_tiles × bpt
+  T* partials;  // n_tiles × bpt
   T* cost_part; // nb_mn
   T* scal;      // N_SL_SLOTS × n_tiles
   long long n, mn, tile_n;
@@ -124,9 +126,8 @@ struct SL {
   __device__ T& slot(int s, int tile) const {
     return scal[(long long)s * n_tiles + tile];
   }
-  __device__ T* partial(int which) const {
-    return partials + ((long long)which * n_tiles + blockIdx.y) * bpt
-           + blockIdx.x;
+  __device__ T* partial() const {
+    return partials + (long long)blockIdx.y * bpt + blockIdx.x;
   }
 };
 
@@ -236,19 +237,15 @@ __global__ void sl_weights(SL<T> h, const T* __restrict__ v) {
 }
 
 // out = v + Σₖ Gₖᵀ(WX, WY)ₖ (+ (d − 1)·v for TV-L1), with block partials
-// of d·Md (APPLY_DMD) or of r·u and w·u (APPLY_PIPE, v = u, out = w).
+// of d·Md (APPLY_DMD).
 // The block partials of an operator launch (one per block of its tile):
-// s0 (d·Md or r·u) and, pipelined, s1 (w·u).  Nothing for APPLY_PLAIN.
+// s0 (d·Md).  Nothing for APPLY_PLAIN.
 template <typename T>
 __device__ __forceinline__ void sl_apply_partials(const SL<T>& h, int mode,
-                                                  T s0, T s1, T* sh) {
+                                                  T s0, T* sh) {
   if (mode == APPLY_PLAIN) return;   // uniform over the launch
   T a = block_sum(s0, sh);
-  T b = block_sum(s1, sh);
-  if (threadIdx.x == 0) {
-    *h.partial(0) = a;
-    if (mode == APPLY_PIPE) *h.partial(1) = b;
-  }
+  if (threadIdx.x == 0) *h.partial() = a;
 }
 
 // The Jacobi step z = P⁻¹r with the preconditioner value pre at a pixel.
@@ -274,7 +271,7 @@ __global__ void sl_apply(SL<T> h, const T* __restrict__ v,
   __shared__ T sh[BPL_THREADS];
   long long idx;
   const bool live = sl_pixel(h, idx);
-  T s0 = T(0), s1 = T(0);
+  T s0 = T(0);
   if (live) {
     Pix p = pix_of(idx, h.M, h.N);
     T vv = v[idx];
@@ -284,14 +281,9 @@ __global__ void sl_apply(SL<T> h, const T* __restrict__ v,
                       idx, p, h.M, h.N, h.kind[k]);
     if (h.dfac) mv = mv + (h.dfac[idx] - T(1)) * vv;
     out[idx] = mv;
-    if (mode == APPLY_DMD) {
-      s0 = vv * mv;
-    } else if (mode == APPLY_PIPE) {
-      s0 = h.plane(R)[idx] * vv;
-      s1 = mv * vv;
-    }
+    if (mode == APPLY_DMD) s0 = vv * mv;
   }
-  sl_apply_partials(h, mode, s0, s1, sh);
+  sl_apply_partials(h, mode, s0, sh);
 }
 
 // Classic CG start: r = (ū − u) − Mp (Mp in MD), z = r/diag, d = z;
@@ -310,54 +302,27 @@ __global__ void sl_cg_init(SL<T> h) {
     rz = r * z;
   }
   T s = block_sum(rz, sh);
-  if (threadIdx.x == 0) *h.partial(0) = s;
-}
-
-// Pipelined CG start: r = (ū − u) − Mp, u = r/diag, direction = s = 0.
-template <typename T>
-__global__ void sl_pipe_init(SL<T> h) {
-  long long idx;
-  if (!sl_pixel(h, idx)) return;
-  T r = (h.ut[idx] - h.u[idx]) - h.plane(MD)[idx];
-  h.plane(R)[idx] = r;
-  h.plane(Z)[idx] = h.plane(INV_DIAG)[idx] * r;
-  h.plane(D)[idx] = T(0);
-  h.plane(S)[idx] = T(0);
+  if (threadIdx.x == 0) *h.partial() = s;
 }
 
 // One block per tile: sum the tile's partials in a fixed order and form
 // the CG scalars of bilevel/pcg.py (zero denominators guarded by nz).
 template <typename T>
-__global__ void sl_finish(SL<T> h, int mode, int first) {
+__global__ void sl_finish(SL<T> h, int mode) {
   __shared__ T sh[BPL_THREADS];
   const int tile = blockIdx.x;
   const T* p0 = h.partials + (long long)tile * h.bpt;
-  const T* p1 = h.partials + ((long long)h.n_tiles + tile) * h.bpt;
-  T a0 = T(0), a1 = T(0);
-  for (int k = threadIdx.x; k < h.bpt; k += BPL_THREADS) {
-    a0 += p0[k];
-    if (mode == FIN_PIPE) a1 += p1[k];
-  }
+  T a0 = T(0);
+  for (int k = threadIdx.x; k < h.bpt; k += BPL_THREADS) a0 += p0[k];
   const T s0 = block_sum(a0, sh);
-  const T s1 = block_sum(a1, sh);
   if (threadIdx.x != 0) return;
   if (mode == FIN_RZ0) {
     h.slot(S_RZ, tile) = s0;
   } else if (mode == FIN_ALPHA) {          // a = ρ/(d·Md)
     h.slot(S_A, tile) = h.slot(S_RZ, tile) / nz(s0);
-  } else if (mode == FIN_BETA) {           // β = ρ_new/ρ; ρ ← ρ_new
+  } else {                                 // β = ρ_new/ρ; ρ ← ρ_new
     h.slot(S_BETA, tile) = s0 / nz(h.slot(S_RZ, tile));
     h.slot(S_RZ, tile) = s0;
-  } else {                                 // γ = (r, u), δ = (w, u)
-    const T g = s0, d = s1;
-    const T gp = first ? T(1) : h.slot(S_GPREV, tile);
-    const T ap = first ? T(1) : h.slot(S_APREV, tile);
-    const T beta = first ? T(0) : g / nz(gp);
-    const T a = g / nz(d - beta * g / nz(ap));
-    h.slot(S_BETA, tile) = beta;
-    h.slot(S_A, tile) = a;
-    h.slot(S_GPREV, tile) = g;
-    h.slot(S_APREV, tile) = a;
   }
 }
 
@@ -377,7 +342,7 @@ __global__ void sl_cg_update(SL<T> h) {
     rz = r * z;
   }
   T s = block_sum(rz, sh);
-  if (threadIdx.x == 0) *h.partial(0) = s;
+  if (threadIdx.x == 0) *h.partial() = s;
 }
 
 // Classic: d = z + β d.
@@ -387,24 +352,6 @@ __global__ void sl_cg_dir(SL<T> h) {
   if (!sl_pixel(h, idx)) return;
   const T beta = h.slot(S_BETA, blockIdx.y);
   h.plane(D)[idx] = h.plane(Z)[idx] + beta * h.plane(D)[idx];
-}
-
-// Pipelined: direction = u + β·direction; s = w + β s; p += a·direction;
-// r −= a s; and the next iteration's u = r/diag.
-template <typename T>
-__global__ void sl_pipe_update(SL<T> h) {
-  long long idx;
-  if (!sl_pixel(h, idx)) return;
-  const T beta = h.slot(S_BETA, blockIdx.y);
-  const T a = h.slot(S_A, blockIdx.y);
-  T dir = h.plane(Z)[idx] + beta * h.plane(D)[idx];
-  T s = h.plane(MD)[idx] + beta * h.plane(S)[idx];
-  h.p[idx] = h.p[idx] + a * dir;
-  T r = h.plane(R)[idx] - a * s;
-  h.plane(D)[idx] = dir;
-  h.plane(S)[idx] = s;
-  h.plane(R)[idx] = r;
-  h.plane(Z)[idx] = h.plane(INV_DIAG)[idx] * r;
 }
 
 // One thread per pixel (i, j) of the image plane: gradient map k is
@@ -584,12 +531,12 @@ void sl_cg_classic(const SL<T>& h, int n_adj, cudaStream_t s,
                    ApplyD apply_d) {
   const dim3 grid(h.bpt, h.n_tiles);
   BPL_LAUNCH(sl_cg_init<T>, grid, BPL_THREADS, s)(h);
-  BPL_LAUNCH(sl_finish<T>, h.n_tiles, BPL_THREADS, s)(h, FIN_RZ0, 0);
+  BPL_LAUNCH(sl_finish<T>, h.n_tiles, BPL_THREADS, s)(h, FIN_RZ0);
   for (int k = 0; k < n_adj; ++k) {
     apply_d();
-    BPL_LAUNCH(sl_finish<T>, h.n_tiles, BPL_THREADS, s)(h, FIN_ALPHA, 0);
+    BPL_LAUNCH(sl_finish<T>, h.n_tiles, BPL_THREADS, s)(h, FIN_ALPHA);
     BPL_LAUNCH(sl_cg_update<T>, grid, BPL_THREADS, s)(h);
-    BPL_LAUNCH(sl_finish<T>, h.n_tiles, BPL_THREADS, s)(h, FIN_BETA, 0);
+    BPL_LAUNCH(sl_finish<T>, h.n_tiles, BPL_THREADS, s)(h, FIN_BETA);
     BPL_LAUNCH(sl_cg_dir<T>, grid, BPL_THREADS, s)(h);
   }
 }

@@ -188,7 +188,7 @@ __global__ void slt_apply(SLTgv<T> g, const T* __restrict__ v,
     out[idx] = mv;
     if (mode == APPLY_DMD) s0 = vv * mv;
   }
-  sl_apply_partials(h, mode, s0, T(0), sh);
+  sl_apply_partials(h, mode, s0, sh);
 }
 
 // One thread per pixel (i, j) of the plane: g₁ = Σ_b ψ_y·(∇λᵤ − λ_w) and

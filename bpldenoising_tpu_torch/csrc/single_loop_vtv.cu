@@ -135,7 +135,7 @@ __global__ void slv_apply(SLVtv<T> g, const T* __restrict__ v,
     out[idx] = mv;
     if (mode == APPLY_DMD) s0 = vv * mv;
   }
-  sl_apply_partials(h, mode, s0, T(0), sh);
+  sl_apply_partials(h, mode, s0, sh);
 }
 
 // One thread per pixel (i, j) of the plane: Σ_b (ψ·∇λ)_F with ψ = g·s,

@@ -1667,17 +1667,24 @@ def phase_sl_kernel(utrue, f, timed):
     from bpldenoising_tpu_torch.bilevel.first_order import _single_loop_plain
     from bpldenoising_tpu_torch.models import tv_model
 
+    from bpldenoising_tpu_torch.bilevel import first_order_cuda as fc
+
     x0, kw = sl_setup(tv_model(), 0.1, f)
     fo._single_loop_impl(utrue, f, x0, outer=2, **kw)     # warm-up
+    fc.kernel_launches = 0
     k, k_ms = timed(lambda: fo._single_loop_impl(utrue, f, x0,
                                                  outer=300, **kw))
+    per_step = (fc.kernel_launches - 1) / 300     # one slc_begin a segment
     p, p_ms = timed(lambda: _single_loop_plain(utrue, f, x0, outer=300,
                                                **kw))
     errs, worst = sl_errors(k, p)
     faults = sl_faults("classic 300", errs)
     say(f"  scalar TV 300/40/10 classic: alpha {float(k.alpha):.8f} / "
-        f"{float(p.alpha):.8f}; {sl_fmt(errs)}; kernel {k_ms:.2f} ms, "
-        f"plain {p_ms:.2f} ms")
+        f"{float(p.alpha):.8f}; {sl_fmt(errs)}; kernel {k_ms:.2f} ms "
+        f"({fc.kernel_launches} kernel launches, {per_step:g} per outer "
+        f"step), plain {p_ms:.2f} ms")
+    require(per_step == fc.launches_per_step(10),
+            f"single-loop launches per outer step {per_step}")
     kc, kc_ms = timed(lambda: fo._single_loop_impl(utrue, f, x0,
                                                    outer=30, **kw))
     kw_p = dict(kw, cg_variant="pipelined")
@@ -1696,46 +1703,87 @@ def phase_sl_kernel(utrue, f, timed):
             + "; ".join(faults))
     return dict(ms=k_ms, plain_ms=p_ms, max_abs_err=max(worst, worst_p),
                 pixels=f.numel(), outer=300, errors=errs,
+                launches_per_step=per_step,
                 classic_30_ms=kc_ms, pipelined_30_ms=kp_ms,
                 pipelined_30_plain_ms=pp_ms, pipelined_errors=errs_p)
 
 
+def sl_disc_stack(torch, device, B, M, N, dtype, seed=0):
+    """(utrue, f): B copies of a disc on M × N under noise of σ 0.1, from
+    a seed (at 3 × 16² the stack phase 18 has always used)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.arange(M), np.arange(N), indexing="ij")
+    disc = ((xx - N / 2) ** 2 + (yy - M / 2) ** 2
+            < (min(M, N) / 3) ** 2).astype(float)
+    clean = np.stack([disc] * B)
+    noisy = clean + 0.1 * rng.standard_normal(clean.shape)
+    return (torch.as_tensor(clean, dtype=dtype).to(device),
+            torch.as_tensor(noisy, dtype=dtype).to(device))
+
+
 def phase_sl_f64(torch, device):
-    """The learner against its plain version in float64 on a 3 × 16² disc
-    stack: the four parameterizations, both CG forms, and two images per
-    tile, at 1e-9 relative."""
+    """The learner against its plain version in float64 on disc stacks
+    whose rows do not divide evenly over the PD cluster's 8 CTAs (16, 20
+    and 22 rows: the last CTAs own two rows, one or none) and whose
+    columns do not fill a CG tile: the four parameterizations, both CG
+    forms, and two images per tile (a short last tile at three images),
+    at 1e-9 relative; then the same kernel with its bands in global
+    memory (1×512² float32 scalar TV, 1×256² float64 K = 3), at the
+    float32 and float64 tolerances."""
     import numpy as np
     from bpldenoising_tpu_torch.bilevel import first_order as fo
+    from bpldenoising_tpu_torch.bilevel import first_order_cuda as fc
     from bpldenoising_tpu_torch.bilevel.first_order import _single_loop_plain
     from bpldenoising_tpu_torch.models import sumregs_model, tv_model
 
-    rng = np.random.default_rng(0)
-    xx, yy = np.meshgrid(np.arange(16), np.arange(16))
-    clean = ((xx - 8) ** 2 + (yy - 8) ** 2 < (16 / 3) ** 2).astype(float)
-    ut = torch.as_tensor(np.stack([clean] * 3)).to(device)
-    f = ut + torch.as_tensor(0.1 * rng.standard_normal((3, 16, 16))).to(
-        device)
     errs = {}
-    for name, model, x0 in (
-            ("tv scalar", tv_model(), 0.02),
-            ("tv patch", tv_model(), np.full((2, 2), 0.02)),
-            ("sumregs vector", sumregs_model(), [0.02, 0.015, 0.01]),
-            ("sumregs patch", sumregs_model(), np.full((2, 2, 3), 0.02))):
-        for variant, tile_b in (("classic", None), ("pipelined", None),
-                                ("classic", 2)):
-            x0t, kw = sl_setup(model, x0, f, n_inner=8, n_adj=4,
-                               cg_variant=variant, tile_b=tile_b)
-            k = fo._single_loop_impl(ut, f, x0t, outer=20, **kw)
-            p = _single_loop_plain(ut, f, x0t, outer=20, **kw)
-            e, _ = sl_errors(k, p)
-            e["u"] = rel_err(k.u, p.u)
-            label = f"{name} {variant}" + (" tile 2" if tile_b else "")
-            errs[label] = max(e.values())
-    say("  float64 3x16x16, 20 outer: max rel err " + ", ".join(
+    for shape in ((3, 16, 16), (3, 20, 16), (2, 22, 24)):
+        ut, f = sl_disc_stack(torch, device, *shape, torch.float64)
+        for name, model, x0 in (
+                ("tv scalar", tv_model(), 0.02),
+                ("tv patch", tv_model(), np.full((2, 2), 0.02)),
+                ("sumregs vector", sumregs_model(), [0.02, 0.015, 0.01]),
+                ("sumregs patch", sumregs_model(),
+                 np.full((2, 2, 3), 0.02))):
+            for variant, tile_b in (("classic", None), ("pipelined", None),
+                                    ("classic", 2)):
+                x0t, kw = sl_setup(model, x0, f, n_inner=8, n_adj=4,
+                                   cg_variant=variant, tile_b=tile_b)
+                k = fo._single_loop_impl(ut, f, x0t, outer=20, **kw)
+                p = _single_loop_plain(ut, f, x0t, outer=20, **kw)
+                e, _ = sl_errors(k, p)
+                e["u"] = rel_err(k.u, p.u)
+                label = (f"{'x'.join(map(str, shape))} {name} {variant}"
+                         + (" tile 2" if tile_b else ""))
+                errs[label] = max(e.values())
+    say("  float64, 20 outer: max rel err " + ", ".join(
         f"{k} {v:.1e}" for k, v in errs.items())
         + f" (tol {TOL_F64_REL:g})")
     require(max(errs.values()) <= TOL_F64_REL,
             f"float64 single-loop rel err {errs}")
+    faults = []
+    for dtype, shape, model, x0 in (
+            (torch.float32, (1, 512, 512), tv_model(), 0.02),
+            (torch.float64, (1, 256, 256), sumregs_model(),
+             [0.02, 0.015, 0.01])):
+        ut, f = sl_disc_stack(torch, device, *shape, dtype)
+        plan = fc.pd_plan(shape[1], shape[2], model.K, f.element_size())
+        x0t, kw = sl_setup(model, x0, f, n_inner=8, n_adj=4)
+        k = fo._single_loop_impl(ut, f, x0t, outer=3, **kw)
+        p = _single_loop_plain(ut, f, x0t, outer=3, **kw)
+        e, _ = sl_errors(k, p)
+        label = f"{'x'.join(map(str, shape))} {str(dtype)[6:]}"
+        say(f"  global bands {label} ({plan}), 3 outer: {sl_fmt(e)}")
+        if dtype == torch.float64:
+            e["u"] = rel_err(k.u, p.u)
+            if max(e.values()) > TOL_F64_REL or plan.resident:
+                faults.append(f"{label}: {e}")
+        else:
+            faults += sl_faults(label, e) + (
+                [f"{label} is resident"] if plan.resident else [])
+    require(not faults, "global-band single-loop kernel: "
+            + "; ".join(faults))
 
 
 def phase_sl_learn(utrue, timed, sumregs):
@@ -1838,16 +1886,23 @@ def phase_sl_tiled(utrue, f, timed):
     args = (big_u, big_f, [1e-3, 1e-3, 1e-3], model)
     _, one_ms = timed(lambda: fc.single_loop_cuda_tiled(*args, outer=300))
     reset_launches()
+    fc.kernel_launches = 0
     (x, _, traj), t8_ms = timed(lambda: fc.single_loop_cuda_tiled(
         *args, outer=300, tile_b=8))
     launches = read_launches()
+    per_step = (fc.kernel_launches - 1) / 300
     say(f"  single_loop_cuda_tiled 300 outer: one tile {one_ms:.1f} ms, "
         f"tile_b 8 {t8_ms:.1f} ms (alpha {x.tolist()}, final cost "
-        f"{float(traj[-1]):.4f}); launches {launches}")
+        f"{float(traj[-1]):.4f}); launches {launches}, "
+        f"{fc.kernel_launches} kernel launches ({per_step:g} per outer "
+        f"step)")
     require(launches["single_loop"] > 0, f"tiled learner launched "
             f"{launches}")
+    require(per_step == fc.launches_per_step(10),
+            f"tiled learner launches per outer step {per_step}")
     out.update(max_abs_err=worst, launches=launches["single_loop"],
-               one_tile_300_ms=one_ms, tile8_300_ms=t8_ms)
+               one_tile_300_ms=one_ms, tile8_300_ms=t8_ms,
+               launches_per_step=per_step)
     return out
 
 

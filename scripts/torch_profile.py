@@ -35,7 +35,8 @@ parameters.  For each:
 ``faces_train_128_10`` for the scalar TV weight from 0.1 and the
 sum-of-regularizers weights from 1e-3: the split is the CUDA learner's
 launch call (the whole learn runs in it) against the rest, and the
-profiled run is cut to 30 outer steps.  ``single_loop_tgv``,
+profiled run is cut to 30 outer steps, with the kernel launches per outer
+step its C loop issued.  ``single_loop_tgv``,
 ``single_loop_tvl1`` and ``single_loop_vtv`` do the same for the other
 families' single-loop learners with the settings of their entry points
 (300 outer steps of 40 CP and 10 CG steps): TGV² on the faces images from
@@ -343,6 +344,8 @@ def main():
     x0, params = next(iter(runs.values()))
     short = params | dict(maxiter=prof_its)
     learn(x0, short)
+    # the TV learner's wrapper counts the kernels its C loop launches
+    launched0 = getattr(module, "kernel_launches", None)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -364,6 +367,12 @@ def main():
     for name, (ms, count) in top:
         print(f"  device {ms:8.2f} ms  {count:7d}x  {name[:70]}", flush=True)
     idle = 1.0 - busy / prof_wall if busy > 0 else None
+    per_step = None
+    if launched0 is not None:
+        launched = module.kernel_launches - launched0
+        per_step = (launched - 1) / prof_its    # one slc_begin a segment
+        print(f"kernel launches in the profiled learn: {launched} "
+              f"({per_step:g} per outer step)", flush=True)
     print(f"profiled {next(iter(runs))} learn ({prof_its} outer its max): "
           f"wall "
           f"{prof_wall:.1f} ms (host clock, profiler on), device busy "
@@ -374,6 +383,7 @@ def main():
     print(json.dumps(dict(
         out, profiled_maxiter=prof_its, profiled_wall_ms=prof_wall,
         device_busy_ms=busy, idle_share=idle,
+        launches_per_outer_step=per_step,
         self_device_ms_all_events=all_ops_ms,
         top_kernels=[[n, ms, c] for n, (ms, c) in top])))
     return 0

@@ -361,3 +361,126 @@ def test_kernel_matches_plain_version_on_the_card(cuda_device, name,
                               **KW)
     for a, b in zip(k[:5], p[:5]):
         _close(a.cpu(), b)
+
+
+@pytest.mark.parametrize("M,N,K,itemsize,cluster,rows,resident", [
+    (128, 128, 1, 4, 8, 16, True),     # row 9: 48 KB a CTA
+    (128, 128, 3, 4, 8, 16, True),     # row 10: 104 KB, two CTAs an SM
+    (128, 128, 3, 8, 8, 16, True),     # float64, 208 KB
+    (16, 20, 3, 8, 8, 2, True),
+    (20, 16, 1, 4, 8, 3, True),        # 7 CTAs own rows, the 8th none
+    (22, 24, 3, 8, 8, 3, True),        # the 8th CTA owns one row
+    (13, 24, 1, 4, 4, 4, True),        # 4, 4, 4 and 1 rows
+    (5, 7, 1, 8, 2, 3, True),
+    (3, 9, 1, 4, 1, 3, True),          # one CTA: no halo from a neighbour
+    (1, 9, 1, 4, 1, 1, True),
+    (512, 512, 1, 4, 8, 64, False),    # 272 KB a CTA: global bands
+    (128, 128, 8, 8, 8, 16, False),    # K = 8 in float64
+])
+def test_pd_plan(M, N, K, itemsize, cluster, rows, resident):
+    """The PD phase's cluster rule: a power of two up to 8 CTAs leaving
+    every CTA but the last two rows or more; ⌈M / cluster⌉ rows each; the
+    2 + 2K band planes of rows + 4 rows and 16K halo-slot rows in shared
+    memory when they fit in 227 KB."""
+    plan = tfc.pd_plan(M, N, K, itemsize)
+    assert (plan.cluster, plan.rows, plan.resident) == (cluster, rows,
+                                                        resident)
+    assert plan.planes == 2 + 2 * K
+    assert plan.rows * plan.cluster >= M > (plan.rows - 1) * plan.cluster
+    assert plan.cluster == 1 or plan.rows >= 2
+    band = (plan.planes * (plan.rows + 4) + 16 * K) * N * itemsize
+    assert plan.smem == (band if resident else 0)
+    assert (band <= tfc.SMEM_PER_BLOCK) == resident
+    with pytest.raises(ValueError):
+        tfc.pd_plan(0, N, K, itemsize)
+
+
+def test_launches_per_step():
+    """The C loop's launches per outer step: the PD cluster launch, the CG
+    start, two launches per classic CG step (one per pipelined step, plus
+    the last update), the gradient maps and the pullback with Adam."""
+    assert tfc.launches_per_step(10) == 24
+    assert tfc.launches_per_step(10, "pipelined") == 15
+    assert tfc.launches_per_step(0, "pipelined") == 4
+
+
+ODD_SHAPES = [(3, 16, 20), (3, 20, 16), (2, 22, 24)]
+
+
+def _odd_stack(B, M, N, seed=0):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.arange(M), np.arange(N), indexing="ij")
+    clean = np.stack([((xx - N / 2 - b) ** 2 + (yy - M / 2) ** 2
+                       < (min(M, N) / 3) ** 2).astype(np.float64)
+                      for b in range(B)])
+    return clean, clean + 0.1 * rng.standard_normal(clean.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("variant,tile_b", [("classic", None),
+                                            ("pipelined", None),
+                                            ("classic", 2)])
+@pytest.mark.parametrize("name", list(PARAMS))
+@pytest.mark.parametrize("shape", ODD_SHAPES)
+def test_cluster_kernel_matches_plain_on_odd_shapes(cuda_device, shape,
+                                                    name, variant, tile_b,
+                                                    dtype):
+    """The PD cluster bands and the CG tiles' halos on shapes whose rows
+    do not divide evenly over the cluster (20 and 22 rows over 8 CTAs, the
+    last CTAs owning two rows, one or none) and whose columns do not fill a tile:
+    the four parameterizations (K = 3 includes the centred stencil; a 2×2
+    patch grid), both CG forms, two images per tile over an odd batch (a
+    short last tile).  float64 at 1e-9 relative; float32 at chip_smoke.py's
+    tolerances (1e-5 relative on α and the trajectories, 1e-4 on u)."""
+    _, tm, x0 = PARAMS[name]
+    ut, f = _odd_stack(*shape)
+    ut = torch.as_tensor(ut, dtype=dtype)
+    f = torch.as_tensor(f, dtype=dtype)
+    x0 = torch.as_tensor(np.asarray(x0), dtype=dtype)
+    model = tm()
+    pop, pshape = tfo._param_layout(model, x0, f.shape[-2:])
+    kw = dict(model=model, outer=20, n_inner=8, n_adj=4, pop=pop,
+              param_shape=pshape, lr=0.05, gamma=1e4, tau0=5.0,
+              sigma0=0.99 / 5.0, beta1=0.9, beta2=0.999, eps=1e-8,
+              cg_variant=variant, tile_b=tile_b)
+    before = tfc.kernel_launches
+    k = tfo._single_loop_impl(ut.to(cuda_device), f.to(cuda_device),
+                              x0.to(cuda_device), **kw)
+    assert tfc.kernel_launches - before == \
+        1 + 20 * tfc.launches_per_step(4, variant)
+    p = tfo._single_loop_impl(ut, f, x0, **kw)
+    rtol, utol = (RTOL, 1e-13) if dtype == torch.float64 else (1e-5, 1e-4)
+    for a, b in ((k.alpha, p.alpha), (k.alpha_trajectory,
+                                      p.alpha_trajectory),
+                 (k.cost_trajectory, p.cost_trajectory)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=rtol,
+                                   atol=1e-13)
+    np.testing.assert_allclose(k.u.cpu().numpy(), p.u.numpy(), rtol=0,
+                               atol=utol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape,name", [
+    (torch.float32, (1, 512, 512), "tv-scalar"),
+    (torch.float64, (1, 256, 256), "sumregs-vector")])
+def test_cluster_kernel_with_global_bands(cuda_device, dtype, shape, name):
+    """Bands too large for shared memory stay in global memory under the
+    same cluster kernel (pd_plan's resident False)."""
+    _, tm, x0 = PARAMS[name]
+    ut, f = _odd_stack(*shape)
+    model = tm()
+    assert not tfc.pd_plan(shape[1], shape[2], model.K,
+                           torch.tensor([], dtype=dtype).element_size()
+                           ).resident
+    ut = torch.as_tensor(ut, dtype=dtype)
+    f = torch.as_tensor(f, dtype=dtype)
+    kw = dict(outer=3, n_inner=8, n_adj=4)
+    k = tfo.single_loop_learn(ut.to(cuda_device), f.to(cuda_device), x0,
+                              model, **kw)
+    p = tfo.single_loop_learn(ut, f, x0, model, **kw)
+    rtol = RTOL if dtype == torch.float64 else 1e-5
+    np.testing.assert_allclose(k.alpha.cpu().numpy(), p.alpha.numpy(),
+                               rtol=rtol)
+    np.testing.assert_allclose(k.u.cpu().numpy(), p.u.numpy(),
+                               atol=1e-13 if dtype == torch.float64 else 1e-4)

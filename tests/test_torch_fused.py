@@ -183,6 +183,24 @@ def test_patch_and_nonpositive_parameters_raise():
                             device="cpu")
 
 
+@pytest.mark.parametrize("knob", ["log_every", "mesh", "segment_callback",
+                                  "init_B"])
+def test_library_learner_takes_the_jax_keywords(knob):
+    """bilevel_learn_fused takes the JAX function's mesh, log_every,
+    segment_callback and init_B: None runs (one 8×8 image), any other
+    value raises NotImplementedError, as in the other families'
+    learners."""
+    ds = _dataset(1, 8, seed=2)
+    kw = dict(xinit=0.1, params=Params(TR, maxiter=1), inner_maxiter=5,
+              device="cpu")
+    res = bilevel_learn_fused(ds, **kw, **{knob: None})
+    assert res.iterations == 1
+    value = {"log_every": 5, "mesh": object(), "init_B": np.eye(1),
+             "segment_callback": lambda *a: None}[knob]
+    with pytest.raises(NotImplementedError, match=knob):
+        bilevel_learn_fused(ds, **kw, **{knob: value})
+
+
 def test_lbfgs_functions_match_jax(rng):
     n, m = 5, 3
     jst = jlb.lbfgs_init(n, m, jnp.float64, init_scale=0.1)

@@ -235,13 +235,23 @@ def test_pdps_forms_match_pallas_interpret(rng, form):
 @pytest.mark.parametrize("reg", [False, True], ids=["exact", "regularized"])
 @pytest.mark.parametrize("form", ["sumregs", "sumregs_maps", "tv_map"])
 def test_hypergrad_forms_match_pallas_interpret(rng, form, reg):
+    """The plain hypergradient forms against the Pallas kernels in
+    interpret mode.  The CG cap is 6000: the ``sumregs_maps`` exact case
+    needs about 2,800-3,000 iterations per augmented-Lagrangian solve to
+    reach ``cg_tol`` 1e-12, and the count moves with rounding.  With u
+    moved by 0 and ±1e-13, JAX's ``exact_hypergrad_pallas`` (interpret)
+    took 2973 / 2975 / 2988 iterations in its last solve, JAX's own jnp
+    ``exact_hypergrad`` 2987 / 2857 / 2820 and the port's plain version
+    2956 / 2980 / 2987, every run converged, and the port's gradient maps
+    agreed with the Pallas kernel's to 2.4e-13 - 5.4e-13 relative.  A cap
+    of 3000 sat inside that spread."""
     true_, f = _images(rng)
     alphas = _alphas(rng, form, f.shape[-2:])
     jmodel, tmodel = _models(form)
     u = np.array(j_pdps(jnp.asarray(f), tuple(map(jnp.asarray, alphas)),
                           None, model=jmodel, maxiter=1500, tol=None,
                           check_every=100, return_dual=False, **PD))
-    cfg = dict(al_iters=2, cg_maxiter=3000, cg_tol=1e-12)
+    cfg = dict(al_iters=2, cg_maxiter=6000, cg_tol=1e-12)
     if reg:
         cfg = dict(cfg, gamma=1e4)
     jfn = jhp.reg_hypergrad_pallas if reg else jhp.exact_hypergrad_pallas
