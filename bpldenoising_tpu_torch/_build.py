@@ -25,8 +25,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("pdps.cu", "hypergrad.cu", "tgv.cu", "tvl1.cu", "vtv.cu",
            "single_loop.cu", "single_loop_tgv.cu", "single_loop_tvl1.cu",
            "single_loop_vtv.cu")
-HEADERS = ("common.cuh", "single_loop.cuh", "tgv.cuh", "tvl1.cuh",
-           "vtv.cuh")
+HEADERS = ("common.cuh", "pd_cluster.cuh", "single_loop.cuh", "tgv.cuh",
+           "tvl1.cuh", "vtv.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # -fmad=false: no fused multiply-adds, so each operation rounds like the
 # plain PyTorch version's separate elementwise operations
@@ -115,9 +115,11 @@ def _declare(lib):
         blocks = [_I, ctypes.POINTER(_I), ctypes.POINTER(real),
                   ctypes.POINTER(_LL)]
         fn = getattr(lib, f"bpl_pdps_solve_{suffix}")
-        fn.argtypes = [_P, _P, _P, _P, _P, _P, _LL, _I, _I, *blocks, real,
-                       real, ctypes.c_double, _I, _I, _I, real, _I,
-                       ctypes.POINTER(_I), _P]
+        # ... the blocks, the plan (cluster, rows, resident), τ, σ, γ, ...
+        fn.argtypes = [_P] * 7 + [_LL, _I, _I, *blocks, _I, _I, _I, real,
+                                  real, ctypes.c_double, _I, _I, _I, real,
+                                  _I, ctypes.POINTER(_I),
+                                  ctypes.POINTER(_I), _P]
         fn.restype = _I
         fn = getattr(lib, f"bpl_hypergrad_{suffix}")
         fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, *blocks, real,

@@ -25,28 +25,30 @@ bit-identical either way).
 
 :func:`_launch` runs one segment on the card: it takes and returns the
 carry ``(u, ys, p, z, (m, v), t)`` and always returns all three
-trajectories.  :func:`pd_plan` chooses the PD phase's thread-block
-cluster: one cluster per image, each CTA a band of rows held in shared
-memory for the whole phase.
+trajectories.  :func:`pd_plan` (from :mod:`..solvers.cluster_plan`,
+shared with kernel A) chooses the PD phase's thread-block cluster: one
+cluster per image, each CTA a band of rows held in shared memory for the
+whole phase.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
 
 import torch
 
 from .. import _build
 from ..models import DenoiseModel, tv_model
 from ..ops import BwdGradientOp, CenteredGradientOp, FwdGradientOp
+from ..solvers.cluster_plan import (MAX_CLUSTER, SMEM_PER_BLOCK, PdPlan,
+                                    pd_plan)
 from ..solvers.pdps_cuda import check_cuda_input, check_plane
 from .first_order import _prepare, _single_loop_impl, step_sizes
 from .pcg import CG_VARIANTS
 
 __all__ = ["single_loop_cuda", "single_loop_cuda_tiled",
            "single_loop_tv_cuda", "stencil_cuda", "pd_plan", "PdPlan",
-           "launches", "kernel_launches"]
+           "MAX_CLUSTER", "SMEM_PER_BLOCK", "launches", "kernel_launches"]
 
 #: calls that launched the CUDA learner (one per segment)
 launches = 0
@@ -55,56 +57,11 @@ launches = 0
 #: the pipelined one, and one per segment)
 kernel_launches = 0
 
-#: the largest portable thread-block cluster (csrc/single_loop.cu's
-#: PD_MAX_CLUSTER)
-MAX_CLUSTER = 8
-#: the dynamic shared memory a block may opt in to on an H100 (227 KB)
-SMEM_PER_BLOCK = 232448
-
 # stencil kinds of csrc/single_loop.cu, in the order of ops/grad.py
 _KINDS = {FwdGradientOp: 0, BwdGradientOp: 1, CenteredGradientOp: 2}
 _MAX_K = 8   # SL_MAXK in csrc/single_loop.cu
 
 _TV = tv_model()
-
-
-class PdPlan(NamedTuple):
-    """The PD phase's launch for one image: ``cluster`` CTAs, each owning
-    ``rows`` image rows (the last CTAs may own fewer, or none), with
-    ``planes`` band planes (u, ū and the K duals' two components) of
-    rows + 4 rows (two halo rows above and below) and 16·K halo-slot rows
-    (two parities, two sides, two rows, 2K planes), each of N elements;
-    ``smem`` bytes of dynamic shared memory per CTA, ``resident`` when the
-    bands live there (else in a global scratch laid out alike, ``smem``
-    0)."""
-    cluster: int
-    rows: int
-    planes: int
-    smem: int
-    resident: bool
-
-
-def pd_plan(M: int, N: int, K: int, itemsize: int) -> PdPlan:
-    """The rule for the PD phase's cluster: the largest power of two up to
-    ``MAX_CLUSTER`` that leaves every CTA but the last at least two rows
-    (the halo rows each side then come from the adjacent CTAs; more CTAs
-    per image fill more of the card at small batches, and each adds four
-    halo rows of work), ⌈M / cluster⌉ rows each, and the bands in shared
-    memory when ((2 + 2K)(rows + 4) + 16K)·N·itemsize bytes fit in
-    ``SMEM_PER_BLOCK``.  ``csrc/single_loop.cu`` checks the plan against the
-    card (its opt-in shared memory and ``cudaOccupancyMaxActiveClusters``)
-    and the wrapper raises when it cannot run."""
-    if min(M, N, K, itemsize) < 1:
-        raise ValueError(f"bad shape M={M}, N={N}, K={K}, itemsize="
-                         f"{itemsize}")
-    cluster = 1
-    while cluster * 2 <= min(M // 2, MAX_CLUSTER):
-        cluster *= 2
-    rows = -(-M // cluster)
-    planes = 2 + 2 * K
-    smem = (planes * (rows + 4) + 16 * K) * N * itemsize
-    resident = smem <= SMEM_PER_BLOCK
-    return PdPlan(cluster, rows, planes, smem if resident else 0, resident)
 
 
 def launches_per_step(n_adj: int, cg_variant: str = "classic") -> int:

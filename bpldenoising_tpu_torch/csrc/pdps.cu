@@ -8,28 +8,56 @@
 //   ū = (1+ω)u⁺ − ωu;  yₖ = Π_{|·|≤αₖ}(yₖ + σGₖū)  (rsqrt form with `tiny`).
 // Each Gₖ is the forward, backward or centred difference gradient masked at
 // the image boundary (common.cuh: diff1, adj1); an (M, N) map αₖ is read per
-// pixel and broadcast over the batch.  The scalar TV form (K = 1, forward
-// differences, scalar α) runs pd_primal and pd_dual; every other form runs
-// pd_primal_k and pd_dual_k, whose Σₖ is taken k = 0, 1, 2 in order, as in
-// the plain version (solvers/pdps.py::_pdps_step).
+// pixel and broadcast over the batch.  Σₖ is taken k = 0, 1, 2 in order,
+// as in the plain version (solvers/pdps.py::_pdps_step); built with
+// -fmad=false, each pixel's operations in that order.
 //
 // What bounds it on an H100: the TPU kernel keeps whole images resident in
 // VMEM for all iterations; a Hopper block has at most 227 KB of shared
-// memory, less than one image's state (10×128² f32 is 2.6 MB for u, f, y).
-// This first design is one thread per pixel over (batch, rows, cols) in
-// global memory, two launches per iteration (the dual step reads ū at
-// neighbouring pixels, so ū must be complete first).  The whole state stays
-// in the 50 MB L2, so each launch moves L2 bytes, not HBM bytes; at the
-// flagship's 163,840 pixels a launch is short and the iteration is bound
-// by launch latency, not by bytes or operations.  The host loop that issues
-// the launches (pd_iterate, common.cuh) runs in C, so Python adds nothing
-// per iteration.  The early stop runs every `check_every` iterations: a
-// per-image reduction of ‖Δu‖² and ‖u‖² (one block per image) and one host
-// read of the O ratios, whose max is compared with tol — the per-image
-// semantics of solvers/pdps.py, not the Pallas kernel's one norm per VMEM
-// chunk.  τ, σ, ω are computed on the host in the working dtype, in the
-// order of the plain version.
-#include "common.cuh"
+// memory, less than one image's state (a 128² f32 image's u, ū and two dual
+// planes are 256 KB).  Per pixel an iteration is ~25 + 13K operations, so
+// at the flagship's 10×128² an iteration is a few microseconds of device
+// work: one launch per half-step (the first design, 2 launches per
+// iteration and ~103 device operations per 50-iteration chunk) is paced by
+// launch issue, not by bytes or operations.  This design:
+//
+//  * One launch per early-stop chunk (pdc_cp): `chunk` iterations, where
+//    chunk is check_every (all maxiter without tol), for the whole batch.
+//    Each image is one thread-block cluster under the band scheme of
+//    csrc/pd_cluster.cuh (shared with the single-loop learner's CP phase,
+//    csrc/single_loop.cu): CTA c owns a band of rows and keeps u, ū and the
+//    2K dual planes of its band, with two halo rows each side, in shared
+//    memory over the chunk; one cluster barrier per iteration; f and any
+//    (M, N) α maps are read through L2.  The state is read from global
+//    memory once per chunk and written back once.  u ping-pongs between
+//    two buffers (the chunk reads one and writes the other), so the early
+//    stop needs no copy of u: per chunk the launch, pd_change (common.cuh,
+//    unchanged) and one host read of the O ratios — 3 device operations.
+//  * τ, σ, ω are formed on the host in the working dtype, in the plain
+//    version's order (cp_table, as common.cuh's pd_iterate_with forms
+//    them), and reach the kernel as a per-iteration table in device memory:
+//    one copy per call.  So the iterates, the ratios, the stop decisions
+//    and the iteration counts are those of the two-launch design, bit for
+//    bit.
+//  * The kernel is instantiated for the forms of the main paths (CpForm:
+//    K = 1 forward with a scalar or a map; K = 3 forward, backward and
+//    centred with scalars or maps) and a generic one, so the stencil
+//    branches, the loops over k and the map tests fold away.
+//  * The host (solvers/cluster_plan.py::pd_plan) picks the cluster size and
+//    rows per CTA from the shapes before any launch.  Where the bands do
+//    not fit in shared memory (`resident` 0: row 3's 1×2048², where one
+//    cluster of 8 CTAs would leave 124 of 132 SMs idle anyway), the
+//    two-launch kernels below run: pd_primal / pd_dual for the scalar TV
+//    form, pd_primal_k / pd_dual_k otherwise, one thread per pixel on state
+//    in global memory, from common.cuh's C loop.  A refused cluster launch
+//    or occupancy check returns its error, which the wrapper raises.
+//
+// The early stop runs every `check_every` iterations: a per-image reduction
+// of ‖Δu‖² and ‖u‖² (one block per image) and one host read of the O
+// ratios, whose max is compared with tol — the per-image semantics of
+// solvers/pdps.py, not the Pallas kernel's one norm per VMEM chunk.  Each
+// call reports its device operations (launches and copies).
+#include "pd_cluster.cuh"
 
 namespace bpl {
 
@@ -117,26 +145,250 @@ __global__ void pd_dual_k(const T* __restrict__ ubar, T* __restrict__ y,
   }
 }
 
+// ---------------------------------------- the two-launch form (not resident)
+
+// The bands do not fit in shared memory: two launches per iteration from
+// common.cuh's C loop (the u → uprev copy, pd_change and the host read per
+// chunk).  *ops: the device operations it issued.
 template <typename T>
-int pdps_solve(const T* f, T* u, T* y, T* ubar, T* uprev, T* ratio,
-               long long O, int M, int N, int K, const int* kinds,
-               const T* alphas, const long long* amaps, T tau, T sigma,
-               double gamma, int accel, int maxiter, int use_tol, T tol,
-               int check_every, int* iters_out, cudaStream_t s) {
+int pdps_global(const T* f, T* u, T* y, T* ubar, T* uprev, T* ratio,
+                long long O, int M, int N, const Blocks<T>& bl, T tau,
+                T sigma, double gamma, int accel, int maxiter, int use_tol,
+                T tol, int check_every, int* iters_out, int* ops,
+                cudaStream_t s) {
   const long long n = O * M * N;
   const int grid = blocks_for(n);
-  if (K < 1 || K > 3) return (int)cudaErrorInvalidValue;
-  if (K == 1 && kinds[0] == STENCIL_FWD && amaps[0] == 0) {
-    const T alpha = alphas[0];
-    const T alpha2 = alpha * alpha;
+  int err;
+  if (bl.K == 1 && bl.kind[0] == STENCIL_FWD && bl.amap[0] == nullptr) {
+    const T alpha = bl.alpha[0];
+    const T alpha2 = bl.alpha2[0];
     auto dual = [&](T sig) {
       BPL_LAUNCH(pd_dual<T>, grid, BPL_THREADS, s)(ubar, y, n, M, N, sig,
                                                    alpha, alpha2);
     };
-    return pd_iterate<T>(f, u, y, ubar, uprev, ratio, O, M, N, tau, sigma,
-                         gamma, accel, maxiter, use_tol, tol, check_every,
-                         iters_out, s, dual);
+    err = pd_iterate<T>(f, u, y, ubar, uprev, ratio, O, M, N, tau, sigma,
+                        gamma, accel, maxiter, use_tol, tol, check_every,
+                        iters_out, s, dual);
+  } else {
+    auto primal = [&](T tau_, T omega) {
+      BPL_LAUNCH(pd_primal_k<T>, grid, BPL_THREADS, s)(f, u, ubar, y, n, M,
+                                                       N, tau_, omega, bl);
+    };
+    auto dual = [&](T sig) {
+      BPL_LAUNCH(pd_dual_k<T>, grid, BPL_THREADS, s)(ubar, y, n, M, N, sig,
+                                                     bl);
+    };
+    err = pd_iterate_with<T>(u, uprev, ratio, O, M, N, tau, sigma, gamma,
+                             accel, maxiter, use_tol, tol, check_every,
+                             iters_out, s, primal, dual);
   }
+  // 2 launches an iteration; per chunk a copy, pd_change and a host read
+  const int it = *iters_out;
+  *ops = 2 * it + (use_tol ? 3 * ((it + check_every - 1) / check_every) : 0);
+  return err;
+}
+
+// ------------------------------------------------ the cluster form (resident)
+
+// The state of a cluster launch: the blocks as in Blocks, the planes, the
+// per-iteration table and the plan (cl CTAs an image, rows each).  The
+// blocks' fields are kept flat: with a nested Blocks<T> the K = 1 and map
+// instances spilled 24 and 32 B (8 and 16 flat) and ran ~9% slower.
+template <typename T>
+struct CPC {
+  const T* f;
+  T* y;          // K × (O, 2, M, N)
+  const T* tab;  // per iteration t: τ, ω, σ (cp_table)
+  long long n, mn;
+  int M, N, K, cl, rows;
+  int kind[3];
+  T alpha[3];
+  T alpha2[3];
+  const T* amap[3];   // nullptr: the scalar alpha[k]
+};
+
+// The blocks of a kernel instance.  F ≥ 0 fixes them at compile time as
+// (K << 8) | kinds (two bits a block) | (map flags << 12), so the stencils'
+// branches, the loops over k and the map tests fold away: the forms of the
+// main paths, scalar or map TV (the flagship; patch TV and grids) and the
+// sum of the forward, backward and centred blocks with scalars or maps (the
+// sum of regularizers; the patch sum).  F < 0 reads them from h.
+enum CpForm {
+  CP_ANY = -1,
+  CP_TV = (1 << 8) | STENCIL_FWD,
+  CP_TV_MAP = CP_TV | (1 << 12),
+  CP_SUMREGS = (3 << 8) | STENCIL_FWD | (STENCIL_BWD << 2)
+               | (STENCIL_CEN << 4),
+  CP_SUMREGS_MAPS = CP_SUMREGS | (7 << 12)
+};
+
+// The step of the accelerated CP iteration for pd_cluster_run
+// (csrc/pd_cluster.cuh): τ, ω, σ of iteration it0 + it from the table;
+// u⁺ = (u − τ(Σₖ Gₖᵀyₖ − f))/(1+τ), ū = (1+ω)u⁺ − ωu;
+// yₖ = Π_{|·|≤αₖ}(yₖ + σGₖū) in pd_dual's rsqrt form, αₖ the scalar (its
+// square from the host) or the map's pixel (squared here).  u is read from
+// uin and written to uout.
+template <typename T, int F>
+struct CpStep {
+  const CPC<T>& h;
+  const T* uin;
+  T* uout;
+  int it0;
+  int M, N, cl, rows;
+  long long region;   // the bands live in shared memory: unused
+  T* pd;
+  T tau, omega, sigma;
+  __device__ CpStep(const CPC<T>& h_, const T* uin_, T* uout_, int it0_)
+      : h(h_), uin(uin_), uout(uout_), it0(it0_), M(h_.M), N(h_.N),
+        cl(h_.cl), rows(h_.rows), region(0), pd(nullptr) {}
+  __device__ int K() const { return F >= 0 ? (F >> 8) & 15 : h.K; }
+  __device__ int kind(int k) const {
+    return F >= 0 ? (F >> (2 * k)) & 3 : h.kind[k];
+  }
+  __device__ bool map(int k) const {
+    return F >= 0 ? ((F >> (12 + k)) & 1) != 0 : h.amap[k] != nullptr;
+  }
+  __device__ const T* u_in(long long b) const { return uin + b * h.mn; }
+  __device__ T* u_out(long long b) const { return uout + b * h.mn; }
+  __device__ T* y(int k, long long b) const {
+    return h.y + 2 * h.n * k + b * 2 * h.mn;
+  }
+  __device__ const T* f(long long b) const { return h.f + b * h.mn; }
+  __device__ long long mn() const { return h.mn; }
+  __device__ void at(int it) {
+    const T* t = h.tab + 3LL * (it0 + it);
+    tau = t[0];
+    omega = t[1];
+    sigma = t[2];
+  }
+  __device__ T primal(T dv, T uo, T fv, T& ub) const {
+    const T un = (uo - tau * (dv - fv)) / (T(1) + tau);
+    ub = (T(1) + omega) * un - omega * uo;
+    return un;
+  }
+  __device__ T scale(int k, int i, int j, T n2) const {
+    T alpha = h.alpha[k], alpha2 = h.alpha2[k];
+    if (map(k)) {
+      alpha = h.amap[k][i * N + j];
+      alpha2 = alpha * alpha;
+    }
+    return (n2 <= alpha2) ? T(1) : alpha * rsqrt_(n2 + tiny<T>());
+  }
+};
+
+// n_it iterations from iteration it0 for the whole batch, one cluster an
+// image; u from uin to uout (they may be one buffer), the duals in place.
+template <typename T, int F>
+__global__ void __launch_bounds__(PD_THREADS, PD_MINB)
+pdc_cp(CPC<T> h, const T* uin, T* uout, int it0, int n_it) {
+  extern __shared__ __align__(16) unsigned char pdc_smem[];
+  CpStep<T, F> step(h, uin, uout, it0);
+  pd_cluster_run<T, true>(step, pdc_smem, n_it);
+}
+
+// The per-iteration scalars (τ, ω, σ) of maxiter iterations, formed as
+// common.cuh's pd_iterate_with forms them: ω = 1/√(1+2γτ), the primal step
+// at τ, then τ ← τω, σ ← σ/ω, and the dual step at that σ.
+template <typename T>
+std::vector<T> cp_table(T tau, T sigma, double gamma, int accel,
+                        int maxiter) {
+  std::vector<T> t(3 * (size_t)maxiter);
+  const T two_gamma = T(2.0 * gamma);
+  for (int it = 0; it < maxiter; ++it) {
+    T omega = T(1);
+    if (accel) omega = T(1) / std::sqrt(T(1) + two_gamma * tau);
+    t[3 * (size_t)it] = tau;
+    t[3 * (size_t)it + 1] = omega;
+    if (accel) {
+      tau = tau * omega;
+      sigma = sigma / omega;
+    }
+    t[3 * (size_t)it + 2] = sigma;
+  }
+  return t;
+}
+
+// The host loop of the cluster form: the table copy, then one launch per
+// chunk; with use_tol, per chunk also pd_change on the two u buffers and
+// one host read of the O ratios, whose max (a NaN propagates and stops) is
+// compared with tol.  u and uprev ping-pong; the result is copied into u
+// when it ends in uprev.  *ops: the device operations it issued.
+template <typename T, int F>
+int pdc_run(const CPC<T>& h, T* u, T* uprev, T* ratio, T* tab, long long O,
+            T tau, T sigma, double gamma, int accel, int maxiter,
+            int use_tol, T tol, int check_every, int* iters_out, int* ops,
+            cudaStream_t s) {
+  PdClusterLaunch<void (*)(CPC<T>, const T*, T*, int, int)> L;
+  const size_t smem = (size_t)pd_region(h.K, h.rows, h.N) * sizeof(T);
+  int err = pd_cluster_prepare(L, pdc_cp<T, F>, O, h.cl, smem, s);
+  if (err != (int)cudaSuccess) return err;
+  cudaError_t e;
+  if (maxiter > 0) {
+    const std::vector<T> t = cp_table(tau, sigma, gamma, accel, maxiter);
+    // pageable source: the call returns once the table is staged
+    e = cudaMemcpyAsync(tab, t.data(), t.size() * sizeof(T),
+                        cudaMemcpyHostToDevice, s);
+    if (e != cudaSuccess) return (int)e;
+    ++*ops;
+  }
+  int it = 0;
+  if (!use_tol) {
+    if (maxiter > 0) {
+      e = cudaLaunchKernelEx(&L.cfg, L.kern, h, (const T*)u, u, 0, maxiter);
+      if (e != cudaSuccess) return (int)e;
+      ++*ops;
+    }
+    it = maxiter;
+  } else {
+    std::vector<T> hr((size_t)O);
+    T delta = (T)INFINITY;
+    T* cur = u;
+    T* nxt = uprev;
+    while (it < maxiter && delta > tol) {
+      const int chunk = check_every < maxiter - it ? check_every
+                                                   : maxiter - it;
+      e = cudaLaunchKernelEx(&L.cfg, L.kern, h, (const T*)cur, nxt, it,
+                             chunk);
+      if (e != cudaSuccess) return (int)e;
+      BPL_LAUNCH(pd_change<T>, (int)O, BPL_THREADS, s)(nxt, cur, ratio,
+                                                       h.mn);
+      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+      e = cudaMemcpyAsync(hr.data(), ratio, (size_t)O * sizeof(T),
+                          cudaMemcpyDeviceToHost, s);
+      if (e != cudaSuccess) return (int)e;
+      *ops += 3;
+      if ((e = cudaStreamSynchronize(s)) != cudaSuccess) return (int)e;
+      delta = hr[0];   // max over images; NaN propagates (and stops)
+      for (long long b = 1; b < O; ++b)
+        if (std::isnan(hr[b]) || hr[b] > delta) delta = hr[b];
+      it += chunk;
+      T* t = cur;
+      cur = nxt;
+      nxt = t;
+    }
+    if (cur != u) {
+      e = cudaMemcpyAsync(u, cur, (size_t)h.n * sizeof(T),
+                          cudaMemcpyDeviceToDevice, s);
+      if (e != cudaSuccess) return (int)e;
+      ++*ops;
+    }
+  }
+  *iters_out = it;
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int pdps_solve(const T* f, T* u, T* y, T* ubar, T* uprev, T* ratio, T* tab,
+               long long O, int M, int N, int K, const int* kinds,
+               const T* alphas, const long long* amaps, int cl, int rows,
+               int resident, T tau, T sigma, double gamma, int accel,
+               int maxiter, int use_tol, T tol, int check_every,
+               int* iters_out, int* ops, cudaStream_t s) {
+  *ops = 0;
+  *iters_out = 0;
+  if (K < 1 || K > 3 || O < 1 || M < 1 || N < 1 || maxiter < 0
+      || (use_tol && check_every < 1))
+    return (int)cudaErrorInvalidValue;
   Blocks<T> bl;
   bl.K = K;
   for (int k = 0; k < 3; ++k) {
@@ -146,16 +398,46 @@ int pdps_solve(const T* f, T* u, T* y, T* ubar, T* uprev, T* ratio,
     bl.alpha2[k] = bl.alpha[k] * bl.alpha[k];
     bl.amap[k] = live ? (const T*)amaps[k] : nullptr;
   }
-  auto primal = [&](T tau_, T omega) {
-    BPL_LAUNCH(pd_primal_k<T>, grid, BPL_THREADS, s)(f, u, ubar, y, n, M, N,
-                                                     tau_, omega, bl);
-  };
-  auto dual = [&](T sig) {
-    BPL_LAUNCH(pd_dual_k<T>, grid, BPL_THREADS, s)(ubar, y, n, M, N, sig, bl);
-  };
-  return pd_iterate_with<T>(u, uprev, ratio, O, M, N, tau, sigma, gamma,
-                            accel, maxiter, use_tol, tol, check_every,
-                            iters_out, s, primal, dual);
+  if (!resident)
+    return pdps_global<T>(f, u, y, ubar, uprev, ratio, O, M, N, bl, tau,
+                          sigma, gamma, accel, maxiter, use_tol, tol,
+                          check_every, iters_out, ops, s);
+  if (cl < 1 || cl > PD_MAX_CLUSTER_NP || rows < 1
+      || (long long)rows * cl < M || (cl > 1 && rows < 2)
+      || (long long)M * N > 0x7fffffffLL
+      || pd_region(K, rows, N) > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  CPC<T> h;
+  h.f = f;
+  h.y = y;
+  h.tab = tab;
+  h.mn = (long long)M * N;
+  h.n = O * h.mn;
+  h.M = M;
+  h.N = N;
+  h.K = K;
+  h.cl = cl;
+  h.rows = rows;
+  int form = K << 8;
+  for (int k = 0; k < 3; ++k) {
+    h.kind[k] = bl.kind[k];
+    h.alpha[k] = bl.alpha[k];
+    h.alpha2[k] = bl.alpha2[k];
+    h.amap[k] = bl.amap[k];
+    if (k < K) form |= (bl.kind[k] << (2 * k))
+                       | ((bl.amap[k] != nullptr) << (12 + k));
+  }
+#define PDC_RUN(F)                                                         \
+  pdc_run<T, F>(h, u, uprev, ratio, tab, O, tau, sigma, gamma, accel,      \
+                maxiter, use_tol, tol, check_every, iters_out, ops, s)
+  switch (form) {
+    case CP_TV: return PDC_RUN(CP_TV);
+    case CP_TV_MAP: return PDC_RUN(CP_TV_MAP);
+    case CP_SUMREGS: return PDC_RUN(CP_SUMREGS);
+    case CP_SUMREGS_MAPS: return PDC_RUN(CP_SUMREGS_MAPS);
+    default: return PDC_RUN(CP_ANY);
+  }
+#undef PDC_RUN
 }
 
 }  // namespace bpl
@@ -165,30 +447,38 @@ extern "C" {
 // kinds: K stencil kinds (0 forward, 1 backward, 2 centred); alphas: K
 // scalar weights; amaps: K device addresses of (M, N) weight maps, 0 where
 // the block's weight is the scalar.  y holds the K duals, (K, O, 2, M, N).
+// The plan (solvers/cluster_plan.py::pd_plan): cl CTAs an image, rows
+// each; resident 0 runs the two-launch form (ubar then a B·M·N plane, tab
+// unused), else the cluster form (ubar unused, tab 3·maxiter elements).
+// *iters_out: the iterations run; *ops_out: the device operations issued.
 int bpl_pdps_solve_f32(const float* f, float* u, float* y, float* ubar,
-                       float* uprev, float* ratio, long long O, int M, int N,
-                       int K, const int* kinds, const float* alphas,
-                       const long long* amaps, float tau, float sigma,
+                       float* uprev, float* ratio, float* tab, long long O,
+                       int M, int N, int K, const int* kinds,
+                       const float* alphas, const long long* amaps, int cl,
+                       int rows, int resident, float tau, float sigma,
                        double gamma, int accel, int maxiter, int use_tol,
                        float tol, int check_every, int* iters_out,
-                       void* stream) {
-  return bpl::pdps_solve<float>(f, u, y, ubar, uprev, ratio, O, M, N, K,
-                                kinds, alphas, amaps, tau, sigma, gamma,
-                                accel, maxiter, use_tol, tol, check_every,
-                                iters_out, (cudaStream_t)stream);
+                       int* ops_out, void* stream) {
+  return bpl::pdps_solve<float>(f, u, y, ubar, uprev, ratio, tab, O, M, N,
+                                K, kinds, alphas, amaps, cl, rows, resident,
+                                tau, sigma, gamma, accel, maxiter, use_tol,
+                                tol, check_every, iters_out, ops_out,
+                                (cudaStream_t)stream);
 }
 
 int bpl_pdps_solve_f64(const double* f, double* u, double* y, double* ubar,
-                       double* uprev, double* ratio, long long O, int M,
-                       int N, int K, const int* kinds, const double* alphas,
-                       const long long* amaps, double tau, double sigma,
+                       double* uprev, double* ratio, double* tab,
+                       long long O, int M, int N, int K, const int* kinds,
+                       const double* alphas, const long long* amaps, int cl,
+                       int rows, int resident, double tau, double sigma,
                        double gamma, int accel, int maxiter, int use_tol,
                        double tol, int check_every, int* iters_out,
-                       void* stream) {
-  return bpl::pdps_solve<double>(f, u, y, ubar, uprev, ratio, O, M, N, K,
-                                 kinds, alphas, amaps, tau, sigma, gamma,
-                                 accel, maxiter, use_tol, tol, check_every,
-                                 iters_out, (cudaStream_t)stream);
+                       int* ops_out, void* stream) {
+  return bpl::pdps_solve<double>(f, u, y, ubar, uprev, ratio, tab, O, M, N,
+                                 K, kinds, alphas, amaps, cl, rows, resident,
+                                 tau, sigma, gamma, accel, maxiter, use_tol,
+                                 tol, check_every, iters_out, ops_out,
+                                 (cudaStream_t)stream);
 }
 
 const char* bpl_error_string(int err) {

@@ -41,11 +41,12 @@
 //    its top and bottom two dual rows into the neighbours' double-buffered
 //    halo slots through distributed shared memory: one cluster barrier per
 //    CP iteration.  The state is read from global memory once and written
-//    back once per outer step.  The host (bilevel/first_order_cuda.py::
+//    back once per outer step.  The host (solvers/cluster_plan.py::
 //    pd_plan) picks the cluster size and rows per CTA; when the band does
 //    not fit in shared memory the same kernel keeps it in a global scratch
 //    laid out alike (`resident` 0).  Images are independent, so the batch
-//    runs as waves of clusters with no grid-wide barrier.
+//    runs as waves of clusters with no grid-wide barrier.  The band scheme
+//    is csrc/pd_cluster.cuh, which kernel A (csrc/pdps.cu) shares.
 //  * Adjoint CG, two launches per classic step (slc_apply, slc_update)
 //    and one per pipelined step (slc_pipe_step) on 8×32 pixel tiles.  An
 //    operator launch loads its tile with a two-pixel halo into shared
@@ -75,25 +76,11 @@
 // divisions and square roots and by one cluster barrier (~0.7 µs) per CP
 // iteration; the CG launches by their latency at 10 images and by their
 // tile work at 64.
-#include <cooperative_groups.h>
-
+#include "pd_cluster.cuh"
 #include "single_loop.cuh"
-
-namespace cgrp = cooperative_groups;
 
 namespace bpl {
 
-// a PD CTA: PD_TY rows of PD_TX threads; thread (ty, tx) takes rows ty,
-// ty + PD_TY, … and in each the columns tx + PD_TX·c, c < PD_CPT, of each
-// group of PD_TX·PD_CPT columns, loading the group's operands before it
-// computes and stores (independent chains).  Two CTAs an SM (64 registers:
-// row 10's bands, 104 KB, fit twice).
-#define PD_TX 32
-#define PD_TY 16
-#define PD_CPT 4
-#define PD_MINB 2
-#define PD_THREADS (PD_TX * PD_TY)
-#define PD_MAX_CLUSTER 8
 // a CG tile: TILE_H × TILE_W pixels, one per thread (BPL_THREADS)
 #define TILE_H 8
 #define TILE_W 32
@@ -111,12 +98,6 @@ enum SlcPlane { Q_INV, Q_R0, Q_R1, Q_Z, Q_D0, Q_D1, Q_MD, Q_S0, Q_S1,
 // per-group device scalars
 enum SlcSlot { G_RZ, G_A0, G_A1, G_BETA0, G_BETA1, G_GPREV, G_APREV,
               N_GSLOTS };
-// Elements of one PD CTA's band: u, ū and the 2K dual planes on rows + 4
-// rows, then its halo slots (2 parities × 2 sides × 2 rows × 2K planes).
-inline long long pd_region(int K, int rows, int N) {
-  return ((2LL + 2 * K) * (rows + 4) + 16LL * K) * N;
-}
-
 // Element counts of the scratch buffer's parts (of T, but `counters`).
 struct SlcSizes {
   long long planes, gmap, kp, gx, part, cost_part, scal, pd, counters,
@@ -221,222 +202,52 @@ __device__ __forceinline__ T slc_alpha(const SLC<T>& h, int k, int i, int j) {
 
 // ---------------------------------------------------------------- PD phase
 
-// The 2-D stencils of common.cuh on a region whose rows are `rs` elements
-// apart, with int offsets (the image's masks come from p's coordinates).
-template <typename T>
-__device__ __forceinline__ void grad_s(const T* v, int l, Pix p, int M,
-                                       int N, int rs, int kind, T& gx,
-                                       T& gy) {
-  gx = diff1(v, l, p.i, M, rs, kind);
-  gy = diff1(v, l, p.j, N, 1, kind);
-}
-
-template <typename T>
-__device__ __forceinline__ T div_s(const T* qx, const T* qy, int l, Pix p,
-                                   int M, int N, int rs, int kind) {
-  return adj1(qx, l, p.i, M, rs, kind) + adj1(qy, l, p.j, N, 1, kind);
-}
-
-template <typename T>
-__device__ __forceinline__ T gram_s(const T* wx, const T* wy, int l, Pix p,
-                                    int M, int N, int rs, int kind) {
-  return gram1(wx, l, p.i, M, rs, kind) + gram1(wy, l, p.j, N, 1, kind);
-}
-
-
-__device__ __forceinline__ Pix pix(long long b, int i, int j) {
-  Pix p;
-  p.b = b;
-  p.i = i;
-  p.j = j;
-  return p;
-}
+// The step of the single loop's fixed-step CP iteration for pd_cluster_run
+// (csrc/pd_cluster.cuh): u⁺ = (u − τ(Σₖ Gₖᵀyₖ − f))/(1+τ), ū = 2u⁺ − u,
+// yₖ = Π_{|·|≤αₖ}(yₖ + σGₖū) with the ball's sqrt form (ball_scale) and αₖ
+// the scalar (s_alpha, in shared memory) or the pixel's patch entry.
+template <typename T, int KC>
+struct SlcStep {
+  const SLC<T>& h;
+  const T* s_alpha;
+  int M, N, cl, rows;
+  long long region;
+  T* pd;
+  T sigma;
+  __device__ SlcStep(const SLC<T>& h_, const T* sa)
+      : h(h_), s_alpha(sa), M(h_.M), N(h_.N), cl(h_.cl), rows(h_.rows),
+        region(h_.pd_region), pd(h_.pd), sigma(h_.sigma) {}
+  __device__ int K() const { return slc_K<KC>(h); }
+  __device__ int kind(int k) const { return slc_kind<KC>(h, k); }
+  __device__ const T* u_in(long long b) const { return h.u + b * h.mn; }
+  __device__ T* u_out(long long b) const { return h.u + b * h.mn; }
+  __device__ T* y(int k, long long b) const { return h.y(k, b); }
+  __device__ const T* f(long long b) const { return h.f + b * h.mn; }
+  __device__ long long mn() const { return h.mn; }
+  __device__ void at(int) const {}
+  __device__ T primal(T dv, T uo, T fv, T& ub) const {
+    const T un = (uo - h.tau * (dv - fv)) / (T(1) + h.tau);
+    ub = T(2) * un - uo;
+    return un;
+  }
+  __device__ T scale(int k, int i, int j, T n2) const {
+    const T a = h.P == 1 ? s_alpha[k] : slc_alpha(h, k, i, j);
+    return ball_scale(n2, a);
+  }
+};
 
 // All n_inner fixed-step CP iterations of an outer step, one image per
-// cluster.  CTA c owns rows [r0, r1) = [c·rows, (c+1)·rows) ∩ [0, M) and
-// holds u, ū and the 2K dual planes on rows r0 − 2 … r1 + 1 (band row
-// l = i − r0 + 2), then its halo slots [parity][top, bottom][2 rows][2K
-// planes][N].  Per iteration: the primal step on rows r0 − 1 … r1 (its own
-// and one halo row each side: the halo rows' u and ū come out equal to the
-// owner's, same inputs and operations), the dual step on its own rows,
-// whose top two and bottom two rows it also stores into the neighbours'
-// halo slots of the next parity (distributed shared memory), then one
-// cluster barrier; the next iteration copies its slots into the band's halo
-// rows.  Double-buffered slots let a neighbour store iteration t + 1's rows
-// while this CTA may still read iteration t's.  f is read through L2.
-// Every non-empty CTA but the last owns ≥ 2 rows (pd_plan), so the two halo
-// rows each side come from the adjacent CTAs.  RES: the band lives in
-// shared memory (else in h.pd, laid out alike).  KC: SlcForm.
+// cluster, under the band scheme of csrc/pd_cluster.cuh.  RES: the band
+// lives in shared memory (else in h.pd, laid out alike).  KC: SlcForm.
 template <typename T, bool RES, int KC>
 __global__ void __launch_bounds__(PD_THREADS, PD_MINB)
 slc_pd(SLC<T> h, int n_inner) {
   extern __shared__ __align__(16) unsigned char slc_smem[];
   __shared__ T s_alpha[SL_MAXK];
-  cgrp::cluster_group cluster = cgrp::this_cluster();
-  const int c = (int)cluster.block_rank();
-  const long long b = blockIdx.x / h.cl;
-  const int M = h.M, N = h.N, K = slc_K<KC>(h), ny = 2 * K;
-  const int ty = (int)threadIdx.x / PD_TX, tx = (int)threadIdx.x % PD_TX;
-  const int r0 = c * h.rows;
-  const int r1 = r0 + h.rows < M ? r0 + h.rows : M;
-  const bool has = r1 > r0;
-  const int band = (h.rows + 4) * N;
-  const int slot_rows = ny * N;                   // one slot row, 2K planes
-  T* base = RES ? reinterpret_cast<T*>(slc_smem)
-                : h.pd + (long long)blockIdx.x * h.pd_region;
-  T* U = base;
-  T* UB = base + band;
-  T* Y = base + 2 * band;                         // plane q at Y + q·band
-  T* slots = Y + ny * band;
-  T* up = nullptr;      // the slots of the CTA above (its bottom rows)
-  T* down = nullptr;    // the slots of the CTA below (its top rows)
-  if (has && c > 0)
-    up = RES ? cluster.map_shared_rank(slots, c - 1)
-             : slots - h.pd_region;
-  if (has && r1 < M)
-    down = RES ? cluster.map_shared_rank(slots, c + 1)
-               : slots + h.pd_region;
-  if ((int)threadIdx.x < K) s_alpha[threadIdx.x] = h.xk[threadIdx.x];
-  const long long img = b * h.mn;
-  // every CTA of the cluster runs before any stores into another's slots
-  cluster.sync();
-
-  // u and the duals on rows r0 − 2 … r1 + 1 that exist
-  const int lo = r0 - 2 > 0 ? r0 - 2 : 0;
-  const int hi = r1 + 2 < M ? r1 + 2 : M;
-  if (has) {
-    for (int q = threadIdx.x; q < (hi - lo) * N; q += PD_THREADS) {
-      const int i = lo + q / N, j = q % N;
-      const long long g = (long long)i * N + j;
-      const int l = (i - r0 + 2) * N + j;
-      U[l] = h.u[img + g];
-      for (int k = 0; k < K; ++k) {
-        const T* yk = h.y(k, b);
-        Y[2 * k * band + l] = yk[g];
-        Y[(2 * k + 1) * band + l] = yk[h.mn + g];
-      }
-    }
-  }
-
-  // the primal step's rows: own and one halo row each side
-  const int pa = r0 - 1 > 0 ? r0 - 1 : 0;
-  const int pb = has ? (r1 + 1 < M ? r1 + 1 : M) : pa;
-  for (int it = 0; it < n_inner; ++it) {
-    const int par = it & 1;
-    if (it > 0 && has) {
-      // slots[par] → the band's halo rows r0 − 2, r0 − 1 (from above) and
-      // r1, r1 + 1 (from below); slot row (side·2 + row)·2K + plane
-      const T* src = slots + par * 4 * slot_rows;
-      for (int cr = ty; cr < 4 * ny; cr += PD_TY) {
-        const int side = cr / (2 * ny), row = (cr / ny) % 2;
-        const int i = side == 0 ? r0 - 2 + row : r1 + row;
-        if (!(side == 0 ? c > 0 : r1 < M) || i < 0 || i >= M) continue;
-        T* dst = Y + (cr % ny) * band + (i - r0 + 2) * N;
-        for (int j = tx; j < N; j += PD_TX) dst[j] = src[cr * N + j];
-      }
-    }
-    __syncthreads();
-    // u⁺ = (u − τ(Σₖ Gₖᵀyₖ − f))/(1+τ);  ū = 2u⁺ − u
-    for (int ib = pa; ib < pb; ib += PD_TY) {
-      for (int j0 = tx; j0 < N; j0 += PD_TX * PD_CPT) {
-        T dv[PD_CPT], uo[PD_CPT], fv[PD_CPT];
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          const T* qx = Y + 2 * k * band;
-#pragma unroll
-          for (int e = 0; e < PD_CPT; ++e) {
-            const Pix p = pix(b, ib + ty, j0 + e * PD_TX);
-            if (p.i >= pb || p.j >= N) continue;
-            const int l = (p.i - r0 + 2) * N + p.j;
-            const T d = div_s(qx, qx + band, l, p, M, N, N,
-                              slc_kind<KC>(h, k));
-            dv[e] = k == 0 ? d : dv[e] + d;
-          }
-        }
-#pragma unroll
-        for (int e = 0; e < PD_CPT; ++e) {
-          const int i = ib + ty;
-          const int j = j0 + e * PD_TX;
-          if (i >= pb || j >= N) continue;
-          uo[e] = U[(i - r0 + 2) * N + j];
-          fv[e] = h.f[img + (long long)i * N + j];
-        }
-#pragma unroll
-        for (int e = 0; e < PD_CPT; ++e) {
-          const int i = ib + ty;
-          const int j = j0 + e * PD_TX;
-          if (i >= pb || j >= N) continue;
-          const int l = (i - r0 + 2) * N + j;
-          const T un = (uo[e] - h.tau * (dv[e] - fv[e])) / (T(1) + h.tau);
-          U[l] = un;
-          UB[l] = T(2) * un - uo[e];
-        }
-      }
-    }
-    __syncthreads();
-    // yₖ = Π_{|·|≤αₖ}(yₖ + σGₖū); the top and bottom two rows also into
-    // the neighbours' slots of the next parity
-    const bool send = it + 1 < n_inner;
-    T* to_up = up && send ? up + (1 - par) * 4 * slot_rows + 2 * slot_rows
-                          : nullptr;              // its bottom rows
-    T* to_down = down && send ? down + (1 - par) * 4 * slot_rows : nullptr;
-    for (int ib = r0; ib < r1; ib += PD_TY) {
-      for (int j0 = tx; j0 < N; j0 += PD_TX * PD_CPT) {
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          T px[PD_CPT], py[PD_CPT];
-#pragma unroll
-          for (int e = 0; e < PD_CPT; ++e) {
-            const Pix p = pix(b, ib + ty, j0 + e * PD_TX);
-            if (p.i >= r1 || p.j >= N) continue;
-            const int l = (p.i - r0 + 2) * N + p.j;
-            T gx, gy;
-            grad_s((const T*)UB, l, p, M, N, N, slc_kind<KC>(h, k), gx,
-                   gy);
-            px[e] = Y[2 * k * band + l] + h.sigma * gx;
-            py[e] = Y[(2 * k + 1) * band + l] + h.sigma * gy;
-          }
-#pragma unroll
-          for (int e = 0; e < PD_CPT; ++e) {
-            const int i = ib + ty;
-            const int j = j0 + e * PD_TX;
-            if (i >= r1 || j >= N) continue;
-            const int l = (i - r0 + 2) * N + j;
-            const T a = h.P == 1 ? s_alpha[k] : slc_alpha(h, k, i, j);
-            const T s = ball_scale(px[e] * px[e] + py[e] * py[e], a);
-            const T qx = px[e] * s;
-            const T qy = py[e] * s;
-            Y[2 * k * band + l] = qx;
-            Y[(2 * k + 1) * band + l] = qy;
-            if (to_up && i < r0 + 2) {
-              T* d = to_up + (i - r0) * slot_rows + 2 * k * N + j;
-              d[0] = qx;
-              d[N] = qy;
-            }
-            if (to_down && i >= r1 - 2) {
-              T* d = to_down + (i - r1 + 2) * slot_rows + 2 * k * N + j;
-              d[0] = qx;
-              d[N] = qy;
-            }
-          }
-        }
-      }
-    }
-    cluster.sync();
-  }
-
-  // own rows back to global memory (no neighbour touches this CTA's
-  // shared memory after the last cluster barrier)
-  for (int q = threadIdx.x; q < (r1 - r0) * N; q += PD_THREADS) {
-    const long long g = (long long)r0 * N + q;
-    const int l = 2 * N + q;
-    h.u[img + g] = U[l];
-    for (int k = 0; k < K; ++k) {
-      T* yk = h.y(k, b);
-      yk[g] = Y[2 * k * band + l];
-      yk[h.mn + g] = Y[(2 * k + 1) * band + l];
-    }
-  }
+  if ((int)threadIdx.x < slc_K<KC>(h))
+    s_alpha[threadIdx.x] = h.xk[threadIdx.x];
+  SlcStep<T, KC> step(h, s_alpha);
+  pd_cluster_run<T, RES>(step, slc_smem, n_inner);
 }
 
 // ------------------------------------------------------------- the CG tiles
@@ -886,55 +697,15 @@ __global__ void __launch_bounds__(BPL_THREADS) slc_pull_adam(SLC<T> h, int o) {
 
 // ------------------------------------------------------------------ the host
 
-// The PD phase's launch: cluster size, dynamic shared memory, the
-// co-residency check.  Returns a cudaError_t.
-template <typename T>
-struct PdLaunch {
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr[1];
-  void (*kern)(SLC<T>, int);
-};
-
-template <typename T, int KC>
-int pd_prepare(PdLaunch<T>& L, const SLC<T>& h, int resident,
-               cudaStream_t s) {
-  const size_t smem = resident ? (size_t)h.pd_region * sizeof(T) : 0;
-  int dev = 0, optin = 0;
-  cudaError_t err;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
-  if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
-  L.kern = resident ? slc_pd<T, true, KC> : slc_pd<T, false, KC>;
-  err = cudaFuncSetAttribute(L.kern,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  L.cfg = cudaLaunchConfig_t{};
-  L.cfg.gridDim = dim3((unsigned)(h.B * h.cl));
-  L.cfg.blockDim = dim3(PD_THREADS);
-  L.cfg.dynamicSmemBytes = smem;
-  L.cfg.stream = s;
-  L.attr[0].id = cudaLaunchAttributeClusterDimension;
-  L.attr[0].val.clusterDim.x = (unsigned)h.cl;
-  L.attr[0].val.clusterDim.y = 1;
-  L.attr[0].val.clusterDim.z = 1;
-  L.cfg.attrs = L.attr;
-  L.cfg.numAttrs = 1;
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, L.kern, &L.cfg);
-  if (err != cudaSuccess) return (int)err;
-  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
-  return (int)cudaSuccess;
-}
-
 // The launches of `outer` steps for the form KC (SlcForm).
 template <typename T, int KC>
 int single_loop(SLC<T>& h, int resident, int outer, int n_inner, int n_adj,
                 int pipelined, int* n_launched, cudaStream_t s) {
-  PdLaunch<T> L;
-  int err = pd_prepare<T, KC>(L, h, resident, s);
+  PdClusterLaunch<void (*)(SLC<T>, int)> L;
+  void (*kern)(SLC<T>, int) = resident ? slc_pd<T, true, KC>
+                                       : slc_pd<T, false, KC>;
+  int err = pd_cluster_prepare(
+      L, kern, h.B, h.cl, resident ? (size_t)h.pd_region * sizeof(T) : 0, s);
   if (err != (int)cudaSuccess) return err;
   const dim3 tiles(h.tpi, h.B);
   int nl = 0;

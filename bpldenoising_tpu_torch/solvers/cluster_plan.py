@@ -1,0 +1,62 @@
+"""The thread-block cluster plan of the CP iterations that keep each image
+on-chip (``csrc/pd_cluster.cuh``): kernel A's chunks (:mod:`.pdps_cuda`)
+and the single-loop learner's PD phase
+(:mod:`..bilevel.first_order_cuda`).
+
+One cluster runs one image; each CTA holds a band of rows with two halo
+rows above and below in shared memory.  :func:`pd_plan` decides from the
+shapes alone, before any launch, how many CTAs an image takes, how many
+rows each owns and whether the bands fit in shared memory.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+__all__ = ["PdPlan", "pd_plan", "MAX_CLUSTER", "SMEM_PER_BLOCK"]
+
+#: the largest portable thread-block cluster (csrc/pd_cluster.cuh's
+#: PD_MAX_CLUSTER)
+MAX_CLUSTER = 8
+#: the dynamic shared memory a block may opt in to on an H100 (227 KB)
+SMEM_PER_BLOCK = 232448
+
+
+class PdPlan(NamedTuple):
+    """The band launch for one image: ``cluster`` CTAs, each owning
+    ``rows`` image rows (the last CTAs may own fewer, or none), with
+    ``planes`` band planes (u, ū and the K duals' two components) of
+    rows + 4 rows (two halo rows above and below) and 16·K halo-slot rows
+    (two parities, two sides, two rows, 2K planes), each of N elements;
+    ``smem`` bytes of dynamic shared memory per CTA, ``resident`` when the
+    bands live there (else ``smem`` 0: the single-loop learner keeps them
+    in a global scratch laid out alike, kernel A runs its two-launch
+    form)."""
+    cluster: int
+    rows: int
+    planes: int
+    smem: int
+    resident: bool
+
+
+def pd_plan(M: int, N: int, K: int, itemsize: int) -> PdPlan:
+    """The rule for the cluster: the largest power of two up to
+    ``MAX_CLUSTER`` that leaves every CTA but the last at least two rows
+    (the halo rows each side then come from the adjacent CTAs; more CTAs
+    per image fill more of the card at small batches, and each adds four
+    halo rows of work), ⌈M / cluster⌉ rows each, and the bands in shared
+    memory when ((2 + 2K)(rows + 4) + 16K)·N·itemsize bytes fit in
+    ``SMEM_PER_BLOCK``.  The CUDA side checks the plan against the card
+    (its opt-in shared memory and ``cudaOccupancyMaxActiveClusters``) and
+    the wrappers raise when it cannot run."""
+    if min(M, N, K, itemsize) < 1:
+        raise ValueError(f"bad shape M={M}, N={N}, K={K}, itemsize="
+                         f"{itemsize}")
+    cluster = 1
+    while cluster * 2 <= min(M // 2, MAX_CLUSTER):
+        cluster *= 2
+    rows = -(-M // cluster)
+    planes = 2 + 2 * K
+    smem = (planes * (rows + 4) + 16 * K) * N * itemsize
+    resident = smem <= SMEM_PER_BLOCK
+    return PdPlan(cluster, rows, planes, smem if resident else 0, resident)

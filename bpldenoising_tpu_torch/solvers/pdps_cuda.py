@@ -12,6 +12,13 @@ anything else).  τ and σ restart from τ₀/L and σ₀/L on every call; a war
 start reads ``state0 = (u, ys)`` with K duals.  The early stop is the plain
 version's: every ``check_every`` iterations, stop once the max over images
 of ‖Δu‖/‖u‖ is ≤ ``tol``.
+
+The kernel runs one launch per early-stop chunk (all ``maxiter``
+iterations without ``tol``), one thread-block cluster an image, when
+:func:`.cluster_plan.pd_plan` finds that the image's bands fit in shared
+memory; otherwise (1×2048², say) its two-launch form, two launches an
+iteration on state in global memory.  The rule is decided from the shapes
+before any launch; a cluster launch that the card refuses raises.
 """
 
 from __future__ import annotations
@@ -23,12 +30,20 @@ import torch
 from .. import _build
 from ..models import DenoiseModel
 from ..ops import BwdGradientOp, CenteredGradientOp, FwdGradientOp
+from .cluster_plan import pd_plan
 from .pdps import _denoise_pdps_impl, step_sizes
 
-__all__ = ["denoise_pdps_cuda", "launches"]
+__all__ = ["denoise_pdps_cuda", "launches", "cluster_calls", "device_ops"]
 
 #: calls that launched the CUDA kernel (one per solve)
 launches = 0
+#: those of them that ran the cluster form (one launch per chunk)
+cluster_calls = 0
+#: device operations those calls issued (launches and copies, as the C loop
+#: counts them: per early-stop chunk 3 in the cluster form, the launch,
+#: pd_change and the read of the ratios; 2 per iteration and 3 per chunk
+#: in the two-launch form)
+device_ops = 0
 
 #: the stencil kind (csrc/common.cuh: Stencil) of each gradient operator
 STENCIL = {FwdGradientOp: 0, BwdGradientOp: 1, CenteredGradientOp: 2}
@@ -123,25 +138,33 @@ def denoise_pdps_cuda(f, alphas, state0=None, *, model: DenoiseModel, tau0,
         u = u0.contiguous().clone()
     M, N = int(f.shape[-2]), int(f.shape[-1])
     O = f.numel() // (M * N)
-    ubar = torch.empty_like(f)
+    plan = pd_plan(M, N, K, f.element_size())
+    # the two-launch form's ū plane, or the cluster form's (τ, ω, σ) table
+    ubar = None if plan.resident else torch.empty_like(f)
+    tab = torch.empty((3 * max(int(maxiter), 1),), dtype=dtype,
+                      device=f.device) if plan.resident else None
     uprev = torch.empty_like(f)
     ratio = torch.empty((max(O, 1),), dtype=dtype, device=f.device)
     tau, sigma = step_sizes(model, tau0, sigma0, dtype, f.device)
     lib = _build.library()
     fn = lib.bpl_pdps_solve_f32 if dtype == torch.float32 \
         else lib.bpl_pdps_solve_f64
-    iters = ctypes.c_int(0)
-    global launches
+    iters, ops = ctypes.c_int(0), ctypes.c_int(0)
+    global launches, cluster_calls, device_ops
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream(f.device).cuda_stream
         launches += 1
-        err = fn(f.data_ptr(), u.data_ptr(), y.data_ptr(), ubar.data_ptr(),
-                 uprev.data_ptr(), ratio.data_ptr(), O, M, N, K, kinds,
-                 scalars, addrs, float(tau), float(sigma), float(gamma),
+        cluster_calls += int(plan.resident)
+        err = fn(f.data_ptr(), u.data_ptr(), y.data_ptr(),
+                 0 if ubar is None else ubar.data_ptr(), uprev.data_ptr(),
+                 ratio.data_ptr(), 0 if tab is None else tab.data_ptr(), O,
+                 M, N, K, kinds, scalars, addrs, plan.cluster, plan.rows,
+                 int(plan.resident), float(tau), float(sigma), float(gamma),
                  int(bool(accel)), int(maxiter), int(tol is not None),
                  0.0 if tol is None else float(tol), int(check_every),
-                 ctypes.byref(iters), stream)
-    _build.check(err, "pdps kernel")
+                 ctypes.byref(iters), ctypes.byref(ops), stream)
+    device_ops += ops.value
+    _build.check(err, f"pdps kernel ({plan})")
     if return_dual:
         return u, tuple(y.unbind(0)), int(iters.value)
     return u

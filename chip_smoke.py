@@ -13,14 +13,18 @@ Phases (one short line each):
 3. kernel A (PDPS inner solve) against its plain PyTorch version on the
    flagship data (10 × 128² float32): a cold 5000-iteration call, a cold
    call with early stop that returns its state, a warm call from that
-   state; then once more in float64 at a small shape.
+   state, with the plan (``solvers/cluster_plan.py::pd_plan``: cluster,
+   rows a CTA, resident; at this shape the cluster form, one launch per
+   early-stop chunk) and the device operations of each call; then once
+   more in float64 at a small shape.
 4. kernel B (AL hypergradient, exact and regularized forms) against its
    plain version at the flagship shapes, u from phase 3; then in float64.
 5. the flagship: ``scalar_bilevel_tv_learn(dataset_name="faces_train",
    num_samples=10, method="tr_fused", device="cuda")`` with the benchmark's
    settings, once to warm up and once timed with CUDA events, launch
    counters reset just before the timed run.  It must land within the
-   parity gates below.
+   parity gates below, and every kernel-A call must run the cluster form
+   (its calls, cluster-form calls and device operations are printed).
 6. the TGV² kernel (``csrc/tgv.cu``) against its plain PyTorch version on
    the flagship data (10 × 128² float32): a cold 5000-iteration call, a
    cold call with early stop that returns its state, a warm call from that
@@ -29,8 +33,9 @@ Phases (one short line each):
    Then in float64 at 2 × 32².
 7. large images: the TGV² kernel at 1 × 1024² (1000 iterations, the shape
    the TPU sends to its row-tiled TGV kernel) and kernel A at 1 × 2048²
-   (1000 iterations, the shape the TPU sends to its row-tiled TV kernel),
-   each against its plain version, timed.
+   (1000 iterations, the shape the TPU sends to its row-tiled TV kernel;
+   its bands do not fit in shared memory, so the plan runs kernel A's
+   two-launch form), each against its plain version, timed.
 8. the TGV learn: ``scalar_bilevel_tgv_learn(dataset_name="faces_train",
    num_samples=10, method="tr_fused", device="cuda")`` with the benchmark's
    TGV settings, once to warm up and once timed, all launch counters reset
@@ -112,8 +117,10 @@ Phases (one short line each):
     version on the flagship data (10 × 128² float32): the sum of
     regularizers (forward, backward, centred; weights (0.035, 0.032,
     0.005)) and TV with a random (128, 128) α map, each a cold
-    5000-iteration call, a cold call with early stop and a warm call;
-    then K = 3 at 1 × 2048², 1000 iterations (row 3's shape).
+    5000-iteration call, a cold call with early stop and a warm call,
+    each form's plan and device operations printed as in phase 3; then
+    K = 3 at 1 × 2048², 1000 iterations (row 3's shape, the two-launch
+    form).
 35. kernel B's K = 3 form (scalar gradients) and map form (per-pixel
     gradient maps) against its plain version, exact and regularized, u
     from phase 34; then kernels A and B in these forms in float64 at
@@ -125,11 +132,13 @@ Phases (one short line each):
     ``patch_bilevel_sumregs_learn`` (2×2×3, its entry defaults) and the
     16×16 grid through ``patch_bilevel_tv_learn`` (L-BFGS), each once to
     warm up (but the grid) and once timed, counters reset just before
-    and read just after, the plain versions watched (no call); gated
-    against ``scripts/jax_reference_tv_family.py`` (below).
+    and read just after, the plain versions watched (no call), every
+    kernel-A call in the cluster form; gated against
+    ``scripts/jax_reference_tv_family.py`` (below).
 40. the float64 witnesses: ``scalar_bilevel_sumregs_learn`` and
     ``patch_bilevel_tv_learn`` in float64 on the card against the JAX
-    package's float64 runs, at 1e-6.
+    package's float64 runs, at 1e-6, every kernel-A call in the cluster
+    form.
 
 It prints one JSON line of per-kernel numbers (sixteen entries: the
 eleven kernels, rows 1–3's K = 3 and map forms), then, as its last line,
@@ -641,6 +650,7 @@ def phase_kernel_a(f, timed, *, maxiter=5000, tol=5e-6, check_every=50,
     of them.  Returns (state u, stats)."""
     from bpldenoising_tpu_torch.models import tv_model
     from bpldenoising_tpu_torch.solvers import pdps_cuda
+    from bpldenoising_tpu_torch.solvers.cluster_plan import pd_plan
     from bpldenoising_tpu_torch.solvers.pdps import _denoise_pdps_impl
 
     model = model or tv_model()
@@ -650,10 +660,13 @@ def phase_kernel_a(f, timed, *, maxiter=5000, tol=5e-6, check_every=50,
     a_warm = weights(alphas_warm, f)
     worst = 0.0
     faults = []
+    ops = []     # kernel A's device operations, call by call
 
     def both(alphas, state0, **extra):
+        before = pdps_cuda.device_ops
         k_out, k_ms = timed(lambda: pdps_cuda.denoise_pdps_cuda(
             f, alphas, state0, **kw, **extra))
+        ops.append(pdps_cuda.device_ops - before)
         p_out, p_ms = timed(lambda: _denoise_pdps_impl(
             f, alphas, state0, **kw, **extra))
         return k_out, k_ms, p_out, p_ms
@@ -698,9 +711,16 @@ def phase_kernel_a(f, timed, *, maxiter=5000, tol=5e-6, check_every=50,
     say(f"  {label} warm tol {tol:g}: iters {wit}/{qit}, {msg}; "
         f"kernel {k_ms:.2f} ms, plain {p_ms:.2f} ms")
     say(f"  {label} tolerances: u {tol_u:g}, y {tol_y:g} (absolute)")
+    plan = pd_plan(f.shape[-2], f.shape[-1], model.K, f.element_size())
+    say(f"  {label} plan: cluster {plan.cluster}, {plan.rows} rows a CTA, "
+        f"resident {plan.resident} ({plan.smem} B a CTA); device "
+        f"operations a call: cold {ops[0]}, cold tol {ops[1]} ({kit} its), "
+        f"warm tol {ops[2]} ({wit} its)")
     require(not faults, f"kernel {label} disagrees with plain: "
             + "; ".join(faults))
-    return pu, dict(cold, max_abs_err=worst)
+    require(plan.resident, f"kernel {label}: {plan} is not the cluster form")
+    return pu, dict(cold, max_abs_err=worst, plan=plan._asdict(),
+                    device_ops=ops)
 
 
 def phase_kernel_b(u, utrue, timed, *, alphas=(0.1,), rtol=TOL_B_F32_REL,
@@ -976,15 +996,24 @@ def large_a(img, timed, model, a, label, iters=1000):
     kw = dict(model=model, tau0=5.0, sigma0=0.99 / 5.0, gamma=1.0,
               accel=True, maxiter=iters, tol=None, check_every=50,
               return_dual=True)
+    from bpldenoising_tpu_torch.solvers.cluster_plan import pd_plan
+
     pdps_cuda.denoise_pdps_cuda(img, a, None, **dict(kw, maxiter=5))
+    before = pdps_cuda.device_ops
     (ku, kys, _), k_ms = timed(lambda: pdps_cuda.denoise_pdps_cuda(
         img, a, None, **kw))
+    ops = pdps_cuda.device_ops - before
     (pu, pys, _), p_ms = timed(lambda: _denoise_pdps_impl(img, a, None,
                                                          **kw))
     err_u = max_abs(ku, pu)
     err_y = max(max_abs(k, p) for k, p in zip(kys, pys))
+    plan = pd_plan(img.shape[-2], img.shape[-1], model.K,
+                   img.element_size())
     say(f"  {label}, {iters} it: max|du| {err_u:.2e}, max|dy| "
-        f"{err_y:.2e}; kernel {k_ms:.2f} ms, plain {p_ms:.2f} ms")
+        f"{err_y:.2e}; kernel {k_ms:.2f} ms, plain {p_ms:.2f} ms; plan: "
+        f"cluster {plan.cluster}, {plan.rows} rows a CTA, resident "
+        f"{plan.resident} (the two-launch form when not); {ops} device "
+        f"operations")
     require(err_u <= TOL_A_U_F32 and err_y <= TOL_A_Y_F32,
             f"kernel {label} disagrees with plain: {err_u}, {err_y}")
     kinds = [pdps_kind(op) for op in model.ops]
@@ -992,7 +1021,8 @@ def large_a(img, timed, model, a, label, iters=1000):
     bound, by = bound_ms(nbytes, a_ops_per_pixel_iter(kinds) * img.numel()
                          * iters)
     return dict(ms=k_ms, plain_ms=p_ms, max_abs_err=max(err_u, err_y),
-                bound_ms=bound, bound_by=by)
+                bound_ms=bound, bound_by=by, plan=plan._asdict(),
+                device_ops=ops)
 
 
 def pdps_kind(op):
@@ -1018,8 +1048,27 @@ def launch_counters():
 
 
 def reset_launches():
+    from bpldenoising_tpu_torch.solvers import pdps_cuda
     for mod in launch_counters().values():
         mod.launches = 0
+    pdps_cuda.cluster_calls = 0
+    pdps_cuda.device_ops = 0
+
+
+def kernel_a_forms():
+    """Since the last reset: kernel A's calls, those that ran its cluster
+    form, and the device operations (launches and copies) they issued."""
+    from bpldenoising_tpu_torch.solvers import pdps_cuda
+    return dict(calls=pdps_cuda.launches, cluster=pdps_cuda.cluster_calls,
+                device_ops=pdps_cuda.device_ops)
+
+
+def say_kernel_a_forms(forms):
+    calls = max(forms["calls"], 1)
+    say(f"  kernel A: {forms['calls']} calls, {forms['cluster']} in the "
+        f"cluster form (one launch per early-stop chunk), "
+        f"{forms['device_ops']} device operations "
+        f"({forms['device_ops'] / calls:.1f} a call)")
 
 
 def read_launches():
@@ -2401,6 +2450,7 @@ def phase_tvf_learn(utrue, timed, name, warm_up=True):
         reset_launches()
         res, wall_ms = timed(lambda: learn(device="cuda", **kw))
         launches = read_launches()
+        a_forms = kernel_a_forms()
     finally:
         restore()
     ref = TVF_REF[name]
@@ -2439,9 +2489,13 @@ def phase_tvf_learn(utrue, timed, name, warm_up=True):
     after = ", after one warm-up run" if warm_up else ""
     say(f"  wall {wall_ms:.1f} ms (CUDA events{after}; PNG load included); "
         f"launches {launches}; plain-version calls {len(calls)}")
+    say_kernel_a_forms(a_forms)
     faults = [msg for ok, msg in (
         (launches["pdps"] > 0 and launches["hypergrad"] > 0 and not calls,
          f"{name} learn: launches {launches}, plain calls {calls[:3]}"),
+        (a_forms["cluster"] == launches["pdps"],
+         f"{name} learn: kernel A's cluster form ran {a_forms['cluster']} "
+         f"of {launches['pdps']} calls"),
         (d_alpha <= gates["alpha"], f"{name} alpha off by {d_alpha}"),
         (d_psnr <= gates["psnr"], f"{name} mean PSNR {mean_psnr}"),
         (cost_rel <= gates["cost"], f"{name} final cost {cost}"))
@@ -2450,7 +2504,7 @@ def phase_tvf_learn(utrue, timed, name, warm_up=True):
                 mean_psnr_db=mean_psnr, final_cost=cost,
                 outer_iterations=res.iterations, adjoint_cg=cg[0],
                 nominal_gates=nominal_in, wall_ms=wall_ms,
-                launches=launches, faults=faults)
+                launches=launches, kernel_a=a_forms, faults=faults)
 
 
 def phase_tvf_witness(name):
@@ -2461,10 +2515,12 @@ def phase_tvf_witness(name):
 
     ref = TVF_WITNESS[name]
     learn, kw = tvf_learn_kwargs(name)
+    reset_launches()
     res = learn(device="cuda", **dict(
         kw, dtype="float64", maxiter=ref["maxiter"],
         hypergrad_cfg=HypergradConfig(al_iters=2, cg_maxiter=1000,
                                       act_tol=1e-4)))
+    a_forms = kernel_a_forms()
     x = np.asarray(res.x, dtype=np.float64)
     x_ref = np.asarray(ref["x"])
     d_rel = float(np.abs(x - x_ref).max() / np.abs(x_ref).max())
@@ -2476,10 +2532,13 @@ def phase_tvf_witness(name):
         f"{res.iterations} outer its")
     for line in log_lines(res):
         say(line)
-    ok = d_rel <= TVF_WITNESS_GATE_REL and cost_rel <= TVF_WITNESS_GATE_REL
-    return dict(alpha_rel_err=d_rel, cost_rel_err=cost_rel, faults=[] if ok
+    say_kernel_a_forms(a_forms)
+    ok = (d_rel <= TVF_WITNESS_GATE_REL and cost_rel <= TVF_WITNESS_GATE_REL
+          and a_forms["cluster"] == a_forms["calls"] > 0)
+    return dict(alpha_rel_err=d_rel, cost_rel_err=cost_rel,
+                kernel_a=a_forms, faults=[] if ok
                 else [f"float64 {name} witness: alpha {d_rel}, cost "
-                      f"{cost_rel}"])
+                      f"{cost_rel}, kernel A {a_forms}"])
 
 
 def flagship_kwargs():
@@ -2543,6 +2602,7 @@ def main():
     res, wall_ms = timed(lambda: scalar_bilevel_tv_learn(device="cuda",
                                                          **kw))
     counts = read_launches()
+    a_forms = kernel_a_forms()
     launches_a, launches_b = counts["pdps"], counts["hypergrad"]
     alpha = float(res.x)
     d_alpha = abs(alpha - FLAGSHIP_ALPHA)
@@ -2556,8 +2616,12 @@ def main():
     say(f"  wall {wall_ms:.1f} ms (CUDA events, after one warm-up run; "
         f"the PNG load in it takes ~{load_ms:.1f} ms on the host); "
         f"launches {counts}")
+    say_kernel_a_forms(a_forms)
     require(launches_a > 0 and launches_b > 0,
             f"main path launched A {launches_a}, B {launches_b} times")
+    require(a_forms["cluster"] == launches_a,
+            f"kernel A's cluster form ran {a_forms['cluster']} of "
+            f"{launches_a} calls")
     require(d_alpha <= ALPHA_GATE, f"alpha {alpha} off by {d_alpha}")
     require(abs(mean_psnr - FLAGSHIP_PSNR) <= PSNR_GATE,
             f"mean PSNR {mean_psnr}")

@@ -22,7 +22,8 @@ parameters.  For each:
    wrapper), the adjoint (kernel B's hypergradient for TV, the plain
    PyTorch adjoint CG for the others) and the rest (trust-region host
    code, cost, the one read per evaluation), each call timed on the host
-   between synchronisations, with the inner and CG iteration counts;
+   between synchronisations, with the inner and CG iteration counts (and,
+   for the TV family, kernel A's device operations: launches and copies);
 3. the first learn, cut to the family's profiled outer iterations (the
    whole learn for TV, TV-L1, the patch TV and the sum of regularizers,
    2 for TGV and the 16×16 grid and 3 for VTV, whose adjoint CGs launch
@@ -263,6 +264,7 @@ def main():
     import importlib
 
     from bpldenoising_tpu_torch import _build
+    from bpldenoising_tpu_torch.solvers import pdps_cuda
 
     mod_name, solve_names, adjoint_names, prof_its = FAMILIES[args.family]
     module = importlib.import_module(
@@ -319,6 +321,7 @@ def main():
         saved = {n: getattr(module, n) for _, n in keyed}
         for key, n in keyed:
             setattr(module, n, timed(key, saved[n]))
+        ops0 = pdps_cuda.device_ops
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -329,15 +332,19 @@ def main():
             for n, fn in saved.items():
                 setattr(module, n, fn)
         rest = split_wall - spent["solve"] - spent["adjoint"]
+        # kernel A's device operations (launches and copies) in this run
+        a_ops = pdps_cuda.device_ops - ops0
         print(f"{label} split (host clock, ms): total {split_wall:.1f}, "
               f"inner solve {spent['solve']:.1f} in {calls['solve']} calls "
               f"({counts['inner_iters']} iterations), adjoint "
               f"{spent['adjoint']:.1f} in {calls['adjoint']} calls "
-              f"({counts['cg_iters']} CG iterations), rest {rest:.1f}",
+              f"({counts['cg_iters']} CG iterations), rest {rest:.1f}"
+              + (f"; kernel A device operations {a_ops}" if a_ops else ""),
               flush=True)
         out[label] = dict(learn_wall_ms=walls, split_ms=dict(
             total=split_wall, inner_solve=spent["solve"],
-            adjoint=spent["adjoint"], rest=rest, calls=calls, **counts))
+            adjoint=spent["adjoint"], rest=rest, calls=calls, **counts),
+            kernel_a_device_ops=a_ops)
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile

@@ -14,7 +14,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "bpldenoising_tpu_torch"
 SOURCES = (sorted(PORT.rglob("*.py"))
-           + [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_profile.py"])
+           + [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_profile.py",
+              ROOT / "scripts" / "kernel_a_cluster_sizes.py"])
 FORBIDDEN = ("jax", "jaxlib", "bpldenoising_tpu")
 
 
@@ -79,7 +80,8 @@ SLICE_MODULES = ("ops/tgv.py", "ops/patch.py", "solvers/tgv.py",
                  "bilevel/first_order_tvl1.py",
                  "bilevel/first_order_tvl1_cuda.py",
                  "bilevel/first_order_vtv.py",
-                 "bilevel/first_order_vtv_cuda.py")
+                 "bilevel/first_order_vtv_cuda.py",
+                 "solvers/cluster_plan.py")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)
