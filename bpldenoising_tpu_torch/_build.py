@@ -122,9 +122,13 @@ def _declare(lib):
                                   ctypes.POINTER(_I), _P]
         fn.restype = _I
         fn = getattr(lib, f"bpl_hypergrad_{suffix}")
-        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, *blocks, real,
-                       real, real, real, _I, _I, _I,
-                       ctypes.POINTER(ctypes.c_double), _P]
+        # u, ū, p0, p, work, partials, scal, gmaps, the device stats; the
+        # blocks; act_tol, γ, μ, cg_tol; al_iters, cg_maxiter, reg; the
+        # host stats, ops (launches, reads), the grid, the stream
+        fn.argtypes = [_P] * 9 + [_LL, _I, _I, *blocks, real, real, real,
+                                  real, _I, _I, _I,
+                                  ctypes.POINTER(ctypes.c_double),
+                                  ctypes.POINTER(_I), ctypes.POINTER(_I), _P]
         fn.restype = _I
         fn = getattr(lib, f"bpl_tgv_solve_{suffix}")
         fn.argtypes = [_P] * 12 + [real, real, _LL, _I, _I, real, real, _I,
@@ -166,7 +170,9 @@ def _declare(lib):
     lib.bpl_error_string.restype = ctypes.c_char_p
     lib.bpl_hypergrad_planes.argtypes = [_I]
     lib.bpl_hypergrad_planes.restype = _I
+    lib.bpl_hypergrad_regions.restype = _I
     lib.bpl_hypergrad_slots.restype = _I
+    lib.bpl_hypergrad_stats.restype = _I
     lib.bpl_hypergrad_grad_slot.restype = _I
 
 

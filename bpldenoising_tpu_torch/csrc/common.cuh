@@ -8,8 +8,9 @@
 // over the batch are deterministic: each block writes one partial sum
 // (a fixed tree inside the block), and a second one-block pass sums the
 // partials in a fixed order.  There are no atomics, so repeated runs agree
-// bit for bit.  Launch boundaries are the only synchronisation between
-// blocks.
+// bit for bit.  Launch boundaries are the synchronisation between blocks,
+// but for the cluster barriers of pd_cluster.cuh and the grid barriers of
+// hypergrad.cu's cooperative launch.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -9,7 +9,8 @@ Phases (one short line each):
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
    them.
 2. build: compile ``bpldenoising_tpu_torch/csrc/*.cu`` with one ``nvcc``
-   call and load the library.
+   call and load the library; print kernel B's registers and spills per
+   instance from the ``-Xptxas -v`` log.
 3. kernel A (PDPS inner solve) against its plain PyTorch version on the
    flagship data (10 × 128² float32): a cold 5000-iteration call, a cold
    call with early stop that returns its state, a warm call from that
@@ -19,12 +20,17 @@ Phases (one short line each):
    more in float64 at a small shape.
 4. kernel B (AL hypergradient, exact and regularized forms) against its
    plain version at the flagship shapes, u from phase 3; then in float64.
+   Each kernel-B call must be one cooperative launch and one device→host
+   read (``hypergrad_cuda.device_ops``, ``host_reads``); the gradients,
+   ‖p‖ and the CG counts are printed with every digit.
 5. the flagship: ``scalar_bilevel_tv_learn(dataset_name="faces_train",
    num_samples=10, method="tr_fused", device="cuda")`` with the benchmark's
    settings, once to warm up and once timed with CUDA events, launch
    counters reset just before the timed run.  It must land within the
    parity gates below, and every kernel-A call must run the cluster form
-   (its calls, cluster-form calls and device operations are printed).
+   (its calls, cluster-form calls and device operations are printed) and
+   every kernel-B call one cooperative launch and one read (its calls,
+   kernel launches and host reads are printed).
 6. the TGV² kernel (``csrc/tgv.cu``) against its plain PyTorch version on
    the flagship data (10 × 128² float32): a cold 5000-iteration call, a
    cold call with early stop that returns its state, a warm call from that
@@ -124,7 +130,7 @@ Phases (one short line each):
 35. kernel B's K = 3 form (scalar gradients) and map form (per-pixel
     gradient maps) against its plain version, exact and regularized, u
     from phase 34; then kernels A and B in these forms in float64 at
-    2 × 32².
+    2 × 32²; every kernel-B call one launch and one read, as in phase 4.
 36–39. the learns with ``method="tr_fused"`` through their entry points
     at bench.py's settings on the 10 faces images, float32:
     ``patch_bilevel_tv_learn`` (2×2 from 1e-4),
@@ -133,7 +139,8 @@ Phases (one short line each):
     16×16 grid through ``patch_bilevel_tv_learn`` (L-BFGS), each once to
     warm up (but the grid) and once timed, counters reset just before
     and read just after, the plain versions watched (no call), every
-    kernel-A call in the cluster form; gated against
+    kernel-A call in the cluster form, every kernel-B call one cooperative
+    launch and one read; gated against
     ``scripts/jax_reference_tv_family.py`` (below).
 40. the float64 witnesses: ``scalar_bilevel_sumregs_learn`` and
     ``patch_bilevel_tv_learn`` in float64 on the card against the JAX
@@ -594,6 +601,38 @@ def b_ops_per_pixel(kinds, cg_iters, solves):
     return cg_iters * (mv + 14) + solves * (mv + 10) + fixed
 
 
+# kernel B's instances (csrc/hypergrad.cu: HgForm) by their mangled
+# template arguments
+HG_FORMS = {"Li256E": "K=1 forward", "Li804E": "K=3 fwd/bwd/cen",
+            "Lin1E": "generic"}
+
+
+def ptxas_report(log, source, needle):
+    """The -Xptxas -v lines (registers, spills) of ``source``'s kernels
+    whose names hold ``needle``, from the build log beside the library."""
+    try:
+        text = log.read_text()
+    except OSError:
+        return [f"no build log at {log}"]
+    part = text.split(f"== {source}\n", 1)[-1].split("\n== ", 1)[0]
+    lines = part.splitlines()
+    out = []
+    for i, line in enumerate(lines):
+        if "Compiling entry function" not in line or needle not in line:
+            continue
+        name = line.split("'")[1]
+        dtype = "float64" if "Id" in name.split(needle)[1][:3] else "float32"
+        form = next((v for k, v in HG_FORMS.items() if k in name), name)
+        regs = spills = "?"
+        for nxt in lines[i + 1:i + 5]:
+            if "registers" in nxt:
+                regs = nxt.split("Used")[1].split(",")[0].strip()
+            if "spill stores" in nxt:
+                spills = nxt.strip()
+        out.append(f"{needle} {dtype} {form}: {regs}; {spills}")
+    return out
+
+
 def say(msg):
     print(msg, flush=True)
 
@@ -744,8 +783,8 @@ def phase_kernel_b(u, utrue, timed, *, alphas=(0.1,), rtol=TOL_B_F32_REL,
             ("exact", hypergrad_cuda.exact_hypergrad_cuda, exact_hypergrad),
             ("reg", hypergrad_cuda.reg_hypergrad_cuda, reg_hypergrad)):
         kern(u, utrue, a, model, cfg, want_maps)   # warm-up
-        (kg, kp, ki), k_ms = timed(lambda: kern(u, utrue, a, model, cfg,
-                                                want_maps))
+        ((kg, kp, ki), ops), k_ms = timed(lambda: kernel_b_call(
+            lambda: kern(u, utrue, a, model, cfg, want_maps)))
         total = hypergrad_cuda.last_total_cg_iters
         (pg, pp, pi), p_ms = timed(lambda: plain(u, utrue, a, model, cfg,
                                                  want_maps))
@@ -762,6 +801,9 @@ def phase_kernel_b(u, utrue, timed, *, alphas=(0.1,), rtol=TOL_B_F32_REL,
         say(f"  {label} {name}: {grads} rel {g_err:.2e}, p rel {p_err:.2e} "
             f"(tol {rtol:g}), CG {ki.iters}/{pi.iters}; kernel {k_ms:.2f} "
             f"ms, plain {p_ms:.2f} ms")
+        say(f"  {label} {name} digits: {b_digits(kg, kp)}, CG {ki.iters} "
+            f"(all solves {total}); {ops[0]} kernel launch, {ops[1]} host "
+            f"read, {hypergrad_cuda.last_grid} CTAs")
         if g_err > rtol or p_err > rtol:
             faults.append(f"{name}: grad rel {g_err}, p rel {p_err}")
         if abs(ki.iters - pi.iters) > 1:
@@ -812,7 +854,8 @@ def phase_f64(torch, device):
              HypergradConfig(al_iters=2, cg_maxiter=300)),
             (hypergrad_cuda.reg_hypergrad_cuda, reg_hypergrad,
              HypergradConfig(cg_maxiter=300, gamma=1e4))):
-        kg, kp, ki = kern(u, utrue, a, model, cfg)
+        (kg, kp, ki), _ = kernel_b_call(
+            lambda: kern(u, utrue, a, model, cfg))
         pg, pp, pi = plain(u, utrue, a, model, cfg)
         errs_b.append(abs(float(kg[0]) - float(pg[0]))
                       / max(abs(float(pg[0])), 1e-30))
@@ -1048,11 +1091,13 @@ def launch_counters():
 
 
 def reset_launches():
-    from bpldenoising_tpu_torch.solvers import pdps_cuda
+    from bpldenoising_tpu_torch.solvers import hypergrad_cuda, pdps_cuda
     for mod in launch_counters().values():
         mod.launches = 0
     pdps_cuda.cluster_calls = 0
     pdps_cuda.device_ops = 0
+    hypergrad_cuda.device_ops = 0
+    hypergrad_cuda.host_reads = 0
 
 
 def kernel_a_forms():
@@ -1069,6 +1114,52 @@ def say_kernel_a_forms(forms):
         f"cluster form (one launch per early-stop chunk), "
         f"{forms['device_ops']} device operations "
         f"({forms['device_ops'] / calls:.1f} a call)")
+
+
+def kernel_b_forms():
+    """Since the last reset: kernel B's calls, the kernel launches and the
+    device→host reads they issued (one cooperative launch and one read of
+    the stats a call)."""
+    from bpldenoising_tpu_torch.solvers import hypergrad_cuda
+    reads = hypergrad_cuda.host_reads
+    return dict(calls=hypergrad_cuda.launches,
+                kernel_launches=hypergrad_cuda.device_ops - reads,
+                host_reads=reads, device_ops=hypergrad_cuda.device_ops)
+
+
+def say_kernel_b_forms(forms):
+    calls = max(forms["calls"], 1)
+    say(f"  kernel B: {forms['calls']} calls, {forms['kernel_launches']} "
+        f"kernel launches, {forms['host_reads']} host reads "
+        f"({forms['device_ops']} device operations, "
+        f"{forms['device_ops'] / calls:.1f} a call)")
+
+
+def kernel_b_cooperative(forms):
+    """Every kernel-B call ran one cooperative launch and one read."""
+    return forms["calls"] == forms["kernel_launches"] == forms["host_reads"]
+
+
+def kernel_b_call(fn):
+    """One kernel-B call: → (its result, (kernel launches, host reads)),
+    required to be (1, 1)."""
+    from bpldenoising_tpu_torch.solvers import hypergrad_cuda as hc
+    calls, ops, reads = hc.launches, hc.device_ops, hc.host_reads
+    out = fn()
+    reads = hc.host_reads - reads
+    launched = hc.device_ops - ops - reads
+    require(hc.launches - calls == 1 and launched == 1 and reads == 1,
+            f"kernel B call: {launched} kernel launches, {reads} host "
+            "reads (want 1 and 1)")
+    return out, (launched, reads)
+
+
+def b_digits(grads, p):
+    """Kernel B's gradients (or the gradient maps' sums) and ‖p‖ with
+    every digit."""
+    g = [repr(float(x if x.ndim == 0 else x.double().sum())) for x in grads]
+    return (f"grad{'' if grads[0].ndim == 0 else ' map sums'} "
+            f"[{', '.join(g)}], |p| {float(p.double().norm())!r}")
 
 
 def read_launches():
@@ -2359,7 +2450,8 @@ def phase_forms_f64(torch, device):
                  HypergradConfig(al_iters=2, cg_maxiter=300)),
                 ("reg", hypergrad_cuda.reg_hypergrad_cuda, reg_hypergrad,
                  HypergradConfig(cg_maxiter=300, gamma=1e4))):
-            kg, kp, ki = kern(u, utrue, a, model, cfg, want_maps)
+            (kg, kp, ki), _ = kernel_b_call(
+                lambda: kern(u, utrue, a, model, cfg, want_maps))
             pg, pp, pi = plain(u, utrue, a, model, cfg, want_maps)
             errs[f"B {label} {name}"] = max(
                 [rel_err(kp, pp)] + [rel_err(torch.as_tensor(k),
@@ -2451,6 +2543,7 @@ def phase_tvf_learn(utrue, timed, name, warm_up=True):
         res, wall_ms = timed(lambda: learn(device="cuda", **kw))
         launches = read_launches()
         a_forms = kernel_a_forms()
+        b_forms = kernel_b_forms()
     finally:
         restore()
     ref = TVF_REF[name]
@@ -2490,12 +2583,16 @@ def phase_tvf_learn(utrue, timed, name, warm_up=True):
     say(f"  wall {wall_ms:.1f} ms (CUDA events{after}; PNG load included); "
         f"launches {launches}; plain-version calls {len(calls)}")
     say_kernel_a_forms(a_forms)
+    say_kernel_b_forms(b_forms)
     faults = [msg for ok, msg in (
         (launches["pdps"] > 0 and launches["hypergrad"] > 0 and not calls,
          f"{name} learn: launches {launches}, plain calls {calls[:3]}"),
         (a_forms["cluster"] == launches["pdps"],
          f"{name} learn: kernel A's cluster form ran {a_forms['cluster']} "
          f"of {launches['pdps']} calls"),
+        (kernel_b_cooperative(b_forms),
+         f"{name} learn: kernel B {b_forms}: not one launch and one read a "
+         "call"),
         (d_alpha <= gates["alpha"], f"{name} alpha off by {d_alpha}"),
         (d_psnr <= gates["psnr"], f"{name} mean PSNR {mean_psnr}"),
         (cost_rel <= gates["cost"], f"{name} final cost {cost}"))
@@ -2504,7 +2601,8 @@ def phase_tvf_learn(utrue, timed, name, warm_up=True):
                 mean_psnr_db=mean_psnr, final_cost=cost,
                 outer_iterations=res.iterations, adjoint_cg=cg[0],
                 nominal_gates=nominal_in, wall_ms=wall_ms,
-                launches=launches, kernel_a=a_forms, faults=faults)
+                launches=launches, kernel_a=a_forms, kernel_b=b_forms,
+                faults=faults)
 
 
 def phase_tvf_witness(name):
@@ -2521,6 +2619,7 @@ def phase_tvf_witness(name):
         hypergrad_cfg=HypergradConfig(al_iters=2, cg_maxiter=1000,
                                       act_tol=1e-4)))
     a_forms = kernel_a_forms()
+    b_forms = kernel_b_forms()
     x = np.asarray(res.x, dtype=np.float64)
     x_ref = np.asarray(ref["x"])
     d_rel = float(np.abs(x - x_ref).max() / np.abs(x_ref).max())
@@ -2533,12 +2632,15 @@ def phase_tvf_witness(name):
     for line in log_lines(res):
         say(line)
     say_kernel_a_forms(a_forms)
+    say_kernel_b_forms(b_forms)
     ok = (d_rel <= TVF_WITNESS_GATE_REL and cost_rel <= TVF_WITNESS_GATE_REL
-          and a_forms["cluster"] == a_forms["calls"] > 0)
+          and a_forms["cluster"] == a_forms["calls"] > 0
+          and b_forms["calls"] > 0 and kernel_b_cooperative(b_forms))
     return dict(alpha_rel_err=d_rel, cost_rel_err=cost_rel,
-                kernel_a=a_forms, faults=[] if ok
+                kernel_a=a_forms, kernel_b=b_forms, faults=[] if ok
                 else [f"float64 {name} witness: alpha {d_rel}, cost "
-                      f"{cost_rel}, kernel A {a_forms}"])
+                      f"{cost_rel}, kernel A {a_forms}, kernel B "
+                      f"{b_forms}"])
 
 
 def flagship_kwargs():
@@ -2578,6 +2680,9 @@ def main():
     info = _build.build()
     _build.library()
     say(f"phase 2 build: {info.seconds:.1f} s ({info.path.name})")
+    for line in ptxas_report(info.path.with_suffix(".log"), "hypergrad.cu",
+                             "hg_coop"):
+        say(f"  {line}")
 
     timed = cuda_timer(torch)
     true_np, noisy_np = testdataset("faces_train_128_10")
@@ -2603,6 +2708,7 @@ def main():
                                                          **kw))
     counts = read_launches()
     a_forms = kernel_a_forms()
+    b_forms = kernel_b_forms()
     launches_a, launches_b = counts["pdps"], counts["hypergrad"]
     alpha = float(res.x)
     d_alpha = abs(alpha - FLAGSHIP_ALPHA)
@@ -2617,11 +2723,14 @@ def main():
         f"the PNG load in it takes ~{load_ms:.1f} ms on the host); "
         f"launches {counts}")
     say_kernel_a_forms(a_forms)
+    say_kernel_b_forms(b_forms)
     require(launches_a > 0 and launches_b > 0,
             f"main path launched A {launches_a}, B {launches_b} times")
     require(a_forms["cluster"] == launches_a,
             f"kernel A's cluster form ran {a_forms['cluster']} of "
             f"{launches_a} calls")
+    require(kernel_b_cooperative(b_forms),
+            f"kernel B: {b_forms}: not one launch and one read a call")
     require(d_alpha <= ALPHA_GATE, f"alpha {alpha} off by {d_alpha}")
     require(abs(mean_psnr - FLAGSHIP_PSNR) <= PSNR_GATE,
             f"mean PSNR {mean_psnr}")

@@ -23,7 +23,11 @@ parameters.  For each:
    PyTorch adjoint CG for the others) and the rest (trust-region host
    code, cost, the one read per evaluation), each call timed on the host
    between synchronisations, with the inner and CG iteration counts (and,
-   for the TV family, kernel A's device operations: launches and copies);
+   for the TV family, kernel A's device operations: launches and copies;
+   kernel B's kernel launches and device→host reads, its time per CG
+   iteration (the adjoint's time over all CG iterations of its calls)
+   and the bound of those CG iterations by chip_smoke.py's operation
+   count);
 3. the first learn, cut to the family's profiled outer iterations (the
    whole learn for TV, TV-L1, the patch TV and the sum of regularizers,
    2 for TGV and the 16×16 grid and 3 for VTV, whose adjoint CGs launch
@@ -83,6 +87,12 @@ FAMILIES = {
     "single_loop_tvl1": ("first_order_tvl1_cuda", ("_launch",), (), 30),
     "single_loop_vtv": ("first_order_vtv_cuda", ("_launch",), (), 30),
 }
+
+
+# kernel B's stencil kinds (csrc/common.cuh: Stencil) where not K = 1
+# forward, and the pixels of every TV-family learn (the 10 faces images)
+B_KINDS = {"sumregs": (0, 1, 2)}
+B_PIXELS = 10 * 128 * 128
 
 
 def setup_single_loop(torch, family):
@@ -263,8 +273,9 @@ def main():
         return 1
     import importlib
 
+    import chip_smoke
     from bpldenoising_tpu_torch import _build
-    from bpldenoising_tpu_torch.solvers import pdps_cuda
+    from bpldenoising_tpu_torch.solvers import hypergrad_cuda, pdps_cuda
 
     mod_name, solve_names, adjoint_names, prof_its = FAMILIES[args.family]
     module = importlib.import_module(
@@ -322,6 +333,7 @@ def main():
         for key, n in keyed:
             setattr(module, n, timed(key, saved[n]))
         ops0 = pdps_cuda.device_ops
+        b_ops0, b_reads0 = hypergrad_cuda.device_ops, hypergrad_cuda.host_reads
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -334,17 +346,33 @@ def main():
         rest = split_wall - spent["solve"] - spent["adjoint"]
         # kernel A's device operations (launches and copies) in this run
         a_ops = pdps_cuda.device_ops - ops0
+        # kernel B's launches and device→host reads in this run
+        b_reads = hypergrad_cuda.host_reads - b_reads0
+        b_launches = hypergrad_cuda.device_ops - b_ops0 - b_reads
+        b_us = (spent["adjoint"] * 1e3 / counts["cg_iters"]
+                if b_reads and counts["cg_iters"] else None)
+        # its bound: the operations of the CG iterations and of one call's
+        # set-up and gradient by chip_smoke.py's rule, on the batch (the
+        # other calls' set-ups and the solve starts not counted)
+        b_bound = (chip_smoke.bound_ms(0, chip_smoke.b_ops_per_pixel(
+            B_KINDS.get(args.family, (0,)), counts["cg_iters"], 0)
+            * B_PIXELS)[0] if b_us else None)
         print(f"{label} split (host clock, ms): total {split_wall:.1f}, "
               f"inner solve {spent['solve']:.1f} in {calls['solve']} calls "
               f"({counts['inner_iters']} iterations), adjoint "
               f"{spent['adjoint']:.1f} in {calls['adjoint']} calls "
               f"({counts['cg_iters']} CG iterations), rest {rest:.1f}"
-              + (f"; kernel A device operations {a_ops}" if a_ops else ""),
+              + (f"; kernel A device operations {a_ops}" if a_ops else "")
+              + (f"; kernel B {b_launches} launches, {b_reads} host reads, "
+                 f"{b_us:.2f} us a CG iteration, bound {b_bound:.3f} ms "
+                 "(operations)" if b_us else ""),
               flush=True)
         out[label] = dict(learn_wall_ms=walls, split_ms=dict(
             total=split_wall, inner_solve=spent["solve"],
             adjoint=spent["adjoint"], rest=rest, calls=calls, **counts),
-            kernel_a_device_ops=a_ops)
+            kernel_a_device_ops=a_ops,
+            kernel_b=dict(launches=b_launches, host_reads=b_reads,
+                          us_per_cg_iter=b_us, bound_ms=b_bound))
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile

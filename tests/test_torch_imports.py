@@ -15,7 +15,9 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "bpldenoising_tpu_torch"
 SOURCES = (sorted(PORT.rglob("*.py"))
            + [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_profile.py",
-              ROOT / "scripts" / "kernel_a_cluster_sizes.py"])
+              ROOT / "scripts" / "kernel_a_cluster_sizes.py",
+              ROOT / "scripts" / "kernel_b_digits.py",
+              ROOT / "scripts" / "kernel_b_iteration_cost.py"])
 FORBIDDEN = ("jax", "jaxlib", "bpldenoising_tpu")
 
 
