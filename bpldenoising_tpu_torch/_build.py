@@ -135,9 +135,13 @@ def _declare(lib):
                                    _I, real, _I, ctypes.POINTER(_I), _P]
         fn.restype = _I
         fn = getattr(lib, f"bpl_tvl1_solve_{suffix}")
-        fn.argtypes = [_P] * 8 + [real, _LL, _I, _I, real, real, _I, real,
-                                  real, real, _I, _I, real, _I,
-                                  ctypes.POINTER(_I), _P]
+        # ... α, O, M, N, the plan (cluster, rows, resident), τ, σ, the
+        # form and its Huber constants, the budget, iterations and device
+        # operations out, the stream
+        fn.argtypes = [_P] * 8 + [real, _LL, _I, _I, _I, _I, _I, real, real,
+                                  _I, real, real, real, _I, _I, real, _I,
+                                  ctypes.POINTER(_I), ctypes.POINTER(_I),
+                                  _P]
         fn.restype = _I
         fn = getattr(lib, f"bpl_vtv_solve_{suffix}")
         fn.argtypes = [_P] * 7 + [real, _LL, _I, _I, _I, real, real,

@@ -1,7 +1,7 @@
 // The band scheme of the CP phases that keep each image on-chip: one
 // thread-block cluster per image, each CTA a band of rows in shared memory
 // (csrc/single_loop.cu's slc_pd, rows 9–10; csrc/pdps.cu's pdc_cp, kernel
-// A, rows 1 and 3).
+// A, rows 1 and 3; csrc/tvl1.cu's tvl1_cp, rows 7 and 8).
 //
 // CTA c of an image's cluster owns rows [r0, r1) = [c·rows, (c+1)·rows) ∩
 // [0, M) and holds u, ū and the 2K dual planes on rows r0 − 2 … r1 + 1
@@ -83,6 +83,12 @@ __device__ __forceinline__ Pix pix(long long b, int i, int j) {
   return p;
 }
 
+// The hook on block k's dual p = y + σGₖū at pixel (i, j), before its
+// squared norm is taken: nothing, unless a step overloads it
+// (csrc/tvl1.cu's Huber form scales p there).
+template <class S, typename T>
+__device__ __forceinline__ void pd_pre(const S&, int, int, int, T&, T&) {}
+
 // n_it CP iterations of one image (blockIdx.x / cl) under the band scheme.
 // S is the iteration's step, which the caller's kernel builds:
 //   members M, N, cl, rows (the plan), region (elements of a band) and pd
@@ -93,7 +99,8 @@ __device__ __forceinline__ Pix pix(long long b, int i, int j) {
 //   (read where it is used, not held over the iterations);
 //   at(it): the scalars of iteration it; sigma: the dual step's σ;
 //   primal(div, u, f, ū&) → u⁺ and ū;  scale(k, i, j, n2): the factor
-//   that projects block k's dual at pixel (i, j) of squared norm n2.
+//   that projects block k's dual at pixel (i, j) of squared norm n2;
+//   optionally an overload of pd_pre (below) for S.
 // The caller's kernel runs cluster-wide; `smem` is its dynamic shared
 // memory.  Shared memory written before the call is visible to every thread
 // after it starts (its first step is a cluster barrier).
@@ -227,6 +234,7 @@ __device__ __forceinline__ void pd_cluster_run(S& s, unsigned char* smem,
             const int j = j0 + e * PD_TX;
             if (i >= r1 || j >= N) continue;
             const int l = (i - r0 + 2) * N + j;
+            pd_pre(s, k, i, j, px[e], py[e]);
             const T sc = s.scale(k, i, j, px[e] * px[e] + py[e] * py[e]);
             const T qx = px[e] * sc;
             const T qy = py[e] * sc;
@@ -262,6 +270,17 @@ __device__ __forceinline__ void pd_cluster_run(S& s, unsigned char* smem,
       yk[s.mn() + g] = Y[(2 * k + 1) * band + l];
     }
   }
+}
+
+// Whether the host's plan (solvers/cluster_plan.py) of cl CTAs an image,
+// rows each, can run an M × N image's K-block bands: the CTAs cover the
+// rows, every CTA but the last owns two rows or more, and the band's
+// offsets fit an int.
+inline bool pd_plan_ok(int M, int N, int K, int cl, int rows) {
+  return cl >= 1 && cl <= PD_MAX_CLUSTER_NP && rows >= 1
+         && (long long)rows * cl >= M && (cl == 1 || rows >= 2)
+         && (long long)M * N <= 0x7fffffffLL
+         && pd_region(K, rows, N) <= 0x7fffffffLL;
 }
 
 // The launch of a band kernel: one cluster of `cl` CTAs per image over

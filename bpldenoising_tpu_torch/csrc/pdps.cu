@@ -402,11 +402,7 @@ int pdps_solve(const T* f, T* u, T* y, T* ubar, T* uprev, T* ratio, T* tab,
     return pdps_global<T>(f, u, y, ubar, uprev, ratio, O, M, N, bl, tau,
                           sigma, gamma, accel, maxiter, use_tol, tol,
                           check_every, iters_out, ops, s);
-  if (cl < 1 || cl > PD_MAX_CLUSTER_NP || rows < 1
-      || (long long)rows * cl < M || (cl > 1 && rows < 2)
-      || (long long)M * N > 0x7fffffffLL
-      || pd_region(K, rows, N) > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
+  if (!pd_plan_ok(M, N, K, cl, rows)) return (int)cudaErrorInvalidValue;
   CPC<T> h;
   h.f = f;
   h.y = y;

@@ -1,7 +1,7 @@
 """The thread-block cluster plan of the CP iterations that keep each image
-on-chip (``csrc/pd_cluster.cuh``): kernel A's chunks (:mod:`.pdps_cuda`)
-and the single-loop learner's PD phase
-(:mod:`..bilevel.first_order_cuda`).
+on-chip (``csrc/pd_cluster.cuh``): kernel A's chunks (:mod:`.pdps_cuda`),
+the TV-L1 kernel's chunks (:mod:`.tvl1_cuda`) and the single-loop
+learner's PD phase (:mod:`..bilevel.first_order_cuda`).
 
 One cluster runs one image; each CTA holds a band of rows with two halo
 rows above and below in shared memory.  :func:`pd_plan` decides from the
@@ -13,11 +13,17 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-__all__ = ["PdPlan", "pd_plan", "MAX_CLUSTER", "SMEM_PER_BLOCK"]
+__all__ = ["PdPlan", "pd_plan", "MAX_CLUSTER", "MAX_CLUSTER_NP", "SMS",
+           "SMEM_PER_BLOCK"]
 
 #: the largest portable thread-block cluster (csrc/pd_cluster.cuh's
 #: PD_MAX_CLUSTER)
 MAX_CLUSTER = 8
+#: the largest cluster the band kernels launch, a non-portable size
+#: (PD_MAX_CLUSTER_NP)
+MAX_CLUSTER_NP = 16
+#: the streaming multiprocessors of an H100 SXM
+SMS = 132
 #: the dynamic shared memory a block may opt in to on an H100 (227 KB)
 SMEM_PER_BLOCK = 232448
 
@@ -39,9 +45,10 @@ class PdPlan(NamedTuple):
     resident: bool
 
 
-def pd_plan(M: int, N: int, K: int, itemsize: int) -> PdPlan:
+def pd_plan(M: int, N: int, K: int, itemsize: int,
+            max_cluster: int = MAX_CLUSTER) -> PdPlan:
     """The rule for the cluster: the largest power of two up to
-    ``MAX_CLUSTER`` that leaves every CTA but the last at least two rows
+    ``max_cluster`` that leaves every CTA but the last at least two rows
     (the halo rows each side then come from the adjacent CTAs; more CTAs
     per image fill more of the card at small batches, and each adds four
     halo rows of work), ⌈M / cluster⌉ rows each, and the bands in shared
@@ -49,11 +56,12 @@ def pd_plan(M: int, N: int, K: int, itemsize: int) -> PdPlan:
     ``SMEM_PER_BLOCK``.  The CUDA side checks the plan against the card
     (its opt-in shared memory and ``cudaOccupancyMaxActiveClusters``) and
     the wrappers raise when it cannot run."""
-    if min(M, N, K, itemsize) < 1:
+    if min(M, N, K, itemsize) < 1 \
+            or not 1 <= max_cluster <= MAX_CLUSTER_NP:
         raise ValueError(f"bad shape M={M}, N={N}, K={K}, itemsize="
-                         f"{itemsize}")
+                         f"{itemsize}, max_cluster={max_cluster}")
     cluster = 1
-    while cluster * 2 <= min(M // 2, MAX_CLUSTER):
+    while cluster * 2 <= min(M // 2, max_cluster):
         cluster *= 2
     rows = -(-M // cluster)
     planes = 2 + 2 * K

@@ -13,6 +13,14 @@ raises.  ``state0`` is ``(u, y)`` or the Pallas kernels' ``(u, px, py)``;
 the returned state is always ``(u, y)``.  :data:`last_iters` holds the
 iteration count of the latest solve (the Huber form returns none, as in
 the JAX package).
+
+The kernel runs one launch per early-stop chunk (all ``maxiter``
+iterations without ``tol``), one thread-block cluster an image on the
+bands of ``csrc/pd_cluster.cuh``, when :func:`tvl1_plan` finds that the
+image's bands fit in shared memory; otherwise (1×512² float32, say) its
+two-launch form, two launches an iteration on state in global memory.
+The rule is decided from the shapes before any launch; a cluster launch
+that the card refuses raises.
 """
 
 from __future__ import annotations
@@ -22,18 +30,40 @@ import ctypes
 import torch
 
 from .. import _build
+from .cluster_plan import MAX_CLUSTER, MAX_CLUSTER_NP, SMS, pd_plan
 from .pdps_cuda import check_cuda_input, check_plane
 from .tvl1 import _tvl1_loop, as_jnp_state, cold_state, step_sizes
 from .tvl1_huber import _tvl1_huber_loop, huber_prox_consts
 
-__all__ = ["tvl1_denoise_cuda", "tvl1_huber_denoise_cuda", "launches",
-           "last_iters"]
+__all__ = ["tvl1_denoise_cuda", "tvl1_huber_denoise_cuda", "tvl1_plan",
+           "launches", "cluster_calls", "device_ops", "last_iters"]
 
 #: calls that launched the CUDA kernel (one per solve, either form)
 launches = 0
+#: those of them that ran the cluster form (one launch per chunk)
+cluster_calls = 0
+#: device operations those calls issued (launches and copies, as the C loop
+#: counts them: per early-stop chunk 4 in the cluster form, the launch, the
+#: two passes of the sums and the read; 2 per iteration and 4 per chunk in
+#: the two-launch form, whose chunk starts with a copy; in either form a
+#: last copy when u ends in the second buffer)
+device_ops = 0
 #: iterations run by the latest solve through this module
 last_iters = 0
 _THREADS = 256   # BPL_THREADS in csrc/common.cuh
+
+
+def tvl1_plan(O: int, M: int, N: int, itemsize: int):
+    """The band plan of an (O, M, N) solve: :func:`.cluster_plan.pd_plan`
+    with one forward-difference dual block, up to 16 CTAs an image while
+    the batch's clusters of 16 have an SM a CTA (O·16 ≤ 132: an image
+    spreads over more SMs; on an H100 a 2000-iteration Huber solve at
+    1×128² takes 6.5 ms with 16 CTAs, 8.7 with 8), else up to 8 (at
+    16×128² 13.6 ms with 16, 10.7 with 8: every SM already works, and
+    each CTA adds its halo rows; scripts/tvl1_cluster_sizes.py)."""
+    wide = O * MAX_CLUSTER_NP <= SMS
+    return pd_plan(M, N, 1, itemsize,
+                   max_cluster=MAX_CLUSTER_NP if wide else MAX_CLUSTER)
 
 
 def _weight(alpha, f):
@@ -65,28 +95,35 @@ def _launch(f, a, state0, *, tau, sigma, huber, lo=0.0, den=0.0, gr=0.0,
         check_plane(state0[1], y_shape, f, "state0 y")
         u, y = (s.contiguous().clone() for s in state0)
     amap = a.contiguous() if a.ndim else None
-    ubar = torch.empty_like(f)
-    uprev = torch.empty_like(f)
+    plan = tvl1_plan(O, M, N, f.element_size())
+    # the two-launch form's ū plane; u's second buffer for the early stop
+    ubar = None if plan.resident else torch.empty_like(f)
+    uprev = torch.empty_like(f) if tol is not None else None
     nblocks = (f.numel() + _THREADS - 1) // _THREADS
     partials = torch.empty((2 * nblocks,), dtype=dtype, device=dev)
     scal = torch.empty((3,), dtype=dtype, device=dev)
     lib = _build.library()
     fn = lib.bpl_tvl1_solve_f32 if dtype == torch.float32 \
         else lib.bpl_tvl1_solve_f64
-    iters = ctypes.c_int(0)
-    global launches
+    iters, ops = ctypes.c_int(0), ctypes.c_int(0)
+    global launches, cluster_calls, device_ops
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         launches += 1
-        err = fn(f.data_ptr(), u.data_ptr(), y.data_ptr(), ubar.data_ptr(),
-                 uprev.data_ptr(), partials.data_ptr(), scal.data_ptr(),
+        cluster_calls += int(plan.resident)
+        err = fn(f.data_ptr(), u.data_ptr(), y.data_ptr(),
+                 None if ubar is None else ubar.data_ptr(),
+                 None if uprev is None else uprev.data_ptr(),
+                 partials.data_ptr(), scal.data_ptr(),
                  None if amap is None else amap.data_ptr(),
-                 0.0 if amap is not None else float(a), O, M, N, float(tau),
+                 0.0 if amap is not None else float(a), O, M, N,
+                 plan.cluster, plan.rows, int(plan.resident), float(tau),
                  float(sigma), int(huber), float(lo), float(den), float(gr),
                  int(maxiter), int(tol is not None),
                  0.0 if tol is None else float(tol), int(check_every),
-                 ctypes.byref(iters), stream)
-    _build.check(err, "tvl1 kernel")
+                 ctypes.byref(iters), ctypes.byref(ops), stream)
+    device_ops += ops.value
+    _build.check(err, f"tvl1 kernel ({plan})")
     return u, y, int(iters.value)
 
 

@@ -9,8 +9,10 @@ Phases (one short line each):
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
    them.
 2. build: compile ``bpldenoising_tpu_torch/csrc/*.cu`` with one ``nvcc``
-   call and load the library; print kernel B's registers and spills per
-   instance from the ``-Xptxas -v`` log.
+   call and load the library; print the registers and spills per instance
+   of kernel B (``hg_coop``) and of the band kernels (kernel A's
+   ``pdc_cp``, rows 9–10's ``slc_pd``, the TV-L1 kernel's ``tvl1_cp``)
+   from the ``-Xptxas -v`` log.
 3. kernel A (PDPS inner solve) against its plain PyTorch version on the
    flagship data (10 × 128² float32): a cold 5000-iteration call, a cold
    call with early stop that returns its state, a warm call from that
@@ -57,15 +59,22 @@ Phases (one short line each):
     map of a 2×2 grid (a constant map must reproduce the scalar run bit for
     bit); the plain form at α 0.9 for 10,000 iterations (``TVL1Denoise``'s
     default) and at 64 × 128² for 2000 iterations; both forms in float64
-    at 2 × 32².
+    at 2 × 32².  Every call must take the cluster form (one launch per
+    early-stop chunk: ``tvl1_cuda.cluster_calls``) and issue at most 4
+    device operations a chunk and one copy a call
+    (``tvl1_cuda.device_ops``); the calls' iterations and device
+    operations are printed beside what the two-launch form would issue
+    (2 an iteration, 4 a chunk).
 11. the TV-L1 learn: ``scalar_bilevel_tvl1_learn(dataset_name="circle_sp",
     method="tr_fused", device="cuda")`` with bench.py's TV-L1 settings,
     once to warm up and once timed, counters reset just before and read
     just after; then ``TVL1Denoise`` at α 0.9 with its default budget,
-    counters reset just before and read just after.  Gates below.
+    counters reset just before and read just after.  Every TV-L1 kernel
+    call in the cluster form, its device operations as in phase 10.
+    Gates below.
 12. the patch TV-L1 learn: ``patch_bilevel_tvl1_learn`` on the same data
     from x₀ = 0.4·ones((2, 2)), counters reset just before and read just
-    after.  Gates below.
+    after, the TV-L1 kernel's calls as in phase 11.  Gates below.
 13. the VTV kernel (``csrc/vtv.cu``) against its plain PyTorch version on
     ``color_disks_128_10`` (6 × 3 × 128² float32): a cold 5000-iteration
     call, a cold call with early stop (tol 1e-5, every 100 iterations) that
@@ -156,6 +165,7 @@ traceback and a non-zero exit.
 
 from __future__ import annotations
 
+import contextlib
 import faulthandler
 import json
 import subprocess
@@ -601,10 +611,15 @@ def b_ops_per_pixel(kinds, cg_iters, solves):
     return cg_iters * (mv + 14) + solves * (mv + 10) + fixed
 
 
-# kernel B's instances (csrc/hypergrad.cu: HgForm) by their mangled
-# template arguments
-HG_FORMS = {"Li256E": "K=1 forward", "Li804E": "K=3 fwd/bwd/cen",
-            "Lin1E": "generic"}
+# the band and cooperative kernels' instances by their mangled template
+# arguments: kernel B's and kernel A's forms (csrc/hypergrad.cu: HgForm,
+# csrc/pdps.cu: CpForm; rows 9-10's SlcForm shares the K codes), then the
+# TV-L1 kernel's (Huber, map) flags
+KERNEL_FORMS = {"Li256E": "K=1 forward", "Li804E": "K=3 fwd/bwd/cen",
+                "Li4352E": "K=1 forward, map",
+                "Li29476E": "K=3 fwd/bwd/cen, maps", "Lin1E": "generic",
+                "Lb0ELb0E": "plain, scalar", "Lb0ELb1E": "plain, map",
+                "Lb1ELb0E": "Huber, scalar", "Lb1ELb1E": "Huber, map"}
 
 
 def ptxas_report(log, source, needle):
@@ -622,7 +637,12 @@ def ptxas_report(log, source, needle):
             continue
         name = line.split("'")[1]
         dtype = "float64" if "Id" in name.split(needle)[1][:3] else "float32"
-        form = next((v for k, v in HG_FORMS.items() if k in name), name)
+        form = next((v for k, v in KERNEL_FORMS.items() if k in name),
+                    name)
+        if needle == "slc_pd":    # its RES flag after the dtype
+            form += (", bands in shared memory"
+                     if name.split(needle)[1][2:6] == "Lb1E"
+                     else ", bands in global memory")
         regs = spills = "?"
         for nxt in lines[i + 1:i + 5]:
             if "registers" in nxt:
@@ -1091,11 +1111,13 @@ def launch_counters():
 
 
 def reset_launches():
-    from bpldenoising_tpu_torch.solvers import hypergrad_cuda, pdps_cuda
+    from bpldenoising_tpu_torch.solvers import (hypergrad_cuda, pdps_cuda,
+                                                tvl1_cuda)
     for mod in launch_counters().values():
         mod.launches = 0
-    pdps_cuda.cluster_calls = 0
-    pdps_cuda.device_ops = 0
+    for mod in (pdps_cuda, tvl1_cuda):
+        mod.cluster_calls = 0
+        mod.device_ops = 0
     hypergrad_cuda.device_ops = 0
     hypergrad_cuda.host_reads = 0
 
@@ -1254,6 +1276,54 @@ def phase_tgv_patch_learn(utrue, timed):
     return dict(alpha=res.x.tolist(), mean_psnr_db=mean_psnr,
                 final_cost=cost, outer_iterations=res.iterations,
                 wall_ms=wall_ms, launches=launches)
+
+
+@contextlib.contextmanager
+def watch_tvl1():
+    """Record every TV-L1 kernel call inside the ``with`` block: → the
+    list of calls, each its iterations, device operations, whether it ran
+    the cluster form, its tol and check_every."""
+    from bpldenoising_tpu_torch.solvers import tvl1_cuda
+    calls = []
+    real = tvl1_cuda._launch
+
+    def watched(f, a, state0, **kw):
+        ops, cl = tvl1_cuda.device_ops, tvl1_cuda.cluster_calls
+        out = real(f, a, state0, **kw)
+        calls.append(dict(iters=out[2], ops=tvl1_cuda.device_ops - ops,
+                          cluster=tvl1_cuda.cluster_calls - cl,
+                          tol=kw["tol"], check_every=kw["check_every"]))
+        return out
+
+    tvl1_cuda._launch = watched
+    try:
+        yield calls
+    finally:
+        tvl1_cuda._launch = real
+
+
+def tvl1_forms(calls, label):
+    """Print and require the TV-L1 kernel calls of ``watch_tvl1``: each
+    in the cluster form, with 1 device operation without tol and at most
+    4 a chunk and one copy with it; beside them what the two-launch form
+    would issue (2 an iteration, 4 a chunk).  → the totals."""
+    chunks = [-(-c["iters"] // c["check_every"]) if c["tol"] is not None
+              else 0 for c in calls]
+    out = dict(calls=len(calls), cluster=sum(c["cluster"] for c in calls),
+               iterations=sum(c["iters"] for c in calls), chunks=sum(chunks),
+               device_ops=sum(c["ops"] for c in calls),
+               two_launch_rule=sum(2 * c["iters"] + 4 * n
+                                   for c, n in zip(calls, chunks)))
+    say(f"  {label}: TV-L1 kernel {out['calls']} calls, {out['cluster']} in "
+        f"the cluster form, {out['iterations']} iterations in "
+        f"{out['chunks']} early-stop chunks, {out['device_ops']} device "
+        f"operations (two-launch form, 2 an iteration and 4 a chunk: "
+        f"{out['two_launch_rule']})")
+    bad = [c for c, n in zip(calls, chunks) if not c["cluster"]
+           or c["ops"] > (4 * n + 1 if c["tol"] is not None else 1)]
+    require(not bad, f"{label}: TV-L1 kernel calls off the cluster form's "
+            f"count: {bad}")
+    return out
 
 
 def tvl1_solve_pair(huber, f, a, state0, timed, **kw):
@@ -1420,8 +1490,9 @@ def phase_tvl1_learn(utrue, noisy, timed):
     kw = dict(tvl1_learn_kwargs(), alpha0=TVL1_X0)
     scalar_bilevel_tvl1_learn(device="cuda", **kw)          # warm-up
     reset_launches()
-    res, wall_ms = timed(lambda: scalar_bilevel_tvl1_learn(device="cuda",
-                                                           **kw))
+    with watch_tvl1() as calls:
+        res, wall_ms = timed(lambda: scalar_bilevel_tvl1_learn(
+            device="cuda", **kw))
     launches = read_launches()
     alpha = float(res.x)
     rel = abs(alpha - TVL1_ALPHA) / TVL1_ALPHA
@@ -1436,16 +1507,19 @@ def phase_tvl1_learn(utrue, noisy, timed):
         f"(capped) in {capped} of {res.iterations}")
     say(f"  wall {wall_ms:.1f} ms (CUDA events, after one warm-up run); "
         f"launches {launches}")
+    forms = tvl1_forms(calls, "TV-L1 learn")
 
     TVL1Denoise(noisy, TVL1_DENOISE_ALPHA, maxiter=5, device="cuda")
     reset_launches()
-    u, denoise_ms = timed(lambda: TVL1Denoise(noisy, TVL1_DENOISE_ALPHA,
-                                              device="cuda"))
+    with watch_tvl1() as calls:
+        u, denoise_ms = timed(lambda: TVL1Denoise(noisy, TVL1_DENOISE_ALPHA,
+                                                  device="cuda"))
     denoise_launches = read_launches()
     denoise_psnr = float(torch.mean(psnr(utrue, u)))
     say(f"  TVL1Denoise(alpha {TVL1_DENOISE_ALPHA}, 10000 it): PSNR "
         f"{denoise_psnr:.5f} dB (reference {TVL1_DENOISE_PSNR}); "
         f"{denoise_ms:.1f} ms; launches {denoise_launches}")
+    denoise_forms = tvl1_forms(calls, "TVL1Denoise")
     require(launches["tvl1"] > 0, f"TV-L1 learn launched {launches}")
     require(denoise_launches["tvl1"] > 0,
             f"TVL1Denoise launched {denoise_launches}")
@@ -1461,9 +1535,10 @@ def phase_tvl1_learn(utrue, noisy, timed):
     return dict(alpha=alpha, alpha_rel_err=rel, mean_psnr_db=mean_psnr,
                 final_cost=cost, outer_iterations=res.iterations,
                 adjoint_cg_iters=cg, wall_ms=wall_ms,
-                launches=launches, denoise=dict(
+                launches=launches, kernel_calls=forms, denoise=dict(
                     alpha=TVL1_DENOISE_ALPHA, psnr_db=denoise_psnr,
-                    ms=denoise_ms, launches=denoise_launches))
+                    ms=denoise_ms, launches=denoise_launches,
+                    kernel_calls=denoise_forms))
 
 
 def phase_tvl1_patch_learn(utrue, timed):
@@ -1474,8 +1549,9 @@ def phase_tvl1_patch_learn(utrue, timed):
 
     kw = tvl1_learn_kwargs()
     reset_launches()
-    res, wall_ms = timed(lambda: patch_bilevel_tvl1_learn(device="cuda",
-                                                          **kw))
+    with watch_tvl1() as calls:
+        res, wall_ms = timed(lambda: patch_bilevel_tvl1_learn(device="cuda",
+                                                              **kw))
     launches = read_launches()
     mean_psnr = float(torch.mean(psnr(utrue, on_device(res, utrue))))
     cost = float(res.cost)
@@ -1488,6 +1564,7 @@ def phase_tvl1_patch_learn(utrue, timed):
     say(f"  PSNR {mean_psnr:.5f} dB; cost {cost:.6f}; {res.iterations} "
         f"outer its; adjoint CG {cg} its; wall "
         f"{wall_ms:.1f} ms; launches {launches}")
+    forms = tvl1_forms(calls, "patch TV-L1 learn")
     require(launches["tvl1"] > 0, f"patch TV-L1 learn launched {launches}")
     require(abs(cost - TVL1_PATCH_COST)
             <= TVL1_PATCH_COST_GATE_REL * TVL1_PATCH_COST,
@@ -1497,7 +1574,7 @@ def phase_tvl1_patch_learn(utrue, timed):
     return dict(alpha=res.x.tolist(), alpha_max_rel_err=grid_rel,
                 mean_psnr_db=mean_psnr, final_cost=cost,
                 outer_iterations=res.iterations, adjoint_cg_iters=cg,
-                wall_ms=wall_ms, launches=launches)
+                wall_ms=wall_ms, launches=launches, kernel_calls=forms)
 
 
 def vtv_solve_pair(f, a, state0, timed, **kw):
@@ -2680,9 +2757,12 @@ def main():
     info = _build.build()
     _build.library()
     say(f"phase 2 build: {info.seconds:.1f} s ({info.path.name})")
-    for line in ptxas_report(info.path.with_suffix(".log"), "hypergrad.cu",
-                             "hg_coop"):
-        say(f"  {line}")
+    for source, needle in (("hypergrad.cu", "hg_coop"), ("pdps.cu", "pdc_cp"),
+                           ("single_loop.cu", "slc_pd"),
+                           ("tvl1.cu", "tvl1_cp")):
+        for line in ptxas_report(info.path.with_suffix(".log"), source,
+                                 needle):
+            say(f"  {line}")
 
     timed = cuda_timer(torch)
     true_np, noisy_np = testdataset("faces_train_128_10")
@@ -2754,8 +2834,10 @@ def main():
     sp_utrue = torch.as_tensor(sp_true, dtype=torch.float32).to(dev)
     sp_f = torch.as_tensor(sp_noisy, dtype=torch.float32).to(dev)
     say("phase 10 TV-L1 kernel vs plain, circle_sp 1x128x128 float32")
-    tvl1h_stats, tvl1_stats = phase_tvl1(sp_f, timed)
-    phase_tvl1_f64(torch, dev)
+    with watch_tvl1() as calls:
+        tvl1h_stats, tvl1_stats = phase_tvl1(sp_f, timed)
+        phase_tvl1_f64(torch, dev)
+    tvl1_forms(calls, "phase 10")
 
     say("phase 11 TV-L1 learn scalar_bilevel_tvl1_learn(method='tr_fused'), "
         "then TVL1Denoise")

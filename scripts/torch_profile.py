@@ -22,8 +22,10 @@ parameters.  For each:
    wrapper), the adjoint (kernel B's hypergradient for TV, the plain
    PyTorch adjoint CG for the others) and the rest (trust-region host
    code, cost, the one read per evaluation), each call timed on the host
-   between synchronisations, with the inner and CG iteration counts (and,
-   for the TV family, kernel A's device operations: launches and copies;
+   between synchronisations, with the inner and CG iteration counts (for
+   TV-L1 also the TV-L1 kernel's device operations and its calls in the
+   cluster form; for the TV family kernel A's device operations: launches
+   and copies;
    kernel B's kernel launches and device→host reads, its time per CG
    iteration (the adjoint's time over all CG iterations of its calls)
    and the bound of those CG iterations by chip_smoke.py's operation
@@ -275,7 +277,8 @@ def main():
 
     import chip_smoke
     from bpldenoising_tpu_torch import _build
-    from bpldenoising_tpu_torch.solvers import hypergrad_cuda, pdps_cuda
+    from bpldenoising_tpu_torch.solvers import (hypergrad_cuda, pdps_cuda,
+                                                tvl1_cuda)
 
     mod_name, solve_names, adjoint_names, prof_its = FAMILIES[args.family]
     module = importlib.import_module(
@@ -333,6 +336,7 @@ def main():
         for key, n in keyed:
             setattr(module, n, timed(key, saved[n]))
         ops0 = pdps_cuda.device_ops
+        l_ops0, l_cl0 = tvl1_cuda.device_ops, tvl1_cuda.cluster_calls
         b_ops0, b_reads0 = hypergrad_cuda.device_ops, hypergrad_cuda.host_reads
         try:
             torch.cuda.synchronize()
@@ -346,6 +350,9 @@ def main():
         rest = split_wall - spent["solve"] - spent["adjoint"]
         # kernel A's device operations (launches and copies) in this run
         a_ops = pdps_cuda.device_ops - ops0
+        # the TV-L1 kernel's device operations and cluster-form calls
+        l_ops = tvl1_cuda.device_ops - l_ops0
+        l_cl = tvl1_cuda.cluster_calls - l_cl0
         # kernel B's launches and device→host reads in this run
         b_reads = hypergrad_cuda.host_reads - b_reads0
         b_launches = hypergrad_cuda.device_ops - b_ops0 - b_reads
@@ -363,6 +370,8 @@ def main():
               f"{spent['adjoint']:.1f} in {calls['adjoint']} calls "
               f"({counts['cg_iters']} CG iterations), rest {rest:.1f}"
               + (f"; kernel A device operations {a_ops}" if a_ops else "")
+              + (f"; TV-L1 kernel device operations {l_ops}, {l_cl} calls "
+                 "in the cluster form" if l_ops else "")
               + (f"; kernel B {b_launches} launches, {b_reads} host reads, "
                  f"{b_us:.2f} us a CG iteration, bound {b_bound:.3f} ms "
                  "(operations)" if b_us else ""),
@@ -371,6 +380,7 @@ def main():
             total=split_wall, inner_solve=spent["solve"],
             adjoint=spent["adjoint"], rest=rest, calls=calls, **counts),
             kernel_a_device_ops=a_ops,
+            tvl1_kernel=dict(device_ops=l_ops, cluster_calls=l_cl),
             kernel_b=dict(launches=b_launches, host_reads=b_reads,
                           us_per_cg_iter=b_us, bound_ms=b_bound))
 

@@ -17,7 +17,9 @@ SOURCES = (sorted(PORT.rglob("*.py"))
            + [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_profile.py",
               ROOT / "scripts" / "kernel_a_cluster_sizes.py",
               ROOT / "scripts" / "kernel_b_digits.py",
-              ROOT / "scripts" / "kernel_b_iteration_cost.py"])
+              ROOT / "scripts" / "kernel_b_iteration_cost.py",
+              ROOT / "scripts" / "tvl1_cluster_sizes.py",
+              ROOT / "scripts" / "learn_walls.py"])
 FORBIDDEN = ("jax", "jaxlib", "bpldenoising_tpu")
 
 
