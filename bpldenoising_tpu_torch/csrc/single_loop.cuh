@@ -1,12 +1,13 @@
-// The single-loop learners' shared state and kernels: TPU kernels 11 (TGV²,
-// single_loop_tgv.cu), 12 (TV-L1, single_loop_tvl1.cu) and 13 (VTV,
-// single_loop_vtv.cu) build on this header; TPU kernels 9 and 10
-// (single_loop.cu, TV and the sum of gradient regularizers) have their own
-// design and take only SL_MAXK and sl_bad_args from here.  Each learner
-// here keeps its state in global memory, runs one thread per pixel or
-// element and uses launch boundaries as its barriers; a C loop issues the
-// launches and nothing is read back to the host between the first and the
-// last.  Shared here:
+// The single-loop learners' shared state and kernels: TPU kernels 12 (TV-L1,
+// single_loop_tvl1.cu) and 13 (VTV, single_loop_vtv.cu) build on this
+// header; TPU kernels 9 and 10 (single_loop.cu, TV and the sum of gradient
+// regularizers) and 11 (single_loop_tgv.cu, TGV²) have their own design
+// (a thread-block cluster per image for the CP phase, two launches per CG
+// step) and take only SL_MAXK and sl_bad_args from here; row 11 no longer
+// runs sl_run.  Each learner here keeps its state in global memory, runs
+// one thread per pixel or element and uses launch boundaries as its
+// barriers; a C loop issues the launches and nothing is read back to the
+// host between the first and the last.  Shared here:
 //   SL<T>, the learner's device view (the CG planes, the parameter z =
 //     log α, Adam's moments, the trajectories, the partials);
 //   sl_exp (x = exp(z) and its trajectory), sl_amap (α as (M, N) maps for
@@ -453,7 +454,7 @@ __global__ void sl_adam(SL<T> h, int o) {
 }
 
 // αₖ as an (M, N) map per regularizer (amap: K × M·N), for the CP kernels
-// of the other families (tgv.cuh, tvl1.cuh, vtv.cuh), which read a map
+// of the other families (tvl1.cuh, vtv.cuh), which read a map
 // weight per pixel: the same values as sl_alpha.
 template <typename T>
 __global__ void sl_amap(SL<T> h, T* __restrict__ amap) {
@@ -549,7 +550,7 @@ void sl_step_tail(const SL<T>& h, int o, cudaStream_t s) {
   BPL_LAUNCH(sl_adam<T>, 1, BPL_THREADS, s)(h, o);
 }
 
-// The outer loop of the TGV², TV-L1 and VTV learners, each step:
+// The outer loop of the TV-L1 and VTV learners, each step:
 // x = exp(z), α as (M, N) maps into amap, n_inner cp_step(), setup() (the
 // system at u and its diagonal), apply(v, out, mode) (H·v into out, with
 // the partials of mode) on the warm λ = h.p and in n_adj classic CG

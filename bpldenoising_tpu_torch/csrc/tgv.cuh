@@ -1,8 +1,8 @@
 // The TGV² joint-primal Chambolle–Pock step (solvers/tgv.py::_step): the
 // state struct and the primal and dual kernels, one thread per pixel.  The
-// CP solve (tgv.cu, TPU kernels 4 and 5) and the single-loop TGV² learner
-// (single_loop_tgv.cu, TPU kernel 11) launch these same kernels; the
-// learner passes its weights as (M, N) maps formed from the patch grid.
+// CP solve (tgv.cu, TPU kernels 4 and 5) launches these kernels; the
+// single-loop TGV² learner (single_loop_tgv.cu, TPU kernel 11) runs their
+// arithmetic, in their order, on its bands (tgv_cluster.cuh).
 #pragma once
 
 #include "common.cuh"

@@ -1,20 +1,23 @@
 """The thread-block cluster plan of the CP iterations that keep each image
 on-chip (``csrc/pd_cluster.cuh``): kernel A's chunks (:mod:`.pdps_cuda`),
 the TV-L1 kernel's chunks (:mod:`.tvl1_cuda`) and the single-loop
-learner's PD phase (:mod:`..bilevel.first_order_cuda`).
+learner's PD phase (:mod:`..bilevel.first_order_cuda`); and of the
+single-loop TGV² learner's CP phase (``csrc/tgv_cluster.cuh``,
+:mod:`..bilevel.first_order_tgv_cuda`).
 
 One cluster runs one image; each CTA holds a band of rows with two halo
-rows above and below in shared memory.  :func:`pd_plan` decides from the
-shapes alone, before any launch, how many CTAs an image takes, how many
-rows each owns and whether the bands fit in shared memory.
+rows above and below in shared memory.  :func:`pd_plan` and
+:func:`tgv_plan` decide from the shapes alone, before any launch, how many
+CTAs an image takes, how many rows each owns and whether the bands fit in
+shared memory.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
-__all__ = ["PdPlan", "pd_plan", "MAX_CLUSTER", "MAX_CLUSTER_NP", "SMS",
-           "SMEM_PER_BLOCK"]
+__all__ = ["PdPlan", "pd_plan", "tgv_plan", "MAX_CLUSTER", "MAX_CLUSTER_NP",
+           "SMS", "SMEM_PER_BLOCK", "TGV_PLANES", "TGV_SLOT_ROWS"]
 
 #: the largest portable thread-block cluster (csrc/pd_cluster.cuh's
 #: PD_MAX_CLUSTER)
@@ -26,6 +29,11 @@ MAX_CLUSTER_NP = 16
 SMS = 132
 #: the dynamic shared memory a block may opt in to on an H100 (227 KB)
 SMEM_PER_BLOCK = 232448
+#: a TGV² band's planes (csrc/tgv_cluster.cuh: u, ū, w_r, w_c, w̄_r, w̄_c
+#: and the five duals) and its halo-slot rows (two parities, two sides, two
+#: rows, five duals)
+TGV_PLANES = 11
+TGV_SLOT_ROWS = 40
 
 
 class PdPlan(NamedTuple):
@@ -45,6 +53,15 @@ class PdPlan(NamedTuple):
     resident: bool
 
 
+def _cluster_rows(M: int, max_cluster: int) -> tuple:
+    """The largest power of two up to ``max_cluster`` that leaves every CTA
+    but the last at least two rows, and ⌈M / cluster⌉ rows each."""
+    cluster = 1
+    while cluster * 2 <= min(M // 2, max_cluster):
+        cluster *= 2
+    return cluster, -(-M // cluster)
+
+
 def pd_plan(M: int, N: int, K: int, itemsize: int,
             max_cluster: int = MAX_CLUSTER) -> PdPlan:
     """The rule for the cluster: the largest power of two up to
@@ -60,11 +77,28 @@ def pd_plan(M: int, N: int, K: int, itemsize: int,
             or not 1 <= max_cluster <= MAX_CLUSTER_NP:
         raise ValueError(f"bad shape M={M}, N={N}, K={K}, itemsize="
                          f"{itemsize}, max_cluster={max_cluster}")
-    cluster = 1
-    while cluster * 2 <= min(M // 2, max_cluster):
-        cluster *= 2
-    rows = -(-M // cluster)
+    cluster, rows = _cluster_rows(M, max_cluster)
     planes = 2 + 2 * K
     smem = (planes * (rows + 4) + 16 * K) * N * itemsize
     resident = smem <= SMEM_PER_BLOCK
     return PdPlan(cluster, rows, planes, smem if resident else 0, resident)
+
+
+def tgv_plan(M: int, N: int, itemsize: int) -> PdPlan:
+    """The band plan of the single-loop TGV² learner's CP phase on M × N
+    images: :func:`pd_plan`'s split of an image's rows over up to 16 CTAs,
+    with the TGV² band of (11·(rows + 4) + 40)·N·itemsize bytes in shared
+    memory where it fits in ``SMEM_PER_BLOCK``, else in a global scratch
+    (``smem`` 0, ``resident`` False).  At 128² float32 the 16-CTA band
+    (88 KB) lets two CTAs share an SM and the 8-CTA band (133 KB) does
+    not: on an H100 16 CTAs beat 8 at 1 to 64 images by 21% to 5%
+    (scripts/tgv_sl_cluster_sizes.py); in float64 only the 16-CTA band
+    (176 KB) fits.  The CUDA side checks the plan against the card and the
+    wrapper raises when it cannot run."""
+    if min(M, N, itemsize) < 1:
+        raise ValueError(f"bad shape M={M}, N={N}, itemsize={itemsize}")
+    cluster, rows = _cluster_rows(M, MAX_CLUSTER_NP)
+    smem = (TGV_PLANES * (rows + 4) + TGV_SLOT_ROWS) * N * itemsize
+    resident = smem <= SMEM_PER_BLOCK
+    return PdPlan(cluster, rows, TGV_PLANES, smem if resident else 0,
+                  resident)

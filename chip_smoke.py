@@ -10,9 +10,11 @@ Phases (one short line each):
    them.
 2. build: compile ``bpldenoising_tpu_torch/csrc/*.cu`` with one ``nvcc``
    call and load the library; print the registers and spills per instance
-   of kernel B (``hg_coop``) and of the band kernels (kernel A's
-   ``pdc_cp``, rows 9–10's ``slc_pd``, the TV-L1 kernel's ``tvl1_cp``)
-   from the ``-Xptxas -v`` log.
+   of kernel B (``hg_coop``), of the band kernels (kernel A's ``pdc_cp``,
+   rows 9–10's ``slc_pd``, the TV-L1 kernel's ``tvl1_cp``, row 11's
+   ``slt_pd``), of row 11's CG launches (``slt_init``, ``slt_apply``) and
+   of the TGV² CP kernels (``tgv_primal``, ``tgv_dual``) from the
+   ``-Xptxas -v`` log.
 3. kernel A (PDPS inner solve) against its plain PyTorch version on the
    flagship data (10 × 128² float32): a cold 5000-iteration call, a cold
    call with early stop that returns its state, a warm call from that
@@ -114,7 +116,9 @@ Phases (one short line each):
 22–33. the single-loop TGV², TV-L1 and VTV learners
     (``csrc/single_loop_{tgv,tvl1,vtv}.cu``), four phases each:
     (a) against the plain version in float64 (one and two 24² images,
-    the scalar or (2,) weight and a 2×2 patch grid, 20 outer steps);
+    the scalar or (2,) weight and a 2×2 patch grid, 20 outer steps; for
+    TGV² also where its CP bands split unevenly, 3×20×16, 2×22×24 and
+    3×120×128, and at 1×256², whose float64 bands run in global memory);
     (b) against the plain version in float32 at the bench shape (one
     image), 30 outer steps, both timed, and again on the entry point's
     own stack where it holds more (TGV² 10 images, VTV 6); (c) the library call
@@ -127,6 +131,11 @@ Phases (one short line each):
     plain loop watched; gated against the JAX float32 reference.  After
     (d), TGV² runs (e): the same entry point in float64, gated tightly
     against the JAX float64 reference, the witness for (d)'s wide gate.
+    TGV²'s kernel (row 11) must issue 4 + 2·n_adj kernel launches per
+    outer step in each (24 at bench.py's 10 CG steps; one more per
+    segment), and each phase prints its CP plan
+    (``solvers/cluster_plan.py::tgv_plan``) and its CG block form
+    (``cg_slots``).
 
 34. kernel A's K = 3 and map forms (``csrc/pdps.cu``) against its plain
     version on the flagship data (10 × 128² float32): the sum of
@@ -614,12 +623,16 @@ def b_ops_per_pixel(kinds, cg_iters, solves):
 # the band and cooperative kernels' instances by their mangled template
 # arguments: kernel B's and kernel A's forms (csrc/hypergrad.cu: HgForm,
 # csrc/pdps.cu: CpForm; rows 9-10's SlcForm shares the K codes), then the
-# TV-L1 kernel's (Huber, map) flags
+# TV-L1 kernel's (Huber, map) flags; row 11's kernels and the TGV² CP
+# kernels by their argument types
 KERNEL_FORMS = {"Li256E": "K=1 forward", "Li804E": "K=3 fwd/bwd/cen",
                 "Li4352E": "K=1 forward, map",
                 "Li29476E": "K=3 fwd/bwd/cen, maps", "Lin1E": "generic",
                 "Lb0ELb0E": "plain, scalar", "Lb0ELb1E": "plain, map",
-                "Lb1ELb0E": "Huber, scalar", "Lb1ELb1E": "Huber, map"}
+                "Lb1ELb0E": "Huber, scalar", "Lb1ELb1E": "Huber, map",
+                "Li1EEEvNS_3SLTI": "TGV² learner, a CG block a partial block",
+                "Li3EEEvNS_3SLTI": "TGV² learner, a CG block three planes",
+                "NS_3SLTI": "TGV² learner", "NS_3TGVI": "TGV² CP"}
 
 
 def ptxas_report(log, source, needle):
@@ -639,7 +652,7 @@ def ptxas_report(log, source, needle):
         dtype = "float64" if "Id" in name.split(needle)[1][:3] else "float32"
         form = next((v for k, v in KERNEL_FORMS.items() if k in name),
                     name)
-        if needle == "slc_pd":    # its RES flag after the dtype
+        if needle in ("slc_pd", "slt_pd"):    # its RES flag after the dtype
             form += (", bands in shared memory"
                      if name.split(needle)[1][2:6] == "Lb1E"
                      else ", bands in global memory")
@@ -2197,6 +2210,74 @@ def slx_small_data(name, B, n=24, seed=0):
     return clean, noisy
 
 
+def slx_kernel_launches(fam):
+    """The kernel launches the family's wrapper has counted, or None where
+    it counts none (rows 12 and 13 run single_loop.cuh's loop)."""
+    return getattr(fam["cuda"], "kernel_launches", None)
+
+
+def slx_steps(fam, name, before, segments, outer, label, n_adj=10):
+    """Row 11's kernel launches per outer step since ``before`` (one more
+    a segment) and its CP plan, printed and required to be
+    launches_per_step(n_adj); {} for the other families."""
+    if before is None:
+        return {}
+    cuda = fam["cuda"]
+    per_step = (cuda.kernel_launches - before - segments) / outer
+    want = cuda.launches_per_step(n_adj)
+    say(f"{label} kernel launches per outer step {per_step:g} (want "
+        f"{want}); CP plan {cuda.last_plan}; CG slots {cuda.last_cg_slots}")
+    require(per_step == want,
+            f"single-loop {name}: {per_step} kernel launches per outer step")
+    plan = cuda.last_plan
+    return dict(launches_per_step=per_step,
+                plan=dict(cluster=plan.cluster, rows=plan.rows,
+                          smem=plan.smem, resident=plan.resident,
+                          cg_slots=cuda.last_cg_slots))
+
+
+def phase_slx_tgv_bands(torch, device):
+    """(a) continued for TGV²: float64 against the plain version where the
+    CP bands split unevenly over the cluster (3×20×16 at 8 CTAs of 3 rows:
+    the 7th owns two, the 8th none; 2×22×24: the 8th owns one row;
+    3×120×128 at 16 CTAs of 8 rows, the 16th none, whose CG blocks take
+    the same 256 pixels of the three planes), the (2,) weight and the 2×2
+    patch, 20 outer steps of 10 CP and 4 CG steps;
+    then 1×256², whose float64 bands do not fit in shared memory (the
+    global-band path), 3 outer steps; at TOL_F64_REL, with 4 + 2·4 kernel
+    launches per outer step."""
+    fam = slx_family("tgv")
+    mod, cuda = fam["mod"], fam["cuda"]
+    errs, faults = {}, []
+    for shape, outer, params in (
+            ((3, 20, 16), 20, ("small", "patch")),
+            ((2, 22, 24), 20, ("small", "patch")),
+            ((3, 120, 128), 20, ("small", "patch")),
+            ((1, 256, 256), 3, ("small",))):
+        ut, f = sl_disc_stack(torch, device, *shape, torch.float64)
+        for which in params:
+            u0, f0, x0, kw = slx_args(fam, "tgv", ut, f, fam[which],
+                                      n_inner=10, n_adj=4)
+            before = cuda.kernel_launches
+            k = mod._single_loop_tgv_impl(u0, f0, x0, outer=outer, **kw)
+            per_step = (cuda.kernel_launches - before - 1) / outer
+            plan = cuda.last_plan
+            p = mod._single_loop_tgv_plain(u0, f0, x0, outer=outer, **kw)
+            e, _ = sl_errors(k, p)
+            e["u"] = rel_err(k.u, p.u)
+            label = (f"{'x'.join(map(str, shape))} "
+                     f"{'vector' if which == 'small' else which}")
+            errs[label] = max(e.values())
+            say(f"  {label}: plan {plan}, CG slots {cuda.last_cg_slots}, "
+                f"{per_step:g} kernel launches per outer step, max rel err "
+                f"{errs[label]:.1e}")
+            if (errs[label] > TOL_F64_REL
+                    or per_step != cuda.launches_per_step(4)
+                    or plan.resident != (shape[1] < 256)):
+                faults.append(f"{label}: {e}, {plan}, {per_step}")
+    require(not faults, "float64 single-loop TGV bands: " + "; ".join(faults))
+
+
 def phase_slx_f64(torch, device, name):
     """(a) The learner against its plain version in float64: one and two
     images of 24², the scalar (or (2,)) weight and a 2×2 patch grid, 20
@@ -2245,7 +2326,9 @@ def slx_f32_pair(utrue, f, timed, name, label):
     impl = getattr(mod, f"_single_loop_{name}_impl")
     u0, f0, x0, kw = slx_args(fam, name, utrue, f, fam["x0"])
     impl(u0, f0, x0, outer=2, **kw)                        # warm-up
+    before = slx_kernel_launches(fam)
     k, k_ms = timed(lambda: impl(u0, f0, x0, outer=30, **kw))
+    steps = slx_steps(fam, name, before, 1, 30, f"  {label}")
     p, p_ms = timed(lambda: plain(u0, f0, x0, outer=30, **kw))
     errs, worst = sl_errors(k, p)
     tol = TOL_SLX_REL_F32[name]
@@ -2259,7 +2342,7 @@ def slx_f32_pair(utrue, f, timed, name, label):
     require(not bad, f"single-loop {name} kernel disagrees with plain at "
             f"{tuple(f.shape)}: {errs}")
     return dict(max_abs_err=worst, errors=errs, ms_30=k_ms, plain_ms=p_ms,
-                pixels=f.numel())
+                pixels=f.numel(), **steps)
 
 
 def phase_slx_f32(torch, device, timed, name):
@@ -2306,8 +2389,10 @@ def phase_slx_call(utrue, f, timed, name):
     kw = dict(outer=300, n_inner=40, n_adj=10, **fam["call_kw"])
     fam["call"](utrue, f, fam["x0"], **kw)                  # warm-up
     reset_launches()
+    before = slx_kernel_launches(fam)
     (x, u, traj), ms = timed(lambda: fam["call"](utrue, f, fam["x0"], **kw))
     launches = read_launches()
+    steps = slx_steps(fam, name, before, 1, 300, "  (c)")
     alpha = np.atleast_1d(x.double().cpu().numpy()).tolist()
     out, line = slx_check("  (c) library call", alpha, float(traj[-1]),
                           SLX_CALL_REF[name])
@@ -2317,7 +2402,7 @@ def phase_slx_call(utrue, f, timed, name):
         f"{launches[key]}; bound {bound:.4f} ms ({by})")
     require(launches[key] == 1, f"library call launched {launches}")
     out.update(ms=ms, launches=launches[key], outer=300, bound_ms=bound,
-               bound_by=by)
+               bound_by=by, **steps)
     return out
 
 
@@ -2346,10 +2431,14 @@ def phase_slx_entry(timed, name):
     setattr(mod, plain_name, watched)
     try:
         reset_launches()
+        before = slx_kernel_launches(fam)
         res, wall_ms = timed(lambda: fam["entry"](device="cuda", **kw))
         launches = read_launches()
     finally:
         setattr(mod, plain_name, saved)
+    key = f"single_loop_{name}"
+    steps = slx_steps(fam, name, before, launches[key], res.iterations,
+                      "  (d)")
     ds, color = fam["data"]
     true_np, _ = testdataset(ds, color=color)
     n = int(kw.get("num_samples", 1))
@@ -2359,7 +2448,6 @@ def phase_slx_entry(timed, name):
     out, line = slx_check("  (d) entry point", alpha, float(res.cost),
                           SLX_REF[name], mean_psnr)
     times = [e.time for e in res.state.log]
-    key = f"single_loop_{name}"
     say(f"{line}; g_norm {res.g_norm:.6g}; {res.iterations} outer steps, "
         f"{len(times)} log entries (gates: alpha {SLX_GATES[name]['alpha']:g}"
         f" relative, PSNR {SLX_GATES[name]['psnr']:g} dB, cost "
@@ -2380,7 +2468,7 @@ def phase_slx_entry(timed, name):
     require(out["cost_rel_err"] <= gates["cost"],
             f"single-loop {name} final cost {res.cost}")
     out.update(g_norm=res.g_norm, outer_iterations=res.iterations,
-               wall_ms=wall_ms, launches=launches)
+               wall_ms=wall_ms, launches=launches, **steps)
     return out
 
 
@@ -2395,8 +2483,10 @@ def phase_slx_entry_f64(name):
     fam = slx_family(name)
     kw = dict(fam["entry_kw"], dtype="float64", method="single_loop")
     reset_launches()
+    before = slx_kernel_launches(fam)
     res = fam["entry"](device="cuda", **kw)
     launches = read_launches()[f"single_loop_{name}"]
+    steps = slx_steps(fam, name, before, launches, res.iterations, "  (e)")
     ds, color = fam["data"]
     true_np, _ = testdataset(ds, color=color)
     n = int(kw.get("num_samples", 1))
@@ -2415,6 +2505,7 @@ def phase_slx_entry_f64(name):
             and abs(out["psnr_diff_db"]) <= SLX_GATES_F64["psnr"]
             and out["cost_rel_err"] <= SLX_GATES_F64["cost"],
             f"float64 single-loop {name} learn off its reference: {out}")
+    out.update(steps)
     return out
 
 
@@ -2423,6 +2514,8 @@ def phases_slx(torch, device, timed, name, first):
     label = {"tgv": "TGV", "tvl1": "TV-L1", "vtv": "VTV"}[name]
     say(f"phase {first} single-loop {label} kernel vs plain, float64")
     phase_slx_f64(torch, device, name)
+    if name == "tgv":
+        phase_slx_tgv_bands(torch, device)
     say(f"phase {first + 1} single-loop {label} kernel vs plain at the "
         f"bench shape and the entry point's, float32")
     utrue, f, stats = phase_slx_f32(torch, device, timed, name)
@@ -2759,7 +2852,11 @@ def main():
     say(f"phase 2 build: {info.seconds:.1f} s ({info.path.name})")
     for source, needle in (("hypergrad.cu", "hg_coop"), ("pdps.cu", "pdc_cp"),
                            ("single_loop.cu", "slc_pd"),
-                           ("tvl1.cu", "tvl1_cp")):
+                           ("tvl1.cu", "tvl1_cp"),
+                           ("single_loop_tgv.cu", "slt_pd"),
+                           ("single_loop_tgv.cu", "slt_init"),
+                           ("single_loop_tgv.cu", "slt_apply"),
+                           ("tgv.cu", "tgv_primal"), ("tgv.cu", "tgv_dual")):
         for line in ptxas_report(info.path.with_suffix(".log"), source,
                                  needle):
             say(f"  {line}")

@@ -2,8 +2,8 @@
 """Wall times of one family's learns on one NVIDIA GPU, for comparing two
 trees run by turns.
 
-    python3 scripts/learn_walls.py {tv,patch_tv,sumregs,grid16,tgv,tvl1,vtv}
-                                  [--runs N]
+    python3 scripts/learn_walls.py {tv,patch_tv,sumregs,grid16,tgv,tvl1,vtv,
+                                    single_loop_tgv} [--runs N]
 
 Runs the learns of ``scripts/torch_profile.py FAMILY`` (the same data,
 preloaded on the card, and the same settings) once each to warm up, then
@@ -11,7 +11,9 @@ N times each (default 1), every run timed with CUDA events.  Prints the
 card's name and power limit first and, last, one JSON line
 ``{"device": ..., "family": ..., LABEL: [ms, ...], ...}``.  It uses only
 ``torch_profile.setup``, so a copy placed in another tree's ``scripts/``
-times that tree's learns.  Exits non-zero without a CUDA device.
+times that tree's learns (copy ``torch_profile.py`` beside it where that
+tree's ``setup`` lacks the family).  Exits non-zero without a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("family", choices=("tv", "patch_tv", "sumregs",
-                                       "grid16", "tgv", "tvl1", "vtv"))
+                                       "grid16", "tgv", "tvl1", "vtv",
+                                       "single_loop_tgv"))
     ap.add_argument("--runs", type=int, default=1)
     args = ap.parse_args()
     import torch

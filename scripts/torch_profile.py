@@ -43,7 +43,8 @@ parameters.  For each:
 sum-of-regularizers weights from 1e-3: the split is the CUDA learner's
 launch call (the whole learn runs in it) against the rest, and the
 profiled run is cut to 30 outer steps, with the kernel launches per outer
-step its C loop issued.  ``single_loop_tgv``,
+step its C loop issued (so for ``single_loop_tgv``, whose wrapper counts
+them too).  ``single_loop_tgv``,
 ``single_loop_tvl1`` and ``single_loop_vtv`` do the same for the other
 families' single-loop learners with the settings of their entry points
 (300 outer steps of 40 CP and 10 CG steps): TGV² on the faces images from
@@ -208,6 +209,8 @@ def setup(family, torch):
         return out[-1].iters
 
     extra = {}
+    if family.startswith("single_loop"):
+        return setup_single_loop(torch, family)
     if family in ("patch_tv", "sumregs", "grid16"):
         return setup_tv_family(family, torch)
     if family == "tv":
@@ -289,11 +292,7 @@ def main():
         timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     _build.library()
-    if args.family.startswith("single_loop"):
-        learn, runs, inner_iters, cg_iters = setup_single_loop(torch,
-                                                              args.family)
-    else:
-        learn, runs, inner_iters, cg_iters = setup(args.family, torch)
+    learn, runs, inner_iters, cg_iters = setup(args.family, torch)
 
     out = dict(device=smi, family=args.family)
     for label, (x0, params) in runs.items():

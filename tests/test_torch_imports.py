@@ -19,6 +19,7 @@ SOURCES = (sorted(PORT.rglob("*.py"))
               ROOT / "scripts" / "kernel_b_digits.py",
               ROOT / "scripts" / "kernel_b_iteration_cost.py",
               ROOT / "scripts" / "tvl1_cluster_sizes.py",
+              ROOT / "scripts" / "tgv_sl_cluster_sizes.py",
               ROOT / "scripts" / "learn_walls.py"])
 FORBIDDEN = ("jax", "jaxlib", "bpldenoising_tpu")
 
