@@ -26,7 +26,7 @@ SOURCES = ("pdps.cu", "hypergrad.cu", "tgv.cu", "tvl1.cu", "vtv.cu",
            "single_loop.cu", "single_loop_tgv.cu", "single_loop_tvl1.cu",
            "single_loop_vtv.cu")
 HEADERS = ("common.cuh", "pd_cluster.cuh", "single_loop.cuh", "tgv.cuh",
-           "tgv_cluster.cuh", "tvl1.cuh", "vtv.cuh")
+           "tgv_cluster.cuh", "tvl1.cuh", "vtv.cuh", "vtv_cluster.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # -fmad=false: no fused multiply-adds, so each operation rounds like the
 # plain PyTorch version's separate elementwise operations
@@ -160,14 +160,15 @@ def _declare(lib):
         fn.argtypes = [_P] * 11 + [_LL] + [_I] * 7 + [real] * 14 + [_P]
         fn.restype = _I
         fn = getattr(lib, f"bpl_sl_vtv_{suffix}")
-        fn.argtypes = [_P] * 11 + [_LL] + [_I] * 8 + [real] * 9 + [_P]
+        fn.argtypes = ([_P] * 11 + [_LL] + [_I] * 12 + [real] * 9
+                       + [ctypes.POINTER(_I), _P])
         fn.restype = _I
         fn = getattr(lib, f"bpl_sl_stencil_{suffix}")
         fn.argtypes = [_I, _I, _P, _P, _LL, _I, _I, _P]
         fn.restype = _I
     lib.bpl_sl_scratch.argtypes = [_LL] + [_I] * 9
     lib.bpl_sl_scratch.restype = _LL
-    for name, n_int in (("tgv", 6), ("tvl1", 3), ("vtv", 4)):
+    for name, n_int in (("tgv", 6), ("tvl1", 3), ("vtv", 7)):
         fn = getattr(lib, f"bpl_sl_{name}_scratch")
         fn.argtypes = [_LL] + [_I] * n_int
         fn.restype = _LL

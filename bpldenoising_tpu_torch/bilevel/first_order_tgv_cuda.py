@@ -13,7 +13,7 @@ tensors on the CPU, the kernel (launched by :func:`_launch` here) for
 CUDA tensors, an error for anything else.  ``interpret`` changes nothing.
 
 The kernel runs its own loop (no longer ``single_loop.cuh::sl_run``, which
-rows 12 and 13 keep): per outer step one thread-block cluster launch for
+row 12 keeps): per outer step one thread-block cluster launch for
 the CP phase, a cluster per image on the bands of
 ``csrc/tgv_cluster.cuh`` as :func:`tgv_plan` decides from the shapes
 (the same kernel on a global scratch where the bands do not fit in shared
@@ -31,7 +31,7 @@ import ctypes
 import torch
 
 from .. import _build
-from ..solvers.cluster_plan import SMS, tgv_plan
+from ..solvers.cluster_plan import cg_block_slots, tgv_plan
 from ..solvers.pdps_cuda import check_cuda_input, check_plane
 from ..solvers.tgv import step_sizes
 from .first_order_cuda import (adam_args, launches_per_step, pack_opt,
@@ -50,18 +50,12 @@ kernel_launches = 0
 last_plan = None
 last_cg_slots = None
 
-_BLOCK = 256   # BPL_THREADS in csrc/common.cuh: a CG partial block
-
-
 def cg_slots(B: int, M: int, N: int) -> int:
     """The partial blocks a CG block of ``csrc/single_loop_tgv.cu`` takes:
-    3 (the same 256 pixels of the three planes, each pixel's operand and
-    weights formed once) where M·N is a multiple of 256 and that grid of
-    B·M·N/256 blocks still gives each of the card's SMs one, else 1 (every
-    partial block a CG block: at 1×128² 192 blocks, against 64 that leave
-    half the SMs idle).  Both give the same bits."""
-    mn = M * N
-    return 3 if mn % _BLOCK == 0 and B * (mn // _BLOCK) >= SMS else 1
+    :func:`..solvers.cluster_plan.cg_block_slots` of the three planes (u,
+    w_r, w_c): 3 where M·N is a multiple of 256 and B·M·N/256 ≥ 132, else
+    1.  Both give the same bits."""
+    return cg_block_slots(B, M, N, 3)
 
 
 def _launch(utrue, f, carry, *, outer, n_inner, n_adj, pop, param_shape,

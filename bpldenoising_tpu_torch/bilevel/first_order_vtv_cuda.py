@@ -11,32 +11,64 @@ a scalar weight, the Pallas kernel's function).  It goes through
 :func:`.first_order_vtv._single_loop_vtv_impl`: the plain version for
 tensors on the CPU, the kernel (launched by :func:`_launch` here) for
 CUDA tensors, an error for anything else.  ``interpret`` changes nothing.
+
+The kernel runs row 11's design (``csrc/single_loop_tgv.cu``), not
+``single_loop.cuh::sl_run``: per outer step one thread-block cluster launch
+for the CP phase, a cluster per image on the bands of
+``csrc/vtv_cluster.cuh`` as :func:`vtv_plan` decides from the shapes (the
+same kernel on a global scratch where the bands do not fit in shared
+memory), then two launches per CG step: :func:`launches_per_step` a step
+and one per segment, counted in :data:`kernel_launches`.  The CG's blocks
+take one 256-element partial block each, or the same 256 pixels of the C
+planes where :func:`cg_slots` says so.  A plan the card refuses raises.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import _build
+from ..solvers.cluster_plan import cg_block_slots, vtv_plan
 from ..solvers.pdps_cuda import check_cuda_input, check_plane
-from .first_order_cuda import adam_args, pack_opt, unpack_opt
+from .first_order_cuda import (adam_args, launches_per_step, pack_opt,
+                               unpack_opt)
 from .first_order import step_sizes
 from .first_order_vtv import _VTV, _prepare, _single_loop_vtv_impl
 
-__all__ = ["single_loop_vtv_cuda", "launches"]
+__all__ = ["single_loop_vtv_cuda", "vtv_plan", "cg_slots",
+           "launches_per_step", "launches", "kernel_launches", "last_plan"]
 
 #: calls that launched the CUDA learner (one per segment)
 launches = 0
+#: kernel launches those calls issued on the card, as the C loop counts
+#: them (launches_per_step(n_adj) per outer step, one per segment)
+kernel_launches = 0
+#: the band plan and the CG slots of the latest launch
+last_plan = None
+last_cg_slots = None
+
+
+def cg_slots(B: int, M: int, N: int, C: int) -> int:
+    """The partial blocks a CG block of ``csrc/single_loop_vtv.cu`` takes:
+    :func:`..solvers.cluster_plan.cg_block_slots` of the C channel planes:
+    C where M·N is a multiple of 256 and B·M·N/256 ≥ 132 (6×128²: 384
+    blocks), else 1 (1×3×128²: 192).  Both give the same bits."""
+    return cg_block_slots(B, M, N, C)
 
 
 def _launch(utrue, f, carry, *, outer, n_inner, n_adj, pop, param_shape,
             lr, gamma, tau0, sigma0, beta1, beta2, eps):
     """Run ``outer`` steps from ``carry`` ``(u, y, λ, z, (m, v), t)`` on
-    the card; → (carry, (α, cost, ‖g‖ trajectories))."""
-    check_cuda_input(f)
+    the card; → (carry, (α, cost, ‖g‖ trajectories)).  The shapes and
+    dtypes of every argument are checked before the device."""
     if f.ndim != 4:
         raise ValueError(f"expected an (O, C, M, N) stack, got "
                          f"{tuple(f.shape)}")
+    if f.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the CUDA kernels take float32/float64, got "
+                        f"{f.dtype}")
     check_plane(utrue, f.shape, f, "utrue")
     B, C, M, N = (int(s) for s in f.shape)
     pm, pn = (1, 1) if pop is None else pop.size_in
@@ -45,25 +77,35 @@ def _launch(utrue, f, carry, *, outer, n_inner, n_adj, pop, param_shape,
     check_plane(y, (B, C, 2, M, N), f, "carry y")
     check_plane(lam, f.shape, f, "carry lambda")
     opt = pack_opt(z, m, v, t, param_shape, 1, pm * pn, outer, f)
+    check_cuda_input(f)
     f = f.contiguous()
     utrue = utrue.contiguous()
     u, y, lam = (a.contiguous().clone() for a in (u, y, lam))
+    plan = vtv_plan(M, N, C, f.element_size())
+    slots = cg_slots(B, M, N, C)
     lib = _build.library()
-    scratch = torch.empty((lib.bpl_sl_vtv_scratch(B, C, M, N, pm * pn),),
-                          dtype=f.dtype, device=f.device)
+    scratch = torch.empty((lib.bpl_sl_vtv_scratch(
+        B, C, M, N, pm * pn, plan.cluster, plan.rows, int(plan.resident)),),
+        dtype=f.dtype, device=f.device)
     tau, sigma = (float(s) for s in step_sizes(_VTV.opnorm_sq(), tau0,
                                                sigma0, f.dtype))
     fn = lib.bpl_sl_vtv_f32 if f.dtype == torch.float32 \
         else lib.bpl_sl_vtv_f64
-    global launches
+    issued = ctypes.c_int(0)
+    global launches, kernel_launches, last_plan, last_cg_slots
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream(f.device).cuda_stream
         launches += 1
+        last_plan, last_cg_slots = plan, slots
         err = fn(*(a.data_ptr() for a in (f, utrue, u, y, lam)),
                  *(a.data_ptr() for a in opt), scratch.data_ptr(), B, C, M,
-                 N, pm, pn, int(outer), int(n_inner), int(n_adj), tau, sigma,
-                 float(gamma), *adam_args(lr, beta1, beta2, eps), stream)
-    _build.check(err, "single-loop VTV kernel")
+                 N, pm, pn, plan.cluster, plan.rows, int(plan.resident),
+                 slots, int(outer), int(n_inner), int(n_adj), tau, sigma,
+                 float(gamma), *adam_args(lr, beta1, beta2, eps),
+                 ctypes.byref(issued), stream)
+    kernel_launches += issued.value
+    _build.check(err, f"single-loop VTV kernel (CP cluster {plan}, CG "
+                      f"slots {slots})")
     (z, mv, t), trajs = unpack_opt(*opt, param_shape)
     return (u, y, lam, z, mv, t), trajs
 

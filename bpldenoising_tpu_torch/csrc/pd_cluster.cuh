@@ -1,7 +1,9 @@
 // The band scheme of the CP phases that keep each image on-chip: one
 // thread-block cluster per image, each CTA a band of rows in shared memory
 // (csrc/single_loop.cu's slc_pd, rows 9–10; csrc/pdps.cu's pdc_cp, kernel
-// A, rows 1 and 3; csrc/tvl1.cu's tvl1_cp, rows 7 and 8).
+// A, rows 1 and 3; csrc/tvl1.cu's tvl1_cp, rows 7 and 8; the TGV² and VTV
+// single-loop learners' loops, csrc/tgv_cluster.cuh and csrc/vtv_cluster.cuh,
+// share its launch, thread block, slots and row walker).
 //
 // CTA c of an image's cluster owns rows [r0, r1) = [c·rows, (c+1)·rows) ∩
 // [0, M) and holds u, ū and the 2K dual planes on rows r0 − 2 … r1 + 1
@@ -81,6 +83,27 @@ __device__ __forceinline__ Pix pix(long long b, int i, int j) {
   p.i = i;
   p.j = j;
   return p;
+}
+
+// fn(i, j) for every pixel of rows [ra, rb), this thread's share: flat
+// positions threadIdx.x, + PD_THREADS, … in row-major order (one division
+// a thread, then a carry).
+template <class F>
+__device__ __forceinline__ void band_rows(int ra, int rb, int N, F fn) {
+  const int n = (rb - ra) * N;
+  int q = (int)threadIdx.x;
+  if (q >= n) return;
+  int i = ra + q / N, j = q % N;
+  const int di = PD_THREADS / N, dj = PD_THREADS % N;
+  for (; q < n; q += PD_THREADS) {
+    fn(i, j);
+    i += di;
+    j += dj;
+    if (j >= N) {
+      j -= N;
+      ++i;
+    }
+  }
 }
 
 // The hook on block k's dual p = y + σGₖū at pixel (i, j), before its

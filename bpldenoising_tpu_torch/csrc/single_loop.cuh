@@ -1,17 +1,18 @@
-// The single-loop learners' shared state and kernels: TPU kernels 12 (TV-L1,
-// single_loop_tvl1.cu) and 13 (VTV, single_loop_vtv.cu) build on this
-// header; TPU kernels 9 and 10 (single_loop.cu, TV and the sum of gradient
-// regularizers) and 11 (single_loop_tgv.cu, TGV²) have their own design
-// (a thread-block cluster per image for the CP phase, two launches per CG
-// step) and take only SL_MAXK and sl_bad_args from here; row 11 no longer
-// runs sl_run.  Each learner here keeps its state in global memory, runs
-// one thread per pixel or element and uses launch boundaries as its
-// barriers; a C loop issues the launches and nothing is read back to the
-// host between the first and the last.  Shared here:
+// The single-loop learners' shared state and kernels: TPU kernel 12 (TV-L1,
+// single_loop_tvl1.cu) builds on this header; TPU kernels 9 and 10
+// (single_loop.cu, TV and the sum of gradient regularizers), 11
+// (single_loop_tgv.cu, TGV²) and 13 (single_loop_vtv.cu, VTV) have their
+// own design (a thread-block cluster per image for the CP phase, two
+// launches per CG step) and take only SL_MAXK and sl_bad_args from here,
+// and rows 11 and 13 the parts they share (slx_*, at the end); they no
+// longer run sl_run.  The learner here keeps its state
+// in global memory, runs one thread per pixel and uses launch boundaries
+// as its barriers; a C loop issues the launches and nothing is read back
+// to the host between the first and the last.  Shared here:
 //   SL<T>, the learner's device view (the CG planes, the parameter z =
 //     log α, Adam's moments, the trajectories, the partials);
 //   sl_exp (x = exp(z) and its trajectory), sl_amap (α as (M, N) maps for
-//     the other families' CP kernels), sl_alpha (the patch index
+//     the TV-L1 CP kernel), sl_alpha (the patch index
 //     min(i·m // M, m − 1));
 //   the γ-smoothed gradient-regularizer system (sl_setup, sl_diag,
 //     sl_weights, sl_apply: solvers/hypergrad.py::build_reg_system, with
@@ -105,11 +106,6 @@ struct SL {
   int B, M, N, K, pm, pn, P, n_tiles, bpt, nb_mn;
   int kind[SL_MAXK];
   T tau, sigma, gamma, lr, beta1, beta2, omb1, omb2, eps;
-  // The CG unknown holds c_lam planes per image, of which the first c_u
-  // carry the right-hand side ū − u (u has c_u planes per image; the rest
-  // of the right-hand side is 0).  divide: the preconditioner plane holds
-  // the Jacobi diagonal and z = r/diag (else its inverse and z = diag·r).
-  int c_lam, c_u, divide;
   // TV-L1 (dfac non-null): the Huber data Hessian d = γ_d·1{|u − f| ≤
   // 1/γ_d} replaces the identity block; inv_gd = 1/γ_d.
   T* dfac;
@@ -190,8 +186,8 @@ __global__ void sl_setup(SL<T> h) {
   }
 }
 
-// 1/diag, diag = 1 + Σₖ gramₖ(WX, WY).
-// TV-L1 (dfac): d = γ_d·1{|u − f| ≤ 1/γ_d} into dfac and the diagonal
+// The TV-L1 Jacobi diagonal, from diag = 1 + Σₖ gramₖ(WX, WY):
+// d = γ_d·1{|u − f| ≤ 1/γ_d} into dfac and the diagonal
 // max(1/(1/diag) + (d − 1), 1e-12) of D + Σₖ GₖᵀαₖWₖGₖ into INV_DIAG (as
 // solvers/tvl1_huber.py forms it; the CG divides by it).
 template <typename T>
@@ -205,10 +201,6 @@ __global__ void sl_diag(SL<T> h) {
                          (const T*)h.kplane(k, WY), idx, p, h.M, h.N,
                          h.kind[k]);
   const T inv = T(1) / diag;
-  if (!h.dfac) {
-    h.plane(INV_DIAG)[idx] = inv;
-    return;
-  }
   const T d = fabs(h.u[idx] - h.f[idx]) <= h.inv_gd ? h.gamma_d : T(0);
   h.dfac[idx] = d;
   const T dg = T(1) / inv + (d - T(1));
@@ -249,23 +241,6 @@ __device__ __forceinline__ void sl_apply_partials(const SL<T>& h, int mode,
   if (threadIdx.x == 0) *h.partial() = a;
 }
 
-// The Jacobi step z = P⁻¹r with the preconditioner value pre at a pixel.
-template <typename T>
-__device__ __forceinline__ T sl_precond(const SL<T>& h, T pre, T r) {
-  return h.divide ? r / pre : pre * r;
-}
-
-// The right-hand side ū − u of the adjoint system at CG element idx.
-template <typename T>
-__device__ __forceinline__ T sl_rhs(const SL<T>& h, long long idx) {
-  if (h.c_lam == h.c_u) return h.ut[idx] - h.u[idx];
-  const long long per = (long long)h.c_lam * h.mn;
-  const long long b = idx / per, rem = idx - b * per;
-  if (rem >= (long long)h.c_u * h.mn) return T(0);
-  const long long k = b * h.c_u * h.mn + rem;
-  return h.ut[k] - h.u[k];
-}
-
 template <typename T>
 __global__ void sl_apply(SL<T> h, const T* __restrict__ v,
                          T* __restrict__ out, int mode) {
@@ -295,8 +270,8 @@ __global__ void sl_cg_init(SL<T> h) {
   long long idx;
   T rz = T(0);
   if (sl_pixel(h, idx)) {
-    T r = sl_rhs(h, idx) - h.plane(MD)[idx];
-    T z = sl_precond(h, h.plane(INV_DIAG)[idx], r);
+    T r = (h.ut[idx] - h.u[idx]) - h.plane(MD)[idx];
+    T z = r / h.plane(INV_DIAG)[idx];
     h.plane(R)[idx] = r;
     h.plane(Z)[idx] = z;
     h.plane(D)[idx] = z;
@@ -337,7 +312,7 @@ __global__ void sl_cg_update(SL<T> h) {
     const T a = h.slot(S_A, blockIdx.y);
     h.p[idx] = h.p[idx] + a * h.plane(D)[idx];
     T r = h.plane(R)[idx] - a * h.plane(MD)[idx];
-    T z = sl_precond(h, h.plane(INV_DIAG)[idx], r);
+    T z = r / h.plane(INV_DIAG)[idx];
     h.plane(R)[idx] = r;
     h.plane(Z)[idx] = z;
     rz = r * z;
@@ -453,9 +428,9 @@ __global__ void sl_adam(SL<T> h, int o) {
   }
 }
 
-// αₖ as an (M, N) map per regularizer (amap: K × M·N), for the CP kernels
-// of the other families (tvl1.cuh, vtv.cuh), which read a map
-// weight per pixel: the same values as sl_alpha.
+// αₖ as an (M, N) map per regularizer (amap: K × M·N), for the TV-L1 CP
+// kernel (tvl1.cuh), which reads a map weight per pixel: the same values
+// as sl_alpha.
 template <typename T>
 __global__ void sl_amap(SL<T> h, T* __restrict__ amap) {
   const long long ij = (long long)blockIdx.x * BPL_THREADS + threadIdx.x;
@@ -468,8 +443,7 @@ __global__ void sl_amap(SL<T> h, T* __restrict__ amap) {
 }
 
 // Points h's scratch parts into `scratch` by the layout z; the work planes
-// come first.  Defaults: the TV right-hand side layout, z = diag·r, no D,
-// no clip.
+// come first.  Defaults: no clip; the caller sets D (dfac).
 template <typename T>
 void sl_bind(SL<T>& h, T* scratch, const SlSizes& z, long long n, int M,
              int N) {
@@ -488,9 +462,6 @@ void sl_bind(SL<T>& h, T* scratch, const SlSizes& z, long long n, int M,
   h.n_tiles = z.n_tiles;
   h.bpt = z.bpt;
   h.nb_mn = z.nb_mn;
-  h.c_lam = 1;
-  h.c_u = 1;
-  h.divide = 0;
   h.dfac = nullptr;
   h.gamma_d = T(0);
   h.inv_gd = T(0);
@@ -550,7 +521,7 @@ void sl_step_tail(const SL<T>& h, int o, cudaStream_t s) {
   BPL_LAUNCH(sl_adam<T>, 1, BPL_THREADS, s)(h, o);
 }
 
-// The outer loop of the TV-L1 and VTV learners, each step:
+// The outer loop of the TV-L1 learner, each step:
 // x = exp(z), α as (M, N) maps into amap, n_inner cp_step(), setup() (the
 // system at u and its diagonal), apply(v, out, mode) (H·v into out, with
 // the partials of mode) on the warm λ = h.p and in n_adj classic CG
@@ -583,6 +554,149 @@ inline bool sl_bad_args(long long B, int M, int N, int pm, int pn,
                         int outer, int n_inner, int n_adj) {
   return B < 1 || M < 1 || N < 1 || pm < 1 || pn < 1 || pm > M || pn > N
          || outer < 0 || n_inner < 0 || n_adj < 0;
+}
+
+// ---------------------------------------- rows 11 and 13's shared parts
+//
+// The cluster-design learners (single_loop_tgv.cu, single_loop_vtv.cu)
+// keep their state in a struct H of their own; the parts below read its
+// members zmv (3 × K × P: z, Adam m, Adam v), t, traj_x, traj_cost,
+// traj_gnorm, gmap (K × M·N), xk and gx (K × P), part (B × bpt CG
+// partials), cost_part (nb_mn), count (B + 1 counters), mn, B, M, N, pm,
+// pn, P, bpt, nb_mn, outer and Adam's lr, beta1, beta2, omb1, omb2, eps.
+
+// αₖ at pixel (i, j): the patch entry min(i·m // M, m − 1),
+// min(j·n // N, n − 1) (sl_alpha), no division for a scalar weight.
+template <typename T, class H>
+__device__ __forceinline__ T slx_alpha(const H& h, int k, int i, int j) {
+  if (h.P == 1) return h.xk[k];
+  int pi = (int)((long long)i * h.pm / h.M);
+  int pj = (int)((long long)j * h.pn / h.N);
+  pi = pi < h.pm - 1 ? pi : h.pm - 1;
+  pj = pj < h.pn - 1 ? pj : h.pn - 1;
+  return h.xk[k * h.P + pi * h.pn + pj];
+}
+
+// The block sum of v into partial block `block` of image blockIdx.y.
+template <typename T, class H>
+__device__ __forceinline__ void slx_partial(const H& h, long long block, T v,
+                                            T* sh) {
+  const T a = block_sum(v, sh);
+  if (threadIdx.x == 0) h.part[(long long)blockIdx.y * h.bpt + block] = a;
+}
+
+// After the block's partials: the image's last block to arrive sums the
+// image's partials in sl_finish's order into *out and returns true (in
+// every thread), else false.  An integer counter, no float atomics.
+template <typename T, class H>
+__device__ bool slx_image_sum(const H& h, T* out, T* sh) {
+  __shared__ int last;
+  const long long b = blockIdx.y;
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(&h.count[b], 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return false;
+  __threadfence();
+  T c = T(0);
+  for (int k = threadIdx.x; k < h.bpt; k += BPL_THREADS)
+    c += __ldcg(h.part + b * h.bpt + k);
+  *out = block_sum(c, sh);
+  if (threadIdx.x == 0) h.count[b] = 0;
+  return true;
+}
+
+// x = exp(z) for the first step of a segment, recorded in its trajectory;
+// the counters zeroed.
+template <typename T, int K, class H>
+__global__ void slx_begin(H h) {
+  const int kp = K * h.P;
+  for (int e = threadIdx.x; e < kp; e += BPL_THREADS) {
+    const T x = exp(h.zmv[e]);
+    h.xk[e] = x;
+    h.traj_x[e] = x;
+  }
+  for (int g = threadIdx.x; g <= h.B; g += BPL_THREADS) h.count[g] = 0;
+}
+
+// Block (k, e): gradient map k summed over the pixels of parameter entry e
+// (sl_pullback).  The last block to finish runs Adam on z = log α
+// (sl_adam: g_z = g_x·x, t ← t + 1, bias corrections 1 − βᵗ), writes this
+// step's cost ½Σ(u − ū)² from the cost partials and ‖g_x‖, and forms
+// x = exp(z) for step o + 1.
+template <typename T, int K, class H>
+__global__ void __launch_bounds__(BPL_THREADS) slx_pull_adam(H h, int o) {
+  __shared__ T sh[BPL_THREADS];
+  __shared__ int last;
+  const int k = blockIdx.x / h.P, e = blockIdx.x % h.P;
+  const int pi = e / h.pn, pj = e % h.pn;
+  const int r0 = (int)(((long long)pi * h.M + h.pm - 1) / h.pm);
+  const int r1 = (int)(((long long)(pi + 1) * h.M + h.pm - 1) / h.pm);
+  const int c0 = (int)(((long long)pj * h.N + h.pn - 1) / h.pn);
+  const int c1 = (int)(((long long)(pj + 1) * h.N + h.pn - 1) / h.pn);
+  const int bn = c1 - c0;
+  const int cnt = (r1 - r0) * bn;      // ≤ M·N < 2³¹
+  const T* g = h.gmap + (long long)k * h.mn;
+  T acc = T(0);
+  // the entry's pixels q = threadIdx.x, + 256, … in row-major order, at
+  // (r0 + q / bn, c0 + q % bn): one division a thread, then a carry
+  int q = threadIdx.x;
+  int i = r0 + q / bn, j = c0 + q % bn;
+  const int di = BPL_THREADS / bn, dj = BPL_THREADS % bn;
+  for (; q < cnt; q += BPL_THREADS) {
+    acc += g[(long long)i * h.N + j];
+    i += di;
+    j += dj;
+    if (j >= c1) {
+      j -= bn;
+      ++i;
+    }
+  }
+  const T sum = block_sum(acc, sh);
+  unsigned* done = h.count + h.B;
+  if (threadIdx.x == 0) {
+    h.gx[blockIdx.x] = sum;
+    __threadfence();
+    last = atomicAdd(done, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int kp = K * h.P;
+  const T tn = h.t[0] + T(1);
+  const T b1t = pow(h.beta1, tn);
+  const T b2t = pow(h.beta2, tn);
+  T gsq = T(0);
+  for (int q = threadIdx.x; q < kp; q += BPL_THREADS) {
+    const T gq = __ldcg(h.gx + q);
+    const T gz = gq * h.xk[q];
+    const T m = h.beta1 * h.zmv[kp + q] + h.omb1 * gz;
+    const T v = h.beta2 * h.zmv[2 * kp + q] + h.omb2 * (gz * gz);
+    const T mhat = m / (T(1) - b1t);
+    const T vhat = v / (T(1) - b2t);
+    const T zn = h.zmv[q] - h.lr * mhat / (sqrt(vhat) + h.eps);
+    h.zmv[q] = zn;
+    h.zmv[kp + q] = m;
+    h.zmv[2 * kp + q] = v;
+    gsq += gq * gq;
+    if (o + 1 < h.outer) {
+      const T x = exp(zn);
+      h.xk[q] = x;
+      h.traj_x[(long long)(o + 1) * kp + q] = x;
+    }
+  }
+  T c = T(0);
+  for (int q = threadIdx.x; q < h.nb_mn; q += BPL_THREADS)
+    c += h.cost_part[q];
+  const T G = block_sum(gsq, sh);
+  const T C = block_sum(c, sh);
+  if (threadIdx.x == 0) {
+    h.traj_cost[o] = T(0.5) * C;
+    h.traj_gnorm[o] = sqrt(G);
+    h.t[0] = tn;
+    *done = 0;
+  }
 }
 
 }  // namespace bpl

@@ -50,10 +50,10 @@
 //    per pixel for the later launches).
 //  * The tail: the gradient maps and cost partials (slt_gmap), then the
 //    per-patch pullback whose last block runs Adam and forms the next
-//    step's exp(z) (slt_pull_adam).
+//    step's exp(z) (single_loop.cuh's slx_pull_adam).
 //
 // Launches per outer step: 4 + 2·n_adj (24 at n_adj = 10), and one per
-// segment (slt_begin).
+// segment (slx_begin).
 #include "single_loop.cuh"
 #include "tgv_cluster.cuh"
 
@@ -130,19 +130,6 @@ struct SLT {
   }
 };
 
-// αₖ at pixel (i, j): the patch entry min(i·m // M, m − 1),
-// min(j·n // N, n − 1) (single_loop.cuh's sl_alpha), no division for a
-// (2,) weight.
-template <typename T>
-__device__ __forceinline__ T slt_alpha(const SLT<T>& h, int k, int i, int j) {
-  if (h.P == 1) return h.xk[k];
-  int pi = (int)((long long)i * h.pm / h.M);
-  int pj = (int)((long long)j * h.pn / h.N);
-  pi = pi < h.pm - 1 ? pi : h.pm - 1;
-  pj = pj < h.pn - 1 ? pj : h.pn - 1;
-  return h.xk[k * h.P + pi * h.pn + pj];
-}
-
 // ---------------------------------------------------------------- CP phase
 
 // The learner's CP step for tgv_cluster_run: its state, f, and (α₁, α₀)
@@ -165,10 +152,10 @@ struct SltStep {
   __device__ const T* f(long long b) const { return h.f + b * h.mn; }
   __device__ long long mn() const { return h.mn; }
   __device__ T a1(int i, int j) const {
-    return h.P == 1 ? s_alpha[0] : slt_alpha(h, 0, i, j);
+    return h.P == 1 ? s_alpha[0] : slx_alpha<T>(h, 0, i, j);
   }
   __device__ T a0(int i, int j) const {
-    return h.P == 1 ? s_alpha[1] : slt_alpha(h, 1, i, j);
+    return h.P == 1 ? s_alpha[1] : slx_alpha<T>(h, 1, i, j);
   }
 };
 
@@ -343,7 +330,7 @@ __device__ __forceinline__ void slt_weights(const SLT<T>& h, SltTile<T>& s,
       T yr, yc, sy, my;
       slt_yfield<T, SETUP>(h, b, k, p, yr, yc, sy, my);
       const T rad = (my * (yr * tr + yc * tc)) * ((sy * sy) * sy);
-      const T a1 = slt_alpha(h, 0, i, j);
+      const T a1 = slx_alpha<T>(h, 0, i, j);
       T* out = s.hy[which][0];
       out[q] = (sy * tr - yr * rad) * a1;
       s.hy[which][1][q] = (sy * tc - yc * rad) * a1;
@@ -360,7 +347,7 @@ __device__ __forceinline__ void slt_weights(const SLT<T>& h, SltTile<T>& s,
       slt_zfield<T, SETUP>(h, b, k, p, z0, z1, z2, sz, mz);
       const T radz = (mz * ((z0 * e0 + z1 * e1) + z2 * e2))
                      * ((sz * sz) * sz);
-      const T a0 = slt_alpha(h, 1, i, j);
+      const T a0 = slx_alpha<T>(h, 1, i, j);
       T* out = s.hz[which - 2][0];
       out[q] = (sz * e0 - z0 * radz) * a0;
       s.hz[which - 2][1][q] = (sz * e1 - z1 * radz) * a0;
@@ -421,31 +408,15 @@ __device__ __forceinline__ T slt_diag(const SLT<T>& h, const SltTile<T>& s,
 // Writes the block's partials of an image inner product (slot r's at its
 // partial block); the image's last block to arrive sums the image's
 // partials in sl_finish's order into *out and returns true (in every
-// thread), else false.
+// thread), else false (single_loop.cuh's slx_image_sum).
 template <typename T, int NS>
-__device__ bool slt_image_sum(const SLT<T>& h, const T (&v)[NS], T* out,
-                              T* sh) {
-  __shared__ int last;
-  const long long b = blockIdx.y;
+__device__ __forceinline__ bool slt_image_sum(const SLT<T>& h,
+                                              const T (&v)[NS], T* out,
+                                              T* sh) {
 #pragma unroll
-  for (int r = 0; r < NS; ++r) {
-    const T a = block_sum(v[r], sh);
-    if (threadIdx.x == 0)
-      h.part[b * h.bpt + slt_slot<NS>(h, r) / BPL_THREADS] = a;
-  }
-  if (threadIdx.x == 0) {
-    __threadfence();
-    last = atomicAdd(&h.count[b], 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!last) return false;
-  __threadfence();
-  T c = T(0);
-  for (int k = threadIdx.x; k < h.bpt; k += BPL_THREADS)
-    c += __ldcg(h.part + b * h.bpt + k);
-  *out = block_sum(c, sh);
-  if (threadIdx.x == 0) h.count[b] = 0;
-  return true;
+  for (int r = 0; r < NS; ++r)
+    slx_partial<T>(h, slt_slot<NS>(h, r) / BPL_THREADS, v[r], sh);
+  return slx_image_sum<T>(h, out, sh);
 }
 
 // The system at (u, w), its Jacobi diagonal, H·λ and the CG start:
@@ -473,11 +444,11 @@ __global__ void __launch_bounds__(BPL_THREADS) slt_init(SLT<T> h) {
     if (which < 2) {
       T yr, yc, sy, my;
       slt_yfield<T, true>(h, b, k, p, yr, yc, sy, my);
-      s.hy[which][0][qq] = slt_alpha(h, 0, i, j) * sy;
+      s.hy[which][0][qq] = slx_alpha<T>(h, 0, i, j) * sy;
     } else {
       T z0, z1, z2, sz, mz;
       slt_zfield<T, true>(h, b, k, p, z0, z1, z2, sz, mz);
-      s.hz[which - 2][0][qq] = slt_alpha(h, 1, i, j) * sz;
+      s.hz[which - 2][0][qq] = slx_alpha<T>(h, 1, i, j) * sz;
     }
   }
   __syncthreads();
@@ -597,19 +568,6 @@ __global__ void __launch_bounds__(BPL_THREADS) slt_update(SLT<T> h, int k) {
 
 // ------------------------------------------------------------------ the tail
 
-// x = exp(z) for the first step of a segment, recorded in its trajectory;
-// the counters zeroed.
-template <typename T>
-__global__ void slt_begin(SLT<T> h) {
-  const int kp = 2 * h.P;
-  for (int e = threadIdx.x; e < kp; e += BPL_THREADS) {
-    const T x = exp(h.zmv[e]);
-    h.xk[e] = x;
-    h.traj_x[e] = x;
-  }
-  for (int g = threadIdx.x; g <= h.B; g += BPL_THREADS) h.count[g] = 0;
-}
-
 // One thread per pixel (i, j) of the plane: g₁ = Σ_b ψ_y·(∇λᵤ − λ_w) and
 // g₀ = Σ_b ψ_z·Eλ_w (ψ = field·s), summed over the batch in order; block
 // partials of Σ_b (u − ū)².
@@ -653,74 +611,6 @@ __global__ void __launch_bounds__(BPL_THREADS) slt_gmap(SLT<T> h) {
   if (threadIdx.x == 0) h.cost_part[blockIdx.x] = s;
 }
 
-// Block (k, e): gradient map k summed over the pixels of parameter entry e
-// (single_loop.cuh's sl_pullback).  The last block to finish runs Adam on
-// z = log α (single_loop.cuh's sl_adam: g_z = g_x·x, t ← t + 1, bias
-// corrections 1 − βᵗ), writes this step's cost ½Σ(u − ū)² and ‖g_x‖, and
-// forms x = exp(z) for step o + 1.
-template <typename T>
-__global__ void __launch_bounds__(BPL_THREADS) slt_pull_adam(SLT<T> h,
-                                                             int o) {
-  __shared__ T sh[BPL_THREADS];
-  __shared__ int last;
-  const int k = blockIdx.x / h.P, e = blockIdx.x % h.P;
-  const int pi = e / h.pn, pj = e % h.pn;
-  const int r0 = (int)(((long long)pi * h.M + h.pm - 1) / h.pm);
-  const int r1 = (int)(((long long)(pi + 1) * h.M + h.pm - 1) / h.pm);
-  const int c0 = (int)(((long long)pj * h.N + h.pn - 1) / h.pn);
-  const int c1 = (int)(((long long)(pj + 1) * h.N + h.pn - 1) / h.pn);
-  const int bn = c1 - c0;
-  const long long cnt = (long long)(r1 - r0) * bn;
-  const T* g = h.gmap + (long long)k * h.mn;
-  T acc = T(0);
-  for (long long q = threadIdx.x; q < cnt; q += BPL_THREADS)
-    acc += g[(long long)(r0 + q / bn) * h.N + c0 + q % bn];
-  const T sum = block_sum(acc, sh);
-  unsigned* done = h.count + h.B;
-  if (threadIdx.x == 0) {
-    h.gx[blockIdx.x] = sum;
-    __threadfence();
-    last = atomicAdd(done, 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  const int kp = 2 * h.P;
-  const T tn = h.t[0] + T(1);
-  const T b1t = pow(h.beta1, tn);
-  const T b2t = pow(h.beta2, tn);
-  T gsq = T(0);
-  for (int q = threadIdx.x; q < kp; q += BPL_THREADS) {
-    const T gq = __ldcg(h.gx + q);
-    const T gz = gq * h.xk[q];
-    const T m = h.beta1 * h.zmv[kp + q] + h.omb1 * gz;
-    const T v = h.beta2 * h.zmv[2 * kp + q] + h.omb2 * (gz * gz);
-    const T mhat = m / (T(1) - b1t);
-    const T vhat = v / (T(1) - b2t);
-    const T zn = h.zmv[q] - h.lr * mhat / (sqrt(vhat) + h.eps);
-    h.zmv[q] = zn;
-    h.zmv[kp + q] = m;
-    h.zmv[2 * kp + q] = v;
-    gsq += gq * gq;
-    if (o + 1 < h.outer) {
-      const T x = exp(zn);
-      h.xk[q] = x;
-      h.traj_x[(long long)(o + 1) * kp + q] = x;
-    }
-  }
-  T c = T(0);
-  for (int q = threadIdx.x; q < h.nb_mn; q += BPL_THREADS)
-    c += h.cost_part[q];
-  const T G = block_sum(gsq, sh);
-  const T C = block_sum(c, sh);
-  if (threadIdx.x == 0) {
-    h.traj_cost[o] = T(0.5) * C;
-    h.traj_gnorm[o] = sqrt(G);
-    h.t[0] = tn;
-    *done = 0;
-  }
-}
-
 // ------------------------------------------------------------------ the host
 
 // The launches of `outer` steps with CG blocks of NS slots (a grid of
@@ -733,7 +623,7 @@ int slt_loop(const SLT<T>& h, const PdClusterLaunch<void (*)(SLT<T>, int)>& L,
                    (unsigned)h.B);
   int nl = 0, err;
   if (outer > 0) {
-    BPL_LAUNCH(slt_begin<T>, 1, BPL_THREADS, s)(h);
+    slx_begin<T, 2><<<1, BPL_THREADS, 0, s>>>(h);
     ++nl;
   }
   for (int o = 0; o < outer; ++o) {
@@ -750,7 +640,7 @@ int slt_loop(const SLT<T>& h, const PdClusterLaunch<void (*)(SLT<T>, int)>& L,
       nl += 2;
     }
     BPL_LAUNCH(slt_gmap<T>, h.nb_mn, BPL_THREADS, s)(h);
-    BPL_LAUNCH(slt_pull_adam<T>, 2 * h.P, BPL_THREADS, s)(h, o);
+    slx_pull_adam<T, 2><<<2 * h.P, BPL_THREADS, 0, s>>>(h, o);
     nl += 2;
     if ((err = (int)cudaGetLastError()) != (int)cudaSuccess) return err;
   }

@@ -61,7 +61,6 @@ int sl_tvl1_entry(const T* f, const T* ut, T* u, T* y, T* p, T* zmv, T* t,
   h.tau = tau;
   h.sigma = sigma;
   h.gamma = gamma_r;
-  h.divide = 1;
   h.dfac = scratch + z.total;
   h.gamma_d = gamma_d;
   h.inv_gd = inv_gd;

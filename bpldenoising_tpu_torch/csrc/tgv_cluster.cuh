@@ -52,27 +52,6 @@ inline bool tgv_plan_ok(int M, int N, int cl, int rows) {
          && tgv_region(rows, N) <= 0x7fffffffLL;
 }
 
-// fn(i, j) for every pixel of rows [ra, rb), this thread's share: flat
-// positions threadIdx.x, + PD_THREADS, … in row-major order (one division
-// a thread, then a carry).
-template <class F>
-__device__ __forceinline__ void tg_rows(int ra, int rb, int N, F fn) {
-  const int n = (rb - ra) * N;
-  int q = (int)threadIdx.x;
-  if (q >= n) return;
-  int i = ra + q / N, j = q % N;
-  const int di = PD_THREADS / N, dj = PD_THREADS % N;
-  for (; q < n; q += PD_THREADS) {
-    fn(i, j);
-    i += di;
-    j += dj;
-    if (j >= N) {
-      j -= N;
-      ++i;
-    }
-  }
-}
-
 // n_it TGV² CP iterations of one image (blockIdx.x / cl) under the band
 // scheme.  S is the iteration's step, which the caller's kernel builds:
 //   members M, N, cl, rows (the plan), region (elements of a band), pd
@@ -159,7 +138,7 @@ __device__ __forceinline__ void tgv_cluster_run(const S& s,
     }
     __syncthreads();
     // the primal step (tgv_primal): u⁺, ū, w⁺, w̄
-    tg_rows(pa, pb, N, [&](int i, int j) {
+    band_rows(pa, pb, N, [&](int i, int j) {
       const Pix p = pix(b, i, j);
       const int l = (i - r0 + 2) * N + j;
       const T* qrr = Y + 2 * band;
@@ -192,7 +171,7 @@ __device__ __forceinline__ void tgv_cluster_run(const S& s,
     T* to_up = up && send ? up + (1 - par) * 4 * slot_rows + 2 * slot_rows
                           : nullptr;              // its bottom rows
     T* to_down = down && send ? down + (1 - par) * 4 * slot_rows : nullptr;
-    tg_rows(r0, r1, N, [&](int i, int j) {
+    band_rows(r0, r1, N, [&](int i, int j) {
       const Pix p = pix(b, i, j);
       const int l = (i - r0 + 2) * N + j;
       const T a1 = s.a1(i, j);

@@ -1,9 +1,9 @@
 // The channel-coupled VTV dual step (solvers/pdps.py on models.vtv_model):
 // the struct and the dual kernel, one thread per pixel over the C
 // channels; the primal step is common.cuh's pd_primal over the O·C planes.
-// The accelerated CP solve (vtv.cu, TPU kernel 6) and the unaccelerated
-// single-loop VTV learner (single_loop_vtv.cu, TPU kernel 13, ω = 1) launch
-// these same kernels.
+// The accelerated CP solve (vtv.cu, TPU kernel 6) launches these kernels;
+// the single-loop VTV learner (single_loop_vtv.cu, TPU kernel 13) runs the
+// same arithmetic on its bands (vtv_cluster.cuh).
 #pragma once
 
 #include "common.cuh"

@@ -1,23 +1,27 @@
 """The thread-block cluster plan of the CP iterations that keep each image
 on-chip (``csrc/pd_cluster.cuh``): kernel A's chunks (:mod:`.pdps_cuda`),
 the TV-L1 kernel's chunks (:mod:`.tvl1_cuda`) and the single-loop
-learner's PD phase (:mod:`..bilevel.first_order_cuda`); and of the
-single-loop TGV² learner's CP phase (``csrc/tgv_cluster.cuh``,
-:mod:`..bilevel.first_order_tgv_cuda`).
+learner's PD phase (:mod:`..bilevel.first_order_cuda`); of the single-loop
+TGV² learner's CP phase (``csrc/tgv_cluster.cuh``,
+:mod:`..bilevel.first_order_tgv_cuda`) and of the single-loop VTV
+learner's (``csrc/vtv_cluster.cuh``, :mod:`..bilevel.first_order_vtv_cuda`).
 
 One cluster runs one image; each CTA holds a band of rows with two halo
-rows above and below in shared memory.  :func:`pd_plan` and
-:func:`tgv_plan` decide from the shapes alone, before any launch, how many
-CTAs an image takes, how many rows each owns and whether the bands fit in
-shared memory.
+rows above and below in shared memory.  :func:`pd_plan`, :func:`tgv_plan`
+and :func:`vtv_plan` decide from the shapes alone, before any launch, how
+many CTAs an image takes, how many rows each owns and whether the bands
+fit in shared memory.  :func:`cg_block_slots` decides, likewise, how many
+256-element partial blocks a block of the TGV² and VTV learners' CG
+launches takes.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
-__all__ = ["PdPlan", "pd_plan", "tgv_plan", "MAX_CLUSTER", "MAX_CLUSTER_NP",
-           "SMS", "SMEM_PER_BLOCK", "TGV_PLANES", "TGV_SLOT_ROWS"]
+__all__ = ["PdPlan", "pd_plan", "tgv_plan", "vtv_plan", "cg_block_slots",
+           "MAX_CLUSTER", "MAX_CLUSTER_NP", "SMS", "SMEM_PER_BLOCK",
+           "TGV_PLANES", "TGV_SLOT_ROWS", "CG_BLOCK"]
 
 #: the largest portable thread-block cluster (csrc/pd_cluster.cuh's
 #: PD_MAX_CLUSTER)
@@ -34,6 +38,8 @@ SMEM_PER_BLOCK = 232448
 #: rows, five duals)
 TGV_PLANES = 11
 TGV_SLOT_ROWS = 40
+#: a CG partial block of the single-loop learners (BPL_THREADS elements)
+CG_BLOCK = 256
 
 
 class PdPlan(NamedTuple):
@@ -102,3 +108,38 @@ def tgv_plan(M: int, N: int, itemsize: int) -> PdPlan:
     resident = smem <= SMEM_PER_BLOCK
     return PdPlan(cluster, rows, TGV_PLANES, smem if resident else 0,
                   resident)
+
+
+def vtv_plan(M: int, N: int, C: int, itemsize: int) -> PdPlan:
+    """The band plan of the single-loop VTV learner's CP phase on C-channel
+    M × N images: :func:`pd_plan`'s split of an image's rows over up to 16
+    CTAs, with the VTV band of (4C·(rows + 4) + 16C)·N·itemsize bytes (u,
+    ū and the two dual components of each channel; two parities, two
+    sides, two rows of the 2C dual planes as halo slots) in shared memory
+    where it fits in ``SMEM_PER_BLOCK``, else in a global scratch
+    (``smem`` 0, ``resident`` False).  At 128², C = 3, float32 the 16-CTA
+    band (96 KB) lets two CTAs share an SM and the 8-CTA band (144 KB) does
+    not; in float64 only the 16-CTA band (192 KB) fits.  The CUDA side
+    checks the plan against the card and the wrapper raises when it cannot
+    run."""
+    if min(M, N, C, itemsize) < 1:
+        raise ValueError(f"bad shape M={M}, N={N}, C={C}, itemsize="
+                         f"{itemsize}")
+    cluster, rows = _cluster_rows(M, MAX_CLUSTER_NP)
+    planes = 4 * C
+    smem = (planes * (rows + 4) + 16 * C) * N * itemsize
+    resident = smem <= SMEM_PER_BLOCK
+    return PdPlan(cluster, rows, planes, smem if resident else 0, resident)
+
+
+def cg_block_slots(B: int, M: int, N: int, planes: int) -> int:
+    """The partial blocks a CG block of the TGV² and VTV learners takes:
+    ``planes`` (the same 256 pixels of every plane, each pixel's operand
+    and weights formed once) where M·N is a multiple of 256 and that grid
+    of B·M·N/256 blocks still gives each of the card's SMs one, else 1
+    (every partial block a CG block: at one 128² image of three planes 192
+    blocks, against 64 that leave half the SMs idle).  Both give the same
+    bits."""
+    mn = M * N
+    return planes if mn % CG_BLOCK == 0 and B * (mn // CG_BLOCK) >= SMS \
+        else 1

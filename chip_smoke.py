@@ -12,9 +12,10 @@ Phases (one short line each):
    call and load the library; print the registers and spills per instance
    of kernel B (``hg_coop``), of the band kernels (kernel A's ``pdc_cp``,
    rows 9–10's ``slc_pd``, the TV-L1 kernel's ``tvl1_cp``, row 11's
-   ``slt_pd``), of row 11's CG launches (``slt_init``, ``slt_apply``) and
-   of the TGV² CP kernels (``tgv_primal``, ``tgv_dual``) from the
-   ``-Xptxas -v`` log.
+   ``slt_pd``, row 13's ``slv_pd``), of rows 11's and 13's CG launches
+   (``slt_init``, ``slt_apply``, ``slv_init``, ``slv_apply``) and of the
+   TGV² CP kernels (``tgv_primal``, ``tgv_dual``) from the ``-Xptxas -v``
+   log.
 3. kernel A (PDPS inner solve) against its plain PyTorch version on the
    flagship data (10 × 128² float32): a cold 5000-iteration call, a cold
    call with early stop that returns its state, a warm call from that
@@ -118,7 +119,9 @@ Phases (one short line each):
     (a) against the plain version in float64 (one and two 24² images,
     the scalar or (2,) weight and a 2×2 patch grid, 20 outer steps; for
     TGV² also where its CP bands split unevenly, 3×20×16, 2×22×24 and
-    3×120×128, and at 1×256², whose float64 bands run in global memory);
+    3×120×128, and at 1×256², whose float64 bands run in global memory;
+    for VTV likewise at 3×3×20×16, 2×3×22×24, 3×3×120×128, two channels
+    at 2×2×16×20 and 1×3×256² in global memory);
     (b) against the plain version in float32 at the bench shape (one
     image), 30 outer steps, both timed, and again on the entry point's
     own stack where it holds more (TGV² 10 images, VTV 6); (c) the library call
@@ -131,11 +134,11 @@ Phases (one short line each):
     plain loop watched; gated against the JAX float32 reference.  After
     (d), TGV² runs (e): the same entry point in float64, gated tightly
     against the JAX float64 reference, the witness for (d)'s wide gate.
-    TGV²'s kernel (row 11) must issue 4 + 2·n_adj kernel launches per
-    outer step in each (24 at bench.py's 10 CG steps; one more per
-    segment), and each phase prints its CP plan
-    (``solvers/cluster_plan.py::tgv_plan``) and its CG block form
-    (``cg_slots``).
+    The TGV² and VTV kernels (rows 11 and 13) must issue 4 + 2·n_adj
+    kernel launches per outer step in each (24 at bench.py's 10 CG steps;
+    one more per segment), and each phase prints its CP plan
+    (``solvers/cluster_plan.py::tgv_plan``, ``vtv_plan``) and its CG block
+    form (``cg_slots``).
 
 34. kernel A's K = 3 and map forms (``csrc/pdps.cu``) against its plain
     version on the flagship data (10 × 128² float32): the sum of
@@ -553,6 +556,13 @@ SL_GRAM_OPS = (3, 3, 5)
 # CP state and the adjoint (TGV² 1 + 2 + 2 + 3 + 3, TV-L1 1 + 2 + 1, VTV
 # 1 + 2 + 1); f and ū are read in
 SLX_OUT_PLANES = {"tgv": 11, "tvl1": 4, "vtv": 4}
+# the device kernels of rows 11 and 13 (the CP cluster kernel first; the
+# tail shared, csrc/single_loop.cuh)
+SLX_DEVICE_KERNELS = {
+    name: dict(device_kernels=[f"{p}_{k}" for k in (
+        "pd", "init", "apply", "update", "gmap")]
+        + ["slx_pull_adam", "slx_begin"])
+    for name, p in (("tgv", "slt"), ("vtv", "slv"))}
 
 
 def slx_bound(name, pixels, outer, itemsize=4):
@@ -623,8 +633,8 @@ def b_ops_per_pixel(kinds, cg_iters, solves):
 # the band and cooperative kernels' instances by their mangled template
 # arguments: kernel B's and kernel A's forms (csrc/hypergrad.cu: HgForm,
 # csrc/pdps.cu: CpForm; rows 9-10's SlcForm shares the K codes), then the
-# TV-L1 kernel's (Huber, map) flags; row 11's kernels and the TGV² CP
-# kernels by their argument types
+# TV-L1 kernel's (Huber, map) flags; rows 11's and 13's kernels and the
+# TGV² CP kernels by their argument types
 KERNEL_FORMS = {"Li256E": "K=1 forward", "Li804E": "K=3 fwd/bwd/cen",
                 "Li4352E": "K=1 forward, map",
                 "Li29476E": "K=3 fwd/bwd/cen, maps", "Lin1E": "generic",
@@ -632,7 +642,10 @@ KERNEL_FORMS = {"Li256E": "K=1 forward", "Li804E": "K=3 fwd/bwd/cen",
                 "Lb1ELb0E": "Huber, scalar", "Lb1ELb1E": "Huber, map",
                 "Li1EEEvNS_3SLTI": "TGV² learner, a CG block a partial block",
                 "Li3EEEvNS_3SLTI": "TGV² learner, a CG block three planes",
-                "NS_3SLTI": "TGV² learner", "NS_3TGVI": "TGV² CP"}
+                "NS_3SLTI": "TGV² learner", "NS_3TGVI": "TGV² CP",
+                "Li3EEEvNS_3SLVI": "VTV learner, C = 3",
+                "Li0EEEvNS_3SLVI": "VTV learner, any C",
+                "NS_3SLVI": "VTV learner"}
 
 
 def ptxas_report(log, source, needle):
@@ -652,7 +665,7 @@ def ptxas_report(log, source, needle):
         dtype = "float64" if "Id" in name.split(needle)[1][:3] else "float32"
         form = next((v for k, v in KERNEL_FORMS.items() if k in name),
                     name)
-        if needle in ("slc_pd", "slt_pd"):    # its RES flag after the dtype
+        if needle in ("slc_pd", "slt_pd", "slv_pd"):  # RES after the dtype
             form += (", bands in shared memory"
                      if name.split(needle)[1][2:6] == "Lb1E"
                      else ", bands in global memory")
@@ -2212,14 +2225,14 @@ def slx_small_data(name, B, n=24, seed=0):
 
 def slx_kernel_launches(fam):
     """The kernel launches the family's wrapper has counted, or None where
-    it counts none (rows 12 and 13 run single_loop.cuh's loop)."""
+    it counts none (row 12 runs single_loop.cuh's loop)."""
     return getattr(fam["cuda"], "kernel_launches", None)
 
 
 def slx_steps(fam, name, before, segments, outer, label, n_adj=10):
-    """Row 11's kernel launches per outer step since ``before`` (one more
-    a segment) and its CP plan, printed and required to be
-    launches_per_step(n_adj); {} for the other families."""
+    """Rows 11's and 13's kernel launches per outer step since ``before``
+    (one more a segment), their CP plan and CG block form, printed and
+    required to be launches_per_step(n_adj); {} for row 12."""
     if before is None:
         return {}
     cuda = fam["cuda"]
@@ -2278,6 +2291,57 @@ def phase_slx_tgv_bands(torch, device):
     require(not faults, "float64 single-loop TGV bands: " + "; ".join(faults))
 
 
+def phase_slx_vtv_bands(torch, device):
+    """(a) continued for VTV: float64 against the plain version where the
+    CP bands split unevenly over the cluster (3×3×20×16 at 8 CTAs of 3
+    rows: the 7th owns two, the 8th none; 2×3×22×24: the 8th owns one row;
+    3×3×120×128 at 16 CTAs of 8 rows, the 16th none, whose CG blocks take
+    the same 256 pixels of the three planes) and with two channels
+    (2×2×16×20), the scalar weight and the 2×2 patch grid, 20 outer steps
+    of 10 CP and 4 CG steps; then 1×3×256², whose float64 bands do not fit
+    in shared memory (the global-band path), 3 outer steps; at
+    TOL_F64_REL, with 4 + 2·4 kernel launches per outer step."""
+    import numpy as np
+    fam = slx_family("vtv")
+    mod, cuda = fam["mod"], fam["cuda"]
+    errs, faults = {}, []
+    for (B, C, M, N), outer, params in (
+            ((3, 3, 20, 16), 20, ("small", "patch")),
+            ((2, 3, 22, 24), 20, ("small", "patch")),
+            ((3, 3, 120, 128), 20, ("small", "patch")),
+            ((2, 2, 16, 20), 20, ("small", "patch")),
+            ((1, 3, 256, 256), 3, ("small",))):
+        ut1, f1 = sl_disc_stack(torch, device, B * C, M, N, torch.float64,
+                                seed=C)
+        # channel c of image b: the disc scaled by 1 − c/4, rolled b rows
+        scale = torch.as_tensor(1.0 - np.arange(C) / 4.0, dtype=torch.float64,
+                                device=device).view(1, C, 1, 1)
+        ut = torch.stack([torch.roll(t, b, dims=-2) for b, t in
+                          enumerate(ut1.view(B, C, M, N))]) * scale
+        f = ut + (f1 - ut1).view(B, C, M, N)
+        for which in params:
+            u0, f0, x0, kw = slx_args(fam, "vtv", ut, f, fam[which],
+                                      n_inner=10, n_adj=4)
+            before = cuda.kernel_launches
+            k = mod._single_loop_vtv_impl(u0, f0, x0, outer=outer, **kw)
+            per_step = (cuda.kernel_launches - before - 1) / outer
+            plan = cuda.last_plan
+            p = mod._single_loop_vtv_plain(u0, f0, x0, outer=outer, **kw)
+            e, _ = sl_errors(k, p)
+            e["u"] = rel_err(k.u, p.u)
+            label = (f"{B}x{C}x{M}x{N} "
+                     f"{'scalar' if which == 'small' else which}")
+            errs[label] = max(e.values())
+            say(f"  {label}: plan {plan}, CG slots {cuda.last_cg_slots}, "
+                f"{per_step:g} kernel launches per outer step, max rel err "
+                f"{errs[label]:.1e}")
+            if (errs[label] > TOL_F64_REL
+                    or per_step != cuda.launches_per_step(4)
+                    or plan.resident != (M < 256)):
+                faults.append(f"{label}: {e}, {plan}, {per_step}")
+    require(not faults, "float64 single-loop VTV bands: " + "; ".join(faults))
+
+
 def phase_slx_f64(torch, device, name):
     """(a) The learner against its plain version in float64: one and two
     images of 24², the scalar (or (2,)) weight and a 2×2 patch grid, 20
@@ -2295,7 +2359,10 @@ def phase_slx_f64(torch, device, name):
             u0, f0, x0t, kw = slx_args(fam, name, ut, f, x0, n_inner=10,
                                        n_adj=4)
             impl = getattr(mod, f"_single_loop_{name}_impl")
+            before = slx_kernel_launches(fam)
             k = impl(u0, f0, x0t, outer=20, **kw)
+            slx_steps(fam, name, before, 1, 20, f"  (a) B{B} {label}",
+                      n_adj=4)
             p = plain(u0, f0, x0t, outer=20, **kw)
             e, _ = sl_errors(k, p)
             e["u"] = rel_err(k.u, p.u)
@@ -2516,6 +2583,8 @@ def phases_slx(torch, device, timed, name, first):
     phase_slx_f64(torch, device, name)
     if name == "tgv":
         phase_slx_tgv_bands(torch, device)
+    if name == "vtv":
+        phase_slx_vtv_bands(torch, device)
     say(f"phase {first + 1} single-loop {label} kernel vs plain at the "
         f"bench shape and the entry point's, float32")
     utrue, f, stats = phase_slx_f32(torch, device, timed, name)
@@ -2856,6 +2925,9 @@ def main():
                            ("single_loop_tgv.cu", "slt_pd"),
                            ("single_loop_tgv.cu", "slt_init"),
                            ("single_loop_tgv.cu", "slt_apply"),
+                           ("single_loop_vtv.cu", "slv_pd"),
+                           ("single_loop_vtv.cu", "slv_init"),
+                           ("single_loop_vtv.cu", "slv_apply"),
                            ("tgv.cu", "tgv_primal"), ("tgv.cu", "tgv_dual")):
         for line in ptxas_report(info.path.with_suffix(".log"), source,
                                  needle):
@@ -3142,7 +3214,8 @@ def main():
             plain_ms=ex["plain_ms"], bound_ms=bound, bound_by=by,
             library_ms=None))
     # the other families' learners: the library call's 300 outer steps at
-    # the bench shape (phase (c))
+    # the bench shape (phase (c)); rows 11 and 13 name their device
+    # kernels (the CP cluster kernel first), whose agreement is the row's
     for name, line in (("tgv", 55), ("tvl1", 63), ("vtv", 54)):
         st = slx[name]
         bound, by = st["call"]["bound_ms"], st["call"]["bound_by"]
@@ -3154,7 +3227,7 @@ def main():
             launches=st["learn"]["launches"][f"single_loop_{name}"],
             max_abs_err=st["max_abs_err"], ms=st["call"]["ms"],
             plain_ms=st["plain_ms"], bound_ms=bound, bound_by=by,
-            library_ms=None))
+            library_ms=None, **SLX_DEVICE_KERNELS.get(name, {})))
     say(f"  total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels, "flagship": dict(
         alpha=alpha, alpha_abs_err=d_alpha, mean_psnr_db=mean_psnr,

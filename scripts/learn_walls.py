@@ -3,7 +3,8 @@
 trees run by turns.
 
     python3 scripts/learn_walls.py {tv,patch_tv,sumregs,grid16,tgv,tvl1,vtv,
-                                    single_loop_tgv} [--runs N]
+                                    single_loop_tgv,single_loop_vtv}
+                                   [--runs N]
 
 Runs the learns of ``scripts/torch_profile.py FAMILY`` (the same data,
 preloaded on the card, and the same settings) once each to warm up, then
@@ -33,7 +34,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("family", choices=("tv", "patch_tv", "sumregs",
                                        "grid16", "tgv", "tvl1", "vtv",
-                                       "single_loop_tgv"))
+                                       "single_loop_tgv",
+                                       "single_loop_vtv"))
     ap.add_argument("--runs", type=int, default=1)
     args = ap.parse_args()
     import torch

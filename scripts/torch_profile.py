@@ -43,8 +43,8 @@ parameters.  For each:
 sum-of-regularizers weights from 1e-3: the split is the CUDA learner's
 launch call (the whole learn runs in it) against the rest, and the
 profiled run is cut to 30 outer steps, with the kernel launches per outer
-step its C loop issued (so for ``single_loop_tgv``, whose wrapper counts
-them too).  ``single_loop_tgv``,
+step its C loop issued (so for ``single_loop_tgv`` and
+``single_loop_vtv``, whose wrappers count them too).  ``single_loop_tgv``,
 ``single_loop_tvl1`` and ``single_loop_vtv`` do the same for the other
 families' single-loop learners with the settings of their entry points
 (300 outer steps of 40 CP and 10 CG steps): TGV² on the faces images from
