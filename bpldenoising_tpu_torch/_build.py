@@ -157,7 +157,8 @@ def _declare(lib):
                        + [ctypes.POINTER(_I), _P])
         fn.restype = _I
         fn = getattr(lib, f"bpl_sl_tvl1_{suffix}")
-        fn.argtypes = [_P] * 11 + [_LL] + [_I] * 7 + [real] * 14 + [_P]
+        fn.argtypes = ([_P] * 11 + [_LL] + [_I] * 10 + [real] * 14
+                       + [ctypes.POINTER(_I), _P])
         fn.restype = _I
         fn = getattr(lib, f"bpl_sl_vtv_{suffix}")
         fn.argtypes = ([_P] * 11 + [_LL] + [_I] * 12 + [real] * 9
@@ -168,7 +169,7 @@ def _declare(lib):
         fn.restype = _I
     lib.bpl_sl_scratch.argtypes = [_LL] + [_I] * 9
     lib.bpl_sl_scratch.restype = _LL
-    for name, n_int in (("tgv", 6), ("tvl1", 3), ("vtv", 7)):
+    for name, n_int in (("tgv", 6), ("tvl1", 6), ("vtv", 7)):
         fn = getattr(lib, f"bpl_sl_{name}_scratch")
         fn.argtypes = [_LL] + [_I] * n_int
         fn.restype = _LL

@@ -11,31 +11,57 @@ the Pallas kernel's function).  It goes through
 :func:`.first_order_tvl1._single_loop_tvl1_impl`: the plain version for
 tensors on the CPU, the kernel (launched by :func:`_launch` here) for
 CUDA tensors, an error for anything else.  ``interpret`` changes nothing.
+
+The kernel runs rows 11's and 13's design (``csrc/single_loop_tgv.cu``,
+``csrc/single_loop_vtv.cu``): per outer step one thread-block cluster
+launch for the CP phase, a cluster per image on the bands of
+``csrc/pd_cluster.cuh`` as :func:`tvl1_plan` decides from the shapes (the
+TV-L1 CP kernel's rule; the same kernel on a global scratch where the
+bands do not fit in shared memory), then two launches per CG step:
+:func:`launches_per_step` a step and one per segment, counted in
+:data:`kernel_launches`.  A CG block takes one 256-pixel partial block
+(:func:`..solvers.cluster_plan.cg_block_slots` of one plane).  A plan the
+card refuses raises.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import _build
+from ..solvers.cluster_plan import cg_block_slots
 from ..solvers.pdps_cuda import check_cuda_input, check_plane
-from .first_order_cuda import adam_args, pack_opt, unpack_opt
+from ..solvers.tvl1_cuda import tvl1_plan
+from .first_order_cuda import (adam_args, launches_per_step, pack_opt,
+                               unpack_opt)
 from .first_order_tvl1 import (_prepare, _single_loop_tvl1_impl,
                                step_constants)
 
-__all__ = ["single_loop_tvl1_cuda", "launches"]
+__all__ = ["single_loop_tvl1_cuda", "tvl1_plan", "launches_per_step",
+           "launches", "kernel_launches", "last_plan", "last_cg_slots"]
 
 #: calls that launched the CUDA learner (one per segment)
 launches = 0
+#: kernel launches those calls issued on the card, as the C loop counts
+#: them (launches_per_step(n_adj) per outer step, one per segment)
+kernel_launches = 0
+#: the band plan and the CG slots of the latest launch
+last_plan = None
+last_cg_slots = None
 
 
 def _launch(utrue, f, carry, *, outer, n_inner, n_adj, pop, param_shape,
             lr, gamma_d, gamma_r, tau0, sigma0, beta1, beta2, eps, clip):
     """Run ``outer`` steps from ``carry`` ``(u, y, p, z, (m, v), t)`` on
-    the card; → (carry, (α, cost, ‖g‖ trajectories))."""
-    check_cuda_input(f)
+    the card; → (carry, (α, cost, ‖g‖ trajectories)).  The shapes and
+    dtypes of every argument are checked before the device."""
     if f.ndim != 3:
         raise ValueError(f"expected an (O, M, N) stack, got {tuple(f.shape)}")
+    if f.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the CUDA kernels take float32/float64, got "
+                        f"{f.dtype}")
     check_plane(utrue, f.shape, f, "utrue")
     B, M, N = (int(s) for s in f.shape)
     pm, pn = (1, 1) if pop is None else pop.size_in
@@ -44,27 +70,36 @@ def _launch(utrue, f, carry, *, outer, n_inner, n_adj, pop, param_shape,
     check_plane(y, (B, 2, M, N), f, "carry y")
     check_plane(p, f.shape, f, "carry p")
     opt = pack_opt(z, m, v, t, param_shape, 1, pm * pn, outer, f)
+    check_cuda_input(f)
     f = f.contiguous()
     utrue = utrue.contiguous()
     u, y, p = (a.contiguous().clone() for a in (u, y, p))
+    plan = tvl1_plan(B, M, N, f.element_size())
+    slots = cg_block_slots(B, M, N, 1)
     lib = _build.library()
-    scratch = torch.empty((lib.bpl_sl_tvl1_scratch(B, M, N, pm * pn),),
-                          dtype=f.dtype, device=f.device)
+    scratch = torch.empty((lib.bpl_sl_tvl1_scratch(
+        B, M, N, pm * pn, plan.cluster, plan.rows, int(plan.resident)),),
+        dtype=f.dtype, device=f.device)
     consts = (float(c) for c in step_constants(tau0, sigma0, gamma_d,
                                                f.dtype))
     tau, sigma, lo, den, inv_gd = consts
     fn = lib.bpl_sl_tvl1_f32 if f.dtype == torch.float32 \
         else lib.bpl_sl_tvl1_f64
-    global launches
+    issued = ctypes.c_int(0)
+    global launches, kernel_launches, last_plan, last_cg_slots
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream(f.device).cuda_stream
         launches += 1
+        last_plan, last_cg_slots = plan, slots
         err = fn(*(a.data_ptr() for a in (f, utrue, u, y, p)),
                  *(a.data_ptr() for a in opt), scratch.data_ptr(), B, M, N,
-                 pm, pn, int(outer), int(n_inner), int(n_adj), tau, sigma,
+                 pm, pn, plan.cluster, plan.rows, int(plan.resident),
+                 int(outer), int(n_inner), int(n_adj), tau, sigma,
                  float(gamma_r), lo, den, float(gamma_d), inv_gd,
-                 *adam_args(lr, beta1, beta2, eps), float(clip), stream)
-    _build.check(err, "single-loop TV-L1 kernel")
+                 *adam_args(lr, beta1, beta2, eps), float(clip),
+                 ctypes.byref(issued), stream)
+    kernel_launches += issued.value
+    _build.check(err, f"single-loop TV-L1 kernel (CP cluster {plan})")
     (z, mv, t), trajs = unpack_opt(*opt, param_shape)
     return (u, y, p, z, mv, t), trajs
 

@@ -1,9 +1,10 @@
 // The band scheme of the CP phases that keep each image on-chip: one
 // thread-block cluster per image, each CTA a band of rows in shared memory
 // (csrc/single_loop.cu's slc_pd, rows 9–10; csrc/pdps.cu's pdc_cp, kernel
-// A, rows 1 and 3; csrc/tvl1.cu's tvl1_cp, rows 7 and 8; the TGV² and VTV
-// single-loop learners' loops, csrc/tgv_cluster.cuh and csrc/vtv_cluster.cuh,
-// share its launch, thread block, slots and row walker).
+// A, rows 1 and 3; csrc/tvl1.cu's tvl1_cp, rows 7 and 8;
+// csrc/single_loop_tvl1.cu's sl1_pd, row 12; the TGV² and VTV single-loop
+// learners' loops, csrc/tgv_cluster.cuh and csrc/vtv_cluster.cuh, share its
+// launch, thread block, slots and row walker).
 //
 // CTA c of an image's cluster owns rows [r0, r1) = [c·rows, (c+1)·rows) ∩
 // [0, M) and holds u, ū and the 2K dual planes on rows r0 − 2 … r1 + 1

@@ -35,7 +35,8 @@
 //    products keep the parent design's partial trees: one block_sum per
 //    256 consecutive elements of an image's 3·M·N vector, the image's
 //    partials summed by its last block (an integer counter, no float
-//    atomics) in sl_finish's order, the CG scalars left on the device.  A
+//    atomics) in a fixed order (thread t adds partials t, t + 256, …,
+//    then one block_sum), the CG scalars left on the device.  A
 //    CG block takes one such partial block (any shape) or, where M·N is a
 //    multiple of 256, the three that hold the same 256 pixels of the three
 //    planes (M·N/256 blocks an image, so every pixel's operand and weights
@@ -407,7 +408,7 @@ __device__ __forceinline__ T slt_diag(const SLT<T>& h, const SltTile<T>& s,
 
 // Writes the block's partials of an image inner product (slot r's at its
 // partial block); the image's last block to arrive sums the image's
-// partials in sl_finish's order into *out and returns true (in every
+// partials in a fixed order into *out and returns true (in every
 // thread), else false (single_loop.cuh's slx_image_sum).
 template <typename T, int NS>
 __device__ __forceinline__ bool slt_image_sum(const SLT<T>& h,

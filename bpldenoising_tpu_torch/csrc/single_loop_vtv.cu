@@ -37,7 +37,8 @@
 //    products keep the parent design's partial trees: one block_sum per
 //    256 consecutive elements of an image's C·M·N vector, the image's
 //    partials summed by its last block (an integer counter, no float
-//    atomics) in sl_finish's order, the CG scalars left on the device.  A
+//    atomics) in a fixed order (thread t adds partials t, t + 256, …,
+//    then one block_sum), the CG scalars left on the device.  A
 //    CG block takes one such partial block (any shape) or, where M·N is a
 //    multiple of 256, the C that hold the same 256 pixels of the C planes
 //    (M·N/256 blocks an image, so every pixel's operand and coupled weights

@@ -1,10 +1,10 @@
 // The TV-L1 Chambolle–Pock step, plain or Huber-smoothed (solvers/tvl1.py,
 // solvers/tvl1_huber.py): the state struct, the step's arithmetic and the
 // primal and dual kernels, one thread per pixel.  The CP solve's two-launch
-// form (tvl1.cu, TPU kernels 7 and 8) and the single-loop TV-L1 learner
-// (single_loop_tvl1.cu, TPU kernel 12, Huber form) launch these kernels;
-// the CP solve's cluster form (tvl1.cu's tvl1_cp) runs the same
-// arithmetic.
+// form (tvl1.cu, TPU kernels 7 and 8) launches these kernels; the CP
+// solve's cluster form (tvl1.cu's tvl1_cp) and the single-loop TV-L1
+// learner's CP phase (single_loop_tvl1.cu's sl1_pd, TPU kernel 12, Huber
+// form) run the same arithmetic.
 #pragma once
 
 #include "common.cuh"

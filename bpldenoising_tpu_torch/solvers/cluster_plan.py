@@ -1,8 +1,9 @@
 """The thread-block cluster plan of the CP iterations that keep each image
 on-chip (``csrc/pd_cluster.cuh``): kernel A's chunks (:mod:`.pdps_cuda`),
-the TV-L1 kernel's chunks (:mod:`.tvl1_cuda`) and the single-loop
-learner's PD phase (:mod:`..bilevel.first_order_cuda`); of the single-loop
-TGV² learner's CP phase (``csrc/tgv_cluster.cuh``,
+the TV-L1 kernel's chunks and the single-loop TV-L1 learner's CP phase
+(:mod:`.tvl1_cuda`'s ``tvl1_plan``, :mod:`..bilevel.first_order_tvl1_cuda`)
+and the single-loop learner's PD phase (:mod:`..bilevel.first_order_cuda`);
+of the single-loop TGV² learner's CP phase (``csrc/tgv_cluster.cuh``,
 :mod:`..bilevel.first_order_tgv_cuda`) and of the single-loop VTV
 learner's (``csrc/vtv_cluster.cuh``, :mod:`..bilevel.first_order_vtv_cuda`).
 
@@ -11,7 +12,7 @@ rows above and below in shared memory.  :func:`pd_plan`, :func:`tgv_plan`
 and :func:`vtv_plan` decide from the shapes alone, before any launch, how
 many CTAs an image takes, how many rows each owns and whether the bands
 fit in shared memory.  :func:`cg_block_slots` decides, likewise, how many
-256-element partial blocks a block of the TGV² and VTV learners' CG
+256-element partial blocks a block of the TGV², TV-L1 and VTV learners' CG
 launches takes.
 """
 
@@ -133,13 +134,13 @@ def vtv_plan(M: int, N: int, C: int, itemsize: int) -> PdPlan:
 
 
 def cg_block_slots(B: int, M: int, N: int, planes: int) -> int:
-    """The partial blocks a CG block of the TGV² and VTV learners takes:
-    ``planes`` (the same 256 pixels of every plane, each pixel's operand
-    and weights formed once) where M·N is a multiple of 256 and that grid
-    of B·M·N/256 blocks still gives each of the card's SMs one, else 1
-    (every partial block a CG block: at one 128² image of three planes 192
-    blocks, against 64 that leave half the SMs idle).  Both give the same
-    bits."""
+    """The partial blocks a CG block of the TGV², TV-L1 and VTV learners
+    takes: ``planes`` (the same 256 pixels of every plane, each pixel's
+    operand and weights formed once) where M·N is a multiple of 256 and
+    that grid of B·M·N/256 blocks still gives each of the card's SMs one,
+    else 1 (every partial block a CG block: at one 128² image of three
+    planes 192 blocks, against 64 that leave half the SMs idle).  Both give
+    the same bits; at one plane (TV-L1) the rule is always 1."""
     mn = M * N
     return planes if mn % CG_BLOCK == 0 and B * (mn // CG_BLOCK) >= SMS \
         else 1

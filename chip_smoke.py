@@ -12,10 +12,10 @@ Phases (one short line each):
    call and load the library; print the registers and spills per instance
    of kernel B (``hg_coop``), of the band kernels (kernel A's ``pdc_cp``,
    rows 9–10's ``slc_pd``, the TV-L1 kernel's ``tvl1_cp``, row 11's
-   ``slt_pd``, row 13's ``slv_pd``), of rows 11's and 13's CG launches
-   (``slt_init``, ``slt_apply``, ``slv_init``, ``slv_apply``) and of the
-   TGV² CP kernels (``tgv_primal``, ``tgv_dual``) from the ``-Xptxas -v``
-   log.
+   ``slt_pd``, row 12's ``sl1_pd``, row 13's ``slv_pd``), of rows 11's,
+   12's and 13's CG launches (``slt_init``, ``slt_apply``, ``sl1_init``,
+   ``sl1_apply``, ``slv_init``, ``slv_apply``) and of the TGV² CP kernels
+   (``tgv_primal``, ``tgv_dual``) from the ``-Xptxas -v`` log.
 3. kernel A (PDPS inner solve) against its plain PyTorch version on the
    flagship data (10 × 128² float32): a cold 5000-iteration call, a cold
    call with early stop that returns its state, a warm call from that
@@ -120,8 +120,11 @@ Phases (one short line each):
     the scalar or (2,) weight and a 2×2 patch grid, 20 outer steps; for
     TGV² also where its CP bands split unevenly, 3×20×16, 2×22×24 and
     3×120×128, and at 1×256², whose float64 bands run in global memory;
-    for VTV likewise at 3×3×20×16, 2×3×22×24, 3×3×120×128, two channels
-    at 2×2×16×20 and 1×3×256² in global memory);
+    for TV-L1 likewise at 3×20×16, 2×22×24, 3×120×128 and 1×512² in
+    global memory, there bit for bit against the plain version with its
+    sums in the kernel's order (``kernel_order``); for VTV at 3×3×20×16,
+    2×3×22×24, 3×3×120×128, two channels at 2×2×16×20 and 1×3×256² in
+    global memory);
     (b) against the plain version in float32 at the bench shape (one
     image), 30 outer steps, both timed, and again on the entry point's
     own stack where it holds more (TGV² 10 images, VTV 6); (c) the library call
@@ -134,11 +137,12 @@ Phases (one short line each):
     plain loop watched; gated against the JAX float32 reference.  After
     (d), TGV² runs (e): the same entry point in float64, gated tightly
     against the JAX float64 reference, the witness for (d)'s wide gate.
-    The TGV² and VTV kernels (rows 11 and 13) must issue 4 + 2·n_adj
-    kernel launches per outer step in each (24 at bench.py's 10 CG steps;
-    one more per segment), and each phase prints its CP plan
-    (``solvers/cluster_plan.py::tgv_plan``, ``vtv_plan``) and its CG block
-    form (``cg_slots``).
+    The TGV², TV-L1 and VTV kernels (rows 11, 12 and 13) must issue
+    4 + 2·n_adj kernel launches per outer step in each (24 at bench.py's
+    10 CG steps; one more per segment), and each phase prints its CP plan
+    (``solvers/cluster_plan.py::tgv_plan``, ``solvers/tvl1_cuda.py::
+    tvl1_plan``, ``cluster_plan.vtv_plan``) and its CG block form
+    (``cg_slots``).
 
 34. kernel A's K = 3 and map forms (``csrc/pdps.cu``) against its plain
     version on the flagship data (10 × 128² float32): the sum of
@@ -556,13 +560,13 @@ SL_GRAM_OPS = (3, 3, 5)
 # CP state and the adjoint (TGV² 1 + 2 + 2 + 3 + 3, TV-L1 1 + 2 + 1, VTV
 # 1 + 2 + 1); f and ū are read in
 SLX_OUT_PLANES = {"tgv": 11, "tvl1": 4, "vtv": 4}
-# the device kernels of rows 11 and 13 (the CP cluster kernel first; the
-# tail shared, csrc/single_loop.cuh)
+# the device kernels of rows 11, 12 and 13 (the CP cluster kernel first;
+# the tail shared, csrc/single_loop.cuh)
 SLX_DEVICE_KERNELS = {
     name: dict(device_kernels=[f"{p}_{k}" for k in (
         "pd", "init", "apply", "update", "gmap")]
         + ["slx_pull_adam", "slx_begin"])
-    for name, p in (("tgv", "slt"), ("vtv", "slv"))}
+    for name, p in (("tgv", "slt"), ("tvl1", "sl1"), ("vtv", "slv"))}
 
 
 def slx_bound(name, pixels, outer, itemsize=4):
@@ -645,7 +649,7 @@ KERNEL_FORMS = {"Li256E": "K=1 forward", "Li804E": "K=3 fwd/bwd/cen",
                 "NS_3SLTI": "TGV² learner", "NS_3TGVI": "TGV² CP",
                 "Li3EEEvNS_3SLVI": "VTV learner, C = 3",
                 "Li0EEEvNS_3SLVI": "VTV learner, any C",
-                "NS_3SLVI": "VTV learner"}
+                "NS_3SLVI": "VTV learner", "NS_3SL1I": "TV-L1 learner"}
 
 
 def ptxas_report(log, source, needle):
@@ -665,7 +669,8 @@ def ptxas_report(log, source, needle):
         dtype = "float64" if "Id" in name.split(needle)[1][:3] else "float32"
         form = next((v for k, v in KERNEL_FORMS.items() if k in name),
                     name)
-        if needle in ("slc_pd", "slt_pd", "slv_pd"):  # RES after the dtype
+        if needle in ("slc_pd", "slt_pd", "sl1_pd", "slv_pd"):
+            # RES after the dtype
             form += (", bands in shared memory"
                      if name.split(needle)[1][2:6] == "Lb1E"
                      else ", bands in global memory")
@@ -2224,17 +2229,15 @@ def slx_small_data(name, B, n=24, seed=0):
 
 
 def slx_kernel_launches(fam):
-    """The kernel launches the family's wrapper has counted, or None where
-    it counts none (row 12 runs single_loop.cuh's loop)."""
-    return getattr(fam["cuda"], "kernel_launches", None)
+    """The kernel launches the family's wrapper has counted (rows 11, 12
+    and 13 each count theirs: ``kernel_launches``)."""
+    return fam["cuda"].kernel_launches
 
 
 def slx_steps(fam, name, before, segments, outer, label, n_adj=10):
-    """Rows 11's and 13's kernel launches per outer step since ``before``
-    (one more a segment), their CP plan and CG block form, printed and
-    required to be launches_per_step(n_adj); {} for row 12."""
-    if before is None:
-        return {}
+    """The learner's kernel launches per outer step since ``before`` (one
+    more a segment), its CP plan and CG block form, printed and required to
+    be launches_per_step(n_adj)."""
     cuda = fam["cuda"]
     per_step = (cuda.kernel_launches - before - segments) / outer
     want = cuda.launches_per_step(n_adj)
@@ -2289,6 +2292,183 @@ def phase_slx_tgv_bands(torch, device):
                     or plan.resident != (shape[1] < 256)):
                 faults.append(f"{label}: {e}, {plan}, {per_step}")
     require(not faults, "float64 single-loop TGV bands: " + "; ".join(faults))
+
+
+def kernel_order_tree(v):
+    """(..., 256) → (...): common.cuh's block_sum tree (sh[t] += sh[t + s]
+    for s = 128, 64, …, 1)."""
+    s = v.shape[-1] // 2
+    while s >= 1:
+        v = v[..., :s] + v[..., s:2 * s]
+        s //= 2
+    return v[..., 0]
+
+
+def _by_256(x):
+    """(..., n) → (..., ⌈n/256⌉, 256), zero-padded."""
+    import torch
+    k = -(-x.shape[-1] // 256)
+    x = torch.nn.functional.pad(x, (0, 256 * k - x.shape[-1]))
+    return x.reshape(x.shape[:-1] + (k, 256))
+
+
+def kernel_order_sum(x):
+    """(..., n) → (...): an image's inner product in the single-loop
+    learners' order: one block_sum per 256 consecutive elements
+    (slx_partial), then the partials summed by kernel_order_strided
+    (slx_image_sum)."""
+    parts = kernel_order_tree(_by_256(x))
+    return kernel_order_strided(parts)
+
+
+def kernel_order_strided(x):
+    """(..., n) → (...): thread t adds x[t], x[t + 256], … in turn from 0,
+    then one block_sum (slx_image_sum's partials, slx_pull_adam's
+    pixels)."""
+    import torch
+    v = _by_256(x)
+    c = torch.zeros_like(v[..., 0, :])
+    for k in range(v.shape[-2]):
+        c = c + v[..., k, :]
+    return kernel_order_tree(c)
+
+
+def _cg_kernel_order(A, b, x0=None, *, tol, maxiter, M, item_ndim):
+    """solvers/krylov.py::cg_batched's classic Jacobi CG for tol = 0 (no
+    stop test), its per-image inner products in the kernels' order."""
+    import torch
+
+    def vdot(p, q):
+        return kernel_order_sum((p * q).flatten(-item_ndim))
+
+    def bc(a):
+        return a[(...,) + (None,) * item_ndim]
+
+    def nz(a):
+        return torch.where(a == 0, torch.ones_like(a), a)
+
+    x = x0
+    r = b - A(x)
+    z = M(r)
+    d = z
+    rz = vdot(r, z)
+    for _ in range(int(maxiter)):
+        hd = A(d)
+        a = rz / nz(vdot(d, hd))
+        x = x + bc(a) * d
+        r = r - bc(a) * hd
+        z = M(r)
+        rz_new = vdot(r, z)
+        beta = rz_new / nz(rz)
+        d = z + bc(beta) * d
+        rz = rz_new
+    return x, None
+
+
+def _pullback_kernel_order(pop, g_map):
+    """bilevel/first_order.py::pullback in the kernels' order: the (B, M,
+    N) map summed over the batch in order, then each parameter entry's
+    pixels in row-major order (slx_pull_adam; divisible patch grids)."""
+    acc = g_map[0]
+    for b in range(1, g_map.shape[0]):
+        acc = acc + g_map[b]
+    if pop is None:
+        return kernel_order_strided(acc.reshape(-1))
+    (m, n), (M, N) = pop.size_in, acc.shape
+    blocks = acc.reshape(m, M // m, n, N // n).transpose(1, 2)
+    return kernel_order_strided(blocks.reshape(m, n, -1))
+
+
+@contextlib.contextmanager
+def kernel_order(mod):
+    """Within the block, the single-loop plain loop of ``mod`` (the TV-L1
+    family's) takes its CG inner products and its pullback in the
+    kernel's order, every other operation as it is: the kernel's function
+    to the bit, where the learner's discrete switches (|u − f| = 1/γ_d,
+    |∇u| = 1/γ_r) and its near-singular first adjoint systems turn a
+    reordered sum into any difference at all (the cost and ‖g‖, read only,
+    keep torch.sum's order)."""
+    real = mod.cg_batched, mod.pullback
+    mod.cg_batched, mod.pullback = _cg_kernel_order, _pullback_kernel_order
+    try:
+        yield
+    finally:
+        mod.cg_batched, mod.pullback = real
+
+
+def slx_sp_stack(torch, device, B, M, N, seed=0):
+    """(utrue, f) in float64: a disc on M × N rolled by b rows in image b,
+    under 20% salt-and-pepper noise, made with numpy from a seed."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.arange(M), np.arange(N), indexing="ij")
+    disc = ((xx - N / 2) ** 2 + (yy - M / 2) ** 2
+            < (min(M, N) / 3) ** 2).astype(float) + 0.02 * yy
+    clean = np.stack([np.roll(disc, b, axis=0) for b in range(B)])
+    noisy = clean.copy()
+    hits = rng.uniform(size=clean.shape)
+    noisy[hits < 0.1] = 1.0
+    noisy[hits > 0.9] = 0.0
+    return (torch.as_tensor(clean).to(device),
+            torch.as_tensor(noisy).to(device))
+
+
+def phase_slx_tvl1_bands(torch, device):
+    """(a) continued for TV-L1: float64 against the plain version where the
+    CP bands split unevenly over the cluster (3×20×16 at 8 CTAs of 3 rows:
+    the 7th owns two, the 8th none; 2×22×24: the 8th owns one row;
+    3×120×128 at 16 CTAs of 8 rows, the 16th none), the scalar weight and
+    the 2×2 patch grid, 20 outer steps of 10 CP and 4 CG steps; then
+    1×512², whose float64 bands do not fit in shared memory (the
+    global-band path), 3 outer steps; with 4 + 2·4 kernel launches per
+    outer step and the CP plan printed.  Against the plain version with
+    its sums in the kernel's order (``kernel_order``): α, u and the α
+    trajectory bit-identical, the cost and ‖g‖ trajectories at
+    TOL_F64_REL.  On these noisy stacks the plain version as it is lands
+    elsewhere (printed): the learner's discrete switches and its
+    near-singular first adjoint systems amplify a reordered sum (measured
+    on an H100: ‖g‖ up to 1.0 relative, α up to 0.34)."""
+    fam = slx_family("tvl1")
+    mod, cuda = fam["mod"], fam["cuda"]
+    errs, faults = {}, []
+    for shape, outer, params in (
+            ((3, 20, 16), 20, ("small", "patch")),
+            ((2, 22, 24), 20, ("small", "patch")),
+            ((3, 120, 128), 20, ("small", "patch")),
+            ((1, 512, 512), 3, ("small",))):
+        ut, f = slx_sp_stack(torch, device, *shape)
+        for which in params:
+            u0, f0, x0, kw = slx_args(fam, "tvl1", ut, f, fam[which],
+                                      n_inner=10, n_adj=4)
+            before = cuda.kernel_launches
+            k = mod._single_loop_tvl1_impl(u0, f0, x0, outer=outer, **kw)
+            per_step = (cuda.kernel_launches - before - 1) / outer
+            plan = cuda.last_plan
+            with kernel_order(mod):
+                p = mod._single_loop_tvl1_plain(u0, f0, x0, outer=outer,
+                                                **kw)
+            as_is = mod._single_loop_tvl1_plain(u0, f0, x0, outer=outer,
+                                                **kw)
+            e, _ = sl_errors(k, p)
+            bits = all(torch.equal(getattr(k, n), getattr(p, n)) for n in (
+                "alpha", "u", "alpha_trajectory"))
+            label = (f"{'x'.join(map(str, shape))} "
+                     f"{'scalar' if which == 'small' else which}")
+            errs[label] = max(e["cost_traj"], e["gnorm_traj"])
+            e_is, _ = sl_errors(k, as_is)
+            e_is["u"] = rel_err(k.u, as_is.u)
+            say(f"  {label}: plan {plan}, CG slots {cuda.last_cg_slots}, "
+                f"{per_step:g} kernel launches per outer step; against the "
+                f"plain version in the kernel's order: alpha, u, alpha_traj "
+                f"{'bit-identical' if bits else 'DIFFER'}, cost and gnorm "
+                f"{errs[label]:.1e}; against it as it is: max rel err "
+                f"{max(e_is.values()):.1e}")
+            if (not bits or errs[label] > TOL_F64_REL
+                    or per_step != cuda.launches_per_step(4)
+                    or plan.resident != (shape[1] < 512)):
+                faults.append(f"{label}: {e}, {plan}, {per_step}")
+    require(not faults, "float64 single-loop TV-L1 bands: "
+            + "; ".join(faults))
 
 
 def phase_slx_vtv_bands(torch, device):
@@ -2583,6 +2763,8 @@ def phases_slx(torch, device, timed, name, first):
     phase_slx_f64(torch, device, name)
     if name == "tgv":
         phase_slx_tgv_bands(torch, device)
+    if name == "tvl1":
+        phase_slx_tvl1_bands(torch, device)
     if name == "vtv":
         phase_slx_vtv_bands(torch, device)
     say(f"phase {first + 1} single-loop {label} kernel vs plain at the "
@@ -2925,6 +3107,9 @@ def main():
                            ("single_loop_tgv.cu", "slt_pd"),
                            ("single_loop_tgv.cu", "slt_init"),
                            ("single_loop_tgv.cu", "slt_apply"),
+                           ("single_loop_tvl1.cu", "sl1_pd"),
+                           ("single_loop_tvl1.cu", "sl1_init"),
+                           ("single_loop_tvl1.cu", "sl1_apply"),
                            ("single_loop_vtv.cu", "slv_pd"),
                            ("single_loop_vtv.cu", "slv_init"),
                            ("single_loop_vtv.cu", "slv_apply"),

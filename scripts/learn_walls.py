@@ -3,8 +3,8 @@
 trees run by turns.
 
     python3 scripts/learn_walls.py {tv,patch_tv,sumregs,grid16,tgv,tvl1,vtv,
-                                    single_loop_tgv,single_loop_vtv}
-                                   [--runs N]
+                                    single_loop_tgv,single_loop_tvl1,
+                                    single_loop_vtv} [--runs N]
 
 Runs the learns of ``scripts/torch_profile.py FAMILY`` (the same data,
 preloaded on the card, and the same settings) once each to warm up, then
@@ -35,6 +35,7 @@ def main():
     ap.add_argument("family", choices=("tv", "patch_tv", "sumregs",
                                        "grid16", "tgv", "tvl1", "vtv",
                                        "single_loop_tgv",
+                                       "single_loop_tvl1",
                                        "single_loop_vtv"))
     ap.add_argument("--runs", type=int, default=1)
     args = ap.parse_args()

@@ -43,13 +43,13 @@ parameters.  For each:
 sum-of-regularizers weights from 1e-3: the split is the CUDA learner's
 launch call (the whole learn runs in it) against the rest, and the
 profiled run is cut to 30 outer steps, with the kernel launches per outer
-step its C loop issued (so for ``single_loop_tgv`` and
-``single_loop_vtv``, whose wrappers count them too).  ``single_loop_tgv``,
-``single_loop_tvl1`` and ``single_loop_vtv`` do the same for the other
-families' single-loop learners with the settings of their entry points
-(300 outer steps of 40 CP and 10 CG steps): TGV² on the faces images from
-(0.05, 0.05) at lr 0.02, TV-L1 on one ``circle_sp_128_20`` image from
-0.4, VTV on the six ``color_disks_128_10`` images from 0.05.
+step its C loop issued (so for ``single_loop_tgv``, ``single_loop_tvl1``
+and ``single_loop_vtv``, whose wrappers count them too).  These three do
+the same for the other families' single-loop learners with the settings
+of their entry points (300 outer steps of 40 CP and 10 CG steps): TGV² on
+the faces images from (0.05, 0.05) at lr 0.02, TV-L1 on one
+``circle_sp_128_20`` image from 0.4, VTV on the six
+``color_disks_128_10`` images from 0.05.
 
 Prints one line per item and a JSON line last.  Exits non-zero without a
 CUDA device.
