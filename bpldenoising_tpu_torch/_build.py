@@ -131,8 +131,12 @@ def _declare(lib):
                                   ctypes.POINTER(_I), ctypes.POINTER(_I), _P]
         fn.restype = _I
         fn = getattr(lib, f"bpl_tgv_solve_{suffix}")
-        fn.argtypes = [_P] * 12 + [real, real, _LL, _I, _I, real, real, _I,
-                                   _I, real, _I, ctypes.POINTER(_I), _P]
+        # ... α₁, α₀, O, M, N, the plan (cluster, rows, resident), τ, σ,
+        # the budget, iterations and device operations out, the stream
+        fn.argtypes = [_P] * 12 + [real, real, _LL, _I, _I, _I, _I, _I,
+                                   real, real, _I, _I, real, _I,
+                                   ctypes.POINTER(_I), ctypes.POINTER(_I),
+                                   _P]
         fn.restype = _I
         fn = getattr(lib, f"bpl_tvl1_solve_{suffix}")
         # ... α, O, M, N, the plan (cluster, rows, resident), τ, σ, the

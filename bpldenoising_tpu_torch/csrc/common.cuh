@@ -229,6 +229,126 @@ inline int blocks_for(long long n) {
   return (int)((n + BPL_THREADS - 1) / BPL_THREADS);
 }
 
+// Per-block partial sums of (u − u_prev)² and r², r the chunk's old
+// iterate u_prev (OLD: the TGV² rule) or its new one u (the TV-L1 rule).
+template <typename T, bool OLD>
+__global__ void cp_change(const T* __restrict__ u,
+                          const T* __restrict__ uprev,
+                          T* __restrict__ partials, long long n,
+                          int nblocks) {
+  __shared__ T sh[BPL_THREADS];
+  long long idx = (long long)blockIdx.x * BPL_THREADS + threadIdx.x;
+  T d2 = T(0), r2 = T(0);
+  if (idx < n) {
+    T a = u[idx];
+    T b = uprev[idx];
+    T d = a - b;
+    T r = OLD ? b : a;
+    d2 = d * d;
+    r2 = r * r;
+  }
+  T sd = block_sum(d2, sh);
+  T sr = block_sum(r2, sh);
+  if (threadIdx.x == 0) {
+    partials[blockIdx.x] = sd;
+    partials[nblocks + blockIdx.x] = sr;
+  }
+}
+
+// The host loop of the unaccelerated CP kernels (TV-L1, TGV²) in both
+// their forms.  advance(from, to, n) runs n iterations from the u buffer
+// `from` into `to` (one buffer without tol).  With use_tol, per chunk of
+// check_every iterations the two passes of the sums (cp_change,
+// sum_partials) on the two u buffers and one host read of the two sums;
+// OLD: rel = ‖u − u_prev‖ / max(‖u_prev‖, 1), else
+// rel = √(Σ(u − u_prev)² / max(Σu², 1e-24)); stop once rel ≤ tol (a NaN
+// stops, as in the plain loops).  u and uprev ping-pong, and the result
+// is copied into u when it ends in uprev.  *ops counts the device
+// operations (advance adds its own).
+template <typename T, bool OLD, class Advance>
+int cp_iterate(Advance advance, T* u, T* uprev, T* partials, T* scal,
+               long long n, int maxiter, int use_tol, T tol,
+               int check_every, int* iters_out, int* ops, cudaStream_t st) {
+  const int grid = blocks_for(n);
+  cudaError_t e;
+  int it = 0;
+  if (!use_tol) {
+    if (maxiter > 0 && (e = advance(u, u, maxiter)) != cudaSuccess)
+      return (int)e;
+    it = maxiter;
+  } else {
+    T h[2];
+    T rel = (T)INFINITY;
+    T* cur = u;
+    T* nxt = uprev;
+    while (it < maxiter && rel > tol) {
+      const int chunk = check_every < maxiter - it ? check_every
+                                                   : maxiter - it;
+      if ((e = advance(cur, nxt, chunk)) != cudaSuccess) return (int)e;
+      cp_change<T, OLD><<<grid, BPL_THREADS, 0, st>>>(nxt, cur, partials, n,
+                                                      grid);
+      BPL_LAUNCH(sum_partials<T>, 2, BPL_THREADS, st)(partials, grid, scal,
+                                                      0, 1, 2);
+      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+      e = cudaMemcpyAsync(h, scal, 2 * sizeof(T), cudaMemcpyDeviceToHost,
+                          st);
+      if (e != cudaSuccess) return (int)e;
+      *ops += 3;
+      if ((e = cudaStreamSynchronize(st)) != cudaSuccess) return (int)e;
+      if (OLD) {
+        T ref = std::sqrt(h[1]);
+        rel = std::sqrt(h[0]) / (ref > T(1) ? ref : T(1));
+      } else {
+        T den = h[1] > T(1e-24) ? h[1] : T(1e-24);
+        rel = std::sqrt(h[0] / den);
+      }
+      it += chunk;
+      T* t = cur;
+      cur = nxt;
+      nxt = t;
+    }
+    if (cur != u) {
+      e = cudaMemcpyAsync(u, cur, (size_t)n * sizeof(T),
+                          cudaMemcpyDeviceToDevice, st);
+      if (e != cudaSuccess) return (int)e;
+      ++*ops;
+    }
+  }
+  *iters_out = it;
+  return (int)cudaGetLastError();
+}
+
+// cp_iterate in the two-launch form: the state s (s.u, s.n) in global
+// memory, one thread a pixel, primal then dual per iteration, u in place
+// in the buffer `to` (a copy of `from` first).
+template <typename T, bool OLD, class S>
+int cp_two_launch(void (*primal)(S), void (*dual)(S), S s, T* uprev,
+                  T* partials, T* scal, int maxiter, int use_tol, T tol,
+                  int check_every, int* iters_out, int* ops,
+                  cudaStream_t st) {
+  const int grid = blocks_for(s.n);
+  auto advance = [&](T* from, T* to, int n) -> cudaError_t {
+    cudaError_t e;
+    if (from != to) {
+      e = cudaMemcpyAsync(to, from, (size_t)s.n * sizeof(T),
+                          cudaMemcpyDeviceToDevice, st);
+      if (e != cudaSuccess) return e;
+      ++*ops;
+    }
+    s.u = to;
+    for (int k = 0; k < n; ++k) {
+      primal<<<grid, BPL_THREADS, 0, st>>>(s);
+      dual<<<grid, BPL_THREADS, 0, st>>>(s);
+      *ops += 2;
+      if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    }
+    return cudaSuccess;
+  };
+  return cp_iterate<T, OLD>(advance, s.u, uprev, partials, scal, s.n,
+                            maxiter, use_tol, tol, check_every, iters_out,
+                            ops, st);
+}
+
 // The host loop of the accelerated CP iteration (kernels A and VTV) on a
 // stack of `planes` (M, N) planes.  Per iteration: ω = 1/√(1+2γτ),
 // primal(τ, ω) launches the primal step, τ ← τω, σ ← σ/ω, then dual(σ)

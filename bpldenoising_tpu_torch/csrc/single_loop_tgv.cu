@@ -147,6 +147,7 @@ struct SltStep {
       : h(h_), s_alpha(sa), M(h_.M), N(h_.N), cl(h_.cl), rows(h_.rows),
         region(h_.region), pd(h_.pd), tau(h_.tau), sigma(h_.sigma) {}
   __device__ T* u(long long b) const { return h.u + b * h.mn; }
+  __device__ T* u_out(long long b) const { return u(b); }
   __device__ T* w(long long b) const { return h.w + b * 2 * h.mn; }
   __device__ T* p(long long b) const { return h.p + b * 2 * h.mn; }
   __device__ T* q(long long b) const { return h.q + b * 3 * h.mn; }

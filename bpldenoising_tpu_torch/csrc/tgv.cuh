@@ -1,8 +1,9 @@
 // The TGV² joint-primal Chambolle–Pock step (solvers/tgv.py::_step): the
 // state struct and the primal and dual kernels, one thread per pixel.  The
-// CP solve (tgv.cu, TPU kernels 4 and 5) launches these kernels; the
-// single-loop TGV² learner (single_loop_tgv.cu, TPU kernel 11) runs their
-// arithmetic, in their order, on its bands (tgv_cluster.cuh).
+// CP solve (tgv.cu, TPU kernels 4 and 5) launches these kernels in its
+// two-launch form; its cluster form and the single-loop TGV² learner
+// (single_loop_tgv.cu, TPU kernel 11) run their arithmetic, in their
+// order, on the bands of tgv_cluster.cuh.
 #pragma once
 
 #include "common.cuh"

@@ -1,8 +1,8 @@
 // The band scheme of the TGV² joint-primal CP iterations (solvers/tgv.py::
 // _step) that keep each image on-chip: csrc/single_loop_tgv.cu's slt_pd
-// (TPU row 11) runs it, one thread-block cluster per image, on
-// csrc/pd_cluster.cuh's launch (pd_cluster_prepare), thread block and
-// slot scheme.
+// (TPU row 11) and csrc/tgv.cu's tgv_cp (TPU rows 4–5) run it, one
+// thread-block cluster per image, on csrc/pd_cluster.cuh's launch
+// (pd_cluster_prepare), thread block and slot scheme.
 //
 // CTA c of an image's cluster owns rows [r0, r1) = [c·rows, (c+1)·rows) ∩
 // [0, M) and holds on rows r0 − 2 … r1 + 1 (band row l = i − r0 + 2) the
@@ -57,7 +57,9 @@ inline bool tgv_plan_ok(int M, int N, int cl, int rows) {
 //   members M, N, cl, rows (the plan), region (elements of a band), pd
 //   (the global bands, read when !RES), tau, sigma;
 //   u(b), w(b), p(b), q(b): image b's state in global memory ((M, N),
-//   (2, M, N), (2, M, N), (3, M, N)), read and written in place; f(b);
+//   (2, M, N), (2, M, N), (3, M, N)), read at the start; w, p and q
+//   written back in place, u into u_out(b) (u(b) itself, or a second
+//   buffer: the early stop's old iterate stays in u(b)); f(b);
 //   mn() = M·N;  a1(i, j), a0(i, j): the weights at pixel (i, j).
 // The caller's kernel runs cluster-wide; `smem` is its dynamic shared
 // memory.
@@ -216,7 +218,7 @@ __device__ __forceinline__ void tgv_cluster_run(const S& s,
   // own rows back to global memory (no neighbour touches this CTA's
   // shared memory after the last cluster barrier)
   const long long mn = s.mn();
-  T* uo = s.u(b);
+  T* uo = s.u_out(b);
   T* wo = s.w(b);
   T* po = s.p(b);
   T* qo = s.q(b);

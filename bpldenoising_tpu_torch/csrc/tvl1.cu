@@ -45,8 +45,9 @@
 // Early stop (the jnp semantics of solvers/tvl1.py and
 // solvers/tvl1_huber.py:134-154): every `check_every` iterations the
 // batch-global rel = √(Σ(u − u_prev)² / max(Σu², 1e-24)), u the NEW
-// iterate; stop once rel ≤ tol.  The two sums are fixed-order per-block
-// partials (tvl1_change) and a one-block second pass (no atomics, repeated
+// iterate; stop once rel ≤ tol.  The host loop is common.cuh's cp_iterate,
+// which the TGV² kernel also runs: the two sums are fixed-order per-block
+// partials (cp_change) and a one-block second pass (no atomics, repeated
 // runs agree bit for bit); the host reads them once per check.  Both forms
 // ping-pong u between two buffers: a chunk is 4 device operations in the
 // cluster form (the launch, the two passes, the read), 2·chunk + 4 in the
@@ -63,114 +64,6 @@
 #include "tvl1.cuh"
 
 namespace bpl {
-
-// Per-block partial sums of (u − u_prev)² and u² (u the new iterate).
-template <typename T>
-__global__ void tvl1_change(const T* __restrict__ u,
-                            const T* __restrict__ uprev,
-                            T* __restrict__ partials, long long n,
-                            int nblocks) {
-  __shared__ T sh[BPL_THREADS];
-  long long idx = (long long)blockIdx.x * BPL_THREADS + threadIdx.x;
-  T d2 = T(0), u2 = T(0);
-  if (idx < n) {
-    T a = u[idx];
-    T d = a - uprev[idx];
-    d2 = d * d;
-    u2 = a * a;
-  }
-  T sd = block_sum(d2, sh);
-  T su = block_sum(u2, sh);
-  if (threadIdx.x == 0) {
-    partials[blockIdx.x] = sd;
-    partials[nblocks + blockIdx.x] = su;
-  }
-}
-
-// The host loop of both forms.  advance(from, to, n) runs n iterations
-// from the u buffer `from` into `to` (one buffer without tol).  With
-// use_tol, per chunk of check_every iterations the two passes of the sums
-// on the two u buffers and one host read; u and uprev ping-pong, and the
-// result is copied into u when it ends in uprev.  *ops counts the device
-// operations (advance adds its own).
-template <typename T, class Advance>
-int tvl1_iterate(Advance advance, T* u, T* uprev, T* partials, T* scal,
-                 long long n, int maxiter, int use_tol, T tol,
-                 int check_every, int* iters_out, int* ops,
-                 cudaStream_t st) {
-  const int grid = blocks_for(n);
-  cudaError_t e;
-  int it = 0;
-  if (!use_tol) {
-    if (maxiter > 0 && (e = advance(u, u, maxiter)) != cudaSuccess)
-      return (int)e;
-    it = maxiter;
-  } else {
-    T hs[2];
-    T rel = (T)INFINITY;
-    T* cur = u;
-    T* nxt = uprev;
-    while (it < maxiter && rel > tol) {   // NaN stops, as in the plain loop
-      const int chunk = check_every < maxiter - it ? check_every
-                                                   : maxiter - it;
-      if ((e = advance(cur, nxt, chunk)) != cudaSuccess) return (int)e;
-      BPL_LAUNCH(tvl1_change<T>, grid, BPL_THREADS, st)(nxt, cur, partials,
-                                                       n, grid);
-      BPL_LAUNCH(sum_partials<T>, 2, BPL_THREADS, st)(partials, grid, scal,
-                                                      0, 1, 2);
-      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-      e = cudaMemcpyAsync(hs, scal, 2 * sizeof(T), cudaMemcpyDeviceToHost,
-                          st);
-      if (e != cudaSuccess) return (int)e;
-      *ops += 3;
-      if ((e = cudaStreamSynchronize(st)) != cudaSuccess) return (int)e;
-      T den = hs[1] > T(1e-24) ? hs[1] : T(1e-24);
-      rel = std::sqrt(hs[0] / den);
-      it += chunk;
-      T* t = cur;
-      cur = nxt;
-      nxt = t;
-    }
-    if (cur != u) {
-      e = cudaMemcpyAsync(u, cur, (size_t)n * sizeof(T),
-                          cudaMemcpyDeviceToDevice, st);
-      if (e != cudaSuccess) return (int)e;
-      ++*ops;
-    }
-  }
-  *iters_out = it;
-  return (int)cudaGetLastError();
-}
-
-// ------------------------------------------------ the two-launch form
-
-// tvl1_primal and tvl1_dual per iteration on the state in global memory,
-// u in place in the buffer `to` (a copy of `from` first).
-template <typename T, bool HUBER>
-int tvl1_global(TVL1<T> s, T* uprev, T* partials, T* scal, int maxiter,
-                int use_tol, T tol, int check_every, int* iters_out, int* ops,
-                cudaStream_t st) {
-  const int grid = blocks_for(s.n);
-  auto advance = [&](T* from, T* to, int n) -> cudaError_t {
-    cudaError_t e;
-    if (from != to) {
-      e = cudaMemcpyAsync(to, from, (size_t)s.n * sizeof(T),
-                          cudaMemcpyDeviceToDevice, st);
-      if (e != cudaSuccess) return e;
-      ++*ops;
-    }
-    s.u = to;
-    for (int k = 0; k < n; ++k) {
-      tvl1_primal<T, HUBER><<<grid, BPL_THREADS, 0, st>>>(s);
-      tvl1_dual<T, HUBER><<<grid, BPL_THREADS, 0, st>>>(s);
-      *ops += 2;
-      if ((e = cudaGetLastError()) != cudaSuccess) return e;
-    }
-    return cudaSuccess;
-  };
-  return tvl1_iterate(advance, s.u, uprev, partials, scal, s.n, maxiter,
-                      use_tol, tol, check_every, iters_out, ops, st);
-}
 
 // ---------------------------------------------------- the cluster form
 
@@ -262,8 +155,9 @@ int tvl1_cluster(const TVL1C<T>& h, T* u, T* uprev, T* partials, T* scal,
     ++*ops;
     return cudaLaunchKernelEx(&L.cfg, L.kern, h, (const T*)from, to, n);
   };
-  return tvl1_iterate(advance, u, uprev, partials, scal, O * h.mn, maxiter,
-                      use_tol, tol, check_every, iters_out, ops, st);
+  return cp_iterate<T, false>(advance, u, uprev, partials, scal, O * h.mn,
+                              maxiter, use_tol, tol, check_every, iters_out,
+                              ops, st);
 }
 
 template <typename T>
@@ -294,11 +188,10 @@ int tvl1_entry(const T* f, T* u, T* y, T* ubar, T* uprev, T* partials,
     s.n = O * M * N;
     s.M = M;
     s.N = N;
-    if (huber)
-      return tvl1_global<T, true>(s, uprev, partials, scal, maxiter, use_tol,
-                                  tol, check_every, iters_out, ops, st);
-    return tvl1_global<T, false>(s, uprev, partials, scal, maxiter, use_tol,
-                                 tol, check_every, iters_out, ops, st);
+    return cp_two_launch<T, false>(
+        huber ? tvl1_primal<T, true> : tvl1_primal<T, false>,
+        huber ? tvl1_dual<T, true> : tvl1_dual<T, false>, s, uprev, partials,
+        scal, maxiter, use_tol, tol, check_every, iters_out, ops, st);
   }
   if (!pd_plan_ok(M, N, 1, cl, rows)) return (int)cudaErrorInvalidValue;
   TVL1C<T> h;

@@ -3,7 +3,8 @@ on-chip (``csrc/pd_cluster.cuh``): kernel A's chunks (:mod:`.pdps_cuda`),
 the TV-L1 kernel's chunks and the single-loop TV-L1 learner's CP phase
 (:mod:`.tvl1_cuda`'s ``tvl1_plan``, :mod:`..bilevel.first_order_tvl1_cuda`)
 and the single-loop learner's PD phase (:mod:`..bilevel.first_order_cuda`);
-of the single-loop TGV² learner's CP phase (``csrc/tgv_cluster.cuh``,
+of the TGV² CP solve's chunks and the single-loop TGV² learner's CP phase
+(``csrc/tgv_cluster.cuh``: :mod:`.tgv_cuda`,
 :mod:`..bilevel.first_order_tgv_cuda`) and of the single-loop VTV
 learner's (``csrc/vtv_cluster.cuh``, :mod:`..bilevel.first_order_vtv_cuda`).
 
@@ -92,11 +93,13 @@ def pd_plan(M: int, N: int, K: int, itemsize: int,
 
 
 def tgv_plan(M: int, N: int, itemsize: int) -> PdPlan:
-    """The band plan of the single-loop TGV² learner's CP phase on M × N
-    images: :func:`pd_plan`'s split of an image's rows over up to 16 CTAs,
+    """The band plan of the TGV² CP iterations on M × N images (the CP
+    solve's chunks, ``csrc/tgv.cu``; the single-loop TGV² learner's CP
+    phase): :func:`pd_plan`'s split of an image's rows over up to 16 CTAs,
     with the TGV² band of (11·(rows + 4) + 40)·N·itemsize bytes in shared
-    memory where it fits in ``SMEM_PER_BLOCK``, else in a global scratch
-    (``smem`` 0, ``resident`` False).  At 128² float32 the 16-CTA band
+    memory where it fits in ``SMEM_PER_BLOCK``, else ``smem`` 0 and
+    ``resident`` False (the learner keeps the bands in a global scratch,
+    the CP solve runs its two-launch form).  At 128² float32 the 16-CTA band
     (88 KB) lets two CTAs share an SM and the 8-CTA band (133 KB) does
     not: on an H100 16 CTAs beat 8 at 1 to 64 images by 21% to 5%
     (scripts/tgv_sl_cluster_sizes.py); in float64 only the 16-CTA band

@@ -7,9 +7,18 @@ and ``_make_tiled_kernel``, halo'd row tiles for large images).
 ``tgv_denoise_pdps_pallas``: scalar or (M, N) map weights, ``state0``,
 ``return_state``, ``tol``, ``check_every``, and a single image or a batch.
 For tensors on the CPU it runs the plain :func:`.tgv._tgv_impl`; for CUDA
-tensors it launches the kernel; any other device raises.  The early stop is
-the plain version's: every ``check_every`` iterations, stop once the
-batch-global ‖u − u_prev‖ / max(‖u_prev‖, 1) is ≤ ``tol``.
+tensors it launches the kernel (a build or launch failure raises); any
+other device raises.  The early stop is the plain version's: every
+``check_every`` iterations, stop once the batch-global
+‖u − u_prev‖ / max(‖u_prev‖, 1) is ≤ ``tol``.
+
+The kernel runs one launch per early-stop chunk (all ``maxiter``
+iterations without ``tol``), one thread-block cluster an image on the
+bands of ``csrc/tgv_cluster.cuh``, when
+:func:`.cluster_plan.tgv_plan` finds that the image's bands fit in shared
+memory; otherwise (1×1024², say) its two-launch form, two launches an
+iteration on state in global memory.  The rule is decided from the shapes
+before any launch; a cluster launch that the card refuses raises.
 """
 
 from __future__ import annotations
@@ -19,13 +28,23 @@ import ctypes
 import torch
 
 from .. import _build
+from .cluster_plan import tgv_plan
 from .pdps_cuda import check_cuda_input, check_plane
 from .tgv import _tgv_impl, cold_state, step_sizes
 
-__all__ = ["tgv_denoise_pdps_cuda", "launches"]
+__all__ = ["tgv_denoise_pdps_cuda", "launches", "cluster_calls",
+           "device_ops"]
 
-#: calls that launched the CUDA kernel (one per solve)
+#: calls that launched the CUDA kernel (one per solve, either form)
 launches = 0
+#: those of them that ran the cluster form (one launch per chunk)
+cluster_calls = 0
+#: device operations those calls issued (launches and copies, as the C loop
+#: counts them: per early-stop chunk 4 in the cluster form, the launch, the
+#: two passes of the sums and the read; 2 per iteration and 4 per chunk in
+#: the two-launch form, whose chunk starts with a copy; in either form a
+#: last copy when u ends in the second buffer)
+device_ops = 0
 _THREADS = 256   # BPL_THREADS in csrc/common.cuh
 
 
@@ -59,9 +78,12 @@ def _launch(f, a1, a0, state0, *, tau0, sigma0, maxiter, tol, check_every):
             check_plane(s, shape, f, f"state0 {name}")
         state = tuple(s.contiguous().clone() for s in state0)
     u, w, p, q = state
-    ubar = torch.empty_like(f)
-    wbar = torch.empty_like(w)
-    uprev = torch.empty_like(f)
+    plan = tgv_plan(M, N, f.element_size())
+    # the two-launch form's ū and w̄ planes; u's second buffer for the
+    # early stop
+    ubar = None if plan.resident else torch.empty_like(f)
+    wbar = None if plan.resident else torch.empty_like(w)
+    uprev = torch.empty_like(f) if tol is not None else None
     nblocks = (f.numel() + _THREADS - 1) // _THREADS
     partials = torch.empty((2 * nblocks,), dtype=dtype, device=dev)
     scal = torch.empty((3,), dtype=dtype, device=dev)
@@ -71,19 +93,24 @@ def _launch(f, a1, a0, state0, *, tau0, sigma0, maxiter, tol, check_every):
     lib = _build.library()
     fn = lib.bpl_tgv_solve_f32 if dtype == torch.float32 \
         else lib.bpl_tgv_solve_f64
-    iters = ctypes.c_int(0)
-    global launches
+    iters, ops = ctypes.c_int(0), ctypes.c_int(0)
+    global launches, cluster_calls, device_ops
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         launches += 1
+        cluster_calls += int(plan.resident)
         err = fn(f.data_ptr(), u.data_ptr(), w.data_ptr(), p.data_ptr(),
-                 q.data_ptr(), ubar.data_ptr(), wbar.data_ptr(),
-                 uprev.data_ptr(), partials.data_ptr(), scal.data_ptr(),
-                 *maps, *scalars, O, M, N, float(tau), float(sigma),
-                 int(maxiter), int(tol is not None),
-                 0.0 if tol is None else float(tol), int(check_every),
-                 ctypes.byref(iters), stream)
-    _build.check(err, "tgv kernel")
+                 q.data_ptr(), None if ubar is None else ubar.data_ptr(),
+                 None if wbar is None else wbar.data_ptr(),
+                 None if uprev is None else uprev.data_ptr(),
+                 partials.data_ptr(), scal.data_ptr(), *maps, *scalars, O,
+                 M, N, plan.cluster, plan.rows, int(plan.resident),
+                 float(tau), float(sigma), int(maxiter),
+                 int(tol is not None), 0.0 if tol is None else float(tol),
+                 int(check_every), ctypes.byref(iters), ctypes.byref(ops),
+                 stream)
+    device_ops += ops.value
+    _build.check(err, f"tgv kernel ({plan})")
     return u, w, state, int(iters.value)
 
 

@@ -15,7 +15,8 @@ Phases (one short line each):
    ``slt_pd``, row 12's ``sl1_pd``, row 13's ``slv_pd``), of rows 11's,
    12's and 13's CG launches (``slt_init``, ``slt_apply``, ``sl1_init``,
    ``sl1_apply``, ``slv_init``, ``slv_apply``) and of the TGV² CP kernels
-   (``tgv_primal``, ``tgv_dual``) from the ``-Xptxas -v`` log.
+   (the cluster form ``tgv_cp``, the two-launch form's ``tgv_primal``,
+   ``tgv_dual``) from the ``-Xptxas -v`` log.
 3. kernel A (PDPS inner solve) against its plain PyTorch version on the
    flagship data (10 × 128² float32): a cold 5000-iteration call, a cold
    call with early stop that returns its state, a warm call from that
@@ -41,19 +42,26 @@ Phases (one short line each):
    cold call with early stop that returns its state, a warm call from that
    state at nudged weights; each with scalar weights and with (M, N) map
    weights; a constant map must reproduce the scalar run bit for bit.
-   Then in float64 at 2 × 32².
+   Then in float64 at 2 × 32².  Every call must take the cluster form
+   (one ``tgv_cp`` launch per early-stop chunk: ``tgv_cuda.cluster_calls``)
+   and issue at most 4 device operations a chunk and one copy a call
+   (``tgv_cuda.device_ops``), printed beside what the two-launch form
+   would issue (2 an iteration, 4 a chunk).
 7. large images: the TGV² kernel at 1 × 1024² (1000 iterations, the shape
-   the TPU sends to its row-tiled TGV kernel) and kernel A at 1 × 2048²
-   (1000 iterations, the shape the TPU sends to its row-tiled TV kernel;
-   its bands do not fit in shared memory, so the plan runs kernel A's
-   two-launch form), each against its plain version, timed.
+   the TPU sends to its row-tiled TGV kernel; its bands do not fit in
+   shared memory, so the plan runs the two-launch form, which the phase
+   requires) and kernel A at 1 × 2048² (1000 iterations, the shape the TPU
+   sends to its row-tiled TV kernel; likewise kernel A's two-launch form),
+   each against its plain version, timed.
 8. the TGV learn: ``scalar_bilevel_tgv_learn(dataset_name="faces_train",
    num_samples=10, method="tr_fused", device="cuda")`` with the benchmark's
    TGV settings, once to warm up and once timed, all launch counters reset
-   just before the timed run and read just after.  Gates below.
+   just before the timed run and read just after; every TGV² kernel call
+   in the cluster form, its device operations as in phase 6.  Gates below.
 9. the patch TGV learn: ``patch_bilevel_tgv_learn`` on the same data with
    a (2, 2, 2) stack and the entry point's own β₂ = 1.5, counters reset
-   just before and read just after.  Gates below.
+   just before and read just after, the TGV² kernel's calls as in phase 8.
+   Gates below.
 10. the TV-L1 kernel (``csrc/tvl1.cu``) in both forms against their plain
     PyTorch versions on ``circle_sp_128_20`` (1 × 128² float32): the Huber
     form at α 1.9, γ_d = 100, γ_r = 1000, a cold 2000-iteration call, a
@@ -172,8 +180,9 @@ Phases (one short line each):
     package's float64 runs, at 1e-6, every kernel-A call in the cluster
     form.
 
-It prints one JSON line of per-kernel numbers (sixteen entries: the
-eleven kernels, rows 1–3's K = 3 and map forms), then, as its last line,
+It prints one JSON line of per-kernel numbers (seventeen entries: the
+eleven kernels, rows 1–3's K = 3 and map forms, row 5's 1024² call),
+then, as its last line,
 ``{"ok": true, "device": {...}}``.  Any failure raises (no phase is
 caught) and the script exits non-zero; a deadline turns a hang into a
 traceback and a non-zero exit.
@@ -647,6 +656,8 @@ KERNEL_FORMS = {"Li256E": "K=1 forward", "Li804E": "K=3 fwd/bwd/cen",
                 "Li1EEEvNS_3SLTI": "TGV² learner, a CG block a partial block",
                 "Li3EEEvNS_3SLTI": "TGV² learner, a CG block three planes",
                 "NS_3SLTI": "TGV² learner", "NS_3TGVI": "TGV² CP",
+                "Lb0EEEvNS_4TGVCI": "TGV² CP cluster, scalar weights",
+                "Lb1EEEvNS_4TGVCI": "TGV² CP cluster, map weights",
                 "Li3EEEvNS_3SLVI": "VTV learner, C = 3",
                 "Li0EEEvNS_3SLVI": "VTV learner, any C",
                 "NS_3SLVI": "VTV learner", "NS_3SL1I": "TV-L1 learner"}
@@ -1057,9 +1068,13 @@ def phase_large(f, timed):
     out = {}
     img = f[:1].repeat(1, 8, 8).contiguous()
     kw = dict(maxiter=1000, tol=None, check_every=100)
+    launches0 = tgv_cuda.launches
     tgv_cuda.tgv_denoise_pdps_cuda(img, 0.1, 0.2, maxiter=5)
+    ops0 = tgv_cuda.device_ops
     k_out, k_ms = timed(lambda: tgv_cuda.tgv_denoise_pdps_cuda(
         img, 0.1, 0.2, return_state=True, **kw))
+    ops = tgv_cuda.device_ops - ops0
+    launches = tgv_cuda.launches - launches0
     p_out, p_ms = timed(lambda: _tgv_impl(img, 0.1, 0.2, None, tau0=0.99,
                                           sigma0=0.99, return_state=True,
                                           **kw))
@@ -1069,10 +1084,12 @@ def phase_large(f, timed):
         + f"kernel {k_ms:.2f} ms, plain {p_ms:.2f} ms")
     require(errs[0] <= TOL_TGV_U_F32 and max(errs[1:]) <= TOL_TGV_DUAL_F32,
             f"TGV 1024^2 kernel disagrees with plain: {errs}")
+    require(launches > 0, "TGV 1024^2: the kernel was not launched")
     nbytes = 9 * img.numel() * img.element_size()   # f in; 8 planes out
     bound, by = bound_ms(nbytes, TGV_OPS_PER_PIXEL_ITER * img.numel() * 1000)
     out["tgv_1024"] = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=max(errs),
-                           bound_ms=bound, bound_by=by)
+                           bound_ms=bound, bound_by=by, launches=launches,
+                           device_ops=ops)
 
     img = f[:1].repeat(1, 16, 16).contiguous()
     out["pdps_2048"] = large_a(img, timed, tv_model(),
@@ -1092,11 +1109,13 @@ def large_a(img, timed, model, a, label, iters=1000):
               return_dual=True)
     from bpldenoising_tpu_torch.solvers.cluster_plan import pd_plan
 
+    launches0 = pdps_cuda.launches
     pdps_cuda.denoise_pdps_cuda(img, a, None, **dict(kw, maxiter=5))
     before = pdps_cuda.device_ops
     (ku, kys, _), k_ms = timed(lambda: pdps_cuda.denoise_pdps_cuda(
         img, a, None, **kw))
     ops = pdps_cuda.device_ops - before
+    launches = pdps_cuda.launches - launches0
     (pu, pys, _), p_ms = timed(lambda: _denoise_pdps_impl(img, a, None,
                                                          **kw))
     err_u = max_abs(ku, pu)
@@ -1110,13 +1129,14 @@ def large_a(img, timed, model, a, label, iters=1000):
         f"operations")
     require(err_u <= TOL_A_U_F32 and err_y <= TOL_A_Y_F32,
             f"kernel {label} disagrees with plain: {err_u}, {err_y}")
+    require(launches > 0, f"{label}: kernel A was not launched")
     kinds = [pdps_kind(op) for op in model.ops]
     nbytes = (2 + 2 * len(kinds)) * img.numel() * img.element_size()
     bound, by = bound_ms(nbytes, a_ops_per_pixel_iter(kinds) * img.numel()
                          * iters)
     return dict(ms=k_ms, plain_ms=p_ms, max_abs_err=max(err_u, err_y),
                 bound_ms=bound, bound_by=by, plan=plan._asdict(),
-                device_ops=ops)
+                launches=launches, device_ops=ops)
 
 
 def pdps_kind(op):
@@ -1143,10 +1163,10 @@ def launch_counters():
 
 def reset_launches():
     from bpldenoising_tpu_torch.solvers import (hypergrad_cuda, pdps_cuda,
-                                                tvl1_cuda)
+                                                tgv_cuda, tvl1_cuda)
     for mod in launch_counters().values():
         mod.launches = 0
-    for mod in (pdps_cuda, tvl1_cuda):
+    for mod in (pdps_cuda, tvl1_cuda, tgv_cuda):
         mod.cluster_calls = 0
         mod.device_ops = 0
     hypergrad_cuda.device_ops = 0
@@ -1248,8 +1268,9 @@ def phase_tgv_learn(utrue, timed):
     kw = tgv_learn_kwargs()
     scalar_bilevel_tgv_learn(device="cuda", **kw)          # warm-up
     reset_launches()
-    res, wall_ms = timed(lambda: scalar_bilevel_tgv_learn(device="cuda",
-                                                          **kw))
+    with watch_tgv() as calls:
+        res, wall_ms = timed(lambda: scalar_bilevel_tgv_learn(device="cuda",
+                                                              **kw))
     launches = read_launches()
     alpha = [float(v) for v in res.x]
     rel = [abs(a - r) / r for a, r in zip(alpha, TGV_ALPHA)]
@@ -1266,6 +1287,7 @@ def phase_tgv_learn(utrue, timed):
         f"(capped) in {capped} of {res.iterations}")
     say(f"  wall {wall_ms:.1f} ms (CUDA events, after one warm-up run); "
         f"launches {launches}")
+    forms = cp_forms(calls, "TGV learn", "TGV²")
     require(launches["tgv"] > 0, f"TGV learn launched {launches}")
     require(max(rel) <= TGV_ALPHA_GATE_REL, f"TGV alpha {alpha}")
     require(abs(mean_psnr - TGV_PSNR) <= TGV_PSNR_GATE,
@@ -1274,7 +1296,8 @@ def phase_tgv_learn(utrue, timed):
             f"TGV final cost {cost}")
     return dict(alpha=alpha, alpha_rel_err=rel, mean_psnr_db=mean_psnr,
                 final_cost=cost, outer_iterations=res.iterations,
-                adjoint_cg_iters=cg, wall_ms=wall_ms, launches=launches)
+                adjoint_cg_iters=cg, wall_ms=wall_ms, launches=launches,
+                kernel_calls=forms)
 
 
 def phase_tgv_patch_learn(utrue, timed):
@@ -1286,8 +1309,9 @@ def phase_tgv_patch_learn(utrue, timed):
 
     kw = tgv_learn_kwargs()
     reset_launches()
-    res, wall_ms = timed(lambda: patch_bilevel_tgv_learn(device="cuda",
-                                                         **kw))
+    with watch_tgv() as calls:
+        res, wall_ms = timed(lambda: patch_bilevel_tgv_learn(device="cuda",
+                                                             **kw))
     launches = read_launches()
     mean_psnr = float(torch.mean(psnr(utrue, on_device(res, utrue))))
     cost = float(res.cost)
@@ -1299,6 +1323,7 @@ def phase_tgv_patch_learn(utrue, timed):
     say(f"  PSNR {mean_psnr:.4f} dB; cost {cost:.4f}; {res.iterations} "
         f"outer its; adjoint CG {cg_log(res)[0]} its; wall "
         f"{wall_ms:.1f} ms; launches {launches}")
+    forms = cp_forms(calls, "patch TGV learn", "TGV²")
     require(launches["tgv"] > 0, f"patch TGV learn launched {launches}")
     require(abs(mean_psnr - TGV_PATCH_PSNR) <= TGV_PSNR_GATE,
             f"patch TGV mean PSNR {mean_psnr}")
@@ -1306,38 +1331,51 @@ def phase_tgv_patch_learn(utrue, timed):
             f"patch TGV final cost {cost}")
     return dict(alpha=res.x.tolist(), mean_psnr_db=mean_psnr,
                 final_cost=cost, outer_iterations=res.iterations,
-                wall_ms=wall_ms, launches=launches)
+                wall_ms=wall_ms, launches=launches, kernel_calls=forms)
 
 
 @contextlib.contextmanager
-def watch_tvl1():
-    """Record every TV-L1 kernel call inside the ``with`` block: → the
-    list of calls, each its iterations, device operations, whether it ran
-    the cluster form, its tol and check_every."""
-    from bpldenoising_tpu_torch.solvers import tvl1_cuda
+def watch_calls(mod, iters_at):
+    """Record every call of the CP kernel wrapper ``mod`` (``tvl1_cuda``,
+    ``tgv_cuda``) inside the ``with`` block: → the list of calls, each its
+    iterations (item ``iters_at`` of ``mod._launch``'s result), device
+    operations, whether it ran the cluster form, its tol and
+    check_every."""
     calls = []
-    real = tvl1_cuda._launch
+    real = mod._launch
 
-    def watched(f, a, state0, **kw):
-        ops, cl = tvl1_cuda.device_ops, tvl1_cuda.cluster_calls
-        out = real(f, a, state0, **kw)
-        calls.append(dict(iters=out[2], ops=tvl1_cuda.device_ops - ops,
-                          cluster=tvl1_cuda.cluster_calls - cl,
+    def watched(*args, **kw):
+        ops, cl = mod.device_ops, mod.cluster_calls
+        out = real(*args, **kw)
+        calls.append(dict(iters=out[iters_at], ops=mod.device_ops - ops,
+                          cluster=mod.cluster_calls - cl,
                           tol=kw["tol"], check_every=kw["check_every"]))
         return out
 
-    tvl1_cuda._launch = watched
+    mod._launch = watched
     try:
         yield calls
     finally:
-        tvl1_cuda._launch = real
+        mod._launch = real
 
 
-def tvl1_forms(calls, label):
-    """Print and require the TV-L1 kernel calls of ``watch_tvl1``: each
-    in the cluster form, with 1 device operation without tol and at most
-    4 a chunk and one copy with it; beside them what the two-launch form
-    would issue (2 an iteration, 4 a chunk).  → the totals."""
+def watch_tvl1():
+    from bpldenoising_tpu_torch.solvers import tvl1_cuda
+    return watch_calls(tvl1_cuda, 2)
+
+
+def watch_tgv():
+    from bpldenoising_tpu_torch.solvers import tgv_cuda
+    return watch_calls(tgv_cuda, 3)
+
+
+def cp_forms(calls, label, kernel="TV-L1", cluster=True):
+    """Print and require the CP kernel calls of ``watch_calls``: each in
+    the cluster form, with 1 device operation without tol and at most 4 a
+    chunk and one copy with it (``cluster`` False: each in the two-launch
+    form, 2 an iteration, 4 a chunk and one copy); beside them what the
+    two-launch form would issue (2 an iteration, 4 a chunk).  → the
+    totals."""
     chunks = [-(-c["iters"] // c["check_every"]) if c["tol"] is not None
               else 0 for c in calls]
     out = dict(calls=len(calls), cluster=sum(c["cluster"] for c in calls),
@@ -1345,15 +1383,20 @@ def tvl1_forms(calls, label):
                device_ops=sum(c["ops"] for c in calls),
                two_launch_rule=sum(2 * c["iters"] + 4 * n
                                    for c, n in zip(calls, chunks)))
-    say(f"  {label}: TV-L1 kernel {out['calls']} calls, {out['cluster']} in "
-        f"the cluster form, {out['iterations']} iterations in "
+    say(f"  {label}: {kernel} kernel {out['calls']} calls, {out['cluster']} "
+        f"in the cluster form, {out['iterations']} iterations in "
         f"{out['chunks']} early-stop chunks, {out['device_ops']} device "
         f"operations (two-launch form, 2 an iteration and 4 a chunk: "
         f"{out['two_launch_rule']})")
-    bad = [c for c, n in zip(calls, chunks) if not c["cluster"]
-           or c["ops"] > (4 * n + 1 if c["tol"] is not None else 1)]
-    require(not bad, f"{label}: TV-L1 kernel calls off the cluster form's "
-            f"count: {bad}")
+    if cluster:
+        bad = [c for c, n in zip(calls, chunks) if not c["cluster"]
+               or c["ops"] > (4 * n + 1 if c["tol"] is not None else 1)]
+    else:
+        bad = [c for c, n in zip(calls, chunks) if c["cluster"]
+               or c["ops"] > 2 * c["iters"] + 4 * n + 1]
+    require(calls and not bad, f"{label}: {kernel} kernel calls off the "
+            f"{'cluster' if cluster else 'two-launch'} form's count: "
+            f"{bad or 'no call'}")
     return out
 
 
@@ -1538,7 +1581,7 @@ def phase_tvl1_learn(utrue, noisy, timed):
         f"(capped) in {capped} of {res.iterations}")
     say(f"  wall {wall_ms:.1f} ms (CUDA events, after one warm-up run); "
         f"launches {launches}")
-    forms = tvl1_forms(calls, "TV-L1 learn")
+    forms = cp_forms(calls, "TV-L1 learn")
 
     TVL1Denoise(noisy, TVL1_DENOISE_ALPHA, maxiter=5, device="cuda")
     reset_launches()
@@ -1550,7 +1593,7 @@ def phase_tvl1_learn(utrue, noisy, timed):
     say(f"  TVL1Denoise(alpha {TVL1_DENOISE_ALPHA}, 10000 it): PSNR "
         f"{denoise_psnr:.5f} dB (reference {TVL1_DENOISE_PSNR}); "
         f"{denoise_ms:.1f} ms; launches {denoise_launches}")
-    denoise_forms = tvl1_forms(calls, "TVL1Denoise")
+    denoise_forms = cp_forms(calls, "TVL1Denoise")
     require(launches["tvl1"] > 0, f"TV-L1 learn launched {launches}")
     require(denoise_launches["tvl1"] > 0,
             f"TVL1Denoise launched {denoise_launches}")
@@ -1595,7 +1638,7 @@ def phase_tvl1_patch_learn(utrue, timed):
     say(f"  PSNR {mean_psnr:.5f} dB; cost {cost:.6f}; {res.iterations} "
         f"outer its; adjoint CG {cg} its; wall "
         f"{wall_ms:.1f} ms; launches {launches}")
-    forms = tvl1_forms(calls, "patch TV-L1 learn")
+    forms = cp_forms(calls, "patch TV-L1 learn")
     require(launches["tvl1"] > 0, f"patch TV-L1 learn launched {launches}")
     require(abs(cost - TVL1_PATCH_COST)
             <= TVL1_PATCH_COST_GATE_REL * TVL1_PATCH_COST,
@@ -3113,7 +3156,8 @@ def main():
                            ("single_loop_vtv.cu", "slv_pd"),
                            ("single_loop_vtv.cu", "slv_init"),
                            ("single_loop_vtv.cu", "slv_apply"),
-                           ("tgv.cu", "tgv_primal"), ("tgv.cu", "tgv_dual")):
+                           ("tgv.cu", "tgv_cp"), ("tgv.cu", "tgv_primal"),
+                           ("tgv.cu", "tgv_dual")):
         for line in ptxas_report(info.path.with_suffix(".log"), source,
                                  needle):
             say(f"  {line}")
@@ -3172,11 +3216,16 @@ def main():
             f"final cost {cost}")
 
     say("phase 6 TGV kernel vs plain, 10x128x128 float32")
-    tgv_stats = phase_tgv(f, timed)
-    phase_tgv_f64(torch, dev)
+    with watch_tgv() as calls:
+        tgv_stats = phase_tgv(f, timed)
+        phase_tgv_f64(torch, dev)
+    cp_forms(calls, "phase 6", "TGV²")
 
     say("phase 7 large images vs plain, float32")
-    large = phase_large(f, timed)
+    with watch_tgv() as calls:
+        large = phase_large(f, timed)
+    large["tgv_1024"]["kernel_calls"] = cp_forms(calls, "phase 7", "TGV²",
+                                                 cluster=False)
 
     say("phase 8 TGV learn scalar_bilevel_tgv_learn(method='tr_fused')")
     tgv_learn = phase_tgv_learn(utrue, timed)
@@ -3191,7 +3240,7 @@ def main():
     with watch_tvl1() as calls:
         tvl1h_stats, tvl1_stats = phase_tvl1(sp_f, timed)
         phase_tvl1_f64(torch, dev)
-    tvl1_forms(calls, "phase 10")
+    cp_forms(calls, "phase 10")
 
     say("phase 11 TV-L1 learn scalar_bilevel_tvl1_learn(method='tr_fused'), "
         "then TVL1Denoise")
@@ -3314,11 +3363,22 @@ def main():
              bound_by=b_by, library_ms=None),
         dict(name="tgv_cp", route="cuda",
              source="bpldenoising_tpu_torch/csrc/tgv.cu",
-             replaces="bpldenoising_tpu/solvers/tgv_pallas.py:103 and :217",
+             replaces="bpldenoising_tpu/solvers/tgv_pallas.py:103",
              launches=tgv_learn["launches"]["tgv"],
              max_abs_err=tgv_stats["max_abs_err"], ms=tgv_stats["ms"],
              plain_ms=tgv_stats["plain_ms"], bound_ms=t_bound, bound_by=t_by,
-             library_ms=None),
+             library_ms=None, form="cluster",
+             device_ops=tgv_learn["kernel_calls"]["device_ops"]),
+        dict(name="tgv_cp_1024", route="cuda",
+             source="bpldenoising_tpu_torch/csrc/tgv.cu",
+             replaces="bpldenoising_tpu/solvers/tgv_pallas.py:217",
+             launches=large["tgv_1024"]["launches"],
+             max_abs_err=large["tgv_1024"]["max_abs_err"],
+             ms=large["tgv_1024"]["ms"],
+             plain_ms=large["tgv_1024"]["plain_ms"],
+             bound_ms=large["tgv_1024"]["bound_ms"],
+             bound_by=large["tgv_1024"]["bound_by"], library_ms=None,
+             form="two-launch", device_ops=large["tgv_1024"]["device_ops"]),
         dict(name="tvl1_huber_cp", route="cuda",
              source="bpldenoising_tpu_torch/csrc/tvl1.cu",
              replaces="bpldenoising_tpu/solvers/tvl1_huber_pallas.py:72",
@@ -3379,8 +3439,8 @@ def main():
     kernels.append(dict(
         name="pdps_cp_sumregs_2048", route="cuda",
         source="bpldenoising_tpu_torch/csrc/pdps.cu",
-        replaces="bpldenoising_tpu/solvers/pdps_pallas.py:339", launches=0,
-        max_abs_err=big["max_abs_err"], ms=big["ms"],
+        replaces="bpldenoising_tpu/solvers/pdps_pallas.py:339",
+        launches=big["launches"], max_abs_err=big["max_abs_err"], ms=big["ms"],
         plain_ms=big["plain_ms"], bound_ms=big["bound_ms"],
         bound_by=big["bound_by"], library_ms=None))
     for name, kinds, maps, st, learn in (

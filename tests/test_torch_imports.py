@@ -19,10 +19,11 @@ SOURCES = (sorted(PORT.rglob("*.py"))
               ROOT / "scripts" / "kernel_b_digits.py",
               ROOT / "scripts" / "kernel_b_iteration_cost.py",
               ROOT / "scripts" / "tvl1_cluster_sizes.py",
+              ROOT / "scripts" / "tgv_cluster_sizes.py",
+              ROOT / "scripts" / "call_times.py",
               ROOT / "scripts" / "tgv_sl_cluster_sizes.py",
               ROOT / "scripts" / "vtv_sl_cluster_sizes.py",
               ROOT / "scripts" / "tvl1_sl_cluster_sizes.py",
-              ROOT / "scripts" / "vtv_sl_call_times.py",
               ROOT / "scripts" / "learn_walls.py"])
 FORBIDDEN = ("jax", "jaxlib", "bpldenoising_tpu")
 
