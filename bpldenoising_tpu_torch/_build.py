@@ -148,9 +148,13 @@ def _declare(lib):
                                   _P]
         fn.restype = _I
         fn = getattr(lib, f"bpl_vtv_solve_{suffix}")
-        fn.argtypes = [_P] * 7 + [real, _LL, _I, _I, _I, real, real,
-                                  ctypes.c_double, _I, _I, _I, real, _I,
-                                  ctypes.POINTER(_I), _P]
+        # ... α, O, C, M, N, the plan (cluster, rows, resident), τ, σ, γ,
+        # accel, the budget, iterations and device operations out, the
+        # stream
+        fn.argtypes = [_P] * 8 + [real, _LL, _I, _I, _I, _I, _I, _I, real,
+                                  real, ctypes.c_double, _I, _I, _I, real,
+                                  _I, ctypes.POINTER(_I), ctypes.POINTER(_I),
+                                  _P]
         fn.restype = _I
         fn = getattr(lib, f"bpl_single_loop_{suffix}")
         fn.argtypes = ([_P] * 11 + [_LL] + [_I] * 14 + [real] * 9

@@ -255,53 +255,105 @@ __global__ void cp_change(const T* __restrict__ u,
   }
 }
 
-// The host loop of the unaccelerated CP kernels (TV-L1, TGV²) in both
-// their forms.  advance(from, to, n) runs n iterations from the u buffer
-// `from` into `to` (one buffer without tol).  With use_tol, per chunk of
-// check_every iterations the two passes of the sums (cp_change,
-// sum_partials) on the two u buffers and one host read of the two sums;
-// OLD: rel = ‖u − u_prev‖ / max(‖u_prev‖, 1), else
-// rel = √(Σ(u − u_prev)² / max(Σu², 1e-24)); stop once rel ≤ tol (a NaN
-// stops, as in the plain loops).  u and uprev ping-pong, and the result
-// is copied into u when it ends in uprev.  *ops counts the device
-// operations (advance adds its own).
-template <typename T, bool OLD, class Advance>
-int cp_iterate(Advance advance, T* u, T* uprev, T* partials, T* scal,
-               long long n, int maxiter, int use_tol, T tol,
-               int check_every, int* iters_out, int* ops, cudaStream_t st) {
-  const int grid = blocks_for(n);
+// The stop rules of cp_iterate.  check(u, uprev, ops, st) issues one
+// check's device work on the chunk's new iterate u and its old one uprev
+// and the host read of its result, adding its device operations to *ops;
+// once the stream is synchronised, rel() is the change that cp_iterate
+// compares with tol (a NaN stops, as in the plain loops).
+//
+// CpSumStop, the batch-wide rule of TV-L1 and TGV²: the two passes of the
+// sums (cp_change, sum_partials) over the n elements and one read of the
+// two sums; OLD: rel = ‖u − u_prev‖ / max(‖u_prev‖, 1), else
+// rel = √(Σ(u − u_prev)² / max(Σu², 1e-24)).  partials holds
+// 2·⌈n / 256⌉ elements, scal 3.
+template <typename T, bool OLD>
+struct CpSumStop {
+  T* partials;
+  T* scal;
+  long long n;
+  T h[2];
+  cudaError_t check(const T* u, const T* uprev, int* ops, cudaStream_t st) {
+    const int grid = blocks_for(n);
+    cp_change<T, OLD><<<grid, BPL_THREADS, 0, st>>>(u, uprev, partials, n,
+                                                    grid);
+    BPL_LAUNCH(sum_partials<T>, 2, BPL_THREADS, st)(partials, grid, scal, 0,
+                                                    1, 2);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    e = cudaMemcpyAsync(h, scal, 2 * sizeof(T), cudaMemcpyDeviceToHost, st);
+    *ops += 3;
+    return e;
+  }
+  T rel() const {
+    if (OLD) {
+      T ref = std::sqrt(h[1]);
+      return std::sqrt(h[0]) / (ref > T(1) ? ref : T(1));
+    }
+    T den = h[1] > T(1e-24) ? h[1] : T(1e-24);
+    return std::sqrt(h[0] / den);
+  }
+};
+
+// CpPlaneStop, the per-plane rule of the accelerated CP kernels (kernel A
+// over its O images, VTV over its O·C channel planes): pd_change's
+// ‖u_p − u_prev,p‖ / max(‖u_p‖, 1e-12) for each of `planes` planes of mn
+// elements (u the new iterate) and one read of the ratios; rel = their
+// max, a NaN ratio propagating.  ratio holds `planes` elements.
+template <typename T>
+struct CpPlaneStop {
+  T* ratio;
+  long long planes, mn;
+  std::vector<T> h;
+  CpPlaneStop(T* ratio_, long long planes_, long long mn_)
+      : ratio(ratio_), planes(planes_), mn(mn_), h((size_t)planes_) {}
+  cudaError_t check(const T* u, const T* uprev, int* ops, cudaStream_t st) {
+    BPL_LAUNCH(pd_change<T>, (int)planes, BPL_THREADS, st)(u, uprev, ratio,
+                                                           mn);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    e = cudaMemcpyAsync(h.data(), ratio, (size_t)planes * sizeof(T),
+                        cudaMemcpyDeviceToHost, st);
+    *ops += 2;
+    return e;
+  }
+  T rel() const {
+    T delta = h[0];
+    for (long long b = 1; b < planes; ++b)
+      if (std::isnan(h[b]) || h[b] > delta) delta = h[b];
+    return delta;
+  }
+};
+
+// The host loop of the CP kernels that run an early-stop chunk from a u
+// buffer into another (TV-L1 and TGV² in both their forms, kernel A's and
+// VTV's cluster forms).  advance(from, to, it0, n) runs iterations
+// it0 … it0 + n − 1 from the u buffer `from` into `to` (one buffer without
+// tol).  With use_tol, per chunk of check_every iterations the stop rule's
+// check on the two u buffers; stop once its rel() ≤ tol.  u and uprev
+// ping-pong, and the result is copied into u (n elements) when it ends in
+// uprev.  *ops counts the device operations (advance and the rule add
+// their own).
+template <typename T, class Stop, class Advance>
+int cp_iterate(Advance advance, Stop& stop, T* u, T* uprev, long long n,
+               int maxiter, int use_tol, T tol, int check_every,
+               int* iters_out, int* ops, cudaStream_t st) {
   cudaError_t e;
   int it = 0;
   if (!use_tol) {
-    if (maxiter > 0 && (e = advance(u, u, maxiter)) != cudaSuccess)
+    if (maxiter > 0 && (e = advance(u, u, 0, maxiter)) != cudaSuccess)
       return (int)e;
     it = maxiter;
   } else {
-    T h[2];
     T rel = (T)INFINITY;
     T* cur = u;
     T* nxt = uprev;
     while (it < maxiter && rel > tol) {
       const int chunk = check_every < maxiter - it ? check_every
                                                    : maxiter - it;
-      if ((e = advance(cur, nxt, chunk)) != cudaSuccess) return (int)e;
-      cp_change<T, OLD><<<grid, BPL_THREADS, 0, st>>>(nxt, cur, partials, n,
-                                                      grid);
-      BPL_LAUNCH(sum_partials<T>, 2, BPL_THREADS, st)(partials, grid, scal,
-                                                      0, 1, 2);
-      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-      e = cudaMemcpyAsync(h, scal, 2 * sizeof(T), cudaMemcpyDeviceToHost,
-                          st);
-      if (e != cudaSuccess) return (int)e;
-      *ops += 3;
+      if ((e = advance(cur, nxt, it, chunk)) != cudaSuccess) return (int)e;
+      if ((e = stop.check(nxt, cur, ops, st)) != cudaSuccess) return (int)e;
       if ((e = cudaStreamSynchronize(st)) != cudaSuccess) return (int)e;
-      if (OLD) {
-        T ref = std::sqrt(h[1]);
-        rel = std::sqrt(h[0]) / (ref > T(1) ? ref : T(1));
-      } else {
-        T den = h[1] > T(1e-24) ? h[1] : T(1e-24);
-        rel = std::sqrt(h[0] / den);
-      }
+      rel = stop.rel();
       it += chunk;
       T* t = cur;
       cur = nxt;
@@ -327,7 +379,7 @@ int cp_two_launch(void (*primal)(S), void (*dual)(S), S s, T* uprev,
                   int check_every, int* iters_out, int* ops,
                   cudaStream_t st) {
   const int grid = blocks_for(s.n);
-  auto advance = [&](T* from, T* to, int n) -> cudaError_t {
+  auto advance = [&](T* from, T* to, int, int n) -> cudaError_t {
     cudaError_t e;
     if (from != to) {
       e = cudaMemcpyAsync(to, from, (size_t)s.n * sizeof(T),
@@ -344,9 +396,9 @@ int cp_two_launch(void (*primal)(S), void (*dual)(S), S s, T* uprev,
     }
     return cudaSuccess;
   };
-  return cp_iterate<T, OLD>(advance, s.u, uprev, partials, scal, s.n,
-                            maxiter, use_tol, tol, check_every, iters_out,
-                            ops, st);
+  CpSumStop<T, OLD> stop{partials, scal, s.n, {}};
+  return cp_iterate<T>(advance, stop, s.u, uprev, s.n, maxiter, use_tol, tol,
+                       check_every, iters_out, ops, st);
 }
 
 // The host loop of the accelerated CP iteration (kernels A and VTV) on a
@@ -354,15 +406,17 @@ int cp_two_launch(void (*primal)(S), void (*dual)(S), S s, T* uprev,
 // primal(τ, ω) launches the primal step, τ ← τω, σ ← σ/ω, then dual(σ)
 // launches the model's dual step.  τ, σ, ω are formed here in the working
 // dtype, in the order of the plain version.  With use_tol, every
-// `check_every` iterations the max over the planes of
-// ‖u − uprev‖/max(‖u‖, 1e-12) (one host read of the per-plane ratios) is
-// compared with tol; a NaN ratio propagates and stops.  Returns a
-// cudaError_t; *iters_out is the number of iterations run.
+// `check_every` iterations (a chunk, which starts with a copy of u into
+// uprev) CpPlaneStop's max over the planes of ‖u − uprev‖/max(‖u‖, 1e-12)
+// (one host read of the per-plane ratios) is compared with tol; a NaN
+// ratio propagates and stops.  Returns a cudaError_t; *iters_out is the
+// number of iterations run, *ops counts the device operations (2 an
+// iteration, 3 a chunk: the copy, pd_change and the read).
 template <typename T, typename Primal, typename Dual>
 int pd_iterate_with(T* u, T* uprev, T* ratio, long long planes, int M, int N,
                     T tau, T sigma, double gamma, int accel, int maxiter,
                     int use_tol, T tol, int check_every, int* iters_out,
-                    cudaStream_t s, Primal primal, Dual dual) {
+                    int* ops, cudaStream_t s, Primal primal, Dual dual) {
   const long long n = planes * M * N;
   const T two_gamma = T(2.0 * gamma);
   cudaError_t err;
@@ -376,6 +430,7 @@ int pd_iterate_with(T* u, T* uprev, T* ratio, long long planes, int M, int N,
       sigma = sigma / omega;
     }
     dual(sigma);
+    *ops += 2;
     return cudaGetLastError();
   };
 
@@ -384,30 +439,49 @@ int pd_iterate_with(T* u, T* uprev, T* ratio, long long planes, int M, int N,
     for (; it < maxiter; ++it)
       if ((err = step()) != cudaSuccess) return (int)err;
   } else {
-    std::vector<T> h((size_t)planes);
+    CpPlaneStop<T> stop(ratio, planes, (long long)M * N);
     T delta = (T)INFINITY;
     const size_t bytes = (size_t)n * sizeof(T);
     while (it < maxiter && delta > tol) {
       err = cudaMemcpyAsync(uprev, u, bytes, cudaMemcpyDeviceToDevice, s);
       if (err != cudaSuccess) return (int)err;
+      ++*ops;
       const int chunk = check_every < maxiter - it ? check_every : maxiter - it;
       for (int k = 0; k < chunk; ++k)
         if ((err = step()) != cudaSuccess) return (int)err;
-      BPL_LAUNCH(pd_change<T>, (int)planes, BPL_THREADS, s)(u, uprev, ratio,
-                                                            (long long)M * N);
-      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-      err = cudaMemcpyAsync(h.data(), ratio, (size_t)planes * sizeof(T),
-                            cudaMemcpyDeviceToHost, s);
-      if (err != cudaSuccess) return (int)err;
+      if ((err = stop.check(u, uprev, ops, s)) != cudaSuccess)
+        return (int)err;
       if ((err = cudaStreamSynchronize(s)) != cudaSuccess) return (int)err;
-      delta = h[0];   // max over planes; NaN propagates (and stops)
-      for (long long b = 1; b < planes; ++b)
-        if (std::isnan(h[b]) || h[b] > delta) delta = h[b];
+      delta = stop.rel();
       it += chunk;
     }
   }
   *iters_out = it;
   return (int)cudaGetLastError();
+}
+
+// The per-iteration scalars (τ, ω, σ) of maxiter iterations, formed as
+// pd_iterate_with forms them: ω = 1/√(1+2γτ), the primal step at τ, then
+// τ ← τω, σ ← σ/ω, and the dual step at that σ.  The cluster forms of
+// kernel A and the VTV kernel read them from a device copy, so their
+// iterates are the two-launch form's bit for bit.
+template <typename T>
+std::vector<T> cp_table(T tau, T sigma, double gamma, int accel,
+                        int maxiter) {
+  std::vector<T> t(3 * (size_t)maxiter);
+  const T two_gamma = T(2.0 * gamma);
+  for (int it = 0; it < maxiter; ++it) {
+    T omega = T(1);
+    if (accel) omega = T(1) / std::sqrt(T(1) + two_gamma * tau);
+    t[3 * (size_t)it] = tau;
+    t[3 * (size_t)it + 1] = omega;
+    if (accel) {
+      tau = tau * omega;
+      sigma = sigma / omega;
+    }
+    t[3 * (size_t)it + 2] = sigma;
+  }
+  return t;
 }
 
 // pd_iterate_with with the one-dual forward-difference primal step
@@ -417,7 +491,7 @@ template <typename T, typename Dual>
 int pd_iterate(const T* f, T* u, T* y, T* ubar, T* uprev, T* ratio,
                long long planes, int M, int N, T tau, T sigma, double gamma,
                int accel, int maxiter, int use_tol, T tol, int check_every,
-               int* iters_out, cudaStream_t s, Dual dual) {
+               int* iters_out, int* ops, cudaStream_t s, Dual dual) {
   const long long n = planes * M * N;
   const int grid = blocks_for(n);
   auto primal = [&](T tau_, T omega) {
@@ -426,7 +500,7 @@ int pd_iterate(const T* f, T* u, T* y, T* ubar, T* uprev, T* ratio,
   };
   return pd_iterate_with<T>(u, uprev, ratio, planes, M, N, tau, sigma, gamma,
                             accel, maxiter, use_tol, tol, check_every,
-                            iters_out, s, primal, dual);
+                            iters_out, ops, s, primal, dual);
 }
 
 }  // namespace bpl

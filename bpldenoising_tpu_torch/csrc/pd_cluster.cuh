@@ -360,4 +360,37 @@ int pd_cluster_prepare(PdClusterLaunch<Kern>& L, Kern kern, long long images,
   return (int)cudaSuccess;
 }
 
+// The host loop of an accelerated CP cluster kernel (kernel A's pdc_cp,
+// the VTV kernel's vtv_cp), launched by L on the state h as
+// kern(h, from, to, it0, n): the copy of the (τ, ω, σ) table of maxiter
+// iterations into tab (cp_table; a pageable source, so the call returns
+// once the table is staged), then common.cuh's cp_iterate with one launch
+// per early-stop chunk and the per-plane stop rule over `planes` planes of
+// mn elements (n = planes·mn in u).  *ops: the device operations issued
+// (the copy, per chunk the launch, pd_change and the read, a last copy).
+template <typename T, class H>
+int cp_cluster_accel(const PdClusterLaunch<void (*)(H, const T*, T*, int,
+                                                    int)>& L,
+                     const H& h, T* u, T* uprev, T* ratio, T* tab,
+                     long long planes, long long mn, T tau, T sigma,
+                     double gamma, int accel, int maxiter, int use_tol,
+                     T tol, int check_every, int* iters_out, int* ops,
+                     cudaStream_t s) {
+  if (maxiter > 0) {
+    const std::vector<T> t = cp_table(tau, sigma, gamma, accel, maxiter);
+    cudaError_t e = cudaMemcpyAsync(tab, t.data(), t.size() * sizeof(T),
+                                    cudaMemcpyHostToDevice, s);
+    if (e != cudaSuccess) return (int)e;
+    ++*ops;
+  }
+  auto advance = [&](T* from, T* to, int it0, int n) -> cudaError_t {
+    ++*ops;
+    return cudaLaunchKernelEx(&L.cfg, L.kern, h, (const T*)from, to, it0,
+                              n);
+  };
+  CpPlaneStop<T> stop(ratio, planes, mn);
+  return cp_iterate<T>(advance, stop, u, uprev, planes * mn, maxiter,
+                       use_tol, tol, check_every, iters_out, ops, s);
+}
+
 }  // namespace bpl

@@ -158,7 +158,6 @@ int pdps_global(const T* f, T* u, T* y, T* ubar, T* uprev, T* ratio,
                 cudaStream_t s) {
   const long long n = O * M * N;
   const int grid = blocks_for(n);
-  int err;
   if (bl.K == 1 && bl.kind[0] == STENCIL_FWD && bl.amap[0] == nullptr) {
     const T alpha = bl.alpha[0];
     const T alpha2 = bl.alpha2[0];
@@ -166,26 +165,21 @@ int pdps_global(const T* f, T* u, T* y, T* ubar, T* uprev, T* ratio,
       BPL_LAUNCH(pd_dual<T>, grid, BPL_THREADS, s)(ubar, y, n, M, N, sig,
                                                    alpha, alpha2);
     };
-    err = pd_iterate<T>(f, u, y, ubar, uprev, ratio, O, M, N, tau, sigma,
-                        gamma, accel, maxiter, use_tol, tol, check_every,
-                        iters_out, s, dual);
-  } else {
-    auto primal = [&](T tau_, T omega) {
-      BPL_LAUNCH(pd_primal_k<T>, grid, BPL_THREADS, s)(f, u, ubar, y, n, M,
-                                                       N, tau_, omega, bl);
-    };
-    auto dual = [&](T sig) {
-      BPL_LAUNCH(pd_dual_k<T>, grid, BPL_THREADS, s)(ubar, y, n, M, N, sig,
-                                                     bl);
-    };
-    err = pd_iterate_with<T>(u, uprev, ratio, O, M, N, tau, sigma, gamma,
-                             accel, maxiter, use_tol, tol, check_every,
-                             iters_out, s, primal, dual);
+    return pd_iterate<T>(f, u, y, ubar, uprev, ratio, O, M, N, tau, sigma,
+                         gamma, accel, maxiter, use_tol, tol, check_every,
+                         iters_out, ops, s, dual);
   }
-  // 2 launches an iteration; per chunk a copy, pd_change and a host read
-  const int it = *iters_out;
-  *ops = 2 * it + (use_tol ? 3 * ((it + check_every - 1) / check_every) : 0);
-  return err;
+  auto primal = [&](T tau_, T omega) {
+    BPL_LAUNCH(pd_primal_k<T>, grid, BPL_THREADS, s)(f, u, ubar, y, n, M, N,
+                                                     tau_, omega, bl);
+  };
+  auto dual = [&](T sig) {
+    BPL_LAUNCH(pd_dual_k<T>, grid, BPL_THREADS, s)(ubar, y, n, M, N, sig,
+                                                   bl);
+  };
+  return pd_iterate_with<T>(u, uprev, ratio, O, M, N, tau, sigma, gamma,
+                            accel, maxiter, use_tol, tol, check_every,
+                            iters_out, ops, s, primal, dual);
 }
 
 // ------------------------------------------------ the cluster form (resident)
@@ -286,33 +280,9 @@ pdc_cp(CPC<T> h, const T* uin, T* uout, int it0, int n_it) {
   pd_cluster_run<T, true>(step, pdc_smem, n_it);
 }
 
-// The per-iteration scalars (τ, ω, σ) of maxiter iterations, formed as
-// common.cuh's pd_iterate_with forms them: ω = 1/√(1+2γτ), the primal step
-// at τ, then τ ← τω, σ ← σ/ω, and the dual step at that σ.
-template <typename T>
-std::vector<T> cp_table(T tau, T sigma, double gamma, int accel,
-                        int maxiter) {
-  std::vector<T> t(3 * (size_t)maxiter);
-  const T two_gamma = T(2.0 * gamma);
-  for (int it = 0; it < maxiter; ++it) {
-    T omega = T(1);
-    if (accel) omega = T(1) / std::sqrt(T(1) + two_gamma * tau);
-    t[3 * (size_t)it] = tau;
-    t[3 * (size_t)it + 1] = omega;
-    if (accel) {
-      tau = tau * omega;
-      sigma = sigma / omega;
-    }
-    t[3 * (size_t)it + 2] = sigma;
-  }
-  return t;
-}
-
-// The host loop of the cluster form: the table copy, then one launch per
-// chunk; with use_tol, per chunk also pd_change on the two u buffers and
-// one host read of the O ratios, whose max (a NaN propagates and stops) is
-// compared with tol.  u and uprev ping-pong; the result is copied into u
-// when it ends in uprev.  *ops: the device operations it issued.
+// The host loop of the cluster form: pd_cluster.cuh's cp_cluster_accel
+// (the table copy, then one launch per chunk with the per-image stop
+// rule).  *ops: the device operations it issued.
 template <typename T, int F>
 int pdc_run(const CPC<T>& h, T* u, T* uprev, T* ratio, T* tab, long long O,
             T tau, T sigma, double gamma, int accel, int maxiter,
@@ -322,59 +292,9 @@ int pdc_run(const CPC<T>& h, T* u, T* uprev, T* ratio, T* tab, long long O,
   const size_t smem = (size_t)pd_region(h.K, h.rows, h.N) * sizeof(T);
   int err = pd_cluster_prepare(L, pdc_cp<T, F>, O, h.cl, smem, s);
   if (err != (int)cudaSuccess) return err;
-  cudaError_t e;
-  if (maxiter > 0) {
-    const std::vector<T> t = cp_table(tau, sigma, gamma, accel, maxiter);
-    // pageable source: the call returns once the table is staged
-    e = cudaMemcpyAsync(tab, t.data(), t.size() * sizeof(T),
-                        cudaMemcpyHostToDevice, s);
-    if (e != cudaSuccess) return (int)e;
-    ++*ops;
-  }
-  int it = 0;
-  if (!use_tol) {
-    if (maxiter > 0) {
-      e = cudaLaunchKernelEx(&L.cfg, L.kern, h, (const T*)u, u, 0, maxiter);
-      if (e != cudaSuccess) return (int)e;
-      ++*ops;
-    }
-    it = maxiter;
-  } else {
-    std::vector<T> hr((size_t)O);
-    T delta = (T)INFINITY;
-    T* cur = u;
-    T* nxt = uprev;
-    while (it < maxiter && delta > tol) {
-      const int chunk = check_every < maxiter - it ? check_every
-                                                   : maxiter - it;
-      e = cudaLaunchKernelEx(&L.cfg, L.kern, h, (const T*)cur, nxt, it,
-                             chunk);
-      if (e != cudaSuccess) return (int)e;
-      BPL_LAUNCH(pd_change<T>, (int)O, BPL_THREADS, s)(nxt, cur, ratio,
-                                                       h.mn);
-      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-      e = cudaMemcpyAsync(hr.data(), ratio, (size_t)O * sizeof(T),
-                          cudaMemcpyDeviceToHost, s);
-      if (e != cudaSuccess) return (int)e;
-      *ops += 3;
-      if ((e = cudaStreamSynchronize(s)) != cudaSuccess) return (int)e;
-      delta = hr[0];   // max over images; NaN propagates (and stops)
-      for (long long b = 1; b < O; ++b)
-        if (std::isnan(hr[b]) || hr[b] > delta) delta = hr[b];
-      it += chunk;
-      T* t = cur;
-      cur = nxt;
-      nxt = t;
-    }
-    if (cur != u) {
-      e = cudaMemcpyAsync(u, cur, (size_t)h.n * sizeof(T),
-                          cudaMemcpyDeviceToDevice, s);
-      if (e != cudaSuccess) return (int)e;
-      ++*ops;
-    }
-  }
-  *iters_out = it;
-  return (int)cudaGetLastError();
+  return cp_cluster_accel(L, h, u, uprev, ratio, tab, O, h.mn, tau, sigma,
+                          gamma, accel, maxiter, use_tol, tol, check_every,
+                          iters_out, ops, s);
 }
 
 template <typename T>

@@ -138,10 +138,12 @@ struct SLV {
 
 // ---------------------------------------------------------------- CP phase
 
-// The learner's CP step for vtv_cluster_run: its state, f, and α from x
-// (in shared memory for a scalar weight).
+// The learner's CP step for vtv_cluster_run: unaccelerated, its state
+// (u updated in place), f, and α from x (in shared memory for a scalar
+// weight).
 template <typename T>
 struct SlvStep {
+  static constexpr bool ACCEL = false;
   const SLV<T>& h;
   const T* s_alpha;
   int M, N, C, cl, rows;
@@ -153,6 +155,7 @@ struct SlvStep {
         rows(h_.rows), region(h_.region), pd(h_.pd), tau(h_.tau),
         sigma(h_.sigma) {}
   __device__ T* u(long long b) const { return h.u + b * h.ncg; }
+  __device__ T* u_out(long long b) const { return u(b); }
   __device__ T* y(long long b) const { return h.y + b * 2 * h.ncg; }
   __device__ const T* f(long long b) const { return h.f + b * h.ncg; }
   __device__ long long mn() const { return h.mn; }

@@ -133,13 +133,13 @@ int tgv_cluster(const TGVC<T>& h, T* u, T* uprev, T* partials, T* scal,
   const size_t smem = (size_t)tgv_region(h.rows, h.N) * sizeof(T);
   int err = pd_cluster_prepare(L, tgv_cp<T, MAP>, O, h.cl, smem, st);
   if (err != (int)cudaSuccess) return err;
-  auto advance = [&](T* from, T* to, int n) -> cudaError_t {
+  auto advance = [&](T* from, T* to, int, int n) -> cudaError_t {
     ++*ops;
     return cudaLaunchKernelEx(&L.cfg, L.kern, h, (const T*)from, to, n);
   };
-  return cp_iterate<T, true>(advance, u, uprev, partials, scal, O * h.mn,
-                             maxiter, use_tol, tol, check_every, iters_out,
-                             ops, st);
+  CpSumStop<T, true> stop{partials, scal, O * h.mn, {}};
+  return cp_iterate<T>(advance, stop, u, uprev, O * h.mn, maxiter, use_tol,
+                       tol, check_every, iters_out, ops, st);
 }
 
 template <typename T>

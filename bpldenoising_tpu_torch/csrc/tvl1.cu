@@ -151,13 +151,13 @@ int tvl1_cluster(const TVL1C<T>& h, T* u, T* uprev, T* partials, T* scal,
   const size_t smem = (size_t)pd_region(1, h.rows, h.N) * sizeof(T);
   int err = pd_cluster_prepare(L, tvl1_cp<T, HUBER, MAP>, O, h.cl, smem, st);
   if (err != (int)cudaSuccess) return err;
-  auto advance = [&](T* from, T* to, int n) -> cudaError_t {
+  auto advance = [&](T* from, T* to, int, int n) -> cudaError_t {
     ++*ops;
     return cudaLaunchKernelEx(&L.cfg, L.kern, h, (const T*)from, to, n);
   };
-  return cp_iterate<T, false>(advance, u, uprev, partials, scal, O * h.mn,
-                              maxiter, use_tol, tol, check_every, iters_out,
-                              ops, st);
+  CpSumStop<T, false> stop{partials, scal, O * h.mn, {}};
+  return cp_iterate<T>(advance, stop, u, uprev, O * h.mn, maxiter, use_tol,
+                       tol, check_every, iters_out, ops, st);
 }
 
 template <typename T>

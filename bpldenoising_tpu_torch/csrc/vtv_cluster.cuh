@@ -1,9 +1,10 @@
-// The band scheme of the single-loop VTV learner's CP iterations (the
-// unaccelerated CP step of bilevel/first_order_vtv.py with ω = 1, the
-// channel-coupled Frobenius projection): csrc/single_loop_vtv.cu's slv_pd
-// (TPU row 13) runs it, one thread-block cluster per image, on
-// csrc/pd_cluster.cuh's launch (pd_cluster_prepare), thread block and slot
-// scheme.
+// The band scheme of the VTV CP iterations (the channel-coupled Frobenius
+// projection): the single-loop VTV learner's unaccelerated CP step
+// (bilevel/first_order_vtv.py, ω = 1; csrc/single_loop_vtv.cu's slv_pd,
+// TPU row 13) and the accelerated CP solve (solvers/pdps.py on
+// models.vtv_model(); csrc/vtv.cu's vtv_cp, TPU row 6) run it, one
+// thread-block cluster per image, on csrc/pd_cluster.cuh's launch
+// (pd_cluster_prepare), thread block and slot scheme.
 //
 // CTA r of an image's cluster owns rows [r0, r1) = [r·rows, (r+1)·rows) ∩
 // [0, M) and holds on rows r0 − 2 … r1 + 1 (band row l = i − r0 + 2) the
@@ -24,9 +25,10 @@
 // once per launch and written back once.
 //
 // Each pixel runs pd_primal's and vtv_dual's arithmetic in their order
-// (u⁺ = (u − τ(div y − f))/(1 + τ), ū = 2u⁺ − u, the Frobenius sum of the
-// 2C squares into four accumulators, term e into e mod 4, ball_scale), so
-// under -fmad=false the iterates are the two kernels' bits.  CC: the
+// (u⁺ = (u − τ(div y − f))/(1 + τ), ū = (1 + ω)u⁺ − ωu, or 2u⁺ − u
+// unaccelerated, the Frobenius sum of the 2C squares into four
+// accumulators, term e into e mod 4, ball_scale), so under -fmad=false the
+// iterates are the two kernels' bits.  CC: the
 // channel count where it is fixed at compile time (3, color), so the
 // channel loops unroll and the dual's 2C values q = y + σ∇ū stay in
 // registers between the norm and the store; CC = 0 takes any C and forms
@@ -77,13 +79,19 @@ __device__ __forceinline__ T frob_sum(int C, F term) {
   return ((a0 + a1) + a2) + a3;
 }
 
-// n_it unaccelerated VTV CP iterations (ω = 1) of one image (blockIdx.x /
-// cl) under the band scheme, C = CC channels (or s.C where CC is 0).  S is
-// the iteration's step, which the caller's kernel builds:
+// n_it VTV CP iterations of one image (blockIdx.x / cl) under the band
+// scheme, C = CC channels (or s.C where CC is 0).  S is the iteration's
+// step, which the caller's kernel builds:
 //   members M, N, C, cl, rows (the plan), region (elements of a band), pd
 //   (the global bands, read when !RES), tau, sigma;
+//   S::ACCEL, a compile-time constant: false, the unaccelerated step at
+//   the constant τ and σ (ū = 2u⁺ − u); true, the accelerated step at
+//   at(it, τ, ω, σ)'s scalars of iteration it (ū = (1 + ω)u⁺ − ωu, the dual
+//   step at that σ);
 //   u(b), y(b): image b's state in global memory ((C, M, N), (C, 2, M, N)),
-//   read and written in place; f(b) (C, M, N); mn() = M·N;
+//   read at the start; y written back in place, u into u_out(b) (u(b)
+//   itself, or a second buffer: the early stop's old iterate stays in
+//   u(b)); f(b) (C, M, N); mn() = M·N;
 //   alpha(i, j): the weight at pixel (i, j).
 // The caller's kernel runs cluster-wide; `smem` is its dynamic shared
 // memory.
@@ -138,8 +146,9 @@ __device__ __forceinline__ void vtv_cluster_run(const S& s,
   // the primal step's rows: own and one halo row each side
   const int pa = r0 - 1 > 0 ? r0 - 1 : 0;
   const int pb = has ? (r1 + 1 < M ? r1 + 1 : M) : pa;
-  const T tau = s.tau, sigma = s.sigma;
+  T tau = s.tau, sigma = s.sigma, omega = T(1);
   for (int it = 0; it < n_it; ++it) {
+    if constexpr (S::ACCEL) s.at(it, tau, omega, sigma);
     const int par = it & 1;
     if (it > 0 && has) {
       // slots[par] → the band's halo rows r0 − 2, r0 − 1 (from above) and
@@ -154,7 +163,7 @@ __device__ __forceinline__ void vtv_cluster_run(const S& s,
       }
     }
     __syncthreads();
-    // the primal step (pd_primal, ω = 1): u⁺ and ū per channel
+    // the primal step (pd_primal): u⁺ and ū per channel
     band_rows(pa, pb, N, [&](int i, int j) {
       const Pix p = pix(b, i, j);
       const int l = (i - r0 + 2) * N + j;
@@ -167,7 +176,10 @@ __device__ __forceinline__ void vtv_cluster_run(const S& s,
         const T uo = U[k * band + l];
         const T un = (uo - tau * (dv - fp[k * mn])) / (T(1) + tau);
         U[k * band + l] = un;
-        UB[k * band + l] = T(2) * un - uo;
+        if constexpr (S::ACCEL)
+          UB[k * band + l] = (T(1) + omega) * un - omega * uo;
+        else
+          UB[k * band + l] = T(2) * un - uo;
       }
     });
     __syncthreads();
@@ -236,7 +248,7 @@ __device__ __forceinline__ void vtv_cluster_run(const S& s,
   // own rows back to global memory (no neighbour touches this CTA's
   // shared memory after the last cluster barrier)
   const long long mn = s.mn();
-  T* uo = s.u(b);
+  T* uo = s.u_out(b);
   T* yo = s.y(b);
   for (int q = threadIdx.x; q < (r1 - r0) * N; q += PD_THREADS) {
     const long long g = (long long)r0 * N + q;

@@ -5,8 +5,9 @@ the TV-L1 kernel's chunks and the single-loop TV-L1 learner's CP phase
 and the single-loop learner's PD phase (:mod:`..bilevel.first_order_cuda`);
 of the TGV² CP solve's chunks and the single-loop TGV² learner's CP phase
 (``csrc/tgv_cluster.cuh``: :mod:`.tgv_cuda`,
-:mod:`..bilevel.first_order_tgv_cuda`) and of the single-loop VTV
-learner's (``csrc/vtv_cluster.cuh``, :mod:`..bilevel.first_order_vtv_cuda`).
+:mod:`..bilevel.first_order_tgv_cuda`) and of the VTV CP solve's chunks
+and the single-loop VTV learner's CP phase (``csrc/vtv_cluster.cuh``:
+:mod:`.vtv_cuda`, :mod:`..bilevel.first_order_vtv_cuda`).
 
 One cluster runs one image; each CTA holds a band of rows with two halo
 rows above and below in shared memory.  :func:`pd_plan`, :func:`tgv_plan`
@@ -102,7 +103,7 @@ def tgv_plan(M: int, N: int, itemsize: int) -> PdPlan:
     the CP solve runs its two-launch form).  At 128² float32 the 16-CTA band
     (88 KB) lets two CTAs share an SM and the 8-CTA band (133 KB) does
     not: on an H100 16 CTAs beat 8 at 1 to 64 images by 21% to 5%
-    (scripts/tgv_sl_cluster_sizes.py); in float64 only the 16-CTA band
+    (scripts/cluster_sizes.py tgv_sl); in float64 only the 16-CTA band
     (176 KB) fits.  The CUDA side checks the plan against the card and the
     wrapper raises when it cannot run."""
     if min(M, N, itemsize) < 1:
@@ -115,13 +116,15 @@ def tgv_plan(M: int, N: int, itemsize: int) -> PdPlan:
 
 
 def vtv_plan(M: int, N: int, C: int, itemsize: int) -> PdPlan:
-    """The band plan of the single-loop VTV learner's CP phase on C-channel
-    M × N images: :func:`pd_plan`'s split of an image's rows over up to 16
+    """The band plan of the VTV CP iterations on C-channel M × N images
+    (the CP solve's chunks, ``csrc/vtv.cu``; the single-loop VTV learner's
+    CP phase): :func:`pd_plan`'s split of an image's rows over up to 16
     CTAs, with the VTV band of (4C·(rows + 4) + 16C)·N·itemsize bytes (u,
     ū and the two dual components of each channel; two parities, two
     sides, two rows of the 2C dual planes as halo slots) in shared memory
-    where it fits in ``SMEM_PER_BLOCK``, else in a global scratch
-    (``smem`` 0, ``resident`` False).  At 128², C = 3, float32 the 16-CTA
+    where it fits in ``SMEM_PER_BLOCK``, else ``smem`` 0 and ``resident``
+    False (the learner keeps the bands in a global scratch, the CP solve
+    runs its two-launch form).  At 128², C = 3, float32 the 16-CTA
     band (96 KB) lets two CTAs share an SM and the 8-CTA band (144 KB) does
     not; in float64 only the 16-CTA band (192 KB) fits.  The CUDA side
     checks the plan against the card and the wrapper raises when it cannot

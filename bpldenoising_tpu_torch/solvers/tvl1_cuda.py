@@ -60,7 +60,7 @@ def tvl1_plan(O: int, M: int, N: int, itemsize: int):
     spreads over more SMs; on an H100 a 2000-iteration Huber solve at
     1×128² takes 6.5 ms with 16 CTAs, 8.7 with 8), else up to 8 (at
     16×128² 13.6 ms with 16, 10.7 with 8: every SM already works, and
-    each CTA adds its halo rows; scripts/tvl1_cluster_sizes.py)."""
+    each CTA adds its halo rows; scripts/cluster_sizes.py tvl1)."""
     wide = O * MAX_CLUSTER_NP <= SMS
     return pd_plan(M, N, 1, itemsize,
                    max_cluster=MAX_CLUSTER_NP if wide else MAX_CLUSTER)

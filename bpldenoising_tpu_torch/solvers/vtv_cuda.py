@@ -14,6 +14,15 @@ state is always ``(u, (y,))``.  The early stop is the plain version's:
 every ``check_every`` iterations, stop once the max over the channel
 planes of ‖Δu‖/‖u‖ is ≤ ``tol``.  :data:`last_iters` holds the iteration
 count of the latest solve.
+
+The kernel runs one launch per early-stop chunk (all ``maxiter``
+iterations without ``tol``), one thread-block cluster an image on the
+bands of ``csrc/vtv_cluster.cuh``, when :func:`.cluster_plan.vtv_plan`
+(the rule the single-loop VTV learner also takes) finds that the image's
+bands fit in shared memory; otherwise (1×3×256², say) its two-launch
+form, two launches an iteration on state in global memory.  The rule is
+decided from the shapes before any launch; a cluster launch that the card
+refuses raises.
 """
 
 from __future__ import annotations
@@ -24,14 +33,24 @@ import torch
 
 from .. import _build
 from ..models import vtv_model
+from .cluster_plan import vtv_plan
 from .pdps import _denoise_pdps_impl, step_sizes
 from .pdps_cuda import check_cuda_input, check_plane
 
 __all__ = ["vtv_denoise_pdps_cuda", "as_jnp_state", "launches",
-           "last_iters"]
+           "cluster_calls", "device_ops", "last_iters"]
 
-#: calls that launched the CUDA kernel (one per solve)
+#: calls that launched the CUDA kernel (one per solve, either form)
 launches = 0
+#: those of them that ran the cluster form (one launch per chunk)
+cluster_calls = 0
+#: device operations those calls issued (launches and copies, as the C side
+#: counts them: in the cluster form the table copy, then 1 launch without
+#: tol or per early-stop chunk 3, the launch, pd_change and the read of
+#: the ratios, and a last copy when u ends in the second buffer; in the
+#: two-launch form 2 an iteration and per chunk 3, the copy of u, pd_change
+#: and the read)
+device_ops = 0
 #: iterations run by the latest solve through this module
 last_iters = 0
 
@@ -82,26 +101,36 @@ def _launch(f, a, state0, *, tau, sigma, gamma, accel, maxiter, tol,
         check_plane(y0, y_shape, f, "state0 y")
         u, y = u0.contiguous().clone(), y0.contiguous().clone()
     amap = a.to(dev).contiguous() if a.ndim else None
-    ubar = torch.empty_like(f)
-    uprev = torch.empty_like(f)
+    plan = vtv_plan(M, N, C, f.element_size())
+    # the two-launch form's ū planes, or the cluster form's (τ, ω, σ)
+    # table; u's second buffer for the early stop
+    ubar = None if plan.resident else torch.empty_like(f)
+    tab = torch.empty((max(int(maxiter), 1), 3), dtype=dtype, device=dev) \
+        if plan.resident else None
+    uprev = torch.empty_like(f) if tol is not None else None
     ratio = torch.empty((max(O * C, 1),), dtype=dtype, device=dev)
     lib = _build.library()
     fn = lib.bpl_vtv_solve_f32 if dtype == torch.float32 \
         else lib.bpl_vtv_solve_f64
-    iters = ctypes.c_int(0)
-    global launches
+    iters, ops = ctypes.c_int(0), ctypes.c_int(0)
+    global launches, cluster_calls, device_ops
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         launches += 1
-        err = fn(f.data_ptr(), u.data_ptr(), y.data_ptr(), ubar.data_ptr(),
-                 uprev.data_ptr(), ratio.data_ptr(),
+        cluster_calls += int(plan.resident)
+        err = fn(f.data_ptr(), u.data_ptr(), y.data_ptr(),
+                 *(None if t is None else t.data_ptr()
+                   for t in (ubar, uprev)), ratio.data_ptr(),
+                 None if tab is None else tab.data_ptr(),
                  None if amap is None else amap.data_ptr(),
                  0.0 if amap is not None else float(a), O, C, M, N,
-                 float(tau), float(sigma), float(gamma), int(bool(accel)),
-                 int(maxiter), int(tol is not None),
-                 0.0 if tol is None else float(tol), int(check_every),
-                 ctypes.byref(iters), stream)
-    _build.check(err, "vtv kernel")
+                 plan.cluster, plan.rows, int(plan.resident), float(tau),
+                 float(sigma), float(gamma), int(bool(accel)), int(maxiter),
+                 int(tol is not None), 0.0 if tol is None else float(tol),
+                 int(check_every), ctypes.byref(iters), ctypes.byref(ops),
+                 stream)
+    device_ops += ops.value
+    _build.check(err, f"vtv kernel ({plan})")
     return u, y, int(iters.value)
 
 

@@ -14,9 +14,10 @@ Phases (one short line each):
    rows 9–10's ``slc_pd``, the TV-L1 kernel's ``tvl1_cp``, row 11's
    ``slt_pd``, row 12's ``sl1_pd``, row 13's ``slv_pd``), of rows 11's,
    12's and 13's CG launches (``slt_init``, ``slt_apply``, ``sl1_init``,
-   ``sl1_apply``, ``slv_init``, ``slv_apply``) and of the TGV² CP kernels
+   ``sl1_apply``, ``slv_init``, ``slv_apply``), of the TGV² CP kernels
    (the cluster form ``tgv_cp``, the two-launch form's ``tgv_primal``,
-   ``tgv_dual``) from the ``-Xptxas -v`` log.
+   ``tgv_dual``) and of the VTV CP kernel's cluster form (``vtv_cp``)
+   from the ``-Xptxas -v`` log.
 3. kernel A (PDPS inner solve) against its plain PyTorch version on the
    flagship data (10 × 128² float32): a cold 5000-iteration call, a cold
    call with early stop that returns its state, a warm call from that
@@ -92,16 +93,26 @@ Phases (one short line each):
     returns its state and a warm call from that state at a nudged weight,
     each with the scalar α 0.165 and with an (M, N) map (a 2×2 grid, then
     nudged); a constant map must reproduce the scalar run bit for bit.
+    Then the VTV kernel at 1 × 3 × 256² (1000 iterations; its bands do not
+    fit in shared memory, so the plan runs the two-launch form, which the
+    phase requires) against its plain version, timed.
 14. the VTV kernel in float64 at 2 × 3 × 32²: cold with early stop (scalar
-    α), cold fixed budget (map α), warm from the first state.
+    α), cold fixed budget (map α), warm from the first state.  Every call
+    of phases 13–14 but the 256² one must take the cluster form (one
+    ``vtv_cp`` launch per early-stop chunk: ``vtv_cuda.cluster_calls``)
+    and issue the table copy, at most 3 device operations a chunk and one
+    copy a call (``vtv_cuda.device_ops``), printed beside what the
+    two-launch form would issue (2 an iteration, 3 a chunk).
 15. the VTV learn: ``scalar_bilevel_vtv_learn(dataset_name="color_disks",
     num_samples=6, method="tr_fused", device="cuda")`` with bench.py's VTV
     settings, once to warm up and once timed, counters reset just before
-    and read just after.  Gates below.
+    and read just after; every VTV kernel call in the cluster form, its
+    device operations as in phase 14.  Gates below.
 16. the patch VTV learn: ``patch_bilevel_vtv_learn`` on the same data
     (2×2 grid, the entry point's β₂ = 1.5), then ``VTVDenoise`` at
     α 0.165434 with its default 10,000 iterations, each with the counters
-    reset just before and read just after.  Gates below.
+    reset just before and read just after, the VTV kernel's calls as in
+    phase 15.  Gates below.
 
 17. the single-loop stencils (``csrc/common.cuh``: forward, backward and
     centred gradients, their adjoints and Gram diagonals) against
@@ -180,8 +191,9 @@ Phases (one short line each):
     package's float64 runs, at 1e-6, every kernel-A call in the cluster
     form.
 
-It prints one JSON line of per-kernel numbers (seventeen entries: the
-eleven kernels, rows 1–3's K = 3 and map forms, row 5's 1024² call),
+It prints one JSON line of per-kernel numbers (eighteen entries: the
+eleven kernels, rows 1–3's K = 3 and map forms, row 5's 1024² call, row
+6's 256² call),
 then, as its last line,
 ``{"ok": true, "device": {...}}``.  Any failure raises (no phase is
 caught) and the script exits non-zero; a deadline turns a hang into a
@@ -647,7 +659,7 @@ def b_ops_per_pixel(kinds, cg_iters, solves):
 # arguments: kernel B's and kernel A's forms (csrc/hypergrad.cu: HgForm,
 # csrc/pdps.cu: CpForm; rows 9-10's SlcForm shares the K codes), then the
 # TV-L1 kernel's (Huber, map) flags; rows 11's and 13's kernels and the
-# TGV² CP kernels by their argument types
+# TGV² and VTV CP kernels by their argument types
 KERNEL_FORMS = {"Li256E": "K=1 forward", "Li804E": "K=3 fwd/bwd/cen",
                 "Li4352E": "K=1 forward, map",
                 "Li29476E": "K=3 fwd/bwd/cen, maps", "Lin1E": "generic",
@@ -658,6 +670,10 @@ KERNEL_FORMS = {"Li256E": "K=1 forward", "Li804E": "K=3 fwd/bwd/cen",
                 "NS_3SLTI": "TGV² learner", "NS_3TGVI": "TGV² CP",
                 "Lb0EEEvNS_4TGVCI": "TGV² CP cluster, scalar weights",
                 "Lb1EEEvNS_4TGVCI": "TGV² CP cluster, map weights",
+                "Li3ELb0EEEvNS_4VTVCI": "VTV CP cluster, C = 3, scalar α",
+                "Li3ELb1EEEvNS_4VTVCI": "VTV CP cluster, C = 3, map α",
+                "Li0ELb0EEEvNS_4VTVCI": "VTV CP cluster, any C, scalar α",
+                "Li0ELb1EEEvNS_4VTVCI": "VTV CP cluster, any C, map α",
                 "Li3EEEvNS_3SLVI": "VTV learner, C = 3",
                 "Li0EEEvNS_3SLVI": "VTV learner, any C",
                 "NS_3SLVI": "VTV learner", "NS_3SL1I": "TV-L1 learner"}
@@ -1163,10 +1179,11 @@ def launch_counters():
 
 def reset_launches():
     from bpldenoising_tpu_torch.solvers import (hypergrad_cuda, pdps_cuda,
-                                                tgv_cuda, tvl1_cuda)
+                                                tgv_cuda, tvl1_cuda,
+                                                vtv_cuda)
     for mod in launch_counters().values():
         mod.launches = 0
-    for mod in (pdps_cuda, tvl1_cuda, tgv_cuda):
+    for mod in (pdps_cuda, tvl1_cuda, tgv_cuda, vtv_cuda):
         mod.cluster_calls = 0
         mod.device_ops = 0
     hypergrad_cuda.device_ops = 0
@@ -1337,10 +1354,10 @@ def phase_tgv_patch_learn(utrue, timed):
 @contextlib.contextmanager
 def watch_calls(mod, iters_at):
     """Record every call of the CP kernel wrapper ``mod`` (``tvl1_cuda``,
-    ``tgv_cuda``) inside the ``with`` block: → the list of calls, each its
-    iterations (item ``iters_at`` of ``mod._launch``'s result), device
-    operations, whether it ran the cluster form, its tol and
-    check_every."""
+    ``tgv_cuda``, ``vtv_cuda``) inside the ``with`` block: → the list of
+    calls, each its iterations (item ``iters_at`` of ``mod._launch``'s
+    result), device operations, whether it ran the cluster form, its tol
+    and check_every."""
     calls = []
     real = mod._launch
 
@@ -1369,31 +1386,39 @@ def watch_tgv():
     return watch_calls(tgv_cuda, 3)
 
 
-def cp_forms(calls, label, kernel="TV-L1", cluster=True):
+def watch_vtv():
+    from bpldenoising_tpu_torch.solvers import vtv_cuda
+    return watch_calls(vtv_cuda, 2)
+
+
+def cp_forms(calls, label, kernel="TV-L1", cluster=True, chunk_ops=4,
+             table=0):
     """Print and require the CP kernel calls of ``watch_calls``: each in
-    the cluster form, with 1 device operation without tol and at most 4 a
-    chunk and one copy with it (``cluster`` False: each in the two-launch
-    form, 2 an iteration, 4 a chunk and one copy); beside them what the
-    two-launch form would issue (2 an iteration, 4 a chunk).  → the
-    totals."""
+    the cluster form, with ``table`` device operations (the VTV kernel's
+    copy of its step table: 1) and 1 more without tol, at most
+    ``chunk_ops`` a chunk and one copy with it (``cluster`` False: each in
+    the two-launch form, 2 an iteration, ``chunk_ops`` a chunk and one
+    copy); beside them what the two-launch form would issue (2 an
+    iteration, ``chunk_ops`` a chunk).  → the totals."""
     chunks = [-(-c["iters"] // c["check_every"]) if c["tol"] is not None
               else 0 for c in calls]
     out = dict(calls=len(calls), cluster=sum(c["cluster"] for c in calls),
                iterations=sum(c["iters"] for c in calls), chunks=sum(chunks),
                device_ops=sum(c["ops"] for c in calls),
-               two_launch_rule=sum(2 * c["iters"] + 4 * n
+               two_launch_rule=sum(2 * c["iters"] + chunk_ops * n
                                    for c, n in zip(calls, chunks)))
     say(f"  {label}: {kernel} kernel {out['calls']} calls, {out['cluster']} "
         f"in the cluster form, {out['iterations']} iterations in "
         f"{out['chunks']} early-stop chunks, {out['device_ops']} device "
-        f"operations (two-launch form, 2 an iteration and 4 a chunk: "
-        f"{out['two_launch_rule']})")
+        f"operations (two-launch form, 2 an iteration and {chunk_ops} a "
+        f"chunk: {out['two_launch_rule']})")
     if cluster:
         bad = [c for c, n in zip(calls, chunks) if not c["cluster"]
-               or c["ops"] > (4 * n + 1 if c["tol"] is not None else 1)]
+               or c["ops"] > table + (chunk_ops * n + 1
+                                      if c["tol"] is not None else 1)]
     else:
         bad = [c for c, n in zip(calls, chunks) if c["cluster"]
-               or c["ops"] > 2 * c["iters"] + 4 * n + 1]
+               or c["ops"] > 2 * c["iters"] + chunk_ops * n + 1]
     require(calls and not bad, f"{label}: {kernel} kernel calls off the "
             f"{'cluster' if cluster else 'two-launch'} form's count: "
             f"{bad or 'no call'}")
@@ -1779,6 +1804,40 @@ def phase_vtv_f64(torch, device):
     require(max(errs) <= TOL_F64_REL, f"float64 VTV rel err {errs}")
 
 
+def phase_vtv_large(f, timed):
+    """The VTV kernel at 1 × 3 × 256² (the first color image tiled 2 × 2),
+    1000 iterations: its bands do not fit in shared memory
+    (``vtv_plan``), so the two-launch form runs; against its plain
+    version, timed, with its bound (f in; u and y out)."""
+    from bpldenoising_tpu_torch.solvers import vtv_cuda
+    from bpldenoising_tpu_torch.solvers.cluster_plan import vtv_plan
+
+    img = f[:1].repeat(1, 1, 2, 2).contiguous()
+    kw = dict(maxiter=1000, tol=None, check_every=100)
+    launches0 = vtv_cuda.launches
+    vtv_cuda.vtv_denoise_pdps_cuda(img, (0.165,), maxiter=5)
+    ops0 = vtv_cuda.device_ops
+    k, k_ms, p, p_ms = vtv_solve_pair(img, 0.165, None, timed, **kw)
+    ops = vtv_cuda.device_ops - ops0
+    launches = vtv_cuda.launches - launches0
+    errs = (max_abs(k[0], p[0]), max_abs(k[1], p[1]))
+    plan = vtv_plan(*img.shape[-2:], img.shape[-3], img.element_size())
+    say(f"  VTV 1x3x256x256, 1000 it: max|du| {errs[0]:.2e}, max|dy| "
+        f"{errs[1]:.2e}; kernel {k_ms:.2f} ms, plain {p_ms:.2f} ms; plan: "
+        f"cluster {plan.cluster}, {plan.rows} rows a CTA, resident "
+        f"{plan.resident} (the two-launch form when not); {ops} device "
+        f"operations")
+    require(errs[0] <= TOL_VTV_U_F32 and errs[1] <= TOL_VTV_Y_F32,
+            f"VTV 256^2 kernel disagrees with plain: {errs}")
+    require(launches > 0 and not plan.resident,
+            f"VTV 256^2: {launches} launches, plan {plan}")
+    bound, by = bound_ms(4 * img.numel() * img.element_size(),
+                         VTV_OPS_PER_PLANE_PIXEL_ITER * img.numel() * 1000)
+    return dict(ms=k_ms, plain_ms=p_ms, max_abs_err=max(errs),
+                bound_ms=bound, bound_by=by, launches=launches,
+                device_ops=ops)
+
+
 def vtv_learn_kwargs():
     return dict(dataset_name="color_disks", num_samples=6,
                 method="tr_fused", dtype="float32", inner_maxiter=5000,
@@ -1797,8 +1856,9 @@ def phase_vtv_learn(utrue, timed):
     kw = vtv_learn_kwargs()
     scalar_bilevel_vtv_learn(device="cuda", **kw)          # warm-up
     reset_launches()
-    res, wall_ms = timed(lambda: scalar_bilevel_vtv_learn(device="cuda",
-                                                          **kw))
+    with watch_vtv() as calls:
+        res, wall_ms = timed(lambda: scalar_bilevel_vtv_learn(
+            device="cuda", **kw))
     launches = read_launches()
     alpha = float(res.x)
     rel = abs(alpha - VTV_ALPHA) / VTV_ALPHA
@@ -1814,6 +1874,7 @@ def phase_vtv_learn(utrue, timed):
         f"{res.iterations}")
     say(f"  wall {wall_ms:.1f} ms (CUDA events, after one warm-up run); "
         f"launches {launches}")
+    forms = cp_forms(calls, "VTV learn", "VTV", chunk_ops=3, table=1)
     require(launches["vtv"] > 0, f"VTV learn launched {launches}")
     require(rel <= VTV_ALPHA_GATE_REL, f"VTV alpha {alpha}")
     require(abs(cost - VTV_COST) <= VTV_COST_GATE_REL * VTV_COST,
@@ -1822,7 +1883,8 @@ def phase_vtv_learn(utrue, timed):
             f"VTV mean PSNR {mean_psnr}")
     return dict(alpha=alpha, alpha_rel_err=rel, mean_psnr_db=mean_psnr,
                 final_cost=cost, outer_iterations=res.iterations,
-                adjoint_cg_iters=cg, wall_ms=wall_ms, launches=launches)
+                adjoint_cg_iters=cg, wall_ms=wall_ms, launches=launches,
+                kernel_calls=forms)
 
 
 def phase_vtv_patch_learn(utrue, noisy, timed):
@@ -1835,8 +1897,9 @@ def phase_vtv_patch_learn(utrue, noisy, timed):
 
     kw = vtv_learn_kwargs()
     reset_launches()
-    res, wall_ms = timed(lambda: patch_bilevel_vtv_learn(device="cuda",
-                                                         **kw))
+    with watch_vtv() as calls:
+        res, wall_ms = timed(lambda: patch_bilevel_vtv_learn(device="cuda",
+                                                             **kw))
     launches = read_launches()
     mean_psnr = float(torch.mean(psnr(utrue, on_device(res, utrue))))
     cost = float(res.cost)
@@ -1849,16 +1912,20 @@ def phase_vtv_patch_learn(utrue, noisy, timed):
     say(f"  PSNR {mean_psnr:.6f} dB; cost {cost:.6f}; {res.iterations} "
         f"outer its; adjoint CG {cg} its (reference {VTV_PATCH_CG_ITERS}); "
         f"wall {wall_ms:.1f} ms; launches {launches}")
+    forms = cp_forms(calls, "patch VTV learn", "VTV", chunk_ops=3, table=1)
 
     VTVDenoise(noisy, VTV_DENOISE_ALPHA, maxiter=5, device="cuda")
     reset_launches()
-    u, denoise_ms = timed(lambda: VTVDenoise(noisy, VTV_DENOISE_ALPHA,
-                                             device="cuda"))
+    with watch_vtv() as calls:
+        u, denoise_ms = timed(lambda: VTVDenoise(noisy, VTV_DENOISE_ALPHA,
+                                                 device="cuda"))
     denoise_launches = read_launches()
     denoise_psnr = float(torch.mean(psnr(utrue, u)))
     say(f"  VTVDenoise(alpha {VTV_DENOISE_ALPHA}, 10000 it): PSNR "
         f"{denoise_psnr:.6f} dB (reference {VTV_DENOISE_PSNR}); "
         f"{denoise_ms:.1f} ms; launches {denoise_launches}")
+    denoise_forms = cp_forms(calls, "VTVDenoise", "VTV", chunk_ops=3,
+                             table=1)
     require(launches["vtv"] > 0, f"patch VTV learn launched {launches}")
     require(abs(cost - VTV_PATCH_COST)
             <= VTV_PATCH_COST_GATE_REL * VTV_PATCH_COST,
@@ -1874,9 +1941,10 @@ def phase_vtv_patch_learn(utrue, noisy, timed):
     return dict(alpha=res.x.tolist(), alpha_max_rel_err=grid_rel,
                 mean_psnr_db=mean_psnr, final_cost=cost,
                 outer_iterations=res.iterations, adjoint_cg_iters=cg,
-                wall_ms=wall_ms, launches=launches, denoise=dict(
-                    alpha=VTV_DENOISE_ALPHA, psnr_db=denoise_psnr,
-                    ms=denoise_ms, launches=denoise_launches))
+                wall_ms=wall_ms, launches=launches, kernel_calls=forms,
+                denoise=dict(alpha=VTV_DENOISE_ALPHA, psnr_db=denoise_psnr,
+                             ms=denoise_ms, launches=denoise_launches,
+                             kernel_calls=denoise_forms))
 
 
 def sl_setup(model, x0, like, **extra):
@@ -3157,7 +3225,7 @@ def main():
                            ("single_loop_vtv.cu", "slv_init"),
                            ("single_loop_vtv.cu", "slv_apply"),
                            ("tgv.cu", "tgv_cp"), ("tgv.cu", "tgv_primal"),
-                           ("tgv.cu", "tgv_dual")):
+                           ("tgv.cu", "tgv_dual"), ("vtv.cu", "vtv_cp")):
         for line in ptxas_report(info.path.with_suffix(".log"), source,
                                  needle):
             say(f"  {line}")
@@ -3254,9 +3322,16 @@ def main():
     vt_utrue = torch.as_tensor(vt_true, dtype=torch.float32).to(dev)
     vt_f = torch.as_tensor(vt_noisy, dtype=torch.float32).to(dev)
     say("phase 13 VTV kernel vs plain, color_disks 6x3x128x128 float32")
-    vtv_stats = phase_vtv(vt_f, timed)
+    with watch_vtv() as calls:
+        vtv_stats = phase_vtv(vt_f, timed)
+    with watch_vtv() as big_calls:
+        large["vtv_256"] = phase_vtv_large(vt_f, timed)
+    large["vtv_256"]["kernel_calls"] = cp_forms(
+        big_calls, "phase 13, 256^2", "VTV", cluster=False, chunk_ops=3)
     say("phase 14 VTV kernel vs plain, float64")
-    phase_vtv_f64(torch, dev)
+    with watch_vtv() as f64_calls:
+        phase_vtv_f64(torch, dev)
+    cp_forms(calls + f64_calls, "phases 13-14", "VTV", chunk_ops=3, table=1)
 
     say("phase 15 VTV learn scalar_bilevel_vtv_learn(method='tr_fused')")
     vtv_learn = phase_vtv_learn(vt_utrue, timed)
@@ -3399,7 +3474,18 @@ def main():
              launches=vtv_learn["launches"]["vtv"],
              max_abs_err=vtv_stats["max_abs_err"], ms=vtv_stats["ms"],
              plain_ms=vtv_stats["plain_ms"], bound_ms=v_bound, bound_by=v_by,
-             library_ms=None),
+             library_ms=None, form="cluster",
+             device_ops=vtv_learn["kernel_calls"]["device_ops"]),
+        dict(name="vtv_cp_256", route="cuda",
+             source="bpldenoising_tpu_torch/csrc/vtv.cu",
+             replaces="bpldenoising_tpu/solvers/vtv_pallas.py:70",
+             launches=large["vtv_256"]["launches"],
+             max_abs_err=large["vtv_256"]["max_abs_err"],
+             ms=large["vtv_256"]["ms"],
+             plain_ms=large["vtv_256"]["plain_ms"],
+             bound_ms=large["vtv_256"]["bound_ms"],
+             bound_by=large["vtv_256"]["bound_by"], library_ms=None,
+             form="two-launch", device_ops=large["vtv_256"]["device_ops"]),
         dict(name="single_loop", route="cuda",
              source="bpldenoising_tpu_torch/csrc/single_loop.cu",
              replaces="bpldenoising_tpu/bilevel/first_order_pallas.py:185",

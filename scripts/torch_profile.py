@@ -23,8 +23,8 @@ parameters.  For each:
    PyTorch adjoint CG for the others) and the rest (trust-region host
    code, cost, the one read per evaluation), each call timed on the host
    between synchronisations, with the inner and CG iteration counts (for
-   TV-L1 and TGV² also the CP kernel's device operations and its calls in
-   the cluster form, where the tree's wrapper counts them; for the TV
+   TV-L1, TGV² and VTV also the CP kernel's device operations and its
+   calls in the cluster form, where the tree's wrapper counts them; for the TV
    family kernel A's device operations: launches and copies;
    kernel B's kernel launches and device→host reads, its time per CG
    iteration (the adjoint's time over all CG iterations of its calls)
@@ -281,7 +281,8 @@ def main():
     import chip_smoke
     from bpldenoising_tpu_torch import _build
     from bpldenoising_tpu_torch.solvers import (hypergrad_cuda, pdps_cuda,
-                                                tgv_cuda, tvl1_cuda)
+                                                tgv_cuda, tvl1_cuda,
+                                                vtv_cuda)
 
     mod_name, solve_names, adjoint_names, prof_its = FAMILIES[args.family]
     module = importlib.import_module(
@@ -338,6 +339,8 @@ def main():
         l_ops0, l_cl0 = tvl1_cuda.device_ops, tvl1_cuda.cluster_calls
         t_ops0 = getattr(tgv_cuda, "device_ops", 0)
         t_cl0 = getattr(tgv_cuda, "cluster_calls", 0)
+        v_ops0 = getattr(vtv_cuda, "device_ops", 0)
+        v_cl0 = getattr(vtv_cuda, "cluster_calls", 0)
         b_ops0, b_reads0 = hypergrad_cuda.device_ops, hypergrad_cuda.host_reads
         try:
             torch.cuda.synchronize()
@@ -357,6 +360,9 @@ def main():
         # the TGV² kernel's, where its wrapper counts them
         t_ops = getattr(tgv_cuda, "device_ops", 0) - t_ops0
         t_cl = getattr(tgv_cuda, "cluster_calls", 0) - t_cl0
+        # the VTV kernel's, where its wrapper counts them
+        v_ops = getattr(vtv_cuda, "device_ops", 0) - v_ops0
+        v_cl = getattr(vtv_cuda, "cluster_calls", 0) - v_cl0
         # kernel B's launches and device→host reads in this run
         b_reads = hypergrad_cuda.host_reads - b_reads0
         b_launches = hypergrad_cuda.device_ops - b_ops0 - b_reads
@@ -378,6 +384,8 @@ def main():
                  "in the cluster form" if l_ops else "")
               + (f"; TGV² kernel device operations {t_ops}, {t_cl} calls "
                  "in the cluster form" if t_ops else "")
+              + (f"; VTV kernel device operations {v_ops}, {v_cl} calls "
+                 "in the cluster form" if v_ops else "")
               + (f"; kernel B {b_launches} launches, {b_reads} host reads, "
                  f"{b_us:.2f} us a CG iteration, bound {b_bound:.3f} ms "
                  "(operations)" if b_us else ""),
@@ -388,6 +396,7 @@ def main():
             kernel_a_device_ops=a_ops,
             tvl1_kernel=dict(device_ops=l_ops, cluster_calls=l_cl),
             tgv_kernel=dict(device_ops=t_ops, cluster_calls=t_cl),
+            vtv_kernel=dict(device_ops=v_ops, cluster_calls=v_cl),
             kernel_b=dict(launches=b_launches, host_reads=b_reads,
                           us_per_cg_iter=b_us, bound_ms=b_bound))
 

@@ -15,15 +15,10 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "bpldenoising_tpu_torch"
 SOURCES = (sorted(PORT.rglob("*.py"))
            + [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_profile.py",
-              ROOT / "scripts" / "kernel_a_cluster_sizes.py",
+              ROOT / "scripts" / "cluster_sizes.py",
               ROOT / "scripts" / "kernel_b_digits.py",
               ROOT / "scripts" / "kernel_b_iteration_cost.py",
-              ROOT / "scripts" / "tvl1_cluster_sizes.py",
-              ROOT / "scripts" / "tgv_cluster_sizes.py",
               ROOT / "scripts" / "call_times.py",
-              ROOT / "scripts" / "tgv_sl_cluster_sizes.py",
-              ROOT / "scripts" / "vtv_sl_cluster_sizes.py",
-              ROOT / "scripts" / "tvl1_sl_cluster_sizes.py",
               ROOT / "scripts" / "learn_walls.py"])
 FORBIDDEN = ("jax", "jaxlib", "bpldenoising_tpu")
 

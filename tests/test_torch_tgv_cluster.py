@@ -274,7 +274,7 @@ def test_cluster_form_matches_two_launch_form_and_plain(
         assert (g[2], g[3]) == (want, 0), (name, g[2], want)
 
 
-# (shape, dtype, CTAs an image): the sizes scripts/tgv_cluster_sizes.py
+# (shape, dtype, CTAs an image): the sizes scripts/cluster_sizes.py tgv
 # times, where their bands fit in shared memory (at 128² float64 8 CTAs
 # need 260 KB a band)
 SIZES = [((10, 128, 128), torch.float32, 8),
@@ -292,7 +292,7 @@ SIZES = [((10, 128, 128), torch.float32, 8),
 def test_cluster_sizes_give_the_same_bits(cuda_device, monkeypatch, weight,
                                           shape, dtype, cluster):
     """The plan's split of 16 CTAs an image gives the bits and iteration
-    counts of 8 and of 12 CTAs (the sizes scripts/tgv_cluster_sizes.py
+    counts of 8 and of 12 CTAs (the sizes scripts/cluster_sizes.py tgv
     times)."""
     f, a1map, a0map = _case(shape, dtype, seed=1)
     assert cluster_plan.tgv_plan(*shape[1:], f.element_size()).cluster == 16
