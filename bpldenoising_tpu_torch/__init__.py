@@ -9,8 +9,13 @@ bound with ``ctypes``, see :mod:`._build`).
 Entry points take ``device=`` and default to ``"cuda"``; pass
 ``device="cpu"`` to run the plain PyTorch versions of the kernels.
 
-Ported so far: the TV-family trust-region learns with
-``method="tr_fused"``: the scalar-TV flagship
+Ported so far: the host-driven trust region, ``method="tr"`` (the
+default), in every learn below, with :func:`bilevel.trust_region.
+bilevel_learn` over the learning functions of :mod:`.learning`
+(``make_tv_learning_function`` and its TGV², TV-L1, VTV and
+sum-of-regularizers counterparts) and the ``image_pair=`` form of
+:func:`experiments.api.patch_bilevel_sumregs_learn`; the TV-family
+trust-region learns with ``method="tr_fused"``: the scalar-TV flagship
 :func:`experiments.api.scalar_bilevel_tv_learn`, the patch TV
 :func:`experiments.api.patch_bilevel_tv_learn` and the sum of regularizers
 :func:`experiments.api.scalar_bilevel_sumregs_learn` and
@@ -48,6 +53,7 @@ from .bilevel.first_order import (single_loop_learn,
 from .bilevel.first_order_tgv import single_loop_tgv_learn
 from .bilevel.first_order_tvl1 import single_loop_tvl1_learn
 from .bilevel.first_order_vtv import single_loop_vtv_learn
+from .bilevel.trust_region import TRModel, bilevel_learn, dogleg_box
 from .experiments.api import (patch_bilevel_sumregs_learn,
                               patch_bilevel_tv_learn,
                               scalar_bilevel_sumregs_learn,
@@ -58,10 +64,15 @@ from .experiments.tvl1 import (TVL1Denoise, patch_bilevel_tvl1_learn,
                                scalar_bilevel_tvl1_learn)
 from .experiments.vtv import (VTVDenoise, patch_bilevel_vtv_learn,
                               scalar_bilevel_vtv_learn)
+from .learning import (make_sumregs_learning_function,
+                       make_tgv_learning_function, make_tv_learning_function,
+                       make_tvl1_learning_function,
+                       make_vtv_learning_function)
 from .models import sumregs_model, tv_model, vtv_model
 from .solvers import (denoise_pdps, sumregs_denoise, tv_denoise,
                       tvl1_denoise, tvl1_energy, tvl1_huber_denoise,
                       vtv_denoise)
+from .solvers.lbfgs import LBFGSModel
 
 __all__ = ["scalar_bilevel_tv_learn", "patch_bilevel_tv_learn",
            "scalar_bilevel_sumregs_learn", "patch_bilevel_sumregs_learn",
@@ -74,5 +85,7 @@ __all__ = ["scalar_bilevel_tv_learn", "patch_bilevel_tv_learn",
            "tvl1_energy", "tvl1_huber_denoise", "scalar_bilevel_vtv_learn",
            "patch_bilevel_vtv_learn", "VTVDenoise", "vtv_denoise",
            "tv_denoise", "sumregs_denoise", "denoise_pdps", "tv_model",
-           "sumregs_model",
-           "vtv_model"]
+           "sumregs_model", "vtv_model", "bilevel_learn", "TRModel",
+           "dogleg_box", "LBFGSModel", "make_tv_learning_function",
+           "make_sumregs_learning_function", "make_tgv_learning_function",
+           "make_tvl1_learning_function", "make_vtv_learning_function"]

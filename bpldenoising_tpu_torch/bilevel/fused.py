@@ -4,10 +4,11 @@
 Each evaluation runs the PDPS inner solve (warm-started from the previous
 evaluation's ``(u, ys)`` and early-stopped when ``inner_tol`` is set) and
 the augmented-Lagrangian hypergradient, one joint system over the image
-batch.  Below the switch radius Δ ≤ Δt the γ-regularized gradient branch
-replaces the exact one; each branch warm-starts from ITS OWN previous
-adjoint, ``(p_exact, p_reg)``, because the two systems have right-hand
-sides of opposite sign.
+batch: the step of the host trust region's learning function
+(:func:`..learning.tv.tv_step`).  Below the switch radius Δ ≤ Δt the
+γ-regularized gradient branch replaces the exact one; each branch
+warm-starts from ITS OWN previous adjoint, ``(p_exact, p_reg)``, because
+the two systems have right-hand sides of opposite sign.
 
 The parameter is a scalar α (TV), a (K,) vector (the sum of regularizers)
 or a patch grid, (m, n) or (m, n, K), which a :class:`..ops.PatchOp`
@@ -27,16 +28,29 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..learning.tv import tv_step
 from ..models import DenoiseModel, tv_model
 from ..ops import PatchOp
 from ..solvers.hypergrad import HypergradConfig
-from ..solvers.hypergrad_cuda import (exact_hypergrad_cuda,
-                                      reg_hypergrad_cuda)
-from ..solvers.pdps_cuda import denoise_pdps_cuda
 from .first_order import _check_positive_x0, _param_layout
 from .tr_core import make_tr_machinery
 
 __all__ = ["bilevel_learn_fused", "FusedResult"]
+
+#: the ROADMAP.md §1 item of each keyword of the fused learners that is not
+#: ported yet
+UNPORTED_KEYWORDS = {"mesh": 10, "log_every": 7, "segment_callback": 7,
+                     "init_B": 7}
+
+
+def refuse_unported(**knobs) -> None:
+    """Raise ``NotImplementedError`` for each knob that is not None, naming
+    its ROADMAP.md item."""
+    for name, value in knobs.items():
+        if value is not None:
+            raise NotImplementedError(
+                f"{name} is not ported yet (ROADMAP.md §1 item "
+                f"{UNPORTED_KEYWORDS[name]})")
 
 
 class FusedResult(NamedTuple):
@@ -57,38 +71,8 @@ def _machinery(utrue, f, *, model: DenoiseModel, pop: Optional[PatchOp],
                lbfgs_memory: int):
     """The trust-region loop pieces ``(init_carry, cond, body)``."""
     dtype = f.dtype
-    K = model.K
     n = int(np.prod(param_shape, dtype=int)) if param_shape else 1
-
-    def alphas_of(xflat):
-        x = xflat.reshape(param_shape)
-        if pop is None:
-            return (x,) if K == 1 else tuple(x[k] for k in range(K))
-        x = x.to(f.device)
-        if K == 1:
-            return (pop.apply(x),)
-        return tuple(pop.apply(x[..., k]) for k in range(K))
-
-    def pullback(grads):
-        """K gradients (scalars, or per-image maps) → the flat parameter
-        gradient: maps are summed over the batch, then pulled back through
-        the patch operator, as in the JAX package."""
-        if pop is None:
-            return torch.stack([torch.as_tensor(gk, dtype=dtype,
-                                                device=f.device).reshape(())
-                                for gk in grads])
-        maps = [pop.apply_adjoint(torch.sum(gk, dim=0)) for gk in grads]
-        g = maps[0] if K == 1 else torch.stack(maps, dim=-1)
-        return g.reshape(-1)
-
-    want_maps = pop is not None
-
-    def solve(alphas, state0):
-        u, ys, _ = denoise_pdps_cuda(
-            f, alphas, state0, model=model, tau0=5.0, sigma0=0.99 / 5.0,
-            gamma=1.0, maxiter=inner_maxiter, accel=True, tol=inner_tol,
-            check_every=check_every, return_dual=True)
-        return u, (u, ys)
+    solver_kwargs = dict(tol=inner_tol, check_every=check_every)
 
     def eval_lf(xflat, delta, st):
         if st is None:
@@ -96,26 +80,21 @@ def _machinery(utrue, f, *, model: DenoiseModel, pop: Optional[PatchOp],
             padjs = (torch.zeros_like(f), torch.zeros_like(f))
         else:
             state0, padjs = st
-        alphas = alphas_of(xflat)
-        # parity mode (inner_tol None: a fixed budget) cold-starts every solve
-        u, state = solve(alphas, state0 if inner_tol is not None else None)
-        cost = 0.5 * torch.sum((u - utrue) ** 2)
         is_exact = bool(delta > delta_t)
         p_exact, p_reg = padjs
-        if is_exact:
-            grads, p, info = exact_hypergrad_cuda(
-                u, utrue, alphas, model, cfg, want_maps, p0=p_exact)
-            padjs = (p, p_reg)
-        else:
-            grads, p, info = reg_hypergrad_cuda(
-                u, utrue, alphas, model, cfg, want_maps, p0=p_reg)
-            padjs = (p_exact, p)
-        g = pullback(grads)
+        # parity mode (inner_tol None: a fixed budget) cold-starts every solve
+        u, cost, g, p, state, info = tv_step(
+            xflat.reshape(param_shape), utrue, f,
+            p_exact if is_exact else p_reg,
+            state0 if inner_tol is not None else None, model=model,
+            method="exact" if is_exact else "reg", maxiter=inner_maxiter,
+            cfg=cfg, pop=pop, solver_kwargs=solver_kwargs)
+        padjs = (p, p_reg) if is_exact else (p_exact, p)
         cg_ok = torch.all(torch.as_tensor(info.converged, device=f.device))
         # one device → host read per evaluation: cost, the n-vector
         # gradient, CG flag
-        host = torch.cat([cost.reshape(1), g, cg_ok.to(dtype).reshape(1)]
-                         ).cpu()
+        host = torch.cat([cost.reshape(1), g.reshape(-1),
+                          cg_ok.to(dtype).reshape(1)]).cpu()
         cg_it = torch.tensor(float(np.max(info.iters)), dtype=dtype)
         return u, host[0], host[1:1 + n], (state, padjs), (cg_it, host[-1])
 
@@ -154,11 +133,8 @@ def bilevel_learn_fused(ds, *, xinit, params, model: DenoiseModel = None,
       device: where the images and solver state live; ``"cuda"`` launches
         the CUDA kernels, ``"cpu"`` runs their plain versions.
     """
-    for name, value in (("mesh", mesh), ("log_every", log_every),
-                        ("segment_callback", segment_callback),
-                        ("init_B", init_B)):
-        if value is not None:
-            raise NotImplementedError(f"{name} is not ported yet")
+    refuse_unported(mesh=mesh, log_every=log_every,
+                    segment_callback=segment_callback, init_B=init_B)
     utrue = torch.as_tensor(ds[0]).to(device)
     f = torch.as_tensor(ds[1]).to(device=device, dtype=utrue.dtype)
     if f.ndim == 2:

@@ -23,29 +23,14 @@ ported yet.
 
 from __future__ import annotations
 
-from typing import Optional
-
 import numpy as np
 import torch
 
-from ..ops import PatchOp
-from ..solvers.tgv import tgv_implicit_cotangents
-from ..solvers.tgv_cuda import tgv_denoise_pdps_cuda
-from .fused import FusedResult, _check_positive_x0
+from ..learning.tgv import tgv_param_layout, tgv_step
+from .fused import FusedResult, _check_positive_x0, refuse_unported
 from .tr_core import make_tr_machinery
 
 __all__ = ["bilevel_learn_tgv_fused", "tgv_param_layout"]
-
-
-def tgv_param_layout(x0, image_shape) -> Optional[PatchOp]:
-    """(2,) weight vector → None; (m, n, 2) patch stack → its PatchOp."""
-    if tuple(x0.shape) == (2,):
-        return None
-    if x0.ndim == 3 and x0.shape[-1] == 2:
-        return PatchOp(tuple(x0.shape[:2]), tuple(image_shape))
-    raise ValueError(f"TGV parameter must be a length-2 vector "
-                     f"[alpha1, alpha0] or an (m, n, 2) patch stack, "
-                     f"got shape {tuple(x0.shape)}")
 
 
 def _machinery(utrue, f, *, pop, param_shape: tuple, maxiter: int, tol,
@@ -56,39 +41,20 @@ def _machinery(utrue, f, *, pop, param_shape: tuple, maxiter: int, tol,
     dtype = f.dtype
     n = int(np.prod(param_shape, dtype=int))
 
-    def alphas_of(xflat):
-        x = xflat.reshape(param_shape)
-        if pop is None:
-            return x[0], x[1]
-        return pop.apply(x[..., 0]), pop.apply(x[..., 1])
-
-    def pullback(g1, g0):
-        """Per-weight cotangents (scalars, or batch-summed (M, N) maps) →
-        flat parameter gradient."""
-        if pop is None:
-            return torch.stack([g1, g0]).reshape(-1)
-        return torch.stack([pop.apply_adjoint(g1), pop.apply_adjoint(g0)],
-                           dim=-1).reshape(-1)
-
     def eval_lf(xflat, delta, st):
         del delta   # smoothed implicit gradient: no exact/reg switch
         s0, lam0 = (None, None) if st is None else st
-        a1, a0 = alphas_of(xflat)
         # parity mode (inner_tol None: a fixed budget) cold-starts every
         # solve and every adjoint CG
         warm = inner_tol is not None
-        u, w, state, _ = tgv_denoise_pdps_cuda(
-            f, a1, a0, tau0=tau0, sigma0=sigma0, maxiter=inner_maxiter,
-            tol=inner_tol, check_every=check_every,
-            state0=s0 if warm else None, return_state=True)
-        cost = 0.5 * torch.sum((u - utrue) ** 2)
-        _, (g1, g0), lam, info = tgv_implicit_cotangents(
-            u, w, (a1, a0), u - utrue, gamma=gamma, cg_tol=cg_tol,
-            cg_maxiter=cg_maxiter, lam0=lam0 if warm else None,
-            return_lam=True, return_info=True)
+        u, cost, grad, state, lam, info = tgv_step(
+            xflat.reshape(param_shape), utrue, f, s0 if warm else None,
+            lam0 if warm else None, pop=pop, maxiter=inner_maxiter,
+            gamma=gamma, cg_tol=cg_tol, cg_maxiter=cg_maxiter, tau0=tau0,
+            sigma0=sigma0, tol=inner_tol, check_every=check_every)
         cg_ok = torch.all(info.converged)
         # one device → host read per evaluation: cost, gradient, CG flag
-        host = torch.cat([cost.reshape(1), pullback(g1, g0),
+        host = torch.cat([cost.reshape(1), grad.reshape(-1),
                           cg_ok.to(dtype).reshape(1)]).cpu()
         cg_it = torch.tensor(float(info.iters), dtype=dtype)
         return u, host[0], host[1:1 + n], (state, lam), (cg_it, host[-1])
@@ -126,11 +92,8 @@ def bilevel_learn_tgv_fused(ds, *, xinit, params,
 
     Returns a :class:`.fused.FusedResult`.
     """
-    for name, value in (("mesh", mesh), ("log_every", log_every),
-                        ("segment_callback", segment_callback),
-                        ("init_B", init_B)):
-        if value is not None:
-            raise NotImplementedError(f"{name} is not ported yet")
+    refuse_unported(mesh=mesh, log_every=log_every,
+                    segment_callback=segment_callback, init_B=init_B)
     utrue = torch.as_tensor(ds[0]).to(device)
     f = torch.as_tensor(ds[1]).to(device=device, dtype=utrue.dtype)
     if f.ndim == 2:

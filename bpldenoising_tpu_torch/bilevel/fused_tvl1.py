@@ -25,33 +25,15 @@ in jnp.  Data parallelism (``mesh=``) and segmented dispatch
 
 from __future__ import annotations
 
-from typing import Optional
-
 import numpy as np
 import torch
 
-from ..models import tv_model
-from ..ops import PatchOp
+from ..learning.tvl1 import tvl1_param_layout, tvl1_step
 from ..solvers.hypergrad import HypergradConfig
-from ..solvers.tvl1_cuda import tvl1_huber_denoise_cuda
-from ..solvers.tvl1_huber import tvl1_huber_hypergrad
-from .fused import FusedResult, _check_positive_x0
+from .fused import FusedResult, _check_positive_x0, refuse_unported
 from .tr_core import make_tr_machinery
 
 __all__ = ["bilevel_learn_tvl1_fused", "tvl1_param_layout"]
-
-_TV = tv_model()
-
-
-def tvl1_param_layout(x0, image_shape) -> Optional[PatchOp]:
-    """Scalar weight → None; any (m, n) grid → its PatchOp (a full-
-    resolution map gets one too, as in the JAX package)."""
-    if x0.ndim == 0:
-        return None
-    if x0.ndim == 2:
-        return PatchOp(tuple(x0.shape), tuple(image_shape))
-    raise ValueError(f"TV-L1 parameter must be a scalar or an (m, n) patch "
-                     f"grid, got shape {tuple(x0.shape)}")
 
 
 def _machinery(utrue, f, *, pop, param_shape: tuple, maxiter: int, tol,
@@ -61,35 +43,19 @@ def _machinery(utrue, f, *, pop, param_shape: tuple, maxiter: int, tol,
                lbfgs_memory: int):
     dtype = f.dtype
     n = int(np.prod(param_shape, dtype=int))
-    want_maps = pop is not None
-
-    def alpha_of(xflat):
-        x = xflat.reshape(param_shape)
-        return x if pop is None else pop.apply(x).to(f.device)
-
-    def pullback(g):
-        """Hypergradient (scalar, or per-image (O, M, N) maps) → flat
-        parameter gradient."""
-        if want_maps:
-            g = pop.apply_adjoint(torch.sum(g, dim=0))
-        return g.reshape(-1)
 
     def eval_lf(xflat, delta, st):
         del delta   # smoothed implicit gradient: no exact/reg switch
         s0, p0 = (None, torch.zeros_like(f)) if st is None else st
-        a = alpha_of(xflat)
         # inner state warm only with early stop; adjoint p chained always
         warm = inner_tol is not None
-        u, state = tvl1_huber_denoise_cuda(
-            f, a, gamma_d=gamma_d, gamma_r=cfg.gamma, tau0=tau0,
-            sigma0=sigma0, maxiter=inner_maxiter, tol=inner_tol,
-            check_every=check_every, state0=s0 if warm else None,
-            return_dual=True)
-        cost = 0.5 * torch.sum((u - utrue) ** 2)
-        grads, p, info = tvl1_huber_hypergrad(
-            u, f, utrue, (a,), _TV, cfg, want_maps, p0=p0, gamma_d=gamma_d)
+        u, cost, g, p, state, info = tvl1_step(
+            xflat.reshape(param_shape), utrue, f, p0, s0 if warm else None,
+            pop=pop, gamma_d=gamma_d, cfg=cfg, maxiter=inner_maxiter,
+            tau0=tau0, sigma0=sigma0, tol=inner_tol,
+            check_every=check_every)
         # one device → host read per evaluation: cost, gradient, CG flag
-        host = torch.cat([cost.reshape(1), pullback(grads[0]),
+        host = torch.cat([cost.reshape(1), g.reshape(-1),
                           info.converged.to(dtype).reshape(1)]).cpu()
         cg_it = torch.tensor(float(info.iters), dtype=dtype)
         return u, host[0], host[1:1 + n], (state, p), (cg_it, host[-1])
@@ -130,11 +96,8 @@ def bilevel_learn_tvl1_fused(ds, *, xinit, params,
 
     Returns a :class:`.fused.FusedResult`.
     """
-    for name, value in (("mesh", mesh), ("log_every", log_every),
-                        ("segment_callback", segment_callback),
-                        ("init_B", init_B)):
-        if value is not None:
-            raise NotImplementedError(f"{name} is not ported yet")
+    refuse_unported(mesh=mesh, log_every=log_every,
+                    segment_callback=segment_callback, init_B=init_B)
     utrue = torch.as_tensor(ds[0]).to(device)
     f = torch.as_tensor(ds[1]).to(device=device, dtype=utrue.dtype)
     if f.ndim == 2:

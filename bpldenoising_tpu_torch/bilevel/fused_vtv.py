@@ -26,31 +26,14 @@ checkpoints) are not ported yet.
 
 from __future__ import annotations
 
-from typing import Optional
-
 import numpy as np
 import torch
 
-from ..ops import PatchOp
-from ..solvers.vtv import vtv_implicit_cotangents
-from ..solvers.vtv_cuda import vtv_denoise_pdps_cuda
-from .fused import FusedResult, _check_positive_x0
+from ..learning.vtv import vtv_param_layout, vtv_step
+from .fused import FusedResult, _check_positive_x0, refuse_unported
 from .tr_core import make_tr_machinery
 
 __all__ = ["bilevel_learn_vtv_fused", "vtv_param_layout"]
-
-
-def vtv_param_layout(x0, image_shape) -> Optional[PatchOp]:
-    """Scalar weight → None; full-resolution (M, N) map → None; any other
-    (m, n) patch grid → its PatchOp."""
-    if x0.ndim == 0:
-        return None
-    if x0.ndim == 2 and tuple(x0.shape) == tuple(image_shape):
-        return None
-    if x0.ndim == 2:
-        return PatchOp(tuple(x0.shape), tuple(image_shape))
-    raise ValueError(f"VTV parameter must be a scalar, an (M, N) map or an "
-                     f"(m, n) patch grid, got shape {tuple(x0.shape)}")
 
 
 def _machinery(utrue, f, *, pop, param_shape: tuple, maxiter: int, tol,
@@ -61,38 +44,22 @@ def _machinery(utrue, f, *, pop, param_shape: tuple, maxiter: int, tol,
     dtype = f.dtype
     n = int(np.prod(param_shape, dtype=int))
 
-    def alpha_of(xflat):
-        x = xflat.reshape(param_shape)
-        return (x if pop is None else pop.apply(x)).to(f.device)
-
-    def pullback(da):
-        """Weight cotangent (scalar, or batch-summed (M, N) map) → flat
-        parameter gradient."""
-        if pop is not None:
-            da = pop.apply_adjoint(da)
-        return da.reshape(-1)
-
     def eval_lf(xflat, delta, st):
         del delta   # smoothed implicit gradient: no exact/reg switch
         s0, lam0 = (None, None) if st is None else st
-        a = alpha_of(xflat)
         # parity discipline: inner_tol None = fixed budget, cold starts
         warm = inner_tol is not None
-        u, ys, _ = vtv_denoise_pdps_cuda(
-            f, (a,), s0 if warm else None, tau0=tau0, sigma0=sigma0,
-            maxiter=inner_maxiter, tol=inner_tol, check_every=check_every,
-            return_dual=True)
-        cost = 0.5 * torch.sum((u - utrue) ** 2)
-        _, da, lam, info = vtv_implicit_cotangents(
-            u, a, u - utrue, gamma=gamma, cg_tol=cg_tol,
-            cg_maxiter=cg_maxiter, lam0=lam0 if warm else None,
-            return_lam=True, return_info=True)
+        u, cost, grad, state, lam, info = vtv_step(
+            xflat.reshape(param_shape), utrue, f, s0 if warm else None,
+            lam0 if warm else None, pop=pop, maxiter=inner_maxiter,
+            gamma=gamma, cg_tol=cg_tol, cg_maxiter=cg_maxiter, tau0=tau0,
+            sigma0=sigma0, tol=inner_tol, check_every=check_every)
         # one device → host read per evaluation: cost, gradient, CG flag
-        host = torch.cat([cost.reshape(1), pullback(da),
+        host = torch.cat([cost.reshape(1), grad.reshape(-1),
                           torch.all(info.converged).to(dtype).reshape(1)]
                          ).cpu()
         cg_it = torch.tensor(float(info.iters), dtype=dtype)
-        return u, host[0], host[1:1 + n], ((u, ys), lam), (cg_it, host[-1])
+        return u, host[0], host[1:1 + n], (state, lam), (cg_it, host[-1])
 
     return make_tr_machinery(
         eval_lf, n=n, dtype=dtype, maxiter=maxiter, tol=tol, eta1=eta1,
@@ -128,11 +95,8 @@ def bilevel_learn_vtv_fused(ds, *, xinit, params,
 
     Returns a :class:`.fused.FusedResult`.
     """
-    for name, value in (("mesh", mesh), ("log_every", log_every),
-                        ("segment_callback", segment_callback),
-                        ("init_B", init_B)):
-        if value is not None:
-            raise NotImplementedError(f"{name} is not ported yet")
+    refuse_unported(mesh=mesh, log_every=log_every,
+                    segment_callback=segment_callback, init_B=init_B)
     utrue = torch.as_tensor(ds[0]).to(device)
     f = torch.as_tensor(ds[1]).to(device=device, dtype=utrue.dtype)
     if f.ndim == 3:

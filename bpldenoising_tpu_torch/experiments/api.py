@@ -3,16 +3,18 @@
 
 Ported so far: :func:`scalar_bilevel_tv_learn`,
 :func:`patch_bilevel_tv_learn`, :func:`scalar_bilevel_sumregs_learn` and
-:func:`patch_bilevel_sumregs_learn` (its dataset form) with
-``method="tr_fused"`` (the shape of the JAX package's ``_run_fused``) and
+:func:`patch_bilevel_sumregs_learn` (its dataset and ``image_pair=``
+forms) with ``method="tr"`` (the default: the host-driven trust region of
+:mod:`..bilevel.trust_region` over the learning functions of
+:mod:`..learning`, the shape of the JAX package's ``_make_lf`` and
+``_run_bilevel``; the ``image_pair=`` form runs only this method, as in
+the JAX package), ``method="tr_fused"`` (the shape of ``_run_fused``) and
 ``method="single_loop"`` (the shape of ``_run_single_loop``: the
 first-order learner in ``log_every = outer // 20`` segments, whose log
-carries real segment-end times).  The host-driven ``tr`` method, the
-``image_pair=`` form of :func:`patch_bilevel_sumregs_learn` (which runs
-it), saving PNGs, quality tables and plots, checkpointing and data
-parallelism are not ported yet and raise ``NotImplementedError``, as does
-any ``backend`` but ``"auto"`` (:func:`check_backend`: ``device=`` chooses
-what runs).
+carries real segment-end times).  Saving PNGs, quality tables and plots,
+checkpointing, resuming, per-iteration images and data parallelism are not
+ported yet and raise ``NotImplementedError``, as does any ``backend`` but
+``"auto"`` (:func:`check_backend`: ``device=`` chooses what runs).
 
 Beyond the JAX surface, ``check_every`` (the inner solve's early-stop
 cadence) and ``hypergrad_cfg`` (a :class:`HypergradConfig`) are parameters,
@@ -21,16 +23,21 @@ so a caller can run the flagship's settings through this entry point.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from ..bilevel.first_order import single_loop_learn
 from ..bilevel.fused import bilevel_learn_fused
 from ..bilevel.harness import BilevelResult, BilevelState
+from ..bilevel.trust_region import bilevel_learn
 from ..data import full_datasetname, testdataset
+from ..learning import (make_sumregs_learning_function,
+                        make_tv_learning_function)
 from ..models import sumregs_model, tv_model
 from ..solvers.hypergrad import HypergradConfig
-from ..utils.config import Params, merge
+from ..utils.config import Params, check_backend, merge
 from ..viz.log import BilevelLogEntry
 
 __all__ = ["scalar_bilevel_tv_learn", "patch_bilevel_tv_learn",
@@ -38,7 +45,7 @@ __all__ = ["scalar_bilevel_tv_learn", "patch_bilevel_tv_learn",
            "default_params", "bilevel_params", "patch_bilevel_params",
            "sumregs_bilevel_params", "patch_sumregs_bilevel_params",
            "check_backend", "single_loop_log_every", "single_loop_state",
-           "run_single_loop"]
+           "run_single_loop", "run_bilevel"]
 
 default_params = Params(
     verbose_iter=1,
@@ -76,28 +83,19 @@ patch_sumregs_bilevel_params = Params(
     eta1=0.25, eta2=0.75, beta1=0.25, beta2=1.5, delta0=0.1,
     alpha0=1e-3 * np.ones((2, 2, 3)))
 
-_UNPORTED_FLAGS = ("save_results", "save_iterations", "checkpoint", "resume",
-                   "data_parallel", "log_every")
-
-
-def check_backend(backend) -> None:
-    """The port's rule for the JAX package's ``backend=`` knob, in every
-    family's entry points: ``"auto"`` (the JAX default) is accepted; any
-    other value raises, since ``device=`` chooses what runs (``"cuda"``:
-    the CUDA kernels, ``"cpu"``: their plain versions)."""
-    if backend != "auto":
-        raise NotImplementedError(
-            f"backend={backend!r} is not ported: the port has no backends; "
-            "device='cuda' runs the CUDA kernels and device='cpu' their "
-            "plain versions")
+# each knob that is not ported yet, with its ROADMAP.md §1 item
+_UNPORTED_FLAGS = {"save_results": 6, "save_iterations": 6, "checkpoint": 7,
+                   "resume": 7, "data_parallel": 10, "log_every": 7}
+VISUALISE_REFUSAL = "visualise is not ported yet (ROADMAP.md §1 item 6)"
 
 
 def reject_unported(params, allow=()) -> None:
     """Raise for every set knob the port does not implement yet (but those
     in ``allow``)."""
-    for flag in _UNPORTED_FLAGS:
+    for flag, item in _UNPORTED_FLAGS.items():
         if flag not in allow and params.get(flag):
-            raise NotImplementedError(f"{flag} is not ported yet")
+            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md "
+                                      f"§1 item {item})")
     check_backend(params.get("backend", "auto"))
 
 
@@ -126,6 +124,35 @@ def _fused_to_result(res) -> BilevelResult:
     return BilevelResult(x=res.x.numpy(), u=res.u.cpu().numpy(),
                          state=st, cost=float(res.cost),
                          g_norm=float(res.g_norm), iterations=k)
+
+
+def run_bilevel(params, learning_function, device, ds=None
+                ) -> BilevelResult:
+    """The host trust region behind the experiment surface (the JAX
+    package's ``_run_bilevel`` without resume, checkpoints and
+    per-iteration images, which raise): ``learning_function`` on ``ds``
+    (by default the params' dataset on ``device``), the reconstruction read
+    to the host once at the end."""
+    reject_unported(params)
+    if ds is None:
+        ds = _load(params, device)
+    res = bilevel_learn(ds, learning_function, xinit=params.alpha0,
+                        params=params)
+    return dataclasses.replace(res, u=res.u.cpu().numpy())
+
+
+def _make_lf(params, factory, device):
+    """The learning function of ``method="tr"`` (the JAX package's
+    ``_make_lf`` without ``data_parallel``, which raises): the inner
+    solve's budget, its early stop ``inner_tol`` (which also chains the
+    PDPS state across evaluations) at ``check_every``, and
+    ``hypergrad_cfg``."""
+    solver_kwargs = dict(check_every=int(params.check_every))
+    if params.get("inner_tol") is not None:
+        solver_kwargs["tol"] = float(params.inner_tol)
+    return factory(maxiter=int(params.inner_maxiter),
+                   cfg=params.hypergrad_cfg, solver_kwargs=solver_kwargs,
+                   device=device)
 
 
 def _run_fused(params, model_kind, device):
@@ -214,31 +241,35 @@ def _run_single_loop(params, model_kind, device):
 
 def _params(family_params, visualise, kwargs):
     if visualise:
-        raise NotImplementedError("visualise is not ported yet")
+        raise NotImplementedError(VISUALISE_REFUSAL)
     params = merge(default_params, family_params, kwargs)
     return params | dict(dataset_name=full_datasetname(params.dataset_name))
 
 
 def _run_method(params, model_kind, device):
-    """``method="tr_fused"`` or ``"single_loop"``; the host-driven trust
-    region (``"tr"``, the JAX default) is not ported yet."""
+    """``method="tr"`` (the host trust region), ``"tr_fused"`` or
+    ``"single_loop"``."""
     method = params.get("method")
     if method == "single_loop":
         return _run_single_loop(params, model_kind, device)
     if method == "tr_fused":
         return _run_fused(params, model_kind, device)
-    raise NotImplementedError(
-        f"method={method!r} is not ported yet (ROADMAP.md §1 item 6, the "
-        "host-driven trust region); use method='tr_fused' or "
-        "'single_loop'")
+    if method == "tr":
+        factory = (make_tv_learning_function if model_kind == "tv"
+                   else make_sumregs_learning_function)
+        return run_bilevel(params, _make_lf(params, factory, device), device)
+    raise ValueError(f"method must be 'tr' (host trust region), 'tr_fused' "
+                     f"(the fused loop) or 'single_loop' (first-order), got "
+                     f"{method!r}")
 
 
 def scalar_bilevel_tv_learn(visualise: bool = False, device="cuda",
                             **kwargs) -> BilevelResult:
-    """Learn one scalar TV weight on a dataset with the fused trust region
-    (``method="tr_fused"``) or the single-loop learner
-    (``method="single_loop"``).  ``device="cuda"`` runs the CUDA kernels;
-    ``device="cpu"`` runs their plain versions.
+    """Learn one scalar TV weight on a dataset with the host trust region
+    (``method="tr"``, the default), the fused one (``method="tr_fused"``)
+    or the single-loop learner (``method="single_loop"``).
+    ``device="cuda"`` runs the CUDA kernels; ``device="cpu"`` runs their
+    plain versions.
     """
     params = _params(bilevel_params, visualise, kwargs)
     return _run_method(params, "tv", device)
@@ -247,7 +278,7 @@ def scalar_bilevel_tv_learn(visualise: bool = False, device="cuda",
 def patch_bilevel_tv_learn(visualise: bool = False, device="cuda",
                            **kwargs) -> BilevelResult:
     """Learn an (m, n) patch grid of TV weights (default 2×2 from 1e-4)
-    with the fused trust region or the single-loop learner."""
+    with either trust region or the single-loop learner."""
     params = _params(patch_bilevel_params, visualise, kwargs)
     return _run_method(params, "tv", device)
 
@@ -255,7 +286,7 @@ def patch_bilevel_tv_learn(visualise: bool = False, device="cuda",
 def scalar_bilevel_sumregs_learn(visualise: bool = False, device="cuda",
                                  **kwargs) -> BilevelResult:
     """Learn the (3,) weights of the forward, backward and centred TV terms
-    (default 1e-3 each) with the fused trust region or the single-loop
+    (default 1e-3 each) with either trust region or the single-loop
     learner."""
     params = _params(sumregs_bilevel_params, visualise, kwargs)
     return _run_method(params, "sumregs", device)
@@ -265,15 +296,18 @@ def patch_bilevel_sumregs_learn(image_pair=None, dataset_name=None,
                                 visualise: bool = False, device="cuda",
                                 **kwargs) -> BilevelResult:
     """Learn an (m, n, 3) patch stack of sum-of-regularizers weights
-    (default 2×2×3 from 1e-3, β₂ = 1.5) with the fused trust region or the
-    single-loop learner, on ``dataset_name``.  The explicit ``image_pair``
-    form runs the host trust region in the JAX package and is not ported
-    yet."""
-    if image_pair is not None:
-        raise NotImplementedError(
-            "the image_pair form runs the host-driven trust region, which "
-            "is not ported yet (ROADMAP.md §1 item 6)")
+    (default 2×2×3 from 1e-3, β₂ = 1.5) with either trust region or the
+    single-loop learner, on ``dataset_name``; or, given
+    ``image_pair=(true_image, noisy_image)``, on that one (M, N) pair (a
+    1 × M × N stack in the params dtype) with the host trust region, which
+    that form runs whatever ``method`` says, as in the JAX package."""
     if dataset_name is not None:
         kwargs = dict(kwargs, dataset_name=dataset_name)
     params = _params(patch_sumregs_bilevel_params, visualise, kwargs)
-    return _run_method(params, "sumregs", device)
+    if image_pair is None:
+        return _run_method(params, "sumregs", device)
+    dt = getattr(torch, str(params.get("dtype", "float64")))
+    ds = tuple(torch.as_tensor(np.asarray(im), dtype=dt)[None].to(device)
+               for im in image_pair[:2])
+    lf = _make_lf(params, make_sumregs_learning_function, device)
+    return run_bilevel(params, lf, device, ds=ds)

@@ -4,14 +4,16 @@
 The parameter is the 2-vector (α₁, α₀) weighting the first- and
 second-order terms, or an (m, n, 2) stack of patch grids.  Ported so far:
 :func:`scalar_bilevel_tgv_learn` and :func:`patch_bilevel_tgv_learn` with
-``method="tr_fused"`` and ``method="single_loop"`` (the first-order
-learner of :mod:`..bilevel.first_order_tgv` at ``sl_lr`` 0.02, its log
-every ``sl_outer // 20`` steps), and :func:`TGVDenoise`.  As in the TV
-entry point, ``check_every``, ``inner_tol`` and ``tgv_gamma`` are
-parameters; the ``tr`` method, saving results, validation (it needs
-SSIM), cost sweeps, checkpointing, segmented dispatch of the trust region
-(``log_every``) and data parallelism raise ``NotImplementedError``, as
-does any ``backend`` but ``"auto"``.
+``method="tr"`` (the default: the host trust region over
+:func:`..learning.tgv.make_tgv_learning_function`), ``method="tr_fused"``
+and ``method="single_loop"`` (the first-order learner of
+:mod:`..bilevel.first_order_tgv` at ``sl_lr`` 0.02, its log every
+``sl_outer // 20`` steps), and :func:`TGVDenoise`.  As in the TV entry
+point, ``check_every``, ``inner_tol`` and ``tgv_gamma`` are parameters;
+saving results, validation (it needs SSIM), cost sweeps, checkpointing,
+segmented dispatch of the trust region (``log_every``) and data
+parallelism raise ``NotImplementedError``, as does any ``backend`` but
+``"auto"``.
 """
 
 from __future__ import annotations
@@ -22,12 +24,14 @@ import torch
 from ..bilevel.first_order_tgv import single_loop_tgv_learn
 from ..bilevel.fused_tgv import bilevel_learn_tgv_fused
 from ..data import full_datasetname
+from ..learning.tgv import make_tgv_learning_function
 from ..ops import PatchOp
 from ..solvers.tgv import tgv_denoise_pdps
 from ..utils.config import Params, merge
 from ..bilevel.harness import BilevelResult
-from .api import (_fused_to_result, _load, check_backend, default_params,
-                  reject_unported, run_single_loop)
+from .api import (VISUALISE_REFUSAL, _fused_to_result, _load, check_backend,
+                  default_params, reject_unported, run_bilevel,
+                  run_single_loop)
 
 __all__ = ["tgv_bilevel_params", "patch_tgv_bilevel_params",
            "scalar_bilevel_tgv_learn", "patch_bilevel_tgv_learn",
@@ -89,30 +93,39 @@ def _tgv_gamma(params) -> float:
 
 def _learn(family_params, visualise, device, kwargs):
     if visualise:
-        raise NotImplementedError("visualise is not ported yet")
+        raise NotImplementedError(VISUALISE_REFUSAL)
     params = merge(default_params, family_params, kwargs)
     params = params | dict(dataset_name=full_datasetname(params.dataset_name))
     if params.get("method") == "single_loop":
         return run_single_loop(params, device, single_loop_tgv_learn,
                                gamma=_tgv_gamma(params))
-    if params.get("method") != "tr_fused":
-        raise NotImplementedError(
-            f"method={params.get('method')!r} is not ported yet; use "
-            "method='tr_fused' or 'single_loop'")
-    return _run_tgv_fused(params, device)
+    if params.get("method") == "tr_fused":
+        return _run_tgv_fused(params, device)
+    if params.get("method") != "tr":
+        raise ValueError(f"TGV experiments support method='tr' (host trust "
+                         f"region), 'tr_fused' or 'single_loop', got "
+                         f"{params.get('method')!r}")
+    # the JAX entry point's learning-function keywords
+    lf_kwargs = dict(maxiter=int(params.inner_maxiter),
+                     gamma=_tgv_gamma(params),
+                     check_every=int(params.check_every), device=device)
+    if params.get("inner_tol") is not None:
+        lf_kwargs["tol"] = float(params.inner_tol)
+    return run_bilevel(params, make_tgv_learning_function(**lf_kwargs),
+                       device)
 
 
 def scalar_bilevel_tgv_learn(visualise: bool = False, device="cuda",
                              **kwargs) -> BilevelResult:
-    """Learn (α₁, α₀) by the trust region (``method="tr_fused"``) or the
-    single-loop learner (``method="single_loop"``).  ``device="cuda"`` runs
-    the CUDA kernels; ``device="cpu"`` runs their plain versions."""
+    """Learn (α₁, α₀) by the host trust region (``method="tr"``, the
+    default), the fused one (``method="tr_fused"``) or the single-loop
+    learner (``method="single_loop"``).  ``device="cuda"`` runs the CUDA
+    kernels; ``device="cpu"`` runs their plain versions."""
     return _learn(tgv_bilevel_params, visualise, device, kwargs)
 
 
 def patch_bilevel_tgv_learn(visualise: bool = False, device="cuda",
                             **kwargs) -> BilevelResult:
     """Learn spatially-varying (α₁, α₀) patch grids (an (m, n, 2) stack)
-    by the trust region (``method="tr_fused"``) or the single-loop learner
-    (``method="single_loop"``)."""
+    by either trust region or the single-loop learner."""
     return _learn(patch_tgv_bilevel_params, visualise, device, kwargs)

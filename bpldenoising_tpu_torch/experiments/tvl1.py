@@ -5,13 +5,15 @@ The robust L1 data term for impulse (salt-and-pepper) noise.  Ported so
 far: :func:`TVL1Denoise` (plain TV-L1 at a fixed scalar α, (M, N) map or
 (m, n) patch grid) and the bilevel learns :func:`scalar_bilevel_tvl1_learn`
 and :func:`patch_bilevel_tvl1_learn` on the Huber-smoothed surrogate, with
-``method="tr_fused"`` (the trust region) or ``method="single_loop"`` (the
-first-order learner of :mod:`..bilevel.first_order_tvl1`).  As in the TV
-and TGV entry points, ``check_every`` (the inner early-stop cadence) is a
-parameter; the ``tr`` method, saving results, visualisation,
-checkpointing, segmented dispatch of the trust region (``log_every``) and
-data parallelism raise ``NotImplementedError``, as does any ``backend``
-but ``"auto"``.  Validation and the cost sweep need SSIM and the results
+``method="tr"`` (the default: the host trust region over
+:func:`..learning.tvl1.make_tvl1_learning_function`),
+``method="tr_fused"`` (the fused trust region) or
+``method="single_loop"`` (the first-order learner of
+:mod:`..bilevel.first_order_tvl1`).  As in the TV and TGV entry points,
+``check_every`` (the inner early-stop cadence) is a parameter; saving
+results, visualisation, checkpointing, segmented dispatch of the trust
+region (``log_every``) and data parallelism raise
+``NotImplementedError``, as does any ``backend`` but ``"auto"``.  Validation and the cost sweep need SSIM and the results
 code, which are not ported yet.
 """
 
@@ -23,12 +25,14 @@ import torch
 from ..bilevel.first_order_tvl1 import single_loop_tvl1_learn
 from ..bilevel.fused_tvl1 import bilevel_learn_tvl1_fused
 from ..data import full_datasetname
+from ..learning.tvl1 import make_tvl1_learning_function
 from ..ops import PatchOp
 from ..solvers.tvl1 import tvl1_denoise
 from ..utils.config import Params, merge
 from ..bilevel.harness import BilevelResult
-from .api import (_fused_to_result, _load, check_backend, default_params,
-                  reject_unported, run_single_loop)
+from .api import (VISUALISE_REFUSAL, _fused_to_result, _load, check_backend,
+                  default_params, reject_unported, run_bilevel,
+                  run_single_loop)
 
 __all__ = ["TVL1Denoise", "tvl1_params", "scalar_bilevel_tvl1_learn",
            "patch_bilevel_tvl1_learn", "tvl1_bilevel_params",
@@ -78,10 +82,6 @@ def _check_method(params):
                          f"trust region), 'tr_fused' (one-dispatch "
                          f"on-device loop) or 'single_loop' (first-order), "
                          f"got {m!r}")
-    if m not in ("tr_fused", "single_loop"):
-        raise NotImplementedError(
-            f"method={m!r} is not ported yet; use method='tr_fused' or "
-            "'single_loop'")
 
 
 def _cg_kwargs(params):
@@ -110,7 +110,7 @@ def _run_tvl1_fused(params, device):
 
 def _learn(family_params, visualise, device, kwargs):
     if visualise:
-        raise NotImplementedError("visualise is not ported yet")
+        raise NotImplementedError(VISUALISE_REFUSAL)
     params = merge(default_params, family_params, kwargs)
     params = params | dict(dataset_name=full_datasetname(params.dataset_name))
     _check_method(params)
@@ -118,13 +118,25 @@ def _learn(family_params, visualise, device, kwargs):
         return run_single_loop(params, device, single_loop_tvl1_learn,
                                gamma_d=float(params.tvl1_gamma_d),
                                gamma=float(params.tvl1_gamma))
-    return _run_tvl1_fused(params, device)
+    if params.method == "tr_fused":
+        return _run_tvl1_fused(params, device)
+    # the JAX entry point's learning-function keywords (its _tvl1_lf)
+    lf_kwargs = dict(maxiter=int(params.inner_maxiter),
+                     gamma_d=float(params.tvl1_gamma_d),
+                     gamma=float(params.tvl1_gamma),
+                     check_every=int(params.check_every), device=device,
+                     **_cg_kwargs(params))
+    if params.get("inner_tol") is not None:
+        lf_kwargs["tol"] = float(params.inner_tol)
+    return run_bilevel(params, make_tvl1_learning_function(**lf_kwargs),
+                       device)
 
 
 def scalar_bilevel_tvl1_learn(visualise: bool = False, device="cuda",
                               **kwargs) -> BilevelResult:
     """Learn the scalar TV-L1 weight on the Huber-smoothed surrogate by the
-    trust region (``method="tr_fused"``) or the single-loop learner
+    host trust region (``method="tr"``, the default), the fused one
+    (``method="tr_fused"``) or the single-loop learner
     (``method="single_loop"``).  ``device="cuda"`` runs the CUDA kernels;
     ``device="cpu"`` runs their plain versions."""
     return _learn(tvl1_bilevel_params, visualise, device, kwargs)
@@ -132,7 +144,6 @@ def scalar_bilevel_tvl1_learn(visualise: bool = False, device="cuda",
 
 def patch_bilevel_tvl1_learn(visualise: bool = False, device="cuda",
                              **kwargs) -> BilevelResult:
-    """Learn a spatially-varying (m, n) TV-L1 weight grid by the trust
-    region (``method="tr_fused"``) or the single-loop learner
-    (``method="single_loop"``)."""
+    """Learn a spatially-varying (m, n) TV-L1 weight grid by either trust
+    region or the single-loop learner."""
     return _learn(patch_tvl1_bilevel_params, visualise, device, kwargs)

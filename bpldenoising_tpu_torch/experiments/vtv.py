@@ -6,14 +6,15 @@ Datasets load as planar (O, 3, M, N) color stacks
 coupling weight α or an (m, n) patch grid.  Ported so far:
 :func:`VTVDenoise` (a scalar α, (M, N) map or (m, n) patch grid) and the
 bilevel learns :func:`scalar_bilevel_vtv_learn` and
-:func:`patch_bilevel_vtv_learn` with ``method="tr_fused"`` (the trust
-region) or ``method="single_loop"`` (the first-order learner of
+:func:`patch_bilevel_vtv_learn` with ``method="tr"`` (the default: the
+host trust region over :func:`..learning.vtv.make_vtv_learning_function`),
+``method="tr_fused"`` (the fused trust region) or
+``method="single_loop"`` (the first-order learner of
 :mod:`..bilevel.first_order_vtv`).  As in the other families' entry
 points, ``check_every``, ``inner_tol`` and ``vtv_gamma`` are parameters;
-the ``tr`` method, saving results, visualisation, checkpointing,
-segmented dispatch of the trust region (``log_every``) and data
-parallelism raise ``NotImplementedError``, as does any ``backend`` but
-``"auto"``.  Validation and the cost sweeps need SSIM
+saving results, visualisation, checkpointing, segmented dispatch of the
+trust region (``log_every``) and data parallelism raise
+``NotImplementedError``, as does any ``backend`` but ``"auto"``.  Validation and the cost sweeps need SSIM
 and the results code, which are not ported yet.
 """
 
@@ -26,11 +27,13 @@ from ..bilevel.first_order_vtv import single_loop_vtv_learn
 from ..bilevel.fused_vtv import bilevel_learn_vtv_fused
 from ..bilevel.harness import BilevelResult
 from ..data import full_datasetname
+from ..learning.vtv import make_vtv_learning_function
 from ..ops import PatchOp
 from ..solvers.pdps import vtv_denoise
 from ..utils.config import Params, merge
-from .api import (_fused_to_result, _load, check_backend, default_params,
-                  reject_unported, run_single_loop)
+from .api import (VISUALISE_REFUSAL, _fused_to_result, _load, check_backend,
+                  default_params, reject_unported, run_bilevel,
+                  run_single_loop)
 
 __all__ = ["vtv_bilevel_params", "patch_vtv_bilevel_params",
            "scalar_bilevel_vtv_learn", "patch_bilevel_vtv_learn",
@@ -75,10 +78,6 @@ def _check_method(params):
         raise ValueError(f"VTV experiments support method='tr' (host trust "
                          f"region), 'tr_fused' (one-dispatch on-device "
                          f"loop) or 'single_loop' (first-order), got {m!r}")
-    if m not in ("tr_fused", "single_loop"):
-        raise NotImplementedError(
-            f"method={m!r} is not ported yet; use method='tr_fused' or "
-            "'single_loop'")
 
 
 def _run_vtv_fused(params, device):
@@ -100,20 +99,30 @@ def _vtv_gamma(params) -> float:
 
 def _learn(family_params, visualise, device, kwargs):
     if visualise:
-        raise NotImplementedError("visualise is not ported yet")
+        raise NotImplementedError(VISUALISE_REFUSAL)
     params = merge(default_params, family_params, kwargs)
     params = params | dict(dataset_name=full_datasetname(params.dataset_name))
     _check_method(params)
     if params.method == "single_loop":
         return run_single_loop(params, device, single_loop_vtv_learn,
                                gamma=_vtv_gamma(params))
-    return _run_vtv_fused(params, device)
+    if params.method == "tr_fused":
+        return _run_vtv_fused(params, device)
+    # the JAX entry point's learning-function keywords
+    lf_kwargs = dict(maxiter=int(params.inner_maxiter),
+                     gamma=_vtv_gamma(params),
+                     check_every=int(params.check_every), device=device)
+    if params.get("inner_tol") is not None:
+        lf_kwargs["tol"] = float(params.inner_tol)
+    return run_bilevel(params, make_vtv_learning_function(**lf_kwargs),
+                       device)
 
 
 def scalar_bilevel_vtv_learn(visualise: bool = False, device="cuda",
                              **kwargs) -> BilevelResult:
-    """Learn the scalar coupling weight α on color data by the trust
-    region (``method="tr_fused"``) or the single-loop learner
+    """Learn the scalar coupling weight α on color data by the host trust
+    region (``method="tr"``, the default), the fused one
+    (``method="tr_fused"``) or the single-loop learner
     (``method="single_loop"``).  ``device="cuda"`` runs the CUDA kernels;
     ``device="cpu"`` runs their plain versions."""
     return _learn(vtv_bilevel_params, visualise, device, kwargs)
@@ -122,6 +131,5 @@ def scalar_bilevel_vtv_learn(visualise: bool = False, device="cuda",
 def patch_bilevel_vtv_learn(visualise: bool = False, device="cuda",
                             **kwargs) -> BilevelResult:
     """Learn a spatially-varying (m, n) coupling-weight grid on color data
-    by the trust region (``method="tr_fused"``) or the single-loop learner
-    (``method="single_loop"``)."""
+    by either trust region or the single-loop learner."""
     return _learn(patch_vtv_bilevel_params, visualise, device, kwargs)

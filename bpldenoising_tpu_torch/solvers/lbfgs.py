@@ -1,21 +1,101 @@
-"""Limited-memory BFGS model with a fixed-size history (counterpart of the
-``lbfgs_*`` functions of ``bpldenoising_tpu.solvers.lbfgs``).
+"""Limited-memory BFGS models (counterpart of
+``bpldenoising_tpu.solvers.lbfgs``).
 
 The trust-region dogleg needs both directions of the quadratic model:
 ``B @ v`` through the compact representation
 B = γI − [γS  Y] W⁻¹ [γS  Y]ᵀ, and ``B⁻¹ @ g`` through the two-loop
-recursion.  Slots along dim 0 are ordered oldest → newest; the last
-``count`` slots are valid and earlier ones are zero placeholders.
+recursion.  Two implementations of the same model:
+
+* :class:`LBFGSModel`: host NumPy in float64 (a deque history), for the
+  host-driven trust region (:mod:`..bilevel.trust_region`) above its
+  dense-B threshold;
+* the ``lbfgs_*`` functions on :class:`LBFGSState`: a fixed-size history
+  in the working dtype, for the fused loop (:mod:`..bilevel.tr_core`).
+  Slots along dim 0 are ordered oldest → newest; the last ``count`` slots
+  are valid and earlier ones are zero placeholders.
 """
 
 from __future__ import annotations
 
+from collections import deque
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-__all__ = ["LBFGSState", "lbfgs_init", "lbfgs_update", "lbfgs_solve",
-           "lbfgs_apply"]
+__all__ = ["LBFGSModel", "LBFGSState", "lbfgs_init", "lbfgs_update",
+           "lbfgs_solve", "lbfgs_apply"]
+
+
+class LBFGSModel:
+    """Host L-BFGS model with the dense :class:`..bilevel.trust_region.
+    TRModel`'s interface (``update``, ``newton_step``, ``apply``,
+    ``cauchy_step``, ``pred``)."""
+
+    def __init__(self, n: int, memory: int = 10, init_scale: float = 0.1):
+        self.n = n
+        self.memory = memory
+        self.gamma = float(init_scale)   # B₀ = γ I
+        self.S: deque[np.ndarray] = deque(maxlen=memory)
+        self.Y: deque[np.ndarray] = deque(maxlen=memory)
+
+    def update(self, y: np.ndarray, s: np.ndarray) -> None:
+        """Push a curvature pair (y = Δgrad, s = step); skipped unless
+        sᵀy > 1e-12‖s‖‖y‖, as the dense model skips."""
+        sy = float(s @ y)
+        if sy <= 1e-12 * np.linalg.norm(s) * np.linalg.norm(y):
+            return
+        self.S.append(np.asarray(s, dtype=np.float64).copy())
+        self.Y.append(np.asarray(y, dtype=np.float64).copy())
+        self.gamma = float(y @ y) / sy   # standard B₀ scaling
+
+    def solve(self, g: np.ndarray) -> np.ndarray:
+        """B⁻¹ g by the two-loop recursion."""
+        q = np.asarray(g, dtype=np.float64).copy()
+        m = len(self.S)
+        alphas = np.zeros(m)
+        rhos = np.array([1.0 / (s @ y) for s, y in zip(self.S, self.Y)])
+        for i in range(m - 1, -1, -1):
+            alphas[i] = rhos[i] * (self.S[i] @ q)
+            q -= alphas[i] * self.Y[i]
+        q /= self.gamma                     # H₀ = γ⁻¹ I
+        for i in range(m):
+            beta = rhos[i] * (self.Y[i] @ q)
+            q += (alphas[i] - beta) * self.S[i]
+        return q
+
+    def newton_step(self, g: np.ndarray):
+        return -self.solve(g)
+
+    def apply(self, v: np.ndarray) -> np.ndarray:
+        """B v with B = γI − [γS Y] [[γSᵀS, L], [Lᵀ, −D]]⁻¹ [γS Y]ᵀ v."""
+        m = len(self.S)
+        if m == 0:
+            return self.gamma * v
+        S = np.stack(self.S, axis=1)   # (n, m)
+        Y = np.stack(self.Y, axis=1)
+        g = self.gamma
+        StS = S.T @ S
+        SY = S.T @ Y
+        L = np.tril(SY, k=-1)
+        D = np.diag(np.diag(SY))
+        W = np.block([[g * StS, L], [L.T, -D]])
+        rhs = np.concatenate([g * (S.T @ v), Y.T @ v])
+        try:
+            sol = np.linalg.solve(W, rhs)
+        except np.linalg.LinAlgError:
+            return g * v
+        return g * v - (g * (S @ sol[:m]) + Y @ sol[m:])
+
+    def cauchy_step(self, g: np.ndarray) -> np.ndarray:
+        gBg = float(g @ self.apply(g))
+        gg = float(g @ g)
+        if gBg <= np.finfo(np.float64).eps * gg:
+            return -g * 1e12
+        return -(gg / gBg) * g
+
+    def pred(self, p: np.ndarray, g: np.ndarray) -> float:
+        return float(-p @ g - 0.5 * p @ self.apply(p))
 
 
 class LBFGSState(NamedTuple):

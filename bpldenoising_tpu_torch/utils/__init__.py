@@ -1,3 +1,3 @@
-from .config import Params, merge
+from .config import Params, check_backend, merge
 
-__all__ = ["Params", "merge"]
+__all__ = ["Params", "merge", "check_backend"]

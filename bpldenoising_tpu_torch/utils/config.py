@@ -76,3 +76,16 @@ def merge(*maps: Mapping[str, Any] | None, **kwargs: Any) -> Params:
     if kwargs:
         out = out | kwargs
     return out
+
+
+def check_backend(backend) -> None:
+    """The port's rule for the JAX package's ``backend=`` knob, in every
+    family's entry points and learning functions: ``"auto"`` (the JAX
+    default) is accepted; any other value raises, since ``device=`` chooses
+    what runs (``"cuda"``: the CUDA kernels, ``"cpu"``: their plain
+    versions)."""
+    if backend != "auto":
+        raise NotImplementedError(
+            f"backend={backend!r} is not ported: the port has no backends; "
+            "device='cuda' runs the CUDA kernels and device='cpu' their "
+            "plain versions")

@@ -191,6 +191,34 @@ Phases (one short line each):
     package's float64 runs, at 1e-6, every kernel-A call in the cluster
     form.
 
+41. the flagship default call with the host trust region
+    (``method="tr"``, the default): ``scalar_bilevel_tv_learn(
+    dataset_name="faces_train", num_samples=10)`` (float64, 5000 cold
+    inner iterations an evaluation, ``HypergradConfig()``) against the JAX
+    package's float64 run (``scripts/jax_reference_tr.py``): α within 1e-6
+    relative, the mean PSNR within 0.01 dB, the cost within 0.1%; kernel A
+    (cluster form) and kernel B (one launch and one read) once per
+    evaluation, one host read of (cost, gradient) per evaluation, no
+    plain-version call.
+42. the same learn with ``method="tr"`` at the bench settings of phase 5
+    in float32, against the flagship's band (α within 2e-5 of 0.069788).
+43–44. ``method="tr"`` against ``method="tr_fused"`` at
+    ``inner_tol=None`` in float64 on full-size images, the outer
+    iterations cut to 3 (the rest the entry points' defaults), gated: the
+    logged cost, ‖g‖ and Δ agree to 1e-10 relative and the accept pattern
+    is the same.  Phase 43: the sum of regularizers' (3,) weights, the 2×2
+    patch TV, the ``image_pair`` patch sum (the tr_fused side through
+    ``bilevel_learn_fused``) and the 16×16 grid (L-BFGS) on the faces
+    images, with phase 40's well-conditioned adjoint
+    (``HypergradConfig(al_iters=2, cg_maxiter=1000, act_tol=1e-4)``);
+    then with the default ``HypergradConfig()``, printed and not gated,
+    beside how far the default gradient moves under a one-ulp move of the
+    parameter (its adjoint CG stops at its cap, and NumPy and torch round
+    a multi-parameter trust region apart in the last bit).  Phase 44:
+    TGV² on the ten faces images, TV-L1 on ``circle_sp``, VTV on six
+    ``color_disks`` images, every call of rows 4, 8 and 6 in its cluster
+    form.  Each phase prints its seconds.
+
 It prints one JSON line of per-kernel numbers (eighteen entries: the
 eleven kernels, rows 1–3's K = 3 and map forms, row 5's 1024² call, row
 6's 256² call),
@@ -537,6 +565,26 @@ TVF_WITNESS = {
                         (0.01844376012853778, 0.018603169260599125))),
 }
 TVF_WITNESS_GATE_REL = 1e-6
+
+# The host trust region (method="tr", phases 41-44).  Phase 41 is the
+# flagship default call, scalar_bilevel_tv_learn(dataset_name="faces_train",
+# num_samples=10) with every other argument the entry point's default
+# (float64, 5000 cold inner iterations an evaluation, HypergradConfig(),
+# 20 outer iterations at most), against the JAX package's float64 run of
+# the same call on the CPU (scripts/jax_reference_tr.py): α within 1e-6
+# relative, the mean PSNR within 0.01 dB, the cost within 0.1%.
+TR_ALPHA = 0.06978684257366222
+TR_COST = 152.3294307322539
+TR_PSNR = 27.386048193674885
+TR_ITERATIONS = 13
+TR_ALPHA_GATE_REL = 1e-6
+TR_PSNR_GATE = 0.01          # dB
+TR_COST_GATE_REL = 1e-3
+# phases 43-44: tr against tr_fused at inner_tol=None (the same kernels on
+# the same inputs; only the trust-region arithmetic differs, NumPy float64
+# against torch float64): the logged cost, ‖g‖ and Δ and the accept
+# pattern
+TR_PARITY_GATE_REL = 1e-10
 
 # peak rates of an H100 SXM (NVIDIA data sheet) for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -3001,14 +3049,20 @@ def phase_forms_f64(torch, device):
     return max(errs.values())
 
 
-def watch_plain():
-    """Count calls of the plain versions of kernels A and B that their
-    wrappers would make: → (calls, restore)."""
-    from bpldenoising_tpu_torch.solvers import hypergrad_cuda, pdps_cuda
+def watch_plain(cp=False):
+    """Count calls of the plain versions of kernels A and B (with ``cp``,
+    also of the TGV², TV-L1 and VTV kernels) that their wrappers would
+    make: → (calls, restore)."""
+    from bpldenoising_tpu_torch.solvers import (hypergrad_cuda, pdps_cuda,
+                                                tgv_cuda, tvl1_cuda,
+                                                vtv_cuda)
     calls = []
     saved = [(pdps_cuda, "_denoise_pdps_impl"),
              (hypergrad_cuda, "exact_hypergrad"),
              (hypergrad_cuda, "reg_hypergrad")]
+    if cp:
+        saved += [(tgv_cuda, "_tgv_impl"), (tvl1_cuda, "_tvl1_huber_loop"),
+                  (vtv_cuda, "_denoise_pdps_impl")]
     originals = [getattr(m, n) for m, n in saved]
 
     def wrap(fn):
@@ -3173,6 +3227,324 @@ def phase_tvf_witness(name):
                 else [f"float64 {name} witness: alpha {d_rel}, cost "
                       f"{cost_rel}, kernel A {a_forms}, kernel B "
                       f"{b_forms}"])
+
+
+def tr_counts(reads0, plain):
+    """Since the last reset: kernels A and B, the host trust region's reads
+    of (cost, gradient) since ``reads0`` and the plain versions' calls."""
+    from bpldenoising_tpu_torch.bilevel import trust_region
+    return dict(kernel_a=kernel_a_forms(), kernel_b=kernel_b_forms(),
+                host_reads=trust_region.host_reads - reads0,
+                plain_calls=len(plain))
+
+
+def tr_run(learn):
+    """``learn()`` with every count reset just before and read just after,
+    the plain versions of kernels A and B watched: → (result, wall ms on
+    the host clock around a synchronisation, counts)."""
+    import torch
+    from bpldenoising_tpu_torch.bilevel import trust_region
+    plain, restore = watch_plain(cp=True)
+    try:
+        reset_launches()
+        reads0 = trust_region.host_reads
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = learn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        counts = tr_counts(reads0, plain)
+        counts["launches"] = read_launches()
+    finally:
+        restore()
+    return res, wall_ms, counts
+
+
+def tr_kernel_faults(label, res, counts):
+    """Kernels A and B once per evaluation (the iterations + 1), A in the
+    cluster form, B one launch and one read, one host read of (cost,
+    gradient) per evaluation, no plain-version call."""
+    evals = res.iterations + 1
+    a, b = counts["kernel_a"], counts["kernel_b"]
+    say(f"  {label}: {res.iterations} outer its, {evals} evaluations; "
+        f"host reads of (cost, gradient) {counts['host_reads']}; "
+        f"plain-version calls {counts['plain_calls']}")
+    say_kernel_a_forms(a)
+    say_kernel_b_forms(b)
+    return [msg for ok, msg in (
+        (a["calls"] == b["calls"] == evals == counts["host_reads"],
+         f"{label}: kernel A {a['calls']}, kernel B {b['calls']} calls, "
+         f"{counts['host_reads']} host reads for {evals} evaluations"),
+        (a["cluster"] == a["calls"],
+         f"{label}: kernel A's cluster form ran {a['cluster']} of "
+         f"{a['calls']} calls"),
+        (kernel_b_cooperative(b),
+         f"{label}: kernel B {b}: not one launch and one read a call"),
+        (counts["plain_calls"] == 0,
+         f"{label}: {counts['plain_calls']} plain-version calls"))
+        if not ok]
+
+
+def phase_tr_flagship(utrue64):
+    """Phase 41: the flagship default call (method="tr", float64) through
+    the entry point, against the JAX package's float64 run."""
+    import torch
+    from bpldenoising_tpu_torch.experiments.api import \
+        scalar_bilevel_tv_learn
+    from bpldenoising_tpu_torch.metrics import psnr
+    res, wall_ms, counts = tr_run(lambda: scalar_bilevel_tv_learn(
+        dataset_name="faces_train", num_samples=10, device="cuda"))
+    alpha = float(res.x)
+    a_rel = abs(alpha - TR_ALPHA) / TR_ALPHA
+    mean_psnr = float(torch.mean(psnr(utrue64, on_device(res, utrue64))))
+    cost = float(res.cost)
+    c_rel = abs(cost - TR_COST) / TR_COST
+    say(f"  alpha {alpha!r} (reference {TR_ALPHA!r}, rel {a_rel:.2e}, gate "
+        f"{TR_ALPHA_GATE_REL:g}); PSNR {mean_psnr!r} dB (reference "
+        f"{TR_PSNR!r}, |d| {abs(mean_psnr - TR_PSNR):.2e}, gate "
+        f"{TR_PSNR_GATE:g}); cost {cost!r} (reference {TR_COST!r}, rel "
+        f"{c_rel:.2e}, gate {TR_COST_GATE_REL:g}); {res.iterations} outer "
+        f"its (reference {TR_ITERATIONS}); u {res.u.dtype}")
+    for line in log_lines(res):
+        say(line)
+    say(f"  wall {wall_ms:.1f} ms (host clock, first run, PNG load "
+        f"included); launches {counts['launches']}")
+    faults = tr_kernel_faults("flagship tr", res, counts) + [
+        msg for ok, msg in (
+            (a_rel <= TR_ALPHA_GATE_REL, f"flagship tr alpha {alpha}"),
+            (abs(mean_psnr - TR_PSNR) <= TR_PSNR_GATE,
+             f"flagship tr mean PSNR {mean_psnr}"),
+            (c_rel <= TR_COST_GATE_REL, f"flagship tr cost {cost}"),
+            (res.u.dtype == "float64", f"flagship tr u {res.u.dtype}"))
+        if not ok]
+    return dict(alpha=alpha, alpha_rel_err=a_rel, mean_psnr_db=mean_psnr,
+                final_cost=cost, cost_rel_err=c_rel,
+                outer_iterations=res.iterations, wall_ms=wall_ms,
+                counts=counts, faults=faults)
+
+
+def phase_tr_bench(utrue):
+    """Phase 42: the flagship with method="tr" at the bench settings in
+    float32 (flagship_kwargs), against the flagship's band."""
+    import torch
+    from bpldenoising_tpu_torch.experiments.api import \
+        scalar_bilevel_tv_learn
+    from bpldenoising_tpu_torch.metrics import psnr
+    kw = dict(flagship_kwargs(), method="tr")
+    res, wall_ms, counts = tr_run(lambda: scalar_bilevel_tv_learn(
+        device="cuda", **kw))
+    alpha = float(res.x)
+    d_alpha = abs(alpha - FLAGSHIP_ALPHA)
+    mean_psnr = float(torch.mean(psnr(utrue, on_device(res, utrue))))
+    cost = float(res.cost)
+    say(f"  alpha {alpha:.7f} |d| {d_alpha:.2e} (band {ALPHA_BAND:g}); "
+        f"PSNR {mean_psnr:.4f} dB; cost {cost:.4f}; {res.iterations} outer "
+        f"its")
+    say(f"  wall {wall_ms:.1f} ms (host clock, PNG load included); "
+        f"launches {counts['launches']}")
+    faults = tr_kernel_faults("bench tr", res, counts) + [
+        msg for ok, msg in (
+            (d_alpha <= ALPHA_BAND, f"bench tr alpha {alpha}"),
+            (abs(mean_psnr - FLAGSHIP_PSNR) <= PSNR_GATE,
+             f"bench tr mean PSNR {mean_psnr}"),
+            (abs(cost - FLAGSHIP_COST) <= COST_GATE_REL * FLAGSHIP_COST,
+             f"bench tr cost {cost}"))
+        if not ok]
+    return dict(alpha=alpha, alpha_abs_err=d_alpha, mean_psnr_db=mean_psnr,
+                final_cost=cost, outer_iterations=res.iterations,
+                wall_ms=wall_ms, counts=counts, faults=faults)
+
+
+def tr_rows(res):
+    """(cost, ‖g‖, Δ) and whether the step was accepted, per logged
+    iteration.  The fused log's step is 0 on a rejection; the host log
+    keeps the last accepted step, so there an iteration is accepted when
+    its cost differs from the one before (the first: a step above 0)."""
+    rows = [(e.function_value, e.g_norm, e.delta) for e in res.state.log]
+    acc = [e.step_norm > 0 if i == 0
+           else e.function_value != res.state.log[i - 1].function_value
+           for i, e in enumerate(res.state.log)]
+    return rows, acc
+
+
+def tr_parity(label, run_tr, run_fused, cp=None, gate=True):
+    """tr against tr_fused (each with its counts): the logged cost, ‖g‖
+    and Δ to TR_PARITY_GATE_REL relative and the accept pattern equal
+    (``gate`` False: printed, not gated); ``cp``: the CP kernel's wrapper
+    module (tgv_cuda, tvl1_cuda, vtv_cuda), whose every call must take its
+    cluster form."""
+    import numpy as np
+    out, faults = {}, []
+    results = {}
+    for method, run in (("tr", run_tr), ("tr_fused", run_fused)):
+        t0 = time.perf_counter()
+        res, wall_ms, counts = tr_run(run)
+        evals = res.iterations + 1
+        if cp is not None:
+            counts["cp"] = dict(calls=cp.launches, cluster=cp.cluster_calls,
+                                device_ops=cp.device_ops)
+            say(f"  {label} {method}: CP kernel {cp.launches} calls, "
+                f"{cp.cluster_calls} in the cluster form, {cp.device_ops} "
+                f"device operations; host reads of (cost, gradient) "
+                f"{counts['host_reads']}; plain-version calls "
+                f"{counts['plain_calls']}")
+            if cp.cluster_calls != cp.launches or cp.launches != evals:
+                faults.append(f"{label} {method}: the CP kernel's cluster "
+                              f"form ran {cp.cluster_calls} of "
+                              f"{cp.launches} calls, {evals} evaluations")
+            if method == "tr" and counts["host_reads"] != evals:
+                faults.append(f"{label} tr: {counts['host_reads']} host "
+                              f"reads for {evals} evaluations")
+        elif method == "tr":
+            faults += tr_kernel_faults(f"{label} tr", res, counts)
+        if counts["plain_calls"] and (cp is not None or method != "tr"):
+            faults.append(f"{label} {method}: {counts['plain_calls']} "
+                          "plain-version calls")
+        results[method] = res
+        out[method] = dict(x=np.asarray(res.x).ravel().tolist(),
+                           cost=float(res.cost),
+                           outer_iterations=res.iterations, wall_ms=wall_ms,
+                           seconds=time.perf_counter() - t0, counts=counts)
+    (rows, acc), (frows, facc) = (tr_rows(results["tr"]),
+                                  tr_rows(results["tr_fused"]))
+    rows, frows = np.asarray(rows), np.asarray(frows)
+    same_shape = rows.shape == frows.shape
+    rel = (float(np.max(np.abs(rows - frows)
+                        / np.maximum(np.abs(frows), 1e-300)))
+           if same_shape and rows.size else float("inf"))
+    bits = same_shape and bool(np.array_equal(rows, frows))
+    first = (next((i + 1 for i in range(len(rows))
+                   if not np.array_equal(rows[i], frows[i])), None)
+             if same_shape else 1)
+    say(f"  {label}: tr {results['tr'].iterations} outer its, tr_fused "
+        f"{results['tr_fused'].iterations}; max rel diff of cost, |g|, "
+        f"delta {rel:.3e} ("
+        f"{f'gate {TR_PARITY_GATE_REL:g}' if gate else 'not gated'}); "
+        f"{'bit for bit' if bits else f'first differing row {first}'}; "
+        f"accept pattern {'equal' if acc == facc else 'DIFFERS'} "
+        f"{['A' if a else 'r' for a in acc]}")
+    for method in ("tr", "tr_fused"):
+        for line in log_lines(results[method]):
+            say(f"    {method} {line.strip()}")
+    if gate and not (same_shape and rel <= TR_PARITY_GATE_REL
+                     and acc == facc):
+        faults.append(f"{label}: tr against tr_fused: rel {rel}, accept "
+                      f"{acc} against {facc}")
+    out.update(max_rel_diff=rel, bit_for_bit=bits, first_differing_row=first,
+               accept_equal=acc == facc, faults=faults)
+    out["last"] = (results["tr"].x, results["tr"].state.log[-1].delta)
+    return out
+
+
+def tr_ulp_control(name, x, delta):
+    """How far the TV-family gradient moves under a one-ulp move of the
+    parameter: the default learning function (HypergradConfig(), cold
+    start) at ``x`` and at x moved by one ulp towards +∞, on phase 43's
+    data for ``name``.  → (max |Δg| / max |g|, CG iterations and converged
+    of the first evaluation)."""
+    import numpy as np
+    from bpldenoising_tpu_torch import learning
+    lf = (learning.tv_learning_function if name in ("patch_tv", "grid16")
+          else learning.sumregs_learning_function)
+    ds = tr_phase43_data(name)
+    outs = [lf(xx, ds, delta, return_aux=True)
+            for xx in (x, np.nextafter(x, np.inf))]
+    g0, g1 = (o[2].double().cpu().numpy() for o in outs)
+    info = outs[0][5]
+    return (float(np.max(np.abs(g1 - g0)) / np.max(np.abs(g0))),
+            int(info.iters), bool(info.converged))
+
+
+def tr_phase43_data(name):
+    """Phase 43's float64 data on the card: the ten faces images, or the
+    first image pair for ``image_pair``."""
+    import torch
+    from bpldenoising_tpu_torch.data import testdataset
+    true_, noisy = testdataset("faces_train_128_10")
+    if name == "image_pair":
+        true_, noisy = true_[:1], noisy[:1]
+    return tuple(torch.as_tensor(a, dtype=torch.float64).cuda()
+                 for a in (true_, noisy))
+
+
+def phase_tr_tv_parity(name):
+    """Phase 43 for ``name``: tr against tr_fused with the well-conditioned
+    adjoint of phase 40's witnesses (gated), then with the entry point's
+    default HypergradConfig() (printed, with the one-ulp control at tr's
+    last x: where its adjoint CG stops at the cap, the gradient itself moves
+    far more than 1e-10 under a last-bit move of x, and the two trust
+    regions' last-bit differences carry that far)."""
+    from bpldenoising_tpu_torch.solvers.hypergrad import HypergradConfig
+    well = HypergradConfig(al_iters=2, cg_maxiter=1000, act_tol=1e-4)
+    say(f"  {name}, HypergradConfig(al_iters=2, cg_maxiter=1000, "
+        "act_tol=1e-4) (phase 40's well-conditioned adjoint):")
+    out = dict(well_conditioned=tr_parity(name, *tr_pair_runs(name, well)))
+    say(f"  {name}, the entry point's default HypergradConfig() (not "
+        "gated):")
+    default = tr_parity(name, *tr_pair_runs(name), gate=False)
+    ulp, its, conv = tr_ulp_control(name, *default.pop("last"))
+    say(f"  {name}: at tr's last x the default gradient moves by {ulp:.3e} "
+        f"relative under a one-ulp move of x (adjoint CG {its} its, "
+        f"converged {conv})")
+    out["well_conditioned"].pop("last")
+    out.update(default_config=default, ulp_control=dict(
+        grad_rel_move=ulp, cg_iters=its, cg_converged=conv),
+        faults=out["well_conditioned"].pop("faults") + default.pop("faults"))
+    return out
+
+
+def tr_pair_runs(name, cfg=None):
+    """Phase 43-44's pair for ``name``: (run_tr, run_fused, CP wrapper or
+    None).  Float64 (the entry points' default dtype), inner_tol None (the
+    default: every inner solve cold at its fixed budget), the outer
+    iterations cut to 3; the rest is each entry point's default on the
+    datasets of phases 36-39 and 8, 11, 15 (the faces images, circle_sp,
+    the six color_disks images); ``cfg``: the TV family's
+    HypergradConfig, if not the default."""
+    import numpy as np
+    import torch
+    from bpldenoising_tpu_torch.bilevel.fused import bilevel_learn_fused
+    from bpldenoising_tpu_torch.data import testdataset
+    from bpldenoising_tpu_torch.experiments import api, tgv, tvl1, vtv
+    from bpldenoising_tpu_torch.models import sumregs_model
+    from bpldenoising_tpu_torch.solvers import tgv_cuda, tvl1_cuda, vtv_cuda
+    from bpldenoising_tpu_torch.utils.config import merge
+
+    common = dict(maxiter=3, inner_tol=None, device="cuda")
+    if cfg is not None:
+        common["hypergrad_cfg"] = cfg
+    faces = dict(common, dataset_name="faces_train", num_samples=10)
+    if name == "image_pair":
+        true_, noisy = testdataset("faces_train_128_10")
+        pair = (true_[0], noisy[0])
+        params = merge(api.default_params, api.patch_sumregs_bilevel_params,
+                       dict(common, device=None))
+
+        def fused():
+            ds = tuple(torch.as_tensor(im, dtype=torch.float64)[None].cuda()
+                       for im in pair)
+            res = bilevel_learn_fused(
+                ds, xinit=params.alpha0, params=params,
+                model=sumregs_model(), inner_maxiter=params.inner_maxiter,
+                inner_tol=None, check_every=params.check_every,
+                delta_t=1e-3, cfg=params.hypergrad_cfg, device="cuda")
+            return api._fused_to_result(res)
+        return (lambda: api.patch_bilevel_sumregs_learn(
+            image_pair=pair, **common), fused, None)
+    learn, kw, cp = {
+        "sumregs": (api.scalar_bilevel_sumregs_learn, faces, None),
+        "patch_tv": (api.patch_bilevel_tv_learn, faces, None),
+        "grid16": (api.patch_bilevel_tv_learn,
+                   dict(faces, alpha0=FLAGSHIP_ALPHA * np.ones((16, 16)),
+                        delta0=FLAGSHIP_ALPHA / 4), None),
+        "tgv": (tgv.scalar_bilevel_tgv_learn, faces, tgv_cuda),
+        "tvl1": (tvl1.scalar_bilevel_tvl1_learn, common, tvl1_cuda),
+        "vtv": (vtv.scalar_bilevel_vtv_learn,
+                dict(common, dataset_name="color_disks", num_samples=6),
+                vtv_cuda),
+    }[name]
+    return (lambda: learn(**dict(kw, method="tr")),
+            lambda: learn(**dict(kw, method="tr_fused")), cp)
 
 
 def flagship_kwargs():
@@ -3381,6 +3753,36 @@ def main():
     faults = [m for st in tvf.values() for m in st.pop("faults")]
     require(not faults, "; ".join(faults))
 
+    tr = {}
+    t_phase = time.perf_counter()
+    say("phase 41 flagship default call scalar_bilevel_tv_learn("
+        "dataset_name='faces_train', num_samples=10): method='tr', float64, "
+        "5000 cold inner its, HypergradConfig()")
+    tr["flagship_f64"] = phase_tr_flagship(
+        torch.as_tensor(true_np, dtype=torch.float64).to(dev))
+    say(f"  phase 41: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    say("phase 42 flagship scalar_bilevel_tv_learn(method='tr') at the "
+        "bench settings, float32")
+    tr["flagship_f32"] = phase_tr_bench(utrue)
+    say(f"  phase 42: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    say("phase 43 method='tr' against 'tr_fused' at inner_tol=None, "
+        "float64, full images; cut: 3 outer its")
+    for name in ("sumregs", "patch_tv", "image_pair", "grid16"):
+        tr[name] = phase_tr_tv_parity(name)
+    say(f"  phase 43: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    say("phase 44 method='tr' against 'tr_fused' at inner_tol=None, "
+        "float64, full images, rows 4, 8, 6 in the cluster form; cut: 3 "
+        "outer its")
+    for name in ("tgv", "tvl1", "vtv"):
+        tr[name] = tr_parity(name, *tr_pair_runs(name))
+        tr[name].pop("last")
+    say(f"  phase 44: {time.perf_counter() - t_phase:.1f} s")
+    faults = [m for st in tr.values() for m in st.pop("faults")]
+    require(not faults, "; ".join(faults))
+
     itemsize = 4
     a_bytes = 4 * n * itemsize                  # f in; u, y out
     a_ops = A_OPS_PER_PIXEL_ITER * n * a_stats["iters"]
@@ -3573,7 +3975,7 @@ def main():
         "single_loop_tgv": slx["tgv"], "single_loop_tvl1": slx["tvl1"],
         "single_loop_vtv": slx["vtv"], "forms_a": forms_a,
         "forms_b": forms_b, "forms_f64_max_rel_err": forms_f64,
-        "tv_family_learns": tvf, "device": smi}))
+        "tv_family_learns": tvf, "tr_learns": tr, "device": smi}))
     faulthandler.cancel_dump_traceback_later()
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of one of the port's learns goes, on one NVIDIA GPU.
 
-    python3 scripts/torch_profile.py {tv,patch_tv,sumregs,grid16,tgv,tvl1,
-                                      vtv,single_loop,single_loop_tgv,
+    python3 scripts/torch_profile.py {tv,tr,patch_tv,sumregs,grid16,tgv,
+                                      tvl1,vtv,single_loop,single_loop_tgv,
                                       single_loop_tvl1,single_loop_vtv}
 
 Runs the family's fused learn on its preloaded float32 dataset with the
@@ -10,6 +10,14 @@ settings of ``chip_smoke.py``: TV (the flagship) and TGV² on
 ``faces_train_128_10`` (10 × 128²), TV-L1 on ``circle_sp_128_20``
 (1 × 128²), VTV on ``color_disks_128_10`` (6 × 3 × 128²); TV-L1 and VTV
 for the scalar weight and the 2×2 patch grid, TV and TGV for the scalar:
+
+``tr`` runs the flagship default call of the host trust region
+(``method="tr"``): ``bilevel.trust_region.bilevel_learn`` over the TV
+learning function on the faces images in float64, at the entry point's
+defaults (5000 cold inner iterations, ``HypergradConfig()``, 20 outer
+iterations at most; the whole learn is profiled); its split is kernel A
+(the inner solve), kernel B (the adjoint) and the host (the trust region,
+the cost, the one read of cost and gradient per evaluation).
 
 ``patch_tv``, ``sumregs`` and ``grid16`` run the fused TV-family learns
 of ``chip_smoke.py`` phases 36-39 on the faces images: the 2×2 patch TV
@@ -67,28 +75,30 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-# family: (fused module under bpldenoising_tpu_torch.bilevel, the names in
-# it timed as the inner solve, those timed as the adjoint, outer
-# iterations profiled)
+# family: (the module under bpldenoising_tpu_torch that calls the kernel
+# wrappers, the names in it timed as the inner solve, those timed as the
+# adjoint, outer iterations profiled)
+_TV = ("learning.tv", ("denoise_pdps_cuda",),
+       ("exact_hypergrad_cuda", "reg_hypergrad_cuda"))
 FAMILIES = {
-    "tv": ("fused", ("denoise_pdps_cuda",),
-           ("exact_hypergrad_cuda", "reg_hypergrad_cuda"), 20),
-    "patch_tv": ("fused", ("denoise_pdps_cuda",),
-                 ("exact_hypergrad_cuda", "reg_hypergrad_cuda"), 20),
-    "sumregs": ("fused", ("denoise_pdps_cuda",),
-                ("exact_hypergrad_cuda", "reg_hypergrad_cuda"), 20),
-    "grid16": ("fused", ("denoise_pdps_cuda",),
-               ("exact_hypergrad_cuda", "reg_hypergrad_cuda"), 2),
-    "tgv": ("fused_tgv", ("tgv_denoise_pdps_cuda",),
+    "tv": _TV + (20,),
+    "tr": _TV + (20,),
+    "patch_tv": _TV + (20,),
+    "sumregs": _TV + (20,),
+    "grid16": _TV + (2,),
+    "tgv": ("learning.tgv", ("tgv_denoise_pdps_cuda",),
             ("tgv_implicit_cotangents",), 2),
-    "tvl1": ("fused_tvl1", ("tvl1_huber_denoise_cuda",),
+    "tvl1": ("learning.tvl1", ("tvl1_huber_denoise_cuda",),
              ("tvl1_huber_hypergrad",), 15),
-    "vtv": ("fused_vtv", ("vtv_denoise_pdps_cuda",),
+    "vtv": ("learning.vtv", ("vtv_denoise_pdps_cuda",),
             ("vtv_implicit_cotangents",), 3),
-    "single_loop": ("first_order_cuda", ("_launch",), (), 30),
-    "single_loop_tgv": ("first_order_tgv_cuda", ("_launch",), (), 30),
-    "single_loop_tvl1": ("first_order_tvl1_cuda", ("_launch",), (), 30),
-    "single_loop_vtv": ("first_order_vtv_cuda", ("_launch",), (), 30),
+    "single_loop": ("bilevel.first_order_cuda", ("_launch",), (), 30),
+    "single_loop_tgv": ("bilevel.first_order_tgv_cuda", ("_launch",), (),
+                        30),
+    "single_loop_tvl1": ("bilevel.first_order_tvl1_cuda", ("_launch",), (),
+                         30),
+    "single_loop_vtv": ("bilevel.first_order_vtv_cuda", ("_launch",), (),
+                        30),
 }
 
 
@@ -191,6 +201,36 @@ def setup_tv_family(family, torch):
             lambda out: hypergrad_cuda.last_total_cg_iters)
 
 
+def setup_tr(torch):
+    """``setup`` for the flagship default call with ``method="tr"``: the
+    host trust region (``bilevel.trust_region.bilevel_learn``) over the
+    TV learning function at the entry point's defaults (float64, 5000
+    cold inner iterations every evaluation, ``HypergradConfig()``, 20 outer
+    iterations at most) on the preloaded ten faces images."""
+    import numpy as np
+
+    from bpldenoising_tpu_torch.bilevel.trust_region import bilevel_learn
+    from bpldenoising_tpu_torch.data import testdataset
+    from bpldenoising_tpu_torch.experiments import api
+    from bpldenoising_tpu_torch.learning import make_tv_learning_function
+    from bpldenoising_tpu_torch.solvers import hypergrad_cuda
+    from bpldenoising_tpu_torch.utils.config import merge
+
+    params = merge(api.default_params, api.bilevel_params)
+    true_np, noisy_np = testdataset("faces_train_128_10")
+    ds = (torch.as_tensor(true_np, dtype=torch.float64).cuda(),
+          torch.as_tensor(noisy_np, dtype=torch.float64).cuda())
+
+    def learn(x0, p):
+        lf = make_tv_learning_function(maxiter=int(p.inner_maxiter),
+                                       cfg=p.hypergrad_cfg, device="cuda")
+        return bilevel_learn(ds, lf, xinit=x0, params=p)
+
+    return (learn, {"scalar": (np.asarray(params.alpha0), params)},
+            lambda out: out[-1],
+            lambda out: hypergrad_cuda.last_total_cg_iters)
+
+
 def setup(family, torch):
     """The family's data on the card, its learn ``learn(x0, params)``, its
     runs ``{label: (x0, params)}`` and the counters read after a timed
@@ -213,6 +253,8 @@ def setup(family, torch):
         return setup_single_loop(torch, family)
     if family in ("patch_tv", "sumregs", "grid16"):
         return setup_tv_family(family, torch)
+    if family == "tr":
+        return setup_tr(torch)
     if family == "tv":
         kw = cs.flagship_kwargs()
         name, color, fn = ("faces_train_128_10", False,
@@ -285,8 +327,7 @@ def main():
                                                 vtv_cuda)
 
     mod_name, solve_names, adjoint_names, prof_its = FAMILIES[args.family]
-    module = importlib.import_module(
-        "bpldenoising_tpu_torch.bilevel." + mod_name)
+    module = importlib.import_module("bpldenoising_tpu_torch." + mod_name)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -243,30 +243,38 @@ def test_entry_points_match_jax(entry, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("method", ["tr", "tr_fused"])
 @pytest.mark.parametrize("entry", ENTRY[1:])
-def test_new_entry_points_refuse_the_trust_region(entry, method):
-    """The host-driven trust region (method="tr") is not ported and
-    raises; the fused one runs (against the JAX package:
+def test_new_entry_points_refuse_the_trust_region(entry, method, tmp_path,
+                                                  monkeypatch):
+    """Both trust regions run: the host-driven one (method="tr") against
+    the JAX entry point at 1e-8 (its whole comparison is in
+    tests/test_torch_tr_learn.py), the fused one (against the JAX package:
     tests/test_torch_fused_sumregs.py)."""
     kw = dict(SL, method=method, maxiter=1, inner_maxiter=20)
-    if method == "tr":
-        with pytest.raises(NotImplementedError, match="item 6"):
-            getattr(tx, entry)(device="cpu", **kw)
-        return
     res = getattr(tx, entry)(device="cpu", **kw)
     assert res.iterations == 1 and len(res.state.log) == 1
     assert np.all(np.isfinite(res.x)) and np.isfinite(res.cost)
+    if method == "tr":
+        monkeypatch.chdir(tmp_path)   # the JAX entry points write output/
+        jres = getattr(japi, entry)(save_results=False, backend="jnp", **kw)
+        _close(res.x, jres.x)
+        _close(res.cost, jres.cost)
+        _close(res.u, jres.u)
 
 
 def test_refusals():
-    """What is not ported raises: data_parallel, the image_pair form,
-    mesh= and optimizer=; x₀ ≤ 0 at every entry of the learner."""
+    """What is not ported raises: data_parallel, mesh= and optimizer=; x₀ ≤
+    0 at every entry of the learner.  The image_pair form runs the host
+    trust region whatever ``method`` says (against the JAX package:
+    tests/test_torch_tr_learn.py)."""
     with pytest.raises(NotImplementedError, match="data_parallel"):
         tx.scalar_bilevel_tv_learn(device="cpu", **dict(SL,
                                                         data_parallel=True))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tx.patch_bilevel_sumregs_learn(image_pair=(np.zeros((8, 8)),
-                                                   np.zeros((8, 8))),
-                                       device="cpu", **SL)
+    clean, noisy = disc_stack(O=1)
+    res = tx.patch_bilevel_sumregs_learn(
+        image_pair=(clean[0], noisy[0]), device="cpu",
+        **dict(SL, maxiter=1, inner_maxiter=20))
+    assert res.x.shape == (2, 2, 3) and res.u.shape == (1,) + clean.shape[1:]
+    assert res.iterations == 1 and np.isfinite(res.cost)
     ut, f = disc_stack(O=1)
     with pytest.raises(NotImplementedError, match="mesh"):
         tfo.single_loop_tv_learn(_t(ut), _t(f), 0.05, mesh=object())

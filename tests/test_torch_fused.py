@@ -20,6 +20,8 @@ import torch
 
 from bpldenoising_tpu.bilevel.fused import \
     bilevel_learn_fused as j_learn_fused
+from bpldenoising_tpu.experiments.api import \
+    scalar_bilevel_tv_learn as j_scalar_tv_learn
 from bpldenoising_tpu.models import sumregs_model as j_sumregs
 from bpldenoising_tpu.solvers import lbfgs as jlb
 from bpldenoising_tpu.solvers.hypergrad import HypergradConfig as JCfg
@@ -225,9 +227,12 @@ def test_lbfgs_functions_match_jax(rng):
     assert tst2.count == int(jst2.count) == tst.count
 
 
-def test_scalar_learn_entry_point_on_cpu():
+def test_scalar_learn_entry_point_on_cpu(tmp_path, monkeypatch):
     """The user entry point on a bundled dataset (one image, small
-    budgets), and its refusal of what is not ported."""
+    budgets), and its refusal of what is not ported.  The host trust
+    region (method="tr", the default) runs too and matches the JAX entry
+    point at its own defaults (the default HypergradConfig; a 30-iteration
+    inner budget) to 1e-8."""
     kw = dict(dataset_name="circle", num_samples=1, method="tr_fused",
               maxiter=2, inner_maxiter=150, inner_tol=1e-4, check_every=50,
               hypergrad_cfg=HypergradConfig(al_iters=2, cg_maxiter=30))
@@ -235,8 +240,15 @@ def test_scalar_learn_entry_point_on_cpu():
     assert res.u.shape == (1, 128, 128) and res.u.dtype == np.float64
     assert np.isfinite(res.cost) and res.x.shape == ()
     assert res.iterations == 2 and len(res.state.log) == 2
-    with pytest.raises(NotImplementedError):
-        scalar_bilevel_tv_learn(device="cpu", **dict(kw, method="tr"))
+    tr = dict(dataset_name="circle", num_samples=1, maxiter=2,
+              inner_maxiter=30)
+    res = scalar_bilevel_tv_learn(device="cpu", **tr)
+    monkeypatch.chdir(tmp_path)   # the JAX entry point writes output/
+    jres = j_scalar_tv_learn(save_results=False, backend="jnp", **tr)
+    assert res.iterations == jres.iterations == 2
+    np.testing.assert_allclose(res.x, np.asarray(jres.x), rtol=RTOL)
+    np.testing.assert_allclose(res.cost, jres.cost, rtol=RTOL)
+    np.testing.assert_allclose(res.u, np.asarray(jres.u), atol=1e-10)
     with pytest.raises(NotImplementedError):
         scalar_bilevel_tv_learn(device="cpu", **dict(kw, save_results=True))
 

@@ -151,9 +151,17 @@ def test_tgv_denoise_matches_jax(parameter):
         tx.TGVDenoise(noisy, (0.1, 0.2, 0.3), maxiter=5, device="cpu")
 
 
-def test_entry_points_refuse_what_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        tx.scalar_bilevel_tgv_learn(device="cpu", **dict(ENTRY, method="tr"))
+def test_entry_points_refuse_what_is_not_ported(in_tmp):
+    """What is not ported raises; the host trust region (method="tr") runs
+    and matches the JAX entry point to 1e-8 (its whole comparison is in
+    tests/test_torch_tr_learn.py)."""
+    kw = dict(ENTRY, method="tr")
+    res = tx.scalar_bilevel_tgv_learn(device="cpu", **kw)
+    jres = jx.scalar_bilevel_tgv_learn(save_results=False, backend="jnp",
+                                       **kw)
+    assert res.iterations == jres.iterations == 2
+    np.testing.assert_allclose(res.x, np.asarray(jres.x), rtol=RTOL)
+    np.testing.assert_allclose(res.cost, jres.cost, rtol=RTOL)
     with pytest.raises(NotImplementedError):
         tx.patch_bilevel_tgv_learn(device="cpu",
                                    **dict(ENTRY, method="single_loop",

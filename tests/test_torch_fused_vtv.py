@@ -182,8 +182,21 @@ def test_vtv_denoise_matches_jax(parameter):
     dict(checkpoint=True), dict(data_parallel=True), dict(log_every=1),
     dict(backend="pallas"), dict(visualise=True)],
     ids=lambda k: next(iter(k)) + "=" + str(next(iter(k.values()))))
-def test_entry_points_refuse_what_is_not_ported(knob):
-    for learn in (tx.scalar_bilevel_vtv_learn, tx.patch_bilevel_vtv_learn):
+def test_entry_points_refuse_what_is_not_ported(knob, in_tmp):
+    """Each knob that is not ported raises; method="tr" (the host trust
+    region) runs and matches the JAX entry point to 1e-8 (its whole
+    comparison is in tests/test_torch_tr_learn.py)."""
+    for name in ("scalar_bilevel_vtv_learn", "patch_bilevel_vtv_learn"):
+        learn = getattr(tx, name)
+        if knob == dict(method="tr"):
+            kw = dict(ENTRY, **knob)
+            res = learn(device="cpu", **kw)
+            jkw = {} if "vtv" == "tvl1" else dict(backend="jnp")
+            jres = getattr(jx, name)(save_results=False, **jkw, **kw)
+            assert res.iterations == jres.iterations == kw["maxiter"]
+            np.testing.assert_allclose(res.x, np.asarray(jres.x), rtol=1e-8)
+            np.testing.assert_allclose(res.cost, jres.cost, rtol=1e-8)
+            continue
         with pytest.raises(NotImplementedError):
             learn(device="cpu", **dict(ENTRY, **knob))
     with pytest.raises(ValueError, match="method="):

@@ -85,14 +85,18 @@ SLICE_MODULES = ("ops/tgv.py", "ops/patch.py", "solvers/tgv.py",
                  "bilevel/first_order_tvl1_cuda.py",
                  "bilevel/first_order_vtv.py",
                  "bilevel/first_order_vtv_cuda.py",
-                 "solvers/cluster_plan.py")
+                 "solvers/cluster_plan.py", "bilevel/trust_region.py",
+                 "utils/telemetry.py", "learning/__init__.py",
+                 "learning/cache.py", "learning/tv.py", "learning/sumregs.py",
+                 "learning/tgv.py", "learning/tvl1.py", "learning/vtv.py")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)
 def test_tgv_slice_modules_are_checked(module):
-    """The TGV, TV-L1, VTV and single-loop slices' modules (the four
-    families' single-loop learners, and the result types) exist and are
-    among the sources checked above (so they import no JAX)."""
+    """The TGV, TV-L1, VTV, single-loop and host trust-region slices'
+    modules (the four families' single-loop learners, the result types,
+    the host trust region and its learning functions) exist and are among
+    the sources checked above (so they import no JAX)."""
     assert PORT / module in SOURCES
 
 
@@ -104,17 +108,35 @@ def _profile_script():
     return mod
 
 
-@pytest.mark.parametrize("family", ["tv", "patch_tv", "sumregs", "grid16",
+@pytest.mark.parametrize("family", ["tv", "tr", "patch_tv", "sumregs",
+                                    "grid16",
                                     "tgv", "tvl1", "vtv",
                                     "single_loop", "single_loop_tgv",
                                     "single_loop_tvl1", "single_loop_vtv"])
 def test_profile_script_times_names_the_learn_calls(family):
-    """scripts/torch_profile.py times a learn by replacing names in its
-    fused module: each name must be one the module has (a renamed wrapper
-    would otherwise go untimed)."""
+    """scripts/torch_profile.py times a learn by replacing names in the
+    module that calls the kernel wrappers (a learning function's, or a
+    single-loop learner's): each name must be one the module has (a
+    renamed wrapper would otherwise go untimed)."""
     mod_name, solve, adjoint, its = _profile_script().FAMILIES[family]
-    module = importlib.import_module(
-        "bpldenoising_tpu_torch.bilevel." + mod_name)
+    module = importlib.import_module("bpldenoising_tpu_torch." + mod_name)
     for name in solve + adjoint:
         assert callable(getattr(module, name)), name
     assert its >= 1
+
+
+JAX_REFERENCE_SCRIPTS = sorted((ROOT / "scripts").glob("jax_reference_*.py"))
+
+
+@pytest.mark.parametrize("path", JAX_REFERENCE_SCRIPTS,
+                         ids=[p.name for p in JAX_REFERENCE_SCRIPTS])
+def test_jax_reference_scripts_import_no_port(path):
+    """The scripts that pin chip_smoke.py's reference numbers run the JAX
+    package alone: they import nothing of the port, so a fault of the port
+    cannot move its own reference (scripts/jax_reference_tr.py among
+    them)."""
+    assert any(p.name == "jax_reference_tr.py"
+               for p in JAX_REFERENCE_SCRIPTS)
+    bad = [m for m in _imported(path)
+           if m.split(".")[0] == "bpldenoising_tpu_torch"]
+    assert not bad, f"{path.name} imports {bad}"
