@@ -9,13 +9,16 @@ first iteration of the run, and the time spent logging (``wasted_time``)
 is taken out of every logged time; it stops when the radius Δ falls below
 ``params.tol``, when the step asks to, or on Ctrl-C (``interrupted``).
 
-The live plot of the JAX harness (``LiveView``) is not ported:
-``visualise=True`` raises and ``view`` stays ``None``.
+With ``visualise=True`` each logged iterate goes to a :class:`LiveView`
+(the reconstruction and, for patch parameters, the normalised parameter
+map), which draws on a thread of its own and never holds the iteration
+up.
 """
 
 from __future__ import annotations
 
 import sys
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
@@ -24,7 +27,105 @@ import numpy as np
 
 from ..viz.log import BilevelLogEntry, IterLog
 
-__all__ = ["BilevelState", "BilevelResult", "bilevel_iterate"]
+__all__ = ["BilevelState", "BilevelResult", "bilevel_iterate", "LiveView"]
+
+
+class LiveView:
+    """Live view of the current reconstruction and (for patch parameters)
+    the normalised parameter map.
+
+    Frames go to a render thread through a depth-1 channel: :meth:`show`
+    never blocks; a frame still pending when the next arrives is replaced
+    (counted in ``frames_dropped``), so the view shows the newest iterate.
+    ``renderer(image, param)`` may be injected; the default draws with
+    matplotlib and does nothing on a headless (agg) backend.  An exception
+    in the renderer never stops a run.  A GUI backend that must draw on
+    the main thread needs a renderer that hands the frame to its event
+    loop."""
+
+    def __init__(self, renderer: Optional[Callable] = None):
+        self._renderer = renderer if renderer is not None else self._draw
+        self._cond = threading.Condition()
+        self._frame = None          # the pending frame (depth-1 channel)
+        self._stopping = False
+        self._thread = None
+        self._fig = None
+        self.frames_drawn = 0
+        self.frames_dropped = 0
+
+    def show(self, image: np.ndarray, param: Optional[np.ndarray]):
+        """Queue the newest frame (replacing a pending one) and start the
+        render thread if it is not running."""
+        frame = (np.asarray(image),
+                 None if param is None else np.asarray(param))
+        with self._cond:
+            if self._stopping:
+                return
+            if self._thread is None:
+                self._thread = threading.Thread(
+                    target=self._pump, name="bpldenoising-liveview",
+                    daemon=True)
+                self._thread.start()
+            if self._frame is not None:
+                self.frames_dropped += 1
+            self._frame = frame
+            self._cond.notify()
+
+    def _pump(self):
+        while True:
+            with self._cond:
+                while self._frame is None and not self._stopping:
+                    self._cond.wait()
+                if self._frame is None:     # stopping, nothing pending
+                    return
+                frame, self._frame = self._frame, None
+            try:
+                self._renderer(*frame)
+            except Exception:
+                pass  # a failing view must not end the run
+            self.frames_drawn += 1
+
+    def _draw(self, image: np.ndarray, param: Optional[np.ndarray]):
+        import matplotlib
+        import matplotlib.pyplot as plt
+        if self._fig is None:
+            if matplotlib.get_backend().lower() == "agg":
+                return  # headless: nothing to draw on
+            plt.ion()
+            self._fig = plt.figure("bpldenoising")
+        self._fig.clf()
+        ncols = 1 + (param is not None)
+        ax = self._fig.add_subplot(1, ncols, 1)
+        if image.ndim == 3:  # planar (C, M, N) color → HWC for imshow
+            image = np.clip(np.moveaxis(image, 0, -1), 0.0, 1.0)
+        ax.imshow(image, cmap="gray")
+        ax.set_title("reconstruction")
+        ax.axis("off")
+        if param is not None:
+            ax2 = self._fig.add_subplot(1, ncols, 2)
+            ax2.imshow(param, cmap="gray")
+            ax2.set_title("parameter")
+            ax2.axis("off")
+        self._fig.canvas.draw_idle()
+        self._fig.canvas.flush_events()
+
+    def close(self):
+        """Draw a pending frame (the last iterate stays on screen), join
+        the render thread, and let a later :meth:`show` start again."""
+        with self._cond:
+            self._stopping = True
+            self._cond.notify()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+            self._thread = None
+        self._stopping = False
+        if self._fig is not None:
+            try:
+                import matplotlib.pyplot as plt
+                plt.close(self._fig)
+            except Exception:
+                pass
+            self._fig = None
 
 
 @dataclass
@@ -34,7 +135,7 @@ class BilevelState:
     start_time: Optional[float] = None
     wasted_time: float = 0.0
     interrupted: bool = False
-    view: Optional[Any] = None
+    view: Optional[LiveView] = None
 
 
 @dataclass
@@ -80,10 +181,9 @@ def bilevel_iterate(step: Callable, params, visualise: bool = False,
     ``save_iteration_fn(iteration, image)`` gets each logged image as a
     host array.
     """
-    if visualise:
-        raise NotImplementedError(
-            "visualise is not ported yet (ROADMAP.md §1 item 6)")
     st = state if state is not None else BilevelState()
+    if visualise:
+        st.view = LiveView()
     maxiter = int(params.maxiter)
     verbose_iter = int(params.get("verbose_iter", 1) or 0)
     tol = float(params.get("tol", 0.0))
@@ -121,8 +221,18 @@ def bilevel_iterate(step: Callable, params, visualise: bool = False,
                       f"|g|={float(gnorm):.4e} Δ={float(delta):.4e} "
                       f"step={float(step_norm):.4e}",
                       file=sys.stderr, flush=True)
+                if st.view is not None or save_iteration_fn is not None:
+                    image = _host(image)
+                if st.view is not None:
+                    xa = np.asarray(x)
+                    pmap = None
+                    if xa.ndim >= 2:  # patch parameters: a normalised map
+                        lo, hi = xa.min(), xa.max()
+                        pmap = (xa - lo) / (hi - lo) if hi > lo else xa * 0
+                        pmap = pmap.reshape(pmap.shape[0], -1)
+                    st.view.show(image, pmap)
                 if save_iteration_fn is not None:
-                    save_iteration_fn(_it, _host(image))
+                    save_iteration_fn(_it, image)
                 if float(delta) < tol:
                     stop = True
                 st.wasted_time += time.perf_counter() - t0
@@ -136,4 +246,6 @@ def bilevel_iterate(step: Callable, params, visualise: bool = False,
         st.interrupted = True
         print("interrupted — returning current state", file=sys.stderr,
               flush=True)
+    if st.view is not None:
+        st.view.close()
     return st

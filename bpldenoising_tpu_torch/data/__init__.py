@@ -1,6 +1,8 @@
 from .datasets import (dataset_dir, full_datasetname, load_dataset,
                        remotedatasets, testdataset)
-from .png_io import read_png_color, read_png_gray
+from .png_io import (read_png_color, read_png_gray, write_png_color,
+                     write_png_gray)
 
 __all__ = ["testdataset", "load_dataset", "full_datasetname",
-           "remotedatasets", "dataset_dir", "read_png_gray", "read_png_color"]
+           "remotedatasets", "dataset_dir", "read_png_gray", "read_png_color",
+           "write_png_gray", "write_png_color"]

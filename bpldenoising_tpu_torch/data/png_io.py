@@ -1,11 +1,14 @@
-"""PNG reading with the standard library's ``zlib`` and numpy
-(counterpart of the read side of ``bpldenoising_tpu.data.png_io``).
+"""PNG reading and writing with the standard library's ``zlib`` and numpy
+(counterpart of ``bpldenoising_tpu.data.png_io``).
 
 Reads non-interlaced PNGs with all five scanline filter types: grayscale
 of bit depth 1, 2, 4, 8 or 16 and RGB of depth 8 or 16 (the bundled
 datasets are 8-bit grayscale and 8-bit RGB).  A sample v
 of depth d scales to float64 in [0, 1] as ``v * (1.0 / (2**d - 1))``, as
-the JAX package's native codec does.
+the JAX package's native codec does.  Writes 8-bit grayscale and 8-bit
+RGB (from planar (3, rows, cols) arrays) with the native codec's
+quantisation: a value clipped to [0, 1] (NaN to 0) becomes
+``uint8(v·255 + 0.5)``; every scanline takes filter type 0.
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ import zlib
 
 import numpy as np
 
-__all__ = ["read_png_gray", "read_png_color"]
+__all__ = ["read_png_gray", "read_png_color", "write_png_gray",
+           "write_png_color"]
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # channels per pixel of each color type read: gray, RGB
@@ -140,3 +144,48 @@ def read_png_color(path: str) -> np.ndarray:
                          * (1.0 / ((1 << depth) - 1)), -1, 0)
     return np.ascontiguousarray(np.broadcast_to(planes,
                                                 (3,) + planes.shape[1:]))
+
+
+def _quantise(img) -> np.ndarray:
+    """[0, 1] floats → uint8 as the JAX package's native codec rounds them
+    (NaN and values below 0 to 0, above 1 to 255)."""
+    v = np.asarray(img, dtype=np.float64)
+    v = np.minimum(np.where(v >= 0.0, v, 0.0), 1.0)
+    return (v * 255.0 + 0.5).astype(np.uint8)
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def _encode(path: str, samples: np.ndarray, color: int) -> None:
+    """Write (rows, cols · channels) uint8 ``samples`` as a PNG of color
+    type ``color``, every scanline unfiltered."""
+    height, row_bytes = samples.shape
+    width = row_bytes // _CHANNELS[color]
+    raw = np.zeros((height, row_bytes + 1), np.uint8)   # filter byte 0
+    raw[:, 1:] = samples
+    header = struct.pack(">IIBBBBB", width, height, 8, color, 0, 0, 0)
+    with open(path, "wb") as fh:
+        fh.write(_SIGNATURE + _chunk(b"IHDR", header)
+                 + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+                 + _chunk(b"IEND", b""))
+
+
+def write_png_gray(path: str, img) -> None:
+    """Write a [0, 1] (rows, cols) float array as an 8-bit grayscale
+    PNG."""
+    img = np.asarray(img)
+    if img.ndim != 2:
+        raise ValueError(f"expected a 2-D grayscale image, got {img.shape}")
+    _encode(path, _quantise(img), 0)
+
+
+def write_png_color(path: str, img) -> None:
+    """Write a planar (3, rows, cols) [0, 1] array as an 8-bit RGB PNG."""
+    img = np.asarray(img)
+    if img.ndim != 3 or img.shape[0] != 3:
+        raise ValueError(f"expected planar (3, rows, cols), got {img.shape}")
+    hwc = np.moveaxis(_quantise(img), 0, -1)
+    _encode(path, hwc.reshape(hwc.shape[0], -1), 2)

@@ -2,40 +2,47 @@
 ``bpldenoising_tpu.experiments.tgv``).
 
 The parameter is the 2-vector (α₁, α₀) weighting the first- and
-second-order terms, or an (m, n, 2) stack of patch grids.  Ported so far:
-:func:`scalar_bilevel_tgv_learn` and :func:`patch_bilevel_tgv_learn` with
+second-order terms, or an (m, n, 2) stack of patch grids.
+:func:`scalar_bilevel_tgv_learn` and :func:`patch_bilevel_tgv_learn` run
 ``method="tr"`` (the default: the host trust region over
 :func:`..learning.tgv.make_tgv_learning_function`), ``method="tr_fused"``
 and ``method="single_loop"`` (the first-order learner of
 :mod:`..bilevel.first_order_tgv` at ``sl_lr`` 0.02, its log every
-``sl_outer // 20`` steps), and :func:`TGVDenoise`.  As in the TV entry
-point, ``check_every``, ``inner_tol`` and ``tgv_gamma`` are parameters;
-saving results, validation (it needs SSIM), cost sweeps, checkpointing,
-segmented dispatch of the trust region (``log_every``) and data
-parallelism raise ``NotImplementedError``, as does any ``backend`` but
-``"auto"``.
+``sl_outer // 20`` steps), each ending in :func:`.api.save_results` (the
+true and noisy images stretched, as in the JAX package).  Also here:
+:func:`TGVDenoise`, :func:`validate_tgv_parameter` and the (α₁, α₀) cost
+sweep :func:`generate_tgv_cost` with its plot.  As in the TV entry point,
+``check_every``, ``inner_tol`` and ``tgv_gamma`` are parameters;
+checkpointing, segmented dispatch of the fused trust region
+(``log_every``) and data parallelism raise ``NotImplementedError``, as
+does any ``backend`` but ``"auto"``.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from ..bilevel.first_order_tgv import single_loop_tgv_learn
 from ..bilevel.fused_tgv import bilevel_learn_tgv_fused
-from ..data import full_datasetname
+from ..bilevel.harness import BilevelResult
+from ..data import testdataset
 from ..learning.tgv import make_tgv_learning_function
 from ..ops import PatchOp
 from ..solvers.tgv import tgv_denoise_pdps
-from ..utils.config import Params, merge
-from ..bilevel.harness import BilevelResult
-from .api import (VISUALISE_REFUSAL, _fused_to_result, _load, check_backend,
-                  default_params, reject_unported, run_bilevel,
-                  run_single_loop)
+from ..utils.config import Params
+from ..viz.plots import plot_cost_contour
+from .api import (L2CostFunction, _host, _load, _out_dir, _plot_npz,
+                  _sweep_params, _torch_dtype, check_backend,
+                  experiment_params, finish_validation, run_bilevel,
+                  run_fused, run_single_loop)
 
 __all__ = ["tgv_bilevel_params", "patch_tgv_bilevel_params",
            "scalar_bilevel_tgv_learn", "patch_bilevel_tgv_learn",
-           "TGVDenoise"]
+           "generate_tgv_cost", "generate_tgv_cost_plot",
+           "validate_tgv_parameter", "TGVDenoise"]
 
 # the JAX package's TR schedule for the 2-vector weight; sl_lr is the
 # single-loop learning rate that keeps that method from diverging on TGV.
@@ -74,33 +81,21 @@ def TGVDenoise(data, parameter, maxiter: int = 10000, backend="auto",
     return u
 
 
-def _run_tgv_fused(params, device):
-    reject_unported(params)
-    ds = _load(params, device)
-    res = bilevel_learn_tgv_fused(
-        ds, xinit=np.asarray(params.alpha0), params=params,
-        inner_maxiter=int(params.inner_maxiter),
-        inner_tol=params.get("inner_tol"),
-        check_every=int(params.check_every),
-        gamma=_tgv_gamma(params), device=device)
-    return _fused_to_result(res)
-
-
 def _tgv_gamma(params) -> float:
     return (1e-4 if params.get("tgv_gamma") is None
             else float(params.tgv_gamma))
 
 
-def _learn(family_params, visualise, device, kwargs):
-    if visualise:
-        raise NotImplementedError(VISUALISE_REFUSAL)
-    params = merge(default_params, family_params, kwargs)
-    params = params | dict(dataset_name=full_datasetname(params.dataset_name))
+def _learn(params, visualise, device):
+    """The learn by ``params.method``; the true and noisy images are
+    stretched for the saved results in every method, as in the JAX
+    package."""
     if params.get("method") == "single_loop":
         return run_single_loop(params, device, single_loop_tgv_learn,
-                               gamma=_tgv_gamma(params))
+                               stretch_all=True, gamma=_tgv_gamma(params))
     if params.get("method") == "tr_fused":
-        return _run_tgv_fused(params, device)
+        return run_fused(params, device, bilevel_learn_tgv_fused,
+                         stretch_all=True, gamma=_tgv_gamma(params))
     if params.get("method") != "tr":
         raise ValueError(f"TGV experiments support method='tr' (host trust "
                          f"region), 'tr_fused' or 'single_loop', got "
@@ -112,7 +107,7 @@ def _learn(family_params, visualise, device, kwargs):
     if params.get("inner_tol") is not None:
         lf_kwargs["tol"] = float(params.inner_tol)
     return run_bilevel(params, make_tgv_learning_function(**lf_kwargs),
-                       device)
+                       device, visualise=visualise, stretch_all=True)
 
 
 def scalar_bilevel_tgv_learn(visualise: bool = False, device="cuda",
@@ -121,11 +116,57 @@ def scalar_bilevel_tgv_learn(visualise: bool = False, device="cuda",
     default), the fused one (``method="tr_fused"``) or the single-loop
     learner (``method="single_loop"``).  ``device="cuda"`` runs the CUDA
     kernels; ``device="cpu"`` runs their plain versions."""
-    return _learn(tgv_bilevel_params, visualise, device, kwargs)
+    params = experiment_params(tgv_bilevel_params, kwargs,
+                               "tgv_optimal_parameter_")
+    return _learn(params, visualise, device)
 
 
 def patch_bilevel_tgv_learn(visualise: bool = False, device="cuda",
                             **kwargs) -> BilevelResult:
     """Learn spatially-varying (α₁, α₀) patch grids (an (m, n, 2) stack)
-    by either trust region or the single-loop learner."""
-    return _learn(patch_tgv_bilevel_params, visualise, device, kwargs)
+    by either trust region or the single-loop learner; the learned stack
+    is saved as two stretched parameter maps."""
+    params = experiment_params(patch_tgv_bilevel_params, kwargs,
+                               "tgv_optimal_parameter_patch_{shape}_")
+    return _learn(params, visualise, device)
+
+
+def generate_tgv_cost(dataset_name, parameter_range_1, parameter_range_2,
+                      *, num_samples=1, maxiter=5000, dtype="float64",
+                      device="cuda"):
+    """The cost ½‖u − ū‖² over TGV² weight pairs (α₁, α₀): one cold
+    ``maxiter``-iteration solve per pair; saved to ``<ds>_tgv_cost_2d.npz``
+    (``parameter_range_1``, ``parameter_range_2``, ``costs``)."""
+    params = _sweep_params(dataset_name, num_samples, dtype)
+    true_, data = _load(params, device)
+    r1 = np.asarray(parameter_range_1, dtype=np.float64)
+    r2 = np.asarray(parameter_range_2, dtype=np.float64)
+    A1, A0 = np.meshgrid(r1, r2, indexing="ij")
+    costs = np.asarray(
+        [L2CostFunction(tgv_denoise_pdps(data, float(a1), float(a0),
+                                      maxiter=maxiter)[0], true_)
+         for a1, a0 in zip(A1.ravel(), A0.ravel())],
+        dtype=np.dtype(params.dtype)).reshape(A1.shape)
+    out = _out_dir(params)
+    np.savez(os.path.join(out, f"{params.dataset_name}_tgv_cost_2d.npz"),
+             parameter_range_1=r1, parameter_range_2=r2, costs=costs)
+    return costs
+
+
+def generate_tgv_cost_plot(dataset_name):
+    """Contour plot of the (α₁, α₀) sweep."""
+    return _plot_npz(dataset_name, "_tgv_cost_2d", "_tgv_cost_plot_2d",
+                     plot_cost_contour)
+
+
+def validate_tgv_parameter(parameter, device="cuda", **kwargs):
+    """:func:`TGVDenoise` of the whole dataset at a fixed (α₁, α₀) (or
+    patch stack), 10,000 iterations, on ``device``; the quality table and
+    the PNG triplets under ``output/<dataset>/val_tgv_…``.  Returns
+    ``dict(cost, mean_ssim, mean_psnr, u)``."""
+    params = experiment_params(tgv_bilevel_params, kwargs,
+                               "val_tgv_optimal_parameter_{shape}_", parameter)
+    img, noisy = testdataset(params.dataset_name)
+    u = _host(TGVDenoise(torch.as_tensor(noisy, dtype=_torch_dtype(params)),
+                         parameter, device=device))
+    return finish_validation(params, parameter, u, img, noisy)

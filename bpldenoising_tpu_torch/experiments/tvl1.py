@@ -1,42 +1,49 @@
 """TV-L1 experiment front-ends (counterpart of
 ``bpldenoising_tpu.experiments.tvl1``).
 
-The robust L1 data term for impulse (salt-and-pepper) noise.  Ported so
-far: :func:`TVL1Denoise` (plain TV-L1 at a fixed scalar α, (M, N) map or
-(m, n) patch grid) and the bilevel learns :func:`scalar_bilevel_tvl1_learn`
-and :func:`patch_bilevel_tvl1_learn` on the Huber-smoothed surrogate, with
-``method="tr"`` (the default: the host trust region over
-:func:`..learning.tvl1.make_tvl1_learning_function`),
+The robust L1 data term for impulse (salt-and-pepper) noise:
+:func:`TVL1Denoise` (plain TV-L1 at a fixed scalar α, (M, N) map or (m, n)
+patch grid), :func:`validate_tvl1_parameter` (its budget
+``inner_maxiter``, 10,000 by :data:`tvl1_params`), the α sweep
+:func:`generate_tvl1_cost` with its plot, and the bilevel learns
+:func:`scalar_bilevel_tvl1_learn` and :func:`patch_bilevel_tvl1_learn` on
+the Huber-smoothed surrogate, with ``method="tr"`` (the default: the host
+trust region over :func:`..learning.tvl1.make_tvl1_learning_function`),
 ``method="tr_fused"`` (the fused trust region) or
 ``method="single_loop"`` (the first-order learner of
-:mod:`..bilevel.first_order_tvl1`).  As in the TV and TGV entry points,
-``check_every`` (the inner early-stop cadence) is a parameter; saving
-results, visualisation, checkpointing, segmented dispatch of the trust
-region (``log_every``) and data parallelism raise
-``NotImplementedError``, as does any ``backend`` but ``"auto"``.  Validation and the cost sweep need SSIM and the results
-code, which are not ported yet.
+:mod:`..bilevel.first_order_tvl1`), each ending in
+:func:`.api.save_results` (the true and noisy images stretched, as in the
+JAX package).  As in the TV and TGV entry points, ``check_every`` (the
+inner early-stop cadence) is a parameter; checkpointing, segmented
+dispatch of the fused trust region (``log_every``) and data parallelism
+raise ``NotImplementedError``, as does any ``backend`` but ``"auto"``.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from ..bilevel.first_order_tvl1 import single_loop_tvl1_learn
 from ..bilevel.fused_tvl1 import bilevel_learn_tvl1_fused
-from ..data import full_datasetname
+from ..bilevel.harness import BilevelResult
+from ..data import testdataset
 from ..learning.tvl1 import make_tvl1_learning_function
 from ..ops import PatchOp
 from ..solvers.tvl1 import tvl1_denoise
-from ..utils.config import Params, merge
-from ..bilevel.harness import BilevelResult
-from .api import (VISUALISE_REFUSAL, _fused_to_result, _load, check_backend,
-                  default_params, reject_unported, run_bilevel,
-                  run_single_loop)
+from ..utils.config import Params
+from ..viz.plots import plot_cost_curve
+from .api import (L2CostFunction, _host, _load, _out_dir, _plot_npz,
+                  _sweep_params, _torch_dtype, check_backend,
+                  experiment_params, finish_validation, run_bilevel,
+                  run_fused, run_single_loop)
 
-__all__ = ["TVL1Denoise", "tvl1_params", "scalar_bilevel_tvl1_learn",
-           "patch_bilevel_tvl1_learn", "tvl1_bilevel_params",
-           "patch_tvl1_bilevel_params"]
+__all__ = ["TVL1Denoise", "validate_tvl1_parameter", "generate_tvl1_cost",
+           "generate_tvl1_cost_plot", "tvl1_params",
+           "scalar_bilevel_tvl1_learn", "patch_bilevel_tvl1_learn",
+           "tvl1_bilevel_params", "patch_tvl1_bilevel_params"]
 
 # TV-L1 weights live on an O(1) scale (the data term is ‖·‖₁, not ½‖·‖²);
 # validation uses the 10000-iteration budget
@@ -95,41 +102,27 @@ def _cg_kwargs(params):
     return kw
 
 
-def _run_tvl1_fused(params, device):
-    reject_unported(params)
-    ds = _load(params, device)
-    res = bilevel_learn_tvl1_fused(
-        ds, xinit=np.asarray(params.alpha0), params=params,
-        inner_maxiter=int(params.inner_maxiter),
-        inner_tol=params.get("inner_tol"),
-        check_every=int(params.check_every),
-        gamma_d=float(params.tvl1_gamma_d), gamma=float(params.tvl1_gamma),
-        device=device, **_cg_kwargs(params))
-    return _fused_to_result(res)
-
-
-def _learn(family_params, visualise, device, kwargs):
-    if visualise:
-        raise NotImplementedError(VISUALISE_REFUSAL)
-    params = merge(default_params, family_params, kwargs)
-    params = params | dict(dataset_name=full_datasetname(params.dataset_name))
+def _learn(params, visualise, device):
+    """The learn by ``params.method``; the true and noisy images are
+    stretched for the saved results in every method, as in the JAX
+    package."""
     _check_method(params)
+    huber = dict(gamma_d=float(params.tvl1_gamma_d),
+                 gamma=float(params.tvl1_gamma))
     if params.method == "single_loop":
         return run_single_loop(params, device, single_loop_tvl1_learn,
-                               gamma_d=float(params.tvl1_gamma_d),
-                               gamma=float(params.tvl1_gamma))
+                               stretch_all=True, **huber)
     if params.method == "tr_fused":
-        return _run_tvl1_fused(params, device)
+        return run_fused(params, device, bilevel_learn_tvl1_fused,
+                         stretch_all=True, **huber, **_cg_kwargs(params))
     # the JAX entry point's learning-function keywords (its _tvl1_lf)
     lf_kwargs = dict(maxiter=int(params.inner_maxiter),
-                     gamma_d=float(params.tvl1_gamma_d),
-                     gamma=float(params.tvl1_gamma),
                      check_every=int(params.check_every), device=device,
-                     **_cg_kwargs(params))
+                     **huber, **_cg_kwargs(params))
     if params.get("inner_tol") is not None:
         lf_kwargs["tol"] = float(params.inner_tol)
     return run_bilevel(params, make_tvl1_learning_function(**lf_kwargs),
-                       device)
+                       device, visualise=visualise, stretch_all=True)
 
 
 def scalar_bilevel_tvl1_learn(visualise: bool = False, device="cuda",
@@ -139,11 +132,55 @@ def scalar_bilevel_tvl1_learn(visualise: bool = False, device="cuda",
     (``method="tr_fused"``) or the single-loop learner
     (``method="single_loop"``).  ``device="cuda"`` runs the CUDA kernels;
     ``device="cpu"`` runs their plain versions."""
-    return _learn(tvl1_bilevel_params, visualise, device, kwargs)
+    params = experiment_params(tvl1_bilevel_params, kwargs,
+                               "tvl1_optimal_parameter_scalar_")
+    return _learn(params, visualise, device)
 
 
 def patch_bilevel_tvl1_learn(visualise: bool = False, device="cuda",
                              **kwargs) -> BilevelResult:
     """Learn a spatially-varying (m, n) TV-L1 weight grid by either trust
-    region or the single-loop learner."""
-    return _learn(patch_tvl1_bilevel_params, visualise, device, kwargs)
+    region or the single-loop learner; the learned grid is saved as a
+    stretched parameter map."""
+    params = experiment_params(patch_tvl1_bilevel_params, kwargs,
+                               "tvl1_optimal_parameter_{shape}_")
+    return _learn(params, visualise, device)
+
+
+def validate_tvl1_parameter(parameter, device="cuda", **kwargs):
+    """:func:`TVL1Denoise` of the whole dataset at a fixed α (scalar, map
+    or grid) for ``inner_maxiter`` iterations (10,000 by
+    :data:`tvl1_params`), on ``device``; the quality table and the PNG
+    triplets under ``output/<dataset>/val_tvl1_…``.  Returns
+    ``dict(cost, mean_ssim, mean_psnr, u)``."""
+    params = experiment_params(tvl1_params, kwargs,
+                               "val_tvl1_optimal_parameter_{shape}_",
+                               parameter)
+    img, noisy = testdataset(params.dataset_name)
+    u = _host(TVL1Denoise(torch.as_tensor(noisy, dtype=_torch_dtype(params)),
+                          parameter, maxiter=int(params.inner_maxiter),
+                          device=device))
+    return finish_validation(params, parameter, u, img, noisy)
+
+
+def generate_tvl1_cost(dataset_name, parameter_range, *, num_samples=1,
+                       maxiter=5000, dtype="float64", device="cuda"):
+    """The cost ½‖u − ū‖² over plain TV-L1 weights α: one cold
+    ``maxiter``-iteration solve per α; saved to ``<ds>_tvl1_cost.npz``
+    (``parameter_range``, ``costs``)."""
+    params = _sweep_params(dataset_name, num_samples, dtype)
+    true_, data = _load(params, device)
+    costs = np.asarray(
+        [L2CostFunction(tvl1_denoise(data, float(a), maxiter=maxiter), true_)
+         for a in np.asarray(parameter_range, np.float64)],
+        dtype=np.dtype(params.dtype))
+    out = _out_dir(params)
+    np.savez(os.path.join(out, f"{params.dataset_name}_tvl1_cost.npz"),
+             parameter_range=np.asarray(parameter_range), costs=costs)
+    return costs
+
+
+def generate_tvl1_cost_plot(dataset_name):
+    """Log-log plot of the α sweep."""
+    return _plot_npz(dataset_name, "_tvl1_cost", "_tvl1_cost_plot",
+                     plot_cost_curve, title="TV-L1 Scalar Cost")

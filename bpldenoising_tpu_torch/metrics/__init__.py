@@ -1,3 +1,3 @@
-from .quality import l2_cost, psnr, psnr_np
+from .quality import l2_cost, psnr, psnr_np, ssim, ssim_np
 
-__all__ = ["psnr", "psnr_np", "l2_cost"]
+__all__ = ["psnr", "ssim", "l2_cost", "ssim_np", "psnr_np"]

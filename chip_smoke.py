@@ -219,6 +219,30 @@ Phases (one short line each):
     ``color_disks`` images, every call of rows 4, 8 and 6 in its cluster
     form.  Each phase prints its seconds.
 
+Phases 1-44 run every entry point with ``save_results=False``, as before
+results were ported (they write nothing; their digits and walls are the
+parent's).
+
+45. the flagship learn of phase 5 with ``save_results=True`` in a
+    temporary directory: the files (the log, the quality table, the ten
+    true/data/reco PNG triplets under the JAX prefix), one log row per
+    outer iteration, the table's per-image SSIM/PSNR equal to
+    ``ssim_np``/``psnr_np`` of the stretched arrays, the PNGs decoding to
+    ``uint8(clip(x)·255 + 0.5)``; the learn's wall and the host time of
+    its ``save_results`` printed apart.
+46. the five validations (``validate_tv_parameter``, ``_sumregs_``,
+    ``_tgv_``, ``_tvl1_``, ``_vtv_``) in float64 at the learned weights of
+    ``PERF.md`` §2, against the JAX package's float64 runs
+    (``scripts/jax_reference_reporting.py``): the cost within 1e-8
+    relative, the mean PSNR within 1e-6 dB; one call of the family's CP
+    kernel (A, rows 4, 7, 6) each, in the cluster form, no plain call.
+47. the five cost sweeps in float64 (TV 8 α, 2-D TV 4×4, TGV² 3×3, TV-L1
+    5, VTV 5), one cold call per point, each point within 1e-8 of the JAX
+    sweep; every call in the cluster form, no plain call; the walls.
+48. ``python -m bpldenoising_tpu_torch validate-tv`` and ``cost-sweep`` in
+    a subprocess: exit 0, the printed cost and PSNR those of phase 46, the
+    saved costs those the API gives in this process.
+
 It prints one JSON line of per-kernel numbers (eighteen entries: the
 eleven kernels, rows 1–3's K = 3 and map forms, row 5's 1024² call, row
 6's 256² call),
@@ -585,6 +609,82 @@ TR_COST_GATE_REL = 1e-3
 # against torch float64): the logged cost, ‖g‖ and Δ and the accept
 # pattern
 TR_PARITY_GATE_REL = 1e-10
+
+
+# Results and reporting (phases 45-48).  Phase 45: the flagship learn of
+# phase 5 with save_results=True in a temporary directory.  Phases 46-47:
+# the validations and the cost sweeps in float64 on the card against the
+# JAX package's float64 runs of the same calls on the CPU
+# (scripts/jax_reference_reporting.py, whose tables these are): the cost
+# within 1e-8 relative (a sweep: each point) and the mean PSNR within
+# 1e-6 dB.  Both sides run the same fixed-budget cold iteration in float64,
+# so they differ by the kernels' rounding (kernel A's projection, sums in
+# another order), ~1e-13 relative on u; a fault in a kernel, a weight
+# map or the quality table moves them by 1e-4 or more.
+REPORTING_VALIDATIONS = {
+    "val_tv": ("api", "validate_tv_parameter", 0.069788,
+               dict(dataset_name="faces_val"), "pdps"),
+    "val_sumregs": ("api", "validate_sumregs_parameter",
+                    (0.03239759, 0.03223814, 0.00623653),
+                    dict(dataset_name="faces_val"), "pdps"),
+    "val_tgv": ("tgv", "validate_tgv_parameter", (0.085226, 0.044170),
+                dict(dataset_name="faces_val"), "tgv"),
+    "val_tvl1": ("tvl1", "validate_tvl1_parameter", 1.9234402,
+                 dict(dataset_name="circle_sp"), "tvl1"),
+    "val_vtv": ("vtv", "validate_vtv_parameter", 0.16529731,
+                dict(dataset_name="color_disks"), "vtv"),
+}
+REPORTING_SWEEPS = {
+    "sweep_tv": ("api", "generate_scalar_tv_cost", "faces_train",
+                 ([0.02, 0.03, 0.045, 0.06, 0.07, 0.085, 0.12, 0.2],),
+                 "pdps"),
+    "sweep_tv_2d": ("api", "generate_2d_tv_cost", "faces_train",
+                    ([0.04, 0.06, 0.08, 0.1], [0.04, 0.06, 0.08, 0.1]),
+                    "pdps"),
+    "sweep_tgv": ("tgv", "generate_tgv_cost", "faces_train",
+                  ([0.06, 0.085226, 0.11], [0.03, 0.04417, 0.06]), "tgv"),
+    "sweep_tvl1": ("tvl1", "generate_tvl1_cost", "circle_sp",
+                   ([0.5, 1.0, 1.5, 1.9234402, 3.0],), "tvl1"),
+    "sweep_vtv": ("vtv", "generate_vtv_cost", "color_disks",
+                  ([0.08, 0.12, 0.16529731, 0.2, 0.3],), "vtv"),
+}
+# the JAX package on the CPU, float64 (scripts/jax_reference_reporting.py)
+REPORTING_REF = {
+    "val_tv": dict(cost=209.40552979543645, mean_psnr=26.02170474079609,
+        mean_ssim=0.7425912603961833, images=10),
+    "val_sumregs": dict(cost=207.40792568207306, mean_psnr=26.061705994669914,
+        mean_ssim=0.7439562053189491, images=10),
+    "val_tgv": dict(cost=213.98290249369862, mean_psnr=25.96831627265925,
+        mean_ssim=0.7505489679070806, images=10),
+    "val_tvl1": dict(cost=9.942191746851632, mean_psnr=29.1590780886855,
+        mean_ssim=0.9865746315562819, images=1),
+    "val_vtv": dict(cost=34.08593717652368, mean_psnr=36.435134647363334,
+        mean_ssim=0.9828808949264234, images=6),
+    "sweep_tv": dict(costs=(
+        37.93603116918058, 28.99298174475031, 22.18536274953173,
+        20.40939417260516, 20.745335566456305, 22.44597968450359,
+        28.398534501173557, 44.09024130629548)),
+    "sweep_tv_2d": dict(costs=(
+        (23.751067484741924, 22.163118828161885, 23.036321464853323, 24.768176461286956),
+        (21.99350551405694, 20.40939417260516, 21.27352854781411, 22.99461886204771),
+        (22.49684843076095, 20.911409712744764, 21.771253912810174, 23.48590732532142),
+        (23.84279410990898, 22.253947653441124, 23.110751967483075, 24.810289629879115))),
+    "sweep_tgv": dict(costs=(
+        (17.74133644557031, 17.36938193372552, 18.10395376456339),
+        (17.42390412969341, 17.244747759500832, 18.61837379007548),
+        (17.42179653853052, 17.406941255815088, 19.629767682144884))),
+    "sweep_tvl1": dict(costs=(
+        24.599279975107333, 13.279322730721987, 10.657286168370918,
+        9.942800228018342, 10.328247861162257)),
+    "sweep_vtv": dict(costs=(
+        21.836924493322968, 7.967918012826207, 6.609736137121934,
+        7.031253051584571, 9.341629326892892)),
+}
+REPORTING_COST_GATE_REL = 1e-8
+REPORTING_PSNR_GATE = 1e-6   # dB
+# phase 48: the command line in a subprocess against the API in this
+# process (the same kernels on the same card: the same bits)
+REPORTING_CLI_GATE_REL = 1e-12
 
 # peak rates of an H100 SXM (NVIDIA data sheet) for the bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -3051,8 +3151,8 @@ def phase_forms_f64(torch, device):
 
 def watch_plain(cp=False):
     """Count calls of the plain versions of kernels A and B (with ``cp``,
-    also of the TGV², TV-L1 and VTV kernels) that their wrappers would
-    make: → (calls, restore)."""
+    also of the TGV², TV-L1 (both forms) and VTV kernels) that their
+    wrappers would make: → (calls, restore)."""
     from bpldenoising_tpu_torch.solvers import (hypergrad_cuda, pdps_cuda,
                                                 tgv_cuda, tvl1_cuda,
                                                 vtv_cuda)
@@ -3062,6 +3162,7 @@ def watch_plain(cp=False):
              (hypergrad_cuda, "reg_hypergrad")]
     if cp:
         saved += [(tgv_cuda, "_tgv_impl"), (tvl1_cuda, "_tvl1_huber_loop"),
+                  (tvl1_cuda, "_tvl1_loop"),
                   (vtv_cuda, "_denoise_pdps_impl")]
     originals = [getattr(m, n) for m, n in saved]
 
@@ -3547,6 +3648,357 @@ def tr_pair_runs(name, cfg=None):
             lambda: learn(**dict(kw, method="tr_fused")), cp)
 
 
+@contextlib.contextmanager
+def results_not_saved():
+    """Phases 1-44 as the parent ran them: every entry point's default
+    save_results=False, so they write nothing and time only what they
+    timed before results were ported."""
+    from bpldenoising_tpu_torch.experiments import api
+    saved = api.default_params
+    api.default_params = saved | dict(save_results=False)
+    try:
+        yield
+    finally:
+        api.default_params = saved
+
+
+@contextlib.contextmanager
+def in_scratch_dir():
+    """Run the block in a new temporary directory (the entry points write
+    output/ under the working directory), removed after."""
+    import os
+    import shutil
+    import tempfile
+    here = os.getcwd()
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    os.chdir(work)
+    try:
+        yield work
+    finally:
+        os.chdir(here)
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def reporting_counts(plain):
+    """Since the last reset: the CP kernels' (``pdps``, ``tgv``, ``tvl1``,
+    ``vtv``) calls and cluster-form calls, kernel B's calls and the plain
+    versions' calls."""
+    mods = launch_counters()
+    out = {name: dict(calls=mods[name].launches,
+                      cluster=mods[name].cluster_calls)
+           for name in ("pdps", "tgv", "tvl1", "vtv")}
+    out["hypergrad"] = mods["hypergrad"].launches
+    out["plain_calls"] = len(plain)
+    return out
+
+
+def reporting_kernel_faults(label, counts, kernel, calls):
+    """``calls`` calls of ``kernel``, all in the cluster form, no other
+    kernel, no plain-version call."""
+    others = sum(c["calls"] for n, c in counts.items()
+                 if n not in (kernel, "plain_calls", "hypergrad"))
+    k = counts[kernel]
+    ok = (k["calls"] == k["cluster"] == calls and others == 0
+          and counts["hypergrad"] == 0 and counts["plain_calls"] == 0)
+    return [] if ok else [f"{label}: want {calls} {kernel} calls in the "
+                          f"cluster form and nothing else, got {counts}"]
+
+
+def quality_rows(path):
+    """A quality table's numbers: one row per image, then the means."""
+    import numpy as np
+    with open(path) as fh:
+        lines = fh.read().splitlines()[1:]
+    return [np.array([float(v) for v in line.split()]) for line in lines]
+
+
+def phase_reporting_learn(utrue, flagship_wall_ms):
+    """Phase 45: the flagship tr_fused learn at the bench settings with
+    save_results=True in a temporary directory: the file set, one log row
+    per outer iteration, the quality table against psnr_np/ssim_np of the
+    stretched arrays, the PNGs against uint8(clip(x)·255 + 0.5); the
+    learn's wall and the host time of its save_results apart."""
+    import os
+    import numpy as np
+    import torch
+    from bpldenoising_tpu_torch.data import read_png_gray, testdataset
+    from bpldenoising_tpu_torch.experiments import api
+    from bpldenoising_tpu_torch.metrics import psnr_np, ssim_np
+    kw = dict(flagship_kwargs(), save_results=True)
+    saved_ms = []
+    real_report = api.report
+
+    def timed_report(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_report(*a, **k)
+        saved_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    # the quality table's SSIM imports scipy.signal (seconds, once a
+    # process): timed apart, before the learn
+    t0 = time.perf_counter()
+    import scipy.signal  # noqa: F401
+    import_ms = (time.perf_counter() - t0) * 1e3
+    plain, restore = watch_plain(cp=True)
+    faults = []
+    try:
+        with in_scratch_dir() as work:
+            api.report = timed_report
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = api.scalar_bilevel_tv_learn(device="cuda", **kw)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            counts = reporting_counts(plain)
+            a_forms, b_forms = kernel_a_forms(), kernel_b_forms()
+            ds = "faces_train_128_10"
+            prefix = f"tv_optimal_parameter_scalar_{ds}"
+            out = os.path.join(work, "output", ds)
+            files = sorted(os.listdir(out))
+            n = int(kw["num_samples"])
+            want = sorted([f"{prefix}.txt", f"{prefix}_quality.txt"]
+                          + [f"{prefix}_{k}_{i + 1}.png" for i in range(n)
+                             for k in ("true", "data", "reco")])
+            if files != want:
+                faults.append(f"files {files}, want {want}")
+            with open(os.path.join(out, prefix + ".txt")) as fh:
+                lines = fh.read().splitlines()
+            at = next(i for i, line in enumerate(lines)
+                      if line.startswith("# iter"))
+            rows = len(lines) - at - 1
+            if rows != res.iterations or rows != len(res.state.log):
+                faults.append(f"{rows} log rows for {res.iterations} outer "
+                              "iterations")
+            # the arrays save_results was given: the float32 stacks on the
+            # card and the reconstruction, each stretched over its stack
+            true_np, noisy_np = testdataset(ds)
+            b, bd = (api.linear_stretch(torch.as_tensor(a[:n],
+                                                        dtype=torch.float32))
+                     for a in (true_np, noisy_np))
+            opt = api.linear_stretch(res.u)
+            table = quality_rows(os.path.join(out, prefix + "_quality.txt"))
+            want_rows = [np.array([i + 1, ssim_np(b[i], bd[i]),
+                                   psnr_np(b[i], bd[i]),
+                                   ssim_np(b[i], opt[i]),
+                                   psnr_np(b[i], opt[i])])
+                         for i in range(n)]
+            want_rows.append(np.array([np.mean([r[3] for r in want_rows]),
+                                       np.mean([r[4] for r in want_rows])]))
+            table_err = max(float(np.max(np.abs(t - w) / np.abs(w)))
+                            for t, w in zip(table, want_rows))
+            if len(table) != n + 1 or table_err > 1e-12:
+                faults.append(f"quality table off by {table_err}")
+            png_err = 0
+            for i in range(n):
+                for k, img in (("true", b[i]), ("data", bd[i]),
+                               ("reco", opt[i])):
+                    got = np.rint(read_png_gray(os.path.join(
+                        out, f"{prefix}_{k}_{i + 1}.png")) * 255.0)
+                    q = (np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(
+                        np.uint8)
+                    png_err = max(png_err, int(np.max(np.abs(got - q))))
+            if png_err:
+                faults.append(f"PNGs off by {png_err} grey levels")
+    finally:
+        api.report = real_report
+        restore()
+    report_ms = saved_ms[0] if saved_ms else float("nan")
+    mean_psnr = float(table[-1][1])
+    say(f"  alpha {float(res.x):.6f}; {res.iterations} outer its, "
+        f"{rows} log rows; {len(files)} files; quality table against "
+        f"psnr_np/ssim_np max rel {table_err:.1e}, mean PSNR of the "
+        f"stretched reconstruction {mean_psnr:.6f} dB; PNGs against "
+        f"uint8(clip(x)*255+0.5): {png_err} grey levels")
+    say(f"  learn wall {wall_ms:.1f} ms (host clock, first run with "
+        f"saving, PNG load included; phase 5's timed run without saving "
+        f"{flagship_wall_ms:.1f} ms, CUDA events); save_results "
+        f"{report_ms:.1f} ms on the host (the host copies, stretching, the "
+        f"SSIM/PSNR table, {len(files)} files; scipy.signal's import "
+        f"before it {import_ms:.1f} ms)")
+    say_kernel_a_forms(a_forms)
+    say_kernel_b_forms(b_forms)
+    faults += [msg for ok, msg in (
+        (a_forms["calls"] == a_forms["cluster"] > 0,
+         f"kernel A's cluster form ran {a_forms['cluster']} of "
+         f"{a_forms['calls']} calls"),
+        (kernel_b_cooperative(b_forms) and b_forms["calls"] > 0,
+         f"kernel B: {b_forms}"),
+        (counts["plain_calls"] == 0,
+         f"{counts['plain_calls']} plain-version calls"),
+        (abs(float(res.x) - FLAGSHIP_ALPHA) <= ALPHA_GATE,
+         f"alpha {float(res.x)}")) if not ok]
+    return dict(alpha=float(res.x), outer_iterations=res.iterations,
+                log_rows=rows, files=len(files), table_max_rel=table_err,
+                png_max_levels=png_err, wall_ms=wall_ms,
+                save_results_ms=report_ms, scipy_import_ms=import_ms,
+                counts=counts,
+                faults=[f"phase 45: {m}" for m in faults])
+
+
+def reporting_call(label, run, kernel, calls):
+    """``run()`` in a temporary directory with every count reset just
+    before and read just after and the plain versions watched: → (its
+    result, wall ms on the host clock around a synchronisation, counts,
+    faults)."""
+    import torch
+    plain, restore = watch_plain(cp=True)
+    try:
+        with in_scratch_dir():
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            counts = reporting_counts(plain)
+    finally:
+        restore()
+    return out, wall_ms, counts, reporting_kernel_faults(label, counts,
+                                                         kernel, calls)
+
+
+def reporting_module(name):
+    import importlib
+    return importlib.import_module(
+        f"bpldenoising_tpu_torch.experiments.{name}")
+
+
+def phase_validations():
+    """Phase 46: the five validations in float64 on the card at the
+    learned weights, against the JAX package's float64 runs; one call of
+    the family's CP kernel each, in the cluster form, no plain call."""
+    import numpy as np
+    results, faults = {}, []
+    for label, (mod, fn, p, kw, kernel) in REPORTING_VALIDATIONS.items():
+        ref = REPORTING_REF[label]
+        out, wall_ms, counts, bad = reporting_call(
+            label, lambda: getattr(reporting_module(mod), fn)(
+                np.asarray(p), device="cuda", **kw), kernel, 1)
+        c_rel = abs(out["cost"] - ref["cost"]) / ref["cost"]
+        d_psnr = abs(out["mean_psnr"] - ref["mean_psnr"])
+        d_ssim = abs(out["mean_ssim"] - ref["mean_ssim"])
+        say(f"  {label} {p} on {kw['dataset_name']} ({out['u'].shape[0]} "
+            f"images, {out['u'].dtype}): cost {out['cost']!r} (JAX "
+            f"{ref['cost']!r}, rel {c_rel:.2e}, gate "
+            f"{REPORTING_COST_GATE_REL:g}); mean PSNR {out['mean_psnr']!r} "
+            f"dB (|d| {d_psnr:.2e}, gate {REPORTING_PSNR_GATE:g}); mean "
+            f"SSIM {out['mean_ssim']!r} (|d| {d_ssim:.2e}); wall "
+            f"{wall_ms:.1f} ms (host clock, files written); {kernel} "
+            f"{counts[kernel]['calls']} calls, {counts[kernel]['cluster']} "
+            f"in the cluster form; plain calls {counts['plain_calls']}")
+        faults += bad + [msg for ok, msg in (
+            (c_rel <= REPORTING_COST_GATE_REL, f"{label} cost {out['cost']}"),
+            (d_psnr <= REPORTING_PSNR_GATE,
+             f"{label} mean PSNR {out['mean_psnr']}"),
+            (out["u"].dtype == np.float64, f"{label} u {out['u'].dtype}"),
+            (out["u"].shape[0] == ref["images"],
+             f"{label}: {out['u'].shape[0]} images")) if not ok]
+        results[label] = dict(cost=out["cost"], mean_psnr=out["mean_psnr"],
+                              mean_ssim=out["mean_ssim"], cost_rel_err=c_rel,
+                              psnr_abs_err=d_psnr, ssim_abs_err=d_ssim,
+                              wall_ms=wall_ms, counts=counts)
+    results["faults"] = faults
+    return results
+
+
+def phase_sweeps():
+    """Phase 47: the five cost sweeps in float64 on the card (one cold
+    fixed-budget solve per weight or pair), against the JAX package's
+    float64 sweeps point by point; every call in the cluster form, no
+    plain call; each sweep's wall."""
+    import numpy as np
+    results, faults = {}, []
+    for label, (mod, fn, ds, ranges, kernel) in REPORTING_SWEEPS.items():
+        ref = np.asarray(REPORTING_REF[label]["costs"])
+        points = int(np.prod([len(r) for r in ranges]))
+        costs, wall_ms, counts, bad = reporting_call(
+            label, lambda: getattr(reporting_module(mod), fn)(
+                ds, *ranges, device="cuda"), kernel, points)
+        costs = np.asarray(costs)
+        rel = float(np.max(np.abs(costs.ravel() - ref.ravel())
+                           / np.abs(ref.ravel())))
+        say(f"  {label} on {ds}, {points} points: max rel diff from JAX "
+            f"{rel:.2e} (gate {REPORTING_COST_GATE_REL:g}); costs "
+            f"{[float(c) for c in costs.ravel()]}; wall {wall_ms:.1f} ms "
+            f"(host clock, npz written; {wall_ms / points:.2f} ms a point); "
+            f"{kernel} {counts[kernel]['calls']} calls, "
+            f"{counts[kernel]['cluster']} in the cluster form; plain calls "
+            f"{counts['plain_calls']}")
+        faults += bad + ([] if costs.shape == ref.shape
+                         and rel <= REPORTING_COST_GATE_REL
+                         else [f"{label}: costs {costs.tolist()} against "
+                               f"{ref.tolist()}"])
+        results[label] = dict(points=points, max_rel_err=rel,
+                              wall_ms=wall_ms, counts=counts)
+    results["faults"] = faults
+    return results
+
+
+def phase_cli(validations):
+    """Phase 48: ``python -m bpldenoising_tpu_torch validate-tv`` and
+    ``cost-sweep`` in a subprocess on the card: they exit 0; validate-tv
+    prints phase 46's cost and mean PSNR, and cost-sweep saves the costs
+    the API gives in this process."""
+    import os
+    import numpy as np
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    faults, out = [], {}
+
+    def cli(*args):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "bpldenoising_tpu_torch", *args],
+            capture_output=True, text=True, timeout=300, env=env)
+        seconds = time.perf_counter() - t0
+        if proc.returncode:
+            faults.append(f"{args[0]} exited {proc.returncode}: "
+                          f"{proc.stderr[-2000:]}")
+        return proc, seconds
+
+    with in_scratch_dir():
+        proc, seconds = cli("validate-tv", "0.069788", "--dataset",
+                            "faces_val")
+        printed = [float(v) for v in proc.stdout.split()] or [float("nan")]
+        ref = validations["val_tv"]
+        want = [ref["cost"], ref["mean_psnr"]]
+        rel = (max(abs(a - b) / abs(b) for a, b in zip(printed, want))
+               if len(printed) == 2 else float("inf"))
+        say(f"  validate-tv: exit {proc.returncode}, printed {printed} "
+            f"(phase 46's API: {want}, max rel {rel:.1e}); {seconds:.1f} s "
+            f"with the start-up")
+        if rel > REPORTING_CLI_GATE_REL:
+            faults.append(f"validate-tv printed {printed}, want {want}")
+        out["validate_tv"] = dict(printed=printed, max_rel_err=rel,
+                                  seconds=seconds)
+    alphas = np.logspace(np.log10(0.02), np.log10(0.2), 4)
+    with in_scratch_dir() as work:
+        proc, seconds = cli("cost-sweep", "--dataset", "faces_train",
+                            "--lo", "0.02", "--hi", "0.2", "--points", "4")
+        path = os.path.join(work, "output", "faces_train_128_10",
+                            "faces_train_128_10_cost.npz")
+        saved = (np.load(path)["costs"] if os.path.exists(path)
+                 else np.full(4, np.nan))
+    api = reporting_module("api")
+    with in_scratch_dir():
+        want = api.generate_scalar_tv_cost("faces_train", alphas,
+                                           device="cuda")
+    rel = float(np.max(np.abs(saved - want) / np.abs(want)))
+    say(f"  cost-sweep: exit {proc.returncode}, saved costs "
+        f"{saved.tolist()} (the API here: {want.tolist()}, max rel "
+        f"{rel:.1e}); {seconds:.1f} s with the start-up")
+    if not rel <= REPORTING_CLI_GATE_REL:
+        faults.append(f"cost-sweep saved {saved.tolist()}, want "
+                      f"{want.tolist()}")
+    out["cost_sweep"] = dict(saved=saved.tolist(), max_rel_err=rel,
+                             seconds=seconds)
+    out["faults"] = faults
+    return out
+
+
 def flagship_kwargs():
     from bpldenoising_tpu_torch.solvers.hypergrad import HypergradConfig
     return dict(dataset_name="faces_train", num_samples=10,
@@ -3603,6 +4055,8 @@ def main():
             say(f"  {line}")
 
     timed = cuda_timer(torch)
+    parent_calls = contextlib.ExitStack()
+    parent_calls.enter_context(results_not_saved())
     true_np, noisy_np = testdataset("faces_train_128_10")
     utrue = torch.as_tensor(true_np, dtype=torch.float32).to(dev)
     f = torch.as_tensor(noisy_np, dtype=torch.float32).to(dev)
@@ -3781,6 +4235,31 @@ def main():
         tr[name].pop("last")
     say(f"  phase 44: {time.perf_counter() - t_phase:.1f} s")
     faults = [m for st in tr.values() for m in st.pop("faults")]
+    require(not faults, "; ".join(faults))
+    parent_calls.close()
+
+    reporting = {}
+    t_phase = time.perf_counter()
+    say("phase 45 flagship scalar_bilevel_tv_learn(method='tr_fused') at "
+        "the bench settings with save_results=True")
+    reporting["learn"] = phase_reporting_learn(utrue, wall_ms)
+    say(f"  phase 45: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    say("phase 46 validate_tv/sumregs/tgv/tvl1/vtv_parameter, float64, "
+        "at the learned weights")
+    reporting["validations"] = phase_validations()
+    say(f"  phase 46: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    say("phase 47 the cost sweeps, float64: TV 8, 2-D TV 4x4, TGV 3x3, "
+        "TV-L1 5, VTV 5 points")
+    reporting["sweeps"] = phase_sweeps()
+    say(f"  phase 47: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    say("phase 48 python -m bpldenoising_tpu_torch validate-tv and "
+        "cost-sweep in a subprocess")
+    reporting["cli"] = phase_cli(reporting["validations"])
+    say(f"  phase 48: {time.perf_counter() - t_phase:.1f} s")
+    faults = [m for st in reporting.values() for m in st.pop("faults")]
     require(not faults, "; ".join(faults))
 
     itemsize = 4
@@ -3975,7 +4454,8 @@ def main():
         "single_loop_tgv": slx["tgv"], "single_loop_tvl1": slx["tvl1"],
         "single_loop_vtv": slx["vtv"], "forms_a": forms_a,
         "forms_b": forms_b, "forms_f64_max_rel_err": forms_f64,
-        "tv_family_learns": tvf, "tr_learns": tr, "device": smi}))
+        "tv_family_learns": tvf, "tr_learns": tr, "reporting": reporting,
+        "device": smi}))
     faulthandler.cancel_dump_traceback_later()
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

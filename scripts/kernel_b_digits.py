@@ -101,6 +101,7 @@ def main():
                  HypergradConfig(al_iters=2, cg_maxiter=300, gamma=1e4), maps)
 
     base = dict(dataset_name="faces_train", num_samples=10, dtype="float32",
+                save_results=False,
                 method="tr_fused", maxiter=20, tol=1e-5, inner_maxiter=5000,
                 inner_tol=1e-6, check_every=100,
                 hypergrad_cfg=HypergradConfig(al_iters=2, cg_maxiter=100))

@@ -1,0 +1,141 @@
+"""The port's command line (``python -m bpldenoising_tpu_torch``): the
+cases of the JAX package's tests/test_cli.py with ``--device cpu`` (the
+kernels' plain versions), the numbers it prints against the API's, and
+the flags that are not ported yet, which exit with status 2 and name
+their ROADMAP.md item."""
+
+import functools
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from bpldenoising_tpu_torch.__main__ import main
+from bpldenoising_tpu_torch.experiments import api as tapi
+from test_torch_fused import (one_torch_thread,  # noqa: F401 (autouse)
+                              results_in_tmp)
+
+CPU = ["--device", "cpu"]
+
+
+def _budget(monkeypatch, n=30):
+    """TVDenoise (validate-tv's denoiser) at ``n`` iterations."""
+    real = tapi.TVDenoise
+
+    @functools.wraps(real)
+    def short(*args, **kw):
+        kw["maxiter"] = n
+        return real(*args, **kw)
+    monkeypatch.setattr(tapi, "TVDenoise", short)
+
+
+def test_scalar_tv(capsys):
+    main(["scalar-tv", "--dataset", "circle", "--maxiter", "1",
+          "--inner-maxiter", "50"] + CPU)
+    out = capsys.readouterr().out
+    assert "x =" in out and "cost =" in out
+    assert os.path.isfile("output/circle_128_10/"
+                          "tv_optimal_parameter_scalar_circle_128_10.txt")
+
+
+def test_validate_tv(capsys, monkeypatch):
+    _budget(monkeypatch)
+    main(["validate-tv", "0.1", "--dataset", "circle"] + CPU)
+    printed = capsys.readouterr().out.split()
+    assert len(printed) == 2
+    out = tapi.validate_tv_parameter(0.1, dataset_name="circle",
+                                     device="cpu")
+    assert [float(v) for v in printed] == [out["cost"], out["mean_psnr"]]
+
+
+def test_cost_sweep(capsys):
+    pytest.importorskip("matplotlib")
+    main(["cost-sweep", "--dataset", "circle", "--points", "3",
+          "--maxiter", "100", "--plot"] + CPU)
+    path = "output/circle_128_10/circle_128_10_cost.npz"
+    assert os.path.exists(path)
+    costs = np.load(path)["costs"]
+    want = tapi.generate_scalar_tv_cost(
+        "circle", np.logspace(np.log10(1e-3), 0.0, 3), maxiter=100,
+        device="cpu")
+    np.testing.assert_array_equal(costs, want)
+    base = capsys.readouterr().out.strip()
+    assert os.path.exists(base + ".png")
+
+
+def test_bad_command_exits():
+    with pytest.raises(SystemExit):
+        main(["not-a-command"])
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--trace", "tr"], 7), (["--checkpoint"], 7), (["--resume"], 7),
+    (["--log-every", "2", "--method", "tr_fused"], 7),
+    (["--data-parallel"], 10), (["--backend", "jnp"], None)],
+    ids=["trace", "checkpoint", "resume", "log_every", "data_parallel",
+         "backend"])
+def test_unported_flags_exit_and_name_their_item(capsys, argv, item):
+    with pytest.raises(SystemExit) as exit_:
+        main(["scalar-tv", "--dataset", "circle", "--maxiter", "1",
+              "--inner-maxiter", "10"] + CPU + argv)
+    assert exit_.value.code == 2
+    err = capsys.readouterr().err
+    assert ("backend" if item is None else f"§1 item {item}") in err
+    assert not os.path.exists("output/circle_128_10/"
+                              "tv_optimal_parameter_scalar_circle_128_10.txt")
+
+
+def test_make_dataset_is_not_ported(capsys):
+    with pytest.raises(SystemExit) as exit_:
+        main(["make-dataset", "clicircle_32_10", "--size", "32"])
+    assert exit_.value.code == 2
+    assert "§1 item 9" in capsys.readouterr().err
+
+
+def test_single_loop_budget_flags(capsys):
+    main(["scalar-tv", "--dataset", "circle", "--method", "single_loop",
+          "--sl-outer", "5", "--sl-inner", "10", "--sl-adj", "3",
+          "--sl-lr", "0.05"] + CPU)
+    out = capsys.readouterr().out
+    assert "iterations = 5" in out
+
+
+@pytest.mark.parametrize("cmd,extra", [
+    ("validate-tgv", ["0.08", "0.04"]), ("validate-tvl1", ["1.9"]),
+    ("validate-vtv", ["0.16"]),
+    ("validate-sumregs", ["0.03", "0.02", "0.01"])])
+def test_other_validations_print_cost_and_psnr(capsys, monkeypatch, cmd,
+                                               extra):
+    """validate-tgv, -tvl1, -vtv and -sumregs print the API's cost and
+    mean PSNR (budgets cut to a few iterations)."""
+    from bpldenoising_tpu_torch.experiments import tgv, vtv
+    for mod, name in ((tgv, "TGVDenoise"), (vtv, "VTVDenoise")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, functools.partial(real, maxiter=5))
+    real_pdps = tapi.denoise_pdps
+    monkeypatch.setattr(tapi, "denoise_pdps",
+                        lambda *a, **k: real_pdps(*a, **dict(k, maxiter=5)))
+    args = ["--x64", cmd] + extra + CPU
+    if cmd == "validate-tvl1":
+        args += ["--maxiter", "5", "--dataset", "circle_sp"]
+    elif cmd != "validate-vtv":
+        args += ["--dataset", "circle"]
+    main(args)
+    printed = [float(v) for v in capsys.readouterr().out.split()]
+    assert len(printed) == 2 and all(np.isfinite(printed))
+
+
+def test_module_runs_as_a_program(tmp_path):
+    """python -m bpldenoising_tpu_torch: the help lists the subcommands;
+    without a card the default --device cuda fails instead of running on
+    the CPU."""
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    out = subprocess.run([sys.executable, "-m", "bpldenoising_tpu_torch",
+                          "--help"], capture_output=True, text=True,
+                         env=env, timeout=120)
+    assert out.returncode == 0
+    for cmd in ("scalar-tv", "validate-tvl1", "cost-sweep", "make-dataset"):
+        assert cmd in out.stdout

@@ -33,7 +33,8 @@ from bpldenoising_tpu_torch.bilevel import first_order as tfo
 from bpldenoising_tpu_torch.bilevel import first_order_cuda as tfc
 from bpldenoising_tpu_torch.models import sumregs_model, tv_model
 from bpldenoising_tpu_torch.weights import from_jax_state
-from test_torch_fused import one_torch_thread  # noqa: F401 (autouse)
+from test_torch_fused import (one_torch_thread,  # noqa: F401 (autouse)
+                             results_in_tmp)
 
 RTOL = 1e-9
 KW = dict(outer=20, n_inner=8, n_adj=4, lr=0.05)

@@ -33,7 +33,8 @@ from bpldenoising_tpu_torch import experiments as tx
 from bpldenoising_tpu_torch.bilevel import first_order_tvl1 as tfo
 from bpldenoising_tpu_torch.bilevel import first_order_tvl1_cuda as tfc
 from bpldenoising_tpu_torch.weights import from_jax_state
-from test_torch_fused import one_torch_thread  # noqa: F401 (autouse)
+from test_torch_fused import (one_torch_thread,  # noqa: F401 (autouse)
+                             results_in_tmp)
 
 RTOL = 1e-9
 KW = dict(outer=30, n_inner=20, n_adj=6, lr=0.05)
@@ -218,3 +219,46 @@ def test_kernel_matches_plain_version_on_the_card(cuda_device, name):
     # reordering on other data: chip_smoke.py, TOL_SLX_F64_CASE)
     for a, b in zip(k[:5], p[:5]):
         _close(a.cpu(), b)
+
+
+def _disc_stack(B, M, N, seed=0):
+    """chip_smoke.py's slx_sp_stack: a disc on M × N plus a 0.02·row ramp,
+    rolled by b rows in image b, under 20% salt-and-pepper noise."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.arange(M), np.arange(N), indexing="ij")
+    disc = ((xx - N / 2) ** 2 + (yy - M / 2) ** 2
+            < (min(M, N) / 3) ** 2).astype(float) + 0.02 * yy
+    clean = np.stack([np.roll(disc, b, axis=0) for b in range(B)])
+    noisy = clean.copy()
+    hits = rng.uniform(size=clean.shape)
+    noisy[hits < 0.1] = 1.0
+    noisy[hits > 0.9] = 0.0
+    return clean, noisy
+
+
+def test_float32_nan_at_3x120x128_is_the_jax_learners_too():
+    """The float32 case in which the port's single-loop TV-L1 learner gives
+    NaN (chip_smoke.py phase 26's 3×120×128 stack, seed 0, the 2×2 grid
+    from 0.4, 20 outer steps of 10 CP and 4 CG steps, lr 0.05, γ_d 100,
+    γ_r 1000, τ₀ = σ₀ = 0.99, clip 1): the JAX package's jnp learner on
+    the same float32 data diverges too (its ‖g‖ passes 1e18 at the first
+    step and is inf from the second), so the NaN is the learner's, not the
+    port's.  In float64 both stay finite."""
+    ut, f = _disc_stack(3, 120, 128)
+    x0 = np.full((2, 2), 0.4)
+    kw = dict(n_inner=10, n_adj=4, lr=0.05, gamma_d=100.0, gamma_r=1000.0,
+              tau0=0.99, sigma0=0.99, beta1=0.9, beta2=0.999, eps=1e-8,
+              clip=1.0)
+    for dt, finite in ((np.float32, False), (np.float64, True)):
+        utj, fj, x0j = (jnp.asarray(a, dt) for a in (ut, f, x0))
+        jpop = jfo.tvl1_param_layout(x0j, f.shape[-2:])
+        jres = jfo._single_loop_tvl1_impl(utj, fj, x0j, outer=20, pop=jpop,
+                                         param_shape=x0.shape, **kw)
+        u0, f0, x0t, pop, shape, _ = tfo._prepare(_t(ut.astype(dt)),
+                                                  _t(f.astype(dt)), x0)
+        tres = tfo._single_loop_tvl1_plain(u0, f0, x0t, outer=20, pop=pop,
+                                           param_shape=shape, **kw)
+        assert tres.alpha.dtype == (torch.float32 if dt is np.float32
+                                    else torch.float64)
+        assert bool(np.all(np.isfinite(np.asarray(jres.alpha)))) == finite
+        assert bool(torch.all(torch.isfinite(tres.alpha))) == finite

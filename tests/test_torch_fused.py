@@ -48,6 +48,16 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(autouse=True)
+def results_in_tmp(tmp_path, monkeypatch):
+    """The entry points save their results under output/ of the working
+    directory (save_results=True by default): each test runs in its own
+    tmp_path.  The other test_torch_*.py files that call entry points
+    import this fixture."""
+    monkeypatch.chdir(tmp_path)
+    return tmp_path
+
+
 RTOL = 1e-8
 TR = dict(eta1=0.25, eta2=0.75, beta1=0.25, beta2=1.9, delta0=0.1, tol=1e-5)
 
@@ -249,8 +259,9 @@ def test_scalar_learn_entry_point_on_cpu(tmp_path, monkeypatch):
     np.testing.assert_allclose(res.x, np.asarray(jres.x), rtol=RTOL)
     np.testing.assert_allclose(res.cost, jres.cost, rtol=RTOL)
     np.testing.assert_allclose(res.u, np.asarray(jres.u), atol=1e-10)
-    with pytest.raises(NotImplementedError):
-        scalar_bilevel_tv_learn(device="cpu", **dict(kw, save_results=True))
+    with pytest.raises(NotImplementedError, match="item 7"):
+        scalar_bilevel_tv_learn(device="cpu",
+                                **dict(kw, save_iterations=True))
 
 
 def test_entry_point_defaults_to_the_card():

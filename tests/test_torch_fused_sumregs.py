@@ -54,7 +54,8 @@ from bpldenoising_tpu_torch.solvers.pdps import _denoise_pdps_impl
 from bpldenoising_tpu_torch.utils.config import Params
 from bpldenoising_tpu_torch.weights import from_jax_state
 from test_torch_fused import TR, _compare, _dataset
-from test_torch_fused import one_torch_thread  # noqa: F401 (autouse)
+from test_torch_fused import (one_torch_thread,  # noqa: F401 (autouse)
+                             results_in_tmp)
 
 PD = dict(tau0=5.0, sigma0=0.99 / 5.0, gamma=1.0, accel=True)
 WELL = dict(al_iters=2, cg_maxiter=1000, act_tol=1e-4)

@@ -27,7 +27,8 @@ from bpldenoising_tpu_torch.bilevel.fused_tgv import (bilevel_learn_tgv_fused,
                                                       tgv_param_layout)
 from bpldenoising_tpu_torch.solvers import tgv_cuda
 from bpldenoising_tpu_torch.utils.config import Params
-from test_torch_fused import one_torch_thread  # noqa: F401 (autouse)
+from test_torch_fused import (one_torch_thread,  # noqa: F401 (autouse)
+                             results_in_tmp)
 
 RTOL = 1e-8
 TR = dict(eta1=0.25, eta2=0.75, beta1=0.25, beta2=1.9, delta0=0.02,
@@ -152,9 +153,11 @@ def test_tgv_denoise_matches_jax(parameter):
 
 
 def test_entry_points_refuse_what_is_not_ported(in_tmp):
-    """What is not ported raises; the host trust region (method="tr") runs
-    and matches the JAX entry point to 1e-8 (its whole comparison is in
-    tests/test_torch_tr_learn.py)."""
+    """What is not ported raises (save_iterations with the fused loop,
+    data parallelism); the host trust region (method="tr") runs and
+    matches the JAX entry point to 1e-8 (its whole comparison is in
+    tests/test_torch_tr_learn.py), and visualise=True with the fused loop
+    runs, as in the JAX package."""
     kw = dict(ENTRY, method="tr")
     res = tx.scalar_bilevel_tgv_learn(device="cpu", **kw)
     jres = jx.scalar_bilevel_tgv_learn(save_results=False, backend="jnp",
@@ -166,11 +169,12 @@ def test_entry_points_refuse_what_is_not_ported(in_tmp):
         tx.patch_bilevel_tgv_learn(device="cpu",
                                    **dict(ENTRY, method="single_loop",
                                           data_parallel=True))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 7"):
         tx.scalar_bilevel_tgv_learn(device="cpu",
-                                    **dict(ENTRY, save_results=True))
-    with pytest.raises(NotImplementedError):
-        tx.scalar_bilevel_tgv_learn(device="cpu", visualise=True, **ENTRY)
+                                    **dict(ENTRY, save_iterations=True))
+    # the fused loop shows no live view: visualise is ignored, as in JAX
+    res = tx.scalar_bilevel_tgv_learn(device="cpu", visualise=True, **ENTRY)
+    assert res.iterations == ENTRY["maxiter"]
 
 
 def test_entry_points_default_to_the_card():

@@ -16,6 +16,8 @@ rounding of its threshold (measured gap ~1e-10: the adjoint CG converges
 in under 130 iterations on these inputs).
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,7 +33,8 @@ from bpldenoising_tpu_torch.bilevel.fused_tvl1 import (
 from bpldenoising_tpu_torch.solvers import tvl1_cuda
 from bpldenoising_tpu_torch.utils.config import Params
 from test_torch_tvl1 import impulse_phantoms
-from test_torch_fused import one_torch_thread  # noqa: F401 (autouse)
+from test_torch_fused import (one_torch_thread,  # noqa: F401 (autouse)
+                             results_in_tmp)
 
 RTOL = 1e-8
 TR = dict(eta1=0.25, eta2=0.75, beta1=0.25, beta2=1.9, delta0=0.1,
@@ -179,7 +182,11 @@ def test_tvl1_denoise_matches_jax(parameter):
 def test_entry_points_refuse_what_is_not_ported(knob, in_tmp):
     """Each knob that is not ported raises; method="tr" (the host trust
     region) runs and matches the JAX entry point to 1e-8 (its whole
-    comparison is in tests/test_torch_tr_learn.py)."""
+    comparison is in tests/test_torch_tr_learn.py); save_results=True
+    writes the log, the quality table and the PNGs under the JAX prefix
+    (the file sets against the JAX package's are in
+    tests/test_torch_reporting.py), and visualise=True with the fused loop
+    runs, as in the JAX package."""
     for name in ("scalar_bilevel_tvl1_learn", "patch_bilevel_tvl1_learn"):
         learn = getattr(tx, name)
         if knob == dict(method="tr"):
@@ -190,6 +197,17 @@ def test_entry_points_refuse_what_is_not_ported(knob, in_tmp):
             assert res.iterations == jres.iterations == kw["maxiter"]
             np.testing.assert_allclose(res.x, np.asarray(jres.x), rtol=1e-8)
             np.testing.assert_allclose(res.cost, jres.cost, rtol=1e-8)
+            continue
+        if knob in (dict(save_results=True), dict(visualise=True)):
+            res = learn(device="cpu", **dict(ENTRY, **knob))
+            assert res.iterations == ENTRY["maxiter"]
+            shape = "scalar" if name.startswith("scalar") else "(2, 2)"
+            prefix = os.path.join(
+                "output", "circle_sp_128_20",
+                f"tvl1_optimal_parameter_{shape}_circle_sp_128_20")
+            for suffix in (".txt", "_quality.txt", "_true_1.png",
+                           "_data_1.png", "_reco_1.png"):
+                assert os.path.isfile(prefix + suffix), prefix + suffix
             continue
         with pytest.raises(NotImplementedError):
             learn(device="cpu", **dict(ENTRY, **knob))

@@ -20,6 +20,8 @@ so there the log and the weight are held to 1e-6 relative, u (which
 follows the weight) to 1e-8 absolute and the CG counts to 2% + 1.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -36,7 +38,8 @@ from bpldenoising_tpu_torch.bilevel.fused_vtv import (
 from bpldenoising_tpu_torch.solvers import vtv_cuda
 from bpldenoising_tpu_torch.utils.config import Params
 from test_torch_vtv import color_phantoms
-from test_torch_fused import one_torch_thread  # noqa: F401 (autouse)
+from test_torch_fused import (one_torch_thread,  # noqa: F401 (autouse)
+                             results_in_tmp)
 
 TR = dict(eta1=0.25, eta2=0.75, beta1=0.25, beta2=1.9, delta0=0.02,
           tol=1e-7)
@@ -185,7 +188,11 @@ def test_vtv_denoise_matches_jax(parameter):
 def test_entry_points_refuse_what_is_not_ported(knob, in_tmp):
     """Each knob that is not ported raises; method="tr" (the host trust
     region) runs and matches the JAX entry point to 1e-8 (its whole
-    comparison is in tests/test_torch_tr_learn.py)."""
+    comparison is in tests/test_torch_tr_learn.py); save_results=True
+    writes the log, the quality table and the PNGs under the JAX prefix
+    (the file sets against the JAX package's are in
+    tests/test_torch_reporting.py), and visualise=True with the fused loop
+    runs, as in the JAX package."""
     for name in ("scalar_bilevel_vtv_learn", "patch_bilevel_vtv_learn"):
         learn = getattr(tx, name)
         if knob == dict(method="tr"):
@@ -196,6 +203,17 @@ def test_entry_points_refuse_what_is_not_ported(knob, in_tmp):
             assert res.iterations == jres.iterations == kw["maxiter"]
             np.testing.assert_allclose(res.x, np.asarray(jres.x), rtol=1e-8)
             np.testing.assert_allclose(res.cost, jres.cost, rtol=1e-8)
+            continue
+        if knob in (dict(save_results=True), dict(visualise=True)):
+            res = learn(device="cpu", **dict(ENTRY, **knob))
+            assert res.iterations == ENTRY["maxiter"]
+            shape = "scalar" if name.startswith("scalar") else "patch_(2, 2)"
+            prefix = os.path.join(
+                "output", "color_disks_128_10",
+                f"vtv_optimal_parameter_{shape}_color_disks_128_10")
+            for suffix in (".txt", "_quality.txt", "_true_1.png",
+                           "_data_1.png", "_reco_1.png"):
+                assert os.path.isfile(prefix + suffix), prefix + suffix
             continue
         with pytest.raises(NotImplementedError):
             learn(device="cpu", **dict(ENTRY, **knob))

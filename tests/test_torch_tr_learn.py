@@ -49,7 +49,8 @@ from bpldenoising_tpu_torch.experiments import vtv as tvtv_x
 from bpldenoising_tpu_torch.models import sumregs_model
 from bpldenoising_tpu_torch.solvers.hypergrad import HypergradConfig
 from bpldenoising_tpu_torch.utils.config import Params
-from test_torch_fused import one_torch_thread  # noqa: F401 (autouse)
+from test_torch_fused import (one_torch_thread,  # noqa: F401 (autouse)
+                             results_in_tmp)
 from test_torch_learning import _color, _gray
 
 RTOL = 1e-8
@@ -351,25 +352,22 @@ def test_tr_matches_tr_fused_at_fixed_budget(case, monkeypatch):
 
 
 def test_entry_points_refuse_the_unported_knobs():
-    """save_results, checkpoint, resume, save_iterations, data_parallel,
-    visualise and another backend still raise with method="tr", naming
-    their ROADMAP.md item; an unknown method raises ValueError."""
-    for knob, item in ((dict(save_results=True), 6),
-                       (dict(checkpoint=True), 7), (dict(resume=True), 7),
-                       (dict(save_iterations=True), 6),
+    """checkpoint, resume, data_parallel and another backend still raise
+    with method="tr", and save_iterations with the fused loop, naming
+    their ROADMAP.md item; an unknown method raises ValueError.
+    (save_results, save_iterations with method="tr" and visualise run:
+    tests/test_torch_reporting.py.)"""
+    for knob, item in ((dict(checkpoint=True), 7), (dict(resume=True), 7),
+                       (dict(save_iterations=True, method="tr_fused"), 7),
                        (dict(data_parallel=True), 10),
                        (dict(backend="jnp"), None)):
         # each refusal names the ROADMAP.md item that ports the knob
         match = "backend" if item is None else f"§1 item {item}"
+        kw = dict(TV_ENTRY, **knob)
         with pytest.raises(NotImplementedError, match=match):
-            tx.scalar_bilevel_tv_learn(device="cpu", **TV_ENTRY, **knob)
+            tx.scalar_bilevel_tv_learn(device="cpu", **kw)
         with pytest.raises(NotImplementedError, match=match):
-            ttgv_x.scalar_bilevel_tgv_learn(device="cpu", **TV_ENTRY,
-                                            **knob)
-    with pytest.raises(NotImplementedError, match="visualise.*item 6"):
-        tx.patch_bilevel_sumregs_learn(image_pair=(np.zeros((8, 8)),
-                                                   np.zeros((8, 8))),
-                                       visualise=True, device="cpu")
+            ttgv_x.scalar_bilevel_tgv_learn(device="cpu", **kw)
     for learn in (tx.scalar_bilevel_tv_learn,
                   ttgv_x.scalar_bilevel_tgv_learn):
         with pytest.raises(ValueError, match="method"):

@@ -229,14 +229,16 @@ def test_bilevel_learn_resume_checkpoint_and_stop():
 
 
 def test_bilevel_iterate_interrupt_and_visualise():
-    """Ctrl-C in a step returns the state with ``interrupted`` set; the
-    live view is not ported and raises."""
+    """Ctrl-C in a step returns the state with ``interrupted`` set; with
+    ``visualise`` the state holds the live view, closed on the way out
+    (the view's frames: tests/test_torch_reporting.py)."""
     def step(verbose):
         raise KeyboardInterrupt
     st = th.bilevel_iterate(step, Params(maxiter=3))
-    assert st.interrupted and len(st.log) == 0
-    with pytest.raises(NotImplementedError, match="visualise"):
-        th.bilevel_iterate(step, Params(maxiter=3), visualise=True)
+    assert st.interrupted and len(st.log) == 0 and st.view is None
+    st = th.bilevel_iterate(step, Params(maxiter=3), visualise=True)
+    assert st.interrupted and isinstance(st.view, th.LiveView)
+    assert st.view._thread is None and st.view.frames_drawn == 0
 
 
 def test_record_adjoint_cg_matches_jax():
