@@ -21,9 +21,14 @@ under ``output/<dataset>/``; ``save_results=True`` by default); the
 denoisers :func:`experiments.api.TVDenoise`, ``TGVDenoise``,
 ``TVL1Denoise`` and ``VTVDenoise``; the validations ``validate_*`` and
 the cost sweeps ``generate_*_cost`` with their plots in every family; the
-live view (``visualise=True`` with ``method="tr"``); and the command line,
-``python -m bpldenoising_tpu_torch``.  The learns return the JAX
-package's :class:`bilevel.harness.BilevelResult`.
+live view (``visualise=True`` with ``method="tr"``); checkpoint and
+resume, segmented dispatch of the fused trust region (``log_every``) and
+profiler traces (:mod:`.utils`); the differentiable denoising layers
+``diff_tv_denoise``, ``diff_denoise``, ``diff_tgv_denoise``,
+``diff_tvl1_denoise`` and ``diff_vtv_denoise`` (``torch.autograd`` through
+the kernels' forward solves by implicit differentiation); and the
+command line, ``python -m bpldenoising_tpu_torch``.  The learns return the
+JAX package's :class:`bilevel.harness.BilevelResult`.
 """
 
 from .bilevel.first_order import (single_loop_learn,
@@ -55,9 +60,10 @@ from .learning import (make_sumregs_learning_function,
                        make_tvl1_learning_function,
                        make_vtv_learning_function)
 from .models import sumregs_model, tv_model, vtv_model
-from .solvers import (denoise_pdps, sumregs_denoise, tv_denoise,
-                      tvl1_denoise, tvl1_energy, tvl1_huber_denoise,
-                      vtv_denoise)
+from .solvers import (denoise_pdps, diff_denoise, diff_tgv_denoise,
+                      diff_tv_denoise, diff_tvl1_denoise, diff_vtv_denoise,
+                      sumregs_denoise, tv_denoise, tvl1_denoise, tvl1_energy,
+                      tvl1_huber_denoise, vtv_denoise)
 from .solvers.lbfgs import LBFGSModel
 
 __all__ = ["scalar_bilevel_tv_learn", "patch_bilevel_tv_learn",
@@ -83,4 +89,5 @@ __all__ = ["scalar_bilevel_tv_learn", "patch_bilevel_tv_learn",
            "generate_2d_cost_plot", "generate_tgv_cost",
            "generate_tgv_cost_plot", "generate_tvl1_cost",
            "generate_tvl1_cost_plot", "generate_vtv_cost",
-           "generate_vtv_cost_plot"]
+           "generate_vtv_cost_plot", "diff_tv_denoise", "diff_denoise",
+           "diff_tgv_denoise", "diff_tvl1_denoise", "diff_vtv_denoise"]

@@ -11,9 +11,10 @@ the kernels' plain versions)::
         --lo 1e-3 --hi 1 --points 50 --plot
 
 ``--x64`` runs in float64 on the chosen device; ``--backend`` takes only
-``auto``.  What is not ported yet (``--checkpoint``, ``--resume``,
-``--log-every``, ``--trace``, ``--data-parallel`` and ``make-dataset``)
-exits with status 2 and names its ``ROADMAP.md`` item.
+``auto``.  ``--trace DIR`` writes a ``torch.profiler`` Chrome trace of a
+learn to ``DIR/trace.json``.  What is not ported yet (``--data-parallel``
+and ``make-dataset``) exits with status 2 and names its ``ROADMAP.md``
+item.
 """
 
 from __future__ import annotations
@@ -23,7 +24,6 @@ import sys
 
 import numpy as np
 
-_TRACE_REFUSAL = "--trace is not ported yet (ROADMAP.md §1 item 7)"
 _MAKE_DATASET_REFUSAL = ("make-dataset is not ported yet (ROADMAP.md §1 "
                          "item 9)")
 
@@ -60,11 +60,14 @@ def main(argv=None):
                        help="PDPS early-stop tolerance (enables "
                             "warm-started inner solves)")
         p.add_argument("--log-every", type=int, default=None,
-                       help="tr_fused segmented dispatch (not ported yet)")
+                       help="tr_fused segmented dispatch: a host hop every "
+                            "N outer iterations (per-segment wall times, "
+                            "checkpointing)")
         p.add_argument("--data-parallel", action="store_true",
                        help="shard the image batch (not ported yet)")
         p.add_argument("--trace", default=None, metavar="DIR",
-                       help="profiler trace of the run (not ported yet)")
+                       help="write a torch.profiler Chrome trace of the "
+                            "learn to DIR/trace.json")
         p.add_argument("--sl-outer", type=int, default=None,
                        help="single_loop: outer (Adam) steps")
         p.add_argument("--sl-inner", type=int, default=None,
@@ -170,12 +173,18 @@ def main(argv=None):
 
 
 def _dispatch(args):
-    from bpldenoising_tpu_torch import experiments as ex
+    from bpldenoising_tpu_torch.utils.profiling import trace
 
     if args.cmd == "make-dataset":
         raise NotImplementedError(_MAKE_DATASET_REFUSAL)
-    if getattr(args, "trace", None) is not None:
-        raise NotImplementedError(_TRACE_REFUSAL)
+    # only the learns take --trace
+    with trace(getattr(args, "trace", None)):
+        return _run(args)
+
+
+def _run(args):
+    from bpldenoising_tpu_torch import experiments as ex
+
     dev = dict(device=args.device)
     x64 = dict(dtype="float64") if args.x64 else {}
 

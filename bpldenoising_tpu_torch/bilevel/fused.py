@@ -17,8 +17,16 @@ returns per-image gradient maps, which are summed over the batch and pulled
 back through the patch operator's adjoint.  The solver and hypergradient
 calls go through the wrappers in :mod:`..solvers.pdps_cuda` and
 :mod:`..solvers.hypergrad_cuda`: on the card they launch the CUDA kernels,
-on the CPU they run the plain versions.  Data parallelism is not ported
-yet.
+on the CPU they run the plain versions.
+
+With ``log_every=j`` the loop runs in segments of j outer iterations with
+a host hop between them (:func:`.tr_core.run_segmented`): the result
+gains per-iteration wall times (segment-end, cumulative) and
+``segment_callback`` runs at every hop (checkpoints, per-iterate
+snapshots).  The segments run the same body on the same carry, so a
+segmented run gives the single run's numbers bit for bit; :func:`drive`
+runs both forms for the four families' learners.  Data parallelism is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -33,14 +41,13 @@ from ..models import DenoiseModel, tv_model
 from ..ops import PatchOp
 from ..solvers.hypergrad import HypergradConfig
 from .first_order import _check_positive_x0, _param_layout
-from .tr_core import make_tr_machinery
+from .tr_core import IT, make_tr_machinery, run_segmented, splice_dense_B
 
-__all__ = ["bilevel_learn_fused", "FusedResult"]
+__all__ = ["bilevel_learn_fused", "FusedResult", "drive"]
 
 #: the ROADMAP.md §1 item of each keyword of the fused learners that is not
 #: ported yet
-UNPORTED_KEYWORDS = {"mesh": 10, "log_every": 7, "segment_callback": 7,
-                     "init_B": 7}
+UNPORTED_KEYWORDS = {"mesh": 10}
 
 
 def refuse_unported(**knobs) -> None:
@@ -61,7 +68,49 @@ class FusedResult(NamedTuple):
     iterations: int          # outer iterations actually run
     log: torch.Tensor        # (maxiter, 6): cost, ‖g‖, Δ, ‖accepted step‖,
                              #               adjoint-CG iters, converged
-    times: Optional[np.ndarray] = None
+    times: Optional[np.ndarray] = None  # per-iteration cumulative wall
+    # seconds, segmented runs only (segment-end: no sub-segment times)
+
+
+def drive(machinery, *, x0, delta0, param_shape: tuple, maxiter: int,
+          tol: float, log_every: int | None = None, segment_callback=None,
+          init_B=None) -> FusedResult:
+    """Run a family's trust-region loop ``machinery = (init_carry, cond,
+    body)`` from ``x0`` (a CPU tensor in the working dtype) and radius
+    ``delta0``: in one host loop, or with ``log_every`` in segments of that
+    many outer iterations (:func:`.tr_core.run_segmented`), calling
+    ``segment_callback(it, carry, elapsed_s)`` after each.  ``init_B``, a
+    dense BFGS matrix, replaces the initial model (ignored for L-BFGS)."""
+    init_carry, cond, body = machinery
+
+    def start():
+        return splice_dense_B(init_carry(x0, delta0), init_B, x0.dtype)
+
+    times = None
+    if log_every is None:
+        if segment_callback is not None:
+            raise ValueError("segment_callback runs at the hops of "
+                             "segmented dispatch: set log_every")
+        carry = start()
+        while cond(carry):
+            carry = body(carry)
+    else:
+        seg = int(log_every)
+
+        def segment(c):
+            it_end = c[IT] + seg
+            while c[IT] < it_end and cond(c):
+                c = body(c)
+            return c
+
+        carry, times = run_segmented(
+            start, segment, maxiter=maxiter, tol=tol,
+            segment_callback=segment_callback)
+    it, x, _, _, fx, gx, u, _, log = carry
+    return FusedResult(x=x.reshape(param_shape), u=u, cost=fx,
+                       g_norm=torch.linalg.norm(gx), iterations=int(it),
+                       log=log,
+                       times=None if times is None else times[:int(it)])
 
 
 def _machinery(utrue, f, *, model: DenoiseModel, pop: Optional[PatchOp],
@@ -114,12 +163,12 @@ def bilevel_learn_fused(ds, *, xinit, params, model: DenoiseModel = None,
                         device="cuda") -> FusedResult:
     """Run the trust-region bilevel learning on ``device``.
 
-    ``mesh``, ``log_every``, ``segment_callback`` and ``init_B`` are the
-    JAX function's keywords: ``None`` runs, any other value raises
-    ``NotImplementedError`` (not ported yet), as in the other families'
-    learners.  The JAX function's ``backend=`` and ``interpret=`` are not
-    taken, as in those learners: by the entry points' ``check_backend``
-    rule the port has no backends, and ``device=`` chooses what runs.
+    ``mesh`` is the JAX function's keyword: ``None`` runs, any other value
+    raises ``NotImplementedError`` (not ported yet), as in the other
+    families' learners.  The JAX function's ``backend=`` and
+    ``interpret=`` are not taken, as in those learners: by the entry
+    points' ``check_backend`` rule the port has no backends, and
+    ``device=`` chooses what runs.
 
     Args:
       ds: ``(true_images, noisy_images)`` stacks, (O, M, N) or (M, N),
@@ -130,11 +179,17 @@ def bilevel_learn_fused(ds, *, xinit, params, model: DenoiseModel = None,
         lbfgs_threshold/lbfgs_memory.
       inner_tol: PDPS early-stop tolerance; ``None`` runs the fixed budget
         from a cold start every evaluation (parity mode).
+      log_every: segmented dispatch: a host hop every this many outer
+        iterations; the result gains per-iteration (segment-end) wall
+        ``times`` and ``segment_callback(it, carry, elapsed_s)`` runs at
+        every hop (carry layout: ``(it, x_flat, Bst, delta, fx, gx, u,
+        state, log)`` with ``state = (pdps_state, (p_exact, p_reg))``).
+      init_B: a dense BFGS matrix to start from (checkpoint resume;
+        ignored for the L-BFGS model).
       device: where the images and solver state live; ``"cuda"`` launches
         the CUDA kernels, ``"cpu"`` runs their plain versions.
     """
-    refuse_unported(mesh=mesh, log_every=log_every,
-                    segment_callback=segment_callback, init_B=init_B)
+    refuse_unported(mesh=mesh)
     utrue = torch.as_tensor(ds[0]).to(device)
     f = torch.as_tensor(ds[1]).to(device=device, dtype=utrue.dtype)
     if f.ndim == 2:
@@ -144,9 +199,10 @@ def bilevel_learn_fused(ds, *, xinit, params, model: DenoiseModel = None,
     x0 = torch.as_tensor(xinit, dtype=f.dtype).cpu()
     _check_positive_x0(x0)
     pop, param_shape = _param_layout(model, x0, tuple(f.shape[-2:]))
-    init_carry, cond, body = _machinery(
+    maxiter, tol = int(params.maxiter), float(params.get("tol", 0.0))
+    machinery = _machinery(
         utrue, f, model=model, pop=pop, param_shape=param_shape,
-        maxiter=int(params.maxiter), tol=float(params.get("tol", 0.0)),
+        maxiter=maxiter, tol=tol,
         eta1=float(params.eta1), eta2=float(params.eta2),
         beta1=float(params.beta1), beta2=float(params.beta2),
         inner_maxiter=int(inner_maxiter),
@@ -154,10 +210,7 @@ def bilevel_learn_fused(ds, *, xinit, params, model: DenoiseModel = None,
         check_every=int(check_every), delta_t=float(delta_t), cfg=cfg,
         lbfgs_threshold=int(params.get("lbfgs_threshold", 64)),
         lbfgs_memory=int(params.get("lbfgs_memory", 10)))
-    carry = init_carry(x0, float(params.delta0))
-    while cond(carry):
-        carry = body(carry)
-    it, x, _, _, fx, gx, u, _, log = carry
-    return FusedResult(x=x.reshape(param_shape), u=u, cost=fx,
-                       g_norm=torch.linalg.norm(gx), iterations=int(it),
-                       log=log)
+    return drive(machinery, x0=x0, delta0=float(params.delta0),
+                 param_shape=param_shape, maxiter=maxiter, tol=tol,
+                 log_every=log_every, segment_callback=segment_callback,
+                 init_B=init_B)

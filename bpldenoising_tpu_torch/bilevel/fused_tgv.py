@@ -16,9 +16,9 @@ inner solve and the implicit-function-theorem hypergradient of the
 The solve goes through :func:`..solvers.tgv_cuda.tgv_denoise_pdps_cuda`:
 on the card it launches the CUDA kernel, on the CPU it runs the plain
 version.  The adjoint CG is plain PyTorch on either device, as the JAX
-package runs it in jnp outside its Pallas kernel.  Data parallelism
-(``mesh=``) and segmented dispatch (``log_every``, checkpoints) are not
-ported yet.
+package runs it in jnp outside its Pallas kernel.  Segmented dispatch
+(``log_every``, ``segment_callback``, ``init_B``) is :func:`.fused.drive`'s;
+data parallelism (``mesh=``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -27,7 +27,8 @@ import numpy as np
 import torch
 
 from ..learning.tgv import tgv_param_layout, tgv_step
-from .fused import FusedResult, _check_positive_x0, refuse_unported
+from .fused import (FusedResult, _check_positive_x0, drive,
+                    refuse_unported)
 from .tr_core import make_tr_machinery
 
 __all__ = ["bilevel_learn_tgv_fused", "tgv_param_layout"]
@@ -87,13 +88,14 @@ def bilevel_learn_tgv_fused(ds, *, xinit, params,
         budget every evaluation and disables the warm-start chaining.
       gamma / cg_tol / cg_maxiter: implicit-gradient knobs
         (:func:`..solvers.tgv.tgv_implicit_cotangents`).
+      log_every / segment_callback / init_B: segmented dispatch and
+        checkpoint resume, as in :func:`.fused.bilevel_learn_fused`.
       device: where the images and solver state live; ``"cuda"`` launches
         the CUDA kernel, ``"cpu"`` runs its plain version.
 
     Returns a :class:`.fused.FusedResult`.
     """
-    refuse_unported(mesh=mesh, log_every=log_every,
-                    segment_callback=segment_callback, init_B=init_B)
+    refuse_unported(mesh=mesh)
     utrue = torch.as_tensor(ds[0]).to(device)
     f = torch.as_tensor(ds[1]).to(device=device, dtype=utrue.dtype)
     if f.ndim == 2:
@@ -103,9 +105,10 @@ def bilevel_learn_tgv_fused(ds, *, xinit, params,
     pop = tgv_param_layout(x0, tuple(f.shape[-2:]))
     _check_positive_x0(x0)
     param_shape = tuple(x0.shape)
-    init_carry, cond, body = _machinery(
+    maxiter, tol = int(params.maxiter), float(params.get("tol", 0.0))
+    machinery = _machinery(
         utrue, f, pop=pop, param_shape=param_shape,
-        maxiter=int(params.maxiter), tol=float(params.get("tol", 0.0)),
+        maxiter=maxiter, tol=tol,
         eta1=float(params.eta1), eta2=float(params.eta2),
         beta1=float(params.beta1), beta2=float(params.beta2),
         inner_maxiter=int(inner_maxiter),
@@ -115,10 +118,7 @@ def bilevel_learn_tgv_fused(ds, *, xinit, params,
         sigma0=float(sigma0),
         lbfgs_threshold=int(params.get("lbfgs_threshold", 64)),
         lbfgs_memory=int(params.get("lbfgs_memory", 10)))
-    carry = init_carry(x0, float(params.delta0))
-    while cond(carry):
-        carry = body(carry)
-    it, x, _, _, fx, gx, u, _, log = carry
-    return FusedResult(x=x.reshape(param_shape), u=u, cost=fx,
-                       g_norm=torch.linalg.norm(gx), iterations=int(it),
-                       log=log)
+    return drive(machinery, x0=x0, delta0=float(params.delta0),
+                 param_shape=param_shape, maxiter=maxiter, tol=tol,
+                 log_every=log_every, segment_callback=segment_callback,
+                 init_B=init_B)

@@ -14,19 +14,26 @@ is a host loop: the TR state (x, B, Δ, f, g: a few numbers) lives on the
 CPU in the working dtype, and ``eval_lf`` returns its scalars there, so the
 loop reads the device once per outer iteration.  The arithmetic mirrors the
 JAX body step for step.
+
+:func:`run_segmented` drives the same loop in segments of ``log_every``
+outer iterations with a host hop between them (per-segment wall times, a
+callback for checkpoints and snapshots); :func:`splice_dense_B` restores a
+checkpointed dense BFGS matrix into a fresh carry.
 """
 
 from __future__ import annotations
 
 import math
+import time
 from typing import Callable
 
+import numpy as np
 import torch
 
 from ..solvers.lbfgs import (lbfgs_apply, lbfgs_init, lbfgs_solve,
                              lbfgs_update)
 
-__all__ = ["make_tr_machinery"]
+__all__ = ["make_tr_machinery", "run_segmented", "splice_dense_B"]
 
 # carry layout: (it, x_flat, Bst, delta, fx, gx, u, state, log)
 IT, X, BST, DELTA, FX, GX, U, STATE, LOG = range(9)
@@ -168,3 +175,50 @@ def make_tr_machinery(eval_lf: Callable, *, n: int, dtype, maxiter: int,
         return (it + 1, x, Bst, delta_new, fx, gx, u, state_new, log)
 
     return init_carry, cond, body
+
+
+def splice_dense_B(carry, init_B, dtype):
+    """Restore a checkpointed dense BFGS matrix into a fresh carry
+    (checkpoint resume; shared by every family's learner).  No-op when the
+    run uses the L-BFGS model (the checkpoint's dense B does not apply) or
+    the shapes disagree."""
+    if init_B is None:
+        return carry
+    B = torch.as_tensor(np.asarray(init_B), dtype=dtype)
+    cur = carry[BST]
+    if isinstance(cur, torch.Tensor) and B.shape == cur.shape:
+        return carry[:BST] + (B,) + carry[BST + 1:]
+    return carry
+
+
+def run_segmented(init_carry_fn: Callable, segment_fn: Callable, *,
+                  maxiter: int, tol: float, segment_callback=None):
+    """Host driver of segmented dispatch: ``segment_fn(carry)`` advances the
+    carry by at most a segment's outer iterations, and the wall clock is
+    read at every hop.
+
+    ``init_carry_fn()`` gives the initial carry (the first evaluation);
+    ``segment_callback(it, carry, elapsed_s)`` runs after every segment.
+    The carry's iteration count and radius live on the host (the loop
+    reads cost and gradient once per evaluation, so the device has
+    finished the segment's work when it ends), and a hop reads nothing
+    more.  Returns ``(carry, times)``: ``times[i]`` is the cumulative wall
+    time at the end of the segment that holds iteration ``i``, no finer.
+    """
+    carry = init_carry_fn()
+    times = np.zeros((maxiter,), np.float64)
+    prev_it = 0
+    t0 = time.perf_counter()
+    while True:
+        carry = segment_fn(carry)
+        it, delta = int(carry[IT]), carry[DELTA]
+        elapsed = time.perf_counter() - t0
+        times[prev_it:it] = elapsed
+        if segment_callback is not None:
+            segment_callback(it, carry, elapsed)
+        # the radius test in the carry's dtype, as the loop's own cond
+        if it >= maxiter or it == prev_it or bool(
+                delta < torch.as_tensor(tol, dtype=delta.dtype)):
+            break
+        prev_it = it
+    return carry, times

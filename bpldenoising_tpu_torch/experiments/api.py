@@ -24,10 +24,15 @@ validations :func:`validate_tv_parameter` and
 plots.  A sweep runs one cold fixed-budget solve per weight (or pair), as
 kernel A takes one weight for a whole batch.
 
-Checkpointing, resuming, segmented dispatch of the fused trust region
-(``log_every``, and ``save_iterations`` with ``tr_fused``) and data
-parallelism are not ported yet and raise ``NotImplementedError``, as does
-any ``backend`` but ``"auto"`` (:func:`check_backend`: ``device=`` chooses
+``checkpoint=True`` saves ``<prefix>_ckpt.npz`` under the output
+directory after every accepted iteration (``method="tr"``) or every
+segment (``"tr_fused"``), and ``resume=True`` continues from it (the
+JAX package's ``.npz`` keys: either package reads the other's).  With
+``tr_fused``, ``log_every=j`` (5 by default when ``checkpoint``,
+``resume`` or ``save_iterations`` is set) runs the loop in j-iteration
+segments whose log carries real segment-end times.  Data parallelism is
+not ported yet and raises ``NotImplementedError``, as does any
+``backend`` but ``"auto"`` (:func:`check_backend`: ``device=`` chooses
 what runs).  ``visualise=True`` shows the iterates of ``method="tr"`` in a
 :class:`..bilevel.harness.LiveView`; the other methods ignore it, as in
 the JAX package.
@@ -59,6 +64,8 @@ from ..models import sumregs_model, tv_model
 from ..ops import PatchOp
 from ..solvers import denoise_pdps
 from ..solvers.hypergrad import HypergradConfig
+from ..utils.checkpoint import (CheckpointWriter, load_checkpoint,
+                                save_checkpoint)
 from ..utils.config import Params, check_backend, merge
 from ..viz import plot_cost_contour, plot_cost_curve, write_log
 from ..viz.log import BilevelLogEntry
@@ -114,19 +121,16 @@ patch_sumregs_bilevel_params = Params(
     alpha0=1e-3 * np.ones((2, 2, 3)))
 
 # each knob that is not ported yet, with its ROADMAP.md §1 item
-# (save_iterations only with the fused trust region: run_bilevel takes it)
-_UNPORTED_FLAGS = {"save_iterations": 7, "checkpoint": 7, "resume": 7,
-                   "data_parallel": 10, "log_every": 7}
+_UNPORTED_FLAGS = {"data_parallel": 10}
 
 _TV = tv_model()
 _SUMREGS = sumregs_model()
 
 
-def reject_unported(params, allow=()) -> None:
-    """Raise for every set knob the port does not implement yet (but those
-    in ``allow``)."""
+def reject_unported(params) -> None:
+    """Raise for every set knob the port does not implement yet."""
     for flag, item in _UNPORTED_FLAGS.items():
-        if flag not in allow and params.get(flag):
+        if params.get(flag):
             raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md "
                                       f"§1 item {item})")
     check_backend(params.get("backend", "auto"))
@@ -408,46 +412,134 @@ def report(params, ds, res: BilevelResult, stretch_all: bool
 # Bilevel learning experiments
 # ---------------------------------------------------------------------------
 
-def _fused_to_result(res) -> BilevelResult:
-    """FusedResult (log matrix) → host BilevelResult whose
-    ``state.log`` holds one BilevelLogEntry per outer iteration, as the JAX
-    package's ``_fused_to_result`` builds it.  Every ``time`` is 0.0:
-    segmented dispatch, which times the iterations, is not ported."""
+def _fused_to_result(res, *, it_offset: int = 0,
+                     init_entries=()) -> BilevelResult:
+    """FusedResult (log matrix) → host BilevelResult whose ``state.log``
+    holds the resumed ``init_entries`` and then one BilevelLogEntry per
+    outer iteration, numbered from ``it_offset + 1``, as the JAX package's
+    ``_fused_to_result`` builds it: ``time`` the segment-end wall time of
+    a segmented run, 0.0 in a single run (which times only the whole)."""
     st = BilevelState()
+    st.log.extend(init_entries)
     k = int(res.iterations)
+    times = res.times if res.times is not None else np.zeros(k)
     for i, row in enumerate(res.log[:k].tolist()):
         st.log.append(BilevelLogEntry(
-            i + 1, 0.0, *row[:4], adjoint_cg_iters=row[4],
-            adjoint_cg_converged=row[5]))
+            i + 1 + it_offset, float(times[i]), *row[:4],
+            adjoint_cg_iters=row[4], adjoint_cg_converged=row[5]))
     return BilevelResult(x=res.x.numpy(), u=res.u.cpu().numpy(),
                          state=st, cost=float(res.cost),
-                         g_norm=float(res.g_norm), iterations=k)
+                         g_norm=float(res.g_norm), iterations=k + it_offset)
+
+
+def _ckpt_path(params) -> str:
+    return os.path.join(_out_dir(params), params.save_prefix + "_ckpt.npz")
+
+
+def _log_entries(rows):
+    """Checkpoint log rows → BilevelLogEntry items (none for no rows)."""
+    if rows is None or not np.asarray(rows).size:
+        return []
+    return [BilevelLogEntry(int(r[0]), *map(float, r[1:]))
+            for r in np.asarray(rows)]
+
+
+def _resumed(params, ckpt_path):
+    """With ``resume`` set and a checkpoint at ``ckpt_path``: → (params
+    with ``alpha0`` and ``delta0`` from it, its dense BFGS matrix or None,
+    its log entries, its iteration); otherwise (params, None, [], 0)."""
+    state = load_checkpoint(ckpt_path) if params.get("resume") else None
+    if state is None:
+        return params, None, [], 0
+    params = params | dict(alpha0=state["x"], delta0=float(state["delta"]))
+    B = state.get("B")
+    init_B = B if B is not None and np.asarray(B).ndim == 2 else None
+    it = int(state["iteration"])
+    print(f"resuming from {ckpt_path} (iteration {it})", file=sys.stderr)
+    return params, init_B, _log_entries(state.get("log")), it
+
+
+def _save_iteration_fn(params):
+    """``fn(it, img)`` writing ``<prefix>_iter_<it>.png`` (the image
+    clipped to [0, 1]) when ``save_iterations`` is set, else None."""
+    if not params.get("save_iterations"):
+        return None
+    out = _out_dir(params)
+
+    def save_iter_fn(it, img):
+        _write_image(os.path.join(out, f"{params.save_prefix}_iter_{it}.png"),
+                     np.clip(img, 0, 1))
+    return save_iter_fn
+
+
+def _fused_observability(params):
+    """Resume, checkpoint and per-iterate snapshot hooks of the fused
+    trust region, shared by every family (the JAX package's
+    ``_fused_observability``).  The hooks run as the segment callback of
+    segmented dispatch (``log_every``; 5 when ``checkpoint``, ``resume``
+    or ``save_iterations`` is set and ``log_every`` is not).  Returns
+    ``(params, log_every, seg_cb, init_B, it_offset, init_entries)``;
+    ``params`` gains the resumed ``alpha0``/``delta0`` and the remaining
+    ``maxiter``.  The carry is ``(it, x_flat, Bst, delta, fx, gx, u,
+    state, log)`` (:mod:`..bilevel.tr_core`)."""
+    log_every = params.get("log_every")
+    if log_every is None and any(params.get(k) for k in
+                                 ("checkpoint", "resume", "save_iterations")):
+        log_every = 5
+    ckpt_path = _ckpt_path(params)
+    params, init_B, init_entries, it_offset = _resumed(params, ckpt_path)
+    if it_offset:
+        params = params | dict(maxiter=max(0, int(params.maxiter) - it_offset))
+    checkpoint = bool(params.get("checkpoint") or params.get("resume"))
+    save_iter_fn = _save_iteration_fn(params)
+    param_shape = tuple(np.shape(params.alpha0))
+    seg_cb = None
+    if log_every is not None and (checkpoint or save_iter_fn):
+        def seg_cb(it, carry, elapsed):
+            it_abs = it + it_offset
+            if checkpoint:
+                x, bst, delta, log = carry[1], carry[2], carry[3], carry[8]
+                rows = [[e.iter, e.time, e.function_value, e.g_norm,
+                         e.delta, e.step_norm] for e in init_entries]
+                rows += [[i + 1 + it_offset, elapsed, *log[i, :4].tolist()]
+                         for i in range(it)]
+                # the dense BFGS matrix is saved; an L-BFGS state is not,
+                # as in the host loop
+                B = bst.numpy() if isinstance(bst, torch.Tensor) else None
+                save_checkpoint(ckpt_path,
+                                x=x.numpy().reshape(param_shape),
+                                delta=float(delta), B=B, log_rows=rows,
+                                iteration=it_abs)
+            if save_iter_fn is not None:
+                save_iter_fn(it_abs, _host(carry[6][0]))
+
+    return params, log_every, seg_cb, init_B, it_offset, init_entries
 
 
 def run_bilevel(params, learning_function, device, ds=None,
                 visualise: bool = False, stretch_all: bool = False
                 ) -> BilevelResult:
     """The host trust region behind the experiment surface (the JAX
-    package's ``_run_bilevel`` without resume and checkpoints, which
-    raise): ``learning_function`` on ``ds`` (by default the params'
-    dataset on ``device``), ``save_iterations`` PNGs of each logged
-    iterate's first image, the reconstruction read to the host once at
-    the end, then :func:`save_results`."""
-    reject_unported(params, allow=("save_iterations",))
+    package's ``_run_bilevel``): ``learning_function`` on ``ds`` (by
+    default the params' dataset on ``device``), resumed from
+    ``<prefix>_ckpt.npz`` with ``resume`` (its iterate, radius, BFGS
+    matrix and log; the numbering and the budget continue), checkpointed
+    after every accepted iteration with ``checkpoint`` or ``resume``,
+    ``save_iterations`` PNGs of each logged iterate's first image, the
+    reconstruction read to the host once at the end, then
+    :func:`save_results`."""
+    reject_unported(params)
     if ds is None:
         ds = _load(params, device)
-    save_iter_fn = None
-    if params.get("save_iterations"):
-        out = _out_dir(params)
-
-        def save_iter_fn(it, img):
-            _write_image(
-                os.path.join(out, f"{params.save_prefix}_iter_{it}.png"),
-                np.clip(img, 0, 1))
-
+    ckpt_path = _ckpt_path(params)
+    params, init_B, init_log, _ = _resumed(params, ckpt_path)
+    checkpoint = (CheckpointWriter(ckpt_path) if params.get("checkpoint")
+                  or params.get("resume") else None)
     res = bilevel_learn(ds, learning_function, xinit=params.alpha0,
                         params=params, visualise=visualise,
-                        save_iteration_fn=save_iter_fn)
+                        save_iteration_fn=_save_iteration_fn(params),
+                        checkpoint=checkpoint, init_B=init_B,
+                        init_log=init_log or None)
     res = dataclasses.replace(res, u=res.u.cpu().numpy())
     return report(params, ds, res, stretch_all)
 
@@ -468,16 +560,24 @@ def _make_lf(params, factory, device):
 
 def run_fused(params, device, learn, stretch_all: bool = False,
               **kw) -> BilevelResult:
-    """A fused trust region behind the experiment surface:
-    ``learn(ds, xinit=, params=, inner_maxiter=, inner_tol=, check_every=,
-    device=, **kw)`` on the params' dataset, then :func:`save_results`."""
+    """A fused trust region behind the experiment surface (the JAX
+    package's ``_run_fused``): ``learn(ds, xinit=, params=,
+    inner_maxiter=, inner_tol=, check_every=, device=, log_every=,
+    segment_callback=, init_B=, **kw)`` on the params' dataset with the
+    hooks of :func:`_fused_observability`, then :func:`save_results`."""
     reject_unported(params)
     ds = _load(params, device)
+    (params, log_every, seg_cb, init_B, it_offset,
+     init_entries) = _fused_observability(params)
     res = learn(ds, xinit=np.asarray(params.alpha0), params=params,
                 inner_maxiter=int(params.inner_maxiter),
                 inner_tol=params.get("inner_tol"),
-                check_every=int(params.check_every), device=device, **kw)
-    return report(params, ds, _fused_to_result(res), stretch_all)
+                check_every=int(params.check_every), device=device,
+                log_every=None if log_every is None else int(log_every),
+                segment_callback=seg_cb, init_B=init_B, **kw)
+    out = _fused_to_result(res, it_offset=it_offset,
+                           init_entries=init_entries)
+    return report(params, ds, out, stretch_all)
 
 
 def _run_fused(params, model_kind, device, stretch_all):
@@ -539,7 +639,7 @@ def run_single_loop(params, device, learn, stretch_all: bool = False,
     :func:`save_results`."""
     _reject_flags(params, "single_loop",
                   ("checkpoint", "resume", "save_iterations", "inner_tol"))
-    reject_unported(params, allow=("log_every",))
+    reject_unported(params)
     ds = _load(params, device)
     outer = int(params.sl_outer)
     res = learn(ds[0], ds[1], np.asarray(params.alpha0), outer=outer,

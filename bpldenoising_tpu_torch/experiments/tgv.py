@@ -13,9 +13,10 @@ true and noisy images stretched, as in the JAX package).  Also here:
 :func:`TGVDenoise`, :func:`validate_tgv_parameter` and the (α₁, α₀) cost
 sweep :func:`generate_tgv_cost` with its plot.  As in the TV entry point,
 ``check_every``, ``inner_tol`` and ``tgv_gamma`` are parameters;
-checkpointing, segmented dispatch of the fused trust region
-(``log_every``) and data parallelism raise ``NotImplementedError``, as
-does any ``backend`` but ``"auto"``.
+``checkpoint``, ``resume``, ``save_iterations`` and ``log_every`` run as
+in the TV entry point (:func:`.api.run_fused`, :func:`.api.run_bilevel`);
+data parallelism raises ``NotImplementedError``, as does any ``backend``
+but ``"auto"``.
 """
 
 from __future__ import annotations

@@ -14,9 +14,10 @@ trust region over :func:`..learning.tvl1.make_tvl1_learning_function`),
 :mod:`..bilevel.first_order_tvl1`), each ending in
 :func:`.api.save_results` (the true and noisy images stretched, as in the
 JAX package).  As in the TV and TGV entry points, ``check_every`` (the
-inner early-stop cadence) is a parameter; checkpointing, segmented
-dispatch of the fused trust region (``log_every``) and data parallelism
-raise ``NotImplementedError``, as does any ``backend`` but ``"auto"``.
+inner early-stop cadence) is a parameter; ``checkpoint``, ``resume``,
+``save_iterations`` and ``log_every`` run as in the TV entry point
+(:func:`.api.run_fused`, :func:`.api.run_bilevel`); data parallelism
+raises ``NotImplementedError``, as does any ``backend`` but ``"auto"``.
 """
 
 from __future__ import annotations

@@ -15,9 +15,10 @@ coupling weight α or an (m, n) patch grid.  :func:`VTVDenoise` (a scalar
 :func:`.api.save_results` with RGB PNG triplets (only the reconstruction
 stretched, as in the JAX package).  As in the other families' entry
 points, ``check_every``, ``inner_tol`` and ``vtv_gamma`` are parameters;
-checkpointing, segmented dispatch of the fused trust region
-(``log_every``) and data parallelism raise ``NotImplementedError``, as
-does any ``backend`` but ``"auto"``.
+``checkpoint``, ``resume``, ``save_iterations`` and ``log_every`` run as
+in the TV entry point (:func:`.api.run_fused`, :func:`.api.run_bilevel`);
+data parallelism raises ``NotImplementedError``, as does any ``backend``
+but ``"auto"``.
 """
 
 from __future__ import annotations

@@ -33,6 +33,10 @@ the γ-Huber-smoothed joint optimality system
 
 with one Jacobi-preconditioned CG solve on the SPD joint Hessian (three
 stacked planes: u and the two w components), per image.
+:func:`make_diff_tgv_denoise` and :func:`diff_tgv_denoise` are the
+differentiable layer built on it (:class:`.implicit.ImplicitLayer`): the
+forward is :func:`tgv_denoise_pdps` (the CUDA kernel on the card), the
+backward :func:`tgv_implicit_cotangents`.
 """
 
 from __future__ import annotations
@@ -45,10 +49,12 @@ from ..ops import (FwdGradientOp, proj_norm21_ball, scalarprod, sym_div,
                    sym_grad, xi)
 from ..ops.grad import dminus_gram
 from ..ops.tgv import TGV_OPNORM_SQ
+from .implicit import (ImplicitLayer, check_layer_backend, reduce_like,
+                       weight_like)
 from .krylov import cg_batched
 
 __all__ = ["tgv_denoise_pdps", "tgv_energy", "tgv_implicit_cotangents",
-           "TGV_PDPS_DEFAULTS"]
+           "make_diff_tgv_denoise", "diff_tgv_denoise", "TGV_PDPS_DEFAULTS"]
 
 _GRAD = FwdGradientOp()
 
@@ -233,13 +239,6 @@ def tgv_implicit_cotangents(u, w, alphas, v, *, gamma: float = 1e-4,
                            M=lambda r: r / diag, item_ndim=3)
     lu = lam[..., 0, :, :]
     lw = lam[..., 1:3, :, :]
-
-    def reduce_like(g, a):
-        # per-pixel sensitivity → cotangent shaped like the weight
-        if a.ndim >= 2:
-            return torch.sum(g.reshape((-1,) + tuple(g.shape[-2:])), dim=0)
-        return torch.sum(g)
-
     g1 = -scalarprod(psi_y, _GRAD.apply(lu) - lw)
     g0 = -scalarprod(psi_z, sym_grad(lw))
     out = lu, (reduce_like(g1, a1), reduce_like(g0, a0))
@@ -248,3 +247,41 @@ def tgv_implicit_cotangents(u, w, alphas, v, *, gamma: float = 1e-4,
     if return_info:
         out = out + (info,)
     return out
+
+
+def make_diff_tgv_denoise(maxiter: int = 5000, gamma: float = 1e-4,
+                          cg_tol: float = 1e-6, cg_maxiter: int = 1000,
+                          tau0: float = 0.99, sigma0: float = 0.99,
+                          tol=None, check_every: int = 500,
+                          backend: str = "auto", interpret: bool = False):
+    """Differentiable TGV² denoiser ``(f, (α₁, α₀)) → u`` (batched;
+    gradients flow to f and both weights through one joint CG solve).
+    The forward is :func:`tgv_denoise_pdps` where ``f`` lives (the CUDA
+    kernel on the card), which also gives the w of the backward's
+    :func:`tgv_implicit_cotangents`.  ``backend`` and ``interpret``
+    follow :func:`.implicit.check_layer_backend`."""
+    check_layer_backend(backend, interpret)
+
+    def solve(f, alphas):
+        u, w = tgv_denoise_pdps(f, alphas[0], alphas[1], tau0=tau0,
+                                sigma0=sigma0, maxiter=maxiter, tol=tol,
+                                check_every=check_every)
+        return u, w
+
+    def cotangents(u, f, alphas, w, v):
+        return tgv_implicit_cotangents(u, w, alphas, v, gamma=gamma,
+                                       cg_tol=cg_tol, cg_maxiter=cg_maxiter)
+
+    def layer(f, alphas):
+        return ImplicitLayer.apply(solve, cotangents, f, *alphas)
+
+    return layer
+
+
+def diff_tgv_denoise(f, alpha1, alpha0, maxiter: int = 5000):
+    """Differentiable TGV² denoising (companion to
+    :func:`.implicit.diff_tv_denoise`): ``torch.autograd`` flows through
+    f, α₁ and α₀ at the cost of one CG solve."""
+    f = torch.as_tensor(f)
+    return make_diff_tgv_denoise(maxiter=maxiter)(
+        f, (weight_like(alpha1, f), weight_like(alpha0, f)))

@@ -23,7 +23,11 @@ implicitly: the adjoint system is the γ-regularized TV system of
 by the Huber data Hessian D = diag(γ_d·1{|u−f| ≤ 1/γ_d}), solved by
 Jacobi-preconditioned CG (the diagonal floored at 1e-12) over the whole
 batch.  It is plain PyTorch on either device, as the JAX package computes
-it in jnp.
+it in jnp.  :func:`tvl1_huber_implicit_cotangents` solves the same system
+for any loss cotangent, with per-image CG dots, and is the backward of the
+differentiable layer :func:`make_diff_tvl1_denoise` /
+:func:`diff_tvl1_denoise` (:class:`.implicit.ImplicitLayer`), whose
+forward is :func:`tvl1_huber_denoise` (the CUDA kernel on the card).
 """
 
 from __future__ import annotations
@@ -33,11 +37,13 @@ import torch
 from ..models import DenoiseModel, tv_model
 from ..ops import proj_norm21_ball, scalarprod, xi
 from .hypergrad import HypergradConfig, _defaults, build_reg_system
-from .krylov import cg
+from .implicit import ImplicitLayer, reduce_like, weight_like
+from .krylov import cg, cg_batched
 from .tvl1 import cold_state, cp_loop
 
 __all__ = ["tvl1_huber_denoise", "tvl1_huber_energy",
-           "tvl1_huber_hypergrad"]
+           "tvl1_huber_hypergrad", "tvl1_huber_implicit_cotangents",
+           "make_diff_tvl1_denoise", "diff_tvl1_denoise"]
 
 _TV = tv_model()
 _GRAD = _TV.ops[0]
@@ -174,3 +180,83 @@ def tvl1_huber_hypergrad(u, f, utrue, alphas, model: DenoiseModel = _TV,
         gmap = scalarprod(op.apply(p), field)
         grads.append(gmap if want_maps else torch.sum(gmap))
     return tuple(grads), p, info
+
+
+# ---------------------------------------------------------------------------
+# Implicit-differentiation layer: gradients flow to f and α
+# ---------------------------------------------------------------------------
+
+def tvl1_huber_implicit_cotangents(u, f, alpha, v, *, gamma_d,
+                                   gamma: float = 1000.0,
+                                   cg_tol: float | None = 1e-6,
+                                   cg_maxiter: int = 1000,
+                                   lam0=None, return_lam: bool = False):
+    """Implicit-function-theorem cotangents at a smoothed TV-L1 solution.
+
+    Given the loss cotangent ``v = ∂J/∂u`` (shaped like u), solves the
+    smoothed adjoint system H λ = v once (per-image CG dots,
+    ``cg_batched(item_ndim=2)``) and returns ``(df, dα)``: df = D λ with D
+    the Huber data Hessian (du/df = H⁻¹D), and dα = −⟨∇λ, ψ'(∇u)⟩ reduced
+    to the shape of ``alpha`` (scalar or (M, N) map).  ``cg_tol=None``
+    takes the dtype's default (1e-8 float64, 1e-5 float32); ``lam0``
+    warm-starts the CG and ``return_lam`` appends λ.
+    """
+    dtype = u.dtype
+    if cg_tol is None:   # the dtype's default, as _defaults derives it
+        cg_tol = 1e-8 if dtype == torch.float64 else 1e-5
+    a = torch.as_tensor(alpha, dtype=dtype)
+    a = a.to(u.device) if a.ndim >= 2 else a
+    gamma_d = torch.tensor(gamma_d, dtype=dtype, device=u.device)
+
+    M0, inv_diag0, fields = build_reg_system(u, (a,), _TV, gamma)
+    d = torch.where(torch.abs(u - f) <= 1.0 / gamma_d, gamma_d,
+                    torch.zeros((), dtype=dtype, device=u.device))
+
+    def H(x):
+        return M0(x) + (d - 1.0) * x
+
+    diag = torch.clamp(1.0 / inv_diag0 + (d - 1.0), min=1e-12)
+    lam, _ = cg_batched(H, v, x0=lam0, tol=cg_tol, maxiter=cg_maxiter,
+                        M=lambda r: r / diag, item_ndim=2)
+
+    da = reduce_like(-scalarprod(_GRAD.apply(lam), fields[0]), a)
+    out = d * lam, da
+    return out + (lam,) if return_lam else out
+
+
+def make_diff_tvl1_denoise(maxiter: int = 5000, gamma_d: float = 100.0,
+                           gamma: float = 1000.0,
+                           cg_tol: float | None = None,
+                           cg_maxiter: int = 2000, tau0: float = 0.99,
+                           sigma0: float = 0.99, tol=None,
+                           check_every: int = 500):
+    """Differentiable Huber-smoothed TV-L1 denoiser ``(f, α) → u``
+    (batched; gradients flow to f and α through one CG solve).  The
+    forward is :func:`tvl1_huber_denoise` at ``gamma_r = gamma`` where
+    ``f`` lives (the CUDA kernel on the card); ``cg_tol=None`` derives the
+    adjoint tolerance from the dtype, and ``cg_maxiter`` defaults to 2000,
+    the settings of :func:`..learning.tvl1.tvl1_learning_function`."""
+
+    def solve(f, alphas):
+        return tvl1_huber_denoise(
+            f, alphas[0], gamma_d=gamma_d, gamma_r=gamma, tau0=tau0,
+            sigma0=sigma0, maxiter=maxiter, tol=tol,
+            check_every=check_every), None
+
+    def cotangents(u, f, alphas, extra, v):
+        df, da = tvl1_huber_implicit_cotangents(
+            u, f, alphas[0], v, gamma_d=gamma_d, gamma=gamma, cg_tol=cg_tol,
+            cg_maxiter=cg_maxiter)
+        return df, (da,)
+
+    def layer(f, alpha):
+        return ImplicitLayer.apply(solve, cotangents, f, alpha)
+
+    return layer
+
+
+def diff_tvl1_denoise(f, alpha, maxiter: int = 5000):
+    """Differentiable TV-L1 denoising at the default smoothing (companion
+    to ``diff_tv_denoise`` / ``diff_tgv_denoise`` / ``diff_vtv_denoise``)."""
+    f = torch.as_tensor(f)
+    return make_diff_tvl1_denoise(maxiter=maxiter)(f, weight_like(alpha, f))

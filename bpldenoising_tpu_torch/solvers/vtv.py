@@ -14,20 +14,28 @@ The forward solve is :func:`.pdps.vtv_denoise` (the CUDA kernel of
 
 with one Jacobi-preconditioned CG solve over the C stacked channel planes
 and per-image inner products (``cg_batched(item_ndim=3)``), plain PyTorch
-on either device.  The differentiable layer (``make_diff_vtv_denoise``,
-``diff_vtv_denoise``) is not ported yet.
+on either device.  The differentiable layer :func:`make_diff_vtv_denoise`
+/ :func:`diff_vtv_denoise` (:class:`.implicit.ImplicitLayer`) runs that
+solve as its backward and :func:`.pdps.denoise_pdps` on
+:func:`..models.vtv_model` (the VTV kernel on the card) as its forward.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..models import vtv_model
 from ..ops import FwdGradientOp, scalarprod, xi
+from .implicit import (ImplicitLayer, check_layer_backend, reduce_like,
+                       weight_like)
 from .krylov import cg_batched
+from .pdps import denoise_pdps
 
-__all__ = ["vtv_implicit_cotangents"]
+__all__ = ["vtv_implicit_cotangents", "make_diff_vtv_denoise",
+           "diff_vtv_denoise"]
 
 _GRAD = FwdGradientOp()
+_VTV = vtv_model()
 _AXES = (-4, -3)   # (channel, component): the Frobenius coupling
 
 
@@ -84,14 +92,46 @@ def vtv_implicit_cotangents(u, alpha, v, *, gamma: float = 1e-4,
                            M=lambda r: r / diag, item_ndim=3)
 
     g_map = -scalarprod(psi, _GRAD.apply(lam), axes=_AXES)   # (..., M, N)
-    if a.ndim >= 2:
-        da = torch.sum(g_map.reshape((-1,) + tuple(g_map.shape[-2:])),
-                       dim=0)
-    else:
-        da = torch.sum(g_map)
-    out = lam, da
+    out = lam, reduce_like(g_map, a)
     if return_lam:
         out = out + (lam,)
     if return_info:
         out = out + (info,)
     return out
+
+
+def make_diff_vtv_denoise(maxiter: int = 5000, gamma: float = 1e-4,
+                          cg_tol: float = 1e-6, cg_maxiter: int = 1000,
+                          tau0: float = 5.0, sigma0: float = 0.99 / 5.0,
+                          tol=None, check_every: int = 500,
+                          backend: str = "auto", interpret: bool = False):
+    """Differentiable VTV denoiser ``(f, α) → u`` (batched
+    ``(..., C, M, N)``; gradients flow to f and α through one coupled CG
+    solve).  The forward is :func:`.pdps.denoise_pdps` on
+    :func:`..models.vtv_model` where ``f`` lives (the VTV kernel on the
+    card); ``backend`` and ``interpret`` follow
+    :func:`.implicit.check_layer_backend`."""
+    check_layer_backend(backend, interpret)
+
+    def solve(f, alphas):
+        return denoise_pdps(f, alphas, _VTV, tau0=tau0, sigma0=sigma0,
+                            maxiter=maxiter, tol=tol,
+                            check_every=check_every), None
+
+    def cotangents(u, f, alphas, extra, v):
+        df, da = vtv_implicit_cotangents(u, alphas[0], v, gamma=gamma,
+                                         cg_tol=cg_tol,
+                                         cg_maxiter=cg_maxiter)
+        return df, (da,)
+
+    def layer(f, alpha):
+        return ImplicitLayer.apply(solve, cotangents, f, alpha)
+
+    return layer
+
+
+def diff_vtv_denoise(f, alpha, maxiter: int = 5000):
+    """Differentiable vectorial-TV denoising (companion to
+    :func:`.implicit.diff_tv_denoise` / :func:`.tgv.diff_tgv_denoise`)."""
+    f = torch.as_tensor(f)
+    return make_diff_vtv_denoise(maxiter=maxiter)(f, weight_like(alpha, f))

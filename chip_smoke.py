@@ -243,6 +243,42 @@ parent's).
     a subprocess: exit 0, the printed cost and PSNR those of phase 46, the
     saved costs those the API gives in this process.
 
+Phases 49-52 run with ``save_results=False`` too:
+
+49. segmented dispatch: the flagship of phase 5 with ``log_every=5``
+    against phase 5's single run (x and every logged number bit for bit,
+    the same kernel-A calls in the cluster form, device operations and
+    kernel-B launches and reads), then TGV² (10 × 128²), TV-L1 (1 × 128²)
+    and VTV (6 × 3 × 128²) at their learns' settings cut to 3 outer
+    iterations, ``log_every=2`` against a single run, the CP kernel's
+    calls (iterations, device operations, cluster form) the same on both
+    sides; the segment-end times positive and non-decreasing.
+50. checkpoint and resume: the flagship ``tr_fused`` learn stopped at 4
+    outer iterations with ``checkpoint=True``, then ``resume=True`` with
+    the whole budget, its α within 5e-2 relative of phase 5's (the JAX
+    test's band: the resumed solves start cold); the float64 default call
+    (``method="tr"``, phase 41's) stopped at 3 and resumed, against phase
+    41's α; the log numbered 1, 2, … without a gap; every kernel call in
+    its cluster or cooperative form, no plain call.
+51. ``python -m bpldenoising_tpu_torch scalar-tv ... --trace DIR`` in this
+    process around a flagship learn: the Chrome trace names kernel A's
+    ``pdc_cp`` once per early-stop chunk of its calls and kernel B's
+    ``hg_coop`` once per call, as the wrappers counted them.
+52. the differentiable layers (``diff_tv_denoise``'s TV and the sum of
+    regularizers on the 10 faces images, TGV² on them, TV-L1 on one
+    ``circle_sp`` image, VTV on six ``color_disks`` images), float32 and
+    float64: the forward bit for bit against the public denoiser, one
+    kernel call in its cluster form and no plain call; the gradients of
+    ½‖u − ū‖² (f and every weight) against the same backward on the plain
+    forward, 300 iterations (float32 1e-1, float64 1e-6 of the largest
+    entry; the TV family's backward at γ = 1e4, well conditioned); in
+    float64 on the first image the f-gradient against central differences
+    (h = 1e-5, one random direction, 2e-3 relative; the sum of
+    regularizers 1e-2, the JAX package's tolerance for it) with the
+    forward run to convergence (``DIFF_LAYERS`` gives each layer's
+    settings and their reasons); each layer's forward and backward walls
+    and adjoint-CG iterations.
+
 It prints one JSON line of per-kernel numbers (eighteen entries: the
 eleven kernels, rows 1–3's K = 3 and map forms, row 5's 1024² call, row
 6's 256² call),
@@ -257,6 +293,7 @@ from __future__ import annotations
 import contextlib
 import faulthandler
 import json
+import os
 import subprocess
 import sys
 import time
@@ -3999,6 +4036,546 @@ def phase_cli(validations):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 49-52: segmented dispatch, checkpoint and resume, the profiler
+# trace and the differentiable layers
+# ---------------------------------------------------------------------------
+
+# α of a resumed learn against the whole one.  tr_fused: the JAX test's
+# band (tests/test_experiments.py); its solves restart cold at the resume,
+# and it read 2.23e-3 on the card (PR 24's chip calls 23 and 25).  tr: its
+# adjoint CG restarts from zero, and the capped default CG's gradient
+# depends on its start: it read 3.3e-5 in both calls; the gate is six
+# times that.  A resume that ignored its checkpoint would land inside
+# either band, so phase 50 also holds the resumed log's first rows to the
+# checkpoint's and counts the resumed run's evaluations.
+RESUME_GATE_REL = {"tr_fused": 5e-2, "tr": 2e-4}
+# Layer gradients against the same backward on the plain forward, relative
+# to max|plain grad|.  Float64: the forwards agree to 1e-15 and each CG
+# stops at 1e-8 (readings ≤ 6.2e-9, PR 24's chip call 25).  Float32, per
+# layer (chip calls 23 and 25 read the same digits): TV from its
+# conditioning, since a float32 CG stops at a relative residual of 1e-5,
+# which bounds its solution only to κ·1e-5, and κ reaches 1 + 8αγ = 5.6e3
+# at γ = 1e4: 5.6e-2, rounded up to 6e-2 (read 3.81e-2).  The others at
+# about twice their reading: the sum of regularizers read 9.63e-4; TGV²,
+# whose 300-iteration CG stops at its cap, 1.02e-2.  TV-L1's and VTV's
+# forwards are the plain version's bits (phases 10 and 13), so their
+# backwards read 0.0; 1e-3 leaves room for a reordered sum only.  Call 23
+# held every float32 layer to one 1e-2 and stopped on TV's 3.81e-2 and
+# TGV²'s 1.02e-2.
+DIFF_GRAD_GATE = {
+    "float64": dict.fromkeys(("tv", "sumregs", "tgv", "tvl1", "vtv"), 1e-6),
+    "float32": {"tv": 6e-2, "sumregs": 2e-3, "tgv": 2e-2, "tvl1": 1e-3,
+                "vtv": 1e-3},
+}
+
+
+def log_numbers(res):
+    """Every logged number of a learn but its wall times."""
+    return [(e.iter, e.function_value, e.g_norm, e.delta, e.step_norm,
+             e.adjoint_cg_iters, e.adjoint_cg_converged)
+            for e in res.state.log]
+
+
+def same_run(a, b):
+    """Two learns with the same x, iterations and log numbers, bit for
+    bit."""
+    import numpy as np
+    return (a.iterations == b.iterations
+            and np.array_equal(np.asarray(a.x), np.asarray(b.x))
+            and log_numbers(a) == log_numbers(b))
+
+
+def times_ok(res):
+    """One positive, non-decreasing segment-end time per iteration."""
+    t = [e.time for e in res.state.log]
+    return len(t) == res.iterations and all(v > 0 for v in t) \
+        and t == sorted(t)
+
+
+def phase_segmented(flagship, a_flag, b_flag):
+    """Phase 49: the flagship with log_every=5 against phase 5's single
+    run (x and log bit for bit, the same kernel-A and kernel-B calls,
+    launches and reads), then TGV², TV-L1 and VTV at their learns' shapes,
+    3 outer iterations, log_every=2 against a single run, the CP kernel's
+    calls recorded on both sides."""
+    import numpy as np
+    from bpldenoising_tpu_torch.experiments import api, tgv, tvl1, vtv
+    faults, out = [], {}
+    plain, restore = watch_plain(cp=True)
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        seg = api.scalar_bilevel_tv_learn(device="cuda", log_every=5,
+                                          **flagship_kwargs())
+        wall = (time.perf_counter() - t0) * 1e3
+        a, b = kernel_a_forms(), kernel_b_forms()
+        same = same_run(seg, flagship)
+        say(f"  flagship log_every=5: alpha {float(seg.x)!r} (single run "
+            f"{float(flagship.x)!r}), {seg.iterations} outer its, x and "
+            f"log bit for bit: {same}; times "
+            f"{[round(e.time, 4) for e in seg.state.log]} s; wall "
+            f"{wall:.1f} ms (host clock, PNG load included)")
+        say_kernel_a_forms(a)
+        say_kernel_b_forms(b)
+        faults += [m for ok, m in (
+            (same, "segmented flagship differs from the single run"),
+            (a == a_flag, f"segmented flagship kernel A {a}, single {a_flag}"),
+            (b == b_flag, f"segmented flagship kernel B {b}, single {b_flag}"),
+            (a["cluster"] == a["calls"] > 0 and kernel_b_cooperative(b),
+             f"segmented flagship: kernel A {a}, kernel B {b}"),
+            (times_ok(seg), "segmented flagship times")) if not ok]
+        out["flagship"] = dict(same=same, wall_ms=wall, kernel_a=a,
+                               kernel_b=b)
+        for name, learn, kw, watch in (
+                ("tgv", tgv.scalar_bilevel_tgv_learn, tgv_learn_kwargs(),
+                 watch_tgv),
+                ("tvl1", tvl1.scalar_bilevel_tvl1_learn,
+                 tvl1_learn_kwargs(), watch_tvl1),
+                ("vtv", vtv.scalar_bilevel_vtv_learn, vtv_learn_kwargs(),
+                 watch_vtv)):
+            kw = dict(kw, maxiter=3)
+            runs = []
+            for log_every in (None, 2):
+                with watch() as calls:
+                    t0 = time.perf_counter()
+                    res = learn(device="cuda", log_every=log_every, **kw)
+                    wall = (time.perf_counter() - t0) * 1e3
+                runs.append((res, calls, wall))
+            (one, c1, w1), (seg, c2, w2) = runs
+            same = same_run(seg, one)
+            say(f"  {name} log_every=2: x {np.asarray(seg.x).tolist()}, "
+                f"{seg.iterations} outer its, bit for bit: {same}; CP "
+                f"kernel calls {len(c2)} (single run {len(c1)}), the same "
+                f"iterations and device operations: {c1 == c2}, all in the "
+                f"cluster form: {all(c['cluster'] for c in c1 + c2)}; wall "
+                f"{w2:.1f} ms (single run {w1:.1f})")
+            faults += [m for ok, m in (
+                (same, f"segmented {name} differs from the single run"),
+                (c1 == c2 and c1 and all(c["cluster"] for c in c1 + c2),
+                 f"segmented {name} CP calls {c2}, single {c1}"),
+                (times_ok(seg), f"segmented {name} times")) if not ok]
+            out[name] = dict(same=same, calls=len(c2), wall_ms=w2,
+                             single_wall_ms=w1)
+    finally:
+        restore()
+    say(f"  plain-version calls {len(plain)}")
+    if plain:
+        faults.append(f"phase 49: {len(plain)} plain-version calls")
+    out["faults"] = faults
+    return out
+
+
+def phase_resume(flagship, a_flag, tr_whole):
+    """Phase 50: the flagship tr_fused learn stopped after 4 iterations with
+    a checkpoint, then resumed to the whole budget; the float64 default
+    call (method="tr") stopped at 3 and resumed.  Each resumed α against
+    the uninterrupted learn's (phase 5, phase 41); the resumed log's first
+    rows equal to the checkpoint's; the resumed run alone evaluating from
+    the checkpoint's iteration on (kernels A and B once an evaluation,
+    fewer calls than the uninterrupted learn's)."""
+    import numpy as np
+    from bpldenoising_tpu_torch.experiments import api
+    from bpldenoising_tpu_torch.utils import load_checkpoint
+    faults, out = [], {}
+    path = os.path.join("output", "faces_train_128_10",
+                        "tv_optimal_parameter_scalar_faces_train_128_10"
+                        "_ckpt.npz")
+    for label, kw, stop, whole, whole_calls in (
+            ("tr_fused", flagship_kwargs(), 4, float(flagship.x),
+             a_flag["calls"]),
+            ("tr", dict(dataset_name="faces_train", num_samples=10), 3,
+             tr_whole["alpha"], tr_whole["counts"]["kernel_a"]["calls"])):
+        with in_scratch_dir():
+            plain, restore = watch_plain(cp=True)
+            try:
+                t0 = time.perf_counter()
+                api.scalar_bilevel_tv_learn(device="cuda", checkpoint=True,
+                                            **dict(kw, maxiter=stop))
+                ckpt = load_checkpoint(path)
+                reset_launches()
+                t1 = time.perf_counter()
+                res = api.scalar_bilevel_tv_learn(device="cuda", resume=True,
+                                                  **kw)
+                t2 = time.perf_counter()
+                a, b = kernel_a_forms(), kernel_b_forms()
+            finally:
+                restore()
+        iters = [e.iter for e in res.state.log]
+        rows = np.asarray([[e.iter, e.time, e.function_value, e.g_norm,
+                            e.delta, e.step_norm]
+                           for e in res.state.log[:stop]])
+        kept = bool(np.array_equal(rows, ckpt["log"]))
+        evals = res.iterations - stop + 1
+        gate = RESUME_GATE_REL[label]
+        d_rel = abs(float(res.x) - whole) / abs(whole)
+        say(f"  {label}: checkpoint at iteration {int(ckpt['iteration'])} "
+            f"(log {ckpt['log'].shape[0]} rows, B {ckpt['B'].shape}); "
+            f"resumed alpha {float(res.x)!r}, uninterrupted {whole!r}, rel "
+            f"{d_rel:.3e} (gate {gate:g}); {res.iterations} outer its, log "
+            f"iterations {iters}, its first {stop} rows the checkpoint's: "
+            f"{kept}; the resumed run {evals} evaluations (uninterrupted "
+            f"{whole_calls}); stopped run {(t1 - t0) * 1e3:.1f} ms, resumed "
+            f"{(t2 - t1) * 1e3:.1f} ms (host clock); plain-version calls "
+            f"{len(plain)}")
+        say_kernel_a_forms(a)
+        say_kernel_b_forms(b)
+        faults += [m for ok, m in (
+            (d_rel <= gate, f"resumed {label} alpha {res.x}"),
+            (iters == list(range(1, len(iters) + 1)),
+             f"resumed {label} log iterations {iters}"),
+            (int(ckpt["iteration"]) == stop and kept,
+             f"resumed {label}: checkpoint iteration {ckpt['iteration']}, "
+             f"its rows kept {kept}"),
+            (a["calls"] == b["calls"] == evals < whole_calls,
+             f"resumed {label}: kernel A {a['calls']}, B {b['calls']} calls "
+             f"for {evals} evaluations (uninterrupted {whole_calls})"),
+            (a["cluster"] == a["calls"] > 0 and kernel_b_cooperative(b)
+             and not plain,
+             f"resumed {label}: kernel A {a}, kernel B {b}, plain "
+             f"{len(plain)}")) if not ok]
+        out[label] = dict(alpha=float(res.x), alpha_rel_err=d_rel,
+                          checkpoint_iteration=int(ckpt["iteration"]),
+                          outer_iterations=res.iterations,
+                          resumed_evaluations=evals,
+                          stopped_ms=(t1 - t0) * 1e3,
+                          resumed_ms=(t2 - t1) * 1e3)
+    out["faults"] = faults
+    return out
+
+
+def phase_trace():
+    """Phase 51: the flagship learn through the CLI with --trace DIR (and
+    the same call untraced before it): the Chrome trace names kernel A's
+    cluster kernel (pdc_cp, one launch an early-stop chunk) and kernel B's
+    (hg_coop, one launch a call) as often as the wrappers launched
+    them."""
+    import io
+    import json
+    from bpldenoising_tpu_torch.__main__ import main as cli
+    from bpldenoising_tpu_torch.learning import tv as learning_tv
+    chunks = []
+    real = learning_tv.denoise_pdps_cuda
+
+    def watched(*args, **kw):
+        out = real(*args, **kw)
+        iters, every = int(out[2]), int(kw["check_every"])
+        chunks.append(-(-iters // every) if kw.get("tol") is not None
+                      else int(iters > 0))
+        return out
+
+    argv = ["scalar-tv", "--dataset", "faces_train", "--num-samples", "10",
+            "--method", "tr_fused", "--dtype", "float32", "--inner-tol",
+            "5e-6", "--trace", "trace"]
+    with in_scratch_dir():
+        # the same call untraced first: what the profiler adds
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli(argv[:-2])
+        untraced = (time.perf_counter() - t0) * 1e3
+        learning_tv.denoise_pdps_cuda = watched
+        try:
+            reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as printed:
+                cli(argv)
+            wall = (time.perf_counter() - t0) * 1e3
+            a, b = kernel_a_forms(), kernel_b_forms()
+        finally:
+            learning_tv.denoise_pdps_cuda = real
+        size = os.path.getsize("trace/trace.json")
+        with open("trace/trace.json") as fh:
+            events = json.load(fh)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    names = sorted({e.get("name", "") for e in kernels})
+    n_a = sum("pdc_cp" in e.get("name", "") for e in kernels)
+    n_b = sum("hg_coop" in e.get("name", "") for e in kernels)
+    busy = sum(float(e.get("dur", 0.0)) for e in kernels) / 1e3
+    say(f"  python -m bpldenoising_tpu_torch {' '.join(argv)}: "
+        f"{printed.getvalue().strip().splitlines()[-1:]} in {wall:.1f} ms "
+        f"(host clock, traced; the process's first profiler start "
+        f"included), {untraced:.1f} ms untraced; trace.json {size} bytes, "
+        f"{len(events)} events, {len(kernels)} kernel events ({busy:.1f} "
+        f"ms on the device)")
+    say(f"  pdc_cp launches in the trace {n_a}, early-stop chunks of "
+        f"kernel A's {a['calls']} calls {sum(chunks)}; hg_coop launches "
+        f"in the trace {n_b}, kernel B calls {b['calls']}, launches "
+        f"{b['kernel_launches']}")
+    say(f"  kernels named: {[n[:60] for n in names][:12]}")
+    faults = [m for ok, m in (
+        (n_a == sum(chunks) > 0 and len(chunks) == a["calls"]
+         == a["cluster"],
+         f"trace: pdc_cp {n_a}, chunks {sum(chunks)}, kernel A {a}"),
+        (n_b == b["calls"] == b["kernel_launches"] > 0,
+         f"trace: hg_coop {n_b}, kernel B {b}")) if not ok]
+    return dict(pdc_cp=n_a, chunks=sum(chunks), hg_coop=n_b,
+                kernel_a=a, kernel_b=b, kernel_events=len(kernels),
+                device_ms=busy, wall_ms=wall, untraced_ms=untraced,
+                faults=faults)
+
+
+# name: (dataset, images, color, weights, (maxiter, CG cap, smoothing γ or
+# None: the layer's default) of the gradient comparison, (maxiter, CG cap,
+# γ) of the float64 difference check).
+# The comparison's TV-family backward runs at γ = 1e4: at the default 1e8
+# and a 2000-capped CG its f-gradient moved by 56% under a 1.9e-15 move of
+# u in float64 (PR 24's chip call 22), a system no forward can be held to.
+# The difference check runs on the DIFF_FD_CROP² centre of the first image,
+# each forward to convergence and each CG converged below its cap (on the
+# CPU in float64: TV 2,747 CG iterations, the sum 2,760, TGV² 3,126, VTV
+# 1,533, TV-L1 105); at 128² the TV and sum CGs ran to their 12,000 and
+# 10,000 caps, 44 s of the card's time (chip call 25).  TGV² and VTV run at
+# a smoothing threshold below their default 1e-4, which leaves the flat
+# regions of the Hessian soft (3.6e-3 for TGV², 4.9e-4 for VTV at 32² in
+# float64 on the CPU; 3.5e-3 and 6.3e-2 at 128², the JAX layers' gradients
+# the same).
+DIFF_LAYERS = {
+    "tv": ("faces_train_128_10", 10, False, (0.07,), (300, 2000, 1e4),
+           (20000, 6000, None)),
+    "sumregs": ("faces_train_128_10", 10, False, (0.035, 0.032, 0.005),
+                (300, 2000, 1e4), (20000, 6000, None)),
+    "tgv": ("faces_train_128_10", 10, False, (0.085, 0.044),
+            (300, 300, None), (20000, 6000, 3e-6)),
+    "tvl1": ("circle_sp_128_20", 1, False, (1.92,), (300, 2000, None),
+             (100000, 5000, None)),
+    "vtv": ("color_disks_128_10", 6, True, (0.165,), (300, 300, None),
+            (20000, 5000, 1e-5)),
+}
+DIFF_FD_CROP = 32
+DIFF_FD_GATE_REL = 2e-3       # the JAX test's rtol (tests/test_implicit.py)
+
+
+def diff_layer(name, maxiter, cg_maxiter, gamma=None):
+    """The family's differentiable layer ``(f, *weights) -> u`` (``gamma``:
+    the backward's smoothing, None for the layer's default) and the module
+    whose kernel runs its forward on the card."""
+    from bpldenoising_tpu_torch.models import sumregs_model, tv_model
+    from bpldenoising_tpu_torch.solvers import (implicit, pdps_cuda, tgv,
+                                                tgv_cuda, tvl1_cuda,
+                                                tvl1_huber, vtv, vtv_cuda)
+    from bpldenoising_tpu_torch.solvers.hypergrad import HypergradConfig
+    kw = {} if gamma is None else dict(gamma=gamma)
+    if name in ("tv", "sumregs"):
+        layer = implicit.make_diff_denoise(
+            tv_model() if name == "tv" else sumregs_model(), maxiter=maxiter,
+            cfg=HypergradConfig(cg_maxiter=cg_maxiter, **kw))
+        return (lambda f, *a: layer(f, a)), pdps_cuda
+    if name == "tgv":
+        layer = tgv.make_diff_tgv_denoise(maxiter=maxiter,
+                                          cg_maxiter=cg_maxiter, **kw)
+        return (lambda f, *a: layer(f, a)), tgv_cuda
+    if name == "tvl1":
+        return (tvl1_huber.make_diff_tvl1_denoise(
+            maxiter=maxiter, cg_maxiter=cg_maxiter, **kw), tvl1_cuda)
+    return (vtv.make_diff_vtv_denoise(maxiter=maxiter,
+                                      cg_maxiter=cg_maxiter, **kw), vtv_cuda)
+
+
+@contextlib.contextmanager
+def plain_forward(name):
+    """The layer's forward solve replaced by its kernel's plain version on
+    the card's tensors (the wrappers run it only for CPU tensors); the
+    backward is untouched."""
+    import torch
+    from bpldenoising_tpu_torch.solvers import (implicit, pdps, tgv,
+                                                tgv_cuda, tvl1_cuda,
+                                                tvl1_huber, vtv)
+    if name in ("tv", "sumregs", "vtv"):
+        mod, attr = (vtv, "denoise_pdps") if name == "vtv" \
+            else (implicit, "denoise_pdps")
+
+        def solve(f, alphas, model, *, tau0=5.0, sigma0=0.99 / 5.0,
+                  maxiter, tol=None, check_every=500):
+            a = tuple(torch.as_tensor(x, dtype=f.dtype)
+                      for x in model.canonical_alphas(alphas))
+            return pdps._denoise_pdps_impl(
+                f, a, None, model=model, tau0=tau0, sigma0=sigma0, gamma=1.0,
+                maxiter=maxiter, accel=True, tol=tol,
+                check_every=check_every, return_dual=False)
+    elif name == "tgv":
+        mod, attr = tgv, "tgv_denoise_pdps"
+
+        def solve(f, a1, a0, *, tau0, sigma0, maxiter, tol, check_every):
+            u, w, _ = tgv._tgv_impl(
+                f, tgv_cuda._weight(a1, f, "alpha1"),
+                tgv_cuda._weight(a0, f, "alpha0"), None, tau0=tau0,
+                sigma0=sigma0, maxiter=maxiter, tol=tol,
+                check_every=check_every, return_state=False)
+            return u, w
+    else:
+        mod, attr = tvl1_huber, "tvl1_huber_denoise"
+
+        def solve(f, alpha, *, gamma_d, gamma_r, tau0, sigma0, maxiter, tol,
+                  check_every):
+            tau, sigma = tvl1_cuda.step_sizes(tau0, sigma0, f.dtype)
+            u, _, _ = tvl1_huber._tvl1_huber_loop(
+                f, tvl1_cuda._weight(alpha, f), None, gamma_d=gamma_d,
+                gamma_r=gamma_r, tau=tau, sigma=sigma, maxiter=maxiter,
+                tol=tol, check_every=check_every)
+            return u
+    real = getattr(mod, attr)
+    setattr(mod, attr, solve)
+    try:
+        yield
+    finally:
+        setattr(mod, attr, real)
+
+
+@contextlib.contextmanager
+def cg_counts():
+    """Record the iterations of every adjoint CG the layers' backwards
+    run."""
+    from bpldenoising_tpu_torch.solvers import implicit, tgv, tvl1_huber, vtv
+    iters, saved = [], []
+    for mod in (implicit, tgv, tvl1_huber, vtv):
+        for attr in ("cg", "cg_batched"):
+            if hasattr(mod, attr):
+                real = getattr(mod, attr)
+
+                def watched(*args, _real=real, **kw):
+                    x, info = _real(*args, **kw)
+                    iters.append(int(info.iters))
+                    return x, info
+                saved.append((mod, attr, real))
+                setattr(mod, attr, watched)
+    try:
+        yield iters
+    finally:
+        for mod, attr, real in saved:
+            setattr(mod, attr, real)
+
+
+def diff_inputs(name, dtype):
+    """(f, ū, weights) on the card for the layer ``name``."""
+    import torch
+    from bpldenoising_tpu_torch.data import testdataset
+    ds, count, color, weights = DIFF_LAYERS[name][:4]
+    true_, noisy = testdataset(ds, color=color)
+    dt = getattr(torch, dtype)
+    return (torch.as_tensor(noisy[:count], dtype=dt).cuda(),
+            torch.as_tensor(true_[:count], dtype=dt).cuda(),
+            [torch.tensor(a, dtype=dt) for a in weights])
+
+
+def phase_diff_layers():
+    """Phase 52: the five differentiable layers at full width, float32 and
+    float64: the forward bit for bit against the public denoiser, every
+    forward in its kernel's cluster form and no plain call; the gradients
+    of ½‖u − ū‖² (f and every weight) against the same backward on the
+    plain forward; the float64 f-gradient against central differences on
+    the DIFF_FD_CROP² centre of the first image; each layer's forward and
+    backward walls and CG iterations."""
+    import numpy as np
+    import torch
+    from bpldenoising_tpu_torch.solvers import (denoise_pdps,
+                                                tgv_denoise_pdps,
+                                                tvl1_huber_denoise)
+    from bpldenoising_tpu_torch.models import sumregs_model, tv_model
+    from bpldenoising_tpu_torch.models import vtv_model
+    public = {
+        "tv": lambda f, m, a: denoise_pdps(f, (a,), tv_model(), maxiter=m),
+        "sumregs": lambda f, m, *a: denoise_pdps(f, a, sumregs_model(),
+                                                 maxiter=m),
+        "tgv": lambda f, m, a1, a0: tgv_denoise_pdps(f, a1, a0,
+                                                     maxiter=m)[0],
+        "tvl1": lambda f, m, a: tvl1_huber_denoise(f, a, gamma_r=1000.0,
+                                                   maxiter=m),
+        "vtv": lambda f, m, a: denoise_pdps(f, (a,), vtv_model(), maxiter=m),
+    }
+    faults, out = [], {}
+
+    def run(layer, f, ut, w):
+        """→ (u, grads, forward ms, backward ms, CG iterations)."""
+        inputs = [f.clone().requires_grad_(True)] + [
+            a.clone().requires_grad_(True) for a in w]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u = layer(*inputs)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with cg_counts() as cgs:
+            grads = torch.autograd.grad(0.5 * torch.sum((u - ut) ** 2),
+                                        inputs)
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return (u.detach(), grads, (t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                sum(cgs))
+
+    for name, spec in DIFF_LAYERS.items():
+        (m, cgm, gamma), (m_fd, cgm_fd, gamma_fd) = spec[4:]
+        for dtype in ("float32", "float64"):
+            f, ut, w = diff_inputs(name, dtype)
+            layer, kmod = diff_layer(name, m, cgm, gamma)
+            plain, restore = watch_plain(cp=True)
+            try:
+                reset_launches()
+                u, grads, fwd_ms, bwd_ms, cg_its = run(layer, f, ut, w)
+                calls, cluster = kmod.launches, kmod.cluster_calls
+                reset_launches()
+                ref = public[name](f, m, *w)
+            finally:
+                restore()
+            same = torch.equal(u, ref)
+            with plain_forward(name):
+                up, pgrads, pfwd_ms, pbwd_ms, pcg = run(layer, f, ut, w)
+            errs = [float((g - p).abs().max() / p.abs().max())
+                    for g, p in zip(grads, pgrads)]
+            gate = DIFF_GRAD_GATE[dtype][name]
+            say(f"  {name} {dtype} {tuple(f.shape)} maxiter {m}, CG cap "
+                f"{cgm}, gamma {gamma or 'default'}: forward "
+                f"{fwd_ms:.1f} ms ({calls} kernel calls, {cluster} cluster, "
+                f"plain calls {len(plain)}), = public denoiser bit for bit: "
+                f"{same}; backward {bwd_ms:.1f} ms, {cg_its} CG its; plain "
+                f"forward {pfwd_ms:.1f} ms, |u - u_plain| "
+                f"{float((u - up).abs().max()):.2e}, its backward {pcg} CG "
+                f"its; grad rel errs (f, weights) "
+                f"{[f'{e:.2e}' for e in errs]} (gate {gate:g})")
+            faults += [msg for ok, msg in (
+                (same, f"{name} {dtype}: layer forward != public denoiser"),
+                (calls == cluster == 1 and not plain,
+                 f"{name} {dtype}: {calls} calls, {cluster} cluster, plain "
+                 f"{len(plain)}"),
+                (max(errs) <= gate, f"{name} {dtype} grads {errs}"))
+                if not ok]
+            out[f"{name}_{dtype}"] = dict(
+                forward_ms=fwd_ms, backward_ms=bwd_ms, cg_iters=cg_its,
+                plain_forward_ms=pfwd_ms, grad_rel_err=errs, same=same)
+        # float64: the f-gradient against central differences on the
+        # centre of the first image, the forward run to convergence
+        f, ut, w = diff_inputs(name, "float64")
+        o = (f.shape[-1] - DIFF_FD_CROP) // 2
+        f, ut = (x[:1, ..., o:o + DIFF_FD_CROP, o:o + DIFF_FD_CROP]
+                 .contiguous() for x in (f, ut))
+        layer, _ = diff_layer(name, m_fd, cgm_fd, gamma_fd)
+        _, (g, *_), fwd_ms, bwd_ms, cg_its = run(layer, f, ut, w)
+        d = torch.as_tensor(np.random.default_rng(8).standard_normal(
+            tuple(f.shape)), dtype=f.dtype, device=f.device)
+        h = 1e-5
+
+        def loss(x):
+            with torch.no_grad():
+                return float(0.5 * torch.sum((layer(x, *w) - ut) ** 2))
+
+        fd = (loss(f + h * d) - loss(f - h * d)) / (2 * h)
+        ad = float(torch.sum(g * d))
+        rel = abs(ad - fd) / abs(fd)
+        say(f"  {name} float64 {tuple(f.shape)} maxiter {m_fd}, CG cap "
+            f"{cgm_fd}, gamma {gamma_fd or 'default'}: <grad_f, d> "
+            f"{ad!r}, central difference {fd!r}, rel {rel:.2e} (gate "
+            f"{DIFF_FD_GATE_REL:g}); forward {fwd_ms:.1f} ms, backward "
+            f"{bwd_ms:.1f} ms, {cg_its} CG its")
+        if not rel <= DIFF_FD_GATE_REL:
+            faults.append(f"{name} f-gradient off central differences by "
+                          f"{rel}")
+        if not cg_its < cgm_fd:
+            faults.append(f"{name} difference check: the CG ran to its cap "
+                          f"{cgm_fd}")
+        out[f"{name}_fd"] = dict(rel_err=rel, forward_ms=fwd_ms,
+                                 backward_ms=bwd_ms, cg_iters=cg_its)
+    out["faults"] = faults
+    return out
+
+
 def flagship_kwargs():
     from bpldenoising_tpu_torch.solvers.hypergrad import HypergradConfig
     return dict(dataset_name="faces_train", num_samples=10,
@@ -4081,6 +4658,7 @@ def main():
     counts = read_launches()
     a_forms = kernel_a_forms()
     b_forms = kernel_b_forms()
+    flagship, flagship_a, flagship_b = res, a_forms, b_forms
     launches_a, launches_b = counts["pdps"], counts["hypergrad"]
     alpha = float(res.x)
     d_alpha = abs(alpha - FLAGSHIP_ALPHA)
@@ -4260,6 +4838,32 @@ def main():
     reporting["cli"] = phase_cli(reporting["validations"])
     say(f"  phase 48: {time.perf_counter() - t_phase:.1f} s")
     faults = [m for st in reporting.values() for m in st.pop("faults")]
+    require(not faults, "; ".join(faults))
+
+    later = {}
+    with results_not_saved():
+        t_phase = time.perf_counter()
+        say("phase 49 segmented dispatch: the flagship with log_every=5 "
+            "against phase 5; TGV, TV-L1, VTV at 3 outer its, log_every=2")
+        later["segmented"] = phase_segmented(flagship, flagship_a,
+                                             flagship_b)
+        say(f"  phase 49: {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        say("phase 50 checkpoint and resume: tr_fused stopped at 4, tr "
+            "(float64 default call) at 3, each resumed")
+        later["resume"] = phase_resume(flagship, flagship_a,
+                                       tr["flagship_f64"])
+        say(f"  phase 50: {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        say("phase 51 the flagship through the CLI with --trace DIR")
+        later["trace"] = phase_trace()
+        say(f"  phase 51: {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        say("phase 52 the differentiable layers at full width, float32 and "
+            "float64")
+        later["diff_layers"] = phase_diff_layers()
+        say(f"  phase 52: {time.perf_counter() - t_phase:.1f} s")
+    faults = [m for st in later.values() for m in st.pop("faults")]
     require(not faults, "; ".join(faults))
 
     itemsize = 4
@@ -4455,7 +5059,7 @@ def main():
         "single_loop_vtv": slx["vtv"], "forms_a": forms_a,
         "forms_b": forms_b, "forms_f64_max_rel_err": forms_f64,
         "tv_family_learns": tvf, "tr_learns": tr, "reporting": reporting,
-        "device": smi}))
+        "segmented_resume_trace_layers": later, "device": smi}))
     faulthandler.cancel_dump_traceback_later()
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

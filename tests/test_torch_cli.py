@@ -2,7 +2,7 @@
 cases of the JAX package's tests/test_cli.py with ``--device cpu`` (the
 kernels' plain versions), the numbers it prints against the API's, and
 the flags that are not ported yet, which exit with status 2 and name
-their ROADMAP.md item."""
+their ROADMAP.md item (item 7's flags run)."""
 
 import functools
 import os
@@ -71,20 +71,41 @@ def test_bad_command_exits():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--trace", "tr"], 7), (["--checkpoint"], 7), (["--resume"], 7),
+    (["--trace", "tr"], 7), (["--checkpoint", "--method", "tr_fused"], 7),
+    (["--resume", "--method", "tr_fused"], 7),
     (["--log-every", "2", "--method", "tr_fused"], 7),
     (["--data-parallel"], 10), (["--backend", "jnp"], None)],
     ids=["trace", "checkpoint", "resume", "log_every", "data_parallel",
          "backend"])
 def test_unported_flags_exit_and_name_their_item(capsys, argv, item):
+    """What is not ported exits with status 2, names its ROADMAP.md item
+    and writes nothing; item 7's flags run since it was ported, as in the
+    JAX package: --trace writes the Chrome trace, --checkpoint and
+    --resume (with no checkpoint yet: a fresh run) the checkpoint at the
+    fused loop's segment end (the host loop writes one only after an
+    accepted step), --log-every the log with real times."""
+    run = ["scalar-tv", "--dataset", "circle", "--maxiter", "1",
+           "--inner-maxiter", "10"] + CPU + argv
+    log = "output/circle_128_10/tv_optimal_parameter_scalar_circle_128_10"
+    if item == 7:
+        main(run)
+        assert "iterations = 1" in capsys.readouterr().out
+        with open(log + ".txt") as fh:
+            rows = [r.split() for r in fh if not r.startswith("#")]
+        assert len(rows) == 1
+        if "--trace" in argv:
+            assert os.path.getsize("tr/trace.json") > 0
+        if "--checkpoint" in argv or "--resume" in argv:
+            assert os.path.isfile(log + "_ckpt.npz")
+        if "--log-every" in argv:
+            assert float(rows[0][1]) > 0
+        return
     with pytest.raises(SystemExit) as exit_:
-        main(["scalar-tv", "--dataset", "circle", "--maxiter", "1",
-              "--inner-maxiter", "10"] + CPU + argv)
+        main(run)
     assert exit_.value.code == 2
     err = capsys.readouterr().err
     assert ("backend" if item is None else f"§1 item {item}") in err
-    assert not os.path.exists("output/circle_128_10/"
-                              "tv_optimal_parameter_scalar_circle_128_10.txt")
+    assert not os.path.exists(log + ".txt")
 
 
 def test_make_dataset_is_not_ported(capsys):

@@ -13,6 +13,8 @@ solve, makes the JAX package itself move its gradient by percent under a
 1e-13 perturbation of the data, and no port can be held closer than that.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -199,18 +201,39 @@ def test_patch_and_nonpositive_parameters_raise():
                                   "init_B"])
 def test_library_learner_takes_the_jax_keywords(knob):
     """bilevel_learn_fused takes the JAX function's mesh, log_every,
-    segment_callback and init_B: None runs (one 8×8 image), any other
-    value raises NotImplementedError, as in the other families'
-    learners."""
+    segment_callback and init_B: None runs (one 8×8 image); log_every,
+    segment_callback (with log_every) and init_B run as in the JAX
+    function (its segmented run, to 1e-8); any other mesh raises
+    NotImplementedError (ROADMAP.md item 10), and a segment_callback
+    without log_every raises ValueError."""
     ds = _dataset(1, 8, seed=2)
-    kw = dict(xinit=0.1, params=Params(TR, maxiter=1), inner_maxiter=5,
+    kw = dict(xinit=0.1, params=Params(TR, maxiter=3), inner_maxiter=5,
               device="cpu")
     res = bilevel_learn_fused(ds, **kw, **{knob: None})
-    assert res.iterations == 1
-    value = {"log_every": 5, "mesh": object(), "init_B": np.eye(1),
-             "segment_callback": lambda *a: None}[knob]
-    with pytest.raises(NotImplementedError, match=knob):
-        bilevel_learn_fused(ds, **kw, **{knob: value})
+    assert res.iterations == 3
+    if knob == "mesh":
+        with pytest.raises(NotImplementedError, match="item 10"):
+            bilevel_learn_fused(ds, **kw, mesh=object())
+        return
+    hops = []
+    value = {"log_every": dict(log_every=2),
+             "init_B": dict(log_every=2, init_B=np.full((1, 1), 3.0)),
+             "segment_callback": dict(
+                 log_every=1,
+                 segment_callback=lambda it, c, t: hops.append(it))}[knob]
+    res = bilevel_learn_fused(ds, **kw, **value)
+    jvalue = dict(value, segment_callback=None)
+    jres = j_learn_fused(tuple(jnp.asarray(d) for d in ds), xinit=0.1,
+                         params=JParams(TR, maxiter=3), inner_maxiter=5,
+                         backend="jnp", **jvalue)
+    assert res.iterations == int(jres.iterations) == 3
+    np.testing.assert_allclose(res.log.numpy(), np.asarray(jres.log),
+                               rtol=1e-8, atol=1e-14)
+    assert res.times.shape == (3,) and np.all(res.times > 0)
+    if knob == "segment_callback":
+        assert hops == [1, 2, 3]
+        with pytest.raises(ValueError, match="log_every"):
+            bilevel_learn_fused(ds, **kw, segment_callback=print)
 
 
 def test_lbfgs_functions_match_jax(rng):
@@ -259,9 +282,14 @@ def test_scalar_learn_entry_point_on_cpu(tmp_path, monkeypatch):
     np.testing.assert_allclose(res.x, np.asarray(jres.x), rtol=RTOL)
     np.testing.assert_allclose(res.cost, jres.cost, rtol=RTOL)
     np.testing.assert_allclose(res.u, np.asarray(jres.u), atol=1e-10)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        scalar_bilevel_tv_learn(device="cpu",
-                                **dict(kw, save_iterations=True))
+    # save_iterations with the fused loop: segments of 5 (the JAX
+    # default) and a snapshot of the first image at each hop, as the JAX
+    # package names it
+    res = scalar_bilevel_tv_learn(device="cpu",
+                                  **dict(kw, save_iterations=True))
+    assert os.listdir("output/circle_128_10").count(
+        "tv_optimal_parameter_scalar_circle_128_10_iter_2.png") == 1
+    assert all(e.time > 0 for e in res.state.log)
 
 
 def test_entry_point_defaults_to_the_card():
@@ -279,20 +307,29 @@ def test_entry_point_defaults_to_the_card():
                                   dict(backend="jnp")],
                          ids=["log_every", "backend=pallas", "backend=jnp"])
 def test_entry_points_refuse_log_every_and_other_backends(knob):
-    """Segmented dispatch (log_every) is not ported, and the port has no
-    backends: every family's entry point raises for them instead of
-    running without a word (the JAX package runs segmented dispatch and
-    the Pallas kernels for the same call).  backend="auto", the JAX
-    default, is accepted; device= chooses what runs."""
+    """Segmented dispatch (log_every) runs in every family's entry point,
+    as in the JAX package: the single run's numbers, each log entry's time
+    the end of its one-iteration segment.  The port has no backends:
+    every entry point raises for another backend instead of running
+    without a word (the JAX package runs the Pallas kernels for the same
+    call).  backend="auto", the JAX default, is accepted; device= chooses
+    what runs."""
     from bpldenoising_tpu_torch import experiments as tx
     kw = dict(dataset_name="circle", num_samples=1, method="tr_fused",
               maxiter=2, inner_maxiter=20, device="cpu", **knob)
     for learn in (scalar_bilevel_tv_learn, tx.scalar_bilevel_tgv_learn,
                   tx.patch_bilevel_tgv_learn, tx.scalar_bilevel_tvl1_learn,
                   tx.patch_bilevel_tvl1_learn):
-        with pytest.raises(NotImplementedError,
-                           match="device=" if "backend" in knob else
-                           "log_every"):
+        if "log_every" in knob:
+            seg = learn(**kw)
+            one = learn(**dict(kw, log_every=None))
+            np.testing.assert_array_equal(seg.x, one.x)
+            assert seg.cost == one.cost and seg.iterations == 2
+            times = [e.time for e in seg.state.log]
+            assert 0 < times[0] < times[1]
+            assert all(e.time == 0.0 for e in one.state.log)
+            continue
+        with pytest.raises(NotImplementedError, match="device="):
             learn(**kw)
     if "backend" in knob:
         for denoise, a in ((tx.TGVDenoise, (0.1, 0.2)),

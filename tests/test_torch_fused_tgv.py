@@ -13,6 +13,8 @@ moves its own gradient by ~2e-8 relative under a 1e-13 perturbation of u,
 see tests/test_torch_tgv.py); γ enters both packages as a parameter.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -96,10 +98,17 @@ def test_param_layout_and_refusals():
     with pytest.raises(ValueError):
         bilevel_learn_tgv_fused(ds, xinit=np.array([0.05, 0.0]), params=p,
                                 device="cpu")
-    for knob in ("mesh", "log_every", "segment_callback", "init_B"):
-        with pytest.raises(NotImplementedError):
-            bilevel_learn_tgv_fused(ds, xinit=np.array([0.05, 0.05]),
-                                    params=p, device="cpu", **{knob: 1})
+    kw = dict(xinit=np.array([0.05, 0.05]), params=p, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        bilevel_learn_tgv_fused(ds, mesh=1, **kw)
+    # segmented dispatch runs the single run's bits; an init_B of another
+    # shape than the model's is ignored, as in the JAX package
+    one = bilevel_learn_tgv_fused(ds, **kw)
+    seg = bilevel_learn_tgv_fused(ds, log_every=1, init_B=1, **kw)
+    assert torch.equal(seg.x, one.x) and torch.equal(seg.log, one.log)
+    assert one.times is None and seg.times.shape == (one.iterations,)
+    with pytest.raises(ValueError, match="log_every"):
+        bilevel_learn_tgv_fused(ds, segment_callback=1, **kw)
 
 
 @pytest.fixture
@@ -153,8 +162,9 @@ def test_tgv_denoise_matches_jax(parameter):
 
 
 def test_entry_points_refuse_what_is_not_ported(in_tmp):
-    """What is not ported raises (save_iterations with the fused loop,
-    data parallelism); the host trust region (method="tr") runs and
+    """What is not ported raises (data parallelism); save_iterations with
+    the fused loop writes the JAX package's snapshots; the host trust
+    region (method="tr") runs and
     matches the JAX entry point to 1e-8 (its whole comparison is in
     tests/test_torch_tr_learn.py), and visualise=True with the fused loop
     runs, as in the JAX package."""
@@ -169,9 +179,18 @@ def test_entry_points_refuse_what_is_not_ported(in_tmp):
         tx.patch_bilevel_tgv_learn(device="cpu",
                                    **dict(ENTRY, method="single_loop",
                                           data_parallel=True))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tx.scalar_bilevel_tgv_learn(device="cpu",
-                                    **dict(ENTRY, save_iterations=True))
+    # save_iterations with the fused loop writes the JAX package's
+    # snapshots (segments of 5: one at the end of the 2 iterations)
+    tx.scalar_bilevel_tgv_learn(device="cpu",
+                                **dict(ENTRY, save_iterations=True))
+    snaps = {f for f in os.listdir("output/circle_128_10") if "_iter_" in f}
+    for f in snaps:
+        os.remove(os.path.join("output/circle_128_10", f))
+    jx.scalar_bilevel_tgv_learn(save_results=False, backend="jnp",
+                                **dict(ENTRY, save_iterations=True))
+    assert snaps == {f for f in os.listdir("output/circle_128_10")
+                     if "_iter_" in f} == {
+        "tgv_optimal_parameter_circle_128_10_iter_2.png"}
     # the fused loop shows no live view: visualise is ignored, as in JAX
     res = tx.scalar_bilevel_tgv_learn(device="cpu", visualise=True, **ENTRY)
     assert res.iterations == ENTRY["maxiter"]

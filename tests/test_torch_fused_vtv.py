@@ -110,10 +110,17 @@ def test_param_layout_and_refusals():
     with pytest.raises(ValueError, match="color"):
         bilevel_learn_vtv_fused((ds[0][0, 0], ds[1][0, 0]),
                                 xinit=np.array(0.05), params=p, device="cpu")
-    for knob in ("mesh", "log_every", "segment_callback", "init_B"):
-        with pytest.raises(NotImplementedError):
-            bilevel_learn_vtv_fused(ds, xinit=np.array(0.05), params=p,
-                                    device="cpu", **{knob: 1})
+    kw = dict(xinit=np.array(0.05), params=p, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        bilevel_learn_vtv_fused(ds, mesh=1, **kw)
+    # segmented dispatch runs the single run's bits; an init_B of another
+    # shape than the model's is ignored, as in the JAX package
+    one = bilevel_learn_vtv_fused(ds, **kw)
+    seg = bilevel_learn_vtv_fused(ds, log_every=1, init_B=1, **kw)
+    assert torch.equal(seg.x, one.x) and torch.equal(seg.log, one.log)
+    assert one.times is None and seg.times.shape == (one.iterations,)
+    with pytest.raises(ValueError, match="log_every"):
+        bilevel_learn_vtv_fused(ds, segment_callback=1, **kw)
 
 
 @pytest.fixture
@@ -186,7 +193,8 @@ def test_vtv_denoise_matches_jax(parameter):
     dict(backend="pallas"), dict(visualise=True)],
     ids=lambda k: next(iter(k)) + "=" + str(next(iter(k.values()))))
 def test_entry_points_refuse_what_is_not_ported(knob, in_tmp):
-    """Each knob that is not ported raises; method="tr" (the host trust
+    """Each knob that is not ported raises; checkpoint and log_every (item
+    7) run as in the JAX package; method="tr" (the host trust
     region) runs and matches the JAX entry point to 1e-8 (its whole
     comparison is in tests/test_torch_tr_learn.py); save_results=True
     writes the log, the quality table and the PNGs under the JAX prefix
@@ -214,6 +222,19 @@ def test_entry_points_refuse_what_is_not_ported(knob, in_tmp):
             for suffix in (".txt", "_quality.txt", "_true_1.png",
                            "_data_1.png", "_reco_1.png"):
                 assert os.path.isfile(prefix + suffix), prefix + suffix
+            continue
+        if knob in (dict(checkpoint=True), dict(log_every=1)):
+            # item 7, ported: the JAX package's numbers, a checkpoint at
+            # each segment end, real segment-end times
+            kw = dict(ENTRY, **knob)
+            res = learn(device="cpu", **kw)
+            jres = getattr(jx, name)(save_results=False, backend="jnp", **kw)
+            assert res.iterations == jres.iterations == kw["maxiter"]
+            np.testing.assert_allclose(res.x, np.asarray(jres.x), rtol=1e-8)
+            assert all(e.time > 0 for e in res.state.log)
+            if "checkpoint" in knob:
+                out = os.path.join("output", "color_disks_128_10")
+                assert any(f.endswith("_ckpt.npz") for f in os.listdir(out))
             continue
         with pytest.raises(NotImplementedError):
             learn(device="cpu", **dict(ENTRY, **knob))

@@ -90,16 +90,21 @@ SLICE_MODULES = ("ops/tgv.py", "ops/patch.py", "solvers/tgv.py",
                  "learning/cache.py", "learning/tv.py", "learning/sumregs.py",
                  "learning/tgv.py", "learning/tvl1.py", "learning/vtv.py",
                  "__main__.py", "viz/plots.py", "metrics/quality.py",
-                 "data/png_io.py", "experiments/api.py")
+                 "data/png_io.py", "experiments/api.py",
+                 "utils/checkpoint.py", "utils/profiling.py",
+                 "solvers/implicit.py", "bilevel/tr_core.py",
+                 "bilevel/fused.py")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)
 def test_tgv_slice_modules_are_checked(module):
-    """The TGV, TV-L1, VTV, single-loop, host trust-region and reporting
-    slices' modules (the four families' single-loop learners, the result
-    types, the host trust region and its learning functions, the command
-    line, the plots, SSIM and PNG writing) exist and are among the sources
-    checked above (so they import no JAX)."""
+    """The TGV, TV-L1, VTV, single-loop, host trust-region, reporting,
+    segmented-dispatch and implicit-layer slices' modules (the four
+    families' single-loop learners, the result types, the host trust
+    region and its learning functions, the command line, the plots, SSIM
+    and PNG writing, checkpoints, profiling, the differentiable layers)
+    exist and are among the sources checked above (so they import no
+    JAX)."""
     assert PORT / module in SOURCES
 
 

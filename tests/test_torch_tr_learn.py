@@ -17,6 +17,9 @@ bit for bit while the parameters are, 1e-8 relative after (the test's
 docstring says why).
 """
 
+import os
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -352,18 +355,33 @@ def test_tr_matches_tr_fused_at_fixed_budget(case, monkeypatch):
 
 
 def test_entry_points_refuse_the_unported_knobs():
-    """checkpoint, resume, data_parallel and another backend still raise
-    with method="tr", and save_iterations with the fused loop, naming
-    their ROADMAP.md item; an unknown method raises ValueError.
+    """data_parallel and another backend still raise with method="tr",
+    naming their ROADMAP.md item; checkpoint and resume with method="tr"
+    and save_iterations with the fused loop (item 7) run: the TV entry
+    point lands at the JAX package's x (1e-8) and writes its checkpoint
+    or snapshot, the TGV² one runs; an unknown method raises ValueError.
     (save_results, save_iterations with method="tr" and visualise run:
     tests/test_torch_reporting.py.)"""
     for knob, item in ((dict(checkpoint=True), 7), (dict(resume=True), 7),
                        (dict(save_iterations=True, method="tr_fused"), 7),
                        (dict(data_parallel=True), 10),
                        (dict(backend="jnp"), None)):
+        kw = dict(TV_ENTRY, **knob)
+        if item == 7:
+            shutil.rmtree("output", ignore_errors=True)
+            res = tx.scalar_bilevel_tv_learn(device="cpu", **kw)
+            files = os.listdir(os.path.join("output", "circle_128_10"))
+            assert any(f.endswith("_ckpt.npz" if "save_iterations" not in
+                                  knob else "_iter_2.png") for f in files)
+            jres = japi.scalar_bilevel_tv_learn(save_results=False,
+                                                backend="jnp", **kw)
+            assert res.iterations == jres.iterations == 2
+            np.testing.assert_allclose(res.x, np.asarray(jres.x), rtol=RTOL)
+            res = ttgv_x.scalar_bilevel_tgv_learn(device="cpu", **kw)
+            assert res.iterations == 2
+            continue
         # each refusal names the ROADMAP.md item that ports the knob
         match = "backend" if item is None else f"§1 item {item}"
-        kw = dict(TV_ENTRY, **knob)
         with pytest.raises(NotImplementedError, match=match):
             tx.scalar_bilevel_tv_learn(device="cpu", **kw)
         with pytest.raises(NotImplementedError, match=match):
