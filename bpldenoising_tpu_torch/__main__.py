@@ -12,9 +12,10 @@ the kernels' plain versions)::
 
 ``--x64`` runs in float64 on the chosen device; ``--backend`` takes only
 ``auto``.  ``--trace DIR`` writes a ``torch.profiler`` Chrome trace of a
-learn to ``DIR/trace.json``.  What is not ported yet (``--data-parallel``
-and ``make-dataset``) exits with status 2 and names its ``ROADMAP.md``
-item.
+learn to ``DIR/trace.json``.  ``--data-parallel`` shards the image batch
+over every visible card (one shard with ``--device cpu``); with
+``--method single_loop`` it exits with status 2, as does ``make-dataset``,
+naming its ``ROADMAP.md`` item (not ported yet).
 """
 
 from __future__ import annotations
@@ -64,7 +65,7 @@ def main(argv=None):
                             "N outer iterations (per-segment wall times, "
                             "checkpointing)")
         p.add_argument("--data-parallel", action="store_true",
-                       help="shard the image batch (not ported yet)")
+                       help="shard the image batch over all local devices")
         p.add_argument("--trace", default=None, metavar="DIR",
                        help="write a torch.profiler Chrome trace of the "
                             "learn to DIR/trace.json")

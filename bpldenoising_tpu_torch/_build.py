@@ -16,6 +16,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -104,6 +105,10 @@ def build() -> BuildInfo:
 
 
 _LIB = None
+_LIB_LOCK = threading.Lock()
+#: guards the kernel wrappers' module counters (launches, device
+#: operations), which several device threads of a mesh update
+COUNTS = threading.Lock()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
@@ -194,10 +199,11 @@ def _declare(lib):
 def library():
     """The loaded kernel library (built on first call)."""
     global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build().path))
-        _declare(lib)
-        _LIB = lib
+    with _LIB_LOCK:   # a mesh's device threads may ask at once
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build().path))
+            _declare(lib)
+            _LIB = lib
     return _LIB
 
 

@@ -294,8 +294,8 @@ def check_unported(mesh, optimizer) -> None:
     """``mesh=`` and ``optimizer=`` of the JAX learners raise here."""
     if mesh is not None:
         raise NotImplementedError(
-            "mesh= data parallelism is not ported yet (ROADMAP.md §1 "
-            "item 10)")
+            "mesh= data parallelism of the single-loop learners is not "
+            "ported yet (ROADMAP.md §1 item 10b)")
     if optimizer is not None:
         raise NotImplementedError(
             "optimizer= takes an optax transformation, which has no "

@@ -25,8 +25,15 @@ gains per-iteration wall times (segment-end, cumulative) and
 ``segment_callback`` runs at every hop (checkpoints, per-iterate
 snapshots).  The segments run the same body on the same carry, so a
 segmented run gives the single run's numbers bit for bit; :func:`drive`
-runs both forms for the four families' learners.  Data parallelism is not
-ported yet.
+runs both forms for the four families' learners.
+
+With ``mesh=`` (:mod:`..parallel.mesh`) the batch is zero-padded to a
+multiple of the mesh's shards and every evaluation runs the step's local
+part on each shard's sub-batch on its device (:func:`evaluate`), each
+shard with its own warm state and its own early stop, as the JAX
+package's ``shard_map`` decides them; the cost and the per-k gradients
+are summed over the shards before the patch pullback.  The host loop is
+the same.
 """
 
 from __future__ import annotations
@@ -36,28 +43,62 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..learning.tv import tv_step
+from ..learning.tv import tv_local, tv_pullback
 from ..models import DenoiseModel, tv_model
 from ..ops import PatchOp
+from ..parallel.mesh import (batch_devices, gather_u, psum, run_shards,
+                             shard_dataset)
 from ..solvers.hypergrad import HypergradConfig
 from .first_order import _check_positive_x0, _param_layout
 from .tr_core import IT, make_tr_machinery, run_segmented, splice_dense_B
 
-__all__ = ["bilevel_learn_fused", "FusedResult", "drive"]
-
-#: the ROADMAP.md §1 item of each keyword of the fused learners that is not
-#: ported yet
-UNPORTED_KEYWORDS = {"mesh": 10}
+__all__ = ["bilevel_learn_fused", "FusedResult", "drive", "evaluate",
+           "learn_data"]
 
 
-def refuse_unported(**knobs) -> None:
-    """Raise ``NotImplementedError`` for each knob that is not None, naming
-    its ROADMAP.md item."""
-    for name, value in knobs.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"{name} is not ported yet (ROADMAP.md §1 item "
-                f"{UNPORTED_KEYWORDS[name]})")
+def learn_data(ds, device, mesh, log_every, image_ndim: int = 2):
+    """A fused learner's data: ``(utrue, f)`` on ``device`` (a batch axis
+    added to a single image, contiguous), or, with a mesh, this process's
+    padded shards on the mesh's devices (:class:`..parallel.mesh.Sharded`;
+    ``device`` is not read).  Segmented dispatch does not compose with a
+    mesh, as in the JAX package."""
+    if mesh is not None:
+        if log_every is not None:
+            raise ValueError("log_every (chunked dispatch) does not "
+                             "compose with mesh= data parallelism; drive "
+                             "segments from the host or drop log_every")
+        return shard_dataset(ds, mesh, image_ndim)
+    utrue = torch.as_tensor(ds[0]).to(device)
+    f = torch.as_tensor(ds[1]).to(device=device, dtype=utrue.dtype)
+    if f.ndim == image_ndim:
+        utrue, f = utrue[None], f[None]
+    return utrue.contiguous(), f.contiguous()
+
+
+def evaluate(local, data, st, mesh):
+    """One evaluation: ``local(utrue, f, st) -> (u, cost, grads, st,
+    info)`` on the whole batch, or on a mesh on every shard (``st`` then
+    one state per shard, None for a cold start), the cost and each of
+    ``grads`` summed over the shards in shard order, ``u`` gathered and
+    ``info`` the first shard's (the JAX mesh run's log reads its first
+    device)."""
+    if mesh is None:
+        return local(data[0], data[1], st)
+    sts = [None] * len(data.f) if st is None else st
+    out = run_shards(batch_devices(mesh),
+                     lambda i, ut, ff, s: local(ut, ff, s),
+                     data.utrue, data.f, sts)
+    us, costs, grads, new_sts, infos = zip(*out)
+    return (gather_u(us, data.n_real), psum(costs),
+            tuple(psum([g[k] for g in grads]) for k in range(len(grads[0]))),
+            list(new_sts), infos[0])
+
+
+def shapes(data, mesh):
+    """``(dtype, like)`` of a learner's data: the working dtype and a
+    tensor on the first device (where the pullback runs)."""
+    f = data[1] if mesh is None else data.f[0]
+    return f.dtype, f
 
 
 class FusedResult(NamedTuple):
@@ -113,39 +154,47 @@ def drive(machinery, *, x0, delta0, param_shape: tuple, maxiter: int,
                        times=None if times is None else times[:int(it)])
 
 
-def _machinery(utrue, f, *, model: DenoiseModel, pop: Optional[PatchOp],
+def _machinery(data, mesh, *, model: DenoiseModel, pop: Optional[PatchOp],
                param_shape: tuple, maxiter: int, tol, eta1, eta2, beta1,
                beta2, inner_maxiter: int, inner_tol, check_every: int,
                delta_t: float, cfg: HypergradConfig, lbfgs_threshold: int,
                lbfgs_memory: int):
     """The trust-region loop pieces ``(init_carry, cond, body)``."""
-    dtype = f.dtype
+    dtype, like = shapes(data, mesh)
     n = int(np.prod(param_shape, dtype=int)) if param_shape else 1
     solver_kwargs = dict(tol=inner_tol, check_every=check_every)
 
     def eval_lf(xflat, delta, st):
-        if st is None:
-            state0 = None
-            padjs = (torch.zeros_like(f), torch.zeros_like(f))
-        else:
-            state0, padjs = st
         is_exact = bool(delta > delta_t)
-        p_exact, p_reg = padjs
-        # parity mode (inner_tol None: a fixed budget) cold-starts every solve
-        u, cost, g, p, state, info = tv_step(
-            xflat.reshape(param_shape), utrue, f,
-            p_exact if is_exact else p_reg,
-            state0 if inner_tol is not None else None, model=model,
-            method="exact" if is_exact else "reg", maxiter=inner_maxiter,
-            cfg=cfg, pop=pop, solver_kwargs=solver_kwargs)
-        padjs = (p, p_reg) if is_exact else (p_exact, p)
-        cg_ok = torch.all(torch.as_tensor(info.converged, device=f.device))
+        x = xflat.reshape(param_shape)
+
+        def local(utrue, f, st):
+            if st is None:
+                state0 = None
+                padjs = (torch.zeros_like(f), torch.zeros_like(f))
+            else:
+                state0, padjs = st
+            p_exact, p_reg = padjs
+            # parity mode (inner_tol None: a fixed budget) cold-starts every
+            # solve
+            u, cost, grads, p, state, info = tv_local(
+                x, utrue, f, p_exact if is_exact else p_reg,
+                state0 if inner_tol is not None else None, model=model,
+                method="exact" if is_exact else "reg", maxiter=inner_maxiter,
+                cfg=cfg, pop=pop, solver_kwargs=solver_kwargs)
+            padjs = (p, p_reg) if is_exact else (p_exact, p)
+            return u, cost, grads, (state, padjs), info
+
+        u, cost, grads, st, info = evaluate(local, data, st, mesh)
+        g = tv_pullback(grads, x, pop, like)
+        cg_ok = torch.all(torch.as_tensor(info.converged,
+                                          device=cost.device))
         # one device → host read per evaluation: cost, the n-vector
         # gradient, CG flag
         host = torch.cat([cost.reshape(1), g.reshape(-1),
                           cg_ok.to(dtype).reshape(1)]).cpu()
         cg_it = torch.tensor(float(np.max(info.iters)), dtype=dtype)
-        return u, host[0], host[1:1 + n], (state, padjs), (cg_it, host[-1])
+        return u, host[0], host[1:1 + n], st, (cg_it, host[-1])
 
     return make_tr_machinery(
         eval_lf, n=n, dtype=dtype, maxiter=maxiter, tol=tol, eta1=eta1,
@@ -163,12 +212,12 @@ def bilevel_learn_fused(ds, *, xinit, params, model: DenoiseModel = None,
                         device="cuda") -> FusedResult:
     """Run the trust-region bilevel learning on ``device``.
 
-    ``mesh`` is the JAX function's keyword: ``None`` runs, any other value
-    raises ``NotImplementedError`` (not ported yet), as in the other
-    families' learners.  The JAX function's ``backend=`` and
-    ``interpret=`` are not taken, as in those learners: by the entry
-    points' ``check_backend`` rule the port has no backends, and
-    ``device=`` chooses what runs.
+    ``mesh`` (a :class:`..parallel.mesh.Mesh`) shards the batch over its
+    devices (see the module's docstring); it does not compose with
+    ``log_every``.  The JAX function's ``backend=`` and ``interpret=`` are
+    not taken, as in the other families' learners: by the entry points'
+    ``check_backend`` rule the port has no backends, and ``device=``
+    chooses what runs.
 
     Args:
       ds: ``(true_images, noisy_images)`` stacks, (O, M, N) or (M, N),
@@ -187,21 +236,18 @@ def bilevel_learn_fused(ds, *, xinit, params, model: DenoiseModel = None,
       init_B: a dense BFGS matrix to start from (checkpoint resume;
         ignored for the L-BFGS model).
       device: where the images and solver state live; ``"cuda"`` launches
-        the CUDA kernels, ``"cpu"`` runs their plain versions.
+        the CUDA kernels, ``"cpu"`` runs their plain versions (with a mesh,
+        its devices).
     """
-    refuse_unported(mesh=mesh)
-    utrue = torch.as_tensor(ds[0]).to(device)
-    f = torch.as_tensor(ds[1]).to(device=device, dtype=utrue.dtype)
-    if f.ndim == 2:
-        utrue, f = utrue[None], f[None]
-    utrue, f = utrue.contiguous(), f.contiguous()
+    data = learn_data(ds, device, mesh, log_every)
+    dtype, like = shapes(data, mesh)
     model = model if model is not None else tv_model()
-    x0 = torch.as_tensor(xinit, dtype=f.dtype).cpu()
+    x0 = torch.as_tensor(xinit, dtype=dtype).cpu()
     _check_positive_x0(x0)
-    pop, param_shape = _param_layout(model, x0, tuple(f.shape[-2:]))
+    pop, param_shape = _param_layout(model, x0, tuple(like.shape[-2:]))
     maxiter, tol = int(params.maxiter), float(params.get("tol", 0.0))
     machinery = _machinery(
-        utrue, f, model=model, pop=pop, param_shape=param_shape,
+        data, mesh, model=model, pop=pop, param_shape=param_shape,
         maxiter=maxiter, tol=tol,
         eta1=float(params.eta1), eta2=float(params.eta2),
         beta1=float(params.beta1), beta2=float(params.beta2),

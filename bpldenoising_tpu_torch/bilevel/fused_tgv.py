@@ -18,7 +18,8 @@ on the card it launches the CUDA kernel, on the CPU it runs the plain
 version.  The adjoint CG is plain PyTorch on either device, as the JAX
 package runs it in jnp outside its Pallas kernel.  Segmented dispatch
 (``log_every``, ``segment_callback``, ``init_B``) is :func:`.fused.drive`'s;
-data parallelism (``mesh=``) is not ported yet.
+``mesh=`` runs every evaluation per shard and sums the cost and the two
+cotangents over the shards before the pullback (:func:`.fused.evaluate`).
 """
 
 from __future__ import annotations
@@ -26,39 +27,46 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..learning.tgv import tgv_param_layout, tgv_step
-from .fused import (FusedResult, _check_positive_x0, drive,
-                    refuse_unported)
+from ..learning.tgv import tgv_local, tgv_param_layout, tgv_pullback
+from .fused import (FusedResult, _check_positive_x0, drive, evaluate,
+                    learn_data, shapes)
 from .tr_core import make_tr_machinery
 
 __all__ = ["bilevel_learn_tgv_fused", "tgv_param_layout"]
 
 
-def _machinery(utrue, f, *, pop, param_shape: tuple, maxiter: int, tol,
+def _machinery(data, mesh, *, pop, param_shape: tuple, maxiter: int, tol,
                eta1, eta2, beta1, beta2, inner_maxiter: int, inner_tol,
                check_every: int, gamma: float, cg_tol: float,
                cg_maxiter: int, tau0: float, sigma0: float,
                lbfgs_threshold: int, lbfgs_memory: int):
-    dtype = f.dtype
+    dtype, _ = shapes(data, mesh)
     n = int(np.prod(param_shape, dtype=int))
 
     def eval_lf(xflat, delta, st):
         del delta   # smoothed implicit gradient: no exact/reg switch
-        s0, lam0 = (None, None) if st is None else st
-        # parity mode (inner_tol None: a fixed budget) cold-starts every
-        # solve and every adjoint CG
-        warm = inner_tol is not None
-        u, cost, grad, state, lam, info = tgv_step(
-            xflat.reshape(param_shape), utrue, f, s0 if warm else None,
-            lam0 if warm else None, pop=pop, maxiter=inner_maxiter,
-            gamma=gamma, cg_tol=cg_tol, cg_maxiter=cg_maxiter, tau0=tau0,
-            sigma0=sigma0, tol=inner_tol, check_every=check_every)
+        x = xflat.reshape(param_shape)
+
+        def local(utrue, f, st):
+            s0, lam0 = (None, None) if st is None else st
+            # parity mode (inner_tol None: a fixed budget) cold-starts every
+            # solve and every adjoint CG
+            warm = inner_tol is not None
+            u, cost, grads, state, lam, info = tgv_local(
+                x, utrue, f, s0 if warm else None, lam0 if warm else None,
+                pop=pop, maxiter=inner_maxiter, gamma=gamma, cg_tol=cg_tol,
+                cg_maxiter=cg_maxiter, tau0=tau0, sigma0=sigma0,
+                tol=inner_tol, check_every=check_every)
+            return u, cost, grads, (state, lam), info
+
+        u, cost, grads, st, info = evaluate(local, data, st, mesh)
+        grad = tgv_pullback(grads, pop)
         cg_ok = torch.all(info.converged)
         # one device → host read per evaluation: cost, gradient, CG flag
         host = torch.cat([cost.reshape(1), grad.reshape(-1),
                           cg_ok.to(dtype).reshape(1)]).cpu()
         cg_it = torch.tensor(float(info.iters), dtype=dtype)
-        return u, host[0], host[1:1 + n], (state, lam), (cg_it, host[-1])
+        return u, host[0], host[1:1 + n], st, (cg_it, host[-1])
 
     return make_tr_machinery(
         eval_lf, n=n, dtype=dtype, maxiter=maxiter, tol=tol, eta1=eta1,
@@ -88,26 +96,25 @@ def bilevel_learn_tgv_fused(ds, *, xinit, params,
         budget every evaluation and disables the warm-start chaining.
       gamma / cg_tol / cg_maxiter: implicit-gradient knobs
         (:func:`..solvers.tgv.tgv_implicit_cotangents`).
+      mesh: data parallelism over a :class:`..parallel.mesh.Mesh`, as in
+        :func:`.fused.bilevel_learn_fused`.
       log_every / segment_callback / init_B: segmented dispatch and
         checkpoint resume, as in :func:`.fused.bilevel_learn_fused`.
       device: where the images and solver state live; ``"cuda"`` launches
-        the CUDA kernel, ``"cpu"`` runs its plain version.
+        the CUDA kernel, ``"cpu"`` runs its plain version (with a mesh,
+        its devices).
 
     Returns a :class:`.fused.FusedResult`.
     """
-    refuse_unported(mesh=mesh)
-    utrue = torch.as_tensor(ds[0]).to(device)
-    f = torch.as_tensor(ds[1]).to(device=device, dtype=utrue.dtype)
-    if f.ndim == 2:
-        utrue, f = utrue[None], f[None]
-    utrue, f = utrue.contiguous(), f.contiguous()
-    x0 = torch.as_tensor(xinit, dtype=f.dtype).cpu()
-    pop = tgv_param_layout(x0, tuple(f.shape[-2:]))
+    data = learn_data(ds, device, mesh, log_every)
+    dtype, like = shapes(data, mesh)
+    x0 = torch.as_tensor(xinit, dtype=dtype).cpu()
+    pop = tgv_param_layout(x0, tuple(like.shape[-2:]))
     _check_positive_x0(x0)
     param_shape = tuple(x0.shape)
     maxiter, tol = int(params.maxiter), float(params.get("tol", 0.0))
     machinery = _machinery(
-        utrue, f, pop=pop, param_shape=param_shape,
+        data, mesh, pop=pop, param_shape=param_shape,
         maxiter=maxiter, tol=tol,
         eta1=float(params.eta1), eta2=float(params.eta2),
         beta1=float(params.beta1), beta2=float(params.beta2),

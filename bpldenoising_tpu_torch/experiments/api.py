@@ -30,8 +30,13 @@ segment (``"tr_fused"``), and ``resume=True`` continues from it (the
 JAX package's ``.npz`` keys: either package reads the other's).  With
 ``tr_fused``, ``log_every=j`` (5 by default when ``checkpoint``,
 ``resume`` or ``save_iterations`` is set) runs the loop in j-iteration
-segments whose log carries real segment-end times.  Data parallelism is
-not ported yet and raises ``NotImplementedError``, as does any
+segments whose log carries real segment-end times.  ``data_parallel=True``
+shards the image batch over a mesh (:func:`data_parallel_mesh`: every
+visible card for ``device="cuda"``, one shard on any other device):
+``method="tr"`` runs the sharded learning functions of
+:mod:`..parallel.sharded` (``inner_tol`` raises, as in the JAX package),
+``"tr_fused"`` the fused learner with ``mesh=``; with ``"single_loop"``
+it raises ``NotImplementedError`` (ROADMAP.md §1 item 10b), as does any
 ``backend`` but ``"auto"`` (:func:`check_backend`: ``device=`` chooses
 what runs).  ``visualise=True`` shows the iterates of ``method="tr"`` in a
 :class:`..bilevel.harness.LiveView`; the other methods ignore it, as in
@@ -62,6 +67,9 @@ from ..learning import (make_sumregs_learning_function,
 from ..metrics import l2_cost, psnr_np, ssim_np
 from ..models import sumregs_model, tv_model
 from ..ops import PatchOp
+from ..parallel import (make_batch_mesh,
+                        make_sharded_sumregs_learning_function,
+                        make_sharded_tv_learning_function)
 from ..solvers import denoise_pdps
 from ..solvers.hypergrad import HypergradConfig
 from ..utils.checkpoint import (CheckpointWriter, load_checkpoint,
@@ -80,7 +88,7 @@ __all__ = ["TVDenoise", "L2CostFunction",
            "default_params", "bilevel_params", "patch_bilevel_params",
            "sumregs_bilevel_params", "patch_sumregs_bilevel_params",
            "check_backend", "single_loop_log_every", "single_loop_state",
-           "run_single_loop", "run_bilevel"]
+           "run_single_loop", "run_bilevel", "data_parallel_mesh"]
 
 default_save_prefix = "output"
 
@@ -120,20 +128,33 @@ patch_sumregs_bilevel_params = Params(
     eta1=0.25, eta2=0.75, beta1=0.25, beta2=1.5, delta0=0.1,
     alpha0=1e-3 * np.ones((2, 2, 3)))
 
-# each knob that is not ported yet, with its ROADMAP.md §1 item
-_UNPORTED_FLAGS = {"data_parallel": 10}
-
 _TV = tv_model()
 _SUMREGS = sumregs_model()
 
 
 def reject_unported(params) -> None:
-    """Raise for every set knob the port does not implement yet."""
-    for flag, item in _UNPORTED_FLAGS.items():
-        if params.get(flag):
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md "
-                                      f"§1 item {item})")
+    """Raise for a ``backend`` the port does not take."""
     check_backend(params.get("backend", "auto"))
+
+
+def data_parallel_mesh(device):
+    """The mesh of ``data_parallel=True``: every visible card (the JAX
+    package's ``make_batch_mesh()``: all local devices) for a CUDA
+    ``device``; one shard on ``device`` otherwise (the CPU's plain
+    versions)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return make_batch_mesh()
+    return make_batch_mesh(devices=[device])
+
+
+def refuse_inner_tol(params) -> None:
+    """The sharded learning functions run the fixed budget: ``inner_tol``
+    with ``data_parallel=True`` raises, as in the JAX package."""
+    if params.get("inner_tol") is not None:
+        raise ValueError(
+            "inner_tol is not supported with data_parallel=True "
+            "(the sharded learning functions run the fixed budget)")
 
 
 def _canon(params):
@@ -546,10 +567,18 @@ def run_bilevel(params, learning_function, device, ds=None,
 
 def _make_lf(params, factory, device):
     """The learning function of ``method="tr"`` (the JAX package's
-    ``_make_lf`` without ``data_parallel``, which raises): the inner
-    solve's budget, its early stop ``inner_tol`` (which also chains the
-    PDPS state across evaluations) at ``check_every``, and
-    ``hypergrad_cfg``."""
+    ``_make_lf``): the inner solve's budget, its early stop ``inner_tol``
+    (which also chains the PDPS state across evaluations) at
+    ``check_every``, and ``hypergrad_cfg``; with ``data_parallel`` the
+    sharded function of the same family on :func:`data_parallel_mesh`."""
+    if params.get("data_parallel"):
+        refuse_inner_tol(params)
+        sharded = (make_sharded_tv_learning_function
+                   if factory is make_tv_learning_function
+                   else make_sharded_sumregs_learning_function)
+        return sharded(data_parallel_mesh(device),
+                       maxiter=int(params.inner_maxiter),
+                       cfg=params.hypergrad_cfg)
     solver_kwargs = dict(check_every=int(params.check_every))
     if params.get("inner_tol") is not None:
         solver_kwargs["tol"] = float(params.inner_tol)
@@ -562,10 +591,14 @@ def run_fused(params, device, learn, stretch_all: bool = False,
               **kw) -> BilevelResult:
     """A fused trust region behind the experiment surface (the JAX
     package's ``_run_fused``): ``learn(ds, xinit=, params=,
-    inner_maxiter=, inner_tol=, check_every=, device=, log_every=,
+    inner_maxiter=, inner_tol=, check_every=, device=, mesh=, log_every=,
     segment_callback=, init_B=, **kw)`` on the params' dataset with the
-    hooks of :func:`_fused_observability`, then :func:`save_results`."""
+    hooks of :func:`_fused_observability` (``mesh`` by
+    :func:`data_parallel_mesh` when ``data_parallel`` is set), then
+    :func:`save_results`."""
     reject_unported(params)
+    mesh = (data_parallel_mesh(device) if params.get("data_parallel")
+            else None)
     ds = _load(params, device)
     (params, log_every, seg_cb, init_B, it_offset,
      init_entries) = _fused_observability(params)
@@ -573,6 +606,7 @@ def run_fused(params, device, learn, stretch_all: bool = False,
                 inner_maxiter=int(params.inner_maxiter),
                 inner_tol=params.get("inner_tol"),
                 check_every=int(params.check_every), device=device,
+                mesh=mesh,
                 log_every=None if log_every is None else int(log_every),
                 segment_callback=seg_cb, init_B=init_B, **kw)
     out = _fused_to_result(res, it_offset=it_offset,
@@ -640,6 +674,10 @@ def run_single_loop(params, device, learn, stretch_all: bool = False,
     _reject_flags(params, "single_loop",
                   ("checkpoint", "resume", "save_iterations", "inner_tol"))
     reject_unported(params)
+    if params.get("data_parallel"):
+        raise NotImplementedError(
+            "data_parallel with method='single_loop' (the learners' mesh=) "
+            "is not ported yet (ROADMAP.md §1 item 10b)")
     ds = _load(params, device)
     outer = int(params.sl_outer)
     res = learn(ds[0], ds[1], np.asarray(params.alpha0), outer=outer,

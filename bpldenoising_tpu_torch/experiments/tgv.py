@@ -15,8 +15,10 @@ sweep :func:`generate_tgv_cost` with its plot.  As in the TV entry point,
 ``check_every``, ``inner_tol`` and ``tgv_gamma`` are parameters;
 ``checkpoint``, ``resume``, ``save_iterations`` and ``log_every`` run as
 in the TV entry point (:func:`.api.run_fused`, :func:`.api.run_bilevel`);
-data parallelism raises ``NotImplementedError``, as does any ``backend``
-but ``"auto"``.
+``data_parallel=True`` gives ``method="tr_fused"`` a mesh
+(:func:`.api.run_fused`) and is not read by ``method="tr"``, as in the JAX
+package (its host trust region takes the unsharded learning function);
+any ``backend`` but ``"auto"`` raises.
 """
 
 from __future__ import annotations

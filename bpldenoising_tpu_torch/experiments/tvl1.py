@@ -16,8 +16,10 @@ trust region over :func:`..learning.tvl1.make_tvl1_learning_function`),
 JAX package).  As in the TV and TGV entry points, ``check_every`` (the
 inner early-stop cadence) is a parameter; ``checkpoint``, ``resume``,
 ``save_iterations`` and ``log_every`` run as in the TV entry point
-(:func:`.api.run_fused`, :func:`.api.run_bilevel`); data parallelism
-raises ``NotImplementedError``, as does any ``backend`` but ``"auto"``.
+(:func:`.api.run_fused`, :func:`.api.run_bilevel`); ``data_parallel=True``
+runs :func:`..parallel.sharded.make_sharded_tvl1_learning_function` with
+``method="tr"`` and a mesh with ``"tr_fused"`` (:func:`.api.run_fused`), as
+in the JAX package; any ``backend`` but ``"auto"`` raises.
 """
 
 from __future__ import annotations
@@ -33,13 +35,14 @@ from ..bilevel.harness import BilevelResult
 from ..data import testdataset
 from ..learning.tvl1 import make_tvl1_learning_function
 from ..ops import PatchOp
+from ..parallel import make_sharded_tvl1_learning_function
 from ..solvers.tvl1 import tvl1_denoise
 from ..utils.config import Params
 from ..viz.plots import plot_cost_curve
 from .api import (L2CostFunction, _host, _load, _out_dir, _plot_npz,
                   _sweep_params, _torch_dtype, check_backend,
-                  experiment_params, finish_validation, run_bilevel,
-                  run_fused, run_single_loop)
+                  data_parallel_mesh, experiment_params, finish_validation,
+                  refuse_inner_tol, run_bilevel, run_fused, run_single_loop)
 
 __all__ = ["TVL1Denoise", "validate_tvl1_parameter", "generate_tvl1_cost",
            "generate_tvl1_cost_plot", "tvl1_params",
@@ -116,6 +119,13 @@ def _learn(params, visualise, device):
     if params.method == "tr_fused":
         return run_fused(params, device, bilevel_learn_tvl1_fused,
                          stretch_all=True, **huber, **_cg_kwargs(params))
+    if params.get("data_parallel"):
+        refuse_inner_tol(params)
+        lf = make_sharded_tvl1_learning_function(
+            data_parallel_mesh(device), maxiter=int(params.inner_maxiter),
+            **huber, **_cg_kwargs(params))
+        return run_bilevel(params, lf, device, visualise=visualise,
+                           stretch_all=True)
     # the JAX entry point's learning-function keywords (its _tvl1_lf)
     lf_kwargs = dict(maxiter=int(params.inner_maxiter),
                      check_every=int(params.check_every), device=device,

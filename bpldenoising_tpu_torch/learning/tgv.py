@@ -29,7 +29,7 @@ from ..utils.config import check_backend
 from .cache import dataset_tensors, make_smoothed_factory
 
 __all__ = ["tgv_learning_function", "make_tgv_learning_function",
-           "tgv_step", "tgv_param_layout"]
+           "tgv_step", "tgv_local", "tgv_pullback", "tgv_param_layout"]
 
 
 def tgv_param_layout(x0, image_shape) -> Optional[PatchOp]:
@@ -43,12 +43,11 @@ def tgv_param_layout(x0, image_shape) -> Optional[PatchOp]:
                      f"got shape {tuple(x0.shape)}")
 
 
-def tgv_step(x, utrue, f, s0, lam0, *, pop: Optional[PatchOp], maxiter: int,
-             gamma: float, cg_tol: float, cg_maxiter: int, tau0: float,
-             sigma0: float, tol, check_every: int):
-    """One evaluation at ``x`` (a CPU tensor of the working dtype) →
-    ``(u, cost, grad, state, lam, info)``, ``grad`` shaped like ``x``,
-    ``state`` the solver's (u, w, p, q), ``lam`` the adjoint multiplier."""
+def tgv_local(x, utrue, f, s0, lam0, *, pop: Optional[PatchOp],
+              maxiter: int, gamma: float, cg_tol: float, cg_maxiter: int,
+              tau0: float, sigma0: float, tol, check_every: int):
+    """The evaluation up to the pullback: ``(u, cost, (g1, g0), state, lam,
+    info)``, the two cotangents scalars or batch-summed (M, N) maps."""
     if pop is None:
         a1, a0 = x[0], x[1]
     else:
@@ -57,15 +56,33 @@ def tgv_step(x, utrue, f, s0, lam0, *, pop: Optional[PatchOp], maxiter: int,
         f, a1, a0, tau0=tau0, sigma0=sigma0, maxiter=maxiter, tol=tol,
         check_every=check_every, state0=s0, return_state=True)
     cost = 0.5 * torch.sum((u - utrue) ** 2)
-    _, (g1, g0), lam, info = tgv_implicit_cotangents(
+    _, grads, lam, info = tgv_implicit_cotangents(
         u, w, (a1, a0), u - utrue, gamma=gamma, cg_tol=cg_tol,
         cg_maxiter=cg_maxiter, lam0=lam0, return_lam=True, return_info=True)
+    return u, cost, tuple(grads), state, lam, info
+
+
+def tgv_pullback(grads, pop: Optional[PatchOp]):
+    """(g1, g0) → the gradient shaped like the parameter."""
+    g1, g0 = grads
     if pop is None:
-        grad = torch.stack([g1, g0])
-    else:   # the batch-summed maps pulled back to the patch grids
-        grad = torch.stack([pop.apply_adjoint(g1), pop.apply_adjoint(g0)],
-                           dim=-1)
-    return u, cost, grad, state, lam, info
+        return torch.stack([g1, g0])
+    # the batch-summed maps pulled back to the patch grids
+    return torch.stack([pop.apply_adjoint(g1), pop.apply_adjoint(g0)],
+                       dim=-1)
+
+
+def tgv_step(x, utrue, f, s0, lam0, *, pop: Optional[PatchOp], maxiter: int,
+             gamma: float, cg_tol: float, cg_maxiter: int, tau0: float,
+             sigma0: float, tol, check_every: int):
+    """One evaluation at ``x`` (a CPU tensor of the working dtype) →
+    ``(u, cost, grad, state, lam, info)``, ``grad`` shaped like ``x``,
+    ``state`` the solver's (u, w, p, q), ``lam`` the adjoint multiplier."""
+    u, cost, grads, state, lam, info = tgv_local(
+        x, utrue, f, s0, lam0, pop=pop, maxiter=maxiter, gamma=gamma,
+        cg_tol=cg_tol, cg_maxiter=cg_maxiter, tau0=tau0, sigma0=sigma0,
+        tol=tol, check_every=check_every)
+    return u, cost, tgv_pullback(grads, pop), state, lam, info
 
 
 def tgv_learning_function(x, ds, delta, *, maxiter: int = 5000,

@@ -42,7 +42,7 @@ from ..utils.telemetry import record_adjoint_cg
 from .cache import WarmCache, dataset_tensors
 
 __all__ = ["tv_learning_function", "make_learning_function",
-           "make_tv_learning_function", "tv_step"]
+           "make_tv_learning_function", "tv_step", "tv_local", "tv_pullback"]
 
 _MODEL = tv_model()
 _SOLVER_DEFAULTS = dict(tau0=5.0, sigma0=0.99 / 5.0, gamma=1.0, accel=True,
@@ -60,14 +60,13 @@ def _solve(f, alphas, model, maxiter, solver_kwargs, state0=None):
     return u, (u, ys)
 
 
-def tv_step(x, utrue, f, p0, s0, *, model: DenoiseModel, method: str,
-            maxiter: int, cfg: HypergradConfig, pop: Optional[PatchOp],
-            solver_kwargs: Optional[dict] = None):
-    """One evaluation at ``x`` (a tensor of the working dtype on the CPU:
-    a scalar or (K,) weights, or an (m, n) / (m, n, K) patch grid whose
-    ``pop`` upsamples it) → ``(u, cost, g, p, state, info)``, ``g`` shaped
-    like ``x``, ``p`` the adjoint and ``info`` its
-    :class:`..solvers.krylov.KrylovInfo`."""
+def tv_local(x, utrue, f, p0, s0, *, model: DenoiseModel, method: str,
+             maxiter: int, cfg: HypergradConfig, pop: Optional[PatchOp],
+             solver_kwargs: Optional[dict] = None):
+    """The evaluation up to the pullback: ``(u, cost, grads, p, state,
+    info)`` with ``grads`` the K scalar gradients or, for a patch grid,
+    the K gradient maps summed over the batch (what a mesh sums over its
+    shards before :func:`tv_pullback`)."""
     K = model.K
     if pop is None:
         alphas = (x,) if K == 1 else tuple(x[k] for k in range(K))
@@ -81,14 +80,36 @@ def tv_step(x, utrue, f, p0, s0, *, model: DenoiseModel, method: str,
     # one joint system over the batch: K scalar gradients, or K per-image
     # gradient maps for a patch grid
     grads, p, info = fn(u, utrue, alphas, model, cfg, pop is not None, p0=p0)
+    if pop is not None:
+        grads = tuple(torch.sum(gk, dim=0) for gk in grads)
+    return u, cost, grads, p, state, info
+
+
+def tv_pullback(grads, x, pop: Optional[PatchOp], like):
+    """K gradients of :func:`tv_local` → the gradient shaped like ``x``
+    (on ``like``'s device, in its dtype)."""
     if pop is None:
-        g = torch.stack([torch.as_tensor(gk, dtype=f.dtype,
-                                         device=f.device).reshape(())
+        g = torch.stack([torch.as_tensor(gk, dtype=like.dtype,
+                                         device=like.device).reshape(())
                          for gk in grads])
     else:
-        maps = [pop.apply_adjoint(torch.sum(gk, dim=0)) for gk in grads]
-        g = maps[0] if K == 1 else torch.stack(maps, dim=-1)
-    return u, cost, g.reshape(x.shape), p, state, info
+        maps = [pop.apply_adjoint(gk) for gk in grads]
+        g = maps[0] if len(maps) == 1 else torch.stack(maps, dim=-1)
+    return g.reshape(x.shape)
+
+
+def tv_step(x, utrue, f, p0, s0, *, model: DenoiseModel, method: str,
+            maxiter: int, cfg: HypergradConfig, pop: Optional[PatchOp],
+            solver_kwargs: Optional[dict] = None):
+    """One evaluation at ``x`` (a tensor of the working dtype on the CPU:
+    a scalar or (K,) weights, or an (m, n) / (m, n, K) patch grid whose
+    ``pop`` upsamples it) → ``(u, cost, g, p, state, info)``, ``g`` shaped
+    like ``x``, ``p`` the adjoint and ``info`` its
+    :class:`..solvers.krylov.KrylovInfo`."""
+    u, cost, grads, p, state, info = tv_local(
+        x, utrue, f, p0, s0, model=model, method=method, maxiter=maxiter,
+        cfg=cfg, pop=pop, solver_kwargs=solver_kwargs)
+    return u, cost, tv_pullback(grads, x, pop, f), p, state, info
 
 
 def tv_learning_function(x, ds, delta, *, delta_t: float = 1e-6,

@@ -31,7 +31,8 @@ from ..utils.config import check_backend
 from .cache import dataset_tensors, make_smoothed_factory
 
 __all__ = ["tvl1_learning_function", "make_tvl1_learning_function",
-           "tvl1_step", "tvl1_param_layout"]
+           "tvl1_step", "tvl1_local", "tvl1_pullback",
+           "tvl1_param_layout"]
 
 _TV = tv_model()
 
@@ -47,11 +48,11 @@ def tvl1_param_layout(x0, image_shape) -> Optional[PatchOp]:
                      f"grid, got shape {tuple(x0.shape)}")
 
 
-def tvl1_step(x, utrue, f, p0, s0, *, pop: Optional[PatchOp], gamma_d: float,
-              cfg: HypergradConfig, maxiter: int, tau0: float, sigma0: float,
-              tol, check_every: int):
-    """One evaluation at ``x`` (a CPU tensor of the working dtype) →
-    ``(u, cost, grad, p, state, info)``, ``grad`` shaped like ``x``."""
+def tvl1_local(x, utrue, f, p0, s0, *, pop: Optional[PatchOp],
+               gamma_d: float, cfg: HypergradConfig, maxiter: int,
+               tau0: float, sigma0: float, tol, check_every: int):
+    """The evaluation up to the pullback: ``(u, cost, (g,), p, state,
+    info)``, ``g`` a scalar or the batch-summed gradient map."""
     a = x if pop is None else pop.apply(x).to(f.device)
     u, state = tvl1_huber_denoise_cuda(
         f, a, gamma_d=gamma_d, gamma_r=cfg.gamma, tau0=tau0, sigma0=sigma0,
@@ -61,9 +62,28 @@ def tvl1_step(x, utrue, f, p0, s0, *, pop: Optional[PatchOp], gamma_d: float,
     grads, p, info = tvl1_huber_hypergrad(
         u, f, utrue, (a,), _TV, cfg, pop is not None, p0=p0, gamma_d=gamma_d)
     g = grads[0]
-    if pop is not None:   # per-image maps: batch sum, then the patch adjoint
-        g = pop.apply_adjoint(torch.sum(g, dim=0))
-    return u, cost, g, p, state, info
+    if pop is not None:   # per-image maps: the batch sum
+        g = torch.sum(g, dim=0)
+    return u, cost, (g,), p, state, info
+
+
+def tvl1_pullback(grads, pop: Optional[PatchOp]):
+    """(g,) → the gradient shaped like the parameter (a map through the
+    patch adjoint)."""
+    (g,) = grads
+    return g if pop is None else pop.apply_adjoint(g)
+
+
+def tvl1_step(x, utrue, f, p0, s0, *, pop: Optional[PatchOp], gamma_d: float,
+              cfg: HypergradConfig, maxiter: int, tau0: float, sigma0: float,
+              tol, check_every: int):
+    """One evaluation at ``x`` (a CPU tensor of the working dtype) →
+    ``(u, cost, grad, p, state, info)``, ``grad`` shaped like ``x``."""
+    u, cost, grads, p, state, info = tvl1_local(
+        x, utrue, f, p0, s0, pop=pop, gamma_d=gamma_d, cfg=cfg,
+        maxiter=maxiter, tau0=tau0, sigma0=sigma0, tol=tol,
+        check_every=check_every)
+    return u, cost, tvl1_pullback(grads, pop), p, state, info
 
 
 def tvl1_learning_function(x, ds, delta, *, gamma_d: float = 100.0,

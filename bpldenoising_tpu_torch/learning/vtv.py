@@ -28,7 +28,7 @@ from ..utils.config import check_backend
 from .cache import dataset_tensors, make_smoothed_factory
 
 __all__ = ["vtv_learning_function", "make_vtv_learning_function",
-           "vtv_step", "vtv_param_layout"]
+           "vtv_step", "vtv_local", "vtv_pullback", "vtv_param_layout"]
 
 
 def vtv_param_layout(x0, image_shape) -> Optional[PatchOp]:
@@ -44,12 +44,11 @@ def vtv_param_layout(x0, image_shape) -> Optional[PatchOp]:
                      f"(m, n) patch grid, got shape {tuple(x0.shape)}")
 
 
-def vtv_step(x, utrue, f, s0, lam0, *, pop: Optional[PatchOp], maxiter: int,
-             gamma: float, cg_tol: float, cg_maxiter: int, tau0: float,
-             sigma0: float, tol, check_every: int):
-    """One evaluation at ``x`` (a CPU tensor of the working dtype) →
-    ``(u, cost, grad, state, lam, info)``, ``grad`` shaped like ``x``,
-    ``state`` the solver's (u, ys), ``lam`` the adjoint multiplier."""
+def vtv_local(x, utrue, f, s0, lam0, *, pop: Optional[PatchOp],
+              maxiter: int, gamma: float, cg_tol: float, cg_maxiter: int,
+              tau0: float, sigma0: float, tol, check_every: int):
+    """The evaluation up to the pullback: ``(u, cost, (da,), state, lam,
+    info)``, ``da`` a scalar or the batch-summed (M, N) map."""
     a = (x if pop is None else pop.apply(x)).to(f.device)
     u, ys, _ = vtv_denoise_pdps_cuda(
         f, (a,), s0, tau0=tau0, sigma0=sigma0, maxiter=maxiter, tol=tol,
@@ -58,9 +57,27 @@ def vtv_step(x, utrue, f, s0, lam0, *, pop: Optional[PatchOp], maxiter: int,
     _, da, lam, info = vtv_implicit_cotangents(
         u, a, u - utrue, gamma=gamma, cg_tol=cg_tol, cg_maxiter=cg_maxiter,
         lam0=lam0, return_lam=True, return_info=True)
-    # a map's cotangent is batch-summed already; a grid takes the adjoint
-    grad = da if pop is None else pop.apply_adjoint(da)
-    return u, cost, grad, (u, ys), lam, info
+    return u, cost, (da,), (u, ys), lam, info
+
+
+def vtv_pullback(grads, pop: Optional[PatchOp]):
+    """(da,) → the gradient shaped like the parameter: a map's cotangent is
+    batch-summed already; a grid takes the adjoint."""
+    (da,) = grads
+    return da if pop is None else pop.apply_adjoint(da)
+
+
+def vtv_step(x, utrue, f, s0, lam0, *, pop: Optional[PatchOp], maxiter: int,
+             gamma: float, cg_tol: float, cg_maxiter: int, tau0: float,
+             sigma0: float, tol, check_every: int):
+    """One evaluation at ``x`` (a CPU tensor of the working dtype) →
+    ``(u, cost, grad, state, lam, info)``, ``grad`` shaped like ``x``,
+    ``state`` the solver's (u, ys), ``lam`` the adjoint multiplier."""
+    u, cost, grads, state, lam, info = vtv_local(
+        x, utrue, f, s0, lam0, pop=pop, maxiter=maxiter, gamma=gamma,
+        cg_tol=cg_tol, cg_maxiter=cg_maxiter, tau0=tau0, sigma0=sigma0,
+        tol=tol, check_every=check_every)
+    return u, cost, vtv_pullback(grads, pop), state, lam, info
 
 
 def vtv_learning_function(x, ds, delta, *, maxiter: int = 5000,

@@ -87,7 +87,8 @@ def _run(u, utrue, alphas, model, cfg, want_maps, p0, reg: bool):
     global launches, device_ops, host_reads, last_total_cg_iters, last_grid
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
-        launches += 1
+        with _build.COUNTS:
+            launches += 1
         err = fn(u.data_ptr(), utrue.data_ptr(),
                  None if p0 is None else p0.data_ptr(), p.data_ptr(),
                  work.data_ptr(), partials.data_ptr(), scal.data_ptr(),
@@ -96,8 +97,9 @@ def _run(u, utrue, alphas, model, cfg, want_maps, p0, reg: bool):
                  float(act_tol), float(cfg.gamma), float(mu), float(cg_tol),
                  int(cfg.al_iters), int(cfg.cg_maxiter), int(reg), stats,
                  ops, ctypes.byref(grid), stream)
-    device_ops += ops[0] + ops[1]
-    host_reads += ops[1]
+    with _build.COUNTS:
+        device_ops += ops[0] + ops[1]
+        host_reads += ops[1]
     last_grid = grid.value
     _build.check(err, "hypergradient kernel (cooperative launch)")
     if want_maps:

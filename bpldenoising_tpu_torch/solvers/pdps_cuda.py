@@ -153,8 +153,9 @@ def denoise_pdps_cuda(f, alphas, state0=None, *, model: DenoiseModel, tau0,
     global launches, cluster_calls, device_ops
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream(f.device).cuda_stream
-        launches += 1
-        cluster_calls += int(plan.resident)
+        with _build.COUNTS:
+            launches += 1
+            cluster_calls += int(plan.resident)
         err = fn(f.data_ptr(), u.data_ptr(), y.data_ptr(),
                  0 if ubar is None else ubar.data_ptr(), uprev.data_ptr(),
                  ratio.data_ptr(), 0 if tab is None else tab.data_ptr(), O,
@@ -163,7 +164,8 @@ def denoise_pdps_cuda(f, alphas, state0=None, *, model: DenoiseModel, tau0,
                  int(bool(accel)), int(maxiter), int(tol is not None),
                  0.0 if tol is None else float(tol), int(check_every),
                  ctypes.byref(iters), ctypes.byref(ops), stream)
-    device_ops += ops.value
+    with _build.COUNTS:
+        device_ops += ops.value
     _build.check(err, f"pdps kernel ({plan})")
     if return_dual:
         return u, tuple(y.unbind(0)), int(iters.value)

@@ -97,8 +97,9 @@ def _launch(f, a1, a0, state0, *, tau0, sigma0, maxiter, tol, check_every):
     global launches, cluster_calls, device_ops
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        launches += 1
-        cluster_calls += int(plan.resident)
+        with _build.COUNTS:
+            launches += 1
+            cluster_calls += int(plan.resident)
         err = fn(f.data_ptr(), u.data_ptr(), w.data_ptr(), p.data_ptr(),
                  q.data_ptr(), None if ubar is None else ubar.data_ptr(),
                  None if wbar is None else wbar.data_ptr(),
@@ -109,7 +110,8 @@ def _launch(f, a1, a0, state0, *, tau0, sigma0, maxiter, tol, check_every):
                  int(tol is not None), 0.0 if tol is None else float(tol),
                  int(check_every), ctypes.byref(iters), ctypes.byref(ops),
                  stream)
-    device_ops += ops.value
+    with _build.COUNTS:
+        device_ops += ops.value
     _build.check(err, f"tgv kernel ({plan})")
     return u, w, state, int(iters.value)
 

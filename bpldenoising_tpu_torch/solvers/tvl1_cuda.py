@@ -109,8 +109,9 @@ def _launch(f, a, state0, *, tau, sigma, huber, lo=0.0, den=0.0, gr=0.0,
     global launches, cluster_calls, device_ops
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        launches += 1
-        cluster_calls += int(plan.resident)
+        with _build.COUNTS:
+            launches += 1
+            cluster_calls += int(plan.resident)
         err = fn(f.data_ptr(), u.data_ptr(), y.data_ptr(),
                  None if ubar is None else ubar.data_ptr(),
                  None if uprev is None else uprev.data_ptr(),
@@ -122,7 +123,8 @@ def _launch(f, a, state0, *, tau, sigma, huber, lo=0.0, den=0.0, gr=0.0,
                  int(maxiter), int(tol is not None),
                  0.0 if tol is None else float(tol), int(check_every),
                  ctypes.byref(iters), ctypes.byref(ops), stream)
-    device_ops += ops.value
+    with _build.COUNTS:
+        device_ops += ops.value
     _build.check(err, f"tvl1 kernel ({plan})")
     return u, y, int(iters.value)
 

@@ -116,8 +116,9 @@ def _launch(f, a, state0, *, tau, sigma, gamma, accel, maxiter, tol,
     global launches, cluster_calls, device_ops
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        launches += 1
-        cluster_calls += int(plan.resident)
+        with _build.COUNTS:
+            launches += 1
+            cluster_calls += int(plan.resident)
         err = fn(f.data_ptr(), u.data_ptr(), y.data_ptr(),
                  *(None if t is None else t.data_ptr()
                    for t in (ubar, uprev)), ratio.data_ptr(),
@@ -129,7 +130,8 @@ def _launch(f, a, state0, *, tau, sigma, gamma, accel, maxiter, tol,
                  int(tol is not None), 0.0 if tol is None else float(tol),
                  int(check_every), ctypes.byref(iters), ctypes.byref(ops),
                  stream)
-    device_ops += ops.value
+    with _build.COUNTS:
+        device_ops += ops.value
     _build.check(err, f"vtv kernel ({plan})")
     return u, y, int(iters.value)
 

@@ -4576,6 +4576,409 @@ def phase_diff_layers():
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 53-56: the parallel tier (meshes of shards on the one card)
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 4          # phase 53: the flagship's ten images over 4 shards
+SMOOTH_MESH_SHARDS = 2   # phase 55: the fused TGV², TV-L1, VTV learns
+HALO_ITERS = 300         # phase 56: each halo solve's fixed budget
+HALO_TOL_REL = 1e-4      # phase 56: float32, halo solver against the kernel
+# phase 54: a sharded evaluation of 3 images over 4 shards (one all
+# padding) against the same 3 images over 3 shards: the shards hold the
+# same images, so the padding shard's u = 0 and its +0 to the cost and the
+# gradient leave every bit as it was.  The 3-over-3 result is then held
+# against the unsharded learning function: u and the cost to
+# SHARDED_U_GATE / SHARDED_COST_GATE_REL (the same forward kernels per
+# image), the gradient to SHARDED_GRAD_RTOL, the JAX test's GRAD_RTOL
+# (per-shard against joint Krylov spaces, tests/test_parallel.py:21-28).
+# The TV-family adjoint is the CPU tests' well-conditioned one (act_tol
+# 1e-3, gamma 1e3, CG to 1e-10): a CG stopped at its cap leaves the two
+# Krylov spaces 1e-2 apart (the CPU float64 plain versions at cg_maxiter
+# 200 read 1.7e-2 for TV, 1.6e-2 for the sum; converged, 8e-11 / 1e-8).
+SHARDED_TV_CFG = dict(act_tol=1e-3, gamma=1e3, al_iters=2, cg_tol=1e-10,
+                      cg_maxiter=1000)
+SHARDED_CALLS = dict(
+    tv=dict(maxiter=1000, cfg=SHARDED_TV_CFG),
+    sumregs=dict(maxiter=1000, cfg=SHARDED_TV_CFG),
+    tgv=dict(maxiter=500, cg_maxiter=200),
+    vtv=dict(maxiter=500, cg_maxiter=200),
+    tvl1=dict(maxiter=1000, cg_maxiter=200))
+SHARDED_U_GATE = 1e-10
+SHARDED_COST_GATE_REL = 1e-10
+SHARDED_GRAD_RTOL = 2e-4
+# phase 55: the mesh learn against the same learn unsharded, (x, cost)
+# relative: 4-85 times the gaps read on an H100 80GB HBM3 at 700 W (TGV²
+# 7.1e-7 / 1.2e-7, VTV 9.8e-6 / 2.5e-5, TV-L1 on three images 7.5e-5 /
+# 1.8e-5; a run repeats its digits).  The gaps come from the adjoint CGs:
+# a shard's CG stops when its own images reach the CG's tolerance, the
+# whole batch's iterates on until all do.
+MESH_SMOOTH_GATES = dict(tgv=(1e-5, 1e-5), vtv=(1e-4, 1e-4),
+                         tvl1=(5e-4, 1e-4))
+
+
+def card_devices(n):
+    """``n`` shards on the one card (the counterpart of XLA's virtual
+    devices)."""
+    return ["cuda:0"] * n
+
+
+def card_mesh(n):
+    from bpldenoising_tpu_torch.parallel import make_batch_mesh
+    return make_batch_mesh(devices=card_devices(n))
+
+
+def phase_mesh_flagship(utrue, f, flagship, timed):
+    """Phase 53: bilevel_learn_fused at the bench settings over
+    MESH_SHARDS shards on the card (10 images pad to 12: the last shard
+    holds one image and two zero images), gated as phase 5; kernels A and
+    B launched shards × evaluations times, all in the cluster /
+    cooperative form, no plain call; then the entry point with
+    data_parallel=True on the default mesh (one card, one shard) against
+    phase 5 bit for bit."""
+    import numpy as np
+    import torch
+    from bpldenoising_tpu_torch.bilevel.fused import bilevel_learn_fused
+    from bpldenoising_tpu_torch.experiments import api
+    from bpldenoising_tpu_torch.metrics import psnr
+
+    kw = flagship_kwargs()
+    lkw = dict(xinit=kw["alpha0"],
+               params=api.bilevel_params | dict(maxiter=kw["maxiter"],
+                                                tol=kw["tol"]),
+               inner_maxiter=kw["inner_maxiter"],
+               inner_tol=kw["inner_tol"], check_every=kw["check_every"],
+               cfg=kw["hypergrad_cfg"], delta_t=1e-6, device="cuda",
+               mesh=card_mesh(MESH_SHARDS))
+    bilevel_learn_fused((utrue, f), **lkw)              # warm-up
+    unsharded = dict(lkw, mesh=None)
+    bilevel_learn_fused((utrue, f), **unsharded)
+    _, one_ms = timed(lambda: bilevel_learn_fused((utrue, f), **unsharded))
+    plain, restore = watch_plain()
+    try:
+        reset_launches()
+        res, wall_ms = timed(lambda: bilevel_learn_fused((utrue, f), **lkw))
+        a, b = kernel_a_forms(), kernel_b_forms()
+    finally:
+        restore()
+    evals = res.iterations + 1
+    alpha = float(res.x)
+    d_alpha = abs(alpha - FLAGSHIP_ALPHA)
+    mean_psnr = float(torch.mean(psnr(utrue, res.u)))
+    cost = float(res.cost)
+    say(f"  {MESH_SHARDS} shards: alpha {alpha:.6f} |d| {d_alpha:.2e} "
+        f"(gate {ALPHA_GATE:g}); PSNR {mean_psnr:.4f} dB; cost {cost:.4f}; "
+        f"{res.iterations} outer its ({evals} evaluations); wall "
+        f"{wall_ms:.1f} ms against {one_ms:.1f} ms unsharded (the same "
+        "library call on the same tensors; CUDA events, after one warm-up "
+        "run each)")
+    say_kernel_a_forms(a)
+    say_kernel_b_forms(b)
+    require(a["calls"] == MESH_SHARDS * evals == a["cluster"],
+            f"kernel A: {a['calls']} calls ({a['cluster']} cluster), want "
+            f"{MESH_SHARDS} x {evals}")
+    require(b["calls"] == MESH_SHARDS * evals and kernel_b_cooperative(b),
+            f"kernel B: {b}, want {MESH_SHARDS} x {evals} cooperative")
+    require(not plain, f"plain versions called: {sorted(set(plain))}")
+    require(tuple(res.u.shape) == tuple(utrue.shape)
+            and bool(torch.isfinite(res.u).all()), "mesh u")
+    require(d_alpha <= ALPHA_GATE, f"mesh alpha {alpha} off by {d_alpha}")
+    require(abs(mean_psnr - FLAGSHIP_PSNR) <= PSNR_GATE,
+            f"mesh mean PSNR {mean_psnr}")
+    require(abs(cost - FLAGSHIP_COST) <= COST_GATE_REL * FLAGSHIP_COST,
+            f"mesh cost {cost}")
+    reset_launches()
+    one = api.scalar_bilevel_tv_learn(device="cuda", data_parallel=True,
+                                      **kw)
+    a1 = kernel_a_forms()
+    same = (np.array_equal(one.x, flagship.x) and one.cost == flagship.cost
+            and np.array_equal(one.u, flagship.u)
+            and one.iterations == flagship.iterations)
+    cards = torch.cuda.device_count()
+    say(f"  data_parallel=True on the default mesh ({cards} card, one "
+        f"shard): alpha {float(one.x)!r} against phase 5's "
+        f"{float(flagship.x)!r}, bit for bit: {same}; kernel A "
+        f"{a1['calls']} calls")
+    require(same, "the one-shard mesh learn is not phase 5's, bit for bit")
+    return dict(shards=MESH_SHARDS, alpha=alpha, alpha_abs_err=d_alpha,
+                mean_psnr_db=mean_psnr, final_cost=cost,
+                outer_iterations=res.iterations, wall_ms=wall_ms,
+                unsharded_wall_ms=one_ms, kernel_a=a, kernel_b=b,
+                one_shard_bit_for_bit=same)
+
+
+def sharded_inputs(name, n):
+    """The first ``n`` images of a family's dataset, float64 on the card
+    (TV-L1: circle_sp's one image and its mirror images)."""
+    import numpy as np
+    import torch
+    from bpldenoising_tpu_torch.data import testdataset
+    if name == "vtv":
+        t, d = testdataset("color_disks_128_10", color=True)
+    elif name == "tvl1":
+        t, d = (mirrored(torch.as_tensor(a))
+                for a in testdataset("circle_sp_128_20"))
+    else:
+        t, d = testdataset("faces_train_128_10")
+    return tuple(torch.as_tensor(np.ascontiguousarray(a[:n]),
+                                 dtype=torch.float64).cuda() for a in (t, d))
+
+
+def mirrored(a):
+    """circle_sp's one image and its two mirror images, (3, M, N)."""
+    import torch
+    return torch.cat([a, a.flip(-2), a.flip(-1)])
+
+
+def sharded_function(name, n):
+    from bpldenoising_tpu_torch import parallel as par
+    from bpldenoising_tpu_torch.solvers.hypergrad import HypergradConfig
+    kw = dict(SHARDED_CALLS[name])
+    if "cfg" in kw:
+        kw["cfg"] = HypergradConfig(**kw["cfg"])
+    make = getattr(par, f"make_sharded_{name}_learning_function")
+    return make(card_mesh(n), **kw)
+
+
+def phase_mesh_tr():
+    """Phase 54: (a) scalar_bilevel_tv_learn and scalar_bilevel_sumregs_learn
+    with method='tr' and data_parallel=True (the sharded learning
+    functions on the default mesh), float64, 3 outer its, against the same
+    learns unsharded; (b) each of the five sharded learning functions on 3
+    images over 4 shards against 3 over 3, and 3 over 3 against the
+    unsharded learning function of its family."""
+    import numpy as np
+    import torch
+    from bpldenoising_tpu_torch import learning
+    from bpldenoising_tpu_torch.bilevel import trust_region
+    from bpldenoising_tpu_torch.experiments import api
+    from bpldenoising_tpu_torch.solvers.hypergrad import HypergradConfig
+
+    out = {}
+    for name, learn in (("tv", api.scalar_bilevel_tv_learn),
+                        ("sumregs", api.scalar_bilevel_sumregs_learn)):
+        kw = dict(dataset_name="faces_train", num_samples=10, maxiter=3,
+                  device="cuda")
+        reset_launches()
+        reads = trust_region.host_reads
+        dp = learn(data_parallel=True, **kw)
+        a, b = kernel_a_forms(), kernel_b_forms()
+        evals = trust_region.host_reads - reads
+        one = learn(**kw)
+        d_x = float(np.max(np.abs(np.asarray(dp.x) - np.asarray(one.x)))
+                    / np.max(np.abs(np.asarray(one.x))))
+        d_c = abs(dp.cost - one.cost) / abs(one.cost)
+        say(f"  {name} tr data_parallel: x {np.ravel(dp.x).tolist()} "
+            f"against unsharded {np.ravel(one.x).tolist()}: rel {d_x:.2e}, "
+            f"cost rel {d_c:.2e}; {evals} evaluations, kernel A "
+            f"{a['calls']} calls ({a['cluster']} cluster), kernel B "
+            f"{b['calls']}")
+        require(d_x <= 1e-10 and d_c <= 1e-10,
+                f"{name}: sharded tr off the unsharded run")
+        require(a["calls"] == b["calls"] == evals > 0
+                and a["cluster"] == a["calls"] and kernel_b_cooperative(b),
+                f"{name}: kernel counts {a}, {b} for {evals} evaluations")
+        out[name] = dict(x_rel=d_x, cost_rel=d_c, evaluations=evals)
+    x_of = dict(tv=0.07, sumregs=np.array([0.03, 0.03, 0.01]),
+                tgv=np.array([0.085, 0.044]), vtv=np.asarray(0.165),
+                tvl1=np.asarray(1.9))
+    rows = dict(tgv="tgv", vtv="vtv", tvl1="tvl1")
+    for name in ("tv", "sumregs", "tgv", "vtv", "tvl1"):
+        ds = sharded_inputs(name, 3)
+        res = {}
+        for n in (3, 4):
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[n] = sharded_function(name, n)(x_of[name], ds, 0.1)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = read_launches()
+        u, c, g = res[4]
+        finite = all(bool(torch.isfinite(torch.as_tensor(t)).all())
+                     for t in res[4])
+        same = all(torch.equal(torch.as_tensor(p).cpu(),
+                               torch.as_tensor(q).cpu())
+                   for p, q in zip(res[4], res[3]))
+        kern = (counts["pdps"], counts["hypergrad"]) if name in (
+            "tv", "sumregs") else (counts[rows[name]],)
+        say(f"  {name} sharded, 3 images over 4 shards (one all padding): "
+            f"cost {float(c)!r}, finite {finite}, the bits of 3 over 3: "
+            f"{same}; kernel calls {kern} (want 4 each); {ms:.1f} ms")
+        require(finite and same, f"{name}: the padding shard is not "
+                "exactly zero (or a value is not finite)")
+        require(all(k == 4 for k in kern), f"{name}: kernel calls {kern}")
+        kw = dict(SHARDED_CALLS[name])
+        if "cfg" in kw:
+            kw["cfg"] = HypergradConfig(**kw["cfg"])
+        ur, cr, gr = getattr(learning, f"{name}_learning_function")(
+            x_of[name], ds, 0.1, device="cuda", **kw)
+        u3, c3, g3 = res[3]
+        d_u = float(torch.max(torch.abs(u3 - ur)))
+        d_c = abs(float(c3) - float(cr)) / abs(float(cr))
+        g3, gr = (np.ravel(torch.as_tensor(g).cpu().numpy()) for g in (g3, gr))
+        d_g = float(np.max(np.abs(g3 - gr)) / np.max(np.abs(gr)))
+        say(f"  {name} 3 over 3 against the unsharded learning function: "
+            f"u {d_u:.2e} (gate {SHARDED_U_GATE:g}), cost rel {d_c:.2e} "
+            f"(gate {SHARDED_COST_GATE_REL:g}), gradient {g3.tolist()} "
+            f"against {gr.tolist()}: rel {d_g:.2e} "
+            f"(gate {SHARDED_GRAD_RTOL:g})")
+        require(d_u <= SHARDED_U_GATE and d_c <= SHARDED_COST_GATE_REL
+                and d_g <= SHARDED_GRAD_RTOL,
+                f"{name}: sharded evaluation off the unsharded one")
+        out[f"{name}_padding"] = dict(cost=float(c), bit_for_bit=same,
+                                      kernel_calls=list(kern), ms=ms,
+                                      unsharded_u_abs=d_u,
+                                      unsharded_cost_rel=d_c,
+                                      unsharded_grad_rel=d_g)
+    return out
+
+
+def phase_mesh_smoothed():
+    """Phase 55: the fused TGV², TV-L1 and VTV learns (phases 8, 11, 15's
+    float32 settings, cut to 3 outer its; TV-L1 on circle_sp and its two
+    mirror images, so both shards hold real images and one a padding
+    image) with data_parallel=True on SMOOTH_MESH_SHARDS shards of the
+    card, against the same learns unsharded within MESH_SMOOTH_GATES;
+    rows 4, 8 and 6 launched shards × evaluations times in the cluster
+    form, no plain CP call."""
+    import numpy as np
+    from bpldenoising_tpu_torch.experiments import api, tgv, tvl1, vtv
+
+    runs = dict(tgv=(tgv.scalar_bilevel_tgv_learn, tgv_learn_kwargs()),
+                tvl1=(tvl1.scalar_bilevel_tvl1_learn, tvl1_learn_kwargs()),
+                vtv=(vtv.scalar_bilevel_vtv_learn, vtv_learn_kwargs()))
+    real_mesh, real_load = api.data_parallel_mesh, api._load
+
+    def tvl1_load(params, device):
+        return tuple(mirrored(a) for a in real_load(params, device))
+
+    out = {}
+    for name, (learn, kw) in runs.items():
+        kw = dict(kw, maxiter=3, device="cuda")
+        if name == "tvl1":
+            api._load = tvl1_load
+        try:
+            api.data_parallel_mesh = (
+                lambda device: card_mesh(SMOOTH_MESH_SHARDS))
+            plain, restore = watch_plain(cp=True)
+            try:
+                reset_launches()
+                t0 = time.perf_counter()
+                dp = learn(data_parallel=True, **kw)
+                ms = (time.perf_counter() - t0) * 1e3
+                counts = read_launches()
+            finally:
+                restore()
+                api.data_parallel_mesh = real_mesh
+            one = learn(**kw)
+        finally:
+            api._load = real_load
+        x_rel = float(np.max(np.abs(np.asarray(dp.x) - np.asarray(one.x))
+                             / np.abs(np.asarray(one.x))))
+        c_rel = abs(dp.cost - one.cost) / abs(one.cost)
+        evals = dp.iterations + 1
+        a_gate, c_gate = MESH_SMOOTH_GATES[name]
+        say(f"  {name} on {SMOOTH_MESH_SHARDS} shards, {len(dp.u)} images: "
+            f"x {np.ravel(dp.x).tolist()} against unsharded "
+            f"{np.ravel(one.x).tolist()} (rel {x_rel:.2e}, gate "
+            f"{a_gate:g}); cost rel {c_rel:.2e} (gate {c_gate:g}); "
+            f"{dp.iterations} "
+            f"outer its; {name} kernel {counts[name]} calls (want "
+            f"{SMOOTH_MESH_SHARDS} x {evals}); plain CP calls {len(plain)}; "
+            f"{ms:.1f} ms")
+        require(x_rel <= a_gate and c_rel <= c_gate,
+                f"{name}: mesh learn off its unsharded run")
+        require(counts[name] == SMOOTH_MESH_SHARDS * evals,
+                f"{name}: {counts[name]} kernel calls")
+        require(not plain, f"{name}: plain calls {sorted(set(plain))}")
+        require(np.all(np.isfinite(dp.u)), f"{name}: u not finite")
+        out[name] = dict(x_rel=x_rel, cost_rel=c_rel, ms=ms,
+                         kernel_calls=counts[name], evaluations=evals)
+    return out
+
+
+def halo_image(torch, shape, seed):
+    """A disc under Gaussian noise, (…, M, N) float32 on the card."""
+    g = torch.Generator().manual_seed(seed)
+    M, N = shape[-2:]
+    yy, xx = torch.meshgrid(torch.arange(M), torch.arange(N), indexing="ij")
+    disc = (((yy - M / 2) ** 2 + (xx - N / 2) ** 2)
+            < (min(M, N) / 3) ** 2).float()
+    f = disc.expand(shape) + 0.1 * torch.randn(shape, generator=g)
+    return f.contiguous().cuda()
+
+
+def phase_halo():
+    """Phase 56: the halo solvers (plain PyTorch on row blocks) row-sharded
+    4 ways at 1×1024² (VTV 1×3×512²) and batch × rows 2 × 2 at 2×1024²
+    (VTV 2×3×512²), HALO_ITERS iterations each, against the unsharded
+    public denoisers (kernel A, the TGV² kernel, the VTV kernel, the TV-L1
+    kernel) at the same budget without early stop; float32, within
+    HALO_TOL_REL of the kernel's largest value."""
+    import torch
+    from bpldenoising_tpu_torch.models import sumregs_model, tv_model
+    from bpldenoising_tpu_torch.parallel import halo
+    from bpldenoising_tpu_torch.parallel.mesh import (ROWS_AXIS, Mesh,
+                                                      make_batch_rows_mesh)
+    from bpldenoising_tpu_torch.solvers import (denoise_pdps,
+                                                tgv_denoise_pdps,
+                                                tvl1_denoise, vtv_denoise)
+
+    rows = Mesh(card_devices(4), (ROWS_AXIS,))
+    grid = make_batch_rows_mesh(2, 2, card_devices(4))
+    it = HALO_ITERS
+    amap = 0.05 + 0.05 * torch.rand((1024, 1024),
+                                    generator=torch.Generator().manual_seed(3))
+    amap = amap.cuda()
+    cases = dict(
+        tv=(lambda f, m, b: (halo.denoise_pdps_batch_row_sharded if b else
+                             halo.denoise_pdps_row_sharded)(
+                                 f, (0.1,), tv_model(), m, maxiter=it),
+            lambda f: denoise_pdps(f, (0.1,), tv_model(), maxiter=it), 2),
+        sum3_map=(lambda f, m, b: (halo.denoise_pdps_batch_row_sharded if b
+                                   else halo.denoise_pdps_row_sharded)(
+                                       f, (amap, 0.03, 0.01), sumregs_model(),
+                                       m, maxiter=it),
+                  lambda f: denoise_pdps(f, (amap, 0.03, 0.01),
+                                         sumregs_model(), maxiter=it), 2),
+        tgv=(lambda f, m, b: (halo.tgv_denoise_pdps_batch_row_sharded if b
+                              else halo.tgv_denoise_pdps_row_sharded)(
+                                  f, 0.1, 0.2, m, maxiter=it)[0],
+             lambda f: tgv_denoise_pdps(f, 0.1, 0.2, maxiter=it)[0], 2),
+        vtv=(lambda f, m, b: (halo.vtv_denoise_pdps_batch_row_sharded if b
+                              else halo.vtv_denoise_pdps_row_sharded)(
+                                  f, 0.1, m, maxiter=it),
+             lambda f: vtv_denoise(f, 0.1, maxiter=it), 3),
+        tvl1=(lambda f, m, b: (halo.tvl1_denoise_batch_row_sharded if b
+                               else halo.tvl1_denoise_row_sharded)(
+                                   f, 0.4, m, maxiter=it),
+              lambda f: tvl1_denoise(f, 0.4, maxiter=it), 2))
+    out = {}
+    for name, (sharded, kernel, ndim) in cases.items():
+        side = 512 if name == "vtv" else 1024
+        one_shape = (3, side, side) if ndim == 3 else (side, side)
+        for label, mesh, batch in (("rows 4", rows, False),
+                                   ("batch x rows 2x2", grid, True)):
+            shape = ((2,) + one_shape) if batch else one_shape
+            f = halo_image(torch, shape, seed=len(out))
+            want = kernel(f)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = sharded(f, mesh, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            err = rel_err(got, want)
+            say(f"  {name} {label} {tuple(shape)}: max error {err:.2e} "
+                f"relative (gate {HALO_TOL_REL:g}); {ms:.1f} ms, "
+                f"{ms / it * 1e3:.1f} us an iteration")
+            require(err <= HALO_TOL_REL and bool(torch.isfinite(got).all()),
+                    f"halo {name} {label}: {err:.2e} from the kernel")
+            out[f"{name} {label}"] = dict(max_rel_err=err, ms=ms,
+                                          us_per_iter=ms / it * 1e3)
+    return out
+
+
 def flagship_kwargs():
     from bpldenoising_tpu_torch.solvers.hypergrad import HypergradConfig
     return dict(dataset_name="faces_train", num_samples=10,
@@ -4866,6 +5269,42 @@ def main():
     faults = [m for st in later.values() for m in st.pop("faults")]
     require(not faults, "; ".join(faults))
 
+    parallel = {}
+    walls = {}
+    with results_not_saved():
+        t_phase = time.perf_counter()
+        say(f"phase 53 the flagship on a mesh: bilevel_learn_fused over "
+            f"['cuda:0'] * {MESH_SHARDS} at the bench settings, then "
+            "scalar_bilevel_tv_learn(data_parallel=True) on the default mesh")
+        parallel["flagship_mesh"] = phase_mesh_flagship(utrue, f, flagship,
+                                                        timed)
+        walls[53] = time.perf_counter() - t_phase
+        say(f"  phase 53: {walls[53]:.1f} s")
+        t_phase = time.perf_counter()
+        say("phase 54 method='tr' with data_parallel=True (TV, sum of "
+            "regularizers; float64, 3 outer its), then the five sharded "
+            "learning functions on 3 images over 4 shards, and over 3 "
+            "against the unsharded functions")
+        parallel["tr_sharded"] = phase_mesh_tr()
+        walls[54] = time.perf_counter() - t_phase
+        say(f"  phase 54: {walls[54]:.1f} s")
+        t_phase = time.perf_counter()
+        say(f"phase 55 the fused TGV², TV-L1 and VTV learns with "
+            f"data_parallel=True on {SMOOTH_MESH_SHARDS} shards (float32, "
+            "3 outer its) against their unsharded runs")
+        parallel["smoothed_mesh"] = phase_mesh_smoothed()
+        walls[55] = time.perf_counter() - t_phase
+        say(f"  phase 55: {walls[55]:.1f} s")
+        t_phase = time.perf_counter()
+        say(f"phase 56 the halo solvers (rows 4, batch x rows 2x2; "
+            f"{HALO_ITERS} its, float32) against the kernels")
+        parallel["halo"] = phase_halo()
+        walls[56] = time.perf_counter() - t_phase
+        say(f"  phase 56: {walls[56]:.1f} s")
+    say("  phases 53-56 walls (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in walls.items()) + f"; {smi}")
+    parallel["walls_s"] = walls
+
     itemsize = 4
     a_bytes = 4 * n * itemsize                  # f in; u, y out
     a_ops = A_OPS_PER_PIXEL_ITER * n * a_stats["iters"]
@@ -5059,7 +5498,8 @@ def main():
         "single_loop_vtv": slx["vtv"], "forms_a": forms_a,
         "forms_b": forms_b, "forms_f64_max_rel_err": forms_f64,
         "tv_family_learns": tvf, "tr_learns": tr, "reporting": reporting,
-        "segmented_resume_trace_layers": later, "device": smi}))
+        "segmented_resume_trace_layers": later, "parallel": parallel,
+        "device": smi}))
     faulthandler.cancel_dump_traceback_later()
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

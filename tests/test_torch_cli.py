@@ -79,15 +79,16 @@ def test_bad_command_exits():
          "backend"])
 def test_unported_flags_exit_and_name_their_item(capsys, argv, item):
     """What is not ported exits with status 2, names its ROADMAP.md item
-    and writes nothing; item 7's flags run since it was ported, as in the
-    JAX package: --trace writes the Chrome trace, --checkpoint and
+    and writes nothing; item 7's flags and item 10's --data-parallel (one
+    shard with --device cpu) run since they were ported, as in the JAX
+    package: --trace writes the Chrome trace, --checkpoint and
     --resume (with no checkpoint yet: a fresh run) the checkpoint at the
     fused loop's segment end (the host loop writes one only after an
     accepted step), --log-every the log with real times."""
     run = ["scalar-tv", "--dataset", "circle", "--maxiter", "1",
            "--inner-maxiter", "10"] + CPU + argv
     log = "output/circle_128_10/tv_optimal_parameter_scalar_circle_128_10"
-    if item == 7:
+    if item in (7, 10):
         main(run)
         assert "iterations = 1" in capsys.readouterr().out
         with open(log + ".txt") as fh:

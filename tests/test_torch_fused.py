@@ -34,6 +34,7 @@ from bpldenoising_tpu_torch.models import sumregs_model
 from bpldenoising_tpu_torch.solvers import lbfgs as tlb
 from bpldenoising_tpu_torch.solvers.hypergrad import HypergradConfig
 from bpldenoising_tpu_torch.utils.config import Params, merge
+from bpldenoising_tpu_torch.parallel import make_batch_mesh
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -203,17 +204,23 @@ def test_library_learner_takes_the_jax_keywords(knob):
     """bilevel_learn_fused takes the JAX function's mesh, log_every,
     segment_callback and init_B: None runs (one 8×8 image); log_every,
     segment_callback (with log_every) and init_B run as in the JAX
-    function (its segmented run, to 1e-8); any other mesh raises
-    NotImplementedError (ROADMAP.md item 10), and a segment_callback
-    without log_every raises ValueError."""
+    function (its segmented run, to 1e-8); a one-shard mesh on the CPU
+    runs the unsharded learn bit for bit and a mesh with log_every raises
+    ValueError, as in the JAX function (meshes against the JAX package's:
+    tests/test_torch_parallel.py), and a segment_callback without
+    log_every raises ValueError."""
     ds = _dataset(1, 8, seed=2)
     kw = dict(xinit=0.1, params=Params(TR, maxiter=3), inner_maxiter=5,
               device="cpu")
     res = bilevel_learn_fused(ds, **kw, **{knob: None})
     assert res.iterations == 3
     if knob == "mesh":
-        with pytest.raises(NotImplementedError, match="item 10"):
-            bilevel_learn_fused(ds, **kw, mesh=object())
+        mesh = make_batch_mesh(devices=["cpu"])
+        one = bilevel_learn_fused(ds, **kw, mesh=mesh)
+        assert torch.equal(one.x, res.x) and torch.equal(one.log, res.log)
+        assert torch.equal(one.u, res.u)
+        with pytest.raises(ValueError, match="log_every"):
+            bilevel_learn_fused(ds, **kw, mesh=mesh, log_every=1)
         return
     hops = []
     value = {"log_every": dict(log_every=2),

@@ -29,6 +29,7 @@ from bpldenoising_tpu_torch.bilevel.fused_tgv import (bilevel_learn_tgv_fused,
                                                       tgv_param_layout)
 from bpldenoising_tpu_torch.solvers import tgv_cuda
 from bpldenoising_tpu_torch.utils.config import Params
+from bpldenoising_tpu_torch.parallel import make_batch_mesh
 from test_torch_fused import (one_torch_thread,  # noqa: F401 (autouse)
                              results_in_tmp)
 
@@ -99,11 +100,17 @@ def test_param_layout_and_refusals():
         bilevel_learn_tgv_fused(ds, xinit=np.array([0.05, 0.0]), params=p,
                                 device="cpu")
     kw = dict(xinit=np.array([0.05, 0.05]), params=p, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        bilevel_learn_tgv_fused(ds, mesh=1, **kw)
+    # a mesh does not compose with segmented dispatch, as in the JAX package
+    mesh = make_batch_mesh(devices=["cpu"])
+    with pytest.raises(ValueError, match="log_every"):
+        bilevel_learn_tgv_fused(ds, mesh=mesh, log_every=1, **kw)
     # segmented dispatch runs the single run's bits; an init_B of another
     # shape than the model's is ignored, as in the JAX package
     one = bilevel_learn_tgv_fused(ds, **kw)
+    # a one-shard mesh on the CPU runs the unsharded learn bit for bit
+    # (meshes against the JAX package's: tests/test_torch_parallel.py)
+    dp = bilevel_learn_tgv_fused(ds, mesh=mesh, **kw)
+    assert torch.equal(dp.x, one.x) and torch.equal(dp.log, one.log)
     seg = bilevel_learn_tgv_fused(ds, log_every=1, init_B=1, **kw)
     assert torch.equal(seg.x, one.x) and torch.equal(seg.log, one.log)
     assert one.times is None and seg.times.shape == (one.iterations,)

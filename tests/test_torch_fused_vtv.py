@@ -37,6 +37,7 @@ from bpldenoising_tpu_torch.bilevel.fused_vtv import (
     bilevel_learn_vtv_fused, vtv_param_layout)
 from bpldenoising_tpu_torch.solvers import vtv_cuda
 from bpldenoising_tpu_torch.utils.config import Params
+from bpldenoising_tpu_torch.parallel import make_batch_mesh
 from test_torch_vtv import color_phantoms
 from test_torch_fused import (one_torch_thread,  # noqa: F401 (autouse)
                              results_in_tmp)
@@ -111,11 +112,17 @@ def test_param_layout_and_refusals():
         bilevel_learn_vtv_fused((ds[0][0, 0], ds[1][0, 0]),
                                 xinit=np.array(0.05), params=p, device="cpu")
     kw = dict(xinit=np.array(0.05), params=p, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        bilevel_learn_vtv_fused(ds, mesh=1, **kw)
+    # a mesh does not compose with segmented dispatch, as in the JAX package
+    mesh = make_batch_mesh(devices=["cpu"])
+    with pytest.raises(ValueError, match="log_every"):
+        bilevel_learn_vtv_fused(ds, mesh=mesh, log_every=1, **kw)
     # segmented dispatch runs the single run's bits; an init_B of another
     # shape than the model's is ignored, as in the JAX package
     one = bilevel_learn_vtv_fused(ds, **kw)
+    # a one-shard mesh on the CPU runs the unsharded learn bit for bit
+    # (meshes against the JAX package's: tests/test_torch_parallel.py)
+    dp = bilevel_learn_vtv_fused(ds, mesh=mesh, **kw)
+    assert torch.equal(dp.x, one.x) and torch.equal(dp.log, one.log)
     seg = bilevel_learn_vtv_fused(ds, log_every=1, init_B=1, **kw)
     assert torch.equal(seg.x, one.x) and torch.equal(seg.log, one.log)
     assert one.times is None and seg.times.shape == (one.iterations,)
@@ -193,14 +200,13 @@ def test_vtv_denoise_matches_jax(parameter):
     dict(backend="pallas"), dict(visualise=True)],
     ids=lambda k: next(iter(k)) + "=" + str(next(iter(k.values()))))
 def test_entry_points_refuse_what_is_not_ported(knob, in_tmp):
-    """Each knob that is not ported raises; checkpoint and log_every (item
-    7) run as in the JAX package; method="tr" (the host trust
-    region) runs and matches the JAX entry point to 1e-8 (its whole
-    comparison is in tests/test_torch_tr_learn.py); save_results=True
-    writes the log, the quality table and the PNGs under the JAX prefix
-    (the file sets against the JAX package's are in
-    tests/test_torch_reporting.py), and visualise=True with the fused loop
-    runs, as in the JAX package."""
+    """Each knob that is not ported raises; checkpoint and log_every (item 7)
+    and data_parallel (item 10) run as in the JAX package; method="tr" (the
+    host trust region) runs and matches the JAX entry point to 1e-8 (its whole
+    comparison is in tests/test_torch_tr_learn.py); save_results=True writes
+    the log, the quality table and the PNGs under the JAX prefix (the file
+    sets against the JAX package's are in tests/test_torch_reporting.py), and
+    visualise=True with the fused loop runs, as in the JAX package."""
     for name in ("scalar_bilevel_vtv_learn", "patch_bilevel_vtv_learn"):
         learn = getattr(tx, name)
         if knob == dict(method="tr"):
@@ -235,6 +241,16 @@ def test_entry_points_refuse_what_is_not_ported(knob, in_tmp):
             if "checkpoint" in knob:
                 out = os.path.join("output", "color_disks_128_10")
                 assert any(f.endswith("_ckpt.npz") for f in os.listdir(out))
+            continue
+        if knob == dict(data_parallel=True):
+            # ported (item 10): with device="cpu" the mesh is one shard on
+            # the CPU, which runs the unsharded learn bit for bit (meshes
+            # of several shards against the JAX package's:
+            # tests/test_torch_parallel.py)
+            res = learn(device="cpu", **dict(ENTRY, **knob))
+            one = learn(device="cpu", **ENTRY)
+            np.testing.assert_array_equal(res.x, one.x)
+            np.testing.assert_array_equal(res.u, one.u)
             continue
         with pytest.raises(NotImplementedError):
             learn(device="cpu", **dict(ENTRY, **knob))

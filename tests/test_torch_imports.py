@@ -93,17 +93,20 @@ SLICE_MODULES = ("ops/tgv.py", "ops/patch.py", "solvers/tgv.py",
                  "data/png_io.py", "experiments/api.py",
                  "utils/checkpoint.py", "utils/profiling.py",
                  "solvers/implicit.py", "bilevel/tr_core.py",
-                 "bilevel/fused.py")
+                 "bilevel/fused.py", "parallel/__init__.py",
+                 "parallel/mesh.py", "parallel/distributed.py",
+                 "parallel/sharded.py", "parallel/halo.py")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)
 def test_tgv_slice_modules_are_checked(module):
     """The TGV, TV-L1, VTV, single-loop, host trust-region, reporting,
-    segmented-dispatch and implicit-layer slices' modules (the four
-    families' single-loop learners, the result types, the host trust
+    segmented-dispatch, implicit-layer and parallel slices' modules (the
+    four families' single-loop learners, the result types, the host trust
     region and its learning functions, the command line, the plots, SSIM
-    and PNG writing, checkpoints, profiling, the differentiable layers)
-    exist and are among the sources checked above (so they import no
+    and PNG writing, checkpoints, profiling, the differentiable layers,
+    the meshes, the multi-host set-up, the sharded learning functions and
+    the halo solvers) exist and are among the sources checked above (so they import no
     JAX)."""
     assert PORT / module in SOURCES
 

@@ -317,8 +317,8 @@ def test_tr_matches_tr_fused_at_fixed_budget(case, monkeypatch):
 
     host = bilevel_learn(ds, spy_lf, xinit=x0, params=params)
     module = __import__(fused.__module__, fromlist=["_machinery"])
-    step_name = next(n for n in ("tv_step", "tgv_step", "tvl1_step",
-                                 "vtv_step") if hasattr(module, n))
+    step_name = next(n for n in ("tv_local", "tgv_local", "tvl1_local",
+                                 "vtv_local") if hasattr(module, n))
     step = getattr(module, step_name)
 
     def spy_step(x, *a, **k):
@@ -355,13 +355,17 @@ def test_tr_matches_tr_fused_at_fixed_budget(case, monkeypatch):
 
 
 def test_entry_points_refuse_the_unported_knobs():
-    """data_parallel and another backend still raise with method="tr",
-    naming their ROADMAP.md item; checkpoint and resume with method="tr"
-    and save_iterations with the fused loop (item 7) run: the TV entry
-    point lands at the JAX package's x (1e-8) and writes its checkpoint
-    or snapshot, the TGV² one runs; an unknown method raises ValueError.
-    (save_results, save_iterations with method="tr" and visualise run:
-    tests/test_torch_reporting.py.)"""
+    """Another backend still raises with method="tr", naming what the
+    port takes; checkpoint and resume with method="tr" and save_iterations
+    with the fused loop (item 7) run: the TV entry point lands at the JAX
+    package's x (1e-8) and writes its checkpoint or snapshot, the TGV² one
+    runs; data_parallel (item 10) runs: with device="cpu" the TV learn's
+    sharded learning function on one CPU shard gives the unsharded
+    learn's x bit for bit, and the TGV² learn does not read the flag, as
+    in the JAX package (meshes of several shards against the JAX
+    package's: tests/test_torch_parallel*.py); an unknown method raises
+    ValueError.  (save_results, save_iterations with method="tr" and
+    visualise run: tests/test_torch_reporting.py.)"""
     for knob, item in ((dict(checkpoint=True), 7), (dict(resume=True), 7),
                        (dict(save_iterations=True, method="tr_fused"), 7),
                        (dict(data_parallel=True), 10),
@@ -379,6 +383,14 @@ def test_entry_points_refuse_the_unported_knobs():
             np.testing.assert_allclose(res.x, np.asarray(jres.x), rtol=RTOL)
             res = ttgv_x.scalar_bilevel_tgv_learn(device="cpu", **kw)
             assert res.iterations == 2
+            continue
+        if item == 10:
+            for learn in (tx.scalar_bilevel_tv_learn,
+                          ttgv_x.scalar_bilevel_tgv_learn):
+                res = learn(device="cpu", **kw)
+                one = learn(device="cpu", **TV_ENTRY)
+                np.testing.assert_array_equal(res.x, one.x)
+                assert res.cost == one.cost
             continue
         # each refusal names the ROADMAP.md item that ports the knob
         match = "backend" if item is None else f"§1 item {item}"
