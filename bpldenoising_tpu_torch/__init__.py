@@ -58,12 +58,15 @@ from .experiments import (L2CostFunction, TGVDenoise, TVDenoise,
 from .learning import (make_sumregs_learning_function,
                        make_tgv_learning_function, make_tv_learning_function,
                        make_tvl1_learning_function,
-                       make_vtv_learning_function)
+                       make_vtv_learning_function, sumregs_learning_function,
+                       tgv_learning_function, tv_learning_function,
+                       vtv_learning_function)
 from .models import sumregs_model, tv_model, vtv_model
 from .solvers import (denoise_pdps, diff_denoise, diff_tgv_denoise,
                       diff_tv_denoise, diff_tvl1_denoise, diff_vtv_denoise,
-                      sumregs_denoise, tv_denoise, tvl1_denoise, tvl1_energy,
-                      tvl1_huber_denoise, vtv_denoise)
+                      sumregs_denoise, tgv_denoise_pdps, tv_denoise,
+                      tvl1_denoise, tvl1_energy, tvl1_huber_denoise,
+                      vtv_denoise)
 from .solvers.lbfgs import LBFGSModel
 
 __all__ = ["scalar_bilevel_tv_learn", "patch_bilevel_tv_learn",
@@ -90,4 +93,7 @@ __all__ = ["scalar_bilevel_tv_learn", "patch_bilevel_tv_learn",
            "generate_tgv_cost_plot", "generate_tvl1_cost",
            "generate_tvl1_cost_plot", "generate_vtv_cost",
            "generate_vtv_cost_plot", "diff_tv_denoise", "diff_denoise",
-           "diff_tgv_denoise", "diff_tvl1_denoise", "diff_vtv_denoise"]
+           "diff_tgv_denoise", "diff_tvl1_denoise", "diff_vtv_denoise",
+           "tv_learning_function", "sumregs_learning_function",
+           "tgv_learning_function", "vtv_learning_function",
+           "tgv_denoise_pdps"]

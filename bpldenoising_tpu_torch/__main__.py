@@ -14,8 +14,12 @@ the kernels' plain versions)::
 ``auto``.  ``--trace DIR`` writes a ``torch.profiler`` Chrome trace of a
 learn to ``DIR/trace.json``.  ``--data-parallel`` shards the image batch
 over every visible card (one shard with ``--device cpu``); with
-``--method single_loop`` it exits with status 2, as does ``make-dataset``,
-naming its ``ROADMAP.md`` item (not ported yet).
+``--method single_loop`` it runs in the TGV², TV-L1 and VTV subcommands
+and exits with status 2 in the TV and sum-of-regularizers ones, naming its
+``ROADMAP.md`` item (not ported yet).  ``make-dataset`` writes a loadable
+(true, noisy) PNG dataset from a built-in phantom or grayscale PNGs::
+
+    python -m bpldenoising_tpu_torch make-dataset mycircle_128_10 --size 128
 """
 
 from __future__ import annotations
@@ -24,10 +28,6 @@ import argparse
 import sys
 
 import numpy as np
-
-_MAKE_DATASET_REFUSAL = ("make-dataset is not ported yet (ROADMAP.md §1 "
-                         "item 9)")
-
 
 def _device(p):
     p.add_argument("--device", default="cuda",
@@ -151,19 +151,30 @@ def main(argv=None):
     p.add_argument("--dataset", default="circle_sp_128_20")
     p.add_argument("--maxiter", type=int, default=10000)
 
-    p = sub.add_parser("make-dataset", help="synthesize a (true, noisy) "
-                       "PNG dataset (not ported yet)")
-    p.add_argument("name")
-    p.add_argument("--from-images", nargs="*", default=None, metavar="PNG")
+    p = sub.add_parser(
+        "make-dataset",
+        help="synthesize a loadable (true, noisy) PNG dataset from images "
+             "or a built-in phantom")
+    p.add_argument("name", help="dataset dir name, e.g. mycircle_128_10")
+    p.add_argument("--from-images", nargs="*", default=None, metavar="PNG",
+                   help="grayscale source images (default: built-in phantom)")
     p.add_argument("--phantom", default="circle",
-                   choices=["circle", "ramp", "pyramid", "facets"])
-    p.add_argument("--size", type=int, default=128)
-    p.add_argument("--sigma", type=float, default=0.1)
+                   choices=["circle", "ramp", "pyramid", "facets"],
+                   help="built-in phantom when no source images given "
+                        "(circle: piecewise constant; ramp, pyramid, "
+                        "facets: piecewise affine)")
+    p.add_argument("--size", type=int, default=128,
+                   help="phantom resolution when no source images given")
+    p.add_argument("--sigma", type=float, default=0.1,
+                   help="Gaussian noise std in [0, 1] units")
     p.add_argument("--noise", default="gaussian",
-                   choices=["gaussian", "impulse"])
-    p.add_argument("--density", type=float, default=0.2)
+                   choices=["gaussian", "impulse"],
+                   help="impulse = salt and pepper at --density")
+    p.add_argument("--density", type=float, default=0.2,
+                   help="impulse-noise pixel fraction")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--out-root", default=None)
+    p.add_argument("--out-root", default=None,
+                   help="parent dir (default: the bundled datasets dir)")
 
     args = ap.parse_args(argv)
     try:
@@ -177,10 +188,29 @@ def _dispatch(args):
     from bpldenoising_tpu_torch.utils.profiling import trace
 
     if args.cmd == "make-dataset":
-        raise NotImplementedError(_MAKE_DATASET_REFUSAL)
+        return _make_dataset(args)
     # only the learns take --trace
     with trace(getattr(args, "trace", None)):
         return _run(args)
+
+
+def _make_dataset(args):
+    from bpldenoising_tpu_torch.data import (add_impulse_noise,
+                                             affine_phantom, circle_phantom,
+                                             make_dataset, read_png_gray)
+    if args.from_images:
+        imgs = [read_png_gray(f) for f in args.from_images]
+    elif args.phantom == "circle":
+        imgs = [circle_phantom(args.size)]
+    else:
+        imgs = [affine_phantom(args.size, kind=args.phantom,
+                               seed=args.seed)]
+    noisy = None
+    if args.noise == "impulse":
+        noisy = [add_impulse_noise(im, args.density, args.seed)
+                 for im in imgs]
+    print(make_dataset(args.name, imgs, sigma=args.sigma, seed=args.seed,
+                       out_root=args.out_root, noisy_images=noisy))
 
 
 def _run(args):

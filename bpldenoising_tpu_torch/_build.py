@@ -165,16 +165,18 @@ def _declare(lib):
         fn.argtypes = ([_P] * 11 + [_LL] + [_I] * 14 + [real] * 9
                        + [ctypes.POINTER(_I), _P])
         fn.restype = _I
+        # rows 11–13: ... outer, then the steps o0 … o1 − 1 and the parts
+        # (single_loop.cuh's SlxParts) of the call, ...
         fn = getattr(lib, f"bpl_sl_tgv_{suffix}")
-        fn.argtypes = ([_P] * 13 + [_LL] + [_I] * 11 + [real] * 9
+        fn.argtypes = ([_P] * 13 + [_LL] + [_I] * 14 + [real] * 9
                        + [ctypes.POINTER(_I), _P])
         fn.restype = _I
         fn = getattr(lib, f"bpl_sl_tvl1_{suffix}")
-        fn.argtypes = ([_P] * 11 + [_LL] + [_I] * 10 + [real] * 14
+        fn.argtypes = ([_P] * 11 + [_LL] + [_I] * 13 + [real] * 14
                        + [ctypes.POINTER(_I), _P])
         fn.restype = _I
         fn = getattr(lib, f"bpl_sl_vtv_{suffix}")
-        fn.argtypes = ([_P] * 11 + [_LL] + [_I] * 12 + [real] * 9
+        fn.argtypes = ([_P] * 11 + [_LL] + [_I] * 15 + [real] * 9
                        + [ctypes.POINTER(_I), _P])
         fn.restype = _I
         fn = getattr(lib, f"bpl_sl_stencil_{suffix}")
@@ -186,6 +188,9 @@ def _declare(lib):
         fn = getattr(lib, f"bpl_sl_{name}_scratch")
         fn.argtypes = [_LL] + [_I] * n_int
         fn.restype = _LL
+        fn = getattr(lib, f"bpl_sl_{name}_mesh_parts")
+        fn.argtypes = [_LL] + [_I] * n_int + [ctypes.POINTER(_LL)]
+        fn.restype = None
     lib.bpl_error_string.argtypes = [_I]
     lib.bpl_error_string.restype = ctypes.c_char_p
     lib.bpl_hypergrad_planes.argtypes = [_I]

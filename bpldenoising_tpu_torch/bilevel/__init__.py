@@ -12,7 +12,7 @@ from .fused import FusedResult, bilevel_learn_fused
 from .fused_tgv import bilevel_learn_tgv_fused, tgv_param_layout
 from .fused_tvl1 import bilevel_learn_tvl1_fused, tvl1_param_layout
 from .fused_vtv import bilevel_learn_vtv_fused, vtv_param_layout
-from .harness import BilevelResult, BilevelState, bilevel_iterate
+from .harness import BilevelResult, BilevelState, LiveView, bilevel_iterate
 from .trust_region import TRModel, bilevel_learn, dogleg_box
 
 __all__ = ["bilevel_learn_fused", "bilevel_learn_tgv_fused",
@@ -26,4 +26,4 @@ __all__ = ["bilevel_learn_fused", "bilevel_learn_tgv_fused",
            "single_loop_tgv_cuda", "single_loop_tvl1_learn",
            "single_loop_tvl1_cuda", "single_loop_vtv_learn",
            "single_loop_vtv_cuda", "bilevel_learn", "bilevel_iterate",
-           "TRModel", "dogleg_box"]
+           "TRModel", "dogleg_box", "LiveView"]

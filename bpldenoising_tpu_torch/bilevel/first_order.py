@@ -21,9 +21,19 @@ gradients).
 below (:func:`_single_loop_plain`) for tensors on the CPU, the CUDA
 learner of :mod:`.first_order_cuda` (``csrc/single_loop.cu``) for CUDA
 tensors, which raises for what it does not take.  Neither reads anything
-back to the host until the segment ends.  Not ported: ``mesh=`` data
-parallelism and ``optimizer=`` (an optax transformation has no PyTorch
-counterpart to take); both raise ``NotImplementedError``.
+back to the host until the segment ends.  Not ported: ``optimizer=`` (an
+optax transformation has no PyTorch counterpart to take) and, for this
+module's TV and sum-of-regularizers learners, ``mesh=`` data parallelism;
+both raise ``NotImplementedError``.
+
+:func:`drive_single_loop` also runs the TGV², TV-L1 and VTV learners on a
+mesh (:mod:`..parallel.mesh`): the batch is zero-padded to a multiple of
+the shards, and each outer step runs every shard's local part (the CP
+phase, the CG with its per-image dots, the gradient maps and the cost) on
+its device, sums the gradient maps and the cost over the shards on the
+first device in shard order (:func:`..parallel.mesh.psum`), and runs
+every shard's update (the pullback and Adam) on the sum, so z, Adam's
+moments and t stay replicated.  An all-padding shard adds exactly +0.
 """
 
 from __future__ import annotations
@@ -36,12 +46,14 @@ import torch
 
 from ..models import DenoiseModel, sumregs_model, tv_model
 from ..ops import PatchOp, scalarprod, xi
+from ..parallel.mesh import (batch_devices, gather_u, psum, run_shards,
+                             shard_dataset)
 from ..solvers.hypergrad import build_reg_system
 from .pcg import CG_VARIANTS, _default_vdot
 
 __all__ = ["single_loop_learn", "single_loop_tv_learn",
            "single_loop_sumregs_learn", "drive_single_loop",
-           "SingleLoopResult"]
+           "SingleLoopResult", "PlainStepper"]
 
 
 class SingleLoopResult(NamedTuple):
@@ -290,12 +302,14 @@ def prepare_images(utrue, f, image_ndim: int):
     return utrue, f, squeeze
 
 
-def check_unported(mesh, optimizer) -> None:
-    """``mesh=`` and ``optimizer=`` of the JAX learners raise here."""
-    if mesh is not None:
+def check_unported(mesh, optimizer, mesh_ok: bool = False) -> None:
+    """``optimizer=`` of the JAX learners raises here, and ``mesh=`` unless
+    ``mesh_ok`` (the TGV², TV-L1 and VTV learners)."""
+    if mesh is not None and not mesh_ok:
         raise NotImplementedError(
-            "mesh= data parallelism of the single-loop learners is not "
-            "ported yet (ROADMAP.md §1 item 10b)")
+            "mesh= data parallelism of the TV and sum-of-regularizers "
+            "single-loop learners is not ported yet (ROADMAP.md §1 item "
+            "10b, rows 9–10)")
     if optimizer is not None:
         raise NotImplementedError(
             "optimizer= takes an optax transformation, which has no "
@@ -330,6 +344,58 @@ def run_segment(plain, launch, init_carry, u_and_z, utrue, f, x0, *,
         carry0 = init_carry(f)
     carry, trajs = launch()(utrue, f, carry0, outer=int(outer),
                             param_shape=param_shape, **kw)
+    res = kernel_result(utrue, *u_and_z(carry), outer, trajs)
+    return (res, carry) if return_carry else res
+
+
+class PlainStepper:
+    """A plain learner's outer steps on one (sub-)batch, split as the CUDA
+    learners' mesh form splits them.  ``local(state, x) → (state, gmaps,
+    cost)`` is a step's local part at x = exp(z) (``gmaps`` a tuple of
+    per-pixel gradient maps, ``cost`` ½Σ(u − ū)² of the sub-batch);
+    :meth:`update` takes the maps and cost summed over the shards:
+    ``pull(gmaps)`` → g_x, then Adam on z with ``grad_z(g_x, x)``.  The
+    carry is the family's, its last three entries z, (m, v) and t."""
+
+    def __init__(self, local, pull, grad_z, carry, *, param_shape: tuple,
+                 lr, beta1, beta2, eps):
+        self.local_fn, self.pull, self.grad_z = local, pull, grad_z
+        self.state = carry[:-3]
+        self.z, self.opt, self.t = carry[-3:]
+        self.adam = dict(lr=lr, beta1=beta1, beta2=beta2, eps=eps)
+        self.param_shape = param_shape
+        self.xs, self.costs, self.gnorms = [], [], []
+
+    def local(self, o: int):
+        self.x = torch.exp(self.z)
+        self.state, gmaps, cost = self.local_fn(self.state, self.x)
+        return gmaps, cost
+
+    def update(self, o: int, gmaps, cost) -> None:
+        g_x = self.pull(gmaps)
+        self.z, self.opt, self.t = adam_step(
+            self.z, self.opt, self.t, self.grad_z(g_x, self.x), **self.adam)
+        # each cost is paired with the α that PRODUCED it; gnorm is taken
+        # on g_x, before the chain rule
+        self.xs.append(self.x)
+        self.costs.append(cost)
+        self.gnorms.append(torch.sqrt(torch.sum(g_x ** 2)))
+
+    def finish(self):
+        """→ (carry, (α, cost, ‖g‖ trajectories))."""
+        dtype, dev = self.z.dtype, self.z.device
+        return (self.state + (self.z, self.opt, self.t),
+                (_stack(self.xs, self.param_shape, dtype, dev),
+                 _stack(self.costs, (), dtype, dev),
+                 _stack(self.gnorms, (), dtype, dev)))
+
+
+def run_steps(stepper, utrue, outer: int, u_and_z, return_carry: bool):
+    """``outer`` steps of one stepper on the whole batch →
+    :class:`SingleLoopResult` (and the carry)."""
+    for o in range(int(outer)):
+        stepper.update(o, *stepper.local(o))
+    carry, trajs = stepper.finish()
     res = kernel_result(utrue, *u_and_z(carry), outer, trajs)
     return (res, carry) if return_carry else res
 
@@ -385,8 +451,8 @@ def single_loop_learn(utrue, f, x0, model: DenoiseModel, *,
 
 
 def drive_single_loop(impl, utrue, f, x0, kw, *, make_carry0,
-                      log_every=None,
-                      segment_callback=None) -> SingleLoopResult:
+                      log_every=None, segment_callback=None, mesh=None,
+                      stepper=None, u_and_z=None) -> SingleLoopResult:
     """Host loop over the segments of a single-loop learner.
 
     ``impl(utrue, f, x0, *, carry0, return_carry, **kw)`` runs ``kw
@@ -397,7 +463,15 @@ def drive_single_loop(impl, utrue, f, x0, kw, *, make_carry0,
     to finish and records ``times[i]``, the cumulative wall seconds at the
     end of the segment that ran step ``i``; ``segment_callback(done,
     elapsed)`` runs after each segment.  The CUDA library is built before
-    the clock starts."""
+    the clock starts.  With ``mesh``, :func:`_drive_mesh` runs the
+    segments with ``stepper(utrue, f, carry, **kw)`` on every shard (a
+    :class:`PlainStepper` or a CUDA learner's session) and ``u_and_z
+    (carry)`` reads a carry's u and z."""
+    if mesh is not None:
+        return _drive_mesh(stepper, u_and_z, utrue, f, kw,
+                           make_carry0=make_carry0, mesh=mesh,
+                           log_every=log_every,
+                           segment_callback=segment_callback)
     if log_every is None:
         return impl(utrue, f, x0, **kw)
     if f.device.type == "cuda":
@@ -427,6 +501,74 @@ def drive_single_loop(impl, utrue, f, x0, kw, *, make_carry0,
         cost_trajectory=torch.cat([p.cost_trajectory for p in pieces]),
         gnorm_trajectory=torch.cat([p.gnorm_trajectory for p in pieces]),
         times=times)
+
+
+def _sync(devices) -> None:
+    for d in set(devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def _drive_mesh(stepper, u_and_z, utrue, f, kw, *, make_carry0, mesh,
+                log_every, segment_callback) -> SingleLoopResult:
+    """The segments of a learner on a mesh.  The batch is zero-padded to a
+    multiple of the shards and each shard starts from ``make_carry0`` of
+    its sub-batch; each segment makes one stepper a shard (on its device,
+    from the shard's carry), and each outer step runs every shard's local
+    part, sums the gradient maps and the cost over the shards in shard
+    order on the first device, hands each shard the sums and runs its
+    update.  The α, cost and ‖g‖ trajectories are the first shard's (every
+    shard's are the same), u is gathered without the padding and the
+    final cost is the shards' sum."""
+    devices = batch_devices(mesh)
+    data = shard_dataset((utrue, f), mesh, image_ndim=f.ndim - 1)
+    uts, fs = data.utrue, data.f
+    carries = [make_carry0(ff) for ff in fs]
+    if any(d.type == "cuda" for d in devices):
+        from .. import _build
+        _build.library()
+    outer = kw["outer"]
+    seg_len = outer if log_every is None else max(int(log_every), 1)
+    times = np.zeros((outer,), np.float64)
+    pieces = []
+    done = 0
+    t0 = time.perf_counter()
+    while True:
+        k = min(seg_len, outer - done)
+        steps = run_shards(
+            devices, lambda i, ut, ff, c: stepper(ut, ff, c,
+                                                  **dict(kw, outer=k)),
+            uts, fs, carries)
+        for o in range(k):
+            outs = run_shards(devices, lambda i, st: st.local(o), steps)
+            gmaps = tuple(psum([g[j] for g, _ in outs])
+                          for j in range(len(outs[0][0])))
+            cost = psum([c for _, c in outs])
+            run_shards(devices, lambda i, st: st.update(
+                o, tuple(g.to(devices[i]) for g in gmaps),
+                cost.to(devices[i])), steps)
+        fin = run_shards(devices, lambda i, st: st.finish(), steps)
+        carries = [c for c, _ in fin]
+        pieces.append(fin[0][1])
+        done += k
+        if log_every is not None:
+            _sync(devices)
+            elapsed = time.perf_counter() - t0
+            times[done - k:done] = elapsed
+            if segment_callback is not None:
+                segment_callback(done, elapsed)
+        if done >= outer:
+            break
+    us = [u_and_z(c)[0] for c in carries]
+    xs, costs, gnorms = (torch.cat([p[j] for p in pieces])
+                         for j in range(3))
+    return SingleLoopResult(
+        alpha=torch.exp(u_and_z(carries[0])[1]),
+        u=gather_u(us, data.n_real),
+        cost=psum([0.5 * torch.sum((u - ut) ** 2)
+                   for u, ut in zip(us, uts)]),
+        alpha_trajectory=xs, cost_trajectory=costs, gnorm_trajectory=gnorms,
+        times=None if log_every is None else times)
 
 
 _TV = tv_model()

@@ -64,6 +64,73 @@ _MAX_K = 8   # SL_MAXK in csrc/single_loop.cu
 _TV = tv_model()
 
 
+#: the parts of a step that one call of rows 11–13's C loop runs
+#: (``single_loop.cuh``'s SlxParts)
+SLX_BEGIN, SLX_LOCAL, SLX_UPDATE, SLX_ALL = 1, 2, 4, 7
+
+
+def run_session(session, outer: int):
+    """The single form: ``outer`` steps in one call → (carry,
+    trajectories)."""
+    session.call(0, int(outer), SLX_ALL)
+    return session.finish()
+
+
+class KernelSession:
+    """One segment of a single-loop learner of rows 11–13 on the card: a
+    family's subclass checks the carry and sets the buffers and arguments
+    (``f``, ``utrue``, ``state`` — the state tensors in the C entry's order
+    —, ``opt`` from :func:`pack_opt`, ``scratch``, ``fn``, ``args`` up to
+    ``outer``, ``consts`` after the parts, ``what`` for errors,
+    ``parts_of`` for the mesh parts and ``counters``, its module, whose
+    ``launches`` counts sessions and ``kernel_launches`` the kernels they
+    issue) and :meth:`finish` (→ carry, trajectories).
+
+    :meth:`call` launches some parts of a range of steps: the single form
+    is one call with ``SLX_ALL``.  The mesh form's steps: :meth:`local`
+    runs step o's CP phase, CG and gradient maps (after the segment's
+    ``slx_begin`` at o = 0) and returns views of the scratch buffer, the
+    K·M·N gradient maps summed over the local batch and the cost partials;
+    :meth:`update` writes the sums over the shards into those views and
+    runs step o's pullback and Adam."""
+
+    def count_session(self, **latest) -> None:
+        with _build.COUNTS:
+            self.counters.launches += 1
+            for name, value in latest.items():
+                setattr(self.counters, name, value)
+
+    def call(self, o0: int, o1: int, parts: int) -> None:
+        """Launch ``parts`` of steps ``o0`` … ``o1`` − 1 on the card."""
+        issued = ctypes.c_int(0)
+        with torch.cuda.device(self.f.device):
+            stream = torch.cuda.current_stream(self.f.device).cuda_stream
+            err = self.fn(
+                *(a.data_ptr() for a in (self.f, self.utrue) + self.state),
+                *(a.data_ptr() for a in self.opt), self.scratch.data_ptr(),
+                *self.args, o0, o1, parts, *self.consts,
+                ctypes.byref(issued), stream)
+        with _build.COUNTS:
+            self.counters.kernel_launches += issued.value
+        _build.check(err, self.what)
+
+    def local(self, o: int):
+        if o == 0:
+            offs = (ctypes.c_longlong * 4)()
+            self.parts_of(offs)
+            self.gmap = self.scratch[offs[0]:offs[0] + offs[1]]
+            self.cost_part = self.scratch[offs[2]:offs[2] + offs[3]]
+            self.call(0, 0, SLX_BEGIN)
+        self.call(o, o + 1, SLX_LOCAL)
+        return (self.gmap,), self.cost_part
+
+    def update(self, o: int, gmaps, cost) -> None:
+        for mine, total in ((self.gmap, gmaps[0]), (self.cost_part, cost)):
+            if mine.data_ptr() != total.data_ptr():
+                mine.copy_(total)
+        self.call(o, o + 1, SLX_UPDATE)
+
+
 def launches_per_step(n_adj: int, cg_variant: str = "classic") -> int:
     """The kernel launches of one outer step with ``n_inner`` > 0."""
     if cg_variant == "classic":

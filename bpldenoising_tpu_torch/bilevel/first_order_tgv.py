@@ -17,8 +17,10 @@ The parameter is the (2,) vector or an (m, n, 2) patch stack, on any
 batch.  :func:`single_loop_tgv_learn` runs where ``f`` lives: the plain
 loop below for CPU tensors, the CUDA learner of
 :mod:`.first_order_tgv_cuda` (``csrc/single_loop_tgv.cu``) for CUDA
-tensors, which raises for what it does not take.  ``mesh=`` and
-``optimizer=`` raise ``NotImplementedError``, as in :mod:`.first_order`.
+tensors, which raises for what it does not take.  ``mesh=`` shards the
+batch (:func:`.first_order.drive_single_loop`; the CG's per-image dots
+need no cross-shard sum); ``optimizer=`` raises ``NotImplementedError``,
+as in :mod:`.first_order`.
 """
 
 from __future__ import annotations
@@ -30,10 +32,9 @@ import torch
 from ..ops import FwdGradientOp, PatchOp, scalarprod, sym_grad
 from ..solvers.krylov import cg_batched
 from ..solvers.tgv import _build_joint_system, _step, step_sizes
-from .first_order import (SingleLoopResult, adam_step, check_unported,
+from .first_order import (PlainStepper, SingleLoopResult, check_unported,
                           drive_single_loop, dual_zeros, expand, opt_init,
-                          plain_result, prepare_learn, pullback,
-                          run_segment)
+                          prepare_learn, pullback, run_segment, run_steps)
 from .fused_tgv import tgv_param_layout
 
 __all__ = ["single_loop_tgv_learn", "tgv_param_layout"]
@@ -49,28 +50,21 @@ def _tgv_init_carry(f, x0, *, param_shape: tuple):
     return (state, dual_zeros(f, 3)) + opt_init(f, x0, param_shape)
 
 
-def _single_loop_tgv_plain(utrue, f, x0, *, outer: int, n_inner: int,
-                           n_adj: int, pop: Optional[PatchOp],
-                           param_shape: tuple, lr, gamma, tau0, sigma0,
-                           beta1, beta2, eps, carry0=None,
-                           return_carry: bool = False):
-    """The learner as a Python loop, in the order of the JAX package's
-    scan (``first_order_tgv.py:102-137``).  ``utrue``/``f`` are
+def _tgv_plain_stepper(utrue, f, carry, *, outer: int, n_inner: int,
+                       n_adj: int, pop: Optional[PatchOp],
+                       param_shape: tuple, lr, gamma, tau0, sigma0, beta1,
+                       beta2, eps) -> PlainStepper:
+    """The plain learner's steps from ``carry``, in the order of the JAX
+    package's scan (``first_order_tgv.py:102-137``).  ``utrue``/``f`` are
     (O, M, N)."""
     tau, sigma = step_sizes(tau0, sigma0, f.dtype, f.device)
 
-    def alphas_of(x):
+    def local(st, x):
+        state, lam = st
         if pop is None:
-            return x[0], x[1]
-        return expand(pop, x[..., 0]), expand(pop, x[..., 1])
-
-    if carry0 is None:
-        carry0 = _tgv_init_carry(f, x0, param_shape=param_shape)
-    state, lam, z, opt, t = carry0
-    xs, costs, gnorms = [], [], []
-    for _ in range(int(outer)):
-        x = torch.exp(z)
-        a1, a0 = alphas_of(x)
+            a1, a0 = x[0], x[1]
+        else:
+            a1, a0 = expand(pop, x[..., 0]), expand(pop, x[..., 1])
         for _ in range(int(n_inner)):
             state = _step(f, a1, a0, tau, sigma, state)
         u, w = state[0], state[1]
@@ -83,15 +77,38 @@ def _single_loop_tgv_plain(utrue, f, x0, *, outer: int, n_inner: int,
         lw = lam[..., 1:3, :, :]
         g1 = scalarprod(psi_y, _GRAD.apply(lu) - lw)
         g0 = scalarprod(psi_z, sym_grad(lw))
-        g_x = torch.stack([pullback(pop, g1), pullback(pop, g0)], dim=-1)
-        z, opt, t = adam_step(z, opt, t, g_x * x, lr=lr, beta1=beta1,
-                              beta2=beta2, eps=eps)
-        xs.append(x)
-        costs.append(0.5 * torch.sum((u - utrue) ** 2))
-        gnorms.append(torch.sqrt(torch.sum(g_x ** 2)))
-    carry = (state, lam, z, opt, t)
-    res = plain_result(utrue, state[0], z, xs, costs, gnorms, param_shape)
-    return (res, carry) if return_carry else res
+        return (state, lam), (g1, g0), 0.5 * torch.sum((u - utrue) ** 2)
+
+    def pull(g):
+        return torch.stack([pullback(pop, g[0]), pullback(pop, g[1])],
+                           dim=-1)
+
+    return PlainStepper(local, pull, lambda g_x, x: g_x * x, carry,
+                        param_shape=param_shape, lr=lr, beta1=beta1,
+                        beta2=beta2, eps=eps)
+
+
+def _tgv_u_and_z(carry):
+    return carry[0][0], carry[2]
+
+
+def _single_loop_tgv_plain(utrue, f, x0, *, outer: int, param_shape: tuple,
+                           carry0=None, return_carry: bool = False, **kw):
+    """The learner as a Python loop (:func:`_tgv_plain_stepper`)."""
+    if carry0 is None:
+        carry0 = _tgv_init_carry(f, x0, param_shape=param_shape)
+    stepper = _tgv_plain_stepper(utrue, f, carry0, outer=outer,
+                                 param_shape=param_shape, **kw)
+    return run_steps(stepper, utrue, outer, _tgv_u_and_z, return_carry)
+
+
+def _tgv_stepper(utrue, f, carry, **kw):
+    """One shard's steps of a mesh segment where ``f`` lives: the plain
+    stepper on the CPU, the CUDA learner's session otherwise."""
+    if f.device.type == "cpu":
+        return _tgv_plain_stepper(utrue, f, carry, **kw)
+    from .first_order_tgv_cuda import Session
+    return Session(utrue, f, carry, **kw)
 
 
 def _cuda_launch():
@@ -104,8 +121,7 @@ def _single_loop_tgv_impl(utrue, f, x0, *, param_shape: tuple, **kw):
     return run_segment(
         _single_loop_tgv_plain, _cuda_launch,
         lambda ff: _tgv_init_carry(ff, x0, param_shape=param_shape),
-        lambda c: (c[0][0], c[2]), utrue, f, x0, param_shape=param_shape,
-        **kw)
+        _tgv_u_and_z, utrue, f, x0, param_shape=param_shape, **kw)
 
 
 def _prepare(utrue, f, x0):
@@ -126,7 +142,7 @@ def single_loop_tgv_learn(utrue, f, x0, *, outer: int = 300,
     an (m, n, 2) patch stack.  ``lr`` defaults to 0.02, below the TV
     families' 0.05, as in the JAX package (the TGV cost is nearly flat in
     α₀ far from the optimum)."""
-    check_unported(mesh, optimizer)
+    check_unported(mesh, optimizer, mesh_ok=True)
     utrue, f, x0, pop, param_shape, squeeze = _prepare(utrue, f, x0)
     kw = dict(outer=int(outer), n_inner=int(n_inner), n_adj=int(n_adj),
               pop=pop, param_shape=param_shape, lr=lr, gamma=gamma,
@@ -135,7 +151,8 @@ def single_loop_tgv_learn(utrue, f, x0, *, outer: int = 300,
         _single_loop_tgv_impl, utrue, f, x0, kw,
         make_carry0=lambda ff: _tgv_init_carry(ff, x0,
                                                param_shape=param_shape),
-        log_every=log_every, segment_callback=segment_callback)
+        log_every=log_every, segment_callback=segment_callback, mesh=mesh,
+        stepper=_tgv_stepper, u_and_z=_tgv_u_and_z)
     if squeeze:
         res = res._replace(u=res.u[0])
     return res

@@ -26,7 +26,8 @@ raises.
 
 from __future__ import annotations
 
-import ctypes
+import functools
+import sys
 
 import torch
 
@@ -34,17 +35,19 @@ from .. import _build
 from ..solvers.cluster_plan import cg_block_slots, tgv_plan
 from ..solvers.pdps_cuda import check_cuda_input, check_plane
 from ..solvers.tgv import step_sizes
-from .first_order_cuda import (adam_args, launches_per_step, pack_opt,
-                               unpack_opt)
+from .first_order_cuda import (KernelSession, adam_args, launches_per_step,
+                               pack_opt, run_session, unpack_opt)
 from .first_order_tgv import _prepare, _single_loop_tgv_impl
 
 __all__ = ["single_loop_tgv_cuda", "tgv_plan", "cg_slots",
-           "launches_per_step", "launches", "kernel_launches", "last_plan"]
+           "launches_per_step", "launches", "kernel_launches", "last_plan",
+           "Session"]
 
-#: calls that launched the CUDA learner (one per segment)
+#: sessions of the CUDA learner (one per segment, and per shard on a mesh)
 launches = 0
-#: kernel launches those calls issued on the card, as the C loop counts
-#: them (launches_per_step(n_adj) per outer step, one per segment)
+#: kernel launches they issued on the card, as the C loop counts them
+#: (launches_per_step(n_adj) per outer step, one per segment; on a mesh,
+#: per shard)
 kernel_launches = 0
 #: the band plan and the CG slots of the latest launch
 last_plan = None
@@ -58,55 +61,64 @@ def cg_slots(B: int, M: int, N: int) -> int:
     return cg_block_slots(B, M, N, 3)
 
 
-def _launch(utrue, f, carry, *, outer, n_inner, n_adj, pop, param_shape,
-            lr, gamma, tau0, sigma0, beta1, beta2, eps):
-    """Run ``outer`` steps from ``carry`` ``((u, w, p, q), λ, z, (m, v),
-    t)`` on the card; → (carry, (α, cost, ‖g‖ trajectories)).  The shapes
+class Session(KernelSession):
+    """``outer`` steps on the card from ``carry`` ``((u, w, p, q), λ, z,
+    (m, v), t)`` (:class:`.first_order_cuda.KernelSession`).  The shapes
     and dtypes of every argument are checked before the device."""
-    if f.ndim != 3:
-        raise ValueError(f"expected an (O, M, N) stack, got {tuple(f.shape)}")
-    if f.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"the CUDA kernels take float32/float64, got "
-                        f"{f.dtype}")
-    check_plane(utrue, f.shape, f, "utrue")
-    B, M, N = (int(s) for s in f.shape)
-    pm, pn = (1, 1) if pop is None else pop.size_in
-    (u, w, p, q), lam, z, (m, v), t = carry
-    for name, a, c in (("u", u, None), ("w", w, 2), ("p", p, 2),
-                       ("q", q, 3), ("lambda", lam, 3)):
-        shape = (B, M, N) if c is None else (B, c, M, N)
-        check_plane(a, shape, f, f"carry {name}")
-    opt = pack_opt(z, m, v, t, param_shape, 2, pm * pn, outer, f)
-    check_cuda_input(f)
-    f = f.contiguous()
-    utrue = utrue.contiguous()
-    u, w, p, q, lam = (a.contiguous().clone() for a in (u, w, p, q, lam))
-    plan = tgv_plan(M, N, f.element_size())
-    slots = cg_slots(B, M, N)
-    lib = _build.library()
-    scratch = torch.empty((lib.bpl_sl_tgv_scratch(
-        B, M, N, pm * pn, plan.cluster, plan.rows, int(plan.resident)),),
-        dtype=f.dtype, device=f.device)
-    tau, sigma = (float(s) for s in step_sizes(tau0, sigma0, f.dtype))
-    fn = lib.bpl_sl_tgv_f32 if f.dtype == torch.float32 \
-        else lib.bpl_sl_tgv_f64
-    issued = ctypes.c_int(0)
-    global launches, kernel_launches, last_plan, last_cg_slots
-    with torch.cuda.device(f.device):
-        stream = torch.cuda.current_stream(f.device).cuda_stream
-        launches += 1
-        last_plan, last_cg_slots = plan, slots
-        err = fn(*(a.data_ptr() for a in (f, utrue, u, w, p, q, lam)),
-                 *(a.data_ptr() for a in opt), scratch.data_ptr(), B, M, N,
-                 pm, pn, plan.cluster, plan.rows, int(plan.resident), slots,
-                 int(outer), int(n_inner), int(n_adj), tau, sigma,
-                 float(gamma), *adam_args(lr, beta1, beta2, eps),
-                 ctypes.byref(issued), stream)
-    kernel_launches += issued.value
-    _build.check(err, f"single-loop TGV kernel (CP cluster {plan}, CG "
-                      f"slots {slots})")
-    (z, mv, t), trajs = unpack_opt(*opt, param_shape)
-    return ((u, w, p, q), lam, z, mv, t), trajs
+
+    def __init__(self, utrue, f, carry, *, outer, n_inner, n_adj, pop,
+                 param_shape, lr, gamma, tau0, sigma0, beta1, beta2, eps):
+        if f.ndim != 3:
+            raise ValueError(f"expected an (O, M, N) stack, got "
+                             f"{tuple(f.shape)}")
+        if f.dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"the CUDA kernels take float32/float64, got "
+                            f"{f.dtype}")
+        check_plane(utrue, f.shape, f, "utrue")
+        B, M, N = (int(s) for s in f.shape)
+        pm, pn = (1, 1) if pop is None else pop.size_in
+        (u, w, p, q), lam, z, (m, v), t = carry
+        for name, a, c in (("u", u, None), ("w", w, 2), ("p", p, 2),
+                           ("q", q, 3), ("lambda", lam, 3)):
+            shape = (B, M, N) if c is None else (B, c, M, N)
+            check_plane(a, shape, f, f"carry {name}")
+        self.opt = pack_opt(z, m, v, t, param_shape, 2, pm * pn, outer, f)
+        check_cuda_input(f)
+        self.f, self.utrue = f.contiguous(), utrue.contiguous()
+        self.state = tuple(a.contiguous().clone()
+                           for a in (u, w, p, q, lam))
+        plan = tgv_plan(M, N, f.element_size())
+        slots = cg_slots(B, M, N)
+        lib = _build.library()
+        geometry = (B, M, N, pm * pn, plan.cluster, plan.rows,
+                    int(plan.resident))
+        self.scratch = torch.empty((lib.bpl_sl_tgv_scratch(*geometry),),
+                                   dtype=f.dtype, device=f.device)
+        self.parts_of = functools.partial(lib.bpl_sl_tgv_mesh_parts,
+                                          *geometry)
+        tau, sigma = (float(s) for s in step_sizes(tau0, sigma0, f.dtype))
+        self.fn = lib.bpl_sl_tgv_f32 if f.dtype == torch.float32 \
+            else lib.bpl_sl_tgv_f64
+        self.args = (B, M, N, pm, pn, plan.cluster, plan.rows,
+                     int(plan.resident), slots, int(outer))
+        self.consts = (int(n_inner), int(n_adj), tau, sigma, float(gamma),
+                       *adam_args(lr, beta1, beta2, eps))
+        self.what = (f"single-loop TGV kernel (CP cluster {plan}, CG slots "
+                     f"{slots})")
+        self.param_shape = param_shape
+        self.counters = sys.modules[__name__]
+        self.count_session(last_plan=plan, last_cg_slots=slots)
+
+    def finish(self):
+        u, w, p, q, lam = self.state
+        (z, mv, t), trajs = unpack_opt(*self.opt, self.param_shape)
+        return ((u, w, p, q), lam, z, mv, t), trajs
+
+
+def _launch(utrue, f, carry, *, outer, **kw):
+    """Run ``outer`` steps from ``carry`` on the card in one call; →
+    (carry, (α, cost, ‖g‖ trajectories))."""
+    return run_session(Session(utrue, f, carry, outer=outer, **kw), outer)
 
 
 def single_loop_tgv_cuda(utrue, f, x0, *, outer: int = 300,

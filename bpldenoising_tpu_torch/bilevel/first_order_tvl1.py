@@ -23,7 +23,8 @@ The parameter is a scalar or an (m, n) patch grid, on any batch.
 :func:`single_loop_tvl1_learn` runs where ``f`` lives: the plain loop
 below for CPU tensors, the CUDA learner of :mod:`.first_order_tvl1_cuda`
 (``csrc/single_loop_tvl1.cu``) for CUDA tensors, which raises for what it
-does not take.  ``mesh=`` and ``optimizer=`` raise
+does not take.  ``mesh=`` shards the batch
+(:func:`.first_order.drive_single_loop`); ``optimizer=`` raises
 ``NotImplementedError``.
 """
 
@@ -38,10 +39,10 @@ from ..ops import PatchOp, proj_norm21_ball, scalarprod
 from ..solvers.hypergrad import build_reg_system
 from ..solvers.krylov import cg_batched
 from ..solvers.tvl1_huber import _huber_prox, huber_prox_consts
-from .first_order import (SingleLoopResult, adam_step, check_unported,
+from .first_order import (PlainStepper, SingleLoopResult, check_unported,
                           drive_single_loop, dual_zeros, expand, opt_init,
-                          plain_result, prepare_learn, pullback,
-                          run_segment, step_sizes)
+                          prepare_learn, pullback, run_segment, run_steps,
+                          step_sizes)
 from .fused_tvl1 import tvl1_param_layout
 
 __all__ = ["single_loop_tvl1_learn", "tvl1_param_layout"]
@@ -68,13 +69,12 @@ def _tvl1_init_carry(f, x0, *, param_shape: tuple):
             + opt_init(f, x0, param_shape))
 
 
-def _single_loop_tvl1_plain(utrue, f, x0, *, outer: int, n_inner: int,
-                            n_adj: int, pop: Optional[PatchOp],
-                            param_shape: tuple, lr, gamma_d, gamma_r, tau0,
-                            sigma0, beta1, beta2, eps, clip, carry0=None,
-                            return_carry: bool = False):
-    """The learner as a Python loop, in the order of the JAX package's
-    scan (``first_order_tvl1.py:100-159``).  ``utrue``/``f`` are
+def _tvl1_plain_stepper(utrue, f, carry, *, outer: int, n_inner: int,
+                        n_adj: int, pop: Optional[PatchOp],
+                        param_shape: tuple, lr, gamma_d, gamma_r, tau0,
+                        sigma0, beta1, beta2, eps, clip) -> PlainStepper:
+    """The plain learner's steps from ``carry``, in the order of the JAX
+    package's scan (``first_order_tvl1.py:100-159``).  ``utrue``/``f`` are
     (O, M, N)."""
     dtype, dev = f.dtype, f.device
     tau, sigma, lo, den, inv_gd = step_constants(tau0, sigma0, gamma_d,
@@ -89,12 +89,8 @@ def _single_loop_tvl1_plain(utrue, f, x0, *, outer: int, n_inner: int,
         y_new = proj_norm21_ball(scale * (y + sigma * _GRAD.apply(ubar)), a)
         return u_new, y_new
 
-    if carry0 is None:
-        carry0 = _tvl1_init_carry(f, x0, param_shape=param_shape)
-    u, y, p, z, opt, t = carry0
-    xs, costs, gnorms = [], [], []
-    for _ in range(int(outer)):
-        x = torch.exp(z)
+    def local(st, x):
+        u, y, p = st
         a = expand(pop, x)
         a_safe = torch.clamp(a, min=1e-12)
         scale = 1.0 / (1.0 + sigma / (a_safe * gr))
@@ -107,22 +103,42 @@ def _single_loop_tvl1_plain(utrue, f, x0, *, outer: int, n_inner: int,
         d = torch.where(torch.abs(u - f) <= inv_gd, gd,
                         torch.zeros((), dtype=dtype, device=dev))
 
-        def H(v, M0=M0, d=d):
+        def H(v):
             return M0(v) + (d - 1.0) * v
 
         diag = torch.clamp(1.0 / inv_diag0 + (d - 1.0), min=1e-12)
         p, _ = cg_batched(H, utrue - u, x0=p, tol=0.0, maxiter=int(n_adj),
-                          M=lambda r, diag=diag: r / diag, item_ndim=2)
-        g_x = pullback(pop, scalarprod(_GRAD.apply(p), fields[0]))
-        g_z = torch.clamp(g_x * x, -clip, clip)
-        z, opt, t = adam_step(z, opt, t, g_z, lr=lr, beta1=beta1,
-                              beta2=beta2, eps=eps)
-        xs.append(x)
-        costs.append(0.5 * torch.sum((u - utrue) ** 2))
-        gnorms.append(torch.sqrt(torch.sum(g_x ** 2)))
-    carry = (u, y, p, z, opt, t)
-    res = plain_result(utrue, u, z, xs, costs, gnorms, param_shape)
-    return (res, carry) if return_carry else res
+                          M=lambda r: r / diag, item_ndim=2)
+        g = scalarprod(_GRAD.apply(p), fields[0])
+        return (u, y, p), (g,), 0.5 * torch.sum((u - utrue) ** 2)
+
+    return PlainStepper(
+        local, lambda g: pullback(pop, g[0]),
+        lambda g_x, x: torch.clamp(g_x * x, -clip, clip), carry,
+        param_shape=param_shape, lr=lr, beta1=beta1, beta2=beta2, eps=eps)
+
+
+def _tvl1_u_and_z(carry):
+    return carry[0], carry[3]
+
+
+def _single_loop_tvl1_plain(utrue, f, x0, *, outer: int, param_shape: tuple,
+                            carry0=None, return_carry: bool = False, **kw):
+    """The learner as a Python loop (:func:`_tvl1_plain_stepper`)."""
+    if carry0 is None:
+        carry0 = _tvl1_init_carry(f, x0, param_shape=param_shape)
+    stepper = _tvl1_plain_stepper(utrue, f, carry0, outer=outer,
+                                  param_shape=param_shape, **kw)
+    return run_steps(stepper, utrue, outer, _tvl1_u_and_z, return_carry)
+
+
+def _tvl1_stepper(utrue, f, carry, **kw):
+    """One shard's steps of a mesh segment where ``f`` lives: the plain
+    stepper on the CPU, the CUDA learner's session otherwise."""
+    if f.device.type == "cpu":
+        return _tvl1_plain_stepper(utrue, f, carry, **kw)
+    from .first_order_tvl1_cuda import Session
+    return Session(utrue, f, carry, **kw)
 
 
 def _cuda_launch():
@@ -135,7 +151,7 @@ def _single_loop_tvl1_impl(utrue, f, x0, *, param_shape: tuple, **kw):
     return run_segment(
         _single_loop_tvl1_plain, _cuda_launch,
         lambda ff: _tvl1_init_carry(ff, x0, param_shape=param_shape),
-        lambda c: (c[0], c[3]), utrue, f, x0, param_shape=param_shape, **kw)
+        _tvl1_u_and_z, utrue, f, x0, param_shape=param_shape, **kw)
 
 
 def _prepare(utrue, f, x0):
@@ -157,7 +173,7 @@ def single_loop_tvl1_learn(utrue, f, x0, *, outer: int = 300,
     positive scalar α or (m, n) patch grid.  ``gamma_d`` / ``gamma``: the
     data / regularizer Huber slopes; ``clip``: the bound on the log-α
     gradient fed to Adam."""
-    check_unported(mesh, optimizer)
+    check_unported(mesh, optimizer, mesh_ok=True)
     utrue, f, x0, pop, param_shape, squeeze = _prepare(utrue, f, x0)
     kw = dict(outer=int(outer), n_inner=int(n_inner), n_adj=int(n_adj),
               pop=pop, param_shape=param_shape, lr=lr, gamma_d=gamma_d,
@@ -167,7 +183,8 @@ def single_loop_tvl1_learn(utrue, f, x0, *, outer: int = 300,
         _single_loop_tvl1_impl, utrue, f, x0, kw,
         make_carry0=lambda ff: _tvl1_init_carry(ff, x0,
                                                 param_shape=param_shape),
-        log_every=log_every, segment_callback=segment_callback)
+        log_every=log_every, segment_callback=segment_callback, mesh=mesh,
+        stepper=_tvl1_stepper, u_and_z=_tvl1_u_and_z)
     if squeeze:
         res = res._replace(u=res.u[0])
     return res

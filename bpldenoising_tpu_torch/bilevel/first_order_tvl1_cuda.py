@@ -26,7 +26,8 @@ card refuses raises.
 
 from __future__ import annotations
 
-import ctypes
+import functools
+import sys
 
 import torch
 
@@ -34,74 +35,84 @@ from .. import _build
 from ..solvers.cluster_plan import cg_block_slots
 from ..solvers.pdps_cuda import check_cuda_input, check_plane
 from ..solvers.tvl1_cuda import tvl1_plan
-from .first_order_cuda import (adam_args, launches_per_step, pack_opt,
-                               unpack_opt)
+from .first_order_cuda import (KernelSession, adam_args, launches_per_step,
+                               pack_opt, run_session, unpack_opt)
 from .first_order_tvl1 import (_prepare, _single_loop_tvl1_impl,
                                step_constants)
 
 __all__ = ["single_loop_tvl1_cuda", "tvl1_plan", "launches_per_step",
-           "launches", "kernel_launches", "last_plan", "last_cg_slots"]
+           "launches", "kernel_launches", "last_plan", "last_cg_slots",
+           "Session"]
 
-#: calls that launched the CUDA learner (one per segment)
+#: sessions of the CUDA learner (one per segment, and per shard on a mesh)
 launches = 0
-#: kernel launches those calls issued on the card, as the C loop counts
-#: them (launches_per_step(n_adj) per outer step, one per segment)
+#: kernel launches they issued on the card, as the C loop counts them
+#: (launches_per_step(n_adj) per outer step, one per segment; on a mesh,
+#: per shard)
 kernel_launches = 0
 #: the band plan and the CG slots of the latest launch
 last_plan = None
 last_cg_slots = None
 
 
-def _launch(utrue, f, carry, *, outer, n_inner, n_adj, pop, param_shape,
-            lr, gamma_d, gamma_r, tau0, sigma0, beta1, beta2, eps, clip):
-    """Run ``outer`` steps from ``carry`` ``(u, y, p, z, (m, v), t)`` on
-    the card; → (carry, (α, cost, ‖g‖ trajectories)).  The shapes and
-    dtypes of every argument are checked before the device."""
-    if f.ndim != 3:
-        raise ValueError(f"expected an (O, M, N) stack, got {tuple(f.shape)}")
-    if f.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"the CUDA kernels take float32/float64, got "
-                        f"{f.dtype}")
-    check_plane(utrue, f.shape, f, "utrue")
-    B, M, N = (int(s) for s in f.shape)
-    pm, pn = (1, 1) if pop is None else pop.size_in
-    u, y, p, z, (m, v), t = carry
-    check_plane(u, f.shape, f, "carry u")
-    check_plane(y, (B, 2, M, N), f, "carry y")
-    check_plane(p, f.shape, f, "carry p")
-    opt = pack_opt(z, m, v, t, param_shape, 1, pm * pn, outer, f)
-    check_cuda_input(f)
-    f = f.contiguous()
-    utrue = utrue.contiguous()
-    u, y, p = (a.contiguous().clone() for a in (u, y, p))
-    plan = tvl1_plan(B, M, N, f.element_size())
-    slots = cg_block_slots(B, M, N, 1)
-    lib = _build.library()
-    scratch = torch.empty((lib.bpl_sl_tvl1_scratch(
-        B, M, N, pm * pn, plan.cluster, plan.rows, int(plan.resident)),),
-        dtype=f.dtype, device=f.device)
-    consts = (float(c) for c in step_constants(tau0, sigma0, gamma_d,
-                                               f.dtype))
-    tau, sigma, lo, den, inv_gd = consts
-    fn = lib.bpl_sl_tvl1_f32 if f.dtype == torch.float32 \
-        else lib.bpl_sl_tvl1_f64
-    issued = ctypes.c_int(0)
-    global launches, kernel_launches, last_plan, last_cg_slots
-    with torch.cuda.device(f.device):
-        stream = torch.cuda.current_stream(f.device).cuda_stream
-        launches += 1
-        last_plan, last_cg_slots = plan, slots
-        err = fn(*(a.data_ptr() for a in (f, utrue, u, y, p)),
-                 *(a.data_ptr() for a in opt), scratch.data_ptr(), B, M, N,
-                 pm, pn, plan.cluster, plan.rows, int(plan.resident),
-                 int(outer), int(n_inner), int(n_adj), tau, sigma,
-                 float(gamma_r), lo, den, float(gamma_d), inv_gd,
-                 *adam_args(lr, beta1, beta2, eps), float(clip),
-                 ctypes.byref(issued), stream)
-    kernel_launches += issued.value
-    _build.check(err, f"single-loop TV-L1 kernel (CP cluster {plan})")
-    (z, mv, t), trajs = unpack_opt(*opt, param_shape)
-    return (u, y, p, z, mv, t), trajs
+class Session(KernelSession):
+    """``outer`` steps on the card from ``carry`` ``(u, y, p, z, (m, v),
+    t)`` (:class:`.first_order_cuda.KernelSession`).  The shapes and dtypes
+    of every argument are checked before the device."""
+
+    def __init__(self, utrue, f, carry, *, outer, n_inner, n_adj, pop,
+                 param_shape, lr, gamma_d, gamma_r, tau0, sigma0, beta1,
+                 beta2, eps, clip):
+        if f.ndim != 3:
+            raise ValueError(f"expected an (O, M, N) stack, got "
+                             f"{tuple(f.shape)}")
+        if f.dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"the CUDA kernels take float32/float64, got "
+                            f"{f.dtype}")
+        check_plane(utrue, f.shape, f, "utrue")
+        B, M, N = (int(s) for s in f.shape)
+        pm, pn = (1, 1) if pop is None else pop.size_in
+        u, y, p, z, (m, v), t = carry
+        check_plane(u, f.shape, f, "carry u")
+        check_plane(y, (B, 2, M, N), f, "carry y")
+        check_plane(p, f.shape, f, "carry p")
+        self.opt = pack_opt(z, m, v, t, param_shape, 1, pm * pn, outer, f)
+        check_cuda_input(f)
+        self.f, self.utrue = f.contiguous(), utrue.contiguous()
+        self.state = tuple(a.contiguous().clone() for a in (u, y, p))
+        plan = tvl1_plan(B, M, N, f.element_size())
+        slots = cg_block_slots(B, M, N, 1)
+        lib = _build.library()
+        geometry = (B, M, N, pm * pn, plan.cluster, plan.rows,
+                    int(plan.resident))
+        self.scratch = torch.empty((lib.bpl_sl_tvl1_scratch(*geometry),),
+                                   dtype=f.dtype, device=f.device)
+        self.parts_of = functools.partial(lib.bpl_sl_tvl1_mesh_parts,
+                                          *geometry)
+        tau, sigma, lo, den, inv_gd = (
+            float(c) for c in step_constants(tau0, sigma0, gamma_d, f.dtype))
+        self.fn = lib.bpl_sl_tvl1_f32 if f.dtype == torch.float32 \
+            else lib.bpl_sl_tvl1_f64
+        self.args = (B, M, N, pm, pn, plan.cluster, plan.rows,
+                     int(plan.resident), int(outer))
+        self.consts = (int(n_inner), int(n_adj), tau, sigma, float(gamma_r),
+                       lo, den, float(gamma_d), inv_gd,
+                       *adam_args(lr, beta1, beta2, eps), float(clip))
+        self.what = f"single-loop TV-L1 kernel (CP cluster {plan})"
+        self.param_shape = param_shape
+        self.counters = sys.modules[__name__]
+        self.count_session(last_plan=plan, last_cg_slots=slots)
+
+    def finish(self):
+        u, y, p = self.state
+        (z, mv, t), trajs = unpack_opt(*self.opt, self.param_shape)
+        return (u, y, p, z, mv, t), trajs
+
+
+def _launch(utrue, f, carry, *, outer, **kw):
+    """Run ``outer`` steps from ``carry`` on the card in one call; →
+    (carry, (α, cost, ‖g‖ trajectories))."""
+    return run_session(Session(utrue, f, carry, outer=outer, **kw), outer)
 
 
 def single_loop_tvl1_cuda(utrue, f, x0, *, outer: int = 300,

@@ -18,7 +18,8 @@ patch grid (a full-resolution grid too, as in the JAX learner).
 :func:`single_loop_vtv_learn` runs where ``f`` lives: the plain loop below
 for CPU tensors, the CUDA learner of :mod:`.first_order_vtv_cuda`
 (``csrc/single_loop_vtv.cu``) for CUDA tensors, which raises for what it
-does not take.  ``mesh=`` and ``optimizer=`` raise
+does not take.  ``mesh=`` shards the batch
+(:func:`.first_order.drive_single_loop`); ``optimizer=`` raises
 ``NotImplementedError``.
 """
 
@@ -32,10 +33,10 @@ from ..models import vtv_model
 from ..ops import FwdGradientOp, PatchOp, proj_norm21_ball, scalarprod
 from ..solvers.krylov import cg_batched
 from ..solvers.vtv import _dpsi_coupled
-from .first_order import (SingleLoopResult, adam_step, check_unported,
+from .first_order import (PlainStepper, SingleLoopResult, check_unported,
                           drive_single_loop, dual_zeros, expand, opt_init,
-                          plain_result, prepare_learn, pullback,
-                          run_segment, step_sizes)
+                          prepare_learn, pullback, run_segment, run_steps,
+                          step_sizes)
 
 __all__ = ["single_loop_vtv_learn", "vtv_param_layout"]
 
@@ -63,13 +64,12 @@ def _vtv_init_carry(f, x0, *, param_shape: tuple):
             + opt_init(f, x0, param_shape))
 
 
-def _single_loop_vtv_plain(utrue, f, x0, *, outer: int, n_inner: int,
-                           n_adj: int, pop: Optional[PatchOp],
-                           param_shape: tuple, lr, gamma, tau0, sigma0,
-                           beta1, beta2, eps, carry0=None,
-                           return_carry: bool = False):
-    """The learner as a Python loop, in the order of the JAX package's
-    scan (``first_order_vtv.py:98-147``).  ``utrue``/``f`` are
+def _vtv_plain_stepper(utrue, f, carry, *, outer: int, n_inner: int,
+                       n_adj: int, pop: Optional[PatchOp],
+                       param_shape: tuple, lr, gamma, tau0, sigma0, beta1,
+                       beta2, eps) -> PlainStepper:
+    """The plain learner's steps from ``carry``, in the order of the JAX
+    package's scan (``first_order_vtv.py:98-147``).  ``utrue``/``f`` are
     (O, C, M, N)."""
     tau, sigma = step_sizes(_VTV.opnorm_sq(), tau0, sigma0, f.dtype,
                             f.device)
@@ -81,35 +81,52 @@ def _single_loop_vtv_plain(utrue, f, x0, *, outer: int, n_inner: int,
                                  axes=_AXES)
         return u_new, y_new
 
-    if carry0 is None:
-        carry0 = _vtv_init_carry(f, x0, param_shape=param_shape)
-    u, y, lam, z, opt, t = carry0
-    xs, costs, gnorms = [], [], []
-    for _ in range(int(outer)):
-        x = torch.exp(z)
+    def local(st, x):
+        u, y, lam = st
         a = expand(pop, x)
         for _ in range(int(n_inner)):
             u, y = pd_step(a, u, y)
         psi, s, Dj = _dpsi_coupled(_GRAD.apply(u), gamma)
 
-        def H(v, a=a, Dj=Dj):
+        def H(v):
             return v + _GRAD.apply_adjoint(a * Dj(_GRAD.apply(v)))
 
         a_s = a * s
         diag = (1.0 + _GRAD.gram_diag(torch.stack([a_s, a_s], dim=-3))
                 )[..., None, :, :]
         lam, _ = cg_batched(H, utrue - u, x0=lam, tol=0.0,
-                            maxiter=int(n_adj),
-                            M=lambda r, diag=diag: r / diag, item_ndim=3)
-        g_x = pullback(pop, scalarprod(psi, _GRAD.apply(lam), axes=_AXES))
-        z, opt, t = adam_step(z, opt, t, g_x * x, lr=lr, beta1=beta1,
-                              beta2=beta2, eps=eps)
-        xs.append(x)
-        costs.append(0.5 * torch.sum((u - utrue) ** 2))
-        gnorms.append(torch.sqrt(torch.sum(g_x ** 2)))
-    carry = (u, y, lam, z, opt, t)
-    res = plain_result(utrue, u, z, xs, costs, gnorms, param_shape)
-    return (res, carry) if return_carry else res
+                            maxiter=int(n_adj), M=lambda r: r / diag,
+                            item_ndim=3)
+        g = scalarprod(psi, _GRAD.apply(lam), axes=_AXES)
+        return (u, y, lam), (g,), 0.5 * torch.sum((u - utrue) ** 2)
+
+    return PlainStepper(local, lambda g: pullback(pop, g[0]),
+                        lambda g_x, x: g_x * x, carry,
+                        param_shape=param_shape, lr=lr, beta1=beta1,
+                        beta2=beta2, eps=eps)
+
+
+def _vtv_u_and_z(carry):
+    return carry[0], carry[3]
+
+
+def _single_loop_vtv_plain(utrue, f, x0, *, outer: int, param_shape: tuple,
+                           carry0=None, return_carry: bool = False, **kw):
+    """The learner as a Python loop (:func:`_vtv_plain_stepper`)."""
+    if carry0 is None:
+        carry0 = _vtv_init_carry(f, x0, param_shape=param_shape)
+    stepper = _vtv_plain_stepper(utrue, f, carry0, outer=outer,
+                                 param_shape=param_shape, **kw)
+    return run_steps(stepper, utrue, outer, _vtv_u_and_z, return_carry)
+
+
+def _vtv_stepper(utrue, f, carry, **kw):
+    """One shard's steps of a mesh segment where ``f`` lives: the plain
+    stepper on the CPU, the CUDA learner's session otherwise."""
+    if f.device.type == "cpu":
+        return _vtv_plain_stepper(utrue, f, carry, **kw)
+    from .first_order_vtv_cuda import Session
+    return Session(utrue, f, carry, **kw)
 
 
 def _cuda_launch():
@@ -122,7 +139,7 @@ def _single_loop_vtv_impl(utrue, f, x0, *, param_shape: tuple, **kw):
     return run_segment(
         _single_loop_vtv_plain, _cuda_launch,
         lambda ff: _vtv_init_carry(ff, x0, param_shape=param_shape),
-        lambda c: (c[0], c[3]), utrue, f, x0, param_shape=param_shape, **kw)
+        _vtv_u_and_z, utrue, f, x0, param_shape=param_shape, **kw)
 
 
 def _prepare(utrue, f, x0):
@@ -146,7 +163,7 @@ def single_loop_vtv_learn(utrue, f, x0, *, outer: int = 300,
     (C, M, N) color stacks, on the device ``f`` lives on.  ``x0``:
     strictly positive scalar α or (m, n) patch grid.  ``gamma`` is the
     Huber width of the smoothed coupled system."""
-    check_unported(mesh, optimizer)
+    check_unported(mesh, optimizer, mesh_ok=True)
     utrue, f, x0, pop, param_shape, squeeze = _prepare(utrue, f, x0)
     kw = dict(outer=int(outer), n_inner=int(n_inner), n_adj=int(n_adj),
               pop=pop, param_shape=param_shape, lr=lr, gamma=gamma,
@@ -155,7 +172,8 @@ def single_loop_vtv_learn(utrue, f, x0, *, outer: int = 300,
         _single_loop_vtv_impl, utrue, f, x0, kw,
         make_carry0=lambda ff: _vtv_init_carry(ff, x0,
                                                param_shape=param_shape),
-        log_every=log_every, segment_callback=segment_callback)
+        log_every=log_every, segment_callback=segment_callback, mesh=mesh,
+        stepper=_vtv_stepper, u_and_z=_vtv_u_and_z)
     if squeeze:
         res = res._replace(u=res.u[0])
     return res

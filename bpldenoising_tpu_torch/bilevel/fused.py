@@ -121,7 +121,9 @@ def drive(machinery, *, x0, delta0, param_shape: tuple, maxiter: int,
     ``delta0``: in one host loop, or with ``log_every`` in segments of that
     many outer iterations (:func:`.tr_core.run_segmented`), calling
     ``segment_callback(it, carry, elapsed_s)`` after each.  ``init_B``, a
-    dense BFGS matrix, replaces the initial model (ignored for L-BFGS)."""
+    dense BFGS matrix, replaces the segmented run's initial model (ignored
+    for L-BFGS).  As in the JAX function, a single run (no ``log_every``)
+    ignores ``segment_callback`` and ``init_B``."""
     init_carry, cond, body = machinery
 
     def start():
@@ -129,10 +131,7 @@ def drive(machinery, *, x0, delta0, param_shape: tuple, maxiter: int,
 
     times = None
     if log_every is None:
-        if segment_callback is not None:
-            raise ValueError("segment_callback runs at the hops of "
-                             "segmented dispatch: set log_every")
-        carry = start()
+        carry = init_carry(x0, delta0)
         while cond(carry):
             carry = body(carry)
     else:
@@ -234,7 +233,8 @@ def bilevel_learn_fused(ds, *, xinit, params, model: DenoiseModel = None,
         every hop (carry layout: ``(it, x_flat, Bst, delta, fx, gx, u,
         state, log)`` with ``state = (pdps_state, (p_exact, p_reg))``).
       init_B: a dense BFGS matrix to start from (checkpoint resume;
-        ignored for the L-BFGS model).
+        ignored for the L-BFGS model).  Segmented mode only: a single run
+        ignores it and ``segment_callback``, as the JAX function does.
       device: where the images and solver state live; ``"cuda"`` launches
         the CUDA kernels, ``"cpu"`` runs their plain versions (with a mesh,
         its devices).

@@ -34,6 +34,32 @@ inline bool sl_bad_args(long long B, int M, int N, int pm, int pn,
 // M, N, pm, pn, P, bpt, nb_mn, outer and Adam's lr, beta1, beta2, omb1,
 // omb2, eps (and clip, where slx_pull_adam clips).
 
+// What one call of a learner's loop runs.  The single form runs SLX_ALL
+// over the segment's steps: slx_begin, then per step the local part (the
+// CP phase, the CG, the gradient maps and the cost partials) and the
+// update (slx_pull_adam).  The mesh form calls each part on its own, one
+// step at a time, on every shard's card, and sums the shards' gradient
+// maps and cost partials on the host in between (slx_mesh_parts says
+// where they lie in the scratch buffer), so each shard's update runs on
+// the summed map and z stays replicated.
+enum SlxParts { SLX_BEGIN = 1, SLX_LOCAL = 2, SLX_UPDATE = 4, SLX_ALL = 7 };
+
+// A loop call's step range [o0, o1) and parts are valid for `outer` steps.
+inline bool slx_bad_steps(int o0, int o1, int parts, int outer) {
+  return o0 < 0 || o1 < o0 || o1 > outer || parts < 1 || parts > SLX_ALL;
+}
+
+// The offsets and lengths, in elements of T, of the gradient maps and the
+// cost partials in a learner's scratch buffer (laid out as its sizes
+// struct Z says): out = {gmap, K·M·N, cost_part, nb_mn}.
+template <class Z>
+void slx_mesh_parts(const Z& z, long long* out) {
+  out[0] = z.eplanes + z.xplanes;
+  out[1] = z.gmap;
+  out[2] = out[0] + z.gmap + 2 * z.kp + z.part;
+  out[3] = z.cost_part;
+}
+
 // αₖ at pixel (i, j): the patch entry min(i·m // M, m − 1),
 // min(j·n // N, n − 1) (first_order_pallas.py:146-147, PatchOp.apply for
 // divisible shapes), no division for a scalar weight.

@@ -615,35 +615,40 @@ __global__ void __launch_bounds__(BPL_THREADS) slt_gmap(SLT<T> h) {
 
 // ------------------------------------------------------------------ the host
 
-// The launches of `outer` steps with CG blocks of NS slots (a grid of
-// 3·M·N / (256·NS) blocks an image).
+// The launches of `parts` (SlxParts) of steps o0 … o1 − 1 with CG blocks
+// of NS slots (a grid of 3·M·N / (256·NS) blocks an image).
 template <typename T, int NS>
 int slt_loop(const SLT<T>& h, const PdClusterLaunch<void (*)(SLT<T>, int)>& L,
-             int outer, int n_inner, int n_adj, int* n_launched,
-             cudaStream_t s) {
+             int o0, int o1, int parts, int n_inner, int n_adj,
+             int* n_launched, cudaStream_t s) {
   const dim3 tiles(NS == 1 ? h.bpt : (unsigned)(h.mn / BPL_THREADS),
                    (unsigned)h.B);
   int nl = 0, err;
-  if (outer > 0) {
+  if ((parts & SLX_BEGIN) && h.outer > 0) {
     slx_begin<T, 2><<<1, BPL_THREADS, 0, s>>>(h);
     ++nl;
   }
-  for (int o = 0; o < outer; ++o) {
-    if (n_inner > 0) {
-      cudaError_t e = cudaLaunchKernelEx(&L.cfg, L.kern, h, n_inner);
-      if (e != cudaSuccess) return (int)e;
+  for (int o = o0; o < o1; ++o) {
+    if (parts & SLX_LOCAL) {
+      if (n_inner > 0) {
+        cudaError_t e = cudaLaunchKernelEx(&L.cfg, L.kern, h, n_inner);
+        if (e != cudaSuccess) return (int)e;
+        ++nl;
+      }
+      slt_init<T, NS><<<tiles, BPL_THREADS, 0, s>>>(h);
+      ++nl;
+      for (int k = 0; k < n_adj; ++k) {
+        slt_apply<T, NS><<<tiles, BPL_THREADS, 0, s>>>(h, k);
+        slt_update<T, NS><<<tiles, BPL_THREADS, 0, s>>>(h, k);
+        nl += 2;
+      }
+      BPL_LAUNCH(slt_gmap<T>, h.nb_mn, BPL_THREADS, s)(h);
       ++nl;
     }
-    slt_init<T, NS><<<tiles, BPL_THREADS, 0, s>>>(h);
-    ++nl;
-    for (int k = 0; k < n_adj; ++k) {
-      slt_apply<T, NS><<<tiles, BPL_THREADS, 0, s>>>(h, k);
-      slt_update<T, NS><<<tiles, BPL_THREADS, 0, s>>>(h, k);
-      nl += 2;
+    if (parts & SLX_UPDATE) {
+      slx_pull_adam<T, 2><<<2 * h.P, BPL_THREADS, 0, s>>>(h, o);
+      ++nl;
     }
-    BPL_LAUNCH(slt_gmap<T>, h.nb_mn, BPL_THREADS, s)(h);
-    slx_pull_adam<T, 2><<<2 * h.P, BPL_THREADS, 0, s>>>(h, o);
-    nl += 2;
     if ((err = (int)cudaGetLastError()) != (int)cudaSuccess) return err;
   }
   *n_launched = nl;
@@ -655,11 +660,12 @@ int sl_tgv_entry(const T* f, const T* ut, T* u, T* w, T* p, T* q, T* lam,
                  T* zmv, T* t, T* traj_x, T* traj_cost, T* traj_gnorm,
                  T* scratch, long long B, int M, int N, int pm, int pn,
                  int cl, int rows, int resident, int cg_slots, int outer,
-                 int n_inner, int n_adj, T tau, T sigma, T gamma, T lr,
-                 T beta1, T beta2, T omb1, T omb2, T eps, int* n_launched,
-                 cudaStream_t s) {
+                 int o0, int o1, int parts, int n_inner, int n_adj, T tau,
+                 T sigma, T gamma, T lr, T beta1, T beta2, T omb1, T omb2,
+                 T eps, int* n_launched, cudaStream_t s) {
   *n_launched = 0;
-  if (sl_bad_args(B, M, N, pm, pn, outer, n_inner, n_adj) || B > 65535
+  if (sl_bad_args(B, M, N, pm, pn, outer, n_inner, n_adj)
+      || slx_bad_steps(o0, o1, parts, outer) || B > 65535
       || !(cg_slots == 1
            || (cg_slots == 3 && (long long)M * N % BPL_THREADS == 0))
       || !tgv_plan_ok(M, N, cl, rows) || B * cl > 0x7fffffffLL
@@ -716,12 +722,15 @@ int sl_tgv_entry(const T* f, const T* ut, T* u, T* w, T* p, T* q, T* lam,
   h.eps = eps;
   PdClusterLaunch<void (*)(SLT<T>, int)> L;
   void (*kern)(SLT<T>, int) = resident ? slt_pd<T, true> : slt_pd<T, false>;
-  int err = pd_cluster_prepare(
-      L, kern, B, cl, resident ? (size_t)h.region * sizeof(T) : 0, s);
-  if (err != (int)cudaSuccess) return err;
-  return cg_slots == 3
-             ? slt_loop<T, 3>(h, L, outer, n_inner, n_adj, n_launched, s)
-             : slt_loop<T, 1>(h, L, outer, n_inner, n_adj, n_launched, s);
+  if (parts & SLX_LOCAL) {
+    int err = pd_cluster_prepare(
+        L, kern, B, cl, resident ? (size_t)h.region * sizeof(T) : 0, s);
+    if (err != (int)cudaSuccess) return err;
+  }
+  return cg_slots == 3 ? slt_loop<T, 3>(h, L, o0, o1, parts, n_inner, n_adj,
+                                        n_launched, s)
+                       : slt_loop<T, 1>(h, L, o0, o1, parts, n_inner, n_adj,
+                                        n_launched, s);
 }
 
 }  // namespace bpl
@@ -733,21 +742,26 @@ long long bpl_sl_tgv_scratch(long long B, int M, int N, int P, int cl,
   return bpl::slt_sizes(B, M, N, P, cl, rows, resident).total;
 }
 
+void bpl_sl_tgv_mesh_parts(long long B, int M, int N, int P, int cl,
+                           int rows, int resident, long long* out) {
+  bpl::slx_mesh_parts(bpl::slt_sizes(B, M, N, P, cl, rows, resident), out);
+}
+
 #define BPL_SL_TGV(SUFFIX, T)                                                \
   int bpl_sl_tgv_##SUFFIX(const T* f, const T* ut, T* u, T* w, T* p, T* q,   \
                           T* lam, T* zmv, T* t, T* traj_x, T* traj_cost,     \
                           T* traj_gnorm, T* scratch, long long B, int M,     \
                           int N, int pm, int pn, int cl, int rows,           \
-                          int resident, int cg_slots, int outer,             \
-                          int n_inner, int n_adj, T tau, T sigma, T gamma,   \
-                          T lr, T beta1, T beta2, T omb1, T omb2, T eps,     \
-                          int* n_launched, void* stream) {                   \
+                          int resident, int cg_slots, int outer, int o0,     \
+                          int o1, int parts, int n_inner, int n_adj, T tau,  \
+                          T sigma, T gamma, T lr, T beta1, T beta2, T omb1,  \
+                          T omb2, T eps, int* n_launched, void* stream) {    \
     return bpl::sl_tgv_entry<T>(f, ut, u, w, p, q, lam, zmv, t, traj_x,      \
                                 traj_cost, traj_gnorm, scratch, B, M, N, pm, \
-                                pn, cl, rows, resident, cg_slots, outer,     \
-                                n_inner, n_adj, tau, sigma, gamma, lr,       \
-                                beta1, beta2, omb1, omb2, eps, n_launched,   \
-                                (cudaStream_t)stream);                       \
+                                pn, cl, rows, resident, cg_slots, outer, o0, \
+                                o1, parts, n_inner, n_adj, tau, sigma,       \
+                                gamma, lr, beta1, beta2, omb1, omb2, eps,    \
+                                n_launched, (cudaStream_t)stream);           \
   }
 
 BPL_SL_TGV(f32, float)

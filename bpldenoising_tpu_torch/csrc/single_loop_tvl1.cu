@@ -483,38 +483,46 @@ __global__ void __launch_bounds__(BPL_THREADS) sl1_gmap(SL1<T> h) {
 
 // ------------------------------------------------------------------ the host
 
-// The CP launch (checked against the card first) and the launches of
-// `outer` steps.
+// The CP launch (checked against the card first, where the call runs the
+// local part) and the launches of `parts` (SlxParts) of steps o0 … o1 − 1.
 template <typename T>
-int sl1_loop(const SL1<T>& h, int resident, int outer, int n_inner,
-             int n_adj, int* n_launched, cudaStream_t s) {
+int sl1_loop(const SL1<T>& h, int resident, int o0, int o1, int parts,
+             int n_inner, int n_adj, int* n_launched, cudaStream_t s) {
   PdClusterLaunch<void (*)(SL1<T>, int)> L;
   void (*kern)(SL1<T>, int) = resident ? sl1_pd<T, true> : sl1_pd<T, false>;
-  int err = pd_cluster_prepare(
-      L, kern, h.B, h.cl, resident ? (size_t)h.region * sizeof(T) : 0, s);
-  if (err != (int)cudaSuccess) return err;
+  int err;
+  if (parts & SLX_LOCAL) {
+    err = pd_cluster_prepare(
+        L, kern, h.B, h.cl, resident ? (size_t)h.region * sizeof(T) : 0, s);
+    if (err != (int)cudaSuccess) return err;
+  }
   const dim3 tiles((unsigned)h.bpt, (unsigned)h.B);
   int nl = 0;
-  if (outer > 0) {
+  if ((parts & SLX_BEGIN) && h.outer > 0) {
     slx_begin<T, 1><<<1, BPL_THREADS, 0, s>>>(h);
     ++nl;
   }
-  for (int o = 0; o < outer; ++o) {
-    if (n_inner > 0) {
-      cudaError_t e = cudaLaunchKernelEx(&L.cfg, L.kern, h, n_inner);
-      if (e != cudaSuccess) return (int)e;
+  for (int o = o0; o < o1; ++o) {
+    if (parts & SLX_LOCAL) {
+      if (n_inner > 0) {
+        cudaError_t e = cudaLaunchKernelEx(&L.cfg, L.kern, h, n_inner);
+        if (e != cudaSuccess) return (int)e;
+        ++nl;
+      }
+      sl1_init<T><<<tiles, BPL_THREADS, 0, s>>>(h);
+      ++nl;
+      for (int k = 0; k < n_adj; ++k) {
+        sl1_apply<T><<<tiles, BPL_THREADS, 0, s>>>(h, k);
+        sl1_update<T><<<tiles, BPL_THREADS, 0, s>>>(h, k);
+        nl += 2;
+      }
+      BPL_LAUNCH(sl1_gmap<T>, h.nb_mn, BPL_THREADS, s)(h);
       ++nl;
     }
-    sl1_init<T><<<tiles, BPL_THREADS, 0, s>>>(h);
-    ++nl;
-    for (int k = 0; k < n_adj; ++k) {
-      sl1_apply<T><<<tiles, BPL_THREADS, 0, s>>>(h, k);
-      sl1_update<T><<<tiles, BPL_THREADS, 0, s>>>(h, k);
-      nl += 2;
+    if (parts & SLX_UPDATE) {
+      slx_pull_adam<T, 1, SL1<T>, true><<<h.P, BPL_THREADS, 0, s>>>(h, o);
+      ++nl;
     }
-    BPL_LAUNCH(sl1_gmap<T>, h.nb_mn, BPL_THREADS, s)(h);
-    slx_pull_adam<T, 1, SL1<T>, true><<<h.P, BPL_THREADS, 0, s>>>(h, o);
-    nl += 2;
     if ((err = (int)cudaGetLastError()) != (int)cudaSuccess) return err;
   }
   *n_launched = nl;
@@ -525,12 +533,14 @@ template <typename T>
 int sl_tvl1_entry(const T* f, const T* ut, T* u, T* y, T* p, T* zmv, T* t,
                   T* traj_x, T* traj_cost, T* traj_gnorm, T* scratch,
                   long long B, int M, int N, int pm, int pn, int cl,
-                  int rows, int resident, int outer, int n_inner, int n_adj,
-                  T tau, T sigma, T gamma_r, T lo, T den, T gamma_d,
-                  T inv_gd, T lr, T beta1, T beta2, T omb1, T omb2, T eps,
-                  T clip, int* n_launched, cudaStream_t s) {
+                  int rows, int resident, int outer, int o0, int o1,
+                  int parts, int n_inner, int n_adj, T tau, T sigma,
+                  T gamma_r, T lo, T den, T gamma_d, T inv_gd, T lr, T beta1,
+                  T beta2, T omb1, T omb2, T eps, T clip, int* n_launched,
+                  cudaStream_t s) {
   *n_launched = 0;
-  if (sl_bad_args(B, M, N, pm, pn, outer, n_inner, n_adj) || B > 65535
+  if (sl_bad_args(B, M, N, pm, pn, outer, n_inner, n_adj)
+      || slx_bad_steps(o0, o1, parts, outer) || B > 65535
       || !pd_plan_ok(M, N, 1, cl, rows) || B * cl > 0x7fffffffLL
       || (long long)M * pm > 0x7fffffffLL
       || (long long)N * pn > 0x7fffffffLL)
@@ -585,7 +595,8 @@ int sl_tvl1_entry(const T* f, const T* ut, T* u, T* y, T* p, T* zmv, T* t,
   h.omb2 = omb2;
   h.eps = eps;
   h.clip = clip;
-  return sl1_loop<T>(h, resident, outer, n_inner, n_adj, n_launched, s);
+  return sl1_loop<T>(h, resident, o0, o1, parts, n_inner, n_adj, n_launched,
+                     s);
 }
 
 }  // namespace bpl
@@ -597,22 +608,28 @@ long long bpl_sl_tvl1_scratch(long long B, int M, int N, int P, int cl,
   return bpl::sl1_sizes(B, M, N, P, cl, rows, resident).total;
 }
 
+void bpl_sl_tvl1_mesh_parts(long long B, int M, int N, int P, int cl,
+                            int rows, int resident, long long* out) {
+  bpl::slx_mesh_parts(bpl::sl1_sizes(B, M, N, P, cl, rows, resident), out);
+}
+
 #define BPL_SL_TVL1(SUFFIX, T)                                               \
   int bpl_sl_tvl1_##SUFFIX(const T* f, const T* ut, T* u, T* y, T* p,        \
                            T* zmv, T* t, T* traj_x, T* traj_cost,            \
                            T* traj_gnorm, T* scratch, long long B, int M,    \
                            int N, int pm, int pn, int cl, int rows,          \
-                           int resident, int outer, int n_inner, int n_adj,  \
-                           T tau, T sigma, T gamma_r, T lo, T den,           \
-                           T gamma_d, T inv_gd, T lr, T beta1, T beta2,      \
-                           T omb1, T omb2, T eps, T clip, int* n_launched,   \
-                           void* stream) {                                   \
+                           int resident, int outer, int o0, int o1,          \
+                           int parts, int n_inner, int n_adj, T tau,         \
+                           T sigma, T gamma_r, T lo, T den, T gamma_d,       \
+                           T inv_gd, T lr, T beta1, T beta2, T omb1, T omb2, \
+                           T eps, T clip, int* n_launched, void* stream) {   \
     return bpl::sl_tvl1_entry<T>(f, ut, u, y, p, zmv, t, traj_x, traj_cost,  \
                                  traj_gnorm, scratch, B, M, N, pm, pn, cl,   \
-                                 rows, resident, outer, n_inner, n_adj, tau, \
-                                 sigma, gamma_r, lo, den, gamma_d, inv_gd,   \
-                                 lr, beta1, beta2, omb1, omb2, eps, clip,    \
-                                 n_launched, (cudaStream_t)stream);          \
+                                 rows, resident, outer, o0, o1, parts,       \
+                                 n_inner, n_adj, tau, sigma, gamma_r, lo,    \
+                                 den, gamma_d, inv_gd, lr, beta1, beta2,     \
+                                 omb1, omb2, eps, clip, n_launched,          \
+                                 (cudaStream_t)stream);                      \
   }
 
 BPL_SL_TVL1(f32, float)

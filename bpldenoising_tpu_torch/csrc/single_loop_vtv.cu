@@ -599,43 +599,53 @@ int slv_tile_prepare(int C, size_t* bytes) {
                                    (int)*bytes);
 }
 
-// The CP launch and the launches of `outer` steps (CG blocks of h.ns slots:
-// a grid of C·M·N / (256·ns) blocks an image) for CC channels (0: any).
+// The CP launch (prepared where the call runs the local part) and the
+// launches of `parts` (SlxParts) of steps o0 … o1 − 1 (CG blocks of h.ns
+// slots: a grid of C·M·N / (256·ns) blocks an image) for CC channels (0:
+// any).
 template <typename T, int CC>
-int slv_loop(const SLV<T>& h, int resident, int outer, int n_inner,
-             int n_adj, int* n_launched, cudaStream_t s) {
+int slv_loop(const SLV<T>& h, int resident, int o0, int o1, int parts,
+             int n_inner, int n_adj, int* n_launched, cudaStream_t s) {
   PdClusterLaunch<void (*)(SLV<T>, int)> L;
   void (*kern)(SLV<T>, int) =
       resident ? slv_pd<T, true, CC> : slv_pd<T, false, CC>;
-  int err = pd_cluster_prepare(
-      L, kern, h.B, h.cl, resident ? (size_t)h.region * sizeof(T) : 0, s);
-  if (err != (int)cudaSuccess) return err;
+  int err;
   size_t tile = 0;
-  if ((err = slv_tile_prepare<T, CC>(h.C, &tile)) != (int)cudaSuccess)
-    return err;
+  if (parts & SLX_LOCAL) {
+    err = pd_cluster_prepare(
+        L, kern, h.B, h.cl, resident ? (size_t)h.region * sizeof(T) : 0, s);
+    if (err != (int)cudaSuccess) return err;
+    if ((err = slv_tile_prepare<T, CC>(h.C, &tile)) != (int)cudaSuccess)
+      return err;
+  }
   const dim3 tiles(h.ns == 1 ? h.bpt : (unsigned)(h.mn / BPL_THREADS),
                    (unsigned)h.B);
   int nl = 0;
-  if (outer > 0) {
+  if ((parts & SLX_BEGIN) && h.outer > 0) {
     slx_begin<T, 1><<<1, BPL_THREADS, 0, s>>>(h);
     ++nl;
   }
-  for (int o = 0; o < outer; ++o) {
-    if (n_inner > 0) {
-      cudaError_t e = cudaLaunchKernelEx(&L.cfg, L.kern, h, n_inner);
-      if (e != cudaSuccess) return (int)e;
+  for (int o = o0; o < o1; ++o) {
+    if (parts & SLX_LOCAL) {
+      if (n_inner > 0) {
+        cudaError_t e = cudaLaunchKernelEx(&L.cfg, L.kern, h, n_inner);
+        if (e != cudaSuccess) return (int)e;
+        ++nl;
+      }
+      slv_init<T, CC><<<tiles, BPL_THREADS, tile, s>>>(h);
+      ++nl;
+      for (int k = 0; k < n_adj; ++k) {
+        slv_apply<T, CC><<<tiles, BPL_THREADS, tile, s>>>(h, k);
+        slv_update<T><<<tiles, BPL_THREADS, 0, s>>>(h, k);
+        nl += 2;
+      }
+      BPL_LAUNCH(slv_gmap<T>, h.nb_mn, BPL_THREADS, s)(h);
       ++nl;
     }
-    slv_init<T, CC><<<tiles, BPL_THREADS, tile, s>>>(h);
-    ++nl;
-    for (int k = 0; k < n_adj; ++k) {
-      slv_apply<T, CC><<<tiles, BPL_THREADS, tile, s>>>(h, k);
-      slv_update<T><<<tiles, BPL_THREADS, 0, s>>>(h, k);
-      nl += 2;
+    if (parts & SLX_UPDATE) {
+      slx_pull_adam<T, 1><<<h.P, BPL_THREADS, 0, s>>>(h, o);
+      ++nl;
     }
-    BPL_LAUNCH(slv_gmap<T>, h.nb_mn, BPL_THREADS, s)(h);
-    slx_pull_adam<T, 1><<<h.P, BPL_THREADS, 0, s>>>(h, o);
-    nl += 2;
     if ((err = (int)cudaGetLastError()) != (int)cudaSuccess) return err;
   }
   *n_launched = nl;
@@ -646,12 +656,13 @@ template <typename T>
 int sl_vtv_entry(const T* f, const T* ut, T* u, T* y, T* lam, T* zmv, T* t,
                  T* traj_x, T* traj_cost, T* traj_gnorm, T* scratch,
                  long long B, int C, int M, int N, int pm, int pn, int cl,
-                 int rows, int resident, int cg_slots, int outer,
-                 int n_inner, int n_adj, T tau, T sigma, T gamma, T lr,
-                 T beta1, T beta2, T omb1, T omb2, T eps, int* n_launched,
-                 cudaStream_t s) {
+                 int rows, int resident, int cg_slots, int outer, int o0,
+                 int o1, int parts, int n_inner, int n_adj, T tau, T sigma,
+                 T gamma, T lr, T beta1, T beta2, T omb1, T omb2, T eps,
+                 int* n_launched, cudaStream_t s) {
   *n_launched = 0;
-  if (sl_bad_args(B, M, N, pm, pn, outer, n_inner, n_adj) || B > 65535
+  if (sl_bad_args(B, M, N, pm, pn, outer, n_inner, n_adj)
+      || slx_bad_steps(o0, o1, parts, outer) || B > 65535
       || C < 1
       || !(cg_slots == 1
            || (cg_slots == C && (long long)M * N % BPL_THREADS == 0))
@@ -707,9 +718,9 @@ int sl_vtv_entry(const T* f, const T* ut, T* u, T* y, T* lam, T* zmv, T* t,
   h.omb1 = omb1;
   h.omb2 = omb2;
   h.eps = eps;
-  return C == 3 ? slv_loop<T, 3>(h, resident, outer, n_inner, n_adj,
+  return C == 3 ? slv_loop<T, 3>(h, resident, o0, o1, parts, n_inner, n_adj,
                                  n_launched, s)
-                : slv_loop<T, 0>(h, resident, outer, n_inner, n_adj,
+                : slv_loop<T, 0>(h, resident, o0, o1, parts, n_inner, n_adj,
                                  n_launched, s);
 }
 
@@ -722,21 +733,27 @@ long long bpl_sl_vtv_scratch(long long B, int C, int M, int N, int P,
   return bpl::slv_sizes(B, C, M, N, P, cl, rows, resident).total;
 }
 
+void bpl_sl_vtv_mesh_parts(long long B, int C, int M, int N, int P, int cl,
+                           int rows, int resident, long long* out) {
+  bpl::slx_mesh_parts(bpl::slv_sizes(B, C, M, N, P, cl, rows, resident),
+                      out);
+}
+
 #define BPL_SL_VTV(SUFFIX, T)                                                \
   int bpl_sl_vtv_##SUFFIX(const T* f, const T* ut, T* u, T* y, T* lam,       \
                           T* zmv, T* t, T* traj_x, T* traj_cost,             \
                           T* traj_gnorm, T* scratch, long long B, int C,     \
                           int M, int N, int pm, int pn, int cl, int rows,    \
-                          int resident, int cg_slots, int outer,             \
-                          int n_inner, int n_adj, T tau, T sigma, T gamma,   \
-                          T lr, T beta1, T beta2, T omb1, T omb2, T eps,     \
-                          int* n_launched, void* stream) {                   \
+                          int resident, int cg_slots, int outer, int o0,     \
+                          int o1, int parts, int n_inner, int n_adj, T tau,  \
+                          T sigma, T gamma, T lr, T beta1, T beta2, T omb1,  \
+                          T omb2, T eps, int* n_launched, void* stream) {    \
     return bpl::sl_vtv_entry<T>(f, ut, u, y, lam, zmv, t, traj_x, traj_cost, \
                                 traj_gnorm, scratch, B, C, M, N, pm, pn, cl, \
-                                rows, resident, cg_slots, outer, n_inner,    \
-                                n_adj, tau, sigma, gamma, lr, beta1, beta2,  \
-                                omb1, omb2, eps, n_launched,                 \
-                                (cudaStream_t)stream);                       \
+                                rows, resident, cg_slots, outer, o0, o1,     \
+                                parts, n_inner, n_adj, tau, sigma, gamma,    \
+                                lr, beta1, beta2, omb1, omb2, eps,           \
+                                n_launched, (cudaStream_t)stream);           \
   }
 
 BPL_SL_VTV(f32, float)

@@ -1,5 +1,11 @@
-"""PNG reading and writing with the standard library's ``zlib`` and numpy
-(counterpart of ``bpldenoising_tpu.data.png_io``).
+"""PNG reading and writing (counterpart of ``bpldenoising_tpu.data.png_io``).
+
+The built C++ codec (:mod:`.native`, compiled at first use) reads and
+writes; where it cannot be built (no ``g++`` or no ``zlib.h``) the pure
+Python codec of this module, on the standard library's ``zlib`` and numpy,
+does.  ``native.backend`` says which one runs.  Both take the same files:
+the header is checked here before either decodes, and a decode or encode
+error of the built codec raises (``OSError``) without a retry in Python.
 
 Reads non-interlaced PNGs with all five scanline filter types: grayscale
 of bit depth 1, 2, 4, 8 or 16 and RGB of depth 8 or 16 (the bundled
@@ -17,6 +23,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from . import native
 
 __all__ = ["read_png_gray", "read_png_color", "write_png_gray",
            "write_png_color"]
@@ -84,6 +92,37 @@ def _unfilter(raw: bytes, height: int, row_bytes: int,
     return np.frombuffer(bytes(out), np.uint8).reshape(height, row_bytes)
 
 
+def _check_header(path: str, header, gray_only: bool) -> None:
+    """Refuse what the readers do not take: ``gray_only`` every color
+    type but 0, and any depth, color type or interlace not listed in the
+    module's docstring."""
+    if header is None:
+        raise ValueError(f"{path}: no IHDR chunk")
+    _, _, depth, color, _, _, interlace = header
+    if gray_only and color != 0:
+        raise NotImplementedError(
+            f"{path}: read_png_gray reads grayscale PNGs only (color type "
+            f"{color}); read_png_color reads color")
+    depths = (1, 2, 4, 8, 16) if color == 0 else (8, 16)
+    if color not in _CHANNELS or depth not in depths or interlace != 0:
+        raise NotImplementedError(
+            f"{path}: only non-interlaced grayscale and RGB PNGs are read "
+            f"(bit depth {depth}, color type {color}, interlace "
+            f"{interlace})")
+
+
+def _header(path: str, gray_only: bool) -> None:
+    """Check the signature and the IHDR chunk, which a PNG puts first."""
+    with open(path, "rb") as fh:
+        head = fh.read(len(_SIGNATURE) + 8 + 13)
+    if not head.startswith(_SIGNATURE):
+        raise ValueError(f"{path}: not a PNG file")
+    header = None
+    if len(head) == 29 and head[8:16] == struct.pack(">I", 13) + b"IHDR":
+        header = struct.unpack(">IIBBBBB", head[16:29])
+    _check_header(path, header, gray_only)
+
+
 def _decode(path: str, gray_only: bool):
     """→ (samples, color type, depth), the samples as int64 (rows, cols,
     channels); ``gray_only`` refuses every color type but 0."""
@@ -98,19 +137,8 @@ def _decode(path: str, gray_only: bool):
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"IDAT":
             idat.append(body)
-    if header is None:
-        raise ValueError(f"{path}: no IHDR chunk")
-    width, height, depth, color, _, _, interlace = header
-    if gray_only and color != 0:
-        raise NotImplementedError(
-            f"{path}: read_png_gray reads grayscale PNGs only (color type "
-            f"{color}); read_png_color reads color")
-    depths = (1, 2, 4, 8, 16) if color == 0 else (8, 16)
-    if color not in _CHANNELS or depth not in depths or interlace != 0:
-        raise NotImplementedError(
-            f"{path}: only non-interlaced grayscale and RGB PNGs are read "
-            f"(bit depth {depth}, color type {color}, interlace "
-            f"{interlace})")
+    _check_header(path, header, gray_only)
+    width, height, depth, color, _, _, _ = header
     channels = _CHANNELS[color]
     row_bytes = (width * channels * depth + 7) // 8
     raw = zlib.decompress(b"".join(idat))
@@ -130,20 +158,36 @@ def _decode(path: str, gray_only: bool):
     return samples.reshape(height, width, channels), color, depth
 
 
-def read_png_gray(path: str) -> np.ndarray:
-    """Read a grayscale PNG as a float64 array in [0, 1]."""
+def read_png_gray_python(path: str) -> np.ndarray:
+    """:func:`read_png_gray` in pure Python."""
     samples, _, depth = _decode(path, gray_only=True)
     return samples[:, :, 0].astype(np.float64) * (1.0 / ((1 << depth) - 1))
 
 
-def read_png_color(path: str) -> np.ndarray:
-    """Read an RGB PNG as a planar (3, rows, cols) float64 array in
-    [0, 1]; a grayscale source replicates its channel."""
+def read_png_color_python(path: str) -> np.ndarray:
+    """:func:`read_png_color` in pure Python."""
     samples, _, depth = _decode(path, gray_only=False)
     planes = np.moveaxis(samples.astype(np.float64)
                          * (1.0 / ((1 << depth) - 1)), -1, 0)
     return np.ascontiguousarray(np.broadcast_to(planes,
                                                 (3,) + planes.shape[1:]))
+
+
+def read_png_gray(path: str) -> np.ndarray:
+    """Read a grayscale PNG as a float64 array in [0, 1]."""
+    if native.library() is None:
+        return read_png_gray_python(path)
+    _header(path, gray_only=True)
+    return native.read_png_gray_native(path)
+
+
+def read_png_color(path: str) -> np.ndarray:
+    """Read an RGB PNG as a planar (3, rows, cols) float64 array in
+    [0, 1]; a grayscale source replicates its channel."""
+    if native.library() is None:
+        return read_png_color_python(path)
+    _header(path, gray_only=False)
+    return native.read_png_rgb_native(path)
 
 
 def _quantise(img) -> np.ndarray:
@@ -179,7 +223,10 @@ def write_png_gray(path: str, img) -> None:
     img = np.asarray(img)
     if img.ndim != 2:
         raise ValueError(f"expected a 2-D grayscale image, got {img.shape}")
-    _encode(path, _quantise(img), 0)
+    if native.library() is not None:
+        native.write_png_gray_native(path, img)
+    else:
+        _encode(path, _quantise(img), 0)
 
 
 def write_png_color(path: str, img) -> None:
@@ -187,5 +234,8 @@ def write_png_color(path: str, img) -> None:
     img = np.asarray(img)
     if img.ndim != 3 or img.shape[0] != 3:
         raise ValueError(f"expected planar (3, rows, cols), got {img.shape}")
+    if native.library() is not None:
+        native.write_png_rgb_native(path, img)
+        return
     hwc = np.moveaxis(_quantise(img), 0, -1)
     _encode(path, hwc.reshape(hwc.shape[0], -1), 2)

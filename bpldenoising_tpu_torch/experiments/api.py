@@ -35,8 +35,9 @@ shards the image batch over a mesh (:func:`data_parallel_mesh`: every
 visible card for ``device="cuda"``, one shard on any other device):
 ``method="tr"`` runs the sharded learning functions of
 :mod:`..parallel.sharded` (``inner_tol`` raises, as in the JAX package),
-``"tr_fused"`` the fused learner with ``mesh=``; with ``"single_loop"``
-it raises ``NotImplementedError`` (ROADMAP.md §1 item 10b), as does any
+``"tr_fused"`` the fused learner with ``mesh=``, ``"single_loop"`` the
+TGV², TV-L1 and VTV learners with ``mesh=`` (for TV and the sums it
+raises ``NotImplementedError``, ROADMAP.md §1 item 10b), as does any
 ``backend`` but ``"auto"`` (:func:`check_backend`: ``device=`` chooses
 what runs).  ``visualise=True`` shows the iterates of ``method="tr"`` in a
 :class:`..bilevel.harness.LiveView`; the other methods ignore it, as in
@@ -663,21 +664,26 @@ def single_loop_state(res, alpha0):
 
 
 def run_single_loop(params, device, learn, stretch_all: bool = False,
-                    **extra) -> BilevelResult:
+                    mesh_ok: bool = True, **extra) -> BilevelResult:
     """A single-loop first-order learner behind the experiment surface
     (the JAX package's ``_run_single_loop`` and its families'
     ``_run_*_single_loop``): ``learn(utrue, f, x0, **kw)`` is one of the
     ``single_loop_*_learn`` functions, run in ``single_loop_log_every(
     outer)`` segments (``log_every`` in params is not read, as in the JAX
     package) with the ``sl_*`` knobs and ``extra``, then
-    :func:`save_results`."""
+    :func:`save_results`.  ``data_parallel=True`` hands the learner
+    :func:`data_parallel_mesh`'s mesh, where ``mesh_ok`` (the TGV², TV-L1
+    and VTV learners)."""
     _reject_flags(params, "single_loop",
                   ("checkpoint", "resume", "save_iterations", "inner_tol"))
     reject_unported(params)
     if params.get("data_parallel"):
-        raise NotImplementedError(
-            "data_parallel with method='single_loop' (the learners' mesh=) "
-            "is not ported yet (ROADMAP.md §1 item 10b)")
+        if not mesh_ok:
+            raise NotImplementedError(
+                "data_parallel with method='single_loop' (the learners' "
+                "mesh=) is not ported yet for TV and the sum of "
+                "regularizers (ROADMAP.md §1 item 10b, rows 9–10)")
+        extra["mesh"] = data_parallel_mesh(device)
     ds = _load(params, device)
     outer = int(params.sl_outer)
     res = learn(ds[0], ds[1], np.asarray(params.alpha0), outer=outer,
@@ -696,7 +702,7 @@ def _run_single_loop(params, model_kind, device, stretch_all):
     return run_single_loop(
         params, device,
         lambda ut, f, x0, **kw: single_loop_learn(ut, f, x0, model, **kw),
-        stretch_all)
+        stretch_all, mesh_ok=False)
 
 
 def experiment_params(family_params, kwargs, prefix, parameter=None):

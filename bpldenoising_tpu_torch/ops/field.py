@@ -5,7 +5,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["xi", "scalarprod", "norm21", "proj_norm21_ball"]
+__all__ = ["xi", "scalarprod", "norm21", "proj_norm21_ball",
+           "pixel_outer_apply"]
 
 
 def xi(p, eps: float = 0.0, axes=(-3,)):
@@ -39,3 +40,9 @@ def proj_norm21_ball(p, radius, axes=(-3,)):
     tiny = torch.finfo(p.dtype).tiny
     scale = torch.where(n <= r, 1.0, r / torch.clamp(n, min=tiny))
     return p * scale
+
+
+def pixel_outer_apply(g, v, inv_den3):
+    """Apply the per-pixel rank-one block ``g gᵀ / den³`` to a field ``v``:
+    ``out = g (g·v) / den³`` pointwise (``inv_den3`` an (..., M, N) map)."""
+    return g * (scalarprod(g, v) * inv_den3).unsqueeze(-3)

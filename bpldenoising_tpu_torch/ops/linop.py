@@ -73,3 +73,27 @@ class AdjointOp(LinOp):
     @property
     def T(self) -> LinOp:
         return self.op
+
+
+class ZeroOp(LinOp):
+    """Maps everything to zeros of the same shape."""
+
+    def apply(self, x):
+        return torch.zeros_like(x)
+
+    def apply_adjoint(self, y):
+        return torch.zeros_like(y)
+
+    def opnorm_estimate(self, example_input, iters: int = 0, seed: int = 0):
+        return torch.tensor(0.0, dtype=example_input.dtype)
+
+
+class IdentityOp(LinOp):
+    def apply(self, x):
+        return x
+
+    def apply_adjoint(self, y):
+        return y
+
+    def opnorm_estimate(self, example_input, iters: int = 0, seed: int = 0):
+        return torch.tensor(1.0, dtype=example_input.dtype)

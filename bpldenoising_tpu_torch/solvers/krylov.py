@@ -1,4 +1,4 @@
-"""Matrix-free conjugate gradients (counterpart of
+"""Matrix-free conjugate gradients and BiCGStab (counterpart of
 ``bpldenoising_tpu.solvers.krylov``).
 
 Operators are callables ``A(x) -> y`` on tensors of any shape.  The loops
@@ -12,7 +12,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-__all__ = ["cg", "cg_batched", "KrylovInfo"]
+__all__ = ["cg", "cg_batched", "bicgstab", "KrylovInfo"]
 
 
 class KrylovInfo(NamedTuple):
@@ -95,4 +95,34 @@ def cg_batched(A: Callable, b, x0=None, *, tol=1e-8, maxiter=500, M=None,
         rz = rz_new
         k += 1
     resnorm = torch.sqrt(vdot(r, r))
+    return x, KrylovInfo(k, resnorm, resnorm <= thresh)
+
+
+def bicgstab(A: Callable, b, x0=None, *, tol=1e-8, maxiter=500):
+    """BiCGStab for a general (nonsymmetric) ``A``; inner products run over
+    the whole tensor.  A library utility: the hypergradient systems are all
+    SPD and solved with :func:`cg`."""
+    x = torch.zeros_like(b) if x0 is None else x0
+    r = b - A(x)
+    rhat = r
+    rho = alpha = omega = torch.ones((), dtype=b.dtype, device=b.device)
+    v = p = torch.zeros_like(b)
+    bnorm = torch.clamp(torch.linalg.norm(b.reshape(-1)),
+                        min=torch.finfo(b.dtype).tiny)
+    thresh = tol * bnorm
+    k = 0
+    while k < maxiter and bool(torch.linalg.norm(r.reshape(-1)) > thresh):
+        rho_new = _vdot(rhat, r)
+        beta = (rho_new / _nz(rho)) * (alpha / _nz(omega))
+        p = r + beta * (p - omega * v)
+        v = A(p)
+        alpha = rho_new / _nz(_vdot(rhat, v))
+        s = r - alpha * v
+        t = A(s)
+        omega = _vdot(t, s) / _nz(_vdot(t, t))
+        x = x + alpha * p + omega * s
+        r = s - omega * t
+        rho = rho_new
+        k += 1
+    resnorm = torch.linalg.norm(r.reshape(-1))
     return x, KrylovInfo(k, resnorm, resnorm <= thresh)

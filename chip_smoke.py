@@ -4580,6 +4580,11 @@ def phase_diff_layers():
 # Phases 53-56: the parallel tier (meshes of shards on the one card)
 # ---------------------------------------------------------------------------
 
+# phases 59-61: a single-loop learner over shards of the card against its
+# unsharded run in float64, relative in α (the JAX mesh tests' rtol; only
+# the order of the cross-shard sums of the gradient maps and the cost
+# differs)
+SLX_MESH_F64 = 1e-8
 MESH_SHARDS = 4          # phase 53: the flagship's ten images over 4 shards
 SMOOTH_MESH_SHARDS = 2   # phase 55: the fused TGV², TV-L1, VTV learns
 HALO_ITERS = 300         # phase 56: each halo solve's fixed budget
@@ -4979,6 +4984,311 @@ def phase_halo():
     return out
 
 
+def phase_png_codec():
+    """Phase 57: the PNG codec (data/native, built with g++ and zlib at
+    first use): which codec runs (and a cold build's seconds into a
+    temporary directory); every bundled PNG under datasets/ and images/
+    decoded by it equal to the pure-Python reader bit for bit (gray ones
+    as gray and as planar color, color ones as color); the decode ms of
+    each for the flagship's 10 images (20 files, best of 3)."""
+    import glob
+    import os
+    import tempfile
+
+    import numpy as np
+    from bpldenoising_tpu_torch.data import dataset_dir, native, png_io
+
+    lib = native.library()
+    cold_s = None
+    if lib is not None:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            native.build(os.path.join(tmp, "_build"))
+            cold_s = time.perf_counter() - t0
+        say(f"  codec: {native.backend} (a cold build takes {cold_s:.2f} s)")
+    else:
+        say(f"  codec: {native.backend}; the build failed: "
+            f"{str(native.build_error)[-400:]}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    files = sorted(glob.glob(os.path.join(root, "datasets", "*", "*.png"))
+                   + glob.glob(os.path.join(root, "images", "*.png")))
+    differ = []
+    for path in files if lib is not None else []:
+        with open(path, "rb") as fh:
+            color = fh.read(26)[25] == 2
+        pairs = [(png_io.read_png_color, png_io.read_png_color_python)]
+        if not color:
+            pairs.append((png_io.read_png_gray, png_io.read_png_gray_python))
+        for built, python in pairs:
+            a, b = built(path), python(path)
+            if a.shape != b.shape or not np.array_equal(a, b):
+                differ.append(os.path.relpath(path, root))
+    flagship = os.path.join(dataset_dir, "faces_train_128_10")
+    with open(os.path.join(flagship, "filelist.txt")) as fh:
+        names = [n for line in fh for n in line.strip().split(",") if n]
+    paths = [os.path.join(flagship, n) for n in names]
+
+    def best_ms(read):
+        best = None
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for path in paths:
+                read(path)
+            ms = (time.perf_counter() - t0) * 1e3
+            best = ms if best is None else min(best, ms)
+        return best
+
+    built_ms = best_ms(png_io.read_png_gray)
+    python_ms = best_ms(png_io.read_png_gray_python)
+    say(f"  {len(files)} bundled PNGs, {len(differ)} differ from the "
+        f"pure-Python reader; the flagship's {len(paths)} files: "
+        f"{built_ms:.2f} ms with the {native.backend} codec, "
+        f"{python_ms:.2f} ms in pure Python (best of 3, warm file cache)")
+    require(not differ, f"the built codec differs on {differ}")
+    require(len(files) >= 60, f"{len(files)} bundled PNGs")
+    return dict(backend=native.backend, files=len(files),
+                cold_build_s=cold_s, flagship_files=len(paths),
+                decode_ms=built_ms, python_decode_ms=python_ms)
+
+
+def phase_make_dataset(timed):
+    """Phase 58: ``python -m bpldenoising_tpu_torch make-dataset`` (the
+    128² circle phantom, σ 0.1, seed 0) into a temporary directory in a
+    subprocess, read back through ``testdataset`` (the data equal the
+    generator's arrays after 8-bit quantisation), then one scalar TV
+    ``tr_fused`` learn on it on the card at the bench settings (5 outer
+    its): kernels A and B launched, no plain call, α positive, PSNR above
+    the noisy image's."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from bpldenoising_tpu_torch.data import (add_noise, circle_phantom,
+                                             datasets, testdataset)
+    from bpldenoising_tpu_torch.data.png_io import _quantise
+    from bpldenoising_tpu_torch.experiments.api import \
+        scalar_bilevel_tv_learn
+    from bpldenoising_tpu_torch.metrics import psnr_np
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    name = "smokecircle_128_10"
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "bpldenoising_tpu_torch", "make-dataset",
+             name, "--out-root", tmp], capture_output=True, text=True,
+            timeout=300, env=env)
+        cli_s = time.perf_counter() - t0
+        require(proc.returncode == 0,
+                f"make-dataset exited {proc.returncode}: "
+                f"{proc.stderr[-2000:]}")
+        saved_dir = datasets.dataset_dir
+        datasets.dataset_dir = tmp
+        datasets.remotedatasets.append(name)
+        try:
+            true_, noisy = testdataset("smokecircle")
+            clean = circle_phantom(128)
+            want = _quantise(add_noise(clean, 0.1, np.random.default_rng(0))
+                             ) * (1.0 / 255.0)
+            require(true_.shape == (1, 128, 128)
+                    and np.array_equal(true_[0], clean)
+                    and np.array_equal(noisy[0], want),
+                    "make-dataset's images differ from the generator's")
+            plain, restore = watch_plain()
+            try:
+                reset_launches()
+                res, ms = timed(lambda: scalar_bilevel_tv_learn(
+                    device="cuda", **dict(flagship_kwargs(),
+                                          dataset_name="smokecircle",
+                                          num_samples=1, maxiter=5),
+                    save_results=False))
+                counts = read_launches()
+            finally:
+                restore()
+        finally:
+            datasets.dataset_dir = saved_dir
+            datasets.remotedatasets.remove(name)
+    out_psnr = psnr_np(true_, np.asarray(res.u))
+    in_psnr = psnr_np(true_, noisy)
+    say(f"  make-dataset {cli_s:.1f} s (subprocess); data = the generator's "
+        f"quantised arrays; learn: alpha {float(res.x):.6f}, cost "
+        f"{res.cost:.6f}, PSNR {out_psnr:.4f} dB (noisy {in_psnr:.4f}), "
+        f"{res.iterations} outer its, {ms:.1f} ms; launches A "
+        f"{counts['pdps']}, B {counts['hypergrad']}; plain calls "
+        f"{len(plain)}")
+    require(counts["pdps"] > 0 and counts["hypergrad"] > 0 and not plain,
+            f"make-dataset learn: launches {counts}, plain {len(plain)}")
+    require(float(res.x) > 0 and out_psnr > in_psnr + 3.0,
+            f"make-dataset learn: alpha {res.x}, PSNR {out_psnr}")
+    return dict(cli_s=cli_s, alpha=float(res.x), cost=float(res.cost),
+                psnr_db=out_psnr, noisy_psnr_db=in_psnr, wall_ms=ms,
+                launches=dict(pdps=counts["pdps"],
+                              hypergrad=counts["hypergrad"]))
+
+
+def slx_mesh_stack(torch, name, dtype):
+    """The family's entry-point stack on the card: TGV² faces_train 10,
+    VTV color_disks 6, TV-L1 circle_sp's image and three more of its clean
+    image under add_impulse_noise (seeds 1–3), so that every shard of four
+    holds a real image."""
+    import numpy as np
+    from bpldenoising_tpu_torch.data import add_impulse_noise, testdataset
+    fam = slx_family(name)
+    ds, color = fam["data"]
+    true_np, noisy_np = testdataset(ds, color=color)
+    n = int(fam["entry_kw"].get("num_samples", 1))
+    true_np, noisy_np = true_np[:n], noisy_np[:n]
+    if name == "tvl1":
+        true_np = np.repeat(true_np, 4, axis=0)
+        noisy_np = np.concatenate(
+            [noisy_np] + [add_impulse_noise(true_np[0], 0.2, s)[None]
+                          for s in (1, 2, 3)])
+    return (torch.as_tensor(true_np, dtype=dtype).cuda(),
+            torch.as_tensor(noisy_np, dtype=dtype).cuda())
+
+
+def slx_mesh_run(name, utrue, f, shards, outer, log_every=None):
+    """The family's library learner at 40 CP and 10 CG steps a step on
+    ``shards`` shards of the card (or a mesh; None: unsharded), with the
+    plain loop and stepper watched and the counters read: → (result, host
+    ms a step, sessions, kernel launches, plain calls)."""
+    import torch
+    fam = slx_family(name)
+    mod, cuda = fam["mod"], fam["cuda"]
+    learn = getattr(mod, f"single_loop_{name}_learn")
+    kw = dict(fam["kw"])
+    if name == "tvl1":
+        kw["gamma"] = kw.pop("gamma_r")
+    with watch_slx_plain(name) as plain:
+        s0, k0 = cuda.launches, cuda.kernel_launches
+        mesh = card_mesh(shards) if isinstance(shards, int) else shards
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = learn(utrue, f, fam["x0"], outer=outer, n_inner=40, n_adj=10,
+                    mesh=mesh, log_every=log_every, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    return (res, ms / outer, cuda.launches - s0, cuda.kernel_launches - k0,
+            len(plain))
+
+
+@contextlib.contextmanager
+def watch_slx_plain(name):
+    """Count the calls of the family's plain single-loop learner and of
+    its plain stepper (the mesh form's) within the block."""
+    mod = slx_family(name)["mod"]
+    calls = []
+    saved = {}
+    for attr in (f"_single_loop_{name}_plain", f"_{name}_plain_stepper"):
+        saved[attr] = real = getattr(mod, attr)
+
+        def watched(*a, real=real, **k):
+            calls.append(1)
+            return real(*a, **k)
+        setattr(mod, attr, watched)
+    try:
+        yield calls
+    finally:
+        for attr, real in saved.items():
+            setattr(mod, attr, real)
+
+
+def phase_slx_mesh(name):
+    """Phases 59-61: a family's single-loop learner with mesh=.  The
+    entry point with data_parallel=True (the default mesh: one shard on
+    one card) against the same call unsharded (float32, the entry point's
+    300 steps); then the library learner on the entry point's stack over
+    ["cuda:0"] * 2 and * 4 (30 steps of 40 CP and 10 CG steps): float64
+    within SLX_MESH_F64 relative in α of the unsharded run, float32 within
+    the family's kernel-against-plain band (TOL_SLX_REL_F32); sessions =
+    shards (and per segment with log_every), kernel launches = shards ×
+    (steps × launches_per_step + segments), no plain call; an all-padding
+    shard adds exactly +0 (TV-L1: one image over two shards, VTV: six over
+    four shards against over three, bit for bit); the host ms per outer
+    step beside the unsharded form's."""
+    import numpy as np
+    import torch
+    from bpldenoising_tpu_torch.experiments import api
+
+    fam = slx_family(name)
+    cuda = fam["cuda"]
+    out = {}
+    kw = dict(fam["entry_kw"], dtype="float32", method="single_loop",
+              save_results=False)
+    with watch_slx_plain(name) as plain:
+        reset_launches()
+        dp = fam["entry"](device="cuda", data_parallel=True, **kw)
+        counts = read_launches()
+    one = fam["entry"](device="cuda", **kw)
+    key = f"single_loop_{name}"
+    same = bool(np.array_equal(dp.x, one.x) and np.array_equal(dp.u, one.u))
+    x_rel = float(np.max(np.abs(np.asarray(dp.x) - np.asarray(one.x))
+                         / np.abs(np.asarray(one.x))))
+    say(f"  entry point data_parallel=True on {api.data_parallel_mesh('cuda')}"
+        f": x {np.ravel(dp.x).tolist()} against unsharded "
+        f"{np.ravel(one.x).tolist()} (rel {x_rel:.2e}; bit for bit: {same});"
+        f" sessions {counts[key]}; plain calls {len(plain)}")
+    require(counts[key] > 0 and not plain and x_rel <= TOL_SLX_REL_F32[name],
+            f"{name}: data_parallel entry point {counts}, {x_rel}")
+    out["entry_data_parallel"] = dict(x_rel=x_rel, bit_for_bit=same,
+                                      sessions=counts[key])
+    per_step = cuda.launches_per_step(10)
+    outer = 30
+    for dtype, gate in ((torch.float64, SLX_MESH_F64),
+                        (torch.float32, TOL_SLX_REL_F32[name])):
+        utrue, f = slx_mesh_stack(torch, name, dtype)
+        ref, ref_ms, _, _, _ = slx_mesh_run(name, utrue, f, None, outer)
+        label = str(dtype).split(".")[-1]
+        for shards in (2, 4):
+            res, ms, sess, kl, n_plain = slx_mesh_run(name, utrue, f,
+                                                      shards, outer)
+            rel = rel_err(res.alpha, ref.alpha)
+            say(f"  {label} {tuple(f.shape)} over {shards} shards: alpha "
+                f"{res.alpha.double().cpu().numpy().ravel().tolist()} rel "
+                f"{rel:.2e} (gate {gate:g}); sessions {sess}, kernel "
+                f"launches {kl} (want {shards} x ({outer} x {per_step} + "
+                f"1)); plain calls {n_plain}; host {ms:.3f} ms an outer step"
+                f" (unsharded {ref_ms:.3f})")
+            require(rel <= gate and bool(torch.isfinite(res.u).all()),
+                    f"{name} {label} over {shards} shards: {rel:.2e}")
+            require(sess == shards and kl == shards * (outer * per_step + 1)
+                    and n_plain == 0,
+                    f"{name} {label} over {shards} shards: sessions {sess}, "
+                    f"kernel launches {kl}, plain calls {n_plain}")
+            out[f"{label}_{shards}_shards"] = dict(
+                alpha_rel_err=rel, host_ms_per_step=ms,
+                unsharded_host_ms_per_step=ref_ms, kernel_launches=kl)
+    utrue, f = slx_mesh_stack(torch, name, torch.float64)
+    if name in ("tvl1", "vtv"):
+        if name == "tvl1":
+            utrue, f = utrue[:1], f[:1]
+            a = slx_mesh_run(name, utrue, f, None, 10)[0]
+            b = slx_mesh_run(name, utrue, f, 2, 10)[0]
+            what = "one image over 2 shards against unsharded"
+        else:
+            a = slx_mesh_run(name, utrue, f, 3, 10)[0]
+            b = slx_mesh_run(name, utrue, f, 4, 10)[0]
+            what = "six images over 4 shards against over 3"
+        zero = all(torch.equal(x, y) for x, y in zip(a[:5], b[:5]))
+        say(f"  float64 {what} (an all-padding shard): bit for bit {zero}")
+        require(zero, f"{name}: an all-padding shard moved the run")
+        out["padding_shard_bit_for_bit"] = zero
+    res, ms, sess, kl, n_plain = slx_mesh_run(name, utrue, f, 2, 9,
+                                              log_every=4)
+    ref = slx_mesh_run(name, utrue, f, 2, 9)[0]
+    seg_same = all(torch.equal(x, y) for x, y in zip(res[:5], ref[:5]))
+    say(f"  float64 segments of 4 over 2 shards (9 steps): equal to one "
+        f"segment bit for bit {seg_same}; sessions {sess} (want 6); times "
+        f"{np.round(res.times, 4).tolist()}")
+    require(seg_same and sess == 6 and kl == 2 * (9 * per_step + 3)
+            and n_plain == 0, f"{name}: segmented mesh {sess}, {kl}")
+    out["segmented"] = dict(bit_for_bit=seg_same, sessions=sess)
+    return out
+
+
 def flagship_kwargs():
     from bpldenoising_tpu_torch.solvers.hypergrad import HypergradConfig
     return dict(dataset_name="faces_train", num_samples=10,
@@ -5305,6 +5615,28 @@ def main():
         f"{k} {v:.1f}" for k, v in walls.items()) + f"; {smi}")
     parallel["walls_s"] = walls
 
+    remainders = {}
+    with results_not_saved():
+        t_phase = time.perf_counter()
+        say("phase 57 the PNG codec: the built codec against the "
+            "pure-Python reader on every bundled PNG, decode ms")
+        remainders["png_codec"] = phase_png_codec()
+        say(f"  phase 57: {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        say("phase 58 python -m bpldenoising_tpu_torch make-dataset, read "
+            "back through testdataset, one scalar TV tr_fused learn on it")
+        remainders["make_dataset"] = phase_make_dataset(timed)
+        say(f"  phase 58: {time.perf_counter() - t_phase:.1f} s")
+        for i, name in enumerate(("tgv", "tvl1", "vtv")):
+            t_phase = time.perf_counter()
+            label = {"tgv": "TGV²", "tvl1": "TV-L1", "vtv": "VTV"}[name]
+            say(f"phase {59 + i} single-loop {label} with mesh=: "
+                "data_parallel=True, then 2 and 4 shards of the card in "
+                "float64 and float32")
+            parallel[f"single_loop_{name}_mesh"] = phase_slx_mesh(name)
+            say(f"  phase {59 + i}: {time.perf_counter() - t_phase:.1f} s; "
+                f"{smi}")
+
     itemsize = 4
     a_bytes = 4 * n * itemsize                  # f in; u, y out
     a_ops = A_OPS_PER_PIXEL_ITER * n * a_stats["iters"]
@@ -5499,7 +5831,7 @@ def main():
         "forms_b": forms_b, "forms_f64_max_rel_err": forms_f64,
         "tv_family_learns": tvf, "tr_learns": tr, "reporting": reporting,
         "segmented_resume_trace_layers": later, "parallel": parallel,
-        "device": smi}))
+        "remainders": remainders, "device": smi}))
     faulthandler.cancel_dump_traceback_later()
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

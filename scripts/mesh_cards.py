@@ -17,8 +17,14 @@ run (x, cost and u; the sharded function's u, cost and gradient); kernels
 A and B are launched shards × evaluations times, every kernel A call in
 the cluster form; ``scalar_bilevel_tv_learn(method="tr_fused",
 data_parallel=True)`` on the default mesh (every card) gives the cards'
-bits.  Prints every card's name and power limit first and, last, one JSON
-line with the walls.  Exits non-zero with fewer than two cards.
+bits.  Then the TGV², TV-L1 and VTV single-loop learners with ``mesh=``
+(``chip_smoke.slx_mesh_run``: 30 outer steps of 40 CP and 10 CG steps
+on the stacks of chip_smoke.py's phases 59–61, float32) over the n cards,
+over n shards of ``cuda:0`` and unsharded: the cards' bits equal the one
+card's, each shard's session issues 30 × 24 + 1 kernel launches, and the
+host ms an outer step of each form are printed.  Prints every card's name
+and power limit first and, last, one JSON line with the walls.  Exits
+non-zero with fewer than two cards.
 """
 
 from __future__ import annotations
@@ -148,6 +154,37 @@ def main():
     check(all(torch.equal(p.cpu(), q.cpu())
               for p, q in zip(evals["cards"], evals["one_card"])),
           "the cards' sharded TV evaluation gives the one-card bits")
+
+    print(f"single-loop learners with mesh= over {n} cards, over {n} shards "
+          "of cuda:0, unsharded (float32, 30 steps of 40/10; host ms an "
+          "outer step)", flush=True)
+    outer = 30
+    for name in ("tgv", "tvl1", "vtv"):
+        utrue, f = cs.slx_mesh_stack(torch, name, torch.float32)
+        per = cs.slx_family(name)["cuda"].launches_per_step(10)
+        runs = {}
+        for label, shards in (("cards", cards), ("one_card", one),
+                              ("unsharded", None)):
+            cs.slx_mesh_run(name, utrue, f, shards, outer)      # warm-up
+            steps = []
+            for _ in range(args.runs):
+                sync()
+                r, ms, sess, kl, plain = cs.slx_mesh_run(name, utrue, f,
+                                                         shards, outer)
+                steps.append(ms)
+            runs[label] = r
+            k = 1 if shards is None else n
+            print(f"  {name} {label}: alpha "
+                  f"{r.alpha.double().cpu().numpy().ravel().tolist()}; host "
+                  f"{[round(m, 3) for m in steps]} ms an outer step; "
+                  f"sessions {sess}, kernel launches {kl}", flush=True)
+            check(sess == k and kl == k * (outer * per + 1) and not plain,
+                  f"{name} {label}: sessions {sess}, launches {kl}, plain "
+                  f"{plain}")
+            out[f"single_loop_{name}_{label}_ms_per_step"] = steps
+        check(all(torch.equal(p.cpu(), q.cpu()) for p, q in zip(
+            runs["cards"][:5], runs["one_card"][:5])),
+            f"{name}: the cards' learn gives the one-card bits")
     out["faults"] = faults
     print(json.dumps(out), flush=True)
     return 1 if faults else 0

@@ -1,8 +1,9 @@
 """The port's command line (``python -m bpldenoising_tpu_torch``): the
 cases of the JAX package's tests/test_cli.py with ``--device cpu`` (the
-kernels' plain versions), the numbers it prints against the API's, and
-the flags that are not ported yet, which exit with status 2 and name
-their ROADMAP.md item (item 7's flags run)."""
+kernels' plain versions), the numbers it prints against the API's,
+make-dataset against the JAX CLI's dataset, and the flags that are not
+ported yet, which exit with status 2 and name their ROADMAP.md item (item
+7's flags run)."""
 
 import functools
 import os
@@ -109,11 +110,33 @@ def test_unported_flags_exit_and_name_their_item(capsys, argv, item):
     assert not os.path.exists(log + ".txt")
 
 
-def test_make_dataset_is_not_ported(capsys):
-    with pytest.raises(SystemExit) as exit_:
-        main(["make-dataset", "clicircle_32_10", "--size", "32"])
-    assert exit_.value.code == 2
-    assert "§1 item 9" in capsys.readouterr().err
+@pytest.mark.parametrize("argv", [
+    ["--size", "32"], ["--phantom", "facets", "--size", "24", "--seed", "3"],
+    ["--size", "20", "--noise", "impulse", "--density", "0.3"]],
+    ids=["circle", "facets", "impulse"])
+def test_make_dataset_is_not_ported(capsys, tmp_path, argv):
+    """make-dataset (ported; the name is the old refusal's) writes the
+    dataset the JAX CLI writes from the same arguments: the same file list
+    and the same decoded arrays; --from-images reads grayscale PNGs."""
+    from bpldenoising_tpu.__main__ import main as jmain
+    from bpldenoising_tpu.data import load_dataset as j_load
+    from bpldenoising_tpu_torch.data import load_dataset as t_load
+    outs = []
+    for run, root in ((main, "port"), (jmain, "jax")):
+        run(["make-dataset", "cli_ds", "--out-root", str(tmp_path / root)]
+            + argv)
+        outs.append(capsys.readouterr().out.strip())
+    assert outs == [str(tmp_path / r / "cli_ds") for r in ("port", "jax")]
+    assert (tmp_path / "port" / "cli_ds" / "filelist.txt").read_text() == \
+        (tmp_path / "jax" / "cli_ds" / "filelist.txt").read_text()
+    for g, w in zip(t_load(outs[0]), j_load(outs[1])):
+        assert np.array_equal(g, w)
+    if argv[0] == "--size":
+        src = str(tmp_path / "port" / "cli_ds" / "cli_ds_data_1.png")
+        main(["make-dataset", "from_png", "--out-root", str(tmp_path),
+              "--from-images", src, "--sigma", "0.05"])
+        tru, _ = t_load(capsys.readouterr().out.strip())
+        assert np.array_equal(tru, t_load(outs[0])[1])
 
 
 def test_single_loop_budget_flags(capsys):

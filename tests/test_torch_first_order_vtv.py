@@ -164,12 +164,11 @@ def test_entry_point_rejects_the_jax_flags(flag):
 
 
 def test_refusals(monkeypatch):
-    """mesh= and optimizer= raise; x₀ ≤ 0 and a bad shape raise; a tensor
-    on neither the CPU nor the card never reaches the plain loop."""
+    """optimizer= raises (mesh= runs: tests/test_torch_first_order_mesh.py);
+    x₀ ≤ 0 and a bad shape raise; a tensor on neither the CPU nor the card
+    never reaches the plain loop."""
     ut, f = images(1)
     x0 = PARAMS["scalar"]
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tfo.single_loop_vtv_learn(_t(ut), _t(f), x0, mesh=object())
     with pytest.raises(NotImplementedError, match="optax"):
         tfo.single_loop_vtv_learn(_t(ut), _t(f), x0, optimizer=object())
     with pytest.raises(ValueError, match="strictly positive"):

@@ -114,8 +114,9 @@ def test_param_layout_and_refusals():
     seg = bilevel_learn_tgv_fused(ds, log_every=1, init_B=1, **kw)
     assert torch.equal(seg.x, one.x) and torch.equal(seg.log, one.log)
     assert one.times is None and seg.times.shape == (one.iterations,)
-    with pytest.raises(ValueError, match="log_every"):
-        bilevel_learn_tgv_fused(ds, segment_callback=1, **kw)
+    # a lone segment_callback is ignored, as the JAX single run ignores it
+    lone = bilevel_learn_tgv_fused(ds, segment_callback=1, **kw)
+    assert torch.equal(lone.x, one.x) and torch.equal(lone.log, one.log)
 
 
 @pytest.fixture
@@ -169,7 +170,8 @@ def test_tgv_denoise_matches_jax(parameter):
 
 
 def test_entry_points_refuse_what_is_not_ported(in_tmp):
-    """What is not ported raises (data parallelism); save_iterations with
+    """data_parallel=True with method="single_loop" runs (one CPU shard,
+    the unsharded bits); save_iterations with
     the fused loop writes the JAX package's snapshots; the host trust
     region (method="tr") runs and
     matches the JAX entry point to 1e-8 (its whole comparison is in
@@ -182,10 +184,13 @@ def test_entry_points_refuse_what_is_not_ported(in_tmp):
     assert res.iterations == jres.iterations == 2
     np.testing.assert_allclose(res.x, np.asarray(jres.x), rtol=RTOL)
     np.testing.assert_allclose(res.cost, jres.cost, rtol=RTOL)
-    with pytest.raises(NotImplementedError):
-        tx.patch_bilevel_tgv_learn(device="cpu",
-                                   **dict(ENTRY, method="single_loop",
-                                          data_parallel=True))
+    # data_parallel with method="single_loop" runs (item 10b, rows 11–13):
+    # with device="cpu" one shard, the run without it bit for bit
+    sl = dict(ENTRY, method="single_loop", sl_outer=2, sl_inner=5, sl_adj=2)
+    dp = tx.patch_bilevel_tgv_learn(device="cpu", data_parallel=True, **sl)
+    one = tx.patch_bilevel_tgv_learn(device="cpu", **sl)
+    np.testing.assert_array_equal(dp.x, one.x)
+    np.testing.assert_array_equal(dp.u, one.u)
     # save_iterations with the fused loop writes the JAX package's
     # snapshots (segments of 5: one at the end of the 2 iterations)
     tx.scalar_bilevel_tgv_learn(device="cpu",

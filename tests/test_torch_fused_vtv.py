@@ -126,8 +126,9 @@ def test_param_layout_and_refusals():
     seg = bilevel_learn_vtv_fused(ds, log_every=1, init_B=1, **kw)
     assert torch.equal(seg.x, one.x) and torch.equal(seg.log, one.log)
     assert one.times is None and seg.times.shape == (one.iterations,)
-    with pytest.raises(ValueError, match="log_every"):
-        bilevel_learn_vtv_fused(ds, segment_callback=1, **kw)
+    # a lone segment_callback is ignored, as the JAX single run ignores it
+    lone = bilevel_learn_vtv_fused(ds, segment_callback=1, **kw)
+    assert torch.equal(lone.x, one.x) and torch.equal(lone.log, one.log)
 
 
 @pytest.fixture
@@ -201,7 +202,8 @@ def test_vtv_denoise_matches_jax(parameter):
     ids=lambda k: next(iter(k)) + "=" + str(next(iter(k.values()))))
 def test_entry_points_refuse_what_is_not_ported(knob, in_tmp):
     """Each knob that is not ported raises; checkpoint and log_every (item 7)
-    and data_parallel (item 10) run as in the JAX package; method="tr" (the
+    and data_parallel (item 10; with method="single_loop" item 10b) run as
+    in the JAX package; method="tr" (the
     host trust region) runs and matches the JAX entry point to 1e-8 (its whole
     comparison is in tests/test_torch_tr_learn.py); save_results=True writes
     the log, the quality table and the PNGs under the JAX prefix (the file
@@ -242,13 +244,17 @@ def test_entry_points_refuse_what_is_not_ported(knob, in_tmp):
                 out = os.path.join("output", "color_disks_128_10")
                 assert any(f.endswith("_ckpt.npz") for f in os.listdir(out))
             continue
-        if knob == dict(data_parallel=True):
+        if knob.get("data_parallel"):
             # ported (item 10): with device="cpu" the mesh is one shard on
             # the CPU, which runs the unsharded learn bit for bit (meshes
             # of several shards against the JAX package's:
             # tests/test_torch_parallel.py)
-            res = learn(device="cpu", **dict(ENTRY, **knob))
-            one = learn(device="cpu", **ENTRY)
+            # (with method="single_loop": item 10b, rows 11–13, a few steps)
+            kw = dict(ENTRY, **knob)
+            if knob.get("method") == "single_loop":
+                kw.update(sl_outer=2, sl_inner=5, sl_adj=2)
+            res = learn(device="cpu", **kw)
+            one = learn(device="cpu", **dict(kw, data_parallel=False))
             np.testing.assert_array_equal(res.x, one.x)
             np.testing.assert_array_equal(res.u, one.u)
             continue

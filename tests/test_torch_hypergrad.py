@@ -92,6 +92,26 @@ def test_cg_capped_and_warm_start(rng):
     assert not bool(tinfo.converged) and not bool(jinfo.converged)
 
 
+@pytest.mark.parametrize("maxiter", [400, 3], ids=["converged", "capped"])
+def test_bicgstab_matches_jax(maxiter, rng):
+    """tests/test_utils.py::test_bicgstab_nonsymmetric's system (a 40×40
+    nonsymmetric matrix + 40·I), converged and capped at 3 iterations."""
+    n = 40
+    A = rng.standard_normal((n, n)) + n * np.eye(n)
+    b = rng.standard_normal(n)
+    jx, jinfo = jkr.bicgstab(lambda v: jnp.asarray(A) @ v, jnp.asarray(b),
+                             tol=1e-10, maxiter=maxiter)
+    tx, tinfo = tkr.bicgstab(lambda v: _t(A) @ v, _t(b), tol=1e-10,
+                             maxiter=maxiter)
+    _close(tx, jx, rtol=1e-12)
+    assert tinfo.iters == int(jinfo.iters)
+    assert bool(tinfo.converged) == bool(jinfo.converged) == (maxiter > 3)
+    _close(tinfo.resnorm, jinfo.resnorm, rtol=1e-6)
+    if maxiter > 3:
+        assert float(np.linalg.norm(A @ tx.numpy() - b)) <= 1e-8 * float(
+            np.linalg.norm(b))
+
+
 def test_cg_batched_matches_jax(rng):
     A = np.stack([_spd(rng, 8), 3.0 * _spd(rng, 8)])
     b = rng.standard_normal((2, 8))

@@ -55,6 +55,8 @@ def test_import_loads_no_jax_and_builds_nothing():
            "assert not bad, bad",
            "from bpldenoising_tpu_torch import _build",
            "assert _build._LIB is None",
+           "from bpldenoising_tpu_torch.data import native",
+           "assert native._lib is None and native.backend is None",
            "print('ok')"])
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
@@ -95,7 +97,8 @@ SLICE_MODULES = ("ops/tgv.py", "ops/patch.py", "solvers/tgv.py",
                  "solvers/implicit.py", "bilevel/tr_core.py",
                  "bilevel/fused.py", "parallel/__init__.py",
                  "parallel/mesh.py", "parallel/distributed.py",
-                 "parallel/sharded.py", "parallel/halo.py")
+                 "parallel/sharded.py", "parallel/halo.py",
+                 "data/generate.py", "data/native/__init__.py")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)

@@ -152,3 +152,33 @@ def test_canonical_alphas_forms():
         m.canonical_alphas((1.0, 2.0))
     with pytest.raises(ValueError):
         m.canonical_alphas(torch.ones(5))
+
+
+@pytest.mark.parametrize("name,norm", [("ZeroOp", 0.0), ("IdentityOp", 1.0)])
+def test_zero_and_identity_ops_match_jax(name, norm, img, rng):
+    """ZeroOp and IdentityOp: apply, adjoint and the operator-norm estimate
+    (0 and 1) as the JAX package's."""
+    jop, top = getattr(jops, name)(), getattr(tops, name)()
+    p = rng.standard_normal((3, 2, 7, 9))
+    for x in (img, p):
+        np.testing.assert_allclose(top.apply(_t(x)).numpy(),
+                                   np.asarray(jop.apply(jnp.asarray(x))),
+                                   atol=ATOL)
+        np.testing.assert_allclose(
+            top.apply_adjoint(_t(x)).numpy(),
+            np.asarray(jop.apply_adjoint(jnp.asarray(x))), atol=ATOL)
+    est = top.opnorm_estimate(_t(img))
+    assert float(est) == float(jop.opnorm_estimate(jnp.asarray(img))) == norm
+    assert est.dtype == torch.float64
+
+
+def test_pixel_outer_apply_matches_jax(rng):
+    from bpldenoising_tpu.ops.field import pixel_outer_apply as jpoa
+    from bpldenoising_tpu_torch.ops.field import pixel_outer_apply as tpoa
+    g = rng.standard_normal((3, 2, 7, 9))
+    v = rng.standard_normal((3, 2, 7, 9))
+    inv = rng.random((3, 7, 9))
+    np.testing.assert_allclose(
+        tpoa(_t(g), _t(v), _t(inv)).numpy(),
+        np.asarray(jpoa(jnp.asarray(g), jnp.asarray(v), jnp.asarray(inv))),
+        atol=ATOL)

@@ -147,7 +147,8 @@ def test_run_segmented_stops_as_the_loop_does():
 def test_init_B_is_spliced_as_in_the_jax_package():
     """A dense BFGS matrix restored into the first carry: the trajectory
     is the JAX package's segmented run with the same init_B (1e-8), and
-    differs from a run from 0.1·I; the L-BFGS model ignores it."""
+    differs from a run from 0.1·I; the L-BFGS model ignores it, and a
+    single run ignores a lone segment_callback."""
     clean, noisy = _data("tgv")
     B0 = np.array([[30.0, 5.0], [5.0, 70.0]])
     kw = dict(xinit=np.array([0.05, 0.05]), inner_maxiter=300,
@@ -169,8 +170,9 @@ def test_init_B_is_spliced_as_in_the_jax_package():
     assert not torch.equal(plain.log[0], res.log[0])
     lb = _learn("sumregs_lbfgs")
     assert torch.equal(_learn("sumregs_lbfgs", init_B=np.eye(12)).x, lb.x)
-    with pytest.raises(ValueError, match="log_every"):
-        _learn("tv", segment_callback=lambda *a: None)
+    # a lone segment_callback (no log_every) is ignored, as in JAX
+    assert torch.equal(_learn("tv", segment_callback=lambda *a: None).x,
+                       _learn("tv").x)
 
 
 FAST = dict(dataset_name="circle_sp", num_samples=1, inner_maxiter=200,
