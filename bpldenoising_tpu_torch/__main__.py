@@ -13,10 +13,8 @@ the kernels' plain versions)::
 ``--x64`` runs in float64 on the chosen device; ``--backend`` takes only
 ``auto``.  ``--trace DIR`` writes a ``torch.profiler`` Chrome trace of a
 learn to ``DIR/trace.json``.  ``--data-parallel`` shards the image batch
-over every visible card (one shard with ``--device cpu``); with
-``--method single_loop`` it runs in the TGV², TV-L1 and VTV subcommands
-and exits with status 2 in the TV and sum-of-regularizers ones, naming its
-``ROADMAP.md`` item (not ported yet).  ``make-dataset`` writes a loadable
+over every visible card (one shard with ``--device cpu``), with every
+``--method`` in every learn subcommand.  ``make-dataset`` writes a loadable
 (true, noisy) PNG dataset from a built-in phantom or grayscale PNGs::
 
     python -m bpldenoising_tpu_torch make-dataset mycircle_128_10 --size 128

@@ -162,8 +162,11 @@ def _declare(lib):
                                   _P]
         fn.restype = _I
         fn = getattr(lib, f"bpl_single_loop_{suffix}")
-        fn.argtypes = ([_P] * 11 + [_LL] + [_I] * 14 + [real] * 9
-                       + [ctypes.POINTER(_I), _P])
+        # rows 9–10: ... pipelined, then the step and the piece of the
+        # mesh form (piece < 0: the single form), ..., the mesh form's
+        # sums (offset, count, offset, count), ...
+        fn.argtypes = ([_P] * 11 + [_LL] + [_I] * 16 + [real] * 9
+                       + [ctypes.POINTER(_LL), ctypes.POINTER(_I), _P])
         fn.restype = _I
         # rows 11–13: ... outer, then the steps o0 … o1 − 1 and the parts
         # (single_loop.cuh's SlxParts) of the call, ...

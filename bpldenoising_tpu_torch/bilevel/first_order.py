@@ -18,26 +18,31 @@ sum-of-regularizers model (any K with forward, backward or centred
 gradients).
 
 :func:`single_loop_learn` runs where ``f`` lives: the plain PyTorch loop
-below (:func:`_single_loop_plain`) for tensors on the CPU, the CUDA
-learner of :mod:`.first_order_cuda` (``csrc/single_loop.cu``) for CUDA
-tensors, which raises for what it does not take.  Neither reads anything
-back to the host until the segment ends.  Not ported: ``optimizer=`` (an
-optax transformation has no PyTorch counterpart to take) and, for this
-module's TV and sum-of-regularizers learners, ``mesh=`` data parallelism;
-both raise ``NotImplementedError``.
+below (:func:`_single_loop_plain`, :func:`_tv_plain_stepper`'s steps) for
+tensors on the CPU, the CUDA learner of :mod:`.first_order_cuda`
+(``csrc/single_loop.cu``) for CUDA tensors, which raises for what it does
+not take.  Neither reads anything back to the host until the segment
+ends.  Not ported: ``optimizer=`` (an optax transformation has no PyTorch
+counterpart to take), which raises ``NotImplementedError``.
 
-:func:`drive_single_loop` also runs the TGV², TV-L1 and VTV learners on a
-mesh (:mod:`..parallel.mesh`): the batch is zero-padded to a multiple of
-the shards, and each outer step runs every shard's local part (the CP
-phase, the CG with its per-image dots, the gradient maps and the cost) on
-its device, sums the gradient maps and the cost over the shards on the
-first device in shard order (:func:`..parallel.mesh.psum`), and runs
-every shard's update (the pullback and Adam) on the sum, so z, Adam's
-moments and t stay replicated.  An all-padding shard adds exactly +0.
+:func:`drive_single_loop` runs every family's learner on a mesh
+(:mod:`..parallel.mesh`): the batch is zero-padded to a multiple of the
+shards, and each shard's stepper runs its outer steps in lockstep with the
+others.  A step stops at every point where the JAX package's scan takes a
+``psum``: it yields its local values, :func:`_lockstep` sums each over the
+shards on the first device in shard order (:func:`..parallel.mesh.psum`)
+and sends the sums back.  The TGV², TV-L1 and VTV learners take per-image CG
+dots, so their steps have one such point (the gradient maps and the
+cost); this module's TV and sum-of-regularizers learner takes its CG dots
+over the whole batch, so its steps also stop at every inner product of
+the CG (2·n_adj + 1 classic, n_adj pipelined).  Every shard's update (the
+pullback and Adam) runs on the sums, so z, Adam's moments and t stay
+replicated.  An all-padding shard adds exactly +0.
 """
 
 from __future__ import annotations
 
+import inspect
 import time
 from typing import NamedTuple, Optional
 
@@ -49,7 +54,7 @@ from ..ops import PatchOp, scalarprod, xi
 from ..parallel.mesh import (batch_devices, gather_u, psum, run_shards,
                              shard_dataset)
 from ..solvers.hypergrad import build_reg_system
-from .pcg import CG_VARIANTS, _default_vdot
+from .pcg import CG_STEPS, CG_VARIANTS, _default_vdot, local_sums
 
 __all__ = ["single_loop_learn", "single_loop_tv_learn",
            "single_loop_sumregs_learn", "drive_single_loop",
@@ -158,24 +163,25 @@ def _tile_vdot(tile_b: int):
     return vdot
 
 
-def _single_loop_plain(utrue, f, x0, *, model: DenoiseModel, outer: int,
-                       n_inner: int, n_adj: int, pop: Optional[PatchOp],
-                       param_shape: tuple, lr, gamma, tau0, sigma0, beta1,
-                       beta2, eps, carry0=None, return_carry: bool = False,
-                       cg_variant: str = "classic",
-                       tile_b: Optional[int] = None):
-    """The single-loop learner as a Python loop over ``outer`` steps, in
-    the order of the JAX package's scan (``first_order.py:175-211``): PD
-    steps, the adjoint system, CG, the gradient maps, the pullback, Adam
-    with ``beta1 ** t``, the cost.  ``utrue``/``f`` are (O, M, N).
-    ``tile_b`` takes the CG's inner products per group of ``tile_b``
-    images (TPU kernel 10); ``None`` takes them over the whole batch."""
+def _tv_plain_stepper(utrue, f, carry, *, model: DenoiseModel, outer: int,
+                      n_inner: int, n_adj: int, pop: Optional[PatchOp],
+                      param_shape: tuple, lr, gamma, tau0, sigma0, beta1,
+                      beta2, eps, cg_variant: str = "classic",
+                      tile_b: Optional[int] = None) -> "PlainStepper":
+    """The plain learner's steps from ``carry`` ``(u, ys, p, z, (m, v),
+    t)``, in the order of the JAX package's scan (``first_order.py:
+    175-211``): PD steps, the adjoint system, CG, the gradient maps, the
+    pullback, Adam with ``beta1 ** t``, the cost.  ``utrue``/``f`` are (O,
+    M, N).  The local part yields at every CG inner product
+    (:data:`.pcg.CG_STEPS`).  ``tile_b`` takes the CG's inner products per
+    group of ``tile_b`` images (TPU kernel 10); ``None`` takes them over
+    the whole batch."""
     dtype = f.dtype
     K = model.K
     tau, sigma = step_sizes(model.opnorm_sq(), tau0, sigma0, dtype, f.device)
     tiny = torch.finfo(dtype).tiny
     vdot = _default_vdot if tile_b is None else _tile_vdot(int(tile_b))
-    cg_steps = CG_VARIANTS[cg_variant]
+    cg_steps = CG_STEPS[cg_variant]
 
     def alphas_of(x):
         """Parameter → K-tuple of per-image α (scalar or (M, N) map)."""
@@ -210,31 +216,37 @@ def _single_loop_plain(utrue, f, x0, *, model: DenoiseModel, outer: int,
             ys_new.append(q * scale[..., None, :, :])
         return u_new, tuple(ys_new)
 
-    if carry0 is None:
-        carry0 = _init_carry(f, x0, K=K, param_shape=param_shape)
-    u, ys, p, z, (m, v), t = carry0
-    xs, costs, gnorms = [], [], []
-    for _ in range(int(outer)):
-        x = torch.exp(z)
+    def local(state, x):
+        u, ys, p = state
         alphas = alphas_of(x)
         for _ in range(int(n_inner)):
             u, ys = pd_step(alphas, u, ys)
         M_apply, inv_diag, fields = build_reg_system(u, alphas, model, gamma)
-        p = cg_steps(M_apply, inv_diag, utrue - u, p, n_adj, vdot=vdot)
+        p = yield from cg_steps(M_apply, inv_diag, utrue - u, p, n_adj,
+                                vdot=vdot)
         gmaps = tuple(torch.sum(scalarprod(op.apply(p), field), dim=0)
                       for op, field in zip(model.ops, fields))
-        g_x = pull(gmaps)
-        g_z = g_x * x                    # chain rule through x = exp(z)
-        z, (m, v), t = adam_step(z, (m, v), t, g_z, lr=lr, beta1=beta1,
-                                 beta2=beta2, eps=eps)
-        # each cost is paired with the α that PRODUCED it; gnorm is taken
-        # on g_x, before the chain rule
-        xs.append(x)
-        costs.append(0.5 * torch.sum((u - utrue) ** 2))
-        gnorms.append(torch.sqrt(torch.sum(g_x ** 2)))
-    carry = (u, ys, p, z, (m, v), t)
-    res = plain_result(utrue, u, z, xs, costs, gnorms, param_shape)
-    return (res, carry) if return_carry else res
+        return (u, ys, p), gmaps, 0.5 * torch.sum((u - utrue) ** 2)
+
+    return PlainStepper(local, pull, lambda g_x, x: g_x * x, carry,
+                        param_shape=param_shape, lr=lr, beta1=beta1,
+                        beta2=beta2, eps=eps)
+
+
+def _tv_u_and_z(carry):
+    return carry[0], carry[3]
+
+
+def _single_loop_plain(utrue, f, x0, *, model: DenoiseModel, outer: int,
+                       param_shape: tuple, carry0=None,
+                       return_carry: bool = False, **kw):
+    """The single-loop learner as a Python loop over ``outer`` steps
+    (:func:`_tv_plain_stepper`, every inner product its local value)."""
+    if carry0 is None:
+        carry0 = _init_carry(f, x0, K=model.K, param_shape=param_shape)
+    stepper = _tv_plain_stepper(utrue, f, carry0, model=model, outer=outer,
+                                param_shape=param_shape, **kw)
+    return run_steps(stepper, utrue, outer, _tv_u_and_z, return_carry)
 
 
 def adam_step(z, opt_state, t, g_z, *, lr, beta1, beta2, eps):
@@ -248,17 +260,6 @@ def adam_step(z, opt_state, t, g_z, *, lr, beta1, beta2, eps):
     mhat = m / (1 - beta1 ** t)
     vhat = v / (1 - beta2 ** t)
     return z - lr * mhat / (torch.sqrt(vhat) + eps), (m, v), t
-
-
-def plain_result(utrue, u, z, xs, costs, gnorms, param_shape):
-    """A plain loop's outputs → :class:`SingleLoopResult`: the final α and
-    cost and the stacked trajectories."""
-    dtype, dev = u.dtype, u.device
-    return SingleLoopResult(
-        alpha=torch.exp(z), u=u, cost=0.5 * torch.sum((u - utrue) ** 2),
-        alpha_trajectory=_stack(xs, param_shape, dtype, dev),
-        cost_trajectory=_stack(costs, (), dtype, dev),
-        gnorm_trajectory=_stack(gnorms, (), dtype, dev))
 
 
 def kernel_result(utrue, u, z, outer, trajs):
@@ -302,14 +303,8 @@ def prepare_images(utrue, f, image_ndim: int):
     return utrue, f, squeeze
 
 
-def check_unported(mesh, optimizer, mesh_ok: bool = False) -> None:
-    """``optimizer=`` of the JAX learners raises here, and ``mesh=`` unless
-    ``mesh_ok`` (the TGV², TV-L1 and VTV learners)."""
-    if mesh is not None and not mesh_ok:
-        raise NotImplementedError(
-            "mesh= data parallelism of the TV and sum-of-regularizers "
-            "single-loop learners is not ported yet (ROADMAP.md §1 item "
-            "10b, rows 9–10)")
+def check_unported(optimizer) -> None:
+    """``optimizer=`` of the JAX learners raises here."""
     if optimizer is not None:
         raise NotImplementedError(
             "optimizer= takes an optax transformation, which has no "
@@ -349,13 +344,15 @@ def run_segment(plain, launch, init_carry, u_and_z, utrue, f, x0, *,
 
 
 class PlainStepper:
-    """A plain learner's outer steps on one (sub-)batch, split as the CUDA
-    learners' mesh form splits them.  ``local(state, x) → (state, gmaps,
-    cost)`` is a step's local part at x = exp(z) (``gmaps`` a tuple of
-    per-pixel gradient maps, ``cost`` ½Σ(u − ū)² of the sub-batch);
-    :meth:`update` takes the maps and cost summed over the shards:
-    ``pull(gmaps)`` → g_x, then Adam on z with ``grad_z(g_x, x)``.  The
-    carry is the family's, its last three entries z, (m, v) and t."""
+    """A plain learner's outer steps on one (sub-)batch, split where the
+    JAX package's scan sums over the shards.  ``local(state, x) → (state,
+    gmaps, cost)`` is a step's local part at x = exp(z) (``gmaps`` a tuple
+    of per-pixel gradient maps, ``cost`` ½Σ(u − ū)² of the sub-batch); a
+    generator function there yields its own sum points first (the TV
+    learner's CG dots).  :meth:`update` takes the maps and cost summed
+    over the shards: ``pull(gmaps)`` → g_x, then Adam on z with
+    ``grad_z(g_x, x)``.  The carry is the family's, its last three entries
+    z, (m, v) and t."""
 
     def __init__(self, local, pull, grad_z, carry, *, param_shape: tuple,
                  lr, beta1, beta2, eps):
@@ -366,10 +363,18 @@ class PlainStepper:
         self.param_shape = param_shape
         self.xs, self.costs, self.gnorms = [], [], []
 
-    def local(self, o: int):
+    def step(self, o: int):
+        """Step ``o`` as a generator of the stepper protocol: each yield is
+        a tuple of this shard's values to sum over the shards, and the
+        tuple of sums comes back; the last is the gradient maps and the
+        cost, and the update runs on their sums."""
         self.x = torch.exp(self.z)
-        self.state, gmaps, cost = self.local_fn(self.state, self.x)
-        return gmaps, cost
+        out = self.local_fn(self.state, self.x)
+        if inspect.isgenerator(out):
+            out = yield from out
+        self.state, gmaps, cost = out
+        total = yield tuple(gmaps) + (cost,)
+        self.update(o, total[:-1], total[-1])
 
     def update(self, o: int, gmaps, cost) -> None:
         g_x = self.pull(gmaps)
@@ -391,10 +396,10 @@ class PlainStepper:
 
 
 def run_steps(stepper, utrue, outer: int, u_and_z, return_carry: bool):
-    """``outer`` steps of one stepper on the whole batch →
-    :class:`SingleLoopResult` (and the carry)."""
+    """``outer`` steps of one stepper on the whole batch, every sum its
+    local value → :class:`SingleLoopResult` (and the carry)."""
     for o in range(int(outer)):
-        stepper.update(o, *stepper.local(o))
+        local_sums(stepper.step(o))
     carry, trajs = stepper.finish()
     res = kernel_result(utrue, *u_and_z(carry), outer, trajs)
     return (res, carry) if return_carry else res
@@ -405,6 +410,16 @@ def _cuda_launch():
     return _launch
 
 
+def _tv_stepper(utrue, f, carry, **kw):
+    """One shard's steps of a mesh segment where ``f`` lives: the plain
+    stepper on the CPU, the CUDA learner's session in its mesh form
+    otherwise (which raises for tensors off the card)."""
+    if f.device.type == "cpu":
+        return _tv_plain_stepper(utrue, f, carry, **kw)
+    from .first_order_cuda import Session
+    return Session(utrue, f, carry, mesh=True, **kw)
+
+
 def _single_loop_impl(utrue, f, x0, *, model: DenoiseModel, outer: int,
                       param_shape: tuple, carry0=None,
                       return_carry: bool = False, **kw):
@@ -413,7 +428,7 @@ def _single_loop_impl(utrue, f, x0, *, model: DenoiseModel, outer: int,
     return run_segment(
         _single_loop_plain, _cuda_launch,
         lambda ff: _init_carry(ff, x0, K=model.K, param_shape=param_shape),
-        lambda c: (c[0], c[3]), utrue, f, x0, model=model, outer=outer,
+        _tv_u_and_z, utrue, f, x0, model=model, outer=outer,
         param_shape=param_shape, carry0=carry0, return_carry=return_carry,
         **kw)
 
@@ -430,8 +445,11 @@ def single_loop_learn(utrue, f, x0, model: DenoiseModel, *,
     """Single-loop bilevel learning for any model and parameterization,
     on the device ``f`` lives on.  ``x0`` must be strictly positive (the
     parameter lives in log space).  ``log_every=j`` runs ``j``-step
-    segments with a host hop between them and fills ``times``."""
-    check_unported(mesh, optimizer)
+    segments with a host hop between them and fills ``times``.  ``mesh``
+    (a batch mesh of :mod:`..parallel.mesh`) shards the batch, with the
+    CG's inner products, the gradient maps and the cost summed over the
+    shards."""
+    check_unported(optimizer)
     if cg_variant not in CG_VARIANTS:
         raise ValueError(f"cg_variant must be one of {sorted(CG_VARIANTS)}, "
                          f"got {cg_variant!r}")
@@ -444,7 +462,8 @@ def single_loop_learn(utrue, f, x0, model: DenoiseModel, *,
         _single_loop_impl, utrue, f, x0, kw,
         make_carry0=lambda ff: _init_carry(ff, x0, K=model.K,
                                            param_shape=param_shape),
-        log_every=log_every, segment_callback=segment_callback)
+        log_every=log_every, segment_callback=segment_callback, mesh=mesh,
+        stepper=_tv_stepper, u_and_z=_tv_u_and_z)
     if squeeze:
         res = res._replace(u=res.u[0])
     return res
@@ -465,8 +484,9 @@ def drive_single_loop(impl, utrue, f, x0, kw, *, make_carry0,
     elapsed)`` runs after each segment.  The CUDA library is built before
     the clock starts.  With ``mesh``, :func:`_drive_mesh` runs the
     segments with ``stepper(utrue, f, carry, **kw)`` on every shard (a
-    :class:`PlainStepper` or a CUDA learner's session) and ``u_and_z
-    (carry)`` reads a carry's u and z."""
+    :class:`PlainStepper` or a CUDA learner's session, each with a
+    ``step(o)`` generator and ``finish()``) and ``u_and_z(carry)`` reads a
+    carry's u and z."""
     if mesh is not None:
         return _drive_mesh(stepper, u_and_z, utrue, f, kw,
                            make_carry0=make_carry0, mesh=mesh,
@@ -509,17 +529,42 @@ def _sync(devices) -> None:
             torch.cuda.synchronize(d)
 
 
+def _advance(gen, sums):
+    """Send ``sums`` to a step's generator: → its next yield, or None when
+    the step has ended."""
+    try:
+        return gen.send(sums)
+    except StopIteration:
+        return None
+
+
+def _lockstep(devices, steps, o: int) -> None:
+    """Step ``o`` of every shard's stepper in lockstep: at each sum point
+    the shards' yields are summed position by position on the first device
+    in shard order (:func:`..parallel.mesh.psum`) and each shard gets the
+    sums on its device."""
+    gens = [st.step(o) for st in steps]
+    outs = run_shards(devices, lambda i, g: _advance(g, None), gens)
+    while outs[0] is not None:
+        if any(v is None or len(v) != len(outs[0]) for v in outs):
+            raise RuntimeError(f"the shards' steppers left lockstep at step "
+                               f"{o}")
+        sums = tuple(psum([v[j] for v in outs]) for j in range(len(outs[0])))
+        outs = run_shards(devices, lambda i, g: _advance(
+            g, tuple(s.to(devices[i]) for s in sums)), gens)
+    if any(v is not None for v in outs):
+        raise RuntimeError(f"the shards' steppers left lockstep at step {o}")
+
+
 def _drive_mesh(stepper, u_and_z, utrue, f, kw, *, make_carry0, mesh,
                 log_every, segment_callback) -> SingleLoopResult:
     """The segments of a learner on a mesh.  The batch is zero-padded to a
     multiple of the shards and each shard starts from ``make_carry0`` of
     its sub-batch; each segment makes one stepper a shard (on its device,
-    from the shard's carry), and each outer step runs every shard's local
-    part, sums the gradient maps and the cost over the shards in shard
-    order on the first device, hands each shard the sums and runs its
-    update.  The α, cost and ‖g‖ trajectories are the first shard's (every
-    shard's are the same), u is gathered without the padding and the
-    final cost is the shards' sum."""
+    from the shard's carry) and runs the outer steps in lockstep
+    (:func:`_lockstep`).  The α, cost and ‖g‖ trajectories are the first
+    shard's (every shard's are the same), u is gathered without the
+    padding and the final cost is the last step's, the shards' sum."""
     devices = batch_devices(mesh)
     data = shard_dataset((utrue, f), mesh, image_ndim=f.ndim - 1)
     uts, fs = data.utrue, data.f
@@ -540,13 +585,7 @@ def _drive_mesh(stepper, u_and_z, utrue, f, kw, *, make_carry0, mesh,
                                                   **dict(kw, outer=k)),
             uts, fs, carries)
         for o in range(k):
-            outs = run_shards(devices, lambda i, st: st.local(o), steps)
-            gmaps = tuple(psum([g[j] for g, _ in outs])
-                          for j in range(len(outs[0][0])))
-            cost = psum([c for _, c in outs])
-            run_shards(devices, lambda i, st: st.update(
-                o, tuple(g.to(devices[i]) for g in gmaps),
-                cost.to(devices[i])), steps)
+            _lockstep(devices, steps, o)
         fin = run_shards(devices, lambda i, st: st.finish(), steps)
         carries = [c for c, _ in fin]
         pieces.append(fin[0][1])
@@ -562,12 +601,14 @@ def _drive_mesh(stepper, u_and_z, utrue, f, kw, *, make_carry0, mesh,
     us = [u_and_z(c)[0] for c in carries]
     xs, costs, gnorms = (torch.cat([p[j] for p in pieces])
                          for j in range(3))
+    # the last step's cost, as the unsharded learners give it (the state
+    # does not move after it)
+    cost = costs[-1] if outer > 0 else psum(
+        [0.5 * torch.sum((u - ut) ** 2) for u, ut in zip(us, uts)])
     return SingleLoopResult(
         alpha=torch.exp(u_and_z(carries[0])[1]),
-        u=gather_u(us, data.n_real),
-        cost=psum([0.5 * torch.sum((u - ut) ** 2)
-                   for u, ut in zip(us, uts)]),
-        alpha_trajectory=xs, cost_trajectory=costs, gnorm_trajectory=gnorms,
+        u=gather_u(us, data.n_real), cost=cost, alpha_trajectory=xs,
+        cost_trajectory=costs, gnorm_trajectory=gnorms,
         times=None if log_every is None else times)
 
 

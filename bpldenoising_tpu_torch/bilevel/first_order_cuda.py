@@ -23,9 +23,13 @@ either way.  ``persist`` and ``interpret`` are accepted for signature
 parity and change nothing here (the JAX package documents ``persist`` as
 bit-identical either way).
 
-:func:`_launch` runs one segment on the card: it takes and returns the
-carry ``(u, ys, p, z, (m, v), t)`` and always returns all three
-trajectories.  :func:`pd_plan` (from :mod:`..solvers.cluster_plan`,
+:func:`_launch` runs one segment on the card through a :class:`Session`
+in its single form: it takes and returns the carry ``(u, ys, p, z, (m,
+v), t)`` and always returns all three trajectories.  On a mesh
+(``single_loop_learn(..., mesh=)``) each shard's :class:`Session` runs in
+its mesh form: one CG group a shard, each step piece by piece up to each
+sum point (every CG inner product, then the gradient maps and the cost),
+the sums over the shards written back on the card between the pieces.  :func:`pd_plan` (from :mod:`..solvers.cluster_plan`,
 shared with kernel A) chooses the PD phase's thread-block cluster: one
 cluster per image, each CTA a band of rows held in shared memory for the
 whole phase.
@@ -48,13 +52,14 @@ from .pcg import CG_VARIANTS
 
 __all__ = ["single_loop_cuda", "single_loop_cuda_tiled",
            "single_loop_tv_cuda", "stencil_cuda", "pd_plan", "PdPlan",
-           "MAX_CLUSTER", "SMEM_PER_BLOCK", "launches", "kernel_launches"]
+           "MAX_CLUSTER", "SMEM_PER_BLOCK", "launches", "kernel_launches",
+           "launches_per_step", "Session"]
 
-#: calls that launched the CUDA learner (one per segment)
+#: sessions of the CUDA learner (one per segment, and per shard on a mesh)
 launches = 0
-#: kernel launches those calls issued on the card (as the C loop counts
-#: them: 4 + 2·n_adj per outer step with the classic CG, 5 + n_adj with
-#: the pipelined one, and one per segment)
+#: kernel launches they issued on the card (as the C loop counts them:
+#: 4 + 2·n_adj per outer step with the classic CG, 5 + n_adj with the
+#: pipelined one, and one per segment, in the single and the mesh form)
 kernel_launches = 0
 
 # stencil kinds of csrc/single_loop.cu, in the order of ops/grad.py
@@ -87,12 +92,9 @@ class KernelSession:
     issue) and :meth:`finish` (→ carry, trajectories).
 
     :meth:`call` launches some parts of a range of steps: the single form
-    is one call with ``SLX_ALL``.  The mesh form's steps: :meth:`local`
-    runs step o's CP phase, CG and gradient maps (after the segment's
-    ``slx_begin`` at o = 0) and returns views of the scratch buffer, the
-    K·M·N gradient maps summed over the local batch and the cost partials;
-    :meth:`update` writes the sums over the shards into those views and
-    runs step o's pullback and Adam."""
+    is one call with ``SLX_ALL``.  The mesh form runs :meth:`step` a step:
+    the CP phase, CG and gradient maps, one sum point, then the pullback
+    and Adam on the sums."""
 
     def count_session(self, **latest) -> None:
         with _build.COUNTS:
@@ -114,7 +116,13 @@ class KernelSession:
             self.counters.kernel_launches += issued.value
         _build.check(err, self.what)
 
-    def local(self, o: int):
+    def step(self, o: int):
+        """Step ``o`` of the stepper protocol
+        (:func:`.first_order._lockstep`): step o's local part (after the
+        segment's ``slx_begin`` at o = 0); its one sum point, views of the
+        scratch buffer holding the K·M·N gradient maps summed over the
+        local batch and the cost partials; the sums over the shards
+        written into them; step o's pullback and Adam."""
         if o == 0:
             offs = (ctypes.c_longlong * 4)()
             self.parts_of(offs)
@@ -122,17 +130,24 @@ class KernelSession:
             self.cost_part = self.scratch[offs[2]:offs[2] + offs[3]]
             self.call(0, 0, SLX_BEGIN)
         self.call(o, o + 1, SLX_LOCAL)
-        return (self.gmap,), self.cost_part
-
-    def update(self, o: int, gmaps, cost) -> None:
-        for mine, total in ((self.gmap, gmaps[0]), (self.cost_part, cost)):
-            if mine.data_ptr() != total.data_ptr():
-                mine.copy_(total)
+        mine = (self.gmap, self.cost_part)
+        total = yield mine
+        for a, b in zip(mine, total):
+            write_sum(a, b)
         self.call(o, o + 1, SLX_UPDATE)
 
 
+def write_sum(mine, total) -> None:
+    """Write a sum over the shards into this shard's buffer ``mine`` (a
+    one-shard mesh hands back the buffer itself)."""
+    if mine.data_ptr() != total.data_ptr():
+        mine.copy_(total)
+
+
 def launches_per_step(n_adj: int, cg_variant: str = "classic") -> int:
-    """The kernel launches of one outer step with ``n_inner`` > 0."""
+    """The kernel launches of one outer step with ``n_inner`` > 0, in the
+    single and in the mesh form (which cuts the same launches into pieces
+    at its sum points)."""
     if cg_variant == "classic":
         return 4 + 2 * n_adj
     return 4 + n_adj + (1 if n_adj > 0 else 0)
@@ -206,70 +221,123 @@ def adam_args(lr, beta1, beta2, eps):
             1.0 - float(beta2), float(eps))
 
 
-def _launch(utrue, f, carry, *, model, outer, n_inner, n_adj, pop,
-            param_shape, lr, gamma, tau0, sigma0, beta1, beta2, eps,
-            cg_variant="classic", tile_b=None):
-    """Run ``outer`` steps from ``carry`` on the card; → (carry,
-    (α trajectory, cost trajectory, gnorm trajectory))."""
-    check_cuda_input(f)
-    if f.ndim != 3:
-        raise ValueError(f"expected an (O, M, N) stack, got {tuple(f.shape)}")
-    check_plane(utrue, f.shape, f, "utrue")
-    code = _kinds_code(model)
-    if cg_variant not in CG_VARIANTS:
-        raise ValueError(f"unknown cg_variant {cg_variant!r}")
-    dtype, dev = f.dtype, f.device
-    B, M, N = (int(s) for s in f.shape)
-    K = model.K
-    pm, pn = (1, 1) if pop is None else pop.size_in
-    P = pm * pn
-    tile_b = B if tile_b is None else int(tile_b)
-    if tile_b < 1:
-        raise ValueError(f"tile_b must be positive, got {tile_b}")
-    tile_b = min(tile_b, B)
-    u, ys, p, z, (m, v), t = carry
-    y_shape = (B, 2, M, N)
-    check_plane(u, f.shape, f, "carry u")
-    check_plane(p, f.shape, f, "carry p")
-    if len(ys) != K:
-        raise ValueError(f"carry needs {K} dual fields, got {len(ys)}")
-    for y in ys:
-        check_plane(y, y_shape, f, "carry y")
-    opt = pack_opt(z, m, v, t, param_shape, K, P, outer, f)
+class Session:
+    """One segment of rows 9–10's learner on the card from ``carry`` ``(u,
+    ys, p, z, (m, v), t)``; the shapes and dtypes of every argument are
+    checked before the device.
 
-    f = f.contiguous()
-    utrue = utrue.contiguous()
-    u = u.contiguous().clone()
-    ysk = torch.stack(tuple(ys)).contiguous()          # (K, B, 2, M, N)
-    p = p.contiguous().clone()
-    plan = pd_plan(M, N, K, f.element_size())
-    lib = _build.library()
-    scratch = torch.empty((lib.bpl_sl_scratch(
-        B, M, N, K, pm, pn, tile_b, plan.cluster, plan.rows,
-        int(plan.resident)),), dtype=dtype, device=dev)
-    # τ and σ in the working dtype, as the plain version forms them
-    tau, sigma = (float(s) for s in step_sizes(model.opnorm_sq(), tau0,
-                                               sigma0, dtype))
-    fn = lib.bpl_single_loop_f32 if dtype == torch.float32 \
-        else lib.bpl_single_loop_f64
-    issued = ctypes.c_int(0)
-    global launches, kernel_launches
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        launches += 1
-        err = fn(f.data_ptr(), utrue.data_ptr(), u.data_ptr(),
-                 ysk.data_ptr(), p.data_ptr(),
-                 *(a.data_ptr() for a in opt), scratch.data_ptr(), B, M, N,
-                 K, code, pm, pn, tile_b, plan.cluster, plan.rows,
-                 int(plan.resident), int(outer), int(n_inner), int(n_adj),
-                 int(cg_variant == "pipelined"), tau, sigma, float(gamma),
-                 *adam_args(lr, beta1, beta2, eps), ctypes.byref(issued),
-                 stream)
-    kernel_launches += issued.value
-    _build.check(err, f"single-loop kernel (PD cluster {plan})")
-    (z, mv, t), trajs = unpack_opt(*opt, param_shape)
-    carry = (u, tuple(ysk[k] for k in range(K)), p, z, mv, t)
-    return carry, trajs
+    The single form (:meth:`run`) launches the whole segment in one call of
+    the C loop.  The mesh form (``mesh=True``, a shard of a batch mesh,
+    whose batch is one CG group) runs each step as a generator
+    (:meth:`step`, the protocol of :func:`.first_order._lockstep`): each
+    call of the C loop launches the kernels up to the step's next sum
+    point and says where this shard's values to sum lie in the scratch
+    buffer (ρ, d·Md or the pair (γ, δ) of the CG, then the gradient maps
+    and the cost partials); the step yields views of them, writes the sums
+    into them on the card and goes on, and the next kernels form a and β
+    from the sums.  Nothing is read back to the host."""
+
+    def __init__(self, utrue, f, carry, *, model, outer, n_inner, n_adj,
+                 pop, param_shape, lr, gamma, tau0, sigma0, beta1, beta2,
+                 eps, cg_variant="classic", tile_b=None, mesh=False):
+        check_cuda_input(f)
+        if f.ndim != 3:
+            raise ValueError(f"expected an (O, M, N) stack, got "
+                             f"{tuple(f.shape)}")
+        check_plane(utrue, f.shape, f, "utrue")
+        code = _kinds_code(model)
+        if cg_variant not in CG_VARIANTS:
+            raise ValueError(f"unknown cg_variant {cg_variant!r}")
+        dtype, dev = f.dtype, f.device
+        B, M, N = (int(s) for s in f.shape)
+        K = model.K
+        pm, pn = (1, 1) if pop is None else pop.size_in
+        P = pm * pn
+        tile_b = B if tile_b is None or mesh else int(tile_b)
+        if tile_b < 1:
+            raise ValueError(f"tile_b must be positive, got {tile_b}")
+        tile_b = min(tile_b, B)
+        u, ys, p, z, (m, v), t = carry
+        check_plane(u, f.shape, f, "carry u")
+        check_plane(p, f.shape, f, "carry p")
+        if len(ys) != K:
+            raise ValueError(f"carry needs {K} dual fields, got {len(ys)}")
+        for y in ys:
+            check_plane(y, (B, 2, M, N), f, "carry y")
+        self.opt = pack_opt(z, m, v, t, param_shape, K, P, outer, f)
+        self.f, self.utrue = f.contiguous(), utrue.contiguous()
+        self.state = (u.contiguous().clone(),
+                      torch.stack(tuple(ys)).contiguous(),  # (K, B, 2, M, N)
+                      p.contiguous().clone())
+        plan = pd_plan(M, N, K, f.element_size())
+        lib = _build.library()
+        self.scratch = torch.empty((lib.bpl_sl_scratch(
+            B, M, N, K, pm, pn, tile_b, plan.cluster, plan.rows,
+            int(plan.resident)),), dtype=dtype, device=dev)
+        # τ and σ in the working dtype, as the plain version forms them
+        tau, sigma = (float(s) for s in step_sizes(model.opnorm_sq(), tau0,
+                                                   sigma0, dtype))
+        self.fn = lib.bpl_single_loop_f32 if dtype == torch.float32 \
+            else lib.bpl_single_loop_f64
+        self.args = (B, M, N, K, code, pm, pn, tile_b, plan.cluster,
+                     plan.rows, int(plan.resident), int(outer), int(n_inner),
+                     int(n_adj), int(cg_variant == "pipelined"))
+        self.consts = (tau, sigma, float(gamma),
+                       *adam_args(lr, beta1, beta2, eps))
+        self.what = f"single-loop kernel (PD cluster {plan})"
+        self.K, self.param_shape = K, param_shape
+        global launches
+        with _build.COUNTS:
+            launches += 1
+
+    def call(self, o: int, piece: int):
+        """Launch piece ``piece`` of step ``o`` (the single form's whole
+        segment for ``piece`` < 0) → the views of this shard's values to
+        sum before the next piece (none after the last)."""
+        global kernel_launches
+        sums = (ctypes.c_longlong * 4)()
+        issued = ctypes.c_int(0)
+        with torch.cuda.device(self.f.device):
+            stream = torch.cuda.current_stream(self.f.device).cuda_stream
+            err = self.fn(
+                *(a.data_ptr() for a in (self.f, self.utrue) + self.state),
+                *(a.data_ptr() for a in self.opt), self.scratch.data_ptr(),
+                *self.args, int(o), int(piece), *self.consts, sums,
+                ctypes.byref(issued), stream)
+        with _build.COUNTS:
+            kernel_launches += issued.value
+        _build.check(err, self.what)
+        return tuple(self.scratch[sums[i]:sums[i] + sums[i + 1]]
+                     for i in (0, 2) if sums[i + 1] > 0)
+
+    def run(self):
+        """The single form: every step of the segment → (carry,
+        trajectories)."""
+        self.call(0, -1)
+        return self.finish()
+
+    def step(self, o: int):
+        """Step ``o`` of the mesh form, piece by piece."""
+        piece = 0
+        while True:
+            mine = self.call(o, piece)
+            if not mine:
+                return
+            total = yield mine
+            for a, b in zip(mine, total):
+                write_sum(a, b)
+            piece += 1
+
+    def finish(self):
+        u, ysk, p = self.state
+        (z, mv, t), trajs = unpack_opt(*self.opt, self.param_shape)
+        return (u, tuple(ysk[k] for k in range(self.K)), p, z, mv, t), trajs
+
+
+def _launch(utrue, f, carry, **kw):
+    """Run ``outer`` steps from ``carry`` on the card in one call; →
+    (carry, (α trajectory, cost trajectory, gnorm trajectory))."""
+    return Session(utrue, f, carry, **kw).run()
 
 
 def _run(utrue, f, x0, model, kw, tile_b=None):

@@ -142,7 +142,7 @@ def single_loop_tgv_learn(utrue, f, x0, *, outer: int = 300,
     an (m, n, 2) patch stack.  ``lr`` defaults to 0.02, below the TV
     families' 0.05, as in the JAX package (the TGV cost is nearly flat in
     α₀ far from the optimum)."""
-    check_unported(mesh, optimizer, mesh_ok=True)
+    check_unported(optimizer)
     utrue, f, x0, pop, param_shape, squeeze = _prepare(utrue, f, x0)
     kw = dict(outer=int(outer), n_inner=int(n_inner), n_adj=int(n_adj),
               pop=pop, param_shape=param_shape, lr=lr, gamma=gamma,

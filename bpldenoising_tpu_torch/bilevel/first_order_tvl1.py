@@ -173,7 +173,7 @@ def single_loop_tvl1_learn(utrue, f, x0, *, outer: int = 300,
     positive scalar α or (m, n) patch grid.  ``gamma_d`` / ``gamma``: the
     data / regularizer Huber slopes; ``clip``: the bound on the log-α
     gradient fed to Adam."""
-    check_unported(mesh, optimizer, mesh_ok=True)
+    check_unported(optimizer)
     utrue, f, x0, pop, param_shape, squeeze = _prepare(utrue, f, x0)
     kw = dict(outer=int(outer), n_inner=int(n_inner), n_adj=int(n_adj),
               pop=pop, param_shape=param_shape, lr=lr, gamma_d=gamma_d,

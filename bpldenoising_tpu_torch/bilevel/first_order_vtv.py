@@ -163,7 +163,7 @@ def single_loop_vtv_learn(utrue, f, x0, *, outer: int = 300,
     (C, M, N) color stacks, on the device ``f`` lives on.  ``x0``:
     strictly positive scalar α or (m, n) patch grid.  ``gamma`` is the
     Huber width of the smoothed coupled system."""
-    check_unported(mesh, optimizer, mesh_ok=True)
+    check_unported(optimizer)
     utrue, f, x0, pop, param_shape, squeeze = _prepare(utrue, f, x0)
     kw = dict(outer=int(outer), n_inner=int(n_inner), n_adj=int(n_adj),
               pop=pop, param_shape=param_shape, lr=lr, gamma=gamma,

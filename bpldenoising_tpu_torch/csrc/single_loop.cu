@@ -69,10 +69,21 @@
 //    the main paths (SlcForm: K = 1 forward; K = 3 forward, backward and
 //    centred) and a generic one: the runtime stencil branches and loops
 //    over k cost ~1.5× the PD phase's time.
+//  * The mesh form (a shard of a batch mesh, one CG group a shard) runs a
+//    step piece by piece, one host call for the launches up to each point
+//    where the JAX package's scan takes a psum: after slc_init (ρ), each
+//    slc_apply (d·Md) and slc_update (the new ρ), each slc_pipe_step (the
+//    pair (γ, δ)), and slc_grad_maps (the maps and the cost partials).
+//    There the group's last block writes its raw sum to a slot, the host
+//    overwrites the slot with the sum over the shards, and the next
+//    launch's blocks form a, β (and the pipelined a₋₁) from the summed
+//    values alone, with the single form's expressions: a shard of padding
+//    (local sums 0) never divides by its own sums, and the same launches
+//    run in the same order.
 //
 // Launches per outer step: 4 + 2·n_adj classic (24 at n_adj = 10),
-// 5 + n_adj pipelined, and one per segment (slc_begin).  What bounds it
-// now (PERF.md §6): the PD launch by the issue of its per-pixel IEEE
+// 5 + n_adj pipelined, and one per segment (slc_begin), in either form.
+// What bounds it now (PERF.md §6): the PD launch by the issue of its per-pixel IEEE
 // divisions and square roots and by one cluster barrier (~0.7 µs) per CP
 // iteration; the CG launches by their latency at 10 images and by their
 // tile work at 64.
@@ -98,6 +109,13 @@ enum SlcPlane { Q_INV, Q_R0, Q_R1, Q_Z, Q_D0, Q_D1, Q_MD, Q_S0, Q_S1,
 // per-group device scalars
 enum SlcSlot { G_RZ, G_A0, G_A1, G_BETA0, G_BETA1, G_GPREV, G_APREV,
               N_GSLOTS };
+// The mesh form's slots (its one group's, in place of the single form's):
+// classic ρ by parity of the CG step and d·Md; pipelined (γ, δ) by parity
+// of the step, then a₋₁.  Each holds a raw sum until the host writes the
+// sum over the shards into it.
+enum SlcMeshSlot { M_RZ0 = 0, M_DMD = 2, M_GD0 = 0, M_APREV = 4,
+                   N_MSLOTS = 5 };
+static_assert(N_MSLOTS <= N_GSLOTS, "mesh slots exceed the group slots");
 // Element counts of the scratch buffer's parts (of T, but `counters`).
 struct SlcSizes {
   long long planes, gmap, kp, gx, part, cost_part, scal, pd, counters,
@@ -157,6 +175,7 @@ struct SLC {
   int B, M, N, K, pm, pn, P, tile_b, n_groups, tx, tpi, nb_g, slices,
       outer;
   int cl, rows;
+  int mesh;      // the mesh form: raw sums to the slots (one group)
   int kind[SL_MAXK];
   T tau, sigma, gamma, lr, beta1, beta2, omb1, omb2, eps;
   __device__ T* plane(int k) const { return w + (long long)k * n; }
@@ -433,7 +452,19 @@ __global__ void __launch_bounds__(BPL_THREADS) slc_init(SLC<T> h,
   if (pipelined) return;
   T s, unused;
   if (group_sums(h, rz, T(0), 0, &s, &unused) && threadIdx.x == 0)
-    h.slot(G_RZ, blockIdx.y / h.tile_b) = s;
+    h.slot(h.mesh ? M_RZ0 : G_RZ, blockIdx.y / h.tile_b) = s;
+}
+
+// The mesh form's classic CG scalars from the summed slots: a of step k,
+// ρ_k/(d·Md), and β of step k > 0, ρ_k/ρ_{k−1} (ρ by parity of the step).
+template <typename T>
+__device__ __forceinline__ T slc_mesh_a(const SLC<T>& h, int k) {
+  return h.slot(M_RZ0 + k % 2, 0) / nz(h.slot(M_DMD, 0));
+}
+
+template <typename T>
+__device__ __forceinline__ T slc_mesh_beta(const SLC<T>& h, int k) {
+  return h.slot(M_RZ0 + k % 2, 0) / nz(h.slot(M_RZ0 + (k + 1) % 2, 0));
 }
 
 // Classic step k, the operator: d = z (k = 0) or z + βd, Md and the group
@@ -443,7 +474,8 @@ __global__ void __launch_bounds__(BPL_THREADS) slc_apply(SLC<T> h, int k) {
   __shared__ T su[R2H * R2W], sv[R2H * R2W];
   const TileAt t = tile_at(h);
   const long long grp = blockIdx.y / h.tile_b;
-  const T beta = k > 0 ? h.slot(G_BETA0, grp) : T(0);
+  const T beta = k == 0 ? T(0)
+                 : h.mesh ? slc_mesh_beta(h, k) : h.slot(G_BETA0, grp);
   const T* z = h.plane(Q_Z);
   const T* d_old = h.plane(k % 2 ? Q_D0 : Q_D1);
   T* d_new = h.plane(k % 2 ? Q_D1 : Q_D0);
@@ -460,8 +492,12 @@ __global__ void __launch_bounds__(BPL_THREADS) slc_apply(SLC<T> h, int k) {
           * mv;
   }
   T s, unused;
-  if (group_sums(h, dmd, T(0), 0, &s, &unused) && threadIdx.x == 0)
-    h.slot(G_A0, grp) = h.slot(G_RZ, grp) / nz(s);
+  if (group_sums(h, dmd, T(0), 0, &s, &unused) && threadIdx.x == 0) {
+    if (h.mesh)
+      h.slot(M_DMD, grp) = s;
+    else
+      h.slot(G_A0, grp) = h.slot(G_RZ, grp) / nz(s);
+  }
 }
 
 // Classic step k, the update: p += a d; r −= a Md; z = r/diag; the group's
@@ -470,7 +506,7 @@ template <typename T>
 __global__ void __launch_bounds__(BPL_THREADS) slc_update(SLC<T> h, int k) {
   const TileAt t = tile_at(h);
   const long long grp = blockIdx.y / h.tile_b;
-  const T a = h.slot(G_A0, grp);
+  const T a = h.mesh ? slc_mesh_a(h, k) : h.slot(G_A0, grp);
   T rz = T(0);
   if (t.in) {
     const T* d = h.plane(k % 2 ? Q_D1 : Q_D0);
@@ -483,9 +519,34 @@ __global__ void __launch_bounds__(BPL_THREADS) slc_update(SLC<T> h, int k) {
   }
   T s, unused;
   if (group_sums(h, rz, T(0), 0, &s, &unused) && threadIdx.x == 0) {
-    h.slot(G_BETA0, grp) = s / nz(h.slot(G_RZ, grp));
-    h.slot(G_RZ, grp) = s;
+    if (h.mesh) {
+      h.slot(M_RZ0 + (k + 1) % 2, grp) = s;
+    } else {
+      h.slot(G_BETA0, grp) = s / nz(h.slot(G_RZ, grp));
+      h.slot(G_RZ, grp) = s;
+    }
   }
+}
+
+// The pipelined CG's β and a of a step from its (γ, δ), γ₋₁ and a₋₁
+// (β = 0 and γ₋₁ = a₋₁ = 1 at the first step), in either form.
+template <typename T>
+__device__ __forceinline__ void pipe_scalars(T g, T d, T gp, T ap, bool first,
+                                             T& bn, T& an) {
+  gp = first ? T(1) : gp;
+  ap = first ? T(1) : ap;
+  bn = first ? T(0) : g / nz(gp);
+  an = g / nz(d - bn * g / nz(ap));
+}
+
+// The mesh form's β and a of pipelined step j from the summed slots.
+template <typename T>
+__device__ __forceinline__ void slc_mesh_pipe(const SLC<T>& h, int j, T& bn,
+                                              T& an) {
+  const int at = M_GD0 + 2 * (j % 2);
+  pipe_scalars(h.slot(at, 0), h.slot(at + 1, 0),
+               h.slot(M_GD0 + 2 * ((j + 1) % 2), 0), h.slot(M_APREV, 0),
+               j == 0, bn, an);
 }
 
 // Pipelined step i: first the update of step i − 1 with its β and a
@@ -499,8 +560,13 @@ __global__ void __launch_bounds__(BPL_THREADS) slc_pipe_step(SLC<T> h, int i) {
   const TileAt t = tile_at(h);
   const long long grp = blockIdx.y / h.tile_b;
   const int par = (i + 1) % 2;          // step i − 1's parity
-  const T beta = i > 0 ? h.slot(par ? G_BETA1 : G_BETA0, grp) : T(0);
-  const T a = i > 0 ? h.slot(par ? G_A1 : G_A0, grp) : T(0);
+  T beta = T(0), a = T(0);
+  if (i > 0 && h.mesh) {
+    slc_mesh_pipe(h, i - 1, beta, a);
+  } else if (i > 0) {
+    beta = h.slot(par ? G_BETA1 : G_BETA0, grp);
+    a = h.slot(par ? G_A1 : G_A0, grp);
+  }
   const T* inv = h.plane(Q_INV);
   const T* w_old = h.plane(par ? Q_D1 : Q_MD);   // w of step i − 1
   const T* s_old = h.plane(i % 2 ? Q_S1 : Q_S0);  // s of step i − 2
@@ -543,11 +609,17 @@ __global__ void __launch_bounds__(BPL_THREADS) slc_pipe_step(SLC<T> h, int i) {
   }
   T g, d;
   if (group_sums(h, ru, wu, 1, &g, &d) && threadIdx.x == 0) {
-    const bool first = i == 0;
-    const T gp = first ? T(1) : h.slot(G_GPREV, grp);
-    const T ap = first ? T(1) : h.slot(G_APREV, grp);
-    const T bn = first ? T(0) : g / nz(gp);
-    const T an = g / nz(d - bn * g / nz(ap));
+    if (h.mesh) {
+      // every block has read the slots it overwrites: (γ, δ) of step
+      // i − 2 and a of step i − 2
+      h.slot(M_GD0 + 2 * (i % 2), grp) = g;
+      h.slot(M_GD0 + 2 * (i % 2) + 1, grp) = d;
+      if (i > 0) h.slot(M_APREV, grp) = a;
+      return;
+    }
+    T bn, an;
+    pipe_scalars(g, d, h.slot(G_GPREV, grp), h.slot(G_APREV, grp), i == 0,
+                 bn, an);
     h.slot(i % 2 ? G_BETA1 : G_BETA0, grp) = bn;
     h.slot(i % 2 ? G_A1 : G_A0, grp) = an;
     h.slot(G_GPREV, grp) = g;
@@ -562,8 +634,13 @@ __global__ void __launch_bounds__(BPL_THREADS) slc_pipe_last(SLC<T> h, int i) {
   const TileAt t = tile_at(h);
   if (!t.in) return;
   const long long grp = blockIdx.y / h.tile_b;
-  const T beta = h.slot(i % 2 ? G_BETA1 : G_BETA0, grp);
-  const T a = h.slot(i % 2 ? G_A1 : G_A0, grp);
+  T beta, a;
+  if (h.mesh) {
+    slc_mesh_pipe(h, i, beta, a);
+  } else {
+    beta = h.slot(i % 2 ? G_BETA1 : G_BETA0, grp);
+    a = h.slot(i % 2 ? G_A1 : G_A0, grp);
+  }
   const T dn = h.plane(Q_Z)[t.idx]
                + beta * (i == 0 ? T(0) : h.plane(Q_D0)[t.idx]);
   h.p[t.idx] = h.p[t.idx] + a * dn;
@@ -697,50 +774,151 @@ __global__ void __launch_bounds__(BPL_THREADS) slc_pull_adam(SLC<T> h, int o) {
 
 // ------------------------------------------------------------------ the host
 
-// The launches of `outer` steps for the form KC (SlcForm).
+// The launches of an outer step, in order: the PD phase (when n_inner > 0),
+// slc_init, then slc_apply and slc_update per classic CG step (per
+// pipelined step slc_pipe_step, then slc_pipe_last), slc_grad_maps and
+// slc_pull_adam.
+enum SlcLaunch { L_PD, L_INIT, L_APPLY, L_UPDATE, L_PIPE, L_PIPE_LAST,
+                 L_MAPS, L_PULL };
+
+struct SlcSteps {
+  int n_inner, n_adj, pipelined;
+  int cg() const {
+    return pipelined ? (n_adj > 0 ? n_adj + 1 : 0) : 2 * n_adj;
+  }
+  int launches() const { return (n_inner > 0) + 1 + cg() + 2; }
+  // launch j of a step → its kind, and in *k the CG step it belongs to
+  int at(int j, int* k) const {
+    *k = 0;
+    if (n_inner > 0 && j-- == 0) return L_PD;
+    if (j-- == 0) return L_INIT;
+    if (j < cg()) {
+      if (!pipelined) {
+        *k = j / 2;
+        return j % 2 ? L_UPDATE : L_APPLY;
+      }
+      *k = j < n_adj ? j : n_adj - 1;
+      return j < n_adj ? L_PIPE : L_PIPE_LAST;
+    }
+    return j == cg() ? L_MAPS : L_PULL;
+  }
+  // the mesh form's sum point after a launch of `kind` (CG step k): the
+  // first mesh slot and in *n the count of the scalars to sum there; −2
+  // for the gradient maps and the cost partials; −1 for none
+  int sum_after(int kind, int k, int* n) const {
+    *n = kind == L_PIPE ? 2 : 1;
+    switch (kind) {
+      case L_INIT: return pipelined ? -1 : M_RZ0;
+      case L_APPLY: return M_DMD;
+      case L_UPDATE: return M_RZ0 + (k + 1) % 2;
+      case L_PIPE: return M_GD0 + 2 * (k % 2);
+      case L_MAPS: return -2;
+      default: return -1;
+    }
+  }
+};
+
+// Issues one launch of step o.
 template <typename T, int KC>
-int single_loop(SLC<T>& h, int resident, int outer, int n_inner, int n_adj,
-                int pipelined, int* n_launched, cudaStream_t s) {
-  PdClusterLaunch<void (*)(SLC<T>, int)> L;
-  void (*kern)(SLC<T>, int) = resident ? slc_pd<T, true, KC>
-                                       : slc_pd<T, false, KC>;
-  int err = pd_cluster_prepare(
-      L, kern, h.B, h.cl, resident ? (size_t)h.pd_region * sizeof(T) : 0, s);
-  if (err != (int)cudaSuccess) return err;
+int slc_launch(SLC<T>& h, const PdClusterLaunch<void (*)(SLC<T>, int)>& L,
+               int kind, int k, int o, int n_inner, int pipelined,
+               cudaStream_t s) {
   const dim3 tiles(h.tpi, h.B);
-  int nl = 0;
-  if (outer > 0) {
+  switch (kind) {
+    case L_PD:
+      return (int)cudaLaunchKernelEx(&L.cfg, L.kern, h, n_inner);
+    case L_INIT:
+      slc_init<T, KC><<<tiles, BPL_THREADS, 0, s>>>(h, pipelined);
+      break;
+    case L_APPLY:
+      slc_apply<T, KC><<<tiles, BPL_THREADS, 0, s>>>(h, k);
+      break;
+    case L_UPDATE:
+      BPL_LAUNCH(slc_update<T>, tiles, BPL_THREADS, s)(h, k);
+      break;
+    case L_PIPE:
+      slc_pipe_step<T, KC><<<tiles, BPL_THREADS, 0, s>>>(h, k);
+      break;
+    case L_PIPE_LAST:
+      BPL_LAUNCH(slc_pipe_last<T>, tiles, BPL_THREADS, s)(h, k);
+      break;
+    case L_MAPS:
+      slc_grad_maps<T, KC><<<h.nb_g, BPL_THREADS, 0, s>>>(h);
+      break;
+    default:
+      BPL_LAUNCH(slc_pull_adam<T>, h.K * h.P * h.slices, BPL_THREADS, s)(h,
+                                                                      o);
+  }
+  return (int)cudaSuccess;
+}
+
+// The single form (piece < 0): every launch of `outer` steps after the
+// segment's slc_begin.  The mesh form: piece `piece` of step o, its
+// launches after the step's piece-th sum point up to the next (the first
+// piece of step 0 after slc_begin); sums ← {offset, count, offset, count}
+// of what the host sums over the shards before the next piece, in
+// elements of the scratch buffer (counts 0 after the last piece).
+template <typename T, int KC>
+int single_loop(SLC<T>& h, const SlcSizes& z, int resident, int outer,
+                int o, int piece, const SlcSteps& st, long long* sums,
+                int* n_launched, cudaStream_t s) {
+  PdClusterLaunch<void (*)(SLC<T>, int)> L;
+  if (piece <= 0) {
+    void (*kern)(SLC<T>, int) = resident ? slc_pd<T, true, KC>
+                                         : slc_pd<T, false, KC>;
+    int err = pd_cluster_prepare(
+        L, kern, h.B, h.cl, resident ? (size_t)h.pd_region * sizeof(T) : 0,
+        s);
+    if (err != (int)cudaSuccess) return err;
+  }
+  int nl = 0, err, k;
+  if (outer > 0 && piece <= 0 && o == 0) {
     BPL_LAUNCH(slc_begin<T>, 1, BPL_THREADS, s)(h);
     ++nl;
   }
-  for (int o = 0; o < outer; ++o) {
-    if (n_inner > 0) {
-      cudaError_t e = cudaLaunchKernelEx(&L.cfg, L.kern, h, n_inner);
-      if (e != cudaSuccess) return (int)e;
-      ++nl;
-    }
-    slc_init<T, KC><<<tiles, BPL_THREADS, 0, s>>>(h, pipelined);
-    ++nl;
-    if (!pipelined) {
-      for (int k = 0; k < n_adj; ++k) {
-        slc_apply<T, KC><<<tiles, BPL_THREADS, 0, s>>>(h, k);
-        BPL_LAUNCH(slc_update<T>, tiles, BPL_THREADS, s)(h, k);
-        nl += 2;
-      }
-    } else if (n_adj > 0) {
-      for (int i = 0; i < n_adj; ++i) {
-        slc_pipe_step<T, KC><<<tiles, BPL_THREADS, 0, s>>>(h, i);
+  if (piece < 0) {
+    for (int oo = 0; oo < outer; ++oo) {
+      for (int j = 0; j < st.launches(); ++j) {
+        const int kind = st.at(j, &k);
+        if ((err = slc_launch<T, KC>(h, L, kind, k, oo, st.n_inner,
+                                     st.pipelined, s)) != (int)cudaSuccess)
+          return err;
         ++nl;
       }
-      BPL_LAUNCH(slc_pipe_last<T>, tiles, BPL_THREADS, s)(h, n_adj - 1);
+      if ((err = (int)cudaGetLastError()) != (int)cudaSuccess) return err;
+    }
+    *n_launched = nl;
+    return (int)cudaGetLastError();
+  }
+  for (int q = 0; q < 4; ++q) sums[q] = 0;
+  int at = 0;
+  for (int j = 0; j < st.launches() && at <= piece; ++j) {
+    const int kind = st.at(j, &k);
+    if (at == piece) {
+      if ((err = slc_launch<T, KC>(h, L, kind, k, o, st.n_inner,
+                                   st.pipelined, s)) != (int)cudaSuccess)
+        return err;
       ++nl;
     }
-    slc_grad_maps<T, KC><<<h.nb_g, BPL_THREADS, 0, s>>>(h);
-    BPL_LAUNCH(slc_pull_adam<T>, h.K * h.P * h.slices, BPL_THREADS, s)(h, o);
-    nl += 2;
-    if ((err = (int)cudaGetLastError()) != (int)cudaSuccess) return err;
+    int n;
+    const int slot = st.sum_after(kind, k, &n);
+    if (slot == -1) continue;
+    if (at == piece) {
+      if (slot == -2) {
+        sums[0] = z.planes;
+        sums[1] = z.gmap;
+        sums[2] = z.planes + z.gmap + z.kp + z.gx + z.part;
+        sums[3] = z.cost_part;
+      } else {
+        sums[0] = z.planes + z.gmap + z.kp + z.gx + z.part + z.cost_part
+                  + slot;
+        sums[1] = n;
+      }
+    }
+    ++at;
   }
   *n_launched = nl;
+  if (at < piece) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
@@ -750,9 +928,10 @@ int single_loop_entry(const T* f, const T* ut, T* u, T* ys, T* p, T* zmv,
                       T* scratch, long long B, int M, int N, int K,
                       int kinds, int pm, int pn, int tile_b, int cl,
                       int rows, int resident, int outer, int n_inner,
-                      int n_adj, int pipelined, T tau, T sigma, T gamma,
-                      T lr, T beta1, T beta2, T omb1, T omb2, T eps,
-                      int* n_launched, cudaStream_t s) {
+                      int n_adj, int pipelined, int o, int piece, T tau,
+                      T sigma, T gamma, T lr, T beta1, T beta2, T omb1,
+                      T omb2, T eps, long long* sums, int* n_launched,
+                      cudaStream_t s) {
   *n_launched = 0;
   if (sl_bad_args(B, M, N, pm, pn, outer, n_inner, n_adj) || K < 1
       || K > SL_MAXK || tile_b < 1 || B > 65535 || cl < 1
@@ -760,7 +939,8 @@ int single_loop_entry(const T* f, const T* ut, T* u, T* ys, T* p, T* zmv,
       || B * cl > 0x7fffffffLL || (long long)M * pm > 0x7fffffffLL
       || (long long)N * pn > 0x7fffffffLL
       || pd_region(K, rows, N) > 0x7fffffffLL
-      || (cl > 1 && rows < 2))
+      || (cl > 1 && rows < 2)
+      || (piece >= 0 && (tile_b < B || o < 0 || o >= outer || !sums)))
     return (int)cudaErrorInvalidValue;
   const SlcSizes z = slc_sizes(B, M, N, K, pm, pn, tile_b, cl, rows,
                                resident);
@@ -802,6 +982,7 @@ int single_loop_entry(const T* f, const T* ut, T* u, T* ys, T* p, T* zmv,
   h.outer = outer;
   h.cl = cl;
   h.rows = rows;
+  h.mesh = piece >= 0;
   h.pd_region = pd_region(K, rows, N);
   for (int k = 0; k < SL_MAXK; ++k) h.kind[k] = (kinds >> (2 * k)) & 3;
   h.tau = tau;
@@ -813,16 +994,17 @@ int single_loop_entry(const T* f, const T* ut, T* u, T* ys, T* p, T* zmv,
   h.omb1 = omb1;
   h.omb2 = omb2;
   h.eps = eps;
+  const SlcSteps st{n_inner, n_adj, pipelined};
   int form = K << 8;
   for (int k = 0; k < K; ++k) form |= h.kind[k] << (2 * k);
   if (form == FORM_TV)
-    return single_loop<T, FORM_TV>(h, resident, outer, n_inner, n_adj,
-                                   pipelined, n_launched, s);
+    return single_loop<T, FORM_TV>(h, z, resident, outer, o, piece, st,
+                                   sums, n_launched, s);
   if (form == FORM_SUMREGS)
-    return single_loop<T, FORM_SUMREGS>(h, resident, outer, n_inner, n_adj,
-                                        pipelined, n_launched, s);
-  return single_loop<T, FORM_ANY>(h, resident, outer, n_inner, n_adj,
-                                  pipelined, n_launched, s);
+    return single_loop<T, FORM_SUMREGS>(h, z, resident, outer, o, piece, st,
+                                        sums, n_launched, s);
+  return single_loop<T, FORM_ANY>(h, z, resident, outer, o, piece, st, sums,
+                                  n_launched, s);
 }
 
 // One stencil on a stack, for checking it against ops/grad.py:
@@ -869,38 +1051,25 @@ long long bpl_sl_scratch(long long B, int M, int N, int K, int pm, int pn,
       .total;
 }
 
-int bpl_single_loop_f32(const float* f, const float* ut, float* u, float* ys,
-                        float* p, float* zmv, float* t, float* traj_x,
-                        float* traj_cost, float* traj_gnorm, float* scratch,
-                        long long B, int M, int N, int K, int kinds, int pm,
-                        int pn, int tile_b, int cl, int rows, int resident,
-                        int outer, int n_inner, int n_adj, int pipelined,
-                        float tau, float sigma, float gamma, float lr,
-                        float beta1, float beta2, float omb1, float omb2,
-                        float eps, int* n_launched, void* stream) {
-  return bpl::single_loop_entry<float>(
-      f, ut, u, ys, p, zmv, t, traj_x, traj_cost, traj_gnorm, scratch, B, M,
-      N, K, kinds, pm, pn, tile_b, cl, rows, resident, outer, n_inner, n_adj,
-      pipelined, tau, sigma, gamma, lr, beta1, beta2, omb1, omb2, eps,
-      n_launched, (cudaStream_t)stream);
-}
+// piece < 0: the single form, `outer` steps from the segment's start;
+// piece ≥ 0: the mesh form's piece of step o (single_loop above).
+#define BPL_SINGLE_LOOP(SUFFIX, T)                                           \
+  int bpl_single_loop_##SUFFIX(                                              \
+      const T* f, const T* ut, T* u, T* ys, T* p, T* zmv, T* t, T* traj_x,   \
+      T* traj_cost, T* traj_gnorm, T* scratch, long long B, int M, int N,    \
+      int K, int kinds, int pm, int pn, int tile_b, int cl, int rows,        \
+      int resident, int outer, int n_inner, int n_adj, int pipelined, int o, \
+      int piece, T tau, T sigma, T gamma, T lr, T beta1, T beta2, T omb1,    \
+      T omb2, T eps, long long* sums, int* n_launched, void* stream) {       \
+    return bpl::single_loop_entry<T>(                                        \
+        f, ut, u, ys, p, zmv, t, traj_x, traj_cost, traj_gnorm, scratch, B,  \
+        M, N, K, kinds, pm, pn, tile_b, cl, rows, resident, outer, n_inner,  \
+        n_adj, pipelined, o, piece, tau, sigma, gamma, lr, beta1, beta2,     \
+        omb1, omb2, eps, sums, n_launched, (cudaStream_t)stream);            \
+  }
 
-int bpl_single_loop_f64(const double* f, const double* ut, double* u,
-                        double* ys, double* p, double* zmv, double* t,
-                        double* traj_x, double* traj_cost,
-                        double* traj_gnorm, double* scratch, long long B,
-                        int M, int N, int K, int kinds, int pm, int pn,
-                        int tile_b, int cl, int rows, int resident,
-                        int outer, int n_inner, int n_adj, int pipelined,
-                        double tau, double sigma, double gamma, double lr,
-                        double beta1, double beta2, double omb1, double omb2,
-                        double eps, int* n_launched, void* stream) {
-  return bpl::single_loop_entry<double>(
-      f, ut, u, ys, p, zmv, t, traj_x, traj_cost, traj_gnorm, scratch, B, M,
-      N, K, kinds, pm, pn, tile_b, cl, rows, resident, outer, n_inner, n_adj,
-      pipelined, tau, sigma, gamma, lr, beta1, beta2, omb1, omb2, eps,
-      n_launched, (cudaStream_t)stream);
-}
+BPL_SINGLE_LOOP(f32, float)
+BPL_SINGLE_LOOP(f64, double)
 
 int bpl_sl_stencil_f32(int kind, int what, const float* a, float* out,
                        long long B, int M, int N, void* stream) {

@@ -35,11 +35,10 @@ shards the image batch over a mesh (:func:`data_parallel_mesh`: every
 visible card for ``device="cuda"``, one shard on any other device):
 ``method="tr"`` runs the sharded learning functions of
 :mod:`..parallel.sharded` (``inner_tol`` raises, as in the JAX package),
-``"tr_fused"`` the fused learner with ``mesh=``, ``"single_loop"`` the
-TGV², TV-L1 and VTV learners with ``mesh=`` (for TV and the sums it
-raises ``NotImplementedError``, ROADMAP.md §1 item 10b), as does any
-``backend`` but ``"auto"`` (:func:`check_backend`: ``device=`` chooses
-what runs).  ``visualise=True`` shows the iterates of ``method="tr"`` in a
+``"tr_fused"`` the fused learner with ``mesh=``, ``"single_loop"`` every
+family's single-loop learner with ``mesh=``.  Any ``backend`` but
+``"auto"`` raises ``NotImplementedError`` (:func:`check_backend`:
+``device=`` chooses what runs).  ``visualise=True`` shows the iterates of ``method="tr"`` in a
 :class:`..bilevel.harness.LiveView`; the other methods ignore it, as in
 the JAX package.
 
@@ -664,7 +663,7 @@ def single_loop_state(res, alpha0):
 
 
 def run_single_loop(params, device, learn, stretch_all: bool = False,
-                    mesh_ok: bool = True, **extra) -> BilevelResult:
+                    **extra) -> BilevelResult:
     """A single-loop first-order learner behind the experiment surface
     (the JAX package's ``_run_single_loop`` and its families'
     ``_run_*_single_loop``): ``learn(utrue, f, x0, **kw)`` is one of the
@@ -672,17 +671,11 @@ def run_single_loop(params, device, learn, stretch_all: bool = False,
     outer)`` segments (``log_every`` in params is not read, as in the JAX
     package) with the ``sl_*`` knobs and ``extra``, then
     :func:`save_results`.  ``data_parallel=True`` hands the learner
-    :func:`data_parallel_mesh`'s mesh, where ``mesh_ok`` (the TGV², TV-L1
-    and VTV learners)."""
+    :func:`data_parallel_mesh`'s mesh."""
     _reject_flags(params, "single_loop",
                   ("checkpoint", "resume", "save_iterations", "inner_tol"))
     reject_unported(params)
     if params.get("data_parallel"):
-        if not mesh_ok:
-            raise NotImplementedError(
-                "data_parallel with method='single_loop' (the learners' "
-                "mesh=) is not ported yet for TV and the sum of "
-                "regularizers (ROADMAP.md §1 item 10b, rows 9–10)")
         extra["mesh"] = data_parallel_mesh(device)
     ds = _load(params, device)
     outer = int(params.sl_outer)
@@ -702,7 +695,7 @@ def _run_single_loop(params, model_kind, device, stretch_all):
     return run_single_loop(
         params, device,
         lambda ut, f, x0, **kw: single_loop_learn(ut, f, x0, model, **kw),
-        stretch_all, mesh_ok=False)
+        stretch_all)
 
 
 def experiment_params(family_params, kwargs, prefix, parameter=None):

@@ -279,6 +279,13 @@ Phases 49-52 run with ``save_results=False`` too:
     settings and their reasons); each layer's forward and backward walls
     and adjoint-CG iterations.
 
+Phases 53-62 run the parallel tier (each phase's function says what it
+holds): the fused learns and ``method="tr"`` on meshes of the card, the
+halo solvers, the PNG codec and ``make-dataset``, and every single loop
+with ``mesh=`` (59-61 TGV², TV-L1, VTV; 62 TV and the sum of
+regularizers, ``phase_sl_mesh``, whose CG sums its inner products over
+the shards).
+
 It prints one JSON line of per-kernel numbers (eighteen entries: the
 eleven kernels, rows 1–3's K = 3 and map forms, row 5's 1024² call, row
 6's 256² call),
@@ -5175,14 +5182,21 @@ def slx_mesh_run(name, utrue, f, shards, outer, log_every=None):
             len(plain))
 
 
-@contextlib.contextmanager
 def watch_slx_plain(name):
     """Count the calls of the family's plain single-loop learner and of
     its plain stepper (the mesh form's) within the block."""
-    mod = slx_family(name)["mod"]
+    return watch_plain_calls(slx_family(name)["mod"],
+                             (f"_single_loop_{name}_plain",
+                              f"_{name}_plain_stepper"))
+
+
+@contextlib.contextmanager
+def watch_plain_calls(mod, attrs):
+    """Count the calls of the functions ``attrs`` of ``mod`` within the
+    block."""
     calls = []
     saved = {}
-    for attr in (f"_single_loop_{name}_plain", f"_{name}_plain_stepper"):
+    for attr in attrs:
         saved[attr] = real = getattr(mod, attr)
 
         def watched(*a, real=real, **k):
@@ -5286,6 +5300,206 @@ def phase_slx_mesh(name):
     require(seg_same and sess == 6 and kl == 2 * (9 * per_step + 3)
             and n_plain == 0, f"{name}: segmented mesh {sess}, {kl}")
     out["segmented"] = dict(bit_for_bit=seg_same, sessions=sess)
+    return out
+
+
+# phase 62: the TV and sum-of-regularizers single loop over shards of the
+# card against its unsharded run, float64 (the JAX package's own gate,
+# tests/test_parallel.py:178-197: its CG dots are summed over the shards,
+# so only the order of those sums separates the runs)
+SL_MESH_F64 = 1e-10
+
+
+def watch_sl_plain():
+    """Count the calls of the TV single loop's plain loop and of its plain
+    stepper (the mesh form's) within the block."""
+    from bpldenoising_tpu_torch.bilevel import first_order as fo
+    return watch_plain_calls(fo, ("_single_loop_plain",
+                                  "_tv_plain_stepper"))
+
+
+def sl_mesh_models():
+    """(label, model, x0) of phase 62's library runs: scalar TV and the
+    (3,) sum at the entry points' starting weights."""
+    from bpldenoising_tpu_torch.models import sumregs_model, tv_model
+    return (("tv", tv_model(), 0.1),
+            ("sumregs", sumregs_model(), [1e-3, 1e-3, 1e-3]))
+
+
+def sl_mesh_run(model, x0, utrue, f, shards, outer, cg_variant="classic",
+                log_every=None, n_inner=40, n_adj=10):
+    """single_loop_learn on ``shards`` shards of the card (or a mesh;
+    None: unsharded), the plain loop and stepper watched and the counters
+    read: → (result, host ms a step, sessions, kernel launches, plain
+    calls)."""
+    import torch
+    from bpldenoising_tpu_torch.bilevel import first_order as fo
+    from bpldenoising_tpu_torch.bilevel import first_order_cuda as fc
+    with watch_sl_plain() as plain:
+        s0, k0 = fc.launches, fc.kernel_launches
+        mesh = card_mesh(shards) if isinstance(shards, int) else shards
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fo.single_loop_learn(utrue, f, x0, model, outer=outer,
+                                   n_inner=n_inner, n_adj=n_adj, mesh=mesh,
+                                   log_every=log_every,
+                                   cg_variant=cg_variant)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    return (res, ms / outer, fc.launches - s0, fc.kernel_launches - k0,
+            len(plain))
+
+
+def phase_sl_mesh(utrue, f):
+    """Phase 62: the TV and sum-of-regularizers single loop with mesh=.
+    The TV entry point with data_parallel=True (the default mesh, every
+    card) against the same call unsharded (float32, the flagship's 10 ×
+    128², 300/40/10); the library learner at 10 × 128² for scalar TV and
+    the (3,) sum over ["cuda:0"] * 2 and * 4, 30 steps of 40/10, classic
+    and pipelined, float64 within SL_MESH_F64 and float32 within
+    TOL_SL_REL_F32 relative of the unsharded run in α and the cost
+    trajectory; sessions = shards, kernel launches = shards × (steps ×
+    launches_per_step + 1), no plain call; one image over two shards (a
+    shard of padding) and segments of 4 give the bits of the unsharded
+    run and of one segment; the kernel's mesh form against the plain
+    mesh form on two CPU shards in float64 (uneven bands, the four
+    parameterizations, both CGs) within TOL_F64_REL; the host ms an outer
+    step beside the unsharded form's."""
+    import numpy as np
+    import torch
+    from bpldenoising_tpu_torch.bilevel import first_order as fo
+    from bpldenoising_tpu_torch.bilevel import first_order_cuda as fc
+    from bpldenoising_tpu_torch.experiments import api
+    from bpldenoising_tpu_torch.models import sumregs_model, tv_model
+    from bpldenoising_tpu_torch.parallel import make_batch_mesh
+
+    out = {}
+    kw = dict(dataset_name="faces_train", num_samples=10, dtype="float32",
+              method="single_loop", save_results=False)
+    mesh = api.data_parallel_mesh("cuda")
+    n_dev = mesh.size
+    with watch_sl_plain() as plain:
+        reset_launches()
+        k0 = fc.kernel_launches
+        t0 = time.perf_counter()
+        dp = api.scalar_bilevel_tv_learn(device="cuda", data_parallel=True,
+                                         **kw)
+        dp_ms = (time.perf_counter() - t0) * 1e3
+        sessions, kl = read_launches()["single_loop"], fc.kernel_launches - k0
+    t0 = time.perf_counter()
+    one = api.scalar_bilevel_tv_learn(device="cuda", **kw)
+    one_ms = (time.perf_counter() - t0) * 1e3
+    segs = 300 // api.single_loop_log_every(300)
+    same = bool(np.array_equal(dp.x, one.x) and np.array_equal(dp.u, one.u))
+    x_rel = abs(float(dp.x) - float(one.x)) / abs(float(one.x))
+    say(f"  entry point data_parallel=True on {mesh}: alpha {float(dp.x)!r} "
+        f"against unsharded {float(one.x)!r} (rel {x_rel:.2e}; bit for bit: "
+        f"{same}); sessions {sessions} (want {n_dev * segs}), kernel "
+        f"launches {kl} (want {n_dev} x (300 x {fc.launches_per_step(10)} + "
+        f"{segs})); plain calls {len(plain)}; wall {dp_ms:.1f} ms (unsharded "
+        f"{one_ms:.1f})")
+    require(sessions == n_dev * segs and not plain
+            and kl == n_dev * (300 * fc.launches_per_step(10) + segs)
+            and x_rel <= TOL_SL_REL_F32 and (same or n_dev > 1),
+            f"TV single loop data_parallel entry point: {sessions}, {kl}, "
+            f"{len(plain)}, {x_rel}, {same}")
+    out["entry_data_parallel"] = dict(x_rel=x_rel, bit_for_bit=same,
+                                      sessions=sessions, kernel_launches=kl,
+                                      wall_ms=dp_ms, unsharded_wall_ms=one_ms)
+    outer = 30
+    for dtype, gate in ((torch.float64, SL_MESH_F64),
+                        (torch.float32, TOL_SL_REL_F32)):
+        ut, ff = utrue.to(dtype), f.to(dtype)
+        label = str(dtype).split(".")[-1]
+        for name, model, x0 in sl_mesh_models():
+            for variant in ("classic", "pipelined"):
+                per = fc.launches_per_step(10, variant)
+                ref, ref_ms, _, _, _ = sl_mesh_run(model, x0, ut, ff, None,
+                                                   outer, variant)
+                for shards in (2, 4):
+                    res, ms, sess, kl, n_plain = sl_mesh_run(
+                        model, x0, ut, ff, shards, outer, variant)
+                    rel = max(rel_err(res.alpha, ref.alpha),
+                              rel_err(res.cost_trajectory,
+                                      ref.cost_trajectory))
+                    say(f"  {label} {name} {variant} over {shards} shards: "
+                        f"alpha "
+                        f"{res.alpha.double().cpu().numpy().ravel().tolist()}"
+                        f" rel {rel:.2e} (gate {gate:g}); sessions {sess}, "
+                        f"kernel launches {kl} (want {shards} x ({outer} x "
+                        f"{per} + 1)); plain calls {n_plain}; host "
+                        f"{ms:.3f} ms an outer step (unsharded "
+                        f"{ref_ms:.3f})")
+                    require(rel <= gate and bool(torch.isfinite(res.u).all())
+                            and res.u.shape == ut.shape,
+                            f"{label} {name} {variant} over {shards} "
+                            f"shards: {rel:.2e}")
+                    require(sess == shards
+                            and kl == shards * (outer * per + 1)
+                            and n_plain == 0,
+                            f"{label} {name} {variant} over {shards} "
+                            f"shards: sessions {sess}, kernel launches {kl},"
+                            f" plain calls {n_plain}")
+                    out[f"{label}_{name}_{variant}_{shards}_shards"] = dict(
+                        rel_err=rel, host_ms_per_step=ms,
+                        unsharded_host_ms_per_step=ref_ms,
+                        kernel_launches=kl)
+    ut, ff = utrue.double(), f.double()
+    pad = {}
+    for (name, model, x0), variant in zip(sl_mesh_models(),
+                                          ("classic", "pipelined")):
+        a = sl_mesh_run(model, x0, ut[:1], ff[:1], None, 10, variant)[0]
+        b = sl_mesh_run(model, x0, ut[:1], ff[:1], 2, 10, variant)[0]
+        pad[f"{name} {variant}"] = [
+            field for field, x, y in zip(a._fields, a[:6], b[:6])
+            if not torch.equal(x, y)]
+    say(f"  float64 one image over 2 shards (an all-padding shard) against "
+        f"unsharded, the fields that differ: {pad}")
+    require(not any(pad.values()),
+            f"an all-padding shard moved the run: {pad}")
+    out["padding_shard_bit_for_bit"] = not any(pad.values())
+    name, model, x0 = sl_mesh_models()[0]
+    res, ms, sess, kl, n_plain = sl_mesh_run(model, x0, ut, ff, 2, 9,
+                                             log_every=4)
+    ref = sl_mesh_run(model, x0, ut, ff, 2, 9)[0]
+    seg_same = all(torch.equal(x, y) for x, y in zip(res[:6], ref[:6]))
+    per = fc.launches_per_step(10)
+    say(f"  float64 segments of 4 over 2 shards (9 steps): equal to one "
+        f"segment bit for bit {seg_same}; sessions {sess} (want 6), kernel "
+        f"launches {kl} (want 2 x (9 x {per} + 3)); times "
+        f"{np.round(res.times, 4).tolist()}")
+    require(seg_same and sess == 6 and kl == 2 * (9 * per + 3)
+            and n_plain == 0, f"TV single loop segmented mesh: {sess}, {kl}")
+    out["segmented"] = dict(bit_for_bit=seg_same, sessions=sess)
+    errs = {}
+    cpu2 = make_batch_mesh(devices=["cpu"] * 2)
+    for shape in ((3, 20, 16), (2, 22, 24)):
+        ut_c, f_c = sl_disc_stack(torch, "cpu", *shape, torch.float64)
+        for name, model, x0 in (
+                ("tv scalar", tv_model(), 0.02),
+                ("tv patch", tv_model(), np.full((2, 2), 0.02)),
+                ("sumregs vector", sumregs_model(), [0.02, 0.015, 0.01]),
+                ("sumregs patch", sumregs_model(),
+                 np.full((2, 2, 3), 0.02))):
+            for variant in ("classic", "pipelined"):
+                k = sl_mesh_run(model, x0, ut_c.cuda(), f_c.cuda(), 2, 12,
+                                variant, n_inner=8, n_adj=4)[0]
+                p = fo.single_loop_learn(ut_c, f_c, x0, model, outer=12,
+                                         n_inner=8, n_adj=4, mesh=cpu2,
+                                         cg_variant=variant)
+                k = k._replace(**{field: getattr(k, field).cpu()
+                                  for field in k._fields[:6]})
+                e, _ = sl_errors(k, p)
+                e["u"] = rel_err(k.u, p.u)
+                errs[f"{'x'.join(map(str, shape))} {name} {variant}"] = max(
+                    e.values())
+    say("  float64 kernel mesh form against the plain mesh form, 2 shards, "
+        "12 outer: max rel err " + ", ".join(f"{k} {v:.1e}"
+                                              for k, v in errs.items())
+        + f" (tol {TOL_F64_REL:g})")
+    require(max(errs.values()) <= TOL_F64_REL,
+            f"the kernel's mesh form disagrees with the plain one: {errs}")
+    out["kernel_vs_plain_mesh_f64_max_rel"] = max(errs.values())
     return out
 
 
@@ -5636,6 +5850,12 @@ def main():
             parallel[f"single_loop_{name}_mesh"] = phase_slx_mesh(name)
             say(f"  phase {59 + i}: {time.perf_counter() - t_phase:.1f} s; "
                 f"{smi}")
+        t_phase = time.perf_counter()
+        say("phase 62 single-loop TV and sum of regularizers with mesh=: "
+            "data_parallel=True, then 2 and 4 shards of the card in float64 "
+            "and float32")
+        parallel["single_loop_tv_mesh"] = phase_sl_mesh(utrue, f)
+        say(f"  phase 62: {time.perf_counter() - t_phase:.1f} s; {smi}")
 
     itemsize = 4
     a_bytes = 4 * n * itemsize                  # f in; u, y out

@@ -22,7 +22,10 @@ bits.  Then the TGV², TV-L1 and VTV single-loop learners with ``mesh=``
 on the stacks of chip_smoke.py's phases 59–61, float32) over the n cards,
 over n shards of ``cuda:0`` and unsharded: the cards' bits equal the one
 card's, each shard's session issues 30 × 24 + 1 kernel launches, and the
-host ms an outer step of each form are printed.  Prints every card's name
+host ms an outer step of each form are printed; the same for the TV and
+sum-of-regularizers single loop (rows 9–10, ``chip_smoke.sl_mesh_run``,
+classic and pipelined CG, on the flagship's stack), whose CG sums its
+inner products over the cards.  Prints every card's name
 and power limit first and, last, one JSON line with the walls.  Exits
 non-zero with fewer than two cards.
 """
@@ -53,6 +56,7 @@ def main():
     import chip_smoke as cs
     from bpldenoising_tpu_torch import _build
     from bpldenoising_tpu_torch import parallel as par
+    from bpldenoising_tpu_torch.bilevel import first_order_cuda
     from bpldenoising_tpu_torch.bilevel.fused import bilevel_learn_fused
     from bpldenoising_tpu_torch.data import testdataset
     from bpldenoising_tpu_torch.experiments import api
@@ -185,6 +189,41 @@ def main():
         check(all(torch.equal(p.cpu(), q.cpu()) for p, q in zip(
             runs["cards"][:5], runs["one_card"][:5])),
             f"{name}: the cards' learn gives the one-card bits")
+    print(f"single-loop TV and sum of regularizers (rows 9-10) with mesh= "
+          f"over {n} cards, over {n} shards of cuda:0, unsharded (float32, "
+          "faces_train 10 x 128^2, 30 steps of 40/10; host ms an outer "
+          "step)", flush=True)
+    utrue, f = ds
+    for name, model, x0 in cs.sl_mesh_models():
+        for variant in ("classic", "pipelined"):
+            per = first_order_cuda.launches_per_step(10, variant)
+            runs = {}
+            for label, shards in (("cards", cards), ("one_card", one),
+                                  ("unsharded", None)):
+                cs.sl_mesh_run(model, x0, utrue, f, shards, outer,
+                               variant)                          # warm-up
+                steps = []
+                for _ in range(args.runs):
+                    sync()
+                    r, ms, sess, kl, plain = cs.sl_mesh_run(
+                        model, x0, utrue, f, shards, outer, variant)
+                    steps.append(ms)
+                runs[label] = r
+                k = 1 if shards is None else n
+                print(f"  {name} {variant} {label}: alpha "
+                      f"{r.alpha.double().cpu().numpy().ravel().tolist()}; "
+                      f"host {[round(m, 3) for m in steps]} ms an outer "
+                      f"step; sessions {sess}, kernel launches {kl}",
+                      flush=True)
+                check(sess == k and kl == k * (outer * per + 1)
+                      and not plain,
+                      f"{name} {variant} {label}: sessions {sess}, launches"
+                      f" {kl}, plain {plain}")
+                out[f"single_loop_{name}_{variant}_{label}_ms_per_step"] = (
+                    steps)
+            check(all(torch.equal(p.cpu(), q.cpu()) for p, q in zip(
+                runs["cards"][:6], runs["one_card"][:6])),
+                f"{name} {variant}: the cards' learn gives the one-card bits")
     out["faults"] = faults
     print(json.dumps(out), flush=True)
     return 1 if faults else 0

@@ -263,13 +263,15 @@ def test_new_entry_points_refuse_the_trust_region(entry, method, tmp_path,
 
 
 def test_refusals():
-    """What is not ported raises: data_parallel, mesh= and optimizer=; x₀ ≤
-    0 at every entry of the learner.  The image_pair form runs the host
-    trust region whatever ``method`` says (against the JAX package:
-    tests/test_torch_tr_learn.py)."""
-    with pytest.raises(NotImplementedError, match="data_parallel"):
-        tx.scalar_bilevel_tv_learn(device="cpu", **dict(SL,
-                                                        data_parallel=True))
+    """What is not ported raises: optimizer=; x₀ ≤ 0 at every entry of the
+    learner.  data_parallel and mesh= run (one CPU shard: the unsharded
+    run bit for bit; more in tests/test_torch_first_order_tv_mesh.py).
+    The image_pair form runs the host trust region whatever ``method``
+    says (against the JAX package: tests/test_torch_tr_learn.py)."""
+    one = tx.scalar_bilevel_tv_learn(device="cpu", **SL)
+    dp = tx.scalar_bilevel_tv_learn(device="cpu", **dict(SL,
+                                                         data_parallel=True))
+    assert np.array_equal(one.x, dp.x) and np.array_equal(one.u, dp.u)
     clean, noisy = disc_stack(O=1)
     res = tx.patch_bilevel_sumregs_learn(
         image_pair=(clean[0], noisy[0]), device="cpu",
@@ -277,8 +279,11 @@ def test_refusals():
     assert res.x.shape == (2, 2, 3) and res.u.shape == (1,) + clean.shape[1:]
     assert res.iterations == 1 and np.isfinite(res.cost)
     ut, f = disc_stack(O=1)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tfo.single_loop_tv_learn(_t(ut), _t(f), 0.05, mesh=object())
+    from bpldenoising_tpu_torch.parallel import make_batch_mesh
+    a = tfo.single_loop_tv_learn(_t(ut), _t(f), 0.05, outer=3)
+    b = tfo.single_loop_tv_learn(_t(ut), _t(f), 0.05, outer=3,
+                                 mesh=make_batch_mesh(devices=["cpu"]))
+    assert all(torch.equal(x, y) for x, y in zip(a[:6], b[:6]))
     with pytest.raises(NotImplementedError, match="optax"):
         tfo.single_loop_tv_learn(_t(ut), _t(f), 0.05, optimizer=object())
     for bad in (0.0, -0.1, np.array([0.1, 0.0, 0.1])):

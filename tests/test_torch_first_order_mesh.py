@@ -14,7 +14,8 @@ maps and the cost separates the runs (measured ≤ 8e-15).  A shard of
 padding adds exactly +0: one image over two shards is the unsharded run
 bit for bit.  The three families' entry points run ``data_parallel=True``
 with ``method="single_loop"`` over one CPU shard, bit for bit the run
-without it.
+without it.  The TV and sum-of-regularizers single loop's mesh:
+tests/test_torch_first_order_tv_mesh.py.
 """
 
 import jax
@@ -165,8 +166,8 @@ def test_entry_point_data_parallel_single_loop(entry):
 
 def test_cli_data_parallel_single_loop(capsys):
     """--data-parallel with --method single_loop runs in the TGV², TV-L1
-    and VTV subcommands (one CPU shard) and prints the run without it; the
-    TV subcommand still exits 2 naming item 10b, rows 9–10."""
+    and VTV subcommands (one CPU shard) and prints the run without it; so
+    does the TV subcommand (rows 9–10's mesh)."""
     from bpldenoising_tpu_torch.__main__ import main
     run = ["scalar-tvl1", "--dataset", "circle_sp", "--method",
            "single_loop", "--sl-outer", "2", "--sl-inner", "3", "--sl-adj",
@@ -175,11 +176,13 @@ def test_cli_data_parallel_single_loop(capsys):
     plain = capsys.readouterr().out
     main(run + ["--data-parallel"])
     assert capsys.readouterr().out == plain and "iterations = 2" in plain
-    with pytest.raises(SystemExit) as exit_:
-        main(["scalar-tv", "--dataset", "circle", "--method", "single_loop",
-              "--data-parallel", "--device", "cpu"])
-    assert exit_.value.code == 2
-    assert "item 10b, rows 9–10" in capsys.readouterr().err
+    tv = ["scalar-tv", "--dataset", "circle", "--method", "single_loop",
+          "--sl-outer", "2", "--sl-inner", "3", "--sl-adj", "2", "--device",
+          "cpu"]
+    main(tv)
+    plain = capsys.readouterr().out
+    main(tv + ["--data-parallel"])
+    assert capsys.readouterr().out == plain and "iterations = 2" in plain
 
 
 @pytest.mark.parametrize("family", list(FAMILIES))

@@ -19,7 +19,8 @@ SOURCES = (sorted(PORT.rglob("*.py"))
               ROOT / "scripts" / "kernel_b_digits.py",
               ROOT / "scripts" / "kernel_b_iteration_cost.py",
               ROOT / "scripts" / "call_times.py",
-              ROOT / "scripts" / "learn_walls.py"])
+              ROOT / "scripts" / "learn_walls.py",
+              ROOT / "scripts" / "mesh_cards.py"])
 FORBIDDEN = ("jax", "jaxlib", "bpldenoising_tpu")
 
 

@@ -181,29 +181,40 @@ def test_entry_point_data_parallel_matches_jax(small_dataset, method):
 
 def test_cli_data_parallel_runs_and_single_loop_refuses(capsys):
     """--data-parallel runs (one CPU shard: the unsharded learn's numbers,
-    as the plain run prints them); with --method single_loop it exits 2
-    naming ROADMAP.md item 10b."""
+    as the plain run prints them), with --method single_loop too (rows
+    9–10's mesh; it refused before ROADMAP.md item 10b was done)."""
     run = ["scalar-tv", "--dataset", "circle", "--maxiter", "1",
            "--inner-maxiter", "10", "--device", "cpu"]
     main(run + ["--data-parallel"])
     dp = capsys.readouterr().out
     main(run)
     assert capsys.readouterr().out == dp and "iterations = 1" in dp
-    with pytest.raises(SystemExit) as exit_:
-        main(run + ["--data-parallel", "--method", "single_loop"])
-    assert exit_.value.code == 2
-    assert "item 10b" in capsys.readouterr().err
+    sl = run + ["--method", "single_loop", "--sl-outer", "2", "--sl-inner",
+                "3", "--sl-adj", "2"]
+    main(sl + ["--data-parallel"])
+    dp = capsys.readouterr().out
+    main(sl)
+    assert capsys.readouterr().out == dp and "iterations = 2" in dp
 
 
 def test_single_loop_mesh_and_log_every_refuse(meshes):
+    """The TV single loop runs on the eight-shard mesh (two images, six
+    shards of padding: the unsharded run within 1e-10) and through the
+    entry point with data_parallel=True (one CPU shard: bit for bit);
+    log_every with mesh= still raises in the fused learner."""
     mesh, _ = meshes
     ut, f = (torch.as_tensor(d) for d in small_ds(O=2))
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        single_loop_learn(ut, f, 0.05, tv_model(), outer=1, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        tapi.scalar_bilevel_tv_learn(
-            device="cpu", dataset_name="circle", num_samples=1,
-            method="single_loop", sl_outer=2, data_parallel=True)
+    one = single_loop_learn(ut, f, 0.05, tv_model(), outer=3)
+    dp = single_loop_learn(ut, f, 0.05, tv_model(), outer=3, mesh=mesh)
+    np.testing.assert_allclose(dp.alpha_trajectory.numpy(),
+                               one.alpha_trajectory.numpy(), rtol=1e-10)
+    np.testing.assert_allclose(dp.u.numpy(), one.u.numpy(), rtol=1e-10,
+                               atol=1e-12)
+    kw = dict(device="cpu", dataset_name="circle", num_samples=1,
+              method="single_loop", sl_outer=2, save_results=False)
+    a = tapi.scalar_bilevel_tv_learn(**kw)
+    b = tapi.scalar_bilevel_tv_learn(data_parallel=True, **kw)
+    assert np.array_equal(a.x, b.x) and np.array_equal(a.u, b.u)
     with pytest.raises(ValueError, match="log_every"):
         bilevel_learn_fused((ut, f), xinit=0.1, params=Params(TR, maxiter=1),
                             mesh=mesh, log_every=1, device="cpu")
