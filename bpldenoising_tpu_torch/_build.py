@@ -23,11 +23,12 @@ from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("pdps.cu", "hypergrad.cu", "tgv.cu", "tvl1.cu", "vtv.cu",
-           "single_loop.cu", "single_loop_tgv.cu", "single_loop_tvl1.cu",
-           "single_loop_vtv.cu")
-HEADERS = ("common.cuh", "pd_cluster.cuh", "single_loop.cuh", "tgv.cuh",
-           "tgv_cluster.cuh", "tvl1.cuh", "vtv.cuh", "vtv_cluster.cuh")
+SOURCES = ("pdps.cu", "pd_tile.cu", "hypergrad.cu", "tgv.cu", "tvl1.cu",
+           "vtv.cu", "single_loop.cu", "single_loop_tgv.cu",
+           "single_loop_tvl1.cu", "single_loop_vtv.cu")
+HEADERS = ("common.cuh", "pd_cluster.cuh", "pd_tile.cuh", "pdps.cuh",
+           "single_loop.cuh", "tgv.cuh", "tgv_cluster.cuh", "tvl1.cuh",
+           "vtv.cuh", "vtv_cluster.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # -fmad=false: no fused multiply-adds, so each operation rounds like the
 # plain PyTorch version's separate elementwise operations
@@ -124,6 +125,15 @@ def _declare(lib):
         fn.argtypes = [_P] * 7 + [_LL, _I, _I, *blocks, _I, _I, _I, real,
                                   real, ctypes.c_double, _I, _I, _I, real,
                                   _I, ctypes.POINTER(_I),
+                                  ctypes.POINTER(_I), _P]
+        fn.restype = _I
+        fn = getattr(lib, f"bpl_pdps_tile_{suffix}")
+        # f, u, y, uprev, u2, y2, ratio, tab; O, M, N, the blocks, the tile
+        # plan (11 ints), τ, σ, γ, accel, maxiter, use_tol, tol, check_every,
+        # iterations and device operations out, the stream
+        fn.argtypes = [_P] * 8 + [_LL, _I, _I, *blocks, ctypes.POINTER(_I),
+                                  real, real, ctypes.c_double, _I, _I, _I,
+                                  real, _I, ctypes.POINTER(_I),
                                   ctypes.POINTER(_I), _P]
         fn.restype = _I
         fn = getattr(lib, f"bpl_hypergrad_{suffix}")

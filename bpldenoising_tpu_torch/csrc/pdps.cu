@@ -45,22 +45,27 @@
 //    branches, the loops over k and the map tests fold away.
 //  * The host (solvers/cluster_plan.py::pd_plan) picks the cluster size and
 //    rows per CTA from the shapes before any launch.  Where the bands do
-//    not fit in shared memory (`resident` 0: row 3's 1×2048², where one
-//    cluster of 8 CTAs would leave 124 of 132 SMs idle anyway), the
-//    two-launch kernels below run: pd_primal / pd_dual for the scalar TV
-//    form, pd_primal_k / pd_dual_k otherwise, one thread per pixel on state
-//    in global memory, from common.cuh's C loop.  A refused cluster launch
-//    or occupancy check returns its error, which the wrapper raises.
+//    not fit in shared memory (`resident` 0: float32 K = 1 from 320², K = 3
+//    from 208²; float64 from 224² and 144²) the tile form runs instead
+//    (csrc/pd_tile.cu, csrc/pd_tile.cuh; planned by pd_tile_plan): one CTA
+//    a 2-D tile with a halo of reach·T pixels in shared memory, T
+//    iterations a launch.  The two-launch form there before, pd_primal /
+//    pd_dual for the scalar TV form and pd_primal_k / pd_dual_k otherwise
+//    (one thread per pixel on state in global memory, from common.cuh's C
+//    loop), is bound by device memory (the whole state every iteration,
+//    ~78% of the bandwidth at 1×2048², K = 1); it stays below for no
+//    shape of the plans: the tests force it to hold the other forms' bits.
+//    A refused cluster launch or occupancy check returns its error, which
+//    the wrapper raises.
 //
 // The early stop runs every `check_every` iterations: a per-image reduction
 // of ‖Δu‖² and ‖u‖² (one block per image) and one host read of the O
 // ratios, whose max is compared with tol — the per-image semantics of
 // solvers/pdps.py, not the Pallas kernel's one norm per VMEM chunk.  Each
 // call reports its device operations (launches and copies).
-#include "pd_cluster.cuh"
+#include "pdps.cuh"
 
 namespace bpl {
-
 // The primal step (pd_primal), the per-image change (pd_change) and the
 // iteration loop (pd_iterate) are in common.cuh, shared with csrc/vtv.cu.
 
@@ -184,92 +189,6 @@ int pdps_global(const T* f, T* u, T* y, T* ubar, T* uprev, T* ratio,
 
 // ------------------------------------------------ the cluster form (resident)
 
-// The state of a cluster launch: the blocks as in Blocks, the planes, the
-// per-iteration table and the plan (cl CTAs an image, rows each).  The
-// blocks' fields are kept flat: with a nested Blocks<T> the K = 1 and map
-// instances spilled 24 and 32 B (8 and 16 flat) and ran ~9% slower.
-template <typename T>
-struct CPC {
-  const T* f;
-  T* y;          // K × (O, 2, M, N)
-  const T* tab;  // per iteration t: τ, ω, σ (cp_table)
-  long long n, mn;
-  int M, N, K, cl, rows;
-  int kind[3];
-  T alpha[3];
-  T alpha2[3];
-  const T* amap[3];   // nullptr: the scalar alpha[k]
-};
-
-// The blocks of a kernel instance.  F ≥ 0 fixes them at compile time as
-// (K << 8) | kinds (two bits a block) | (map flags << 12), so the stencils'
-// branches, the loops over k and the map tests fold away: the forms of the
-// main paths, scalar or map TV (the flagship; patch TV and grids) and the
-// sum of the forward, backward and centred blocks with scalars or maps (the
-// sum of regularizers; the patch sum).  F < 0 reads them from h.
-enum CpForm {
-  CP_ANY = -1,
-  CP_TV = (1 << 8) | STENCIL_FWD,
-  CP_TV_MAP = CP_TV | (1 << 12),
-  CP_SUMREGS = (3 << 8) | STENCIL_FWD | (STENCIL_BWD << 2)
-               | (STENCIL_CEN << 4),
-  CP_SUMREGS_MAPS = CP_SUMREGS | (7 << 12)
-};
-
-// The step of the accelerated CP iteration for pd_cluster_run
-// (csrc/pd_cluster.cuh): τ, ω, σ of iteration it0 + it from the table;
-// u⁺ = (u − τ(Σₖ Gₖᵀyₖ − f))/(1+τ), ū = (1+ω)u⁺ − ωu;
-// yₖ = Π_{|·|≤αₖ}(yₖ + σGₖū) in pd_dual's rsqrt form, αₖ the scalar (its
-// square from the host) or the map's pixel (squared here).  u is read from
-// uin and written to uout.
-template <typename T, int F>
-struct CpStep {
-  const CPC<T>& h;
-  const T* uin;
-  T* uout;
-  int it0;
-  int M, N, cl, rows;
-  long long region;   // the bands live in shared memory: unused
-  T* pd;
-  T tau, omega, sigma;
-  __device__ CpStep(const CPC<T>& h_, const T* uin_, T* uout_, int it0_)
-      : h(h_), uin(uin_), uout(uout_), it0(it0_), M(h_.M), N(h_.N),
-        cl(h_.cl), rows(h_.rows), region(0), pd(nullptr) {}
-  __device__ int K() const { return F >= 0 ? (F >> 8) & 15 : h.K; }
-  __device__ int kind(int k) const {
-    return F >= 0 ? (F >> (2 * k)) & 3 : h.kind[k];
-  }
-  __device__ bool map(int k) const {
-    return F >= 0 ? ((F >> (12 + k)) & 1) != 0 : h.amap[k] != nullptr;
-  }
-  __device__ const T* u_in(long long b) const { return uin + b * h.mn; }
-  __device__ T* u_out(long long b) const { return uout + b * h.mn; }
-  __device__ T* y(int k, long long b) const {
-    return h.y + 2 * h.n * k + b * 2 * h.mn;
-  }
-  __device__ const T* f(long long b) const { return h.f + b * h.mn; }
-  __device__ long long mn() const { return h.mn; }
-  __device__ void at(int it) {
-    const T* t = h.tab + 3LL * (it0 + it);
-    tau = t[0];
-    omega = t[1];
-    sigma = t[2];
-  }
-  __device__ T primal(T dv, T uo, T fv, T& ub) const {
-    const T un = (uo - tau * (dv - fv)) / (T(1) + tau);
-    ub = (T(1) + omega) * un - omega * uo;
-    return un;
-  }
-  __device__ T scale(int k, int i, int j, T n2) const {
-    T alpha = h.alpha[k], alpha2 = h.alpha2[k];
-    if (map(k)) {
-      alpha = h.amap[k][i * N + j];
-      alpha2 = alpha * alpha;
-    }
-    return (n2 <= alpha2) ? T(1) : alpha * rsqrt_(n2 + tiny<T>());
-  }
-};
-
 // n_it iterations from iteration it0 for the whole batch, one cluster an
 // image; u from uin to uout (they may be one buffer), the duals in place.
 template <typename T, int F>
@@ -324,25 +243,9 @@ int pdps_solve(const T* f, T* u, T* y, T* ubar, T* uprev, T* ratio, T* tab,
                           check_every, iters_out, ops, s);
   if (!pd_plan_ok(M, N, K, cl, rows)) return (int)cudaErrorInvalidValue;
   CPC<T> h;
-  h.f = f;
-  h.y = y;
-  h.tab = tab;
-  h.mn = (long long)M * N;
-  h.n = O * h.mn;
-  h.M = M;
-  h.N = N;
-  h.K = K;
+  const int form = cp_state(h, f, y, tab, O, M, N, K, kinds, alphas, amaps);
   h.cl = cl;
   h.rows = rows;
-  int form = K << 8;
-  for (int k = 0; k < 3; ++k) {
-    h.kind[k] = bl.kind[k];
-    h.alpha[k] = bl.alpha[k];
-    h.alpha2[k] = bl.alpha2[k];
-    h.amap[k] = bl.amap[k];
-    if (k < K) form |= (bl.kind[k] << (2 * k))
-                       | ((bl.amap[k] != nullptr) << (12 + k));
-  }
 #define PDC_RUN(F)                                                         \
   pdc_run<T, F>(h, u, uprev, ratio, tab, O, tau, sigma, gamma, accel,      \
                 maxiter, use_tol, tol, check_every, iters_out, ops, s)

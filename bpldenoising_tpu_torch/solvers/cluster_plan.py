@@ -16,6 +16,11 @@ many CTAs an image takes, how many rows each owns and whether the bands
 fit in shared memory.  :func:`cg_block_slots` decides, likewise, how many
 256-element partial blocks a block of the TGV², TV-L1 and VTV learners' CG
 launches takes.
+
+Where kernel A's bands do not fit, its tile form (``csrc/pd_tile.cuh``)
+runs: :func:`pd_tile_plan` cuts each image into 2-D tiles, one CTA a tile,
+each holding its owned pixels and a halo of H = reach·T pixels on every side
+in shared memory over the T iterations of a launch.
 """
 
 from __future__ import annotations
@@ -23,8 +28,12 @@ from __future__ import annotations
 from typing import NamedTuple
 
 __all__ = ["PdPlan", "pd_plan", "tgv_plan", "vtv_plan", "cg_block_slots",
-           "MAX_CLUSTER", "MAX_CLUSTER_NP", "SMS", "SMEM_PER_BLOCK",
-           "TGV_PLANES", "TGV_SLOT_ROWS", "CG_BLOCK"]
+           "TilePlan", "pd_tile_plan", "stencil_reach", "MAX_CLUSTER",
+           "MAX_CLUSTER_NP", "SMS", "SMEM_PER_BLOCK", "TGV_PLANES",
+           "TGV_SLOT_ROWS", "CG_BLOCK"]
+
+import functools
+import math
 
 #: the largest portable thread-block cluster (csrc/pd_cluster.cuh's
 #: PD_MAX_CLUSTER)
@@ -150,3 +159,174 @@ def cg_block_slots(B: int, M: int, N: int, planes: int) -> int:
     mn = M * N
     return planes if mn % CG_BLOCK == 0 and B * (mn // CG_BLOCK) >= SMS \
         else 1
+
+
+# ---------------------------------------------------------------- tile form
+
+#: a tile CTA's shared memory: the planes, each starting on 128 bytes (the
+#: TMA's alignment), after one 128-byte slot for the load barrier
+TILE_ALIGN = 128
+#: the largest box side of a TMA copy (and so of a padded tile)
+TILE_BOX_MAX = 256
+#: the longest launch the plan considers, in iterations
+TILE_T_MAX = 32
+#: tile CTAs an SM (a tile's shared memory is SMEM_PER_BLOCK over this):
+#: two, whose loads and stores overlap each other's iterations, measured
+#: faster than one larger tile an SM (scripts/tile_sizes.py, H100)
+TILE_CTAS_PER_SM = 2
+#: the cost model's weights: shared-memory bytes a pixel and iteration
+#: (primal and dual reads and writes of u, ū and the duals) for the first
+#: block and each further one, and the shared-memory bytes that weigh as
+#: much as one device byte.  The bandwidths' ratio (~29.6 TB/s over 3.35
+#: TB/s) would be ~9; the iterations cost more than their shared-memory
+#: bytes (bound by the instructions of a pixel's passes), and 4 puts the
+#: plan's T between the best measured ones (scripts/tile_sizes.py, H100)
+TILE_SMEM_BYTES = (14, 9)
+TILE_BW_RATIO = 4.0
+
+
+class TilePlan(NamedTuple):
+    """Kernel A's tile launch: tiles of ``rows`` × ``cols`` owned pixels
+    (the last in a row or column of tiles may own fewer), ``tiles_m`` ×
+    ``tiles_n`` an image, each run by one CTA that holds u, ū and the 2K
+    dual planes (``planes``) on a ``height`` × ``pitch`` window: the owned
+    tile with a halo of ``H`` = reach·``T`` pixels on every side, its
+    columns from a column of 16 bytes (``pitch`` = cols + 2H + 16 bytes − 1
+    element, rounded up to 16 bytes), for ``T`` iterations a launch;
+    ``smem`` bytes of dynamic shared memory a CTA, ``grid`` CTAs a launch
+    (one a tile), ``tma`` when TMA copies apply (rows of 16 bytes, and the
+    window no larger than the image, so that a load box starts inside it at
+    a column of 16 bytes: the card refuses a box at another column), else
+    plain loads and stores."""
+    rows: int
+    cols: int
+    T: int
+    H: int
+    height: int
+    pitch: int
+    planes: int
+    smem: int
+    tiles_m: int
+    tiles_n: int
+    grid: int
+    tma: bool
+
+
+def stencil_reach(kinds) -> int:
+    """Pixels an iteration's dependence moves on each side (rows or
+    columns) for blocks of these stencil kinds (0 forward, 1 backward, 2
+    centred): the primal step reads yₖ at i − 1 (forward, centred) and
+    i + 1 (backward, centred), the dual step reads ū at i − 1 (backward,
+    centred) and i + 1 (forward, centred).  1 when every block is forward
+    or every block is backward, else 2 (a centred block, or forward and
+    backward blocks together)."""
+    kinds = set(kinds)
+    if not kinds or not kinds <= {0, 1, 2}:
+        raise ValueError(f"bad stencil kinds {sorted(kinds)}")
+    return 1 if kinds in ({0}, {1}) else 2
+
+
+def _round_up(x: int, a: int) -> int:
+    return -(-x // a) * a
+
+
+def tile_geometry(M, N, K, itemsize, reach, T, rows, cols, *,
+                  images=1) -> TilePlan:
+    """The tile plan of T iterations a launch and tiles of at most ``rows``
+    × ``cols`` owned pixels, balanced over the image (every tile of a
+    column of tiles but the last takes ⌈M / tiles_m⌉ rows; the widths
+    likewise, rounded up to 16 bytes)."""
+    H = reach * T
+    a = max(1, 16 // itemsize)            # elements of 16 bytes
+    tiles_m = -(-M // max(1, min(rows, M)))
+    th = -(-M // tiles_m)
+    # owned widths of 16 bytes (the TMA store's box)
+    tw = _round_up(-(-N // -(-N // max(1, min(cols, N)))), a)
+    tiles_m, tiles_n = -(-M // th), -(-N // tw)
+    height = th + 2 * H
+    # the halo region's columns from a column of 16 bytes (a TMA box's)
+    pitch = _round_up(tw + 2 * H + a - 1, a)
+    planes = 2 + 2 * K
+    smem = TILE_ALIGN + planes * _round_up(height * pitch * itemsize,
+                                           TILE_ALIGN)
+    tma = (N * itemsize) % 16 == 0 and pitch <= N and height <= M
+    return TilePlan(th, tw, T, H, height, pitch, planes, smem, tiles_m,
+                    tiles_n, images * tiles_m * tiles_n, tma)
+
+
+def _tile_cost(p: TilePlan, K, itemsize, reach, n_maps, images):
+    """Modelled card time of one iteration (arbitrary units): waves of
+    TILE_CTAS_PER_SM CTAs an SM, each T iterations of shared-memory work on
+    its shrinking regions plus its loads (u and the duals) and stores (u
+    and the duals of its owned pixels) over device memory and its reads of
+    f and the maps through L2."""
+    waves = -(-images * p.tiles_m * p.tiles_n // (SMS * TILE_CTAS_PER_SM))
+    work = 0
+    for t in range(p.T):
+        edge = reach * (2 * t + 1)
+        work += max(p.height - edge, 0) * max(p.cols + 2 * p.H - edge, 0)
+    per_px = TILE_SMEM_BYTES[0] + TILE_SMEM_BYTES[1] * (K - 1)
+    ld = (1 + 2 * K) * p.height * p.pitch
+    st = (1 + 2 * K) * p.rows * p.cols
+    # f and the maps through L2: one read a pixel and iteration
+    l2 = (1 + n_maps) * work / 2
+    comp = work * per_px * itemsize / TILE_BW_RATIO
+    mem = (ld + st) * itemsize + l2 * itemsize / 4
+    return waves * TILE_CTAS_PER_SM * (comp + mem) / p.T
+
+
+@functools.lru_cache(maxsize=256)
+def pd_tile_plan(M: int, N: int, K: int, itemsize: int, n_maps: int,
+                 centred: bool, *, images: int = 1) -> TilePlan:
+    """Kernel A's tile plan for ``images`` M × N images of K blocks (``n_maps``
+    of them with (M, N) weight maps; ``centred``: the blocks reach two
+    pixels an iteration, :func:`stencil_reach`), from the shapes alone: the
+    halo H = reach·T, and the T (up to ``TILE_T_MAX``) and tile sides that
+    minimise :func:`_tile_cost` among the tiles whose padded planes fit in
+    ``SMEM_PER_BLOCK / TILE_CTAS_PER_SM`` bytes with sides of at most
+    ``TILE_BOX_MAX``.  The CUDA side checks the plan (the halo against the
+    blocks' reach, the tile against the card's shared memory and
+    occupancy) and the wrapper raises when it cannot run."""
+    if min(M, N, K, itemsize, images) < 1 or n_maps < 0 or n_maps > K:
+        raise ValueError(f"bad shape M={M}, N={N}, K={K}, itemsize="
+                         f"{itemsize}, n_maps={n_maps}, images={images}")
+    reach = 2 if centred else 1
+    budget = SMEM_PER_BLOCK // TILE_CTAS_PER_SM
+    planes = 2 + 2 * K
+    best, best_cost = None, math.inf
+    for t in range(1, TILE_T_MAX + 1):
+        H = reach * t
+        # the widest padded row the budget leaves for a square tile, and
+        # every owned width up to it in steps that change the tile count
+        side = min(TILE_BOX_MAX, math.isqrt(
+            (budget - TILE_ALIGN) // (planes * itemsize)))
+        if side - 2 * H < 1:
+            continue
+        widths = sorted({-(-N // n) for n in range(
+            -(-N // (side - 2 * H)), -(-N // (side - 2 * H)) + 8)
+            if n <= N})
+        for cols in widths:
+            pitch = _round_up(cols + 2 * H + 15 // itemsize,
+                              max(1, 16 // itemsize))
+            if pitch > TILE_BOX_MAX:
+                continue
+            plane_max = ((budget - TILE_ALIGN) // planes) // TILE_ALIGN \
+                * TILE_ALIGN
+            height = min(TILE_BOX_MAX, plane_max // (pitch * itemsize))
+            if height - 2 * H < 1:
+                continue
+            n0 = -(-M // (height - 2 * H))
+            for n in range(n0, n0 + 8):
+                if n > M:
+                    break
+                p = tile_geometry(M, N, K, itemsize, reach, t, -(-M // n),
+                                  cols, images=images)
+                if p.smem > budget or p.height > TILE_BOX_MAX:
+                    continue
+                cost = _tile_cost(p, K, itemsize, reach, n_maps, images)
+                if cost < best_cost:
+                    best, best_cost = p, cost
+    if best is None:
+        raise ValueError(f"no tile fits {budget} bytes at M={M}, N={N}, "
+                         f"K={K}, itemsize={itemsize}")
+    return best

@@ -1,5 +1,5 @@
 """Kernel A: the accelerated Chambolle–Pock inner solve as a CUDA kernel
-(``csrc/pdps.cu``), replacing the TPU kernels
+(``csrc/pdps.cu``, ``csrc/pd_tile.cu``), replacing the TPU kernels
 ``bpldenoising_tpu/solvers/pdps_pallas.py::_make_kernel`` and
 ``::_make_tiled_kernel``.
 
@@ -13,12 +13,26 @@ start reads ``state0 = (u, ys)`` with K duals.  The early stop is the plain
 version's: every ``check_every`` iterations, stop once the max over images
 of ‖Δu‖/‖u‖ is ≤ ``tol``.
 
-The kernel runs one launch per early-stop chunk (all ``maxiter``
-iterations without ``tol``), one thread-block cluster an image, when
-:func:`.cluster_plan.pd_plan` finds that the image's bands fit in shared
-memory; otherwise (1×2048², say) its two-launch form, two launches an
-iteration on state in global memory.  The rule is decided from the shapes
-before any launch; a cluster launch that the card refuses raises.
+The kernel runs in one of two forms, decided from the shapes before any
+launch:
+
+- the cluster form, one launch per early-stop chunk (all ``maxiter``
+  iterations without ``tol``), one thread-block cluster an image, where
+  :func:`.cluster_plan.pd_plan` finds that the image's bands fit in shared
+  memory (the flagship's 10×128² and every 128² learn);
+- the tile form elsewhere (float32 K = 1 from 320², K = 3 from 208²; float64
+  from 224² and 144²): :func:`.cluster_plan.pd_tile_plan` cuts each image
+  into 2-D tiles, one CTA a tile holding its state and a halo of reach·T
+  pixels in shared memory, T iterations a launch.  On an H100 the two-launch
+  form it replaces (two launches an iteration on state in global memory,
+  which still lives in ``csrc/pdps.cu`` and runs for no shape) moves the
+  whole state through device memory every iteration and is bound there; the
+  tile form moves it once a launch, and is bound by the instructions its
+  per-pixel passes issue and their latency at the 32 warps an SM its
+  registers leave, and by the halo's recompute.
+
+Every form gives the same iterates bit for bit.  A launch or plan that the
+card refuses raises.
 """
 
 from __future__ import annotations
@@ -30,19 +44,24 @@ import torch
 from .. import _build
 from ..models import DenoiseModel
 from ..ops import BwdGradientOp, CenteredGradientOp, FwdGradientOp
-from .cluster_plan import pd_plan
+from .cluster_plan import pd_plan, pd_tile_plan, stencil_reach
 from .pdps import _denoise_pdps_impl, step_sizes
 
-__all__ = ["denoise_pdps_cuda", "launches", "cluster_calls", "device_ops"]
+__all__ = ["denoise_pdps_cuda", "launches", "cluster_calls", "tiled_calls",
+           "device_ops"]
 
 #: calls that launched the CUDA kernel (one per solve)
 launches = 0
 #: those of them that ran the cluster form (one launch per chunk)
 cluster_calls = 0
+#: those of them that ran the tile form (T iterations a launch)
+tiled_calls = 0
 #: device operations those calls issued (launches and copies, as the C loop
-#: counts them: per early-stop chunk 3 in the cluster form, the launch,
-#: pd_change and the read of the ratios; 2 per iteration and 3 per chunk
-#: in the two-launch form)
+#: counts them: the table copy, then per early-stop chunk 3 in the cluster
+#: form, the launch, pd_change and the read of the ratios, and ⌈chunk / T⌉
+#: launches, pd_change and the read in the tile form; 2 per iteration and 3
+#: per chunk in the two-launch form; a last copy of u (and of the duals)
+#: where it ends in another buffer)
 device_ops = 0
 
 #: the stencil kind (csrc/common.cuh: Stencil) of each gradient operator
@@ -139,34 +158,55 @@ def denoise_pdps_cuda(f, alphas, state0=None, *, model: DenoiseModel, tau0,
     M, N = int(f.shape[-2]), int(f.shape[-1])
     O = f.numel() // (M * N)
     plan = pd_plan(M, N, K, f.element_size())
-    # the two-launch form's ū plane, or the cluster form's (τ, ω, σ) table
-    ubar = None if plan.resident else torch.empty_like(f)
-    tab = torch.empty((3 * max(int(maxiter), 1),), dtype=dtype,
-                      device=f.device) if plan.resident else None
+    # the tile form where the bands do not fit (None: the two-launch form,
+    # which no shape plans)
+    tile = None if plan.resident else pd_tile_plan(
+        M, N, K, f.element_size(), sum(a != 0 for a in addrs),
+        stencil_reach(kinds) == 2, images=O)
+    # the two-launch form's ū plane, or the (τ, ω, σ) table of the others
+    ubar = torch.empty_like(f) if not plan.resident and tile is None \
+        else None
+    tab = None if ubar is not None else torch.empty(
+        (3 * max(int(maxiter), 1),), dtype=dtype, device=f.device)
     uprev = torch.empty_like(f)
     ratio = torch.empty((max(O, 1),), dtype=dtype, device=f.device)
     tau, sigma = step_sizes(model, tau0, sigma0, dtype, f.device)
     lib = _build.library()
-    fn = lib.bpl_pdps_solve_f32 if dtype == torch.float32 \
-        else lib.bpl_pdps_solve_f64
+    real = "f32" if dtype == torch.float32 else "f64"
     iters, ops = ctypes.c_int(0), ctypes.c_int(0)
-    global launches, cluster_calls, device_ops
+    global launches, cluster_calls, tiled_calls, device_ops
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream(f.device).cuda_stream
         with _build.COUNTS:
             launches += 1
             cluster_calls += int(plan.resident)
-        err = fn(f.data_ptr(), u.data_ptr(), y.data_ptr(),
-                 0 if ubar is None else ubar.data_ptr(), uprev.data_ptr(),
-                 ratio.data_ptr(), 0 if tab is None else tab.data_ptr(), O,
-                 M, N, K, kinds, scalars, addrs, plan.cluster, plan.rows,
-                 int(plan.resident), float(tau), float(sigma), float(gamma),
-                 int(bool(accel)), int(maxiter), int(tol is not None),
-                 0.0 if tol is None else float(tol), int(check_every),
-                 ctypes.byref(iters), ctypes.byref(ops), stream)
+            tiled_calls += int(tile is not None)
+        run = (float(tau), float(sigma), float(gamma), int(bool(accel)),
+               int(maxiter), int(tol is not None),
+               0.0 if tol is None else float(tol), int(check_every),
+               ctypes.byref(iters), ctypes.byref(ops), stream)
+        if tile is None:
+            err = getattr(lib, f"bpl_pdps_solve_{real}")(
+                f.data_ptr(), u.data_ptr(), y.data_ptr(),
+                0 if ubar is None else ubar.data_ptr(), uprev.data_ptr(),
+                ratio.data_ptr(), 0 if tab is None else tab.data_ptr(), O,
+                M, N, K, kinds, scalars, addrs, plan.cluster, plan.rows,
+                int(plan.resident), *run)
+        else:
+            # the second u and dual buffers of the ping-pong
+            u2, y2 = torch.empty_like(u), torch.empty_like(y)
+            geom = (ctypes.c_int * 10)(
+                tile.rows, tile.cols, tile.T, tile.H, tile.height,
+                tile.pitch, tile.tiles_m, tile.tiles_n, tile.grid,
+                int(tile.tma))
+            err = getattr(lib, f"bpl_pdps_tile_{real}")(
+                f.data_ptr(), u.data_ptr(), y.data_ptr(), uprev.data_ptr(),
+                u2.data_ptr(), y2.data_ptr(), ratio.data_ptr(),
+                tab.data_ptr(), O, M, N, K, kinds, scalars, addrs, geom,
+                *run)
     with _build.COUNTS:
         device_ops += ops.value
-    _build.check(err, f"pdps kernel ({plan})")
+    _build.check(err, f"pdps kernel ({plan if tile is None else tile})")
     if return_dual:
         return u, tuple(y.unbind(0)), int(iters.value)
     return u

@@ -16,8 +16,8 @@ Phases (one short line each):
    12's and 13's CG launches (``slt_init``, ``slt_apply``, ``sl1_init``,
    ``sl1_apply``, ``slv_init``, ``slv_apply``), of the TGV² CP kernels
    (the cluster form ``tgv_cp``, the two-launch form's ``tgv_primal``,
-   ``tgv_dual``) and of the VTV CP kernel's cluster form (``vtv_cp``)
-   from the ``-Xptxas -v`` log.
+   ``tgv_dual``), of the VTV CP kernel's cluster form (``vtv_cp``) and of
+   kernel A's tile form (``pdt_cp``) from the ``-Xptxas -v`` log.
 3. kernel A (PDPS inner solve) against its plain PyTorch version on the
    flagship data (10 × 128² float32): a cold 5000-iteration call, a cold
    call with early stop that returns its state, a warm call from that
@@ -52,8 +52,8 @@ Phases (one short line each):
    the TPU sends to its row-tiled TGV kernel; its bands do not fit in
    shared memory, so the plan runs the two-launch form, which the phase
    requires) and kernel A at 1 × 2048² (1000 iterations, the shape the TPU
-   sends to its row-tiled TV kernel; likewise kernel A's two-launch form),
-   each against its plain version, timed.
+   sends to its row-tiled TV kernel; kernel A's tile form, whose plan and
+   device operations are printed), each against its plain version, timed.
 8. the TGV learn: ``scalar_bilevel_tgv_learn(dataset_name="faces_train",
    num_samples=10, method="tr_fused", device="cuda")`` with the benchmark's
    TGV settings, once to warm up and once timed, all launch counters reset
@@ -169,8 +169,7 @@ Phases (one short line each):
     0.005)) and TV with a random (128, 128) α map, each a cold
     5000-iteration call, a cold call with early stop and a warm call,
     each form's plan and device operations printed as in phase 3; then
-    K = 3 at 1 × 2048², 1000 iterations (row 3's shape, the two-launch
-    form).
+    K = 3 at 1 × 2048², 1000 iterations (row 3's shape, the tile form).
 35. kernel B's K = 3 form (scalar gradients) and map form (per-pixel
     gradient maps) against its plain version, exact and regularized, u
     from phase 34; then kernels A and B in these forms in float64 at
@@ -286,9 +285,24 @@ with ``mesh=`` (59-61 TGV², TV-L1, VTV; 62 TV and the sum of
 regularizers, ``phase_sl_mesh``, whose CG sums its inner products over
 the shards).
 
-It prints one JSON line of per-kernel numbers (eighteen entries: the
+63. kernel A's tile form (``csrc/pd_tile.cuh``), where the bands do not
+    fit a cluster: 1 × 1024² K = 1 (5000 iterations), 4 × 512² K = 1 with
+    a map, 1 × 256² K = 3, 1 × 2048² K = 3 with maps and 1 × 1024² K = 3
+    in float64, each cold, early-stopped (every 50 iterations) and warm,
+    against the two-launch form (a patched plan) bit for bit (u, duals,
+    iteration counts) and against the plain version at kernel A's
+    tolerances, timed beside the two-launch form and the bound; then
+    ``bilevel_learn_fused`` at the flagship's settings on four 512²
+    phantoms of ``data/generate.py`` with noise 0.05 from a fixed seed:
+    every kernel-A call in the tile form, no plain call, α, PSNR and cost
+    the two-launch form's bit for bit, the wall and kernel A's share of
+    it, each outer step's cost, gradient and radius; its first evaluation
+    (cost and hypergradient at α₀) against both kernels' plain versions,
+    beside the cost's central difference.
+
+It prints one JSON line of per-kernel numbers (nineteen entries: the
 eleven kernels, rows 1–3's K = 3 and map forms, row 5's 1024² call, row
-6's 256² call),
+6's 256² call, row 3's tile form at 1 × 1024²),
 then, as its last line,
 ``{"ok": true, "device": {...}}``.  Any failure raises (no phase is
 caught) and the script exits non-zero; a deadline turns a hang into a
@@ -300,6 +314,7 @@ from __future__ import annotations
 import contextlib
 import faulthandler
 import json
+import math
 import os
 import subprocess
 import sys
@@ -733,6 +748,7 @@ REPORTING_CLI_GATE_REL = 1e-12
 # peak rates of an H100 SXM (NVIDIA data sheet) for the bounds
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12      # float64 outside the tensor cores
 # operations per pixel, counted from the kernels' arithmetic
 # kernel A: 10 primal (3 divergence, 4 update, 3 extrapolation; 1+τ and 1+ω
 # are scalars of the iteration) + 15 dual (2 differences, 2 σ-products,
@@ -1315,26 +1331,34 @@ def large_a(img, timed, model, a, label, iters=1000):
     kw = dict(model=model, tau0=5.0, sigma0=0.99 / 5.0, gamma=1.0,
               accel=True, maxiter=iters, tol=None, check_every=50,
               return_dual=True)
-    from bpldenoising_tpu_torch.solvers.cluster_plan import pd_plan
+    from bpldenoising_tpu_torch.solvers.cluster_plan import (pd_plan,
+                                                             pd_tile_plan)
 
     launches0 = pdps_cuda.launches
     pdps_cuda.denoise_pdps_cuda(img, a, None, **dict(kw, maxiter=5))
-    before = pdps_cuda.device_ops
+    before, tiled = pdps_cuda.device_ops, pdps_cuda.tiled_calls
     (ku, kys, _), k_ms = timed(lambda: pdps_cuda.denoise_pdps_cuda(
         img, a, None, **kw))
     ops = pdps_cuda.device_ops - before
+    tiled = pdps_cuda.tiled_calls - tiled
     launches = pdps_cuda.launches - launches0
     (pu, pys, _), p_ms = timed(lambda: _denoise_pdps_impl(img, a, None,
                                                          **kw))
     err_u = max_abs(ku, pu)
     err_y = max(max_abs(k, p) for k, p in zip(kys, pys))
-    plan = pd_plan(img.shape[-2], img.shape[-1], model.K,
-                   img.element_size())
+    M, N = img.shape[-2:]
+    plan = pd_plan(M, N, model.K, img.element_size())
+    kinds = [pdps_kind(op) for op in model.ops]
+    tile = None if plan.resident else pd_tile_plan(
+        M, N, model.K, img.element_size(),
+        sum(int(x.ndim > 0) for x in a), len(set(kinds)) > 1 or 2 in kinds,
+        images=img.shape[0])
+    form = (f"cluster {plan.cluster}, {plan.rows} rows a CTA" if tile is None
+            else f"tile form: {tile.rows}x{tile.cols} tiles, T {tile.T}, "
+            f"H {tile.H}, grid {tile.grid}, {tiled} tile-form call")
     say(f"  {label}, {iters} it: max|du| {err_u:.2e}, max|dy| "
         f"{err_y:.2e}; kernel {k_ms:.2f} ms, plain {p_ms:.2f} ms; plan: "
-        f"cluster {plan.cluster}, {plan.rows} rows a CTA, resident "
-        f"{plan.resident} (the two-launch form when not); {ops} device "
-        f"operations")
+        f"{form}; {ops} device operations")
     require(err_u <= TOL_A_U_F32 and err_y <= TOL_A_Y_F32,
             f"kernel {label} disagrees with plain: {err_u}, {err_y}")
     require(launches > 0, f"{label}: kernel A was not launched")
@@ -1344,7 +1368,8 @@ def large_a(img, timed, model, a, label, iters=1000):
                          * iters)
     return dict(ms=k_ms, plain_ms=p_ms, max_abs_err=max(err_u, err_y),
                 bound_ms=bound, bound_by=by, plan=plan._asdict(),
-                launches=launches, device_ops=ops)
+                tile=None if tile is None else tile._asdict(),
+                launches=launches, tiled_calls=tiled, device_ops=ops)
 
 
 def pdps_kind(op):
@@ -1378,6 +1403,7 @@ def reset_launches():
     for mod in (pdps_cuda, tvl1_cuda, tgv_cuda, vtv_cuda):
         mod.cluster_calls = 0
         mod.device_ops = 0
+    pdps_cuda.tiled_calls = 0
     hypergrad_cuda.device_ops = 0
     hypergrad_cuda.host_reads = 0
 
@@ -5503,6 +5529,362 @@ def phase_sl_mesh(utrue, f):
     return out
 
 
+# phase 63: kernel A's tile form (csrc/pd_tile.cuh: 2-D tiles, one CTA a
+# tile, T iterations a launch) where the bands do not fit a cluster: phase
+# 63's shapes against the two-launch form it replaced (the plan patched)
+# and the plain version, then a flagship-settings learn on 4 x 512^2 images
+
+TILE_SHAPES = (
+    # label, first images of faces_train, tiled r x r, model, maps,
+    # fixed budget, early-stop tolerance, dtype
+    ("1x1024x1024 K=1", 1, 8, "tv", 0, 5000, 5e-6, "float32"),
+    ("4x512x512 K=1 map", 4, 4, "tv", 1, 1000, 5e-6, "float32"),
+    ("1x256x256 K=3", 1, 2, "sumregs", 0, 2000, 5e-6, "float32"),
+    ("1x2048x2048 K=3 maps", 1, 16, "sumregs", 3, 1000, 5e-6, "float32"),
+    ("1x1024x1024 K=3", 1, 8, "sumregs", 0, 1000, 1e-7, "float64"),
+)
+TILE_CHECK_EVERY = 50
+TILE_LEARN_IMAGES = 4
+TILE_LEARN_SIZE = 512
+TILE_LEARN_SEED = 63
+# the noise of the learn's phantoms: at 0.1 the learn's optimum on these
+# four 512² phantoms lies within 0.003 of alpha0 = 0.1, where the cost
+# falls by less than the inner solve's early stop moves it, so the trust
+# region rejects every step (scripts/trial_costs.py); at 0.05 it lies well
+# below alpha0
+TILE_LEARN_NOISE = 0.05
+# the learn's first evaluation, kernels against plain versions on the same
+# card tensors: u within TOL_A_U_F32 moves the cost by at most
+# 2·TOL_A_U_F32·Σ|u − u_true| / Σ(u − u_true)² (~7e-3 relative at these
+# phantoms' ~0.03 residual) and kernel B's capped CG carries that into the
+# hypergradient; a fault in the tile form (a halo short, a wrong tile)
+# moves u by 1e-2 and the cost and gradient by far more
+TOL_EVAL_F32_REL = 1e-2
+# the step of the cost's central difference at alpha0, and the factor on
+# the CG cap of the reference hypergradient beside it
+TILE_FD_STEP = 1e-3
+TILE_CG_FACTOR = 20
+
+
+def tile_forced_two_launch():
+    """Make kernel A plan its two-launch form (no tile plan) → restore."""
+    from bpldenoising_tpu_torch.solvers import pdps_cuda
+    real = pdps_cuda.pd_tile_plan
+    pdps_cuda.pd_tile_plan = lambda *a, **k: None
+
+    def restore():
+        pdps_cuda.pd_tile_plan = real
+    return restore
+
+
+def tile_counts():
+    """Kernel A's calls, tile-form calls and device operations so far."""
+    from bpldenoising_tpu_torch.solvers import pdps_cuda
+    return (pdps_cuda.launches, pdps_cuda.tiled_calls,
+            pdps_cuda.device_ops)
+
+
+def tile_case(f, n_img, rep, name, n_maps, dtype):
+    """The stack, model and weights of one of TILE_SHAPES."""
+    import torch
+    from bpldenoising_tpu_torch.models import sumregs_model, tv_model
+
+    img = f[:n_img].repeat(1, rep, rep).to(getattr(torch, dtype))
+    img = img.contiguous()
+    if name == "tv":
+        model = tv_model()
+        a = (random_map(img, 1, 0.05, 0.1),) if n_maps else (0.1,)
+    else:
+        model = sumregs_model()
+        amap = random_map(img, 0, 0.05, 0.1)
+        a = (amap, 0.5 * amap, 0.1 * amap) if n_maps \
+            else sumregs_weights()[0]
+    return img, model, weights(a, img)
+
+
+def phase_tile_shapes(f, timed):
+    """Each TILE_SHAPES case cold (its fixed budget), early-stopped (every
+    TILE_CHECK_EVERY iterations) and warm (from the early-stopped state at
+    0.9 alpha): the tile form against the two-launch form bit for bit (u,
+    duals, iteration counts) and against the plain version (float32 at
+    kernel A's tolerances with counts within one check, float64 at
+    TOL_F64_REL with equal counts); each call timed, the cold calls beside
+    their bound (f and the maps in; u and the K duals out)."""
+    import torch
+    from bpldenoising_tpu_torch.solvers import pdps_cuda
+    from bpldenoising_tpu_torch.solvers.cluster_plan import (pd_plan,
+                                                             pd_tile_plan)
+    from bpldenoising_tpu_torch.solvers.pdps import _denoise_pdps_impl
+
+    out = {}
+    for label, n_img, rep, name, n_maps, budget, tol, dtype in TILE_SHAPES:
+        img, model, a = tile_case(f, n_img, rep, name, n_maps, dtype)
+        M, N = img.shape[-2:]
+        kinds = [pdps_kind(op) for op in model.ops]
+        require(not pd_plan(M, N, model.K, img.element_size()).resident,
+                f"{label}: the bands fit a cluster")
+        plan = pd_tile_plan(M, N, model.K, img.element_size(), n_maps,
+                            model.K > 1, images=img.shape[0])
+        base = dict(model=model, tau0=5.0, sigma0=0.99 / 5.0, gamma=1.0,
+                    accel=True, check_every=TILE_CHECK_EVERY,
+                    return_dual=True)
+        modes = (("cold", None, a, dict(maxiter=budget, tol=None)),
+                 ("early stop", None, a, dict(maxiter=budget, tol=tol)),
+                 ("warm", "state", tuple(0.9 * x for x in a),
+                  dict(maxiter=budget, tol=tol)))
+        row, state = {}, None
+        for mode, warm, w, extra in modes:
+            kw = dict(base, **extra)
+            st = state if warm else None
+            pdps_cuda.denoise_pdps_cuda(img, w, st, **dict(kw, maxiter=20))
+            c0 = tile_counts()
+            k, k_ms = timed(lambda: pdps_cuda.denoise_pdps_cuda(img, w, st,
+                                                                **kw))
+            c1 = tile_counts()
+            restore = tile_forced_two_launch()
+            try:
+                pdps_cuda.denoise_pdps_cuda(img, w, st,
+                                            **dict(kw, maxiter=20))
+                g0 = tile_counts()
+                g, g_ms = timed(lambda: pdps_cuda.denoise_pdps_cuda(
+                    img, w, st, **kw))
+                g1 = tile_counts()
+            finally:
+                restore()
+            p, p_ms = timed(lambda: _denoise_pdps_impl(img, w, st, **kw))
+            same = k[2] == g[2] and torch.equal(k[0], g[0]) and all(
+                torch.equal(x, y) for x, y in zip(k[1], g[1]))
+            if dtype == "float64":
+                err = max([rel_err(k[0], p[0])]
+                          + [rel_err(x, y) for x, y in zip(k[1], p[1])])
+                ok = err <= TOL_F64_REL and k[2] == p[2]
+            else:
+                err_u = max_abs(k[0], p[0])
+                err_y = max(max_abs(x, y) for x, y in zip(k[1], p[1]))
+                err = max(err_u, err_y)
+                ok = err_u <= TOL_A_U_F32 and err_y <= TOL_A_Y_F32 \
+                    and abs(k[2] - p[2]) <= TILE_CHECK_EVERY
+            ops = c1[2] - c0[2]
+            say(f"  {label} {dtype} {mode}: {k[2]} its (two-launch "
+                f"{g[2]}, plain {p[2]}); tile form {k_ms:.2f} ms, "
+                f"two-launch {g_ms:.2f} ms ({g_ms / k_ms:.2f}x), plain "
+                f"{p_ms:.1f} ms; bits of the two-launch form: {same}; "
+                f"max err vs plain {err:.2e}; device operations {ops} "
+                f"(two-launch {g1[2] - g0[2]})")
+            require(same, f"{label} {mode}: the tile form differs from the "
+                    "two-launch form")
+            require(ok, f"{label} {mode}: the tile form disagrees with "
+                    f"plain: {err}, iterations {k[2]} vs {p[2]}")
+            require(c1[0] - c0[0] == 1 and c1[1] - c0[1] == 1
+                    and g1[1] == g0[1], f"{label} {mode}: kernel A's forms "
+                    f"counted {c0} -> {c1}, two-launch {g0} -> {g1}")
+            row[mode] = dict(iters=k[2], ms=k_ms, two_launch_ms=g_ms,
+                             plain_ms=p_ms, max_err=err, device_ops=ops,
+                             two_launch_device_ops=g1[2] - g0[2])
+            if mode == "early stop":
+                state = (k[0], k[1])
+        n = img.numel()
+        itemsize = img.element_size()
+        bound, by = bound_ms(
+            ((2 + 2 * model.K) * n + n_maps * M * N) * itemsize,
+            a_ops_per_pixel_iter(kinds, n_maps) * n * budget,
+            F32_OPS_PER_S if dtype == "float32" else F64_OPS_PER_S)
+        row["cold"].update(bound_ms=bound, bound_by=by)
+        say(f"  {label} {dtype}: tile {plan.rows}x{plan.cols}, T {plan.T}, "
+            f"H {plan.H}, {plan.tiles_m}x{plan.tiles_n} tiles an image, "
+            f"grid {plan.grid}, {plan.smem} B a CTA, TMA {plan.tma}; cold "
+            f"{row['cold']['ms']:.2f} ms against a bound of {bound:.3f} ms "
+            f"({by}), two-launch {row['cold']['two_launch_ms']:.2f} ms")
+        out[label] = dict(row, plan=plan._asdict(), dtype=dtype)
+    return out
+
+
+def tile_learn_data():
+    """TILE_LEARN_IMAGES phantoms of TILE_LEARN_SIZE^2 from
+    data/generate.py with noise sigma TILE_LEARN_NOISE from TILE_LEARN_SEED
+    (float64, numpy): two disks, a pyramid and random facets."""
+    import numpy as np
+    from bpldenoising_tpu_torch.data.generate import (add_noise,
+                                                      affine_phantom,
+                                                      circle_phantom)
+
+    n = TILE_LEARN_SIZE
+    true = np.stack([circle_phantom(n, 0.3),
+                     circle_phantom(n, 0.2, center=(0.4, 0.6)),
+                     affine_phantom(n, "pyramid"),
+                     affine_phantom(n, "facets", seed=TILE_LEARN_SEED)])
+    rng = np.random.default_rng(TILE_LEARN_SEED)
+    return true, np.stack([add_noise(t, TILE_LEARN_NOISE, rng)
+                           for t in true])
+
+
+def tile_learn_first_evaluation(utrue, f, kw):
+    """The learn's first evaluation at alpha0 (learning/tv.py's tv_local,
+    the exact hypergradient, as the trust region's first step takes it;
+    kernel A in the tile form, kernel B) against the plain versions of both
+    kernels on the same card tensors, gated at TOL_EVAL_F32_REL; then what
+    the trust region's steps are measured by: the cost's central difference
+    at alpha0 ± TILE_FD_STEP, and the hypergradient with TILE_CG_FACTOR
+    times the adjoint CG's cap, printed beside it."""
+    import torch
+    from bpldenoising_tpu_torch import learning
+    from bpldenoising_tpu_torch.models import tv_model
+    from bpldenoising_tpu_torch.solvers.hypergrad import exact_hypergrad
+    from bpldenoising_tpu_torch.solvers.pdps import _denoise_pdps_impl
+
+    tv = learning.tv
+    cfg = kw["hypergrad_cfg"]
+
+    def evaluate(alpha, cfg=cfg):
+        x = torch.tensor(alpha, dtype=torch.float32)
+        _, cost, grads, _, _, info = tv.tv_local(
+            x, utrue, f, None, None, model=tv_model(), method="exact",
+            maxiter=kw["inner_maxiter"], cfg=cfg, pop=None,
+            solver_kwargs=dict(tol=kw["inner_tol"],
+                               check_every=kw["check_every"]))
+        return float(cost), float(grads[0]), info
+
+    a0 = kw["alpha0"]
+    cost, grad, info = evaluate(a0)
+    real = tv.denoise_pdps_cuda, tv.exact_hypergrad_cuda
+    tv.denoise_pdps_cuda, tv.exact_hypergrad_cuda = (_denoise_pdps_impl,
+                                                     exact_hypergrad)
+    try:
+        p_cost, p_grad, p_info = evaluate(a0)
+    finally:
+        tv.denoise_pdps_cuda, tv.exact_hypergrad_cuda = real
+    err_c = abs(cost - p_cost) / abs(p_cost)
+    err_g = abs(grad - p_grad) / abs(p_grad)
+    h = TILE_FD_STEP
+    c_hi, c_lo = evaluate(a0 + h)[0], evaluate(a0 - h)[0]
+    fd = (c_hi - c_lo) / (2 * h)
+    _, g_ref, ref_info = evaluate(a0, cfg._replace(
+        cg_maxiter=TILE_CG_FACTOR * cfg.cg_maxiter))
+    say(f"  first evaluation at alpha {a0}: cost {cost!r} (plain "
+        f"{p_cost!r}, rel {err_c:.2e}), hypergradient {grad!r} (plain "
+        f"{p_grad!r}, rel {err_g:.2e}; tol {TOL_EVAL_F32_REL:g}); adjoint "
+        f"CG {info.iters} its, converged {bool(info.converged)} (plain "
+        f"{p_info.iters}, {bool(p_info.converged)})")
+    say(f"  cost at alpha {a0} -+ {h:g}: {c_lo!r}, {c_hi!r}: central "
+        f"difference {fd!r} against the hypergradient {grad!r}; with "
+        f"{TILE_CG_FACTOR * cfg.cg_maxiter} CG its {g_ref!r} ({ref_info.iters}"
+        f" its, converged {bool(ref_info.converged)})")
+    require(all(math.isfinite(v) for v in (cost, grad, fd, g_ref)),
+            "the first evaluation is not finite")
+    require(err_c <= TOL_EVAL_F32_REL and err_g <= TOL_EVAL_F32_REL,
+            f"the learn's first evaluation disagrees with plain: cost "
+            f"{err_c:.2e}, hypergradient {err_g:.2e}")
+    return dict(cost=cost, plain_cost=p_cost, hypergradient=grad,
+                plain_hypergradient=p_grad, cost_rel_err=err_c,
+                hypergradient_rel_err=err_g, cg_iters=info.iters,
+                cg_converged=bool(info.converged), central_difference=fd,
+                fd_step=h, hypergradient_long_cg=g_ref,
+                long_cg_iters=ref_info.iters,
+                long_cg_converged=bool(ref_info.converged))
+
+
+def phase_tile_learn(timed):
+    """bilevel_learn_fused at the flagship's settings on tile_learn_data()
+    in float32: kernel A in the tile form (every call, no plain call),
+    kernel B as before; then the same learn with the two-launch form
+    forced, which must give alpha, the mean PSNR and the cost bit for bit.
+    The wall (CUDA events, after a warm-up) and kernel A's share of it."""
+    import torch
+    from bpldenoising_tpu_torch import learning
+    from bpldenoising_tpu_torch.bilevel.fused import bilevel_learn_fused
+    from bpldenoising_tpu_torch.experiments import api
+    from bpldenoising_tpu_torch.metrics import psnr
+
+    true_np, noisy_np = tile_learn_data()
+    utrue = torch.as_tensor(true_np, dtype=torch.float32).cuda()
+    f = torch.as_tensor(noisy_np, dtype=torch.float32).cuda()
+    kw = flagship_kwargs()
+    lkw = dict(xinit=kw["alpha0"],
+               params=api.bilevel_params | dict(maxiter=kw["maxiter"],
+                                                tol=kw["tol"]),
+               inner_maxiter=kw["inner_maxiter"],
+               inner_tol=kw["inner_tol"], check_every=kw["check_every"],
+               cfg=kw["hypergrad_cfg"], delta_t=1e-6, device="cuda")
+    tv = learning.tv
+    real_a = tv.denoise_pdps_cuda
+    a_ms = []
+
+    def timed_a(*a, **k):
+        out, ms = timed(lambda: real_a(*a, **k))
+        a_ms.append(ms)
+        return out
+
+    def run():
+        res, wall = timed(lambda: bilevel_learn_fused((utrue, f), **lkw))
+        return (res, wall, float(res.x),
+                float(torch.mean(psnr(utrue, res.u))), float(res.cost))
+
+    bilevel_learn_fused((utrue, f), **lkw)                   # warm-up
+    plain, restore = watch_plain()
+    try:
+        reset_launches()
+        res, wall, alpha, mean_psnr, cost = run()
+        a = kernel_a_forms()
+        b = kernel_b_forms()
+        counts = tile_counts()
+    finally:
+        restore()
+    tv.denoise_pdps_cuda = timed_a
+    try:
+        _, timed_wall, *_ = run()
+    finally:
+        tv.denoise_pdps_cuda = real_a
+    two = tile_forced_two_launch()
+    try:
+        bilevel_learn_fused((utrue, f), **lkw)               # warm-up
+        reset_launches()
+        _, g_wall, g_alpha, g_psnr, g_cost = run()
+        g_counts = tile_counts()
+    finally:
+        two()
+    evals = res.iterations + 1
+    share = sum(a_ms) / timed_wall
+    steps = res.log[:res.iterations].tolist()
+    for k, (c, gn, radius, step, cg, conv) in enumerate(steps):
+        say(f"    outer {k}: cost {c!r}, |g| {gn!r}, radius {radius!r}, "
+            f"accepted step {step!r}, adjoint CG {int(cg)} its"
+            f"{'' if conv else ' (at its cap)'}")
+    say(f"  {TILE_LEARN_IMAGES}x{TILE_LEARN_SIZE}x{TILE_LEARN_SIZE} float32: "
+        f"alpha {alpha!r}, PSNR {mean_psnr!r} dB, cost {cost!r}, "
+        f"{res.iterations} outer its; wall {wall:.1f} ms; kernel A "
+        f"{sum(a_ms):.1f} ms of a {timed_wall:.1f} ms timed run "
+        f"({100 * share:.1f}%); kernel A {counts[0]} calls, {counts[1]} in "
+        f"the tile form, {counts[2]} device operations")
+    say(f"  the same learn in the two-launch form: alpha {g_alpha!r}, PSNR "
+        f"{g_psnr!r} dB, cost {g_cost!r}; wall {g_wall:.1f} ms; kernel A "
+        f"{g_counts[0]} calls, {g_counts[2]} device operations")
+    say_kernel_b_forms(b)
+    require(counts[1] == counts[0] == a["calls"] == evals,
+            f"kernel A: {counts} (tile calls), want {evals} in the tile "
+            "form")
+    require(kernel_b_cooperative(b) and b["calls"] == evals,
+            f"kernel B: {b}, want {evals} cooperative calls")
+    require(not plain, f"plain versions called: {sorted(set(plain))}")
+    require(tuple(res.u.shape) == tuple(utrue.shape)
+            and bool(torch.isfinite(res.u).all()), "tile learn u")
+    require((alpha, mean_psnr, cost) == (g_alpha, g_psnr, g_cost),
+            "the tile-form learn differs from the two-launch form's: "
+            f"{(alpha, mean_psnr, cost)} vs {(g_alpha, g_psnr, g_cost)}")
+    first = tile_learn_first_evaluation(utrue, f, kw)
+    say(f"  the learn's first logged cost {steps[0][0]!r} and |g| "
+        f"{steps[0][1]!r}; the evaluation's {first['cost']!r}, "
+        f"{abs(first['hypergradient'])!r}")
+    return dict(alpha=alpha, mean_psnr_db=mean_psnr, cost=cost,
+                first_evaluation=first, steps=steps,
+                outer_iterations=res.iterations, wall_ms=wall,
+                kernel_a_ms=sum(a_ms), timed_wall_ms=timed_wall,
+                kernel_a_share=share, launches=counts[0],
+                tiled_calls=counts[1], device_ops=counts[2],
+                two_launch=dict(alpha=g_alpha, mean_psnr_db=g_psnr,
+                                cost=g_cost, wall_ms=g_wall,
+                                device_ops=g_counts[2]))
+
+
 def flagship_kwargs():
     from bpldenoising_tpu_torch.solvers.hypergrad import HypergradConfig
     return dict(dataset_name="faces_train", num_samples=10,
@@ -5553,7 +5935,8 @@ def main():
                            ("single_loop_vtv.cu", "slv_init"),
                            ("single_loop_vtv.cu", "slv_apply"),
                            ("tgv.cu", "tgv_cp"), ("tgv.cu", "tgv_primal"),
-                           ("tgv.cu", "tgv_dual"), ("vtv.cu", "vtv_cp")):
+                           ("tgv.cu", "tgv_dual"), ("vtv.cu", "vtv_cp"),
+                           ("pd_tile.cu", "pdt_cp")):
         for line in ptxas_report(info.path.with_suffix(".log"), source,
                                  needle):
             say(f"  {line}")
@@ -5856,6 +6239,13 @@ def main():
             "and float32")
         parallel["single_loop_tv_mesh"] = phase_sl_mesh(utrue, f)
         say(f"  phase 62: {time.perf_counter() - t_phase:.1f} s; {smi}")
+        t_phase = time.perf_counter()
+        say("phase 63 kernel A's tile form where the bands do not fit: "
+            "against the two-launch form and plain, cold, early-stopped "
+            "and warm; then bilevel_learn_fused on 4x512x512 phantoms")
+        tile = dict(shapes=phase_tile_shapes(f, timed))
+        tile["learn"] = phase_tile_learn(timed)
+        say(f"  phase 63: {time.perf_counter() - t_phase:.1f} s; {smi}")
 
     itemsize = 4
     a_bytes = 4 * n * itemsize                  # f in; u, y out
@@ -6035,6 +6425,20 @@ def main():
             max_abs_err=st["max_abs_err"], ms=st["call"]["ms"],
             plain_ms=st["plain_ms"], bound_ms=bound, bound_by=by,
             library_ms=None, **SLX_DEVICE_KERNELS.get(name, {})))
+    t1024 = tile["shapes"]["1x1024x1024 K=1"]["cold"]
+    kernels.append(dict(
+        name="pdps_tile_tv_1024", route="cuda",
+        source="bpldenoising_tpu_torch/csrc/pd_tile.cuh",
+        replaces="bpldenoising_tpu/solvers/pdps_pallas.py:339",
+        launches=tile["learn"]["tiled_calls"],
+        max_abs_err=max(r[m]["max_err"] for r in tile["shapes"].values()
+                        if r["dtype"] == "float32"
+                        for m in ("cold", "early stop", "warm")),
+        ms=t1024["ms"], plain_ms=t1024["plain_ms"],
+        bound_ms=t1024["bound_ms"], bound_by=t1024["bound_by"],
+        library_ms=None, form="tile",
+        two_launch_ms=t1024["two_launch_ms"],
+        device_ops=tile["learn"]["device_ops"]))
     say(f"  total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels, "flagship": dict(
         alpha=alpha, alpha_abs_err=d_alpha, mean_psnr_db=mean_psnr,
@@ -6051,7 +6455,7 @@ def main():
         "forms_b": forms_b, "forms_f64_max_rel_err": forms_f64,
         "tv_family_learns": tvf, "tr_learns": tr, "reporting": reporting,
         "segmented_resume_trace_layers": later, "parallel": parallel,
-        "remainders": remainders, "device": smi}))
+        "remainders": remainders, "tile_form": tile, "device": smi}))
     faulthandler.cancel_dump_traceback_later()
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -229,6 +229,11 @@ def cp_sizes(family, torch, cs, timed):
     for n in (4, 8, 12, 16):
         plans[f"cl{n}"] = forced(real, shape, slots, n)
     out = dict(order=order, repeats=REPEATS)
+    # kernel A's forms: resident False is its two-launch form here, not the
+    # tile form that runs where its bands do not fit
+    tile_plan = getattr(mod, "pd_tile_plan", None)
+    if tile_plan is not None:
+        mod.pd_tile_plan = lambda *a, **k: None
     try:
         for call in calls:
             label, solve = call[:2]
@@ -262,6 +267,8 @@ def cp_sizes(family, torch, cs, timed):
             out[label] = row
     finally:
         setattr(mod, attr, real)
+        if tile_plan is not None:
+            mod.pd_tile_plan = tile_plan
     return out
 
 

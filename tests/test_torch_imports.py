@@ -20,7 +20,10 @@ SOURCES = (sorted(PORT.rglob("*.py"))
               ROOT / "scripts" / "kernel_b_iteration_cost.py",
               ROOT / "scripts" / "call_times.py",
               ROOT / "scripts" / "learn_walls.py",
-              ROOT / "scripts" / "mesh_cards.py"])
+              ROOT / "scripts" / "mesh_cards.py",
+              ROOT / "scripts" / "tile_sizes.py",
+              ROOT / "scripts" / "tile_trace.py",
+              ROOT / "scripts" / "trial_costs.py"])
 FORBIDDEN = ("jax", "jaxlib", "bpldenoising_tpu")
 
 
@@ -100,6 +103,31 @@ SLICE_MODULES = ("ops/tgv.py", "ops/patch.py", "solvers/tgv.py",
                  "parallel/mesh.py", "parallel/distributed.py",
                  "parallel/sharded.py", "parallel/halo.py",
                  "data/generate.py", "data/native/__init__.py")
+
+
+# the test files of the card's kernels, which run where JAX is not
+# installed (python -m pytest --noconftest FILE -m cuda)
+CARD_TESTS = ("test_torch_pdps_cluster.py", "test_torch_pdps_tile_card.py",
+              "test_torch_hypergrad_coop.py", "test_torch_tgv_cluster.py",
+              "test_torch_tvl1_cluster.py", "test_torch_vtv_cluster.py",
+              "test_torch_first_order_tgv_cluster.py",
+              "test_torch_first_order_tvl1_cluster.py",
+              "test_torch_first_order_vtv_cluster.py",
+              "test_torch_first_order_tv_mesh_card.py")
+
+
+@pytest.mark.parametrize("name", CARD_TESTS)
+def test_card_test_files_import_no_jax(name):
+    """The card's test files import neither JAX nor the JAX package at
+    module level (the tile form's among them; a CPU-only case may import
+    JAX inside its body), so they collect on the card's machine alone."""
+    tree = ast.parse((ROOT / "tests" / name).read_text())
+    top = [a.name for n in tree.body if isinstance(n, ast.Import)
+           for a in n.names]
+    top += [n.module or "" for n in tree.body
+            if isinstance(n, ast.ImportFrom) and n.level == 0]
+    bad = [m for m in top if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{name} imports {bad}"
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)

@@ -6,7 +6,7 @@ chunk, a thread-block cluster an image, the bands of
   kernel A and the single-loop learner read, for kernel A's shapes: the
   flagship's 10×128² in both forms and dtypes, uneven bands, the smallest
   images, and row 3's 1×2048², whose bands do not fit in shared memory
-  (the two-launch form runs there).
+  (the tile form runs there: ``tests/test_torch_pdps_tile_card.py``).
 - On the card (marked ``cuda``; they skip without one): the cluster form
   against the two-launch form and against the plain version, for the four
   forms the kernel is instantiated for and a generic one, in float64 and
@@ -49,7 +49,7 @@ PD = dict(tau0=5.0, sigma0=0.99 / 5.0, gamma=1.0, accel=True)
     (1, 8, 8, 1, 8, 4, 2, True),
     (2, 5, 7, 3, 8, 2, 3, True),
     (1, 3, 9, 1, 4, 1, 3, True),            # one CTA: no neighbour
-    (1, 2048, 2048, 1, 4, 8, 256, False),   # row 3: the two-launch form
+    (1, 2048, 2048, 1, 4, 8, 256, False),   # row 3: the tile form
     (1, 2048, 2048, 3, 4, 8, 256, False),
 ])
 def test_kernel_a_plan(O, M, N, K, itemsize, cluster, rows, resident):
@@ -146,10 +146,12 @@ def _run(f, alphas, state, device, **kw):
 
 
 def _two_launch(monkeypatch):
-    """Make kernel A plan its two-launch form whatever the shapes."""
+    """Make kernel A plan its two-launch form whatever the shapes (no
+    cluster and no tile plan)."""
     real = cluster_plan.pd_plan
     monkeypatch.setattr(pdps_cuda, "pd_plan", lambda *a: real(*a)._replace(
         resident=False, smem=0))
+    monkeypatch.setattr(pdps_cuda, "pd_tile_plan", lambda *a, **k: None)
 
 
 @pytest.mark.cuda
