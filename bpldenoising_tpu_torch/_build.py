@@ -23,8 +23,8 @@ from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("pdps.cu", "pd_tile.cu", "hypergrad.cu", "tgv.cu", "tvl1.cu",
-           "vtv.cu", "single_loop.cu", "single_loop_tgv.cu",
+SOURCES = ("pdps.cu", "pd_tile.cu", "hypergrad.cu", "tgv.cu", "tgv_tile.cu",
+           "tvl1.cu", "vtv.cu", "single_loop.cu", "single_loop_tgv.cu",
            "single_loop_tvl1.cu", "single_loop_vtv.cu")
 HEADERS = ("common.cuh", "pd_cluster.cuh", "pd_tile.cuh", "pdps.cuh",
            "single_loop.cuh", "tgv.cuh", "tgv_cluster.cuh", "tvl1.cuh",
@@ -152,6 +152,15 @@ def _declare(lib):
                                    real, real, _I, _I, real, _I,
                                    ctypes.POINTER(_I), ctypes.POINTER(_I),
                                    _P]
+        fn.restype = _I
+        fn = getattr(lib, f"bpl_tgv_tile_{suffix}")
+        # f, u, w, p, q, uprev, u2, w2, p2, q2, partials, scal, the maps;
+        # α₁, α₀, O, M, N, the tile plan (10 ints), τ, σ, the budget,
+        # iterations and device operations out, the stream
+        fn.argtypes = [_P] * 14 + [real, real, _LL, _I, _I,
+                                   ctypes.POINTER(_I), real, real, _I, _I,
+                                   real, _I, ctypes.POINTER(_I),
+                                   ctypes.POINTER(_I), _P]
         fn.restype = _I
         fn = getattr(lib, f"bpl_tvl1_solve_{suffix}")
         # ... α, O, M, N, the plan (cluster, rows, resident), τ, σ, the

@@ -4,7 +4,10 @@
 // thread a pixel, the state in global memory, two launches an iteration),
 // which moves u, ū, f and the duals through device memory every iteration:
 // at 1×2048² that is ~11 plane passes an iteration for K = 1 and ~23 for
-// K = 3, and the state (84–151 MB) does not stay in the 50 MB L2.
+// K = 3, and the state (84–151 MB) does not stay in the 50 MB L2.  The
+// TGV² CP solve's tile form (csrc/tgv_tile.cu) runs the same scheme on its
+// own step with PtGeom, the TMA and mbarrier helpers, pt_region and the
+// stencils below.
 //
 // Each image is cut into 2-D tiles of th × tw owned pixels, one CTA a tile.
 // A CTA holds u, ū and the 2K dual planes of its tile and a halo of H
@@ -194,24 +197,26 @@ __device__ __forceinline__ T pt_adj(const T* q, int l, int i, int n, int s,
   return (q[l - s] - q[l + s]) * T(0.5);
 }
 
-// The slots of one pass of pt_region: PT_CPT pixels a thread, slot e the
+// The slots of one pass of pt_region: CPT pixels a thread, slot e the
 // pixel (i[e], j[e]) where ok[e], l[e] its offset in the window and g[e] in
 // its image (an int: the plan keeps M·N below 2³¹).
-struct PtSlots {
-  int i[PT_CPT], j[PT_CPT], l[PT_CPT], g[PT_CPT];
-  bool ok[PT_CPT];
+template <int CPT>
+struct PtSlotsN {
+  int i[CPT], j[CPT], l[CPT], g[CPT];
+  bool ok[CPT];
 };
+using PtSlots = PtSlotsN<PT_CPT>;
 
 // fn(slots) for every pixel of the region [ia, iz) × [ja, jz) of a window
 // of rows `pitch` elements apart from (Rs, Xs) on an image of rows N
 // elements apart: thread t takes the region's row-major positions t,
-// t + PT_THREADS, …, PT_CPT at a time (one division a thread, then a carry
+// t + PT_THREADS, …, CPT at a time (one division a thread, then a carry
 // that moves the pixel and both offsets by additions), so every thread gets
 // the same number of pixels whatever the region's sides and a warp's lanes
 // take consecutive columns; fn makes each part of the step a pass over the
 // slots, so that the loads of one slot are issued before the arithmetic of
 // the next.
-template <class F>
+template <int CPT = PT_CPT, class F>
 __device__ __forceinline__ void pt_region(int ia, int iz, int ja, int jz,
                                           int Rs, int Xs, int pitch, int N,
                                           F fn) {
@@ -223,10 +228,10 @@ __device__ __forceinline__ void pt_region(int ia, int iz, int ja, int jz,
   int l = (i - Rs) * pitch + (j - Xs), g = i * N + j;
   const int di = PT_THREADS / w, dj = PT_THREADS % w;
   const int dl = di * pitch + dj, dg = di * N + dj;
-  for (; q < n; q += PT_CPT * PT_THREADS) {
-    PtSlots p;
+  for (; q < n; q += CPT * PT_THREADS) {
+    PtSlotsN<CPT> p;
 #pragma unroll
-    for (int e = 0; e < PT_CPT; ++e) {
+    for (int e = 0; e < CPT; ++e) {
       p.i[e] = i;
       p.j[e] = j;
       p.l[e] = l;
@@ -508,22 +513,24 @@ int pt_tensor_map(CUtensorMap* map, const void* ptr, int M, int N,
   return r == CUDA_SUCCESS ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
 }
 
-// Whether the host's tile plan can run an O × M × N stack of K blocks
-// whose stencils reach `reach` pixels an iteration: the halo covers T
+// Whether the host's tile plan can run an O × M × N stack whose stencils
+// reach `reach` pixels an iteration, on `planes` shared-memory planes,
+// the largest tensor map holding zmax·O planes: the halo covers T
 // iterations, the window holds the owned tile and its halo from a column
 // of 16 bytes, the tiles cover the image, TMA's rules (16-byte rows and
 // boxes and box columns, sides ≤ 256, load boxes inside the image) where
 // it is asked for, and the tile's offsets fit an int.
-inline bool pd_tile_ok(long long O, int M, int N, int K, int reach, int th,
-                       int tw, int T, int H, int height, int pitch,
-                       int tiles_m, int tiles_n, int tma, int itemsize) {
+inline bool pt_geom_ok(long long O, int M, int N, int planes, int zmax,
+                       int reach, int th, int tw, int T, int H, int height,
+                       int pitch, int tiles_m, int tiles_n, int tma,
+                       int itemsize) {
   const int align = 16 / itemsize;
-  if (O < 1 || M < 1 || N < 1 || K < 1 || K > 3 || th < 1 || tw < 1
+  if (O < 1 || M < 1 || N < 1 || th < 1 || tw < 1
       || T < 1 || H < reach * T || height != th + 2 * H
       || pitch < tw + 2 * H + align - 1 || (long long)tiles_m * th < M
       || (long long)tiles_n * tw < N || (long long)(tiles_m - 1) * th >= M
       || (long long)(tiles_n - 1) * tw >= N
-      || (long long)height * pitch * (2 + 2 * K) > 0x7fffffffLL
+      || (long long)height * pitch * planes > 0x7fffffffLL
       || (long long)(M + PT_THREADS * PT_CPT + 1) * N > 0x7fffffffLL)
     return false;
   if (tma)
@@ -531,8 +538,17 @@ inline bool pd_tile_ok(long long O, int M, int N, int K, int reach, int th,
            && tw <= PT_BOX_MAX && height <= M && pitch <= N
            && (pitch * itemsize) % 16 == 0
            && (tw * itemsize) % 16 == 0 && ((long long)N * itemsize) % 16 == 0
-           && 2LL * K * O <= 0x7fffffffLL;
+           && (long long)zmax * O <= 0x7fffffffLL;
   return true;
+}
+
+// pt_geom_ok for kernel A's K blocks (u, ū and the 2K duals).
+inline bool pd_tile_ok(long long O, int M, int N, int K, int reach, int th,
+                       int tw, int T, int H, int height, int pitch,
+                       int tiles_m, int tiles_n, int tma, int itemsize) {
+  return K >= 1 && K <= 3
+         && pt_geom_ok(O, M, N, 2 + 2 * K, 2 * K, reach, th, tw, T, H,
+                       height, pitch, tiles_m, tiles_n, tma, itemsize);
 }
 
 }  // namespace bpl

@@ -20,7 +20,10 @@ launches takes.
 Where kernel A's bands do not fit, its tile form (``csrc/pd_tile.cuh``)
 runs: :func:`pd_tile_plan` cuts each image into 2-D tiles, one CTA a tile,
 each holding its owned pixels and a halo of H = reach·T pixels on every side
-in shared memory over the T iterations of a launch.
+in shared memory over the T iterations of a launch.  Where the TGV² CP
+solve's bands do not fit, its tile form (``csrc/tgv_tile.cu``) runs the
+same scheme on the eleven TGV² planes with a halo of T:
+:func:`tgv_tile_plan`.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 __all__ = ["PdPlan", "pd_plan", "tgv_plan", "vtv_plan", "cg_block_slots",
-           "TilePlan", "pd_tile_plan", "stencil_reach", "MAX_CLUSTER",
+           "TilePlan", "pd_tile_plan", "stencil_reach", "tgv_tile_plan",
+           "tgv_tile_geometry", "MAX_CLUSTER",
            "MAX_CLUSTER_NP", "SMS", "SMEM_PER_BLOCK", "TGV_PLANES",
            "TGV_SLOT_ROWS", "CG_BLOCK"]
 
@@ -230,13 +234,12 @@ def _round_up(x: int, a: int) -> int:
     return -(-x // a) * a
 
 
-def tile_geometry(M, N, K, itemsize, reach, T, rows, cols, *,
-                  images=1) -> TilePlan:
-    """The tile plan of T iterations a launch and tiles of at most ``rows``
-    × ``cols`` owned pixels, balanced over the image (every tile of a
-    column of tiles but the last takes ⌈M / tiles_m⌉ rows; the widths
-    likewise, rounded up to 16 bytes)."""
-    H = reach * T
+def _geometry(M, N, planes, itemsize, H, T, rows, cols, images):
+    """The tile plan of T iterations a launch, a halo of H pixels and tiles
+    of at most ``rows`` × ``cols`` owned pixels, balanced over the image
+    (every tile of a column of tiles but the last takes ⌈M / tiles_m⌉
+    rows; the widths likewise, rounded up to 16 bytes), with ``planes``
+    planes in shared memory."""
     a = max(1, 16 // itemsize)            # elements of 16 bytes
     tiles_m = -(-M // max(1, min(rows, M)))
     th = -(-M // tiles_m)
@@ -246,7 +249,6 @@ def tile_geometry(M, N, K, itemsize, reach, T, rows, cols, *,
     height = th + 2 * H
     # the halo region's columns from a column of 16 bytes (a TMA box's)
     pitch = _round_up(tw + 2 * H + a - 1, a)
-    planes = 2 + 2 * K
     smem = TILE_ALIGN + planes * _round_up(height * pitch * itemsize,
                                            TILE_ALIGN)
     tma = (N * itemsize) % 16 == 0 and pitch <= N and height <= M
@@ -254,45 +256,56 @@ def tile_geometry(M, N, K, itemsize, reach, T, rows, cols, *,
                     tiles_n, images * tiles_m * tiles_n, tma)
 
 
-def _tile_cost(p: TilePlan, K, itemsize, reach, n_maps, images):
-    """Modelled card time of one iteration (arbitrary units): waves of
-    TILE_CTAS_PER_SM CTAs an SM, each T iterations of shared-memory work on
-    its shrinking regions plus its loads (u and the duals) and stores (u
-    and the duals of its owned pixels) over device memory and its reads of
-    f and the maps through L2."""
-    waves = -(-images * p.tiles_m * p.tiles_n // (SMS * TILE_CTAS_PER_SM))
+def tile_geometry(M, N, K, itemsize, reach, T, rows, cols, *,
+                  images=1) -> TilePlan:
+    """Kernel A's tile plan of T iterations a launch and tiles of at most
+    ``rows`` × ``cols`` owned pixels (:func:`_geometry`), the halo
+    H = reach·T and the planes u, ū and the 2K duals."""
+    return _geometry(M, N, 2 + 2 * K, itemsize, reach * T, T, rows, cols,
+                     images)
+
+
+def _tile_work(p: TilePlan, reach):
+    """Pixels one tile's T iterations compute: each iteration on the halo
+    region less what the iterations before it spent, ``reach`` pixels a
+    side an iteration, and half a reach more for its own steps."""
     work = 0
     for t in range(p.T):
         edge = reach * (2 * t + 1)
         work += max(p.height - edge, 0) * max(p.cols + 2 * p.H - edge, 0)
-    per_px = TILE_SMEM_BYTES[0] + TILE_SMEM_BYTES[1] * (K - 1)
-    ld = (1 + 2 * K) * p.height * p.pitch
-    st = (1 + 2 * K) * p.rows * p.cols
+    return work
+
+
+def _tile_time(p: TilePlan, work, per_px, state, itemsize, n_maps, images,
+               ctas):
+    """Modelled card time of one iteration (arbitrary units): waves of
+    ``ctas`` CTAs an SM, each T iterations of shared-memory work (``work``
+    pixels of ``per_px`` accesses) plus its loads (``state`` planes of the
+    window) and stores (the same planes of its owned pixels) over device
+    memory and its reads of f and the maps through L2."""
+    waves = -(-images * p.tiles_m * p.tiles_n // (SMS * ctas))
+    ld = state * p.height * p.pitch
+    st = state * p.rows * p.cols
     # f and the maps through L2: one read a pixel and iteration
     l2 = (1 + n_maps) * work / 2
     comp = work * per_px * itemsize / TILE_BW_RATIO
     mem = (ld + st) * itemsize + l2 * itemsize / 4
-    return waves * TILE_CTAS_PER_SM * (comp + mem) / p.T
+    return waves * ctas * (comp + mem) / p.T
 
 
-@functools.lru_cache(maxsize=256)
-def pd_tile_plan(M: int, N: int, K: int, itemsize: int, n_maps: int,
-                 centred: bool, *, images: int = 1) -> TilePlan:
-    """Kernel A's tile plan for ``images`` M × N images of K blocks (``n_maps``
-    of them with (M, N) weight maps; ``centred``: the blocks reach two
-    pixels an iteration, :func:`stencil_reach`), from the shapes alone: the
-    halo H = reach·T, and the T (up to ``TILE_T_MAX``) and tile sides that
-    minimise :func:`_tile_cost` among the tiles whose padded planes fit in
-    ``SMEM_PER_BLOCK / TILE_CTAS_PER_SM`` bytes with sides of at most
-    ``TILE_BOX_MAX``.  The CUDA side checks the plan (the halo against the
-    blocks' reach, the tile against the card's shared memory and
-    occupancy) and the wrapper raises when it cannot run."""
-    if min(M, N, K, itemsize, images) < 1 or n_maps < 0 or n_maps > K:
-        raise ValueError(f"bad shape M={M}, N={N}, K={K}, itemsize="
-                         f"{itemsize}, n_maps={n_maps}, images={images}")
-    reach = 2 if centred else 1
-    budget = SMEM_PER_BLOCK // TILE_CTAS_PER_SM
-    planes = 2 + 2 * K
+def _tile_cost(p: TilePlan, K, itemsize, reach, n_maps, images):
+    """Kernel A's :func:`_tile_time`: TILE_CTAS_PER_SM CTAs an SM, u and
+    the 2K duals loaded and stored, TILE_SMEM_BYTES accesses a pixel."""
+    per_px = TILE_SMEM_BYTES[0] + TILE_SMEM_BYTES[1] * (K - 1)
+    return _tile_time(p, _tile_work(p, reach), per_px, 1 + 2 * K, itemsize,
+                      n_maps, images, TILE_CTAS_PER_SM)
+
+
+def _best_tile(M, N, planes, itemsize, reach, budget, geometry, cost):
+    """The plan of least ``cost`` among ``geometry(T, rows, cols)`` for T
+    up to ``TILE_T_MAX`` (halo reach·T) and the tiles whose padded
+    planes fit in ``budget`` bytes with sides of at most ``TILE_BOX_MAX``;
+    None where none fits."""
     best, best_cost = None, math.inf
     for t in range(1, TILE_T_MAX + 1):
         H = reach * t
@@ -319,14 +332,115 @@ def pd_tile_plan(M: int, N: int, K: int, itemsize: int, n_maps: int,
             for n in range(n0, n0 + 8):
                 if n > M:
                     break
-                p = tile_geometry(M, N, K, itemsize, reach, t, -(-M // n),
-                                  cols, images=images)
+                p = geometry(t, -(-M // n), cols)
                 if p.smem > budget or p.height > TILE_BOX_MAX:
                     continue
-                cost = _tile_cost(p, K, itemsize, reach, n_maps, images)
-                if cost < best_cost:
-                    best, best_cost = p, cost
+                c = cost(p)
+                if c < best_cost:
+                    best, best_cost = p, c
+    return best
+
+
+@functools.lru_cache(maxsize=256)
+def pd_tile_plan(M: int, N: int, K: int, itemsize: int, n_maps: int,
+                 centred: bool, *, images: int = 1) -> TilePlan:
+    """Kernel A's tile plan for ``images`` M × N images of K blocks (``n_maps``
+    of them with (M, N) weight maps; ``centred``: the blocks reach two
+    pixels an iteration, :func:`stencil_reach`), from the shapes alone: the
+    halo H = reach·T, and the T (up to ``TILE_T_MAX``) and tile sides that
+    minimise :func:`_tile_cost` among the tiles whose padded planes fit in
+    ``SMEM_PER_BLOCK / TILE_CTAS_PER_SM`` bytes with sides of at most
+    ``TILE_BOX_MAX``.  The CUDA side checks the plan (the halo against the
+    blocks' reach, the tile against the card's shared memory and
+    occupancy) and the wrapper raises when it cannot run."""
+    if min(M, N, K, itemsize, images) < 1 or n_maps < 0 or n_maps > K:
+        raise ValueError(f"bad shape M={M}, N={N}, K={K}, itemsize="
+                         f"{itemsize}, n_maps={n_maps}, images={images}")
+    reach = 2 if centred else 1
+    budget = SMEM_PER_BLOCK // TILE_CTAS_PER_SM
+    best = _best_tile(
+        M, N, 2 + 2 * K, itemsize, reach, budget,
+        lambda t, rows, cols: tile_geometry(M, N, K, itemsize, reach, t,
+                                            rows, cols, images=images),
+        lambda p: _tile_cost(p, K, itemsize, reach, n_maps, images))
     if best is None:
         raise ValueError(f"no tile fits {budget} bytes at M={M}, N={N}, "
                          f"K={K}, itemsize={itemsize}")
     return best
+
+
+# ------------------------------------------------------- the TGV² tile form
+
+#: the state planes a TGV² tile launch loads and stores: u, w_r, w_c and
+#: the five duals (ū, w̄_r, w̄_c are the shared-memory scratch of the
+#: TGV_PLANES)
+TGV_TILE_STATE = 8
+#: pixels the TGV² iteration's dependence moves on each side: the halo is
+#: TGV_TILE_REACH·T.  Each variable is computed on its own region (u and ū
+#: one pixel further in at the top and left, w and w̄ at the bottom and
+#: right, p and q one pixel in on both), the cone the iteration has, so
+#: H = T is exact; the uniform shrink per half-step, as kernel A's and the
+#: TPU kernel's, needs H = 2T and ran slower on an H100
+#: (scripts/tgv_tile_sizes.py)
+TGV_TILE_REACH = 1
+#: tile CTAs an SM by itemsize: two in float32 (64 registers a thread);
+#: one in float64, whose step takes ~120 registers a thread
+TGV_TILE_CTAS = {4: 2, 8: 1}
+#: shared-memory accesses of a pixel's iteration: the primal step's 15
+#: reads (p twice and q three times across the stencils, u and w) and 6
+#: writes (u, ū, w, w̄), the dual step's 14 reads (ū, w̄ across the
+#: stencils, p, q) and 5 writes; kernel A's TILE_SMEM_BYTES count alike
+#: (14 at K = 1)
+TGV_TILE_SMEM_ACCESSES = 40
+
+
+def tgv_tile_geometry(M, N, itemsize, T, rows, cols, *, images=1,
+                      reach=TGV_TILE_REACH) -> TilePlan:
+    """The TGV² tile plan of T iterations a launch and tiles of at most
+    ``rows`` × ``cols`` owned pixels (:func:`_geometry`): the halo
+    H = reach·T and the TGV_PLANES planes."""
+    return _geometry(M, N, TGV_PLANES, itemsize, reach * T, T, rows, cols,
+                     images)
+
+
+@functools.lru_cache(maxsize=256)
+def tgv_tile_plan(M: int, N: int, itemsize: int, n_maps: int,
+                  images: int = 1) -> TilePlan:
+    """The TGV² CP solve's tile plan (``csrc/tgv_tile.cu``) for ``images``
+    M × N images with ``n_maps`` (M, N) weight maps (0–2), from the shapes
+    alone: the halo H = TGV_TILE_REACH·T, and the T (up to ``TILE_T_MAX``)
+    and tile sides that minimise the modelled time (:func:`_tile_time`:
+    TGV_TILE_CTAS CTAs an SM, the eight state planes loaded and stored,
+    TGV_TILE_SMEM_ACCESSES a pixel) among the tiles whose eleven padded
+    planes fit in ``SMEM_PER_BLOCK / TGV_TILE_CTAS`` bytes with sides of at
+    most ``TILE_BOX_MAX``, on a grid of at most one wave of CTAs that
+    walk the tiles.  :func:`tgv_plan` (the band plan, which the
+    single-loop TGV² learner also reads) decides where it runs.  Raises
+    ``ValueError`` where no tile fits; the CUDA side checks the plan (the
+    halo, the tile against the card's shared memory and occupancy) and the
+    wrapper raises when it cannot run."""
+    if min(M, N, itemsize, images) < 1 or not 0 <= n_maps <= 2 \
+            or itemsize not in TGV_TILE_CTAS:
+        raise ValueError(f"bad shape M={M}, N={N}, itemsize={itemsize}, "
+                         f"n_maps={n_maps}, images={images}")
+    ctas = TGV_TILE_CTAS[itemsize]
+    budget = SMEM_PER_BLOCK // ctas
+    reach = TGV_TILE_REACH
+
+    def cost(p):
+        return _tile_time(p, _tile_work(p, reach), TGV_TILE_SMEM_ACCESSES,
+                          TGV_TILE_STATE, itemsize, n_maps, images, ctas)
+
+    best = _best_tile(
+        M, N, TGV_PLANES, itemsize, reach, budget,
+        lambda t, rows, cols: tgv_tile_geometry(M, N, itemsize, t, rows,
+                                                cols, images=images,
+                                                reach=reach),
+        cost)
+    if best is None:
+        raise ValueError(f"no TGV² tile fits {budget} bytes at M={M}, "
+                         f"N={N}, itemsize={itemsize}")
+    # one wave of CTAs that walk the tiles: 0.4–4.6% faster than one CTA a
+    # tile at 1×1024², 10×256², 4×512² and 1×512² float64 on an H100 over
+    # two runs of scripts/tgv_tile_sizes.py
+    return best._replace(grid=min(best.grid, ctas * SMS))

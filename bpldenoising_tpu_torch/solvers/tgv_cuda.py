@@ -1,5 +1,5 @@
 """The TGV² joint-primal Chambolle–Pock solve as a CUDA kernel
-(``csrc/tgv.cu``), replacing both TPU kernels of
+(``csrc/tgv.cu``, ``csrc/tgv_tile.cu``), replacing both TPU kernels of
 ``bpldenoising_tpu/solvers/tgv_pallas.py`` (``_make_kernel``, VMEM-resident,
 and ``_make_tiled_kernel``, halo'd row tiles for large images).
 
@@ -12,13 +12,24 @@ other device raises.  The early stop is the plain version's: every
 ``check_every`` iterations, stop once the batch-global
 ‖u − u_prev‖ / max(‖u_prev‖, 1) is ≤ ``tol``.
 
-The kernel runs one launch per early-stop chunk (all ``maxiter``
-iterations without ``tol``), one thread-block cluster an image on the
-bands of ``csrc/tgv_cluster.cuh``, when
-:func:`.cluster_plan.tgv_plan` finds that the image's bands fit in shared
-memory; otherwise (1×1024², say) its two-launch form, two launches an
-iteration on state in global memory.  The rule is decided from the shapes
-before any launch; a cluster launch that the card refuses raises.
+The kernel runs in one of two forms, decided from the shapes before any
+launch:
+
+- the cluster form, one launch per early-stop chunk (all ``maxiter``
+  iterations without ``tol``), one thread-block cluster an image on the
+  bands of ``csrc/tgv_cluster.cuh``, where :func:`.cluster_plan.tgv_plan`
+  finds that the image's bands fit in shared memory (float32 up to 224²,
+  float64 up to 128²: every 128² learn);
+- the tile form elsewhere (float32 from 240², float64 from 160²):
+  :func:`.cluster_plan.tgv_tile_plan` cuts each image into 2-D tiles, one
+  CTA a tile holding its state and a halo of T pixels in shared memory,
+  T iterations a launch.  The two-launch form it replaces (two launches an
+  iteration on state in global memory, which still lives in
+  ``csrc/tgv.cu`` and runs for no shape) moves the whole state through
+  device memory every iteration; the tile form moves it once a launch.
+
+Every form gives the same iterates and iteration counts bit for bit.  A
+launch or plan that the card refuses raises.
 """
 
 from __future__ import annotations
@@ -28,22 +39,25 @@ import ctypes
 import torch
 
 from .. import _build
-from .cluster_plan import tgv_plan
+from .cluster_plan import tgv_plan, tgv_tile_plan
 from .pdps_cuda import check_cuda_input, check_plane
 from .tgv import _tgv_impl, cold_state, step_sizes
 
 __all__ = ["tgv_denoise_pdps_cuda", "launches", "cluster_calls",
-           "device_ops"]
+           "tiled_calls", "device_ops"]
 
-#: calls that launched the CUDA kernel (one per solve, either form)
+#: calls that launched the CUDA kernel (one per solve, any form)
 launches = 0
 #: those of them that ran the cluster form (one launch per chunk)
 cluster_calls = 0
+#: those of them that ran the tile form (T iterations a launch)
+tiled_calls = 0
 #: device operations those calls issued (launches and copies, as the C loop
 #: counts them: per early-stop chunk 4 in the cluster form, the launch, the
-#: two passes of the sums and the read; 2 per iteration and 4 per chunk in
-#: the two-launch form, whose chunk starts with a copy; in either form a
-#: last copy when u ends in the second buffer)
+#: two passes of the sums and the read; ⌈chunk / T⌉ launches and 3 in the
+#: tile form; 2 per iteration and 4 per chunk in the two-launch form, whose
+#: chunk starts with a copy; a last copy of u, and in the tile form of w, p
+#: and q, when they end in another buffer)
 device_ops = 0
 _THREADS = 256   # BPL_THREADS in csrc/common.cuh
 
@@ -79,40 +93,59 @@ def _launch(f, a1, a0, state0, *, tau0, sigma0, maxiter, tol, check_every):
         state = tuple(s.contiguous().clone() for s in state0)
     u, w, p, q = state
     plan = tgv_plan(M, N, f.element_size())
+    maps = [a.data_ptr() if a.ndim else None for a in (a1, a0)]
+    # the tile form where the bands do not fit (None: the two-launch form,
+    # which no shape plans)
+    tile = None if plan.resident else tgv_tile_plan(
+        M, N, f.element_size(), sum(m is not None for m in maps), O)
     # the two-launch form's ū and w̄ planes; u's second buffer for the
-    # early stop
-    ubar = None if plan.resident else torch.empty_like(f)
-    wbar = None if plan.resident else torch.empty_like(w)
-    uprev = torch.empty_like(f) if tol is not None else None
+    # early stop (the tile form's second u buffer)
+    two = not plan.resident and tile is None
+    ubar = torch.empty_like(f) if two else None
+    wbar = torch.empty_like(w) if two else None
+    uprev = torch.empty_like(f) if tol is not None or tile is not None \
+        else None
     nblocks = (f.numel() + _THREADS - 1) // _THREADS
     partials = torch.empty((2 * nblocks,), dtype=dtype, device=dev)
     scal = torch.empty((3,), dtype=dtype, device=dev)
     tau, sigma = step_sizes(tau0, sigma0, dtype)
-    maps = [a.data_ptr() if a.ndim else None for a in (a1, a0)]
     scalars = [float(a) if a.ndim == 0 else 0.0 for a in (a1, a0)]
     lib = _build.library()
-    fn = lib.bpl_tgv_solve_f32 if dtype == torch.float32 \
-        else lib.bpl_tgv_solve_f64
+    real = "f32" if dtype == torch.float32 else "f64"
     iters, ops = ctypes.c_int(0), ctypes.c_int(0)
-    global launches, cluster_calls, device_ops
+    global launches, cluster_calls, tiled_calls, device_ops
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         with _build.COUNTS:
             launches += 1
             cluster_calls += int(plan.resident)
-        err = fn(f.data_ptr(), u.data_ptr(), w.data_ptr(), p.data_ptr(),
-                 q.data_ptr(), None if ubar is None else ubar.data_ptr(),
-                 None if wbar is None else wbar.data_ptr(),
-                 None if uprev is None else uprev.data_ptr(),
-                 partials.data_ptr(), scal.data_ptr(), *maps, *scalars, O,
-                 M, N, plan.cluster, plan.rows, int(plan.resident),
-                 float(tau), float(sigma), int(maxiter),
-                 int(tol is not None), 0.0 if tol is None else float(tol),
-                 int(check_every), ctypes.byref(iters), ctypes.byref(ops),
-                 stream)
+            tiled_calls += int(tile is not None)
+        run = (float(tau), float(sigma), int(maxiter), int(tol is not None),
+               0.0 if tol is None else float(tol), int(check_every),
+               ctypes.byref(iters), ctypes.byref(ops), stream)
+        if tile is None:
+            err = getattr(lib, f"bpl_tgv_solve_{real}")(
+                f.data_ptr(), u.data_ptr(), w.data_ptr(), p.data_ptr(),
+                q.data_ptr(), None if ubar is None else ubar.data_ptr(),
+                None if wbar is None else wbar.data_ptr(),
+                None if uprev is None else uprev.data_ptr(),
+                partials.data_ptr(), scal.data_ptr(), *maps, *scalars, O,
+                M, N, plan.cluster, plan.rows, int(plan.resident), *run)
+        else:
+            # the second buffers of the ping-pong: u's third, w's, p's, q's
+            second = [torch.empty_like(x) for x in (u, w, p, q)]
+            geom = (ctypes.c_int * 10)(
+                tile.rows, tile.cols, tile.T, tile.H, tile.height,
+                tile.pitch, tile.tiles_m, tile.tiles_n, tile.grid,
+                int(tile.tma))
+            err = getattr(lib, f"bpl_tgv_tile_{real}")(
+                f.data_ptr(), u.data_ptr(), w.data_ptr(), p.data_ptr(),
+                q.data_ptr(), uprev.data_ptr(),
+                *(x.data_ptr() for x in second), partials.data_ptr(),
+                scal.data_ptr(), *maps, *scalars, O, M, N, geom, *run)
     with _build.COUNTS:
         device_ops += ops.value
-    _build.check(err, f"tgv kernel ({plan})")
+    _build.check(err, f"tgv kernel ({plan if tile is None else tile})")
     return u, w, state, int(iters.value)
 
 

@@ -16,8 +16,9 @@ Phases (one short line each):
    12's and 13's CG launches (``slt_init``, ``slt_apply``, ``sl1_init``,
    ``sl1_apply``, ``slv_init``, ``slv_apply``), of the TGV² CP kernels
    (the cluster form ``tgv_cp``, the two-launch form's ``tgv_primal``,
-   ``tgv_dual``), of the VTV CP kernel's cluster form (``vtv_cp``) and of
-   kernel A's tile form (``pdt_cp``) from the ``-Xptxas -v`` log.
+   ``tgv_dual``), of the VTV CP kernel's cluster form (``vtv_cp``), of
+   kernel A's tile form (``pdt_cp``) and of the TGV² CP kernel's tile form
+   (``tt_cp``) from the ``-Xptxas -v`` log.
 3. kernel A (PDPS inner solve) against its plain PyTorch version on the
    flagship data (10 × 128² float32): a cold 5000-iteration call, a cold
    call with early stop that returns its state, a warm call from that
@@ -50,8 +51,10 @@ Phases (one short line each):
    would issue (2 an iteration, 4 a chunk).
 7. large images: the TGV² kernel at 1 × 1024² (1000 iterations, the shape
    the TPU sends to its row-tiled TGV kernel; its bands do not fit in
-   shared memory, so the plan runs the two-launch form, which the phase
-   requires) and kernel A at 1 × 2048² (1000 iterations, the shape the TPU
+   shared memory, so the plan runs the tile form, ``csrc/tgv_tile.cu``,
+   which the phase requires, and times the two-launch form it replaced,
+   forced, beside it: the same bits) and kernel A at 1 × 2048² (1000
+   iterations, the shape the TPU
    sends to its row-tiled TV kernel; kernel A's tile form, whose plan and
    device operations are printed), each against its plain version, timed.
 8. the TGV learn: ``scalar_bilevel_tgv_learn(dataset_name="faces_train",
@@ -299,10 +302,25 @@ the shards).
     it, each outer step's cost, gradient and radius; its first evaluation
     (cost and hypergradient at α₀) against both kernels' plain versions,
     beside the cost's central difference.
+64. the TGV² CP kernel's tile form (``csrc/tgv_tile.cu``), where the bands
+    do not fit a cluster: 1 × 1024² (1000 iterations), 10 × 256² with
+    bench.py's TGV² early stop (3e-6 every 100) cold and then warm from
+    its state at nudged weights, 4 × 512² with (M, N) maps of both weights
+    (1000 iterations) and 1 × 512² in float64 with the early stop, against
+    the two-launch form (a patched plan) bit for bit (u, w, p, q,
+    iteration counts) and against the plain version at phase 6's
+    tolerances, each call one tile-form call of the device operations its
+    plan gives, timed beside the two-launch form, the plain version and
+    the bound; then ``bilevel_learn_tgv_fused`` at bench.py's TGV²
+    settings, its outer iterations cut to 5, on two 256² pyramids of
+    ``data/generate.py`` with noise 0.1 from a fixed seed: every TGV²
+    solve in the tile form, (α₁, α₀), PSNR and cost the two-launch form's
+    bit for bit, both walls.
 
-It prints one JSON line of per-kernel numbers (nineteen entries: the
-eleven kernels, rows 1–3's K = 3 and map forms, row 5's 1024² call, row
-6's 256² call, row 3's tile form at 1 × 1024²),
+It prints one JSON line of per-kernel numbers (twenty entries: the
+eleven kernels, rows 1–3's K = 3 and map forms, row 5's 1024² call (its
+tile form, the two-launch form's time beside it), row 6's 256² call, row
+3's tile form at 1 × 1024², row 5's tile form at 10 × 256²),
 then, as its last line,
 ``{"ok": true, "device": {...}}``.  Any failure raises (no phase is
 caught) and the script exits non-zero; a deadline turns a hang into a
@@ -1283,43 +1301,128 @@ def phase_tgv_f64(torch, device):
 def phase_large(f, timed):
     """The shapes the TPU sends to its row-tiled kernels: TGV² at 1 × 1024²
     and kernel A at 1 × 2048², 1000 iterations each (bench.py's tiling of
-    the first faces image)."""
+    the first faces image).  TGV² runs its tile form (required: one
+    tile-form call, the launches and copies its plan gives), and the
+    two-launch form it replaced, forced, is timed beside it in the same
+    call and must give its bits."""
     import torch
     from bpldenoising_tpu_torch.models import tv_model
     from bpldenoising_tpu_torch.solvers import tgv_cuda
+    from bpldenoising_tpu_torch.solvers.cluster_plan import tgv_tile_plan
     from bpldenoising_tpu_torch.solvers.tgv import _tgv_impl
 
     out = {}
     img = f[:1].repeat(1, 8, 8).contiguous()
     kw = dict(maxiter=1000, tol=None, check_every=100)
-    launches0 = tgv_cuda.launches
+    plan = tgv_tile_plan(1024, 1024, img.element_size(), 0, 1)
+    first = tgv_counts()
     tgv_cuda.tgv_denoise_pdps_cuda(img, 0.1, 0.2, maxiter=5)
-    ops0 = tgv_cuda.device_ops
+    c0 = tgv_counts()
     k_out, k_ms = timed(lambda: tgv_cuda.tgv_denoise_pdps_cuda(
         img, 0.1, 0.2, return_state=True, **kw))
-    ops = tgv_cuda.device_ops - ops0
-    launches = tgv_cuda.launches - launches0
+    c1 = tgv_counts()
+    restore = tgv_forced_two_launch()
+    try:
+        tgv_cuda.tgv_denoise_pdps_cuda(img, 0.1, 0.2, maxiter=5)
+        g0 = tgv_counts()
+        g_out, g_ms = timed(lambda: tgv_cuda.tgv_denoise_pdps_cuda(
+            img, 0.1, 0.2, return_state=True, **kw))
+        g1 = tgv_counts()
+    finally:
+        restore()
     p_out, p_ms = timed(lambda: _tgv_impl(img, 0.1, 0.2, None, tau0=0.99,
                                           sigma0=0.99, return_state=True,
                                           **kw))
     errs = tgv_errors(k_out, p_out)
+    same = tgv_same(k_out, g_out)
+    ops = c1[3] - c0[3]
+    want = tgv_tile_ops(plan.T, 1000, 1000, None, 100)
     say("  TGV 1x1024x1024, 1000 it: max|du| {:.2e}, |dw| {:.2e}, |dp| "
         "{:.2e}, |dq| {:.2e}; ".format(*errs)
-        + f"kernel {k_ms:.2f} ms, plain {p_ms:.2f} ms")
+        + f"tile form {k_ms:.2f} ms (tile {plan.rows}x{plan.cols}, T "
+        f"{plan.T}, grid {plan.grid}; {ops} device operations), two-launch "
+        f"{g_ms:.2f} ms ({g1[3] - g0[3]} device operations; bits of the "
+        f"tile form: {same}), plain {p_ms:.2f} ms")
     require(errs[0] <= TOL_TGV_U_F32 and max(errs[1:]) <= TOL_TGV_DUAL_F32,
             f"TGV 1024^2 kernel disagrees with plain: {errs}")
-    require(launches > 0, "TGV 1024^2: the kernel was not launched")
+    require(c1[0] - c0[0] == 1 and c1[2] - c0[2] == 1 and ops == want,
+            f"TGV 1024^2: not one tile-form call of {want} device "
+            f"operations: {c0} -> {c1}")
+    require(g1[2] == g0[2] and g1[3] - g0[3] == 2000,
+            f"TGV 1024^2: the forced two-launch form counted {g0} -> {g1}")
+    require(same, "TGV 1024^2: the tile form differs from the two-launch "
+            "form")
     nbytes = 9 * img.numel() * img.element_size()   # f in; 8 planes out
     bound, by = bound_ms(nbytes, TGV_OPS_PER_PIXEL_ITER * img.numel() * 1000)
     out["tgv_1024"] = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=max(errs),
-                           bound_ms=bound, bound_by=by, launches=launches,
-                           device_ops=ops)
+                           bound_ms=bound, bound_by=by,
+                           launches=c1[0] - first[0], device_ops=ops,
+                           two_launch_ms=g_ms,
+                           two_launch_device_ops=g1[3] - g0[3],
+                           plan=plan._asdict())
 
     img = f[:1].repeat(1, 16, 16).contiguous()
     out["pdps_2048"] = large_a(img, timed, tv_model(),
                                (torch.tensor(0.1, dtype=img.dtype),),
                                "A 1x2048x2048")
     return out
+
+
+def tgv_counts():
+    """The TGV² kernel's calls, cluster-form calls, tile-form calls and
+    device operations so far."""
+    from bpldenoising_tpu_torch.solvers import tgv_cuda
+    return (tgv_cuda.launches, tgv_cuda.cluster_calls, tgv_cuda.tiled_calls,
+            tgv_cuda.device_ops)
+
+
+def tgv_forced_two_launch():
+    """Make the TGV² kernel plan its two-launch form where the bands do
+    not fit (no tile plan) → restore."""
+    from bpldenoising_tpu_torch.solvers import tgv_cuda
+    real = tgv_cuda.tgv_tile_plan
+    tgv_cuda.tgv_tile_plan = lambda *a, **k: None
+
+    def restore():
+        tgv_cuda.tgv_tile_plan = real
+    return restore
+
+
+def tgv_same(k_out, g_out):
+    """Two TGV² results ``(u, w, state, iters)`` the same bit for bit."""
+    import torch
+    return k_out[3] == g_out[3] and all(
+        torch.equal(x, y) for x, y in zip(k_out[2], g_out[2]))
+
+
+def tgv_tile_ops(T, iters, maxiter, tol, check):
+    """The device operations of a TGV² tile-form call (csrc/tgv_tile.cu's
+    tt_run): ⌈chunk / T⌉ launches a chunk, u among three buffers and w, p,
+    q between two; per check the two passes of the sums and the read; a
+    last copy of u and three of w, p, q where they end in another
+    buffer."""
+    cu = cy = ops = 0
+
+    def advance(n, snap):
+        nonlocal cu, cy, ops
+        for _ in range(-(-n // T)):
+            to = (cu + 1) % 3
+            if to == snap or (snap < 0 and to == 2):
+                to = (to + 1) % 3
+            if to == cu:
+                to = (cu + 2) % 3
+            cu, cy, ops = to, 1 - cy, ops + 1
+
+    if tol is None:
+        advance(maxiter, -1)
+    else:
+        it = 0
+        while it < iters:
+            chunk = min(check, maxiter - it)
+            advance(chunk, cu)
+            ops += 3
+            it += chunk
+    return ops + (cu != 0) + 3 * (cy != 0)
 
 
 def large_a(img, timed, model, a, label, iters=1000):
@@ -1574,16 +1677,18 @@ def watch_calls(mod, iters_at):
     """Record every call of the CP kernel wrapper ``mod`` (``tvl1_cuda``,
     ``tgv_cuda``, ``vtv_cuda``) inside the ``with`` block: → the list of
     calls, each its iterations (item ``iters_at`` of ``mod._launch``'s
-    result), device operations, whether it ran the cluster form, its tol
-    and check_every."""
+    result), device operations, whether it ran the cluster form or the
+    tile form, its tol and check_every."""
     calls = []
     real = mod._launch
 
     def watched(*args, **kw):
         ops, cl = mod.device_ops, mod.cluster_calls
+        tiled = getattr(mod, "tiled_calls", 0)
         out = real(*args, **kw)
         calls.append(dict(iters=out[iters_at], ops=mod.device_ops - ops,
                           cluster=mod.cluster_calls - cl,
+                          tiled=getattr(mod, "tiled_calls", 0) - tiled,
                           tol=kw["tol"], check_every=kw["check_every"]))
         return out
 
@@ -1610,23 +1715,28 @@ def watch_vtv():
 
 
 def cp_forms(calls, label, kernel="TV-L1", cluster=True, chunk_ops=4,
-             table=0):
+             table=0, tiled=False):
     """Print and require the CP kernel calls of ``watch_calls``: each in
     the cluster form, with ``table`` device operations (the VTV kernel's
     copy of its step table: 1) and 1 more without tol, at most
     ``chunk_ops`` a chunk and one copy with it (``cluster`` False: each in
     the two-launch form, 2 an iteration, ``chunk_ops`` a chunk and one
-    copy); beside them what the two-launch form would issue (2 an
-    iteration, ``chunk_ops`` a chunk).  → the totals."""
+    copy; with ``tiled`` each in the TGV² tile form, at most one launch an
+    iteration, 3 a chunk and four copies); beside them what the
+    two-launch form would issue (2 an iteration, ``chunk_ops`` a chunk).
+    → the totals."""
     chunks = [-(-c["iters"] // c["check_every"]) if c["tol"] is not None
               else 0 for c in calls]
     out = dict(calls=len(calls), cluster=sum(c["cluster"] for c in calls),
+               tiled=sum(c["tiled"] for c in calls),
                iterations=sum(c["iters"] for c in calls), chunks=sum(chunks),
                device_ops=sum(c["ops"] for c in calls),
                two_launch_rule=sum(2 * c["iters"] + chunk_ops * n
                                    for c, n in zip(calls, chunks)))
     say(f"  {label}: {kernel} kernel {out['calls']} calls, {out['cluster']} "
-        f"in the cluster form, {out['iterations']} iterations in "
+        f"in the cluster form, "
+        + (f"{out['tiled']} in the tile form, " if out["tiled"] else "")
+        + f"{out['iterations']} iterations in "
         f"{out['chunks']} early-stop chunks, {out['device_ops']} device "
         f"operations (two-launch form, 2 an iteration and {chunk_ops} a "
         f"chunk: {out['two_launch_rule']})")
@@ -1634,12 +1744,15 @@ def cp_forms(calls, label, kernel="TV-L1", cluster=True, chunk_ops=4,
         bad = [c for c, n in zip(calls, chunks) if not c["cluster"]
                or c["ops"] > table + (chunk_ops * n + 1
                                       if c["tol"] is not None else 1)]
-    else:
+    elif tiled:
         bad = [c for c, n in zip(calls, chunks) if c["cluster"]
+               or not c["tiled"] or c["ops"] > c["iters"] + 4 * n + 4]
+    else:
+        bad = [c for c, n in zip(calls, chunks) if c["cluster"] or c["tiled"]
                or c["ops"] > 2 * c["iters"] + chunk_ops * n + 1]
+    form = "cluster" if cluster else "tile" if tiled else "two-launch"
     require(calls and not bad, f"{label}: {kernel} kernel calls off the "
-            f"{'cluster' if cluster else 'two-launch'} form's count: "
-            f"{bad or 'no call'}")
+            f"{form} form's count: {bad or 'no call'}")
     return out
 
 
@@ -5885,6 +5998,228 @@ def phase_tile_learn(timed):
                                 device_ops=g_counts[2]))
 
 
+# phase 64: the TGV² CP solve's tile form (csrc/tgv_tile.cu: 2-D tiles,
+# one CTA a tile, T iterations a launch, a halo of T) where the bands do
+# not fit a cluster: TGV_TILE_SHAPES against the two-launch form it
+# replaced (the plan patched) and the plain version, then a TGV² learn on
+# two 256² pyramids in it
+
+TGV_TILE_SHAPES = (
+    # label, first images of faces_train, tiled r x r, weights (scalar:
+    # TGV_ALPHA, maps: random maps of both), budget, early-stop tolerance
+    # (bench.py's TGV² 3e-6 every 100), dtype, then warm from the state
+    ("1x1024x1024", 1, 8, "scalar", 1000, None, "float32", False),
+    ("10x256x256", 10, 2, "scalar", 5000, 3e-6, "float32", True),
+    ("4x512x512 maps", 4, 4, "maps", 1000, None, "float32", False),
+    ("1x512x512", 1, 4, "scalar", 5000, 3e-6, "float64", False),
+)
+TGV_TILE_CHECK_EVERY = 100
+TGV_TILE_LEARN_SIZE = 256
+TGV_TILE_LEARN_NOISE = 0.1
+TGV_TILE_LEARN_SEED = 64
+# the learn's outer iterations: bench.py's TGV² learn runs 20 (a ~1 s
+# evaluation at two 256² images, nearly all of it the plain adjoint CG);
+# cut to 5 so that the phase, which runs the learn twice, stays under a
+# minute
+TGV_TILE_LEARN_MAXITER = 5
+
+
+def tgv_tile_case(f, n_img, rep, weights, dtype):
+    """The stack and the weights (α₁, α₀) of one of TGV_TILE_SHAPES."""
+    import torch
+
+    img = f[:n_img].repeat(1, rep, rep).to(getattr(torch, dtype))
+    img = img.contiguous()
+    if weights == "maps":
+        a = (random_map(img, 1, 0.05, 0.12), random_map(img, 2, 0.03, 0.06))
+    else:
+        a = tuple(torch.tensor(v, dtype=img.dtype) for v in TGV_ALPHA)
+    return img, a
+
+
+def phase_tgv_tile_shapes(f, timed):
+    """Each TGV_TILE_SHAPES case (and 10×256² warm from its early-stopped
+    state at the nudged weights 1.05 α₁, 0.95 α₀): the tile form against
+    the two-launch form bit for bit (u, w, p, q, iteration counts) and
+    against the plain version (float32 at phase 6's TGV tolerances with
+    counts within one check, float64 at TOL_F64_REL with equal counts);
+    each call one tile-form call of the device operations its plan gives,
+    timed beside the two-launch form, the plain version and the bound (f
+    and the maps in, the state out, and in when warm)."""
+    import torch
+    from bpldenoising_tpu_torch.solvers import tgv_cuda
+    from bpldenoising_tpu_torch.solvers.cluster_plan import (tgv_plan,
+                                                             tgv_tile_plan)
+    from bpldenoising_tpu_torch.solvers.tgv import _tgv_impl
+
+    out = {}
+    for label, n_img, rep, weights, budget, tol, dtype, warm in \
+            TGV_TILE_SHAPES:
+        img, a = tgv_tile_case(f, n_img, rep, weights, dtype)
+        O, M, N = img.shape
+        itemsize = img.element_size()
+        n_maps = sum(x.ndim > 0 for x in a)
+        require(not tgv_plan(M, N, itemsize).resident,
+                f"{label}: the bands fit a cluster")
+        plan = tgv_tile_plan(M, N, itemsize, n_maps, O)
+        kw = dict(maxiter=budget, tol=tol, check_every=TGV_TILE_CHECK_EVERY,
+                  return_state=True)
+        modes = [("cold", a, None)]
+        if warm:
+            modes.append(("warm", (1.05 * a[0], 0.95 * a[1]), "state"))
+        rows, state = {}, None
+        for mode, w, st0 in modes:
+            st = state if st0 else None
+
+            def call(w=w, st=st, **over):
+                return tgv_cuda.tgv_denoise_pdps_cuda(
+                    img, *w, state0=st, **dict(kw, **over))
+
+            call(maxiter=20)
+            c0 = tgv_counts()
+            k, k_ms = timed(call)
+            c1 = tgv_counts()
+            restore = tgv_forced_two_launch()
+            try:
+                call(maxiter=20)
+                g0 = tgv_counts()
+                g, g_ms = timed(call)
+                g1 = tgv_counts()
+            finally:
+                restore()
+            p, p_ms = timed(lambda: _tgv_impl(
+                img, *w, st, tau0=0.99, sigma0=0.99, **kw))
+            same = tgv_same(k, g)
+            if dtype == "float64":
+                err = max(rel_err(x, y) for x, y in zip(k[2], p[2]))
+                ok = err <= TOL_F64_REL and k[3] == p[3]
+            else:
+                errs = tgv_errors(k, p)
+                err = max(errs)
+                ok = errs[0] <= TOL_TGV_U_F32 \
+                    and max(errs[1:]) <= TOL_TGV_DUAL_F32 \
+                    and abs(k[3] - p[3]) <= TGV_TILE_CHECK_EVERY
+            ops = c1[3] - c0[3]
+            want = tgv_tile_ops(plan.T, k[3], budget, tol,
+                                TGV_TILE_CHECK_EVERY)
+            say(f"  {label} {dtype} {mode}: {k[3]} its (two-launch {g[3]}, "
+                f"plain {p[3]}); tile form {k_ms:.2f} ms, two-launch "
+                f"{g_ms:.2f} ms ({g_ms / k_ms:.2f}x), plain {p_ms:.1f} ms; "
+                f"bits of the two-launch form: {same}; max err vs plain "
+                f"{err:.2e}; device operations {ops} (two-launch "
+                f"{g1[3] - g0[3]})")
+            require(same, f"{label} {mode}: the tile form differs from the "
+                    "two-launch form")
+            require(ok, f"{label} {mode}: the tile form disagrees with "
+                    f"plain: {err}, iterations {k[3]} vs {p[3]}")
+            require(c1[0] - c0[0] == 1 and c1[2] - c0[2] == 1 and ops == want
+                    and g1[2] == g0[2] and g1[1] == g0[1],
+                    f"{label} {mode}: the TGV² forms counted {c0} -> {c1} "
+                    f"(want {want} device operations), two-launch {g0} -> "
+                    f"{g1}")
+            n = img.numel()
+            planes = 1 + 8 + (8 if st is not None else 0)
+            bound, by = bound_ms(
+                (planes * n + n_maps * M * N) * itemsize,
+                TGV_OPS_PER_PIXEL_ITER * n * k[3],
+                F32_OPS_PER_S if dtype == "float32" else F64_OPS_PER_S)
+            rows[mode] = dict(iters=k[3], ms=k_ms, two_launch_ms=g_ms,
+                              plain_ms=p_ms, max_err=err, device_ops=ops,
+                              two_launch_device_ops=g1[3] - g0[3],
+                              bound_ms=bound, bound_by=by)
+            say(f"  {label} {dtype} {mode}: bound {bound:.3f} ms ({by})")
+            state = k[2]
+        say(f"  {label} {dtype}: tile {plan.rows}x{plan.cols}, T {plan.T}, "
+            f"H {plan.H}, {plan.tiles_m}x{plan.tiles_n} tiles an image, "
+            f"grid {plan.grid}, {plan.smem} B a CTA, TMA {plan.tma}")
+        out[label] = dict(rows, plan=plan._asdict(), dtype=dtype)
+    return out
+
+
+def tgv_tile_learn_data():
+    """Two TGV_TILE_LEARN_SIZE² pyramids (data/generate.py's
+    affine_phantom), each under its own Gaussian noise of sigma
+    TGV_TILE_LEARN_NOISE from TGV_TILE_LEARN_SEED (float64, numpy)."""
+    import numpy as np
+    from bpldenoising_tpu_torch.data.generate import (add_noise,
+                                                      affine_phantom)
+
+    true = np.stack([affine_phantom(TGV_TILE_LEARN_SIZE, "pyramid")] * 2)
+    rng = np.random.default_rng(TGV_TILE_LEARN_SEED)
+    return true, np.stack([add_noise(t, TGV_TILE_LEARN_NOISE, rng)
+                           for t in true])
+
+
+def phase_tgv_tile_learn(timed):
+    """bilevel_learn_tgv_fused at bench.py's TGV² settings (x0 (0.05,
+    0.05), δ₀ 0.02, inner 5000 its with the early stop 3e-6 every 100)
+    and TGV_TILE_LEARN_MAXITER outer iterations on tgv_tile_learn_data()
+    in float32: every TGV² solve in the tile form (the watched calls, the
+    counters); then the same learn with the two-launch form forced, which
+    must give (α₁, α₀), the mean PSNR and the cost bit for bit.  Both
+    walls (CUDA events)."""
+    import numpy as np
+    import torch
+    from bpldenoising_tpu_torch.bilevel.fused_tgv import \
+        bilevel_learn_tgv_fused
+    from bpldenoising_tpu_torch.experiments import api
+    from bpldenoising_tpu_torch.metrics import psnr
+
+    true_np, noisy_np = tgv_tile_learn_data()
+    utrue = torch.as_tensor(true_np, dtype=torch.float32).cuda()
+    f = torch.as_tensor(noisy_np, dtype=torch.float32).cuda()
+    params = api.bilevel_params | dict(maxiter=TGV_TILE_LEARN_MAXITER,
+                                       tol=1e-5, delta0=0.02)
+    kw = dict(xinit=np.array([0.05, 0.05]), params=params,
+              inner_maxiter=5000, inner_tol=3e-6, check_every=100,
+              device="cuda")
+
+    def run():
+        res, wall = timed(lambda: bilevel_learn_tgv_fused((utrue, f), **kw))
+        return (res, wall, [float(v) for v in res.x],
+                float(torch.mean(psnr(utrue, res.u))), float(res.cost))
+
+    c0 = tgv_counts()
+    with watch_tgv() as calls:
+        res, wall, alpha, mean_psnr, cost = run()
+    c1 = tgv_counts()
+    forms = cp_forms(calls, "phase 64 learn", "TGV²", cluster=False,
+                     tiled=True)
+    restore = tgv_forced_two_launch()
+    try:
+        g0 = tgv_counts()
+        _, g_wall, g_alpha, g_psnr, g_cost = run()
+        g1 = tgv_counts()
+    finally:
+        restore()
+    say(f"  2x{TGV_TILE_LEARN_SIZE}x{TGV_TILE_LEARN_SIZE} float32: alpha "
+        f"{alpha[0]!r}, {alpha[1]!r}, PSNR {mean_psnr!r} dB, cost {cost!r}, "
+        f"{res.iterations} outer its; wall {wall:.1f} ms; TGV² {c1[0] - c0[0]}"
+        f" calls, {c1[2] - c0[2]} in the tile form, {c1[3] - c0[3]} device "
+        "operations")
+    say(f"  the same learn in the two-launch form: alpha {g_alpha[0]!r}, "
+        f"{g_alpha[1]!r}, PSNR {g_psnr!r} dB, cost {g_cost!r}; wall "
+        f"{g_wall:.1f} ms; TGV² {g1[0] - g0[0]} calls, {g1[3] - g0[3]} "
+        "device operations")
+    require(c1[0] - c0[0] == c1[2] - c0[2] == len(calls) > 0
+            and c1[1] == c0[1], f"the TGV² learn's solves: {c0} -> {c1}, "
+            f"want every one in the tile form")
+    require(g1[2] == g0[2] and g1[0] - g0[0] == c1[0] - c0[0],
+            f"the two-launch learn's solves: {g0} -> {g1}")
+    require(tuple(res.u.shape) == tuple(utrue.shape)
+            and bool(torch.isfinite(res.u).all()), "tile learn u")
+    require((alpha, mean_psnr, cost) == (g_alpha, g_psnr, g_cost),
+            "the tile-form learn differs from the two-launch form's: "
+            f"{(alpha, mean_psnr, cost)} vs {(g_alpha, g_psnr, g_cost)}")
+    return dict(alpha=alpha, mean_psnr_db=mean_psnr, cost=cost,
+                outer_iterations=res.iterations, wall_ms=wall,
+                launches=c1[0] - c0[0], tiled_calls=c1[2] - c0[2],
+                device_ops=c1[3] - c0[3], kernel_calls=forms,
+                two_launch=dict(alpha=g_alpha, mean_psnr_db=g_psnr,
+                                cost=g_cost, wall_ms=g_wall,
+                                device_ops=g1[3] - g0[3]))
+
+
 def flagship_kwargs():
     from bpldenoising_tpu_torch.solvers.hypergrad import HypergradConfig
     return dict(dataset_name="faces_train", num_samples=10,
@@ -5936,7 +6271,8 @@ def main():
                            ("single_loop_vtv.cu", "slv_apply"),
                            ("tgv.cu", "tgv_cp"), ("tgv.cu", "tgv_primal"),
                            ("tgv.cu", "tgv_dual"), ("vtv.cu", "vtv_cp"),
-                           ("pd_tile.cu", "pdt_cp")):
+                           ("pd_tile.cu", "pdt_cp"),
+                           ("tgv_tile.cu", "tt_cp")):
         for line in ptxas_report(info.path.with_suffix(".log"), source,
                                  needle):
             say(f"  {line}")
@@ -6006,8 +6342,9 @@ def main():
     say("phase 7 large images vs plain, float32")
     with watch_tgv() as calls:
         large = phase_large(f, timed)
-    large["tgv_1024"]["kernel_calls"] = cp_forms(calls, "phase 7", "TGV²",
-                                                 cluster=False)
+    large["tgv_1024"]["kernel_calls"] = cp_forms(
+        [c for c in calls if c["tiled"]], "phase 7", "TGV²", cluster=False,
+        tiled=True)
 
     say("phase 8 TGV learn scalar_bilevel_tgv_learn(method='tr_fused')")
     tgv_learn = phase_tgv_learn(utrue, timed)
@@ -6246,6 +6583,14 @@ def main():
         tile = dict(shapes=phase_tile_shapes(f, timed))
         tile["learn"] = phase_tile_learn(timed)
         say(f"  phase 63: {time.perf_counter() - t_phase:.1f} s; {smi}")
+        t_phase = time.perf_counter()
+        say("phase 64 the TGV² tile form where the bands do not fit: "
+            "against the two-launch form and plain at 1x1024^2, 10x256^2 "
+            "cold and warm, 4x512^2 with maps and 1x512^2 float64; then "
+            "bilevel_learn_tgv_fused on 2x256x256 pyramids")
+        tgv_tile = dict(shapes=phase_tgv_tile_shapes(f, timed))
+        tgv_tile["learn"] = phase_tgv_tile_learn(timed)
+        say(f"  phase 64: {time.perf_counter() - t_phase:.1f} s; {smi}")
 
     itemsize = 4
     a_bytes = 4 * n * itemsize                  # f in; u, y out
@@ -6311,7 +6656,7 @@ def main():
              library_ms=None, form="cluster",
              device_ops=tgv_learn["kernel_calls"]["device_ops"]),
         dict(name="tgv_cp_1024", route="cuda",
-             source="bpldenoising_tpu_torch/csrc/tgv.cu",
+             source="bpldenoising_tpu_torch/csrc/tgv_tile.cu",
              replaces="bpldenoising_tpu/solvers/tgv_pallas.py:217",
              launches=large["tgv_1024"]["launches"],
              max_abs_err=large["tgv_1024"]["max_abs_err"],
@@ -6319,7 +6664,8 @@ def main():
              plain_ms=large["tgv_1024"]["plain_ms"],
              bound_ms=large["tgv_1024"]["bound_ms"],
              bound_by=large["tgv_1024"]["bound_by"], library_ms=None,
-             form="two-launch", device_ops=large["tgv_1024"]["device_ops"]),
+             form="tile", two_launch_ms=large["tgv_1024"]["two_launch_ms"],
+             device_ops=large["tgv_1024"]["device_ops"]),
         dict(name="tvl1_huber_cp", route="cuda",
              source="bpldenoising_tpu_torch/csrc/tvl1.cu",
              replaces="bpldenoising_tpu/solvers/tvl1_huber_pallas.py:72",
@@ -6439,6 +6785,19 @@ def main():
         library_ms=None, form="tile",
         two_launch_ms=t1024["two_launch_ms"],
         device_ops=tile["learn"]["device_ops"]))
+    t256 = tgv_tile["shapes"]["10x256x256"]["cold"]
+    kernels.append(dict(
+        name="tgv_tile_256", route="cuda",
+        source="bpldenoising_tpu_torch/csrc/tgv_tile.cu",
+        replaces="bpldenoising_tpu/solvers/tgv_pallas.py:217",
+        launches=tgv_tile["learn"]["tiled_calls"],
+        max_abs_err=max(r[m]["max_err"] for r in tgv_tile["shapes"].values()
+                        if r["dtype"] == "float32"
+                        for m in ("cold", "warm") if m in r),
+        ms=t256["ms"], plain_ms=t256["plain_ms"], bound_ms=t256["bound_ms"],
+        bound_by=t256["bound_by"], library_ms=None, form="tile",
+        two_launch_ms=t256["two_launch_ms"],
+        device_ops=tgv_tile["learn"]["device_ops"]))
     say(f"  total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels, "flagship": dict(
         alpha=alpha, alpha_abs_err=d_alpha, mean_psnr_db=mean_psnr,
@@ -6455,7 +6814,8 @@ def main():
         "forms_b": forms_b, "forms_f64_max_rel_err": forms_f64,
         "tv_family_learns": tvf, "tr_learns": tr, "reporting": reporting,
         "segmented_resume_trace_layers": later, "parallel": parallel,
-        "remainders": remainders, "tile_form": tile, "device": smi}))
+        "remainders": remainders, "tile_form": tile,
+        "tgv_tile_form": tgv_tile, "device": smi}))
     faulthandler.cancel_dump_traceback_later()
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

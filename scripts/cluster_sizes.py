@@ -229,11 +229,13 @@ def cp_sizes(family, torch, cs, timed):
     for n in (4, 8, 12, 16):
         plans[f"cl{n}"] = forced(real, shape, slots, n)
     out = dict(order=order, repeats=REPEATS)
-    # kernel A's forms: resident False is its two-launch form here, not the
-    # tile form that runs where its bands do not fit
-    tile_plan = getattr(mod, "pd_tile_plan", None)
+    # kernel A's and TGV²'s forms: resident False is the two-launch form
+    # here, not the tile form that runs where the bands do not fit
+    tile_attr = next((n for n in ("pd_tile_plan", "tgv_tile_plan")
+                      if hasattr(mod, n)), None)
+    tile_plan = getattr(mod, tile_attr) if tile_attr else None
     if tile_plan is not None:
-        mod.pd_tile_plan = lambda *a, **k: None
+        setattr(mod, tile_attr, lambda *a, **k: None)
     try:
         for call in calls:
             label, solve = call[:2]
@@ -268,7 +270,7 @@ def cp_sizes(family, torch, cs, timed):
     finally:
         setattr(mod, attr, real)
         if tile_plan is not None:
-            mod.pd_tile_plan = tile_plan
+            setattr(mod, tile_attr, tile_plan)
     return out
 
 

@@ -133,17 +133,17 @@ INS = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
 PT_THREADS, PT_CPT = 512, 4
 
 
-def pass_bodies(text):
-    """{pdt_cp instance: {"primal": [body lengths], "dual": [...]}}: the
-    innermost loops of each instance (a backward branch and its target)
-    that divide (one MUFU.RCP a slot, or more: primal) or project
-    (MUFU.RSQ: dual), shortest first (the unmasked body, then the
-    masked)."""
+def pass_bodies(text, kernel="pdt_cp", cpt=PT_CPT):
+    """{``kernel`` instance: {"primal": [body lengths], "dual": [...]}}:
+    the innermost loops of each instance (a backward branch and its
+    target) that divide (one MUFU.RCP a slot of ``cpt``, or more: primal)
+    or project (MUFU.RSQ: dual), shortest first (the unmasked body, then
+    the masked)."""
     ins, name = {}, None
     for line in text.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
-            name = m.group(1) if "pdt_cp" in m.group(1) else None
+            name = m.group(1) if kernel in m.group(1) else None
             if name:
                 ins[name] = []
             continue
@@ -166,18 +166,18 @@ def pass_bodies(text):
             rcp = sum(op.startswith("MUFU.RCP") for op in body)
             rsq = sum(op.startswith("MUFU.RSQ") for op in body)
             lds = sum(op.startswith("LDS") for op in body)
-            if rsq >= PT_CPT:
+            if rsq >= cpt:
                 kinds["dual"].append(len(body))
-            elif rcp >= PT_CPT and lds:
+            elif rcp >= cpt and lds:
                 kinds["primal"].append(len(body))
         out[name] = {k: sorted(v) for k, v in kinds.items()}
     return out
 
 
-def region_passes(n):
+def region_passes(n, cpt=PT_CPT):
     """Warp passes of pt_region over n pixels: warp w runs
-    ⌈(n − 32w) / (PT_CPT·PT_THREADS)⌉ passes where n > 32w."""
-    step = PT_CPT * PT_THREADS
+    ⌈(n − 32w) / (cpt·PT_THREADS)⌉ passes where n > 32w."""
+    step = cpt * PT_THREADS
     return sum(-(-(n - 32 * w) // step) for w in range(PT_THREADS // 32)
                if n > 32 * w)
 

@@ -23,6 +23,8 @@ SOURCES = (sorted(PORT.rglob("*.py"))
               ROOT / "scripts" / "mesh_cards.py",
               ROOT / "scripts" / "tile_sizes.py",
               ROOT / "scripts" / "tile_trace.py",
+              ROOT / "scripts" / "tgv_tile_sizes.py",
+              ROOT / "scripts" / "smoke_digits.py",
               ROOT / "scripts" / "trial_costs.py"])
 FORBIDDEN = ("jax", "jaxlib", "bpldenoising_tpu")
 
@@ -109,6 +111,7 @@ SLICE_MODULES = ("ops/tgv.py", "ops/patch.py", "solvers/tgv.py",
 # installed (python -m pytest --noconftest FILE -m cuda)
 CARD_TESTS = ("test_torch_pdps_cluster.py", "test_torch_pdps_tile_card.py",
               "test_torch_hypergrad_coop.py", "test_torch_tgv_cluster.py",
+              "test_torch_tgv_tile_card.py",
               "test_torch_tvl1_cluster.py", "test_torch_vtv_cluster.py",
               "test_torch_first_order_tgv_cluster.py",
               "test_torch_first_order_tvl1_cluster.py",

@@ -5,7 +5,7 @@ early-stop chunk, a thread-block cluster an image, the bands of
 - On the CPU: the plan (``solvers/cluster_plan.py::tgv_plan``, which the
   single-loop TGV² learner also takes) for the TGV² shapes: the learns'
   10×128² in float32 and float64, 1×1024² (the bands do not fit in shared
-  memory: the two-launch form runs there), 2×32², uneven bands; the CP
+  memory: the tile form runs there), 2×32², uneven bands; the CP
   wrapper and the learner plan by the one rule; CPU calls count no
   launch, no cluster call and no device operation; bad weights, devices
   and CPU tensors handed to the launch raise.
@@ -56,7 +56,7 @@ def test_tgv_plan(M, N, itemsize, cluster, rows, resident):
     """The TGV² CP kernel's plan from the shapes: the largest power of two
     up to 16 CTAs that leaves every CTA but the last two rows, and the
     band of the eleven planes on rows + 4 rows and 40 halo-slot rows in
-    shared memory where it fits in 227 KB (else the two-launch form)."""
+    shared memory where it fits in 227 KB (else the tile form)."""
     plan = cluster_plan.tgv_plan(M, N, itemsize)
     assert (plan.cluster, plan.rows, plan.resident) == (cluster, rows,
                                                         resident)
@@ -200,8 +200,10 @@ def _plain(f, a, state, device, **kw):
 
 def _plan_with(monkeypatch, **change):
     """Make the CP wrapper plan ``change`` (resident=False: the two-launch
-    form; cluster=n: n CTAs an image) whatever the shapes."""
+    form, no tile plan; cluster=n: n CTAs an image) whatever the shapes."""
     real = cluster_plan.tgv_plan
+    if change.get("resident", True) is False:
+        monkeypatch.setattr(tgv_cuda, "tgv_tile_plan", lambda *a, **k: None)
 
     def plan(M, N, itemsize):
         p = real(M, N, itemsize)
@@ -321,15 +323,23 @@ def test_constant_map_gives_the_scalar_bits(cuda_device, dtype):
 
 
 @pytest.mark.cuda
-def test_bands_that_do_not_fit_run_the_two_launch_form(cuda_device):
-    """At 1×1024² float32 (row 5's shape) the plan runs the two-launch
-    form: 2 launches an iteration, no cluster call, the plain version's
-    numbers (the plain version on the card)."""
+def test_bands_that_do_not_fit_run_the_two_launch_form(cuda_device,
+                                                        monkeypatch):
+    """At 1×1024² float32 (row 5's shape) the bands do not fit: the plan
+    runs the tile form (csrc/tgv_tile.cu, no cluster call), and the
+    two-launch form it replaced, which no shape plans (forced here: no
+    tile plan), runs 2 launches an iteration and gives its bits; both the
+    plain version's numbers (the plain version on the card)."""
     f, _, _ = _case((1, 1024, 1024), torch.float32)
     assert not cluster_plan.tgv_plan(1024, 1024, 4).resident
     a = (torch.tensor(0.1), torch.tensor(0.2))
+    tiled = tgv_cuda.tiled_calls
     k = _run(f, a, None, cuda_device, maxiter=30, tol=None)
-    assert (k[1], k[2], k[3]) == (30, 60, 0)
+    assert (k[1], k[3], tgv_cuda.tiled_calls - tiled) == (30, 0, 1)
+    monkeypatch.setattr(tgv_cuda, "tgv_tile_plan", lambda *x, **kw: None)
+    g = _run(f, a, None, cuda_device, maxiter=30, tol=None)
+    assert (g[1], g[2], g[3]) == (30, 60, 0)
+    _same(k, g, "1024")
     p, _ = _plain(f, a, None, cuda_device, maxiter=30, tol=None)
     errs = [float((x - y).abs().max()) for x, y in zip(k[0], p)]
     assert errs[0] <= TOL_U_F32 and max(errs[1:]) <= TOL_DUAL_F32, errs
